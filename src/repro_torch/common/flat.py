@@ -1,0 +1,130 @@
+"""Flat parameter plane: one contiguous lane-aligned buffer per dtype.
+
+The port of ``repro.common.flat``. Leaves are bucketed by dtype and laid out
+in sorted-dict-key order (the order ``jax.tree.flatten`` gives), each padded
+to a multiple of ``LANE`` elements, so offsets and totals equal the
+reference's and buffers compare element by element across the two packages.
+
+``leading`` dims (the stacked replica axis) pass through: a ``[W, ...]``
+stacked tree flattens to ``[W, total]`` buffers. :meth:`FlatSpec.views`
+returns slice + ``view`` aliases of the buffers, so a loss computed through
+them differentiates straight back onto the flat plane (autograd writes the
+lane padding as zeros) — the reference needs a custom scatter VJP for this.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.common.pytree import tree_flatten, tree_unflatten
+
+PyTree = Any
+
+LANE = 128   # every leaf offset aligns to it (the reference's TPU lane width)
+
+
+def _align(n: int, a: int = LANE) -> int:
+    return ((n + a - 1) // a) * a
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """Canonical bucket name: ``torch.float32`` -> ``"float32"`` (the same
+    names ``jnp.dtype(...).name`` gives the reference's buckets)."""
+    return str(dtype).split(".")[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSlot:
+    """Static placement of one leaf inside its dtype bucket."""
+    bucket: str                # dtype bucket key (canonical dtype name)
+    offset: int                # element offset within the bucket (lane-aligned)
+    size: int                  # elements per item (leading dims excluded)
+    shape: Tuple[int, ...]     # per-item shape (leading dims excluded)
+    dtype: torch.dtype         # storage dtype the leaf unflattens to
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSpec:
+    """Static layout of a pytree on the flat plane (cache one per trainer)."""
+    treedef: Any
+    leading: int                    # number of leading (replica) dims passed through
+    lead_shape: Tuple[int, ...]
+    slots: Tuple[LeafSlot, ...]     # one per leaf, flatten order
+    totals: Dict[str, int]          # bucket -> padded total elements
+    align: int = LANE               # per-leaf padding granularity (elements)
+
+    @staticmethod
+    def build(tree: PyTree, leading: int = 0, align: int = LANE) -> "FlatSpec":
+        """Layout for ``tree`` (tensors); the first ``leading`` dims of every
+        leaf are shared pass-through (replica) dims."""
+        leaves, treedef = tree_flatten(tree)
+        assert leaves, "cannot build a FlatSpec over an empty tree"
+        lead_shape = tuple(int(d) for d in leaves[0].shape[:leading])
+        offsets: Dict[str, int] = {}
+        slots: List[LeafSlot] = []
+        for x in leaves:
+            assert tuple(int(d) for d in x.shape[:leading]) == lead_shape, (
+                "all leaves must share the leading dims", x.shape, lead_shape)
+            shape = tuple(int(d) for d in x.shape[leading:])
+            size = 1
+            for d in shape:
+                size *= d
+            bucket = dtype_name(x.dtype)
+            off = offsets.setdefault(bucket, 0)
+            slots.append(LeafSlot(bucket, off, size, shape, x.dtype))
+            offsets[bucket] = off + _align(size, align)
+        return FlatSpec(treedef, leading, lead_shape, tuple(slots), dict(offsets), align)
+
+    def __hash__(self):
+        return hash((self.treedef, self.leading, self.lead_shape, self.slots,
+                     tuple(sorted(self.totals.items())), self.align))
+
+    def with_lead(self, lead_shape: Tuple[int, ...]) -> "FlatSpec":
+        """The same layout bound to different leading (replica) dims:
+        ``with_lead(())`` for one replica row, ``with_lead((W,))`` for a
+        whole stacked plane."""
+        return dataclasses.replace(self, leading=len(lead_shape),
+                                   lead_shape=tuple(int(d) for d in lead_shape))
+
+    # ------------------------------------------------------------------- ops
+    def flatten(self, tree: PyTree) -> Dict[str, torch.Tensor]:
+        """Tree -> one fresh contiguous ``[*lead, total]`` buffer per bucket
+        (zeros in the lane padding). Bucketing follows the SPEC; the buffers
+        carry the argument's dtypes. The result never aliases ``tree``, so
+        the engines may update it in place."""
+        leaves = tree_flatten(tree)[0]
+        assert len(leaves) == len(self.slots), (len(leaves), len(self.slots))
+        out: Dict[str, torch.Tensor] = {}
+        for x, s in zip(leaves, self.slots):
+            buf = out.get(s.bucket)
+            if buf is None:
+                buf = out[s.bucket] = torch.zeros(
+                    self.lead_shape + (self.totals[s.bucket],),
+                    dtype=x.dtype, device=x.device)
+            buf[..., s.offset:s.offset + s.size] = x.reshape(self.lead_shape + (s.size,))
+        return out
+
+    def unflatten(self, bufs: Dict[str, torch.Tensor],
+                  like: Optional[PyTree] = None) -> PyTree:
+        """Buffers -> tree of slice/reshape views. ``like`` (optional)
+        supplies per-leaf dtypes to cast to instead of the spec's storage
+        dtypes. A leaf whose dtype already matches is a view (no copy)."""
+        if like is not None:
+            dts = [x.dtype for x in tree_flatten(like)[0]]
+        else:
+            dts = [s.dtype for s in self.slots]
+        leaves = []
+        for s, dt in zip(self.slots, dts):
+            v = bufs[s.bucket][..., s.offset:s.offset + s.size]
+            leaves.append(v.reshape(self.lead_shape + s.shape).to(dt))
+        return tree_unflatten(self.treedef, leaves)
+
+    def views(self, bufs: Dict[str, torch.Tensor]) -> PyTree:
+        """Slice + view aliases of ``bufs`` in the buffers' own dtypes — the
+        engines' loss boundary. Gradients of a loss through these land on
+        the flat plane directly, with zeros in the lane padding."""
+        leaves = [bufs[s.bucket][..., s.offset:s.offset + s.size]
+                  .reshape(self.lead_shape + s.shape) for s in self.slots]
+        return tree_unflatten(self.treedef, leaves)

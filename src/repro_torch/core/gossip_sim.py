@@ -1,0 +1,189 @@
+"""Simulation engine: exact Algorithms 1-6 on stacked replicas (port of
+``repro.core.gossip_sim``).
+
+Replicas live RESIDENT on the flat parameter plane: the state is a
+:class:`repro_torch.api.state.FlatState` whose params and velocity are ONE
+lane-aligned ``[W, total]`` buffer per dtype bucket, flattened once at
+:meth:`SimTrainer.init`. One step does: per-worker losses and gradients
+(``torch.func.vmap`` of ``grad_and_value`` over the buffer rows; the loss
+reads slice views, so gradients arrive flat), the protocol's gradient
+transform, the participation gate and peer draw, the mixing matmul per
+bucket, and the optimizer update. On the fused path (pairwise protocols with
+NAG) the update is kernel B1 (:mod:`repro_torch.kernels.fused_update`): one
+pass for Alg. 5 lines 3, 7 and 9 that writes theta and velocity in place.
+The unfused path is kept as its parity target.
+
+The step updates ``state.theta`` and ``state.opt.mu`` IN PLACE (the
+reference donates the state to its jitted step instead) and advances the
+state's generator.
+
+Not ported yet, and refused with NotImplementedError: codecs (slice 2),
+faults (slice 3), fleet, shard, the async engine's worker mask (slice 4),
+and obs (slice 6).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.api import registry
+from repro_torch.api.state import FlatState
+from repro_torch.common import flat as flat_plane
+from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+from repro_torch.common.pytree import tree_take_leading
+from repro_torch.core import protocols
+from repro_torch.kernels import ops
+from repro_torch.optim.optimizers import (OptState, _clip, make_optimizer,
+                                          param_update, velocity_update)
+from repro_torch.optim.schedule import lr_at
+from repro_torch.serving.engine import consensus_params
+
+PyTree = Any
+
+
+def _refuse(name: str, value, where: str) -> None:
+    if value is not None:
+        raise NotImplementedError(f"{name}= is not ported yet ({where})")
+
+
+class SimTrainer:
+    """Single-controller trainer over W simulated workers.
+
+    loss_fn(params, x, y) -> scalar loss for ONE worker's replica/batch
+    (``params`` is the single-replica pytree view of the resident plane).
+    """
+
+    def __init__(self, loss_fn: Callable, num_workers: int,
+                 protocol: ProtocolConfig, optimizer: OptimizerConfig,
+                 fused_update: bool = True, faults=None, fleet=None, shard=None):
+        _refuse("faults", faults, "port slice 3")
+        _refuse("fleet", fleet, "port slice 4")
+        _refuse("shard", shard, "port slice 4")
+        self.loss_fn = loss_fn
+        self.num_workers = num_workers
+        self.protocol = protocol
+        self.optimizer_cfg = optimizer
+        self.optimizer = make_optimizer(optimizer)
+        self._impl = registry.resolve(protocol)
+        # fused flat-plane path (one pass for Alg. 5 lines 3/7/9): pairwise
+        # protocols + NAG only
+        self.fused_update = (fused_update and optimizer.name == "nag"
+                             and self._impl.pairwise)
+
+    def _wire_bytes(self, spec: flat_plane.FlatSpec) -> float:
+        """Exact per-replica wire bytes: the unpadded slot sizes (the
+        resident buffers carry lane padding, which never ships)."""
+        return float(sum(s.size * s.dtype.itemsize for s in spec.slots))
+
+    def init(self, params_stack: PyTree, seed: int = 0) -> FlatState:
+        """Flatten ONCE into fresh resident buffers on the params' device;
+        the generator for the gate and peer draws is seeded with ``seed``."""
+        spec = flat_plane.FlatSpec.build(params_stack, leading=1)
+        theta = spec.flatten(params_stack)
+        dev = next(iter(theta.values())).device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        return FlatState(
+            spec=spec,
+            theta=theta,
+            opt=self.optimizer.init(theta),
+            proto=self._impl.init_state(theta),
+            key=gen,
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    # -- one synchronous step across all workers ---------------------------
+    def _grads(self, state: FlatState, x, y):
+        """Per-worker (loss, flat gradients): the loss reads the single-
+        replica views of its buffer row."""
+        row_spec = state.spec.with_lead(())
+
+        def one_loss(bufs, xi, yi):
+            return self.loss_fn(row_spec.views(bufs), xi, yi)
+
+        grads, losses = vmap(grad_and_value(one_loss))(state.theta, x, y)
+        return losses, {k: g.contiguous() for k, g in grads.items()}
+
+    def step(self, state: FlatState, x, y,
+             draws: Optional[Tuple[Any, Any]] = None, worker_mask=None):
+        """One step over the stacked workers; returns (state', metrics).
+
+        ``draws=(gate, peers)`` replaces this step's own gate and peer draws
+        (the parity hook the tests use to inject the reference's draws);
+        without it both come from ``state.key``, gate first."""
+        _refuse("worker_mask", worker_mask, "the async engine, port slice 4")
+        cfg = self.protocol
+        W = self.num_workers
+        dev = state.step.device
+        x = torch.as_tensor(x, device=dev)
+        y = torch.as_tensor(y, device=dev)
+
+        # gradient-related component (Alg. 5 line 2), per worker
+        losses, grads = self._grads(state, x, y)
+        with torch.no_grad():
+            grads = protocols.gradient_transform(cfg, grads)
+            if draws is None:
+                active = protocols.comm_gate(cfg, state.key, state.step, W)
+                peers = (self._impl.sample_peers(state.key, W)
+                         if self._impl.pairwise else None)
+            else:
+                active = torch.as_tensor(draws[0], device=dev).bool()
+                peers = torch.as_tensor(draws[1], device=dev)
+
+            # communication-related component (lines 4-8), one mixing matmul
+            # per dtype bucket on the resident buffers
+            theta_comm, proto_new = protocols.comm_update(
+                cfg, state.key, active, state.theta, state.proto, step=state.step,
+                wire_bytes=self._wire_bytes(state.spec), peers=peers)
+            return self._step_epilogue(state, theta_comm, proto_new, grads,
+                                       losses, active)
+
+    def _step_epilogue(self, state, theta_comm, proto_new, grads, losses, active):
+        """Optimizer update + metrics; writes state.theta / state.opt.mu."""
+        ocfg = self.optimizer_cfg
+        if self.fused_update:
+            # lines 3, 7 and 9 in ONE in-place pass per dtype bucket. peer :=
+            # theta_comm with coef := 1 makes the elastic term exactly the
+            # comm displacement theta_comm - theta, for ANY pairwise mixing.
+            grads_c = _clip(ocfg, grads)
+            eta = lr_at(ocfg, state.opt.step)
+            ops.fused_bufs_elastic_nag(
+                state.theta, theta_comm, state.opt.mu, grads_c,
+                torch.ones(self.num_workers, dtype=torch.float32,
+                           device=state.step.device),
+                eta, ocfg.momentum)
+            opt_new = OptState(state.opt.step + 1, state.opt.mu, {})
+        else:
+            # per-bucket reference path (the fused path's parity target)
+            comm_delta = {k: theta_comm[k] - state.theta[k] for k in state.theta}
+            if ocfg.name == "nag":
+                v_new, opt_new = velocity_update(ocfg, state.opt, grads)
+                # the -eta*g term takes the clipped grads too, as
+                # make_optimizer("nag") and the fused path do
+                theta_grad = param_update(ocfg, state.opt.step, state.theta,
+                                          _clip(ocfg, grads), v_new)
+            else:
+                theta_grad, opt_new = self.optimizer.update(grads, state.opt, state.theta)
+            for k in state.theta:
+                state.theta[k].copy_(theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype))
+            if opt_new.mu:
+                for k in state.opt.mu:
+                    state.opt.mu[k].copy_(opt_new.mu[k])
+                opt_new = opt_new._replace(mu=state.opt.mu)
+
+        metrics = {
+            "loss_mean": torch.mean(losses),
+            "loss_max": torch.max(losses),
+            "comm_active": torch.sum(active.to(torch.int32), dtype=torch.int32),
+        }
+        return state.replace(opt=opt_new, proto=proto_new,
+                             step=state.step + 1), metrics
+
+    # -- evaluation helpers (pytree boundary: lazy views) --------------------
+    def rank0_params(self, state: FlatState) -> PyTree:
+        return tree_take_leading(state.params, 0)
+
+    def aggregate_params(self, state: FlatState) -> PyTree:
+        """Parameter average across workers (paper 'Aggregate Accuracy')."""
+        return consensus_params(state)

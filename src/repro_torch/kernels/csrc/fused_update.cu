@@ -1,0 +1,108 @@
+// Fused elastic-gossip + NAG update on the flat parameter plane, for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/fused_update.py::_flat_kernel
+// (wrapper fused_flat_elastic_nag_update). Per element of row w of the
+// [W, N] plane, in f32 and in the reference's operation order:
+//
+//     v'     = mu*v - eta*g
+//     theta' = theta - coef*(theta - peer) - eta*g + mu*v'
+//
+// with (coef, eta, mu) = sc[w, 0..2]. theta and v are written in place.
+// Every element's inputs are read before the same thread writes its outputs,
+// so peer may alias theta.
+//
+// Bound: memory bandwidth. Six streams (read theta/peer/v/g, write theta/v)
+// against ~9 flops per element, about 0.4 flop/byte in f32, far below the
+// card's ridge point. The design does nothing but stream: a 2-D grid puts
+// one row per blockIdx.y (so a row's scalars are read once per thread and no
+// index is divided), and a grid-stride loop over the row's columns with
+// coalesced scalar loads. The arithmetic uses the _rn intrinsics, which the
+// compiler does not contract into FMAs, so the result rounds exactly as the
+// plain PyTorch version does. Tuning the vector width and the grid is later
+// work.
+//
+// Built by src/repro_torch/kernels/build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// and called through ctypes (plain C entry point below).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float load_f32(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, int64_t i, float x) { p[i] = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float x) {
+  p[i] = __float2bfloat16_rn(x);
+}
+
+template <typename T, typename V>
+__global__ void fused_flat_elastic_nag_kernel(T* theta,
+                                              const T* peer,
+                                              V* __restrict__ v,
+                                              const T* __restrict__ g,
+                                              const float* __restrict__ sc,
+                                              int64_t n) {
+  // theta and peer are not __restrict__: peer may be theta itself
+  const int64_t row = blockIdx.y;
+  const float coef = sc[row * 3 + 0];
+  const float eta = sc[row * 3 + 1];
+  const float mu = sc[row * 3 + 2];
+  const int64_t base = row * n;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += stride) {
+    const int64_t i = base + j;
+    const float t = load_f32(theta, i);
+    const float p = load_f32(peer, i);
+    const float vv = load_f32(v, i);
+    const float gg = load_f32(g, i);
+    const float eg = __fmul_rn(eta, gg);
+    const float v_new = __fsub_rn(__fmul_rn(mu, vv), eg);
+    float t_new = __fsub_rn(t, __fmul_rn(coef, __fsub_rn(t, p)));
+    t_new = __fsub_rn(t_new, eg);
+    t_new = __fadd_rn(t_new, __fmul_rn(mu, v_new));
+    store(theta, i, t_new);
+    store(v, i, v_new);
+  }
+}
+
+template <typename T, typename V>
+cudaError_t launch(void* theta, const void* peer, void* v, const void* g,
+                   const float* sc, int64_t w, int64_t n, cudaStream_t stream) {
+  if (w <= 0 || n <= 0) return cudaSuccess;
+  if (w > 65535) return cudaErrorInvalidValue;
+  const int threads = 256;
+  int64_t blocks = (n + threads - 1) / threads;
+  // about eight blocks per SM over the whole grid; rows share them
+  int64_t cap = (132 * 8 + w - 1) / w;
+  if (cap < 1) cap = 1;
+  if (blocks > cap) blocks = cap;
+  dim3 grid((unsigned)blocks, (unsigned)w);
+  fused_flat_elastic_nag_kernel<T, V><<<grid, threads, 0, stream>>>(
+      static_cast<T*>(theta), static_cast<const T*>(peer), static_cast<V*>(v),
+      static_cast<const T*>(g), sc, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+extern "C" int repro_fused_flat_elastic_nag(int t_dtype, int v_dtype, void* theta,
+                                            const void* peer, void* v, const void* g,
+                                            const void* sc, int64_t w, int64_t n,
+                                            void* stream) {
+  const float* s = static_cast<const float*>(sc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t_dtype == 0 && v_dtype == 0)
+    return (int)launch<float, float>(theta, peer, v, g, s, w, n, st);
+  if (t_dtype == 1 && v_dtype == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(theta, peer, v, g, s, w, n, st);
+  if (t_dtype == 1 && v_dtype == 0)
+    return (int)launch<__nv_bfloat16, float>(theta, peer, v, g, s, w, n, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,147 @@
+"""Where one sim step's time goes on the card: the main path
+(GossipTrainer(engine="sim", method="elastic_gossip"), NAG, the §4.1 MLP at
+full width) under ``torch.profiler``.
+
+    python -m repro_torch.launch.profile_sim [--workers 8] [--batch 16] [--steps 10]
+
+Prints the synchronised step time, the device-busy share of the profiled
+window (the union of kernel intervals over the span from the first kernel's
+start to the last one's end), and the kernels by total device time, then one
+JSON line with the same numbers. Kernel names are grouped into the step's
+phases: the model's gradients (vmapped matmuls, softmax and reductions), the
+mixing matmul, kernel B1 and the rest.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from collections import defaultdict
+
+import torch
+
+FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
+
+
+def _trainer(W: int, device):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(prm, x, y):
+        return simple.xent_loss(simple.mlp_logits(prm, x), y)
+
+    return GossipTrainer(
+        protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
+                                comm_probability=0.125, topology="uniform"),
+        optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
+        loss_fn=loss_fn, num_workers=W, device=device,
+        init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals (µs)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda") -> dict:
+    from repro_torch.data.partition import batches_for_step, partition_iid
+    from repro_torch.data.synthetic import load_mnist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = _trainer(W, device)
+    dev = trainer.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    train, _ = load_mnist(num_train=25600, num_test=10)
+    shards = partition_iid(train, W, 0)
+    batches = [tuple(torch.as_tensor(a, device=dev)
+                     for a in batches_for_step(shards, i, batch))
+               for i in range(steps + 5)]
+    state = trainer.init_state(0)
+    for xb, yb in batches[:5]:                 # warm-up: vmap, cuBLAS, the kernel build
+        state, _ = trainer.step(state, (xb, yb))
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    step_s = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for xb, yb in batches[5:]:
+            t0 = time.perf_counter()
+            state, _ = trainer.step(state, (xb, yb))
+            sync()
+            step_s.append(time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        d = e.time_range.end - e.time_range.start
+        by_name[e.name][0] += d
+        by_name[e.name][1] += 1
+    phases = defaultdict(float)
+    for name, (us, _) in by_name.items():
+        phases[_phase(name)] += us
+    span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+            if kernels else 0.0)
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "workers": W, "batch_per_worker": batch, "steps": steps,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "step_ms_median": statistics.median(step_s) * 1e3,
+        "kernel_launches_per_step": len(kernels) / steps,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "device_busy_share": (busy / span) if span else None,
+        "phase_ms_per_step": {k: v / steps / 1e3 for k, v in sorted(phases.items())},
+        "top_kernels": [{"name": n[:120], "ms_per_step": us / steps / 1e3,
+                         "calls_per_step": c / steps} for n, (us, c) in top],
+    }
+
+
+def _phase(kernel_name: str) -> str:
+    n = kernel_name.lower()
+    if "fused_flat_elastic_nag" in n:
+        return "B1 fused update"
+    if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n or "matmul" in n:
+        return "matmuls (model grads + mixing)"
+    if "softmax" in n or "reduce" in n or "sum" in n or "max" in n:
+        return "reductions / softmax"
+    if "elementwise" in n or "vectorized" in n or "copy" in n or "fill" in n:
+        return "elementwise / copies / fills"
+    return "other"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    r = profile(a.workers, a.batch, a.steps, a.device)
+    print(f"W={r['workers']} batch={r['batch_per_worker']}: median step "
+          f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
+          f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "
+          f"{r['device_busy_share']}")
+    for k, v in r["phase_ms_per_step"].items():
+        print(f"  {k:34s} {v:.4f} ms/step")
+    for k in r["top_kernels"]:
+        print(f"  {k['ms_per_step']:.4f} ms/step x{k['calls_per_step']:.1f}  {k['name']}")
+    print(json.dumps(r))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

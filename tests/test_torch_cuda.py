@@ -1,0 +1,90 @@
+"""Tests of the port that need an NVIDIA GPU: kernel B1 against its plain
+version on the card, and the sim engine's fused path launching it once per
+step. They skip without a card; on one, run
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports neither jax nor the reference package, so it runs where
+only the port is installed."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import fused_update as tfu  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+# Both sides round the same f32 formula in the same order (the kernel uses
+# non-contracting _rn intrinsics), so the error is expected to be 0; the
+# tolerance is the CPU tests' one.
+TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+DTYPES = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+          "bf16_f32v": (torch.bfloat16, torch.float32)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(W, n, tdt, vdt, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t, p, v, gr = (torch.randn(W, n, generator=g, device=dev) for _ in range(4))
+    return t.to(tdt), p.to(tdt), v.to(vdt), gr.to(tdt), torch.rand(W, generator=g, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 35968 * 3 + 5])
+@pytest.mark.parametrize("dkind", sorted(DTYPES))
+@pytest.mark.parametrize("peer_is_theta", [False, True])
+def test_kernel_matches_plain_version(cuda, n, dkind, peer_is_theta):
+    tdt, vdt = DTYPES[dkind]
+    t, p, v, g, coef = _inputs(8, n, tdt, vdt, cuda)
+    if peer_is_theta:
+        p = t
+    eta = torch.full((), 0.01, device=cuda)
+    want_t, want_v = tref.fused_flat_elastic_nag_update(t, p, v, g, coef, eta, 0.9)
+    kt, kv = t.clone(), v.clone()
+    launches = tfu.LAUNCHES
+    ops.fused_flat_elastic_nag_update(kt, kt if peer_is_theta else p, kv, g, coef, eta, 0.9)
+    torch.cuda.synchronize()
+    assert tfu.LAUNCHES == launches + 1
+    torch.testing.assert_close(kt, want_t, rtol=TOL[tdt], atol=TOL[tdt])
+    torch.testing.assert_close(kv, want_v, rtol=TOL[vdt], atol=TOL[vdt])
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    t = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfu.fused_flat_elastic_nag_update(t.T.contiguous().T, t, t, t, 1.0, 0.1, 0.9)
+    with pytest.raises(ValueError, match="share"):
+        tfu.fused_flat_elastic_nag_update(t, t.double(), t, t, 1.0, 0.1, 0.9)
+    with pytest.raises(ValueError, match="v must be"):
+        tfu.fused_flat_elastic_nag_update(t, t, t.bfloat16(), t, 1.0, 0.1, 0.9)
+
+
+@pytest.mark.cuda
+def test_sim_fused_path_launches_b1_once_per_step(cuda):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(p, x, y):
+        return simple.xent_loss(simple.mlp_logits(p, x), y)
+
+    tr = GossipTrainer(protocol=ProtocolConfig(comm_probability=0.5, topology="uniform"),
+                       loss_fn=loss_fn, num_workers=4, device=cuda,
+                       init_fn=lambda g: simple.init_mlp(g, 784, 64, 2, 10)[0])
+    st = tr.init_state(0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 16, 784, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (4, 16), generator=gen, device=cuda)
+    launches = tfu.LAUNCHES
+    for _ in range(5):
+        st, m = tr.step(st, (x, y))
+    assert tfu.LAUNCHES == launches + 5
+    assert torch.isfinite(m["loss"])
