@@ -6,22 +6,33 @@
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
-1. build   — the card's name and power limit, then kernel B1
-             (``kernels/csrc/fused_update.cu``) built with nvcc for sm_90a
-             into ``build/repro_torch/``;
+1. build   — the card's name and power limit, then the kernel sources built
+             with nvcc for sm_90a into ``build/repro_torch/``, one nvcc per
+             source, all started together: B1 (``fused_update.cu``) and
+             B4-B7 (``codec.cu``);
 2. kernels — B1 held against its plain PyTorch version on the card at the
              main path's shapes ([8, 2913408], [4, 2913408] f32), a ragged
              N=1000 and bf16 / bf16+f32-velocity storage, scalar and [W] coef,
-             and peer is theta; then B1 and the plain version timed with CUDA
-             events (median of 60 launches) beside the bandwidth bound;
+             and peer is theta; B4-B7 (q8 encode/decode, top-k
+             encode/decode) held exactly against theirs at [8, 2913408]
+             (block 512, k 26), a ragged [4, 1000] (block 128, k 13), an
+             all-zero block and tied magnitudes; then every kernel and its
+             plain version timed with CUDA events (median of 60 launches)
+             beside its bound;
 3. main    — GossipTrainer(engine="sim", method="elastic_gossip") with NAG on
              the §4.1 MLP at full width (784 -> 3x1024 -> 10, random weights
-             from a seed) over the synthetic MNIST stand-in: W=8 at batch 16
-             per worker, then W=4 at batch 32, 50 steps each, p=0.125,
-             alpha=0.5, uniform peers. The loss must be finite and falling,
-             B1 must launch exactly once per step (one f32 bucket) and
-             comm_units must equal the gates drawn. Then 10 steps of the fused
-             path against the unfused (plain) path on the same draws.
+             from a seed) over the synthetic MNIST stand-in, 50 steps each,
+             p=0.125, alpha=0.5, uniform peers: W=8 at batch 16 per worker,
+             W=4 at batch 32, then W=8 with codec="q8" and with
+             codec="topk". Every kernel's count is set to 0 just before a run
+             and read just after: B1 must launch once per step, the codec's
+             encode and decode kernels once per step (they run on every step,
+             firing or not: no host sync decides), the others not at all.
+             The loss must be finite (and falling, uncompressed and q8),
+             comm_units must equal the gates drawn, the wire per event must
+             be the reference's exact size and comm_bytes its f32 derivation.
+             Then 10 steps of the fused path against the unfused (plain)
+             path on the same draws, uncompressed and with q8.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -31,6 +42,7 @@ cuDNN, so the model and the mixing matmul run in full f32.
 import json
 import os
 import statistics
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -43,6 +55,11 @@ FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
 N_FULL = 2913408                    # f32 elements of the full-width MLP plane
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 FLOPS_PER_ELEMENT = 9               # B1: 4 multiplies + 5 adds/subtracts
+BLOCK, TOPK = 512, 26               # the codecs' defaults: codec_block, round(0.05 * 512)
+# exact wire bytes per event on the full-width plane (the reference's
+# wire_param_bytes / SimTrainer._wire_bytes)
+WIRE = {None: 11653160, "q8": 2936556, "topk": 1183728}
+CODEC_KERNELS = {"q8": ("q8_encode", "q8_decode"), "topk": ("topk_encode", "topk_decode")}
 
 # (memory bytes/s, f32 non-tensor FLOP/s) by card name, from NVIDIA's data sheets
 CARDS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
@@ -153,10 +170,126 @@ def time_b1(torch, fu, ref, dev, W, bw, peak):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: kernels B4-B7 against their plain versions
+# ---------------------------------------------------------------------------
+
+def bits_equal(torch, a, b):
+    """Exact equality, byte for byte (so -0.0 differs from +0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def codec_outputs(torch, mod, x, r, seeds, block, k):
+    """{kernel: outputs} of B4-B7 through ``mod`` (the kernel wrappers or
+    the plain versions); each decode reads the plain encode's wire."""
+    from repro_torch.kernels import ref
+    n = x.shape[1]
+    out = {"q8_encode": mod.q8_encode(x, seeds, block=block),
+           "topk_encode": mod.topk_encode(x, r, k=k, block=block)}
+    pv, ps = ref.q8_encode(x, seeds, block=block)
+    pvals, pidx, _ = ref.topk_encode(x, r, k=k, block=block)
+    out["q8_decode"] = (mod.q8_decode(pv, ps, n, block=block),)
+    out["topk_decode"] = (mod.topk_decode(pvals, pidx, n, k=k, block=block),)
+    return out
+
+
+def check_codec(torch, ck, ref, codec_seeds, dev):
+    """B4-B7 against their plain versions, exactly, on: the main path's
+    [8, 2913408] at block 512 and k 26; a ragged [4, 1000] at block 128 and
+    k 13; a block of zeros (scale 1) beside a block of tied magnitudes
+    (including -0.0). Returns the max abs error per kernel (0.0 when exact)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    special = torch.zeros(2, 2 * BLOCK, device=dev)
+    special[:, BLOCK:] = torch.tensor([1.5, -1.5, 0.5, -0.0], device=dev).repeat(BLOCK // 4)
+    cases = [("[8, 2913408]", torch.randn(8, N_FULL, generator=g, device=dev),
+              0.1 * torch.randn(8, N_FULL, generator=g, device=dev), BLOCK, TOPK),
+             ("[4, 1000]", torch.randn(4, 1000, generator=g, device=dev),
+              0.1 * torch.randn(4, 1000, generator=g, device=dev), 128, 13),
+             ("zero block + ties [2, 1024]", special, torch.zeros_like(special), BLOCK, TOPK)]
+    worst = dict.fromkeys(ck.LAUNCHES, 0.0)
+    for name, x, r, block, k in cases:
+        seeds = codec_seeds(3, torch.arange(x.shape[0], device=dev))
+        got = codec_outputs(torch, ck, x, r, seeds, block, k)
+        want = codec_outputs(torch, ref, x, r, seeds, block, k)
+        torch.cuda.synchronize()
+        for kname in got:
+            for a, b in zip(got[kname], want[kname]):
+                err = float((a.double() - b.double()).abs().max())
+                worst[kname] = max(worst[kname], err)
+                if not bits_equal(torch, a, b):
+                    raise AssertionError(f"{kname} disagrees with its plain version on {name}: "
+                                         f"max abs err {err!r} (must be exact)")
+        if name.startswith("zero"):
+            v, sc = got["q8_encode"]
+            if float(sc[0, 0]) != 1.0 or bool(v[:, :BLOCK].any()):
+                raise AssertionError(f"all-zero block: scale {float(sc[0, 0])}, values not 0")
+        del got, want
+    log(f"[kernels] B4-B7 vs plain versions: {len(cases)} cases ({', '.join(c[0] for c in cases)}), "
+        f"int8 values, scales, top-k values, indices, residual and both decodes byte-equal; "
+        f"max abs err {worst}")
+    return worst
+
+
+def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
+    """Each of B4-B7 and its plain version at [8, 2913408], block 512, k 26,
+    beside its bound; B6 also beside torch.topk over the block magnitudes
+    (selection only: no residual, no tie rule)."""
+    W, n, block, k = 8, N_FULL, BLOCK, TOPK
+    nb = -(-n // block)
+    npad = W * nb * block
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(W, n, generator=g, device=dev)
+    r = 0.1 * torch.randn(W, n, generator=g, device=dev)
+    seeds = codec_seeds(0, torch.arange(W, device=dev))
+    v, sc = ck.q8_encode(x, seeds, block=block)
+    vals, idx, _ = ck.topk_encode(x, r, k=k, block=block)
+    mag = torch.abs(torch.nn.functional.pad(x + r, (0, nb * block - n))).reshape(W, nb, block)
+    # least bytes: each input read once, each output written once
+    nbytes = {"q8_encode": W * n * 4 + W * 8 + npad + W * nb * 4,
+              "q8_decode": npad + W * nb * 4 + W * n * 4,
+              "topk_encode": 2 * W * n * 4 + W * n * 4 + W * nb * k * 8,
+              "topk_decode": W * nb * k * 8 + W * n * 4}
+    # operations the function needs (counted at the f32 rate): q8 encode
+    # ~20 per element (hash, abs/max, divide, add, floor, clamp, convert),
+    # decode 2, top-k encode 4 (add, abs, one comparison, select), decode 2
+    ops = {"q8_encode": 20 * npad, "q8_decode": 2 * W * n,
+           "topk_encode": 4 * npad, "topk_decode": 2 * W * n}
+    calls = {
+        "q8_encode": (lambda: ck.q8_encode(x, seeds, block=block),
+                      lambda: ref.q8_encode(x, seeds, block=block), None),
+        "q8_decode": (lambda: ck.q8_decode(v, sc, n, block=block),
+                      lambda: ref.q8_decode(v, sc, n, block=block), None),
+        "topk_encode": (lambda: ck.topk_encode(x, r, k=k, block=block),
+                        lambda: ref.topk_encode(x, r, k=k, block=block),
+                        lambda: torch.topk(mag, k, dim=-1)),
+        "topk_decode": (lambda: ck.topk_decode(vals, idx, n, k=k, block=block),
+                        lambda: ref.topk_decode(vals, idx, n, k=k, block=block), None),
+    }
+    out = {}
+    for kname, (kern, plain, lib) in calls.items():
+        ms = time_launches(torch, kern)
+        plain_ms = time_launches(torch, plain)
+        lib_ms = time_launches(torch, lib) if lib is not None else None
+        bytes_ms = nbytes[kname] / bw * 1e3
+        ops_ms = ops[kname] / peak * 1e3
+        out[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"[kernels] {kname} [{W}, {n}] block {block} k {k}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({nbytes[kname] / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
+            f"{nbytes[kname] / (ms * 1e-3) / 1e12:.3f} TB/s achieved)"
+            + (f", torch.topk selection only {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    del x, r, v, sc, vals, idx, mag
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def make_trainer(torch, W, dev, fused=True):
+def make_trainer(torch, W, dev, fused=True, codec=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -169,7 +302,7 @@ def make_trainer(torch, W, dev, fused=True):
         protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
                                 comm_probability=0.125, topology="uniform"),
         optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
-        loss_fn=loss_fn, num_workers=W, fused_update=fused, device=dev,
+        loss_fn=loss_fn, num_workers=W, fused_update=fused, device=dev, codec=codec,
         init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
 
 
@@ -183,69 +316,150 @@ def staged_batches(torch, train, W, batch, steps, dev):
     return out
 
 
-def run_main_path(torch, train, test, W, batch, dev, fu=None):
-    """One main-path run. ``fu`` (the kernel module) is given on the card:
-    its launch count is zeroed just before the run and read just after."""
+def zero_counts(fu, ck):
+    fu.LAUNCHES = 0
+    for kname in ck.LAUNCHES:
+        ck.LAUNCHES[kname] = 0
+
+
+def read_counts(fu, ck):
+    return {"fused_flat_elastic_nag_update": fu.LAUNCHES, **ck.LAUNCHES}
+
+
+def run_main_path(torch, train, test, W, batch, dev, fu, ck, codec=None):
+    """One main-path run. Every kernel's launch count is set to 0 just
+    before the run and read just after; returns ({kernel: launches},
+    median step ms)."""
     from repro_torch.models import simple
-    trainer = make_trainer(torch, W, dev)
+    trainer = make_trainer(torch, W, dev, codec=codec)
     state = trainer.init_state(0)
     batches = staged_batches(torch, train, W, batch, STEPS, dev)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
-    if fu is not None:
-        fu.LAUNCHES = 0
+    torch.cuda.synchronize()
+    zero_counts(fu, ck)
     losses, active, step_s = [], [], []
+    residual_checked = codec != "topk"
     for xb, yb in batches:
         t0 = time.perf_counter()
         state, m = trainer.step(state, (xb, yb))
-        sync()
+        torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(m["loss"])
         active.append(m["comm_active"])
-    launches = fu.LAUNCHES if fu is not None else None
+        if not residual_checked and int(m["comm_active"]) > 0:
+            # the error-feedback residual after the first firing step
+            res = state.comm.residual["float32"]
+            if not bool(torch.isfinite(res).all()) or float(res.abs().sum()) == 0.0:
+                raise AssertionError(f"top-k residual after a firing step: finite "
+                                     f"{bool(torch.isfinite(res).all())}, "
+                                     f"L1 {float(res.abs().sum())}")
+            residual_checked = True
+    launches = read_counts(fu, ck)
+    tag = f"W={W}" + (f" codec={codec}" if codec else "")
     losses = [float(x) for x in losses]
     gates = sum(int(a) for a in active)
     units = int(state.proto.comm_units)
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
-        raise AssertionError(f"W={W}: non-finite loss {losses}")
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
     head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
-    if not tail < head:
-        raise AssertionError(f"W={W}: loss not falling: first 10 {head}, last 10 {tail}")
-    if fu is not None and launches != STEPS:
-        raise AssertionError(f"W={W}: B1 launched {launches} times in {STEPS} steps")
+    if codec != "topk" and not tail < head:
+        raise AssertionError(f"{tag}: loss not falling: first 10 {head}, last 10 {tail}")
+    for kname, n in launches.items():
+        want = STEPS if (kname == "fused_flat_elastic_nag_update"
+                         or kname in CODEC_KERNELS.get(codec, ())) else 0
+        if n != want:
+            raise AssertionError(f"{tag}: {kname} launched {n} times in {STEPS} steps, "
+                                 f"expected {want}")
     if units != gates:
-        raise AssertionError(f"W={W}: comm_units {units} != gates drawn {gates}")
+        raise AssertionError(f"{tag}: comm_units {units} != gates drawn {gates}")
+    if not residual_checked:
+        raise AssertionError(f"{tag}: no step fired, so the residual was never checked")
+    wire = trainer.sim._wire_bytes(state.spec)
+    per_event = trainer.comm_cost().bytes_per_event
+    if wire != WIRE[codec] or per_event != WIRE[codec]:
+        raise AssertionError(f"{tag}: wire per event {wire} / comm_cost {per_event}, "
+                             f"expected {WIRE[codec]}")
+    want_bytes = (torch.tensor(wire / W, dtype=torch.float32)
+                  * torch.tensor(float(units), dtype=torch.float32))
+    if not bits_equal(torch, state.proto.comm_bytes.cpu(), want_bytes):
+        raise AssertionError(f"{tag}: comm_bytes {float(state.proto.comm_bytes)!r} != "
+                             f"f32(wire/W) * f32(units) = {float(want_bytes)!r}")
     with torch.no_grad():
         xt = torch.as_tensor(test.x, device=dev)
         yt = torch.as_tensor(test.y, device=dev)
         agg = float(simple.accuracy(simple.mlp_logits(trainer.consensus_params(state), xt), yt))
         rank0 = float(simple.accuracy(simple.mlp_logits(trainer.rank0_params(state), xt), yt))
-    log(f"[main] W={W} batch={batch}/worker: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+    step_ms = statistics.median(step_s) * 1e3
+    log(f"[main] {tag} batch={batch}/worker: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"(first-10 mean {head:.4f}, last-10 mean {tail:.4f}), median step "
-        f"{statistics.median(step_s) * 1e3:.3f} ms (synchronised), B1 launches "
-        f"{launches}, comm_units {units} = gates {gates}, comm_bytes "
+        f"{step_ms:.3f} ms (synchronised), launches {launches}, comm_units {units} = "
+        f"gates {gates}, wire {wire:.0f} B/event, comm_bytes "
         f"{float(state.proto.comm_bytes)!r}, aggregate acc {agg:.4f}, rank-0 acc {rank0:.4f}")
-    return launches
+    return launches, step_ms
 
 
-def fused_vs_unfused(torch, train, dev, W=8, batch=16, steps=10):
-    """The fused path (B1) and the unfused (plain) path on the same draws."""
+def fused_vs_unfused(torch, train, dev, codec=None, W=8, batch=16, steps=10):
+    """The fused path (B1) and the unfused (plain) path on the same draws.
+
+    Uncompressed, the two run free. With q8 they run in lockstep: the
+    unfused path starts every step from the fused path's theta and
+    velocity, so both put the same theta on the wire. Free-running, an ulp
+    of drift between the two paths can move some x/scale + u across an
+    integer and flip one int8 value (a stochastic-rounding flip, not a
+    fault); the free-running count of such elements is printed too."""
     from repro_torch.core import topology
-    tr_f = make_trainer(torch, W, dev, fused=True)
-    tr_u = make_trainer(torch, W, dev, fused=False)
-    s_f, s_u = tr_f.init_state(1), tr_u.init_state(1)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for xb, yb in staged_batches(torch, train, W, batch, steps, dev):
-        draws = (topology.participation(gen, W, 0.5), topology.sample_uniform_peers(gen, W))
-        s_f, _ = tr_f.step(s_f, (xb, yb), draws=draws)
-        s_u, _ = tr_u.step(s_u, (xb, yb), draws=draws)
-    # the two paths round the comm displacement differently: rtol 1e-4, atol 1e-5
-    for name, a, b in (("theta", s_f.theta, s_u.theta), ("velocity", s_f.opt.mu, s_u.opt.mu)):
-        torch.testing.assert_close(a["float32"], b["float32"], rtol=1e-4, atol=1e-5,
-                                   msg=lambda m: f"fused vs unfused {name}: {m}")
-    err = float((s_f.theta["float32"] - s_u.theta["float32"]).abs().max())
-    log(f"[main] fused vs unfused, {steps} steps at W={W}, same draws: theta max abs "
-        f"diff {err!r} (rtol 1e-4, atol 1e-5)")
+    tol = dict(rtol=1e-4, atol=1e-5)
+    modes = ("free",) if codec is None else ("lockstep", "free")
+    for mode in modes:
+        tr_f = make_trainer(torch, W, dev, fused=True, codec=codec)
+        tr_u = make_trainer(torch, W, dev, fused=False, codec=codec)
+        s_f, s_u = tr_f.init_state(1), tr_u.init_state(1)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        worst = 0.0
+        for xb, yb in staged_batches(torch, train, W, batch, steps, dev):
+            draws = (topology.participation(gen, W, 0.5), topology.sample_uniform_peers(gen, W))
+            if mode == "lockstep":
+                s_u.theta["float32"].copy_(s_f.theta["float32"])
+                s_u.opt.mu["float32"].copy_(s_f.opt.mu["float32"])
+            s_f, _ = tr_f.step(s_f, (xb, yb), draws=draws)
+            s_u, _ = tr_u.step(s_u, (xb, yb), draws=draws)
+            if mode == "lockstep":
+                for name, a, b in (("theta", s_f.theta, s_u.theta),
+                                   ("velocity", s_f.opt.mu, s_u.opt.mu)):
+                    torch.testing.assert_close(a["float32"], b["float32"], **tol,
+                                               msg=lambda m: f"fused vs unfused {name}: {m}")
+                worst = max(worst, float((s_f.theta["float32"] - s_u.theta["float32"])
+                                         .abs().max()))
+        a, b = s_f.theta["float32"], s_u.theta["float32"]
+        tag = f"codec={codec}, " if codec else ""
+        if mode == "free" and codec is None:
+            # the two paths round the comm displacement differently
+            for name, x, y in (("theta", a, b), ("velocity", s_f.opt.mu["float32"],
+                                                 s_u.opt.mu["float32"])):
+                torch.testing.assert_close(x, y, **tol,
+                                           msg=lambda m: f"fused vs unfused {name}: {m}")
+            worst = float((a - b).abs().max())
+        if mode == "free" and codec is not None:
+            off = ~torch.isclose(a, b, **tol)
+            log(f"[main] fused vs unfused, {tag}{steps} free-running steps at W={W}: "
+                f"{int(off.sum())} of {a.numel()} theta elements outside rtol 1e-4 / atol 1e-5 "
+                f"(q8 rounding flips), max abs diff {float((a - b).abs().max())!r} (reported, "
+                f"not asserted)")
+        else:
+            log(f"[main] fused vs unfused, {tag}{steps} {mode} steps at W={W}, same draws: "
+                f"theta max abs diff {worst!r} (rtol 1e-4, atol 1e-5)")
+
+
+# kernel -> (id, source, TPU kernel it replaces)
+KERNELS = {
+    "fused_flat_elastic_nag_update": ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
+                                      "src/repro/kernels/fused_update.py:87"),
+    "q8_encode": ("B4", "src/repro_torch/kernels/csrc/codec.cu", "src/repro/kernels/codec.py:44"),
+    "q8_decode": ("B5", "src/repro_torch/kernels/csrc/codec.cu", "src/repro/kernels/codec.py:59"),
+    "topk_encode": ("B6", "src/repro_torch/kernels/csrc/codec.cu",
+                    "src/repro/kernels/codec.py:106"),
+    "topk_decode": ("B7", "src/repro_torch/kernels/csrc/codec.cu",
+                    "src/repro/kernels/codec.py:131"),
+}
 
 
 def main():
@@ -256,8 +470,10 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.comm import codec_seeds
     from repro_torch.data.synthetic import load_mnist
     from repro_torch.kernels import build
+    from repro_torch.kernels import codec as ck
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import ref
 
@@ -269,33 +485,45 @@ def main():
         "TF32 off for matmul and cuDNN")
     bw, peak = card_rates(kind)
     t0 = time.perf_counter()
-    build.load("fused_update")
-    log(f"[build] B1 fused_update.cu: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.BUILD_SECONDS.get('fused_update', 0.0):.2f} s)")
+    sources = ("fused_update", "codec")
+    with ThreadPoolExecutor(len(sources)) as ex:      # one nvcc per source, together
+        list(ex.map(build.build, sources))
+    for name in sources:
+        build.load(name)
+    log(f"[build] fused_update.cu (B1) and codec.cu (B4-B7) in parallel: "
+        f"{time.perf_counter() - t0:.2f} s (nvcc "
+        + ", ".join(f"{n} {build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in sources) + ")")
 
-    max_err = check_b1(torch, fu, ref, dev)
+    err = {"fused_flat_elastic_nag_update": check_b1(torch, fu, ref, dev)}
+    err.update(check_codec(torch, ck, ref, codec_seeds, dev))
     ms8, plain8, bound8, by8 = time_b1(torch, fu, ref, dev, 8, bw, peak)
     ms4, plain4, bound4, _ = time_b1(torch, fu, ref, dev, 4, bw, peak)
+    times = {"fused_flat_elastic_nag_update": dict(ms=ms8, plain_ms=plain8, library_ms=None,
+                                                   bound_ms=bound8, bound_by=by8,
+                                                   ms_w4=ms4, plain_ms_w4=plain4,
+                                                   bound_ms_w4=bound4)}
+    times.update(time_codec(torch, ck, ref, codec_seeds, dev, bw, peak))
 
     train, test = load_mnist(num_train=25600, num_test=4000)
-    launches = 0
-    for W, batch in ((8, 16), (4, 32)):
-        launches += run_main_path(torch, train, test, W, batch, dev, fu=fu)
+    launches = dict.fromkeys(KERNELS, 0)
+    step_ms = {}
+    for W, batch, codec in ((8, 16, None), (4, 32, None), (8, 16, "q8"), (8, 16, "topk")):
+        got, step_ms[(W, codec)] = run_main_path(torch, train, test, W, batch, dev, fu, ck,
+                                                 codec)
+        for kname, n in got.items():
+            launches[kname] += n
+    log("[main] median synchronised step at W=8, batch 16: "
+        + ", ".join(f"{c or 'uncompressed'} {step_ms[(8, c)]:.3f} ms"
+                    for c in (None, "q8", "topk")))
     fused_vs_unfused(torch, train, dev)
+    fused_vs_unfused(torch, train, dev, codec="q8")
 
-    kernels = [{
-        "name": "fused_flat_elastic_nag_update",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_update.cu",
-        "replaces": "src/repro/kernels/fused_update.py:87",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms8, "plain_ms": plain8, "bound_ms": bound8, "bound_by": by8,
-        "library_ms": None,
-        "shape": [8, N_FULL],
-        "ms_w4": ms4, "plain_ms_w4": plain4, "bound_ms_w4": bound4,
-        "card": smi,
-    }]
+    kernels = []
+    for kname, (kid, source, replaces) in KERNELS.items():
+        kernels.append({"name": kname, "id": kid, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[kname],
+                        "max_abs_err": err[kname], **times[kname],
+                        "shape": [8, N_FULL], "card": smi})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

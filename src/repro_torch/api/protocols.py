@@ -11,8 +11,9 @@ the engine composes them additively (§2.3).
 ``ProtocolState.comm_units`` is an exact int32 participation count that
 saturates at int32 max; ``comm_bytes`` is derived from it every update as
 ``(per_event / W) * units`` in f32, never accumulated, exactly as the
-reference does. Codecs, wire faults and the robust protocols come in later
-slices.
+reference does. With a codec (:mod:`repro_torch.comm`, pairwise protocols
+only) the per-event size is the codec's wire. Wire faults and the robust
+protocols come in later slices.
 """
 from __future__ import annotations
 
@@ -85,8 +86,12 @@ class Protocol:
                 f"protocol {cfg.method!r} is gated: set exactly one of "
                 "comm_probability / comm_period")
         if cfg.codec != "none":
-            raise NotImplementedError(
-                f"codec {cfg.codec!r}: the wire codecs are port slice 2")
+            if not self.pairwise:
+                raise ValueError(
+                    f"codec {cfg.codec!r} compresses the pairwise gossip wire; "
+                    f"protocol {cfg.method!r} is not pairwise")
+            from repro_torch.comm import get_codec
+            get_codec(cfg.codec)   # fail fast on unknown codec names
 
     # ---------------------------------------------------------------- state
     def init_state(self, params_stack: PyTree) -> ProtocolState:
@@ -179,8 +184,14 @@ class Protocol:
         raise NotImplementedError
 
     def wire_stack_bytes(self, theta_stack: PyTree) -> float:
-        """Bytes ONE replica puts on the wire per event (raw param bytes)."""
-        return float(stacked_param_bytes(theta_stack))
+        """Bytes ONE replica puts on the wire per event: raw param bytes, or
+        the codec's wire bytes of the flat plane when ``cfg.codec`` is set."""
+        if self.cfg.codec == "none":
+            return float(stacked_param_bytes(theta_stack))
+        from repro_torch import comm
+        from repro_torch.common.flat import FlatSpec
+        spec = FlatSpec.build(theta_stack, leading=1)
+        return float(comm.wire_param_bytes(comm.resolve_codec(self.cfg), spec))
 
     def _derived_bytes(self, per_event: float, W: int, units: torch.Tensor) -> torch.Tensor:
         # (per_event / W) rounds to f32 first, then one f32 multiply: the

@@ -32,7 +32,7 @@ class FlatState:
     opt: Any                          # OptState with buffer-dict mu/nu
     center: Optional[Buffers] = None  # dist EASGD center (unused by sim)
     proto: Optional[Any] = None       # sim ProtocolState (center + accounting)
-    comm: Any = None                  # codec state (no codec ported yet)
+    comm: Any = None                  # CommState: top-k residual buffers or None
     key: Optional[torch.Generator] = None   # gate / peer draws
     step: Any = None                  # int32 0-d step counter on the device
 

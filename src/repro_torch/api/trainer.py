@@ -22,6 +22,7 @@ slices.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
@@ -53,7 +54,8 @@ class GossipTrainer:
     Arguments: ``protocol`` (ProtocolConfig), ``optimizer`` (default NAG, as
     the paper), ``loss_fn(params, x, y)`` for one worker, ``num_workers``,
     ``init_fn(generator) -> params`` (optional), ``fused_update`` (kernel B1
-    on pairwise + NAG), ``device``.
+    on pairwise + NAG), ``device``, ``codec`` (a registered codec name that
+    overrides ``protocol.codec``: "q8" or "topk" compress the gossip wire).
     """
 
     def __init__(self, *, engine: str = "sim", protocol: ProtocolConfig,
@@ -69,8 +71,7 @@ class GossipTrainer:
                 f'engine="{engine}" is not ported yet ({PORTED_LATER[engine]})')
         if engine != "sim":
             raise ValueError(f"unknown engine {engine!r}; ported: ['sim']")
-        for name, value, where in (("codec", codec, "port slice 2"),
-                                   ("publish_every", publish_every, "port slice 7"),
+        for name, value, where in (("publish_every", publish_every, "port slice 7"),
                                    ("obs", obs, "port slice 6")):
             if value is not None:
                 raise NotImplementedError(f"{name}= is not ported yet ({where})")
@@ -78,6 +79,9 @@ class GossipTrainer:
             raise ValueError('engine="sim" requires loss_fn and num_workers')
         from repro_torch.core.gossip_sim import SimTrainer
         self.engine = engine
+        # an explicit codec= overrides the protocol config's codec
+        if codec is not None:
+            protocol = dataclasses.replace(protocol, codec=codec)
         self.protocol = protocol
         self.impl = registry.resolve(protocol)
         self.optimizer = optimizer or OptimizerConfig()
@@ -88,6 +92,7 @@ class GossipTrainer:
         self.sim = SimTrainer(loss_fn, num_workers, protocol, self.optimizer,
                               fused_update=fused_update, faults=faults,
                               fleet=fleet, shard=shard)
+        self.codec = self.sim.codec      # the active Codec, or None
         self._host_steps = 0
         self._wire = None
 
@@ -139,7 +144,8 @@ class GossipTrainer:
     # ------------------------------------------------------------ accounting
     def comm_cost(self, param_bytes: Optional[int] = None) -> CommCost:
         """Analytic expected egress (bytes/worker/step); ``param_bytes``
-        defaults to the live wire size per event (known after init_state)."""
+        defaults to the live wire size per event (known after init_state):
+        the codec's wire when a codec is active, else the raw params."""
         if param_bytes is None:
             if self._wire is None:
                 raise ValueError("wire size unknown before init_state; pass param_bytes")

@@ -23,7 +23,7 @@ class ProtocolConfig:
     # moving_rate_final over alpha_decay_steps
     moving_rate_final: float = -1.0  # <0 -> constant alpha
     alpha_decay_steps: int = 0
-    # gossip compression codec; only "none" is ported so far
+    # gossip compression codec (repro_torch.comm registry): none | q8 | topk
     codec: str = "none"
     codec_block: int = 512
     codec_topk_frac: float = 0.05

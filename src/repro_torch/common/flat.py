@@ -122,9 +122,12 @@ class FlatSpec:
         return tree_unflatten(self.treedef, leaves)
 
     def views(self, bufs: Dict[str, torch.Tensor]) -> PyTree:
-        """Slice + view aliases of ``bufs`` in the buffers' own dtypes — the
-        engines' loss boundary. Gradients of a loss through these land on
-        the flat plane directly, with zeros in the lane padding."""
+        """Slice + view aliases of ``bufs`` — the engines' loss boundary.
+        Gradients of a loss through these land on the flat plane directly,
+        with zeros in the lane padding. A leaf is cast to the spec's dtype
+        where its buffer holds another (a bf16 bucket the unfused path
+        promoted to f32), as the reference's views are; otherwise it is a
+        view, with no copy."""
         leaves = [bufs[s.bucket][..., s.offset:s.offset + s.size]
-                  .reshape(self.lead_shape + s.shape) for s in self.slots]
+                  .reshape(self.lead_shape + s.shape).to(s.dtype) for s in self.slots]
         return tree_unflatten(self.treedef, leaves)

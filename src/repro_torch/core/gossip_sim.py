@@ -13,13 +13,17 @@ NAG) the update is kernel B1 (:mod:`repro_torch.kernels.fused_update`): one
 pass for Alg. 5 lines 3, 7 and 9 that writes theta and velocity in place.
 The unfused path is kept as its parity target.
 
+With a codec (:mod:`repro_torch.comm`, ``ProtocolConfig(codec="q8" |
+"topk")``) peers mix against ``decode(encode(theta))``: kernels B4/B5 or
+B6/B7 on the card, once per bucket on every step (see
+:meth:`SimTrainer._codec_transmit`).
+
 The step updates ``state.theta`` and ``state.opt.mu`` IN PLACE (the
 reference donates the state to its jitted step instead) and advances the
 state's generator.
 
-Not ported yet, and refused with NotImplementedError: codecs (slice 2),
-faults (slice 3), fleet, shard, the async engine's worker mask (slice 4),
-and obs (slice 6).
+Not ported yet, and refused with NotImplementedError: faults (slice 3),
+fleet, shard, the async engine's worker mask (slice 4), and obs (slice 6).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch import comm
 from repro_torch.api import registry
 from repro_torch.api.state import FlatState
 from repro_torch.common import flat as flat_plane
@@ -46,6 +51,18 @@ PyTree = Any
 def _refuse(name: str, value, where: str) -> None:
     if value is not None:
         raise NotImplementedError(f"{name}= is not ported yet ({where})")
+
+
+def _store(bufs: dict, k: str, new: torch.Tensor) -> None:
+    """Write ``new`` into the resident buffer ``bufs[k]`` in place. Where the
+    reference's promotion changed the dtype (on the unfused path a bf16
+    bucket's params and velocity come out f32, see
+    :func:`repro_torch.optim.optimizers._scaled`), the buffer is replaced,
+    as the reference's state changes dtype there too."""
+    if new.dtype == bufs[k].dtype:
+        bufs[k].copy_(new)
+    else:
+        bufs[k] = new
 
 
 class SimTrainer:
@@ -71,11 +88,17 @@ class SimTrainer:
         # protocols + NAG only
         self.fused_update = (fused_update and optimizer.name == "nag"
                              and self._impl.pairwise)
+        # gossip-compression codec: pairwise protocols only (enforced by
+        # Protocol.__init__); None when cfg.codec == "none"
+        self.codec = comm.active_codec(protocol)
 
     def _wire_bytes(self, spec: flat_plane.FlatSpec) -> float:
-        """Exact per-replica wire bytes: the unpadded slot sizes (the
-        resident buffers carry lane padding, which never ships)."""
-        return float(sum(s.size * s.dtype.itemsize for s in spec.slots))
+        """Exact per-replica wire bytes: raw, the unpadded slot sizes (the
+        resident buffers carry lane padding, which never ships); with a
+        codec, its wire of the padded plane (what actually ships)."""
+        if self.codec is None:
+            return float(sum(s.size * s.dtype.itemsize for s in spec.slots))
+        return float(comm.wire_param_bytes(self.codec, spec))
 
     def init(self, params_stack: PyTree, seed: int = 0) -> FlatState:
         """Flatten ONCE into fresh resident buffers on the params' device;
@@ -90,8 +113,32 @@ class SimTrainer:
             theta=theta,
             opt=self.optimizer.init(theta),
             proto=self._impl.init_state(theta),
+            comm=comm.init_comm_state(self.codec, theta),
             key=gen,
             step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def _codec_transmit(self, state: FlatState, active: torch.Tensor):
+        """decode(encode(theta)) on the resident plane: what peers RECEIVE
+        this round, plus the advanced error-feedback residual. Seeds derive
+        from (comm round counter before this step, worker index), as in the
+        reference.
+
+        The reference skips the pass with ``lax.cond`` when nobody fires;
+        here it runs on every step, since branching on ``active.any()``
+        would sync the host each step. Nothing changes for that: on a step
+        where nobody fires the identity mix has a zero off-diagonal, so
+        ``apply_mix_split`` returns theta, and the residual advances only
+        for rows whose own gate fired (``roundtrip_bufs(gate=)``), so it is
+        carried unchanged. Returns (transmit, CommState')."""
+        codec = self.codec
+        seeds = comm.codec_seeds(state.proto.comm_rounds,
+                                 torch.arange(self.num_workers, device=active.device))
+        res = state.comm.residual if codec.stateful else None
+        hat, new_res = comm.roundtrip_bufs(codec, state.theta, seeds, res,
+                                           gate=active.reshape(-1, 1))
+        # decode reconstructs in f32; the wire mixes in the storage dtype
+        hat = {k: v.to(state.theta[k].dtype) for k, v in hat.items()}
+        return hat, (comm.CommState(new_res) if codec.stateful else state.comm)
 
     # -- one synchronous step across all workers ---------------------------
     def _grads(self, state: FlatState, x, y):
@@ -132,14 +179,20 @@ class SimTrainer:
                 peers = torch.as_tensor(draws[1], device=dev)
 
             # communication-related component (lines 4-8), one mixing matmul
-            # per dtype bucket on the resident buffers
+            # per dtype bucket on the resident buffers; peers read the
+            # codec's reconstruction when a codec rides the wire
+            transmit, comm_new = None, state.comm
+            if self.codec is not None:
+                transmit, comm_new = self._codec_transmit(state, active)
             theta_comm, proto_new = protocols.comm_update(
                 cfg, state.key, active, state.theta, state.proto, step=state.step,
-                wire_bytes=self._wire_bytes(state.spec), peers=peers)
-            return self._step_epilogue(state, theta_comm, proto_new, grads,
-                                       losses, active)
+                transmit=transmit, wire_bytes=self._wire_bytes(state.spec),
+                peers=peers)
+            return self._step_epilogue(state, theta_comm, proto_new, comm_new,
+                                       grads, losses, active)
 
-    def _step_epilogue(self, state, theta_comm, proto_new, grads, losses, active):
+    def _step_epilogue(self, state, theta_comm, proto_new, comm_new, grads,
+                       losses, active):
         """Optimizer update + metrics; writes state.theta / state.opt.mu."""
         ocfg = self.optimizer_cfg
         if self.fused_update:
@@ -166,10 +219,10 @@ class SimTrainer:
             else:
                 theta_grad, opt_new = self.optimizer.update(grads, state.opt, state.theta)
             for k in state.theta:
-                state.theta[k].copy_(theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype))
+                _store(state.theta, k, theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype))
             if opt_new.mu:
                 for k in state.opt.mu:
-                    state.opt.mu[k].copy_(opt_new.mu[k])
+                    _store(state.opt.mu, k, opt_new.mu[k])
                 opt_new = opt_new._replace(mu=state.opt.mu)
 
         metrics = {
@@ -177,7 +230,7 @@ class SimTrainer:
             "loss_max": torch.max(losses),
             "comm_active": torch.sum(active.to(torch.int32), dtype=torch.int32),
         }
-        return state.replace(opt=opt_new, proto=proto_new,
+        return state.replace(opt=opt_new, proto=proto_new, comm=comm_new,
                              step=state.step + 1), metrics
 
     # -- evaluation helpers (pytree boundary: lazy views) --------------------

@@ -1,13 +1,16 @@
-"""Dispatch for the port's kernels (port of ``repro.kernels.ops``, the
-fused-update part).
+"""Dispatch for the port's kernels (port of ``repro.kernels.ops``: the fused
+update B1 and the codecs B4-B7).
 
 A CUDA tensor always goes to the hand-written kernel, which launches or
 raises. A CPU tensor goes to the plain version in :mod:`ref`, whose result
 is copied back into theta and v so that both devices share one in-place
-contract.
+contract (the codec entry points return new tensors on both devices).
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
 
@@ -31,3 +34,36 @@ def fused_bufs_elastic_nag(theta_bufs, peer_bufs, v_bufs, g_bufs, coef, eta, mu)
         fused_flat_elastic_nag_update(theta_bufs[k], peer_bufs[k], v_bufs[k],
                                       g_bufs[k], coef, eta, mu)
     return theta_bufs, v_bufs
+
+
+# ---------------------------------------------------------------------------
+# Gossip-compression codecs (repro_torch.comm; [W, N] flat buckets)
+# ---------------------------------------------------------------------------
+
+def q8_encode(buf, seeds, *, block: int):
+    """Stochastic-rounding int8 quantization -> (values, per-block scales)."""
+    if buf.device.type == "cpu":
+        return ref.q8_encode(buf, seeds, block=block)
+    return _codec.q8_encode(buf, seeds, block=block)
+
+
+def q8_decode(values, scales, n: int, *, block: int):
+    if values.device.type == "cpu":
+        return ref.q8_decode(values, scales, n, block=block)
+    return _codec.q8_decode(values, scales, n, block=block)
+
+
+def topk_encode(buf, residual, *, k: int, block: int):
+    """Per-block magnitude top-k with error feedback -> (values, indices,
+    residual'); a ``None`` residual is zeros."""
+    if residual is None:
+        residual = torch.zeros(buf.shape, dtype=torch.float32, device=buf.device)
+    if buf.device.type == "cpu":
+        return ref.topk_encode(buf, residual, k=k, block=block)
+    return _codec.topk_encode(buf, residual, k=k, block=block)
+
+
+def topk_decode(values, idx, n: int, *, k: int, block: int):
+    if values.device.type == "cpu":
+        return ref.topk_decode(values, idx, n, k=k, block=block)
+    return _codec.topk_decode(values, idx, n, k=k, block=block)

@@ -31,3 +31,108 @@ def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
     v_new = m * vf - eg
     theta_new = tf - c * (tf - pf) - eg + m * v_new
     return theta_new.to(theta.dtype), v_new.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gossip-compression codecs (B4-B7; kernels in csrc/codec.cu)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32): the constant is split
+    into 16-bit halves so that no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def as_u32(seeds) -> torch.Tensor:
+    """Seeds (uint32, int32 or int64 tensor, or numbers) -> int64 tensor
+    holding their unsigned 32-bit values. torch has no ``>>`` for uint32 on
+    the CPU, so the hash runs in int64 masked to 32 bits."""
+    t = torch.as_tensor(seeds)
+    return t.to(torch.int64) & _M32
+
+
+def stochastic_uniform(idx, seed) -> torch.Tensor:
+    """The reference's per-element uniform in [0, 1): a murmur-style hash of
+    (seed, in-row element index), bit for bit. ``idx`` and ``seed`` broadcast
+    against each other; any integer dtype (values taken mod 2**32)."""
+    x = as_u32(idx) ^ as_u32(seed)
+    x = mul_u32(x ^ (x >> 16), 0x7FEB352D)
+    x = mul_u32(x ^ (x >> 15), 0x846CA68B)
+    x = x ^ (x >> 16)
+    # top 24 bits -> [0, 1): exact in f32, and 2**-24 is a power of two
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _pad_to_blocks(x: torch.Tensor, block: int):
+    """[W, N] -> ([W, nb, block] zero-padded, nb)."""
+    W, n = x.shape
+    nb = max(1, -(-n // block))
+    pad = nb * block - n
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.reshape(W, nb, block), nb
+
+
+def q8_encode(buf, seeds, *, block: int):
+    """Stochastic-rounding int8 quantization with per-block scales.
+
+    buf: [W, N] float bucket; seeds: [W] per-row rounding seeds (uint32
+    values). Returns (values int8 [W, nb*block], scales f32 [W, nb]); the
+    tail of the last block is zero-padded and quantizes to 0."""
+    W, n = buf.shape
+    x, nb = _pad_to_blocks(buf.to(torch.float32), block)
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    # the f32 rounding of the double 1/127, as jnp.float32(1.0 / 127.0)
+    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    scale = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
+    idx = torch.arange(nb * block, dtype=torch.int64, device=x.device).reshape(1, nb, block)
+    u = stochastic_uniform(idx, as_u32(seeds).to(x.device)[:, None, None])
+    q = torch.clamp(torch.floor(x / scale + u), -127.0, 127.0)
+    return q.to(torch.int8).reshape(W, nb * block), scale.reshape(W, nb)
+
+
+def q8_decode(values, scales, n: int, *, block: int):
+    """Inverse of :func:`q8_encode` -> [W, n] float32."""
+    W, nb = scales.shape
+    x = values.to(torch.float32).reshape(W, nb, block) * scales[..., None]
+    return x.reshape(W, nb * block)[:, :n]
+
+
+def topk_encode(buf, residual, *, k: int, block: int):
+    """Per-block magnitude top-k with error feedback.
+
+    Within every ``block``-element block of ``acc = buf + residual`` keeps
+    the ``k`` entries of largest magnitude, in descending order, ties to the
+    lowest index (``lax.top_k``'s order: a stable descending sort, since
+    ``torch.topk`` promises no order among ties). Returns (values f32
+    [W, nb*k], in-block indices int32 [W, nb*k], residual' f32 [W, N]) with
+    residual' = acc with the kept entries set to 0."""
+    W, n = buf.shape
+    acc = buf.to(torch.float32)
+    if residual is not None:
+        acc = acc + residual.to(torch.float32)
+    accb, nb = _pad_to_blocks(acc, block)
+    _, order = torch.sort(torch.abs(accb), dim=-1, descending=True, stable=True)
+    idx = order[..., :k]
+    values = torch.gather(accb, -1, idx)
+    kept = torch.zeros(accb.shape, dtype=torch.bool, device=accb.device)
+    kept.scatter_(-1, idx, True)
+    res = torch.where(kept, torch.zeros_like(accb), accb).reshape(W, nb * block)[:, :n]
+    return values.reshape(W, nb * k), idx.to(torch.int32).reshape(W, nb * k), res
+
+
+def topk_decode(values, idx, n: int, *, k: int, block: int):
+    """Inverse of :func:`topk_encode`: the kept (value, index) pairs summed
+    into a zero block (a kept -0.0 decodes to +0.0, as in the reference)
+    -> [W, n] float32."""
+    W = values.shape[0]
+    nb = values.shape[1] // k
+    dense = torch.zeros((W, nb, block), dtype=torch.float32, device=values.device)
+    dense.scatter_add_(-1, idx.reshape(W, nb, k).to(torch.int64),
+                       values.to(torch.float32).reshape(W, nb, k))
+    return dense.reshape(W, nb * block)[:, :n]

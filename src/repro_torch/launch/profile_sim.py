@@ -3,13 +3,15 @@
 full width) under ``torch.profiler``.
 
     python -m repro_torch.launch.profile_sim [--workers 8] [--batch 16] [--steps 10]
+                                             [--codec none|q8|topk]
 
 Prints the synchronised step time, the device-busy share of the profiled
 window (the union of kernel intervals over the span from the first kernel's
 start to the last one's end), and the kernels by total device time, then one
 JSON line with the same numbers. Kernel names are grouped into the step's
 phases: the model's gradients (vmapped matmuls, softmax and reductions), the
-mixing matmul, kernel B1 and the rest.
+mixing matmul, kernel B1, the codec kernels B4-B7 (with ``--codec``) and the
+rest.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
 
 
-def _trainer(W: int, device):
+def _trainer(W: int, device, codec: str = "none"):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -36,7 +38,7 @@ def _trainer(W: int, device):
         protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
                                 comm_probability=0.125, topology="uniform"),
         optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
-        loss_fn=loss_fn, num_workers=W, device=device,
+        loss_fn=loss_fn, num_workers=W, device=device, codec=codec,
         init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
 
 
@@ -55,13 +57,14 @@ def _busy_us(intervals):
     return total
 
 
-def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda") -> dict:
+def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
+            codec: str = "none") -> dict:
     from repro_torch.data.partition import batches_for_step, partition_iid
     from repro_torch.data.synthetic import load_mnist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    trainer = _trainer(W, device)
+    trainer = _trainer(W, device, codec)
     dev = trainer.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     train, _ = load_mnist(num_train=25600, num_test=10)
@@ -98,7 +101,7 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda") -> dict
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
-        "workers": W, "batch_per_worker": batch, "steps": steps,
+        "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "step_ms_median": statistics.median(step_s) * 1e3,
         "kernel_launches_per_step": len(kernels) / steps,
@@ -114,6 +117,8 @@ def _phase(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "fused_flat_elastic_nag" in n:
         return "B1 fused update"
+    if any(k in n for k in ("q8_encode", "q8_decode", "topk_encode", "topk_decode")):
+        return "B4-B7 codec"
     if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n or "matmul" in n:
         return "matmuls (model grads + mixing)"
     if "softmax" in n or "reduce" in n or "sum" in n or "max" in n:
@@ -129,9 +134,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--codec", default="none", help="wire codec: none, q8 or topk")
     a = ap.parse_args(argv)
-    r = profile(a.workers, a.batch, a.steps, a.device)
-    print(f"W={r['workers']} batch={r['batch_per_worker']}: median step "
+    r = profile(a.workers, a.batch, a.steps, a.device, a.codec)
+    print(f"W={r['workers']} batch={r['batch_per_worker']} codec={r['codec']}: median step "
           f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
           f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "
           f"{r['device_busy_share']}")

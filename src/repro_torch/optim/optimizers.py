@@ -7,7 +7,9 @@
     theta <- theta - eta*g + mu*v    (line 9, with the *updated* v)
 
 Everything here is elementwise and returns new tensors; the sim engine's
-fused path is what updates the resident buffers in place.
+fused path is what updates the resident buffers in place. Products with the
+learning rate (a 0-d f32 tensor) promote as the reference's do: see
+:func:`_scaled`.
 """
 from __future__ import annotations
 
@@ -40,6 +42,14 @@ def _device_of(tree: PyTree):
     return next(iter(tree.values())).device if isinstance(tree, dict) and tree else None
 
 
+def _scaled(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``c * x`` for a 0-d f32 tensor ``c`` (a learning rate), promoted as in
+    the reference: there ``c`` is a strongly typed f32 array,
+    so a bf16 ``x`` gives an f32 product, where torch would keep bf16 for a
+    0-d operand. On an f32 plane this is the plain product."""
+    return c * x.to(torch.promote_types(x.dtype, c.dtype))
+
+
 def _clip(cfg: OptimizerConfig, grads: PyTree) -> PyTree:
     if cfg.grad_clip <= 0:
         return grads
@@ -59,9 +69,10 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
         def update(grads, state, params):
             grads = _clip(cfg, grads)
             eta = lr_at(cfg, state.step)
-            new = tree_map(lambda p, g: p - eta * g.to(p.dtype), params, grads)
+            new = tree_map(lambda p, g: p - _scaled(eta, g.to(p.dtype)), params, grads)
             if cfg.weight_decay:
-                new = tree_map(lambda n, p: n - eta * cfg.weight_decay * p, new, params)
+                new = tree_map(lambda n, p: n - _scaled(eta * cfg.weight_decay, p),
+                               new, params)
             return new, OptState(state.step + 1, {}, {})
 
     elif cfg.name == "nag":
@@ -72,8 +83,9 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
             grads = _clip(cfg, grads)
             eta = lr_at(cfg, state.step)
             mu = cfg.momentum
-            v_new = tree_map(lambda v, g: mu * v - eta * g.to(v.dtype), state.mu, grads)
-            new = tree_map(lambda p, g, v: p - eta * g.to(p.dtype) + mu * v.to(p.dtype),
+            v_new = tree_map(lambda v, g: mu * v - _scaled(eta, g.to(v.dtype)),
+                             state.mu, grads)
+            new = tree_map(lambda p, g, v: p - _scaled(eta, g.to(p.dtype)) + mu * v.to(p.dtype),
                            params, grads, v_new)
             return new, OptState(state.step + 1, v_new, {})
 
@@ -88,7 +100,8 @@ def velocity_update(cfg: OptimizerConfig, state: OptState, grads: PyTree):
     assert cfg.name == "nag"
     grads = _clip(cfg, grads)
     eta = lr_at(cfg, state.step)
-    v_new = tree_map(lambda v, g: cfg.momentum * v - eta * g.to(v.dtype), state.mu, grads)
+    v_new = tree_map(lambda v, g: cfg.momentum * v - _scaled(eta, g.to(v.dtype)),
+                     state.mu, grads)
     return v_new, OptState(state.step + 1, v_new, {})
 
 
@@ -96,5 +109,6 @@ def param_update(cfg: OptimizerConfig, step, params: PyTree, grads: PyTree,
                  v_new: PyTree) -> PyTree:
     """Line 9 of Alg. 5: theta <- theta - eta*g + mu*v_new."""
     eta = lr_at(cfg, step)
-    return tree_map(lambda p, g, v: p - eta * g.to(p.dtype) + cfg.momentum * v.to(p.dtype),
+    return tree_map(lambda p, g, v: (p - _scaled(eta, g.to(p.dtype))
+                                     + cfg.momentum * v.to(p.dtype)),
                     params, grads, v_new)

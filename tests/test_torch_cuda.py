@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: kernel B1 against its plain
-version on the card, and the sim engine's fused path launching it once per
-step. They skip without a card; on one, run
+"""Tests of the port that need an NVIDIA GPU: kernels B1 and B4-B7 against
+their plain versions on the card, and the sim engine launching them (B1
+once per step; with a codec, its encode and decode kernels once per step).
+They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -10,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import codec as tcodec  # noqa: E402
 from repro_torch.kernels import fused_update as tfu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -88,3 +90,98 @@ def test_sim_fused_path_launches_b1_once_per_step(cuda):
         st, m = tr.step(st, (x, y))
     assert tfu.LAUNCHES == launches + 5
     assert torch.isfinite(m["loss"])
+
+
+# ---------------------------------------------------------------------------
+# B4-B7: the codec kernels, exact against their plain versions
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    """A tensor's bytes on the host, for exact (sign-of-zero) comparison."""
+    return t.detach().cpu().contiguous().view(torch.uint8)
+
+
+def _codec_input(W, n, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(W, n, generator=g, device=dev), 0.1 * torch.randn(W, n, generator=g,
+                                                                          device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n,block", [(8, 35968 * 3 + 5, 512), (4, 1000, 128), (1, 1, 128),
+                                       (3, 700, 512)])
+def test_q8_kernels_match_plain_versions(cuda, W, n, block):
+    x, _ = _codec_input(W, n, cuda, n)
+    if n >= 2 * block:
+        x[:, block:2 * block] = 0.0                      # an all-zero block: scale 1
+    seeds = torch.tensor([0, 1, 0xFFFFFFFF, 12345, 7, 0x80000000, 3, 99][:W],
+                         dtype=torch.int64, device=cuda)
+    before = dict(tcodec.LAUNCHES)
+    v, s = ops.q8_encode(x, seeds, block=block)
+    d = ops.q8_decode(v, s, n, block=block)
+    torch.cuda.synchronize()
+    assert tcodec.LAUNCHES["q8_encode"] == before["q8_encode"] + 1
+    assert tcodec.LAUNCHES["q8_decode"] == before["q8_decode"] + 1
+    pv, ps = tref.q8_encode(x, seeds, block=block)
+    pd = tref.q8_decode(pv, ps, n, block=block)
+    for got, want in ((v, pv), (s, ps), (d, pd)):
+        assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n,k,block", [(8, 35968 * 3 + 5, 26, 512), (4, 1000, 13, 128),
+                                         (3, 300, 8, 128), (2, 512, 1, 512)])
+def test_topk_kernels_match_plain_versions(cuda, W, n, k, block):
+    x, r = _codec_input(W, n, cuda, n + k)
+    x[0, :block] = torch.tensor([2.0, -2.0, 1.0, -0.0] * (block // 4), device=cuda)  # ties
+    before = dict(tcodec.LAUNCHES)
+    vals, idx, res = ops.topk_encode(x, r, k=k, block=block)
+    d = ops.topk_decode(vals, idx, n, k=k, block=block)
+    torch.cuda.synchronize()
+    assert tcodec.LAUNCHES["topk_encode"] == before["topk_encode"] + 1
+    assert tcodec.LAUNCHES["topk_decode"] == before["topk_decode"] + 1
+    pv, pi, pr = tref.topk_encode(x, r, k=k, block=block)
+    pd = tref.topk_decode(pv, pi, n, k=k, block=block)
+    for got, want in ((vals, pv), (idx, pi), (res, pr), (d, pd)):
+        assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_codec_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tcodec.q8_encode(x, torch.zeros(2, dtype=torch.int64, device=cuda), block=100)
+    with pytest.raises(ValueError, match="k must be"):
+        tcodec.topk_encode(x, x, k=0, block=128)
+    with pytest.raises(ValueError, match="residual"):
+        tcodec.topk_encode(x, x.double(), k=4, block=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["q8", "topk"])
+def test_sim_codec_step_launches_its_kernels_once_per_step(cuda, codec):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(p, x, y):
+        return simple.xent_loss(simple.mlp_logits(p, x), y)
+
+    tr = GossipTrainer(protocol=ProtocolConfig(comm_probability=0.5, topology="uniform"),
+                       codec=codec, loss_fn=loss_fn, num_workers=4, device=cuda,
+                       init_fn=lambda g: simple.init_mlp(g, 784, 64, 2, 10)[0])
+    st = tr.init_state(0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 16, 784, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (4, 16), generator=gen, device=cuda)
+    enc, dec = (f"{codec}_encode", f"{codec}_decode")
+    before, b1 = dict(tcodec.LAUNCHES), tfu.LAUNCHES
+    for _ in range(5):
+        st, m = tr.step(st, (x, y))
+    torch.cuda.synchronize()
+    assert tfu.LAUNCHES == b1 + 5
+    assert tcodec.LAUNCHES[enc] == before[enc] + 5
+    assert tcodec.LAUNCHES[dec] == before[dec] + 5
+    assert torch.isfinite(m["loss"])
+    if codec == "topk":
+        assert bool(torch.isfinite(st.comm.residual["float32"]).all())

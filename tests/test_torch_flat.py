@@ -158,6 +158,8 @@ def test_import_repro_torch_loads_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "assert {'repro_torch.comm.codecs', 'repro_torch.comm.registry',\n"
+        "        'repro_torch.kernels.codec'} <= set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -257,9 +257,10 @@ def test_comm_cost_matches_reference(method):
 
 
 def test_unported_features_refuse():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TTrainer(protocol=TProto(comm_probability=0.5, codec="q8"), loss_fn=_tloss,
-                 num_workers=2, device="cpu")
+    # the codecs are ported (slice 2): codec="q8" now builds
+    tr = TTrainer(protocol=TProto(comm_probability=0.5, codec="q8"), loss_fn=_tloss,
+                  num_workers=2, device="cpu")
+    assert tr.codec is not None and tr.codec.name == "q8" and tr.sim.codec is tr.codec
     with pytest.raises(NotImplementedError, match="slice 5"):
         TTrainer(engine="dist", protocol=TProto(comm_probability=0.5),
                  loss_fn=_tloss, num_workers=2, device="cpu")
@@ -362,3 +363,58 @@ def test_dropout_only_with_a_generator():
     a = tsimple.mlp_logits(params, x, dropout_gen=torch.Generator().manual_seed(1))
     b = tsimple.mlp_logits(params, x, dropout_gen=torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and not torch.equal(a, plain)
+
+
+def _bf16_weights(params, to_bf16):
+    return {k: (to_bf16(v) if k.startswith("w") else v) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bf16_bucket_matches_reference(fused):
+    """A plane with a bf16 bucket (the MLP's weights) and an f32 bucket (its
+    biases). On the unfused path the reference promotes: its learning rate
+    is a strongly typed f32 scalar, so eta * g(bf16) is f32, and the bf16
+    bucket's params and velocity come out f32 after the first step (its
+    loss still reads bf16 leaves: the views cast to the spec's dtypes). The
+    fused path keeps the storage dtype in both packages. Dtypes must match
+    after every step. Values within rtol = atol = 2**-8, one bf16 ulp
+    relative: the model computes with bf16 weights, and a bf16 rounding of
+    a weight or a gradient flips where the two packages' f32 values differ
+    by an ulp (XLA and ATen sum in different orders)."""
+    W, steps = 4, 5
+
+    def jloss(p, x, y):
+        return _jloss(jax.tree.map(lambda a: a.astype(jnp.float32), p), x, y)
+
+    def tloss(p, x, y):
+        return _tloss({k: v.float() for k, v in p.items()}, x, y)
+
+    proto = dict(method="elastic_gossip", comm_probability=0.5, moving_rate=0.5,
+                 topology="uniform")
+    opt = dict(name="nag", learning_rate=1e-2, momentum=0.9)
+    jtr = JTrainer(engine="sim", protocol=JProto(**proto), optimizer=JOpt(**opt),
+                   loss_fn=jloss, num_workers=W, fused_update=fused)
+    ttr = TTrainer(engine="sim", protocol=TProto(**proto), optimizer=TOpt(**opt),
+                   loss_fn=tloss, num_workers=W, fused_update=fused, device="cpu")
+    jstate = jtr.init_state(0, params=_bf16_weights(_jparams(),
+                                                     lambda a: a.astype(jnp.bfloat16)))
+    tstate = ttr.init_state(0, params=_bf16_weights(
+        tsimple.params_from_jax(jax.tree.map(np.asarray, _jparams()), "cpu"),
+        lambda t: t.to(torch.bfloat16)))
+    train, _ = _data()
+    shards = jpart.partition_iid(train, W, 0)
+    for i in range(steps):
+        x, y = jpart.batches_for_step(shards, i, B)
+        gate, peers = jtr._backend.sim._draw_fn(jnp.array(jstate.key), jnp.array(jstate.step))
+        draws = (torch.from_numpy(np.array(gate)), torch.from_numpy(np.array(peers)))
+        jstate, _ = jtr.step(jstate, (jnp.asarray(x), jnp.asarray(y)))
+        tstate, _ = ttr.step(tstate, (torch.from_numpy(x), torch.from_numpy(y)), draws=draws)
+        for name, jb, tb in (("theta", jstate.theta, tstate.theta),
+                             ("velocity", jstate.opt.mu, tstate.opt.mu)):
+            for k in ("bfloat16", "float32"):
+                assert tflat.dtype_name(tb[k].dtype) == jnp.dtype(jb[k].dtype).name, (i, name, k)
+                np.testing.assert_allclose(tb[k].float().numpy(),
+                                           np.asarray(jb[k].astype(jnp.float32)),
+                                           rtol=2**-8, atol=2**-8, err_msg=f"{i} {name} {k}")
+    if not fused:
+        assert jstate.theta["bfloat16"].dtype == jnp.float32   # the reference promotes
