@@ -8,17 +8,22 @@ prints no result line):
 
 1. build   — the card's name and power limit, then the kernel sources built
              with nvcc for sm_90a into ``build/repro_torch/``, one nvcc per
-             source, all started together: B1 (``fused_update.cu``) and
-             B4-B7 (``codec.cu``);
+             source, all started together: B1 (``fused_update.cu``), B4-B7
+             (``codec.cu``) and B8 (``robust.cu``);
 2. kernels — B1 held against its plain PyTorch version on the card at the
              main path's shapes ([8, 2913408], [4, 2913408] f32), a ragged
              N=1000 and bf16 / bf16+f32-velocity storage, scalar and [W] coef,
              and peer is theta; B4-B7 (q8 encode/decode, top-k
              encode/decode) held exactly against theirs at [8, 2913408]
              (block 512, k 26), a ragged [4, 1000] (block 128, k 13), an
-             all-zero block and tied magnitudes; then every kernel and its
-             plain version timed with CUDA events (median of 60 launches)
-             beside its bound;
+             all-zero block and tied magnitudes; B8 (the robust apply) held
+             byte for byte against its plain version at [8, 2913408] with
+             [W] scale and thr = +inf (clipped) or finite [W] thr (trimmed),
+             scalar scale and thr, a ragged [4, 1000], bf16 theta, and a
+             delta holding +-inf, NaN and -0.0 beside a theta of -0.0; then
+             every kernel and its plain version timed with CUDA events
+             (median of 60 launches) beside its bound, and the fault plane's
+             checksummed wire round trip timed at the main path's plane;
 3. main    — GossipTrainer(engine="sim", method="elastic_gossip") with NAG on
              the §4.1 MLP at full width (784 -> 3x1024 -> 10, random weights
              from a seed) over the synthetic MNIST stand-in, 50 steps each,
@@ -33,6 +38,23 @@ prints no result line):
              be the reference's exact size and comm_bytes its f32 derivation.
              Then 10 steps of the fused path against the unfused (plain)
              path on the same draws, uncompressed and with q8.
+4. faults  — four more full-width runs at W=8, batch 16, 50 steps, p=0.5,
+             alpha 0.5, uniform peers, with gates and peers passed through
+             the ``draws=`` hook: clipped_gossip (robust_clip 0.1) under the
+             composite ``drop_byzantine`` model (drop 0.2, Byzantine 1/8,
+             registered here through the public ``register_fault_model``),
+             trimmed_gossip under byzantine_scale (1/8, scale 100),
+             elastic_gossip under corrupt 0.2 uncompressed (the checksummed
+             raw wire) and with codec="q8" (the checksummed q8 wire). B8
+             must launch once per step in the first two and never in the
+             others, B1 once per step in all four, B4/B5 once per step in
+             the q8 run only. The host recomputes wire_dropped,
+             wire_corrupt and comm_units from the gates and the port's
+             numpy ``bernoulli_np``; they must equal the engine's counters
+             exactly, and comm_bytes its f32 derivation. The loss and the
+             honest workers' rows must be finite. Then the zero-fault
+             anchor: FaultConfig(drop, rate 0) must reproduce the
+             fault-free elastic_gossip run bit for bit on the same draws.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -60,6 +82,20 @@ BLOCK, TOPK = 512, 26               # the codecs' defaults: codec_block, round(0
 # wire_param_bytes / SimTrainer._wire_bytes)
 WIRE = {None: 11653160, "q8": 2936556, "topk": 1183728}
 CODEC_KERNELS = {"q8": ("q8_encode", "q8_decode"), "topk": ("topk_encode", "topk_decode")}
+B8 = "robust_flat_apply"
+B8_FLOPS_PER_ELEMENT = 4            # |d| <= thr, d * keep, scale * (...), t + (...)
+# the fault runs: (tag, method, FaultConfig kwargs, codec), after the
+# reference's benchmarks/faults.py headline (p 0.5, alpha 0.5, uniform peers)
+FAULT_STEPS, FAULT_P = 50, 0.5
+FAULT_RUNS = (
+    ("clipped drop_byzantine", "clipped_gossip",
+     dict(fault_model="drop_byzantine", fault_rate=0.2, fault_frac=1 / 8, seed=5), None),
+    ("trimmed byzantine_scale", "trimmed_gossip",
+     dict(fault_model="byzantine_scale", fault_frac=1 / 8, scale=100.0, seed=5), None),
+    ("elastic corrupt", "elastic_gossip", dict(fault_model="corrupt", fault_rate=0.2, seed=5), None),
+    ("elastic corrupt q8", "elastic_gossip", dict(fault_model="corrupt", fault_rate=0.2, seed=5),
+     "q8"),
+)
 
 # (memory bytes/s, f32 non-tensor FLOP/s) by card name, from NVIDIA's data sheets
 CARDS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
@@ -286,10 +322,114 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: kernel B8 against its plain version
+# ---------------------------------------------------------------------------
+
+def b8_cases(torch, dev):
+    """(name, theta, delta, scale, thr) for every B8 check."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    W, n = 8, N_FULL
+    theta = torch.randn(W, n, generator=g, device=dev)
+    delta = 3 * torch.randn(W, n, generator=g, device=dev)
+    scale = torch.rand(W, generator=g, device=dev)
+    thr = 0.5 + 1.5 * torch.rand(W, generator=g, device=dev)
+    inf = torch.full((W,), float("inf"), device=dev)
+    rt = torch.randn(4, 1000, generator=g, device=dev)
+    rd = 3 * torch.randn(4, 1000, generator=g, device=dev)
+    st = torch.randn(4, 1024, generator=g, device=dev)
+    sd = 3 * torch.randn(4, 1024, generator=g, device=dev)
+    st[:, :8] = -0.0
+    sd[:, 0], sd[:, 1], sd[:, 2] = float("inf"), float("-inf"), float("nan")
+    sd[:, 3], sd[:, 4], sd[:, 5] = 5.0, -0.0, 0.25
+    sthr = torch.tensor([float("inf"), 1.0, 0.1, 3.0], device=dev)
+    return [("[8, 2913408] clipped ([W] scale, thr +inf)", theta, delta, scale, inf),
+            ("[8, 2913408] trimmed (unit scale, [W] thr)", theta, delta,
+             torch.ones(W, device=dev), thr),
+            ("[8, 2913408] scalar scale and thr", theta, delta, 0.37, 1.25),
+            ("[4, 1000] ragged", rt, rd, scale[:4], thr[:4]),
+            ("[8, 2913408] bf16 theta, f32 delta", theta.to(torch.bfloat16), delta, scale, thr),
+            ("[4, 1024] +-inf, NaN, -0.0", st, sd, scale[:4], sthr)]
+
+
+def check_b8(torch, rb, ref, dev):
+    """B8 against its plain version, byte for byte, on every case; theta
+    must come back unwritten. Returns the max abs error over finite
+    elements (0.0 when exact)."""
+    worst = 0.0
+    cases = b8_cases(torch, dev)
+    for name, t, d, sc, thr in cases:
+        t0 = t.clone()
+        got = rb.robust_flat_apply(t, d, sc, thr)
+        want = ref.robust_flat_apply(t, d, sc, thr)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        err = float((got.float() - want.float())[fin].abs().max())
+        worst = max(worst, err)
+        if not bits_equal(torch, got, want):
+            raise AssertionError(f"B8 disagrees with its plain version on {name}: max abs err "
+                                 f"{err!r} over finite elements (must be byte-equal)")
+        if not bits_equal(torch, t, t0):
+            raise AssertionError(f"B8 wrote into theta on {name}")
+        if name.startswith("[4, 1024]"):
+            row = got[2].cpu()
+            if not (torch.isnan(row[2]) and float(row[3]) == 0.0
+                    and not bool(torch.signbit(row[3]))):
+                raise AssertionError(f"B8 specials: NaN stays NaN, a trimmed coordinate gives "
+                                     f"+0.0 on -0.0; got {row[:6].tolist()}")
+        del got, want, t0
+    log(f"[kernels] B8 vs plain version: {len(cases)} cases ({'; '.join(c[0] for c in cases)}), "
+        f"byte-equal, theta unwritten; max abs err {worst!r}")
+    return worst
+
+
+def time_b8(torch, rb, ref, dev, bw, peak):
+    """B8 and its plain version at [8, 2913408] f32 (the trimmed case:
+    [W] thr, unit scale) beside the bound: read theta and delta, write
+    theta', read the [W, 2] scalars."""
+    _, t, d, sc, thr = b8_cases(torch, dev)[1]
+    W, n = t.shape
+    ms = time_launches(torch, lambda: rb.robust_flat_apply(t, d, sc, thr))
+    plain_ms = time_launches(torch, lambda: ref.robust_flat_apply(t, d, sc, thr))
+    nbytes = W * n * 12 + W * 8
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = B8_FLOPS_PER_ELEMENT * W * n / peak * 1e3
+    log(f"[kernels] B8 [{W}, {n}] f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved); no single PyTorch call computes it")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_wire(torch, dev):
+    """The fault plane's checksummed raw wire at the main path's plane
+    ([8, 2913408] f32, 11,653,636 B per row with the tail): the checksum of
+    one wire, and the whole round trip (bitcast, checksum, corrupt one byte
+    per row, verify, bitcast back), CUDA events, median of 60 calls."""
+    from repro_torch.faults import wire as fwire
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(8, N_FULL, generator=g, device=dev)
+    wire = x.view(torch.uint8)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    cs_ms = time_launches(torch, lambda: fwire.checksum_u8(wire))
+    rt_ms = time_launches(torch, lambda: fwire.corrupt_roundtrip_bufs({"float32": x}, mask, 5,
+                                                                      step))
+    out, ok = fwire.corrupt_roundtrip_bufs({"float32": x}, mask, 5, step)
+    if bool(ok.any()) or bool(out["float32"].any()):
+        raise AssertionError("wire round trip: a corrupted row verified, or was not zeroed")
+    log(f"[kernels] checksummed raw wire [8, {N_FULL}] f32 ({wire.shape[1] + 4} B per row): "
+        f"checksum {cs_ms:.4f} ms, full round trip {rt_ms:.4f} ms (device ops, no kernel of "
+        f"its own; every corrupted row detected)")
+    del x, wire, out
+    return dict(checksum_ms=cs_ms, roundtrip_ms=rt_ms)
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def make_trainer(torch, W, dev, fused=True, codec=None):
+def make_trainer(torch, W, dev, fused=True, codec=None, method="elastic_gossip",
+                 p=0.125, faults=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -299,11 +439,11 @@ def make_trainer(torch, W, dev, fused=True, codec=None):
 
     return GossipTrainer(
         engine="sim",
-        protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
-                                comm_probability=0.125, topology="uniform"),
+        protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
+                                topology="uniform", robust_clip=0.1),
         optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
         loss_fn=loss_fn, num_workers=W, fused_update=fused, device=dev, codec=codec,
-        init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
+        faults=faults, init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
 
 
 def staged_batches(torch, train, W, batch, steps, dev):
@@ -316,17 +456,18 @@ def staged_batches(torch, train, W, batch, steps, dev):
     return out
 
 
-def zero_counts(fu, ck):
+def zero_counts(fu, ck, rb):
     fu.LAUNCHES = 0
+    rb.LAUNCHES = 0
     for kname in ck.LAUNCHES:
         ck.LAUNCHES[kname] = 0
 
 
-def read_counts(fu, ck):
-    return {"fused_flat_elastic_nag_update": fu.LAUNCHES, **ck.LAUNCHES}
+def read_counts(fu, ck, rb):
+    return {"fused_flat_elastic_nag_update": fu.LAUNCHES, **ck.LAUNCHES, B8: rb.LAUNCHES}
 
 
-def run_main_path(torch, train, test, W, batch, dev, fu, ck, codec=None):
+def run_main_path(torch, train, test, W, batch, dev, fu, ck, rb, codec=None):
     """One main-path run. Every kernel's launch count is set to 0 just
     before the run and read just after; returns ({kernel: launches},
     median step ms)."""
@@ -335,7 +476,7 @@ def run_main_path(torch, train, test, W, batch, dev, fu, ck, codec=None):
     state = trainer.init_state(0)
     batches = staged_batches(torch, train, W, batch, STEPS, dev)
     torch.cuda.synchronize()
-    zero_counts(fu, ck)
+    zero_counts(fu, ck, rb)
     losses, active, step_s = [], [], []
     residual_checked = codec != "topk"
     for xb, yb in batches:
@@ -353,7 +494,7 @@ def run_main_path(torch, train, test, W, batch, dev, fu, ck, codec=None):
                                      f"{bool(torch.isfinite(res).all())}, "
                                      f"L1 {float(res.abs().sum())}")
             residual_checked = True
-    launches = read_counts(fu, ck)
+    launches = read_counts(fu, ck, rb)
     tag = f"W={W}" + (f" codec={codec}" if codec else "")
     losses = [float(x) for x in losses]
     gates = sum(int(a) for a in active)
@@ -449,6 +590,143 @@ def fused_vs_unfused(torch, train, dev, codec=None, W=8, batch=16, steps=10):
                 f"theta max abs diff {worst!r} (rtol 1e-4, atol 1e-5)")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the fault plane and robust mixing
+# ---------------------------------------------------------------------------
+
+def register_drop_byzantine():
+    """The headline fault model of the reference's benchmarks/faults.py:
+    drop AND Byzantine noise at once, registered through the public
+    decorator as user code would; the engine composes the two planes
+    without knowing this model exists."""
+    from repro_torch.faults import available_fault_models, register_fault_model
+    from repro_torch.faults.models import ByzantineNoise, DropFault
+    if "drop_byzantine" in available_fault_models():
+        return
+
+    @register_fault_model("drop_byzantine")
+    class DropByzantine(ByzantineNoise, DropFault):
+        """fault_rate of wires dropped + the first round(fault_frac*W)
+        workers publishing noise rows."""
+
+
+def fault_draws(torch, W, steps, dev, seed):
+    """Gates and peers for a fault run, drawn on the card from their own
+    generator and passed through the draws= hook."""
+    from repro_torch.core import topology
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(topology.participation(gen, W, FAULT_P), topology.sample_uniform_peers(gen, W))
+            for _ in range(steps)]
+
+
+def expected_fault_counters(fcfg, fm, gates, W):
+    """Host recomputation of the fault counters from the gates the run was
+    given and the port's numpy draws: wires dropped and detected-corrupt
+    among engaged senders, and applied exchanges (comm_units)."""
+    import numpy as np
+    from repro_torch.faults.models import SALT_CORRUPT, SALT_DROP, bernoulli_np
+    dropped = corrupt = units = 0
+    workers = np.arange(W)
+    for step, gate in enumerate(gates):
+        drop = (bernoulli_np(fcfg.seed, workers, step, fcfg.fault_rate, SALT_DROP)
+                if fm.injects_drop else np.zeros(W, bool))
+        bad = (bernoulli_np(fcfg.seed, workers, step, fcfg.fault_rate, SALT_CORRUPT)
+               if fm.injects_corrupt else np.zeros(W, bool))
+        dropped += int((gate & drop).sum())
+        corrupt += int((gate & bad).sum())
+        units += int((gate & ~(drop | bad)).sum())
+    return {"wire_dropped": dropped, "wire_corrupt": corrupt, "comm_units": units}
+
+
+def run_fault_path(torch, train, dev, fu, ck, rb, tag, method, fkw, codec, W=8, batch=16):
+    """One full-width fault run. Every kernel's count is set to 0 just
+    before the run and read just after; returns ({kernel: launches},
+    median step ms)."""
+    from repro_torch.common.config import FaultConfig
+    fcfg = FaultConfig(**fkw)
+    trainer = make_trainer(torch, W, dev, codec=codec, method=method, p=FAULT_P, faults=fcfg)
+    fm = trainer.sim.fault_model
+    state = trainer.init_state(0)
+    batches = staged_batches(torch, train, W, batch, FAULT_STEPS, dev)
+    draws = fault_draws(torch, W, FAULT_STEPS, dev, seed=31)
+    torch.cuda.synchronize()
+    zero_counts(fu, ck, rb)
+    losses, step_s = [], []
+    for (xb, yb), draw in zip(batches, draws):
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, (xb, yb), draws=draw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = read_counts(fu, ck, rb)
+    robust = method in ("clipped_gossip", "trimmed_gossip")
+    for kname, n in launches.items():
+        want = FAULT_STEPS if (kname == "fused_flat_elastic_nag_update"
+                               or (kname == B8 and robust)
+                               or kname in CODEC_KERNELS.get(codec, ())) else 0
+        if n != want:
+            raise AssertionError(f"{tag}: {kname} launched {n} times in {FAULT_STEPS} steps, "
+                                 f"expected {want}")
+    gates = [d[0].cpu().numpy() for d in draws]
+    want = expected_fault_counters(fcfg, fm, gates, W)
+    got = {k: int(getattr(state.proto, k)) for k in want}
+    if got != want:
+        raise AssertionError(f"{tag}: engine counters {got} != host recomputation {want}")
+    if fm.injects_corrupt and want["wire_corrupt"] == 0:
+        raise AssertionError(f"{tag}: no engaged sender was corrupted, nothing was checked")
+    if fm.injects_drop and want["wire_dropped"] == 0:
+        raise AssertionError(f"{tag}: no engaged sender was dropped, nothing was checked")
+    wire = trainer.sim._wire_bytes(state.spec)
+    if wire != WIRE[codec]:
+        raise AssertionError(f"{tag}: wire per event {wire}, expected {WIRE[codec]}")
+    want_bytes = (torch.tensor(wire / W, dtype=torch.float32)
+                  * torch.tensor(float(want["comm_units"]), dtype=torch.float32))
+    if not bits_equal(torch, state.proto.comm_bytes.cpu(), want_bytes):
+        raise AssertionError(f"{tag}: comm_bytes {float(state.proto.comm_bytes)!r} != "
+                             f"f32(wire/W) * f32(units) = {float(want_bytes)!r}")
+    losses = [float(x) for x in losses]
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    honest = state.theta["float32"][fm.num_byzantine(W):]
+    if not bool(torch.isfinite(honest).all()):
+        raise AssertionError(f"{tag}: an honest worker's row is not finite")
+    step_ms = statistics.median(step_s) * 1e3
+    gate_sum = int(sum(g.sum() for g in gates))
+    log(f"[faults] {tag} ({method}, {fcfg.fault_model}"
+        + (f", codec={codec}" if codec else "") + f", W={W}): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, median step {step_ms:.3f} ms (synchronised), launches {launches}, "
+        f"gates {gate_sum}, counters {got} = host recomputation, comm_bytes "
+        f"{float(state.proto.comm_bytes)!r}, {fm.num_byzantine(W)} Byzantine, honest rows finite")
+    return launches, step_ms
+
+
+def zero_fault_anchor(torch, train, dev, W=8, batch=16, steps=10):
+    """FaultConfig(drop, rate 0) runs the whole fault wiring and must give
+    the fault-free elastic_gossip run's theta, velocity and counters bit for
+    bit on the same draws."""
+    from repro_torch.common.config import FaultConfig
+    out = {}
+    batches = staged_batches(torch, train, W, batch, steps, dev)
+    for tag, faults in (("free", None), ("zero", FaultConfig(fault_model="drop", fault_rate=0.0))):
+        tr = make_trainer(torch, W, dev, p=FAULT_P, faults=faults)
+        st = tr.init_state(2)
+        for (xb, yb), draw in zip(batches, fault_draws(torch, W, steps, dev, seed=41)):
+            st, _ = tr.step(st, (xb, yb), draws=draw)
+        out[tag] = st
+    a, b = out["free"], out["zero"]
+    for name, x, y in (("theta", a.theta["float32"], b.theta["float32"]),
+                       ("velocity", a.opt.mu["float32"], b.opt.mu["float32"]),
+                       *((k, getattr(a.proto, k), getattr(b.proto, k))
+                         for k in ("comm_rounds", "comm_units", "comm_bytes"))):
+        if not bits_equal(torch, x, y):
+            raise AssertionError(f"zero-fault anchor: {name} differs from the fault-free run")
+    if int(b.proto.wire_dropped) != 0 or int(a.proto.comm_units) == 0:
+        raise AssertionError("zero-fault anchor: dropped wires, or no exchange at all")
+    log(f"[faults] zero-fault anchor, W={W}, {steps} steps, same draws: theta, velocity, "
+        f"comm_rounds/units/bytes bit-equal to the fault-free run (comm_units "
+        f"{int(b.proto.comm_units)}, wire_dropped 0)")
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     "fused_flat_elastic_nag_update": ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -459,6 +737,7 @@ KERNELS = {
                     "src/repro/kernels/codec.py:106"),
     "topk_decode": ("B7", "src/repro_torch/kernels/csrc/codec.cu",
                     "src/repro/kernels/codec.py:131"),
+    B8: ("B8", "src/repro_torch/kernels/csrc/robust.cu", "src/repro/kernels/robust.py:30"),
 }
 
 
@@ -476,6 +755,7 @@ def main():
     from repro_torch.kernels import codec as ck
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import ref
+    from repro_torch.kernels import robust as rb
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -485,17 +765,18 @@ def main():
         "TF32 off for matmul and cuDNN")
     bw, peak = card_rates(kind)
     t0 = time.perf_counter()
-    sources = ("fused_update", "codec")
+    sources = ("fused_update", "codec", "robust")
     with ThreadPoolExecutor(len(sources)) as ex:      # one nvcc per source, together
         list(ex.map(build.build, sources))
     for name in sources:
         build.load(name)
-    log(f"[build] fused_update.cu (B1) and codec.cu (B4-B7) in parallel: "
+    log(f"[build] fused_update.cu (B1), codec.cu (B4-B7) and robust.cu (B8) in parallel: "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in sources) + ")")
 
     err = {"fused_flat_elastic_nag_update": check_b1(torch, fu, ref, dev)}
     err.update(check_codec(torch, ck, ref, codec_seeds, dev))
+    err[B8] = check_b8(torch, rb, ref, dev)
     ms8, plain8, bound8, by8 = time_b1(torch, fu, ref, dev, 8, bw, peak)
     ms4, plain4, bound4, _ = time_b1(torch, fu, ref, dev, 4, bw, peak)
     times = {"fused_flat_elastic_nag_update": dict(ms=ms8, plain_ms=plain8, library_ms=None,
@@ -503,13 +784,15 @@ def main():
                                                    ms_w4=ms4, plain_ms_w4=plain4,
                                                    bound_ms_w4=bound4)}
     times.update(time_codec(torch, ck, ref, codec_seeds, dev, bw, peak))
+    times[B8] = time_b8(torch, rb, ref, dev, bw, peak)
+    wire_ms = time_wire(torch, dev)
 
     train, test = load_mnist(num_train=25600, num_test=4000)
     launches = dict.fromkeys(KERNELS, 0)
     step_ms = {}
     for W, batch, codec in ((8, 16, None), (4, 32, None), (8, 16, "q8"), (8, 16, "topk")):
         got, step_ms[(W, codec)] = run_main_path(torch, train, test, W, batch, dev, fu, ck,
-                                                 codec)
+                                                 rb, codec)
         for kname, n in got.items():
             launches[kname] += n
     log("[main] median synchronised step at W=8, batch 16: "
@@ -517,6 +800,17 @@ def main():
                     for c in (None, "q8", "topk")))
     fused_vs_unfused(torch, train, dev)
     fused_vs_unfused(torch, train, dev, codec="q8")
+
+    register_drop_byzantine()
+    fault_ms = {}
+    for tag, method, fkw, codec in FAULT_RUNS:
+        got, fault_ms[tag] = run_fault_path(torch, train, dev, fu, ck, rb, tag, method, fkw, codec)
+        for kname, n in got.items():
+            launches[kname] += n
+    log("[faults] median synchronised step at W=8, batch 16, p 0.5: "
+        + ", ".join(f"{t} {ms:.3f} ms" for t, ms in fault_ms.items())
+        + f"; checksummed raw wire round trip {wire_ms['roundtrip_ms']:.4f} ms")
+    zero_fault_anchor(torch, train, dev)
 
     kernels = []
     for kname, (kid, source, replaces) in KERNELS.items():

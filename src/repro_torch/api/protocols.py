@@ -12,8 +12,12 @@ the engine composes them additively (§2.3).
 saturates at int32 max; ``comm_bytes`` is derived from it every update as
 ``(per_event / W) * units`` in f32, never accumulated, exactly as the
 reference does. With a codec (:mod:`repro_torch.comm`, pairwise protocols
-only) the per-event size is the codec's wire. Wire faults and the robust
-protocols come in later slices.
+only) the per-event size is the codec's wire. With a fault plane
+(:mod:`repro_torch.faults`) the engine hands ``comm_update`` a
+:class:`WireFaults`: the marked senders' wires are discarded at the mixing
+boundary, counted in ``wire_dropped``/``wire_corrupt``, and left out of
+``comm_units``/``comm_bytes`` (bytes count applied exchanges only). The
+robust protocols live in :mod:`repro_torch.api.robust`.
 """
 from __future__ import annotations
 
@@ -35,6 +39,28 @@ class ProtocolState(NamedTuple):
     comm_rounds: torch.Tensor     # int32: gossip rounds executed
     comm_units: torch.Tensor      # int32: cumulative worker participations
     comm_bytes: torch.Tensor      # f32: expected egress bytes/worker (derived)
+    # fault-plane counters: None unless a FaultConfig is given (the engine
+    # then seeds them to 0 at init)
+    wire_dropped: Optional[torch.Tensor] = None   # int32: wires lost in flight
+    wire_corrupt: Optional[torch.Tensor] = None   # int32: wires failing checksum
+
+
+class WireFaults(NamedTuple):
+    """Per-event wire-fault masks, computed by the engine (pure hashes of
+    (FaultConfig.seed, worker, step)) and handed to ``comm_update``, which
+    discards the marked senders' wires at the mixing boundary and keeps them
+    out of the byte accounting. Either mask may be None (that fault family
+    is not configured)."""
+    dropped: Optional[torch.Tensor] = None   # bool[W]: sender's wire lost in flight
+    corrupt: Optional[torch.Tensor] = None   # bool[W]: sender's wire failed checksum
+
+    def lost(self) -> Optional[torch.Tensor]:
+        """Combined bool[W] mask of senders whose wire must be discarded."""
+        if self.dropped is None:
+            return self.corrupt
+        if self.corrupt is None:
+            return self.dropped
+        return self.dropped | self.corrupt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,27 +170,37 @@ class Protocol:
                     theta_stack: dict, state: ProtocolState, step=None,
                     transmit: Optional[dict] = None,
                     wire_bytes: Optional[float] = None,
-                    peers: Optional[torch.Tensor] = None):
+                    peers: Optional[torch.Tensor] = None,
+                    wire_faults: Optional[WireFaults] = None):
         """Communication-related component on the stacked ``[W, ...]`` dict.
 
         Pairwise protocols mix via :meth:`mix_matrix` over ``peers`` (drawn
         from ``gen`` when not given); the mixing matmul always runs, also on
         a step where nobody fires (identity mix), as in the reference.
         ``wire_bytes`` is the exact per-replica wire size; flat-resident
-        callers pass it because their buffers carry lane padding. Returns
-        (theta', state'); theta' is a new dict of new tensors.
+        callers pass it because their buffers carry lane padding.
+        ``wire_faults`` carries the engine's fault masks: the lost senders'
+        wires are discarded (:func:`topology.discard_lost`, the receiver
+        keeps its own row for the undelivered share) and excluded from the
+        applied-exchange accounting. Returns (theta', state'); theta' is a
+        new dict of new tensors.
         """
         if not self.pairwise:
             return theta_stack, state
         if peers is None:
             peers = self.sample_peers(gen, active.shape[0])
         mix = self.mix_matrix(peers, active, step=step)
+        lost = wire_faults.lost() if wire_faults is not None else None
+        if lost is not None:
+            mix = topology.discard_lost(mix, lost)
         if transmit is None:
             theta_new = topology.apply_mix(mix, theta_stack)
         else:
             theta_new = topology.apply_mix_split(mix, theta_stack, transmit)
         rounds = state.comm_rounds + torch.any(active).to(torch.int32)
-        units, bytes_ = self._accrue_bytes(state, active, theta_stack, wire_bytes)
+        units, bytes_ = self._accrue_bytes(state, active, theta_stack, wire_bytes,
+                                           lost=lost)
+        state = self._count_wire_faults(state, active, wire_faults)
         return theta_new, state._replace(comm_rounds=rounds, comm_units=units,
                                          comm_bytes=bytes_)
 
@@ -200,16 +236,38 @@ class Protocol:
                           device=units.device) * units.float()
 
     def _accrue_bytes(self, state: ProtocolState, active: torch.Tensor,
-                      theta_stack: PyTree, wire_bytes: Optional[float] = None):
+                      theta_stack: PyTree, wire_bytes: Optional[float] = None,
+                      lost: Optional[torch.Tensor] = None):
         """(comm_units', comm_bytes'): the exact participation count plus the
-        derived per-worker egress."""
+        derived per-worker egress. ``lost`` (optional bool[W], the fault
+        plane's discard mask) removes dropped/corrupted wires from the count:
+        bytes accrue for applied exchanges only, and an all-false mask gives
+        the identical integer."""
         W = active.shape[0]
         if wire_bytes is None:
             wire_bytes = self.wire_stack_bytes(theta_stack)
         per_event = self.comm_cost(wire_bytes, W).bytes_per_event
-        engaged = torch.sum(active.to(torch.int32)).to(torch.int32)
-        units = _saturating_units_add(state.comm_units, engaged)
+        engaged = active.to(torch.int32)
+        if lost is not None:
+            engaged = engaged * (~lost).to(torch.int32)
+        units = _saturating_units_add(state.comm_units,
+                                      torch.sum(engaged).to(torch.int32))
         return units, self._derived_bytes(per_event, W, units)
+
+    def _count_wire_faults(self, state: ProtocolState, active: torch.Tensor,
+                           wire_faults: Optional[WireFaults]) -> ProtocolState:
+        """Accumulate the fault-plane counters among engaged senders."""
+        if wire_faults is None:
+            return state
+        upd = {}
+        for field, mask in (("wire_dropped", wire_faults.dropped),
+                            ("wire_corrupt", wire_faults.corrupt)):
+            if mask is not None:
+                base = getattr(state, field)
+                if base is None:
+                    base = torch.zeros((), dtype=torch.int32, device=active.device)
+                upd[field] = base + torch.sum((active & mask).to(torch.int32)).to(torch.int32)
+        return state._replace(**upd) if upd else state
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +293,7 @@ class AllReduceSGD(Protocol):
                         grads_stack)
 
     def comm_update(self, gen, active, theta_stack, state, step=None,
-                    transmit=None, wire_bytes=None, peers=None):
+                    transmit=None, wire_bytes=None, peers=None, wire_faults=None):
         # parameters untouched; the every-step ring all-reduce egress is
         # accounted so live runs expose the communication-cost gap
         W = active.shape[0]
@@ -280,7 +338,7 @@ class EASGD(Protocol):
         return deltas, centers
 
     def comm_update(self, gen, active, theta_stack, state, step=None,
-                    transmit=None, wire_bytes=None, peers=None):
+                    transmit=None, wire_bytes=None, peers=None, wire_faults=None):
         delta, center_new = self.center_step(theta_stack, state.center, active, step=step)
         theta_new = {k: theta_stack[k] + delta[k] for k in theta_stack}
         rounds = state.comm_rounds + torch.any(active).to(torch.int32)
@@ -330,3 +388,9 @@ class GossipingPush(PairwiseGossip):
 
     def mix_matrix(self, peers, active, step=None):
         return topology.gossip_push_mix(peers, active)
+
+
+# The robust mixing protocols (clipped_gossip / trimmed_gossip) live in their
+# own module but register into the same registry; importing here keeps
+# "import repro_torch.api" sufficient for name resolution.
+from repro_torch.api import robust as _robust  # noqa: E402,F401

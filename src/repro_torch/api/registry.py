@@ -34,7 +34,7 @@ def register_protocol(name: str) -> Callable[[type], type]:
 
 def _ensure_builtins() -> None:
     # the built-in protocol classes register themselves on import
-    from repro_torch.api import protocols  # noqa: F401
+    from repro_torch.api import protocols, robust  # noqa: F401
 
 
 def available_protocols() -> Tuple[str, ...]:

@@ -55,7 +55,9 @@ class GossipTrainer:
     the paper), ``loss_fn(params, x, y)`` for one worker, ``num_workers``,
     ``init_fn(generator) -> params`` (optional), ``fused_update`` (kernel B1
     on pairwise + NAG), ``device``, ``codec`` (a registered codec name that
-    overrides ``protocol.codec``: "q8" or "topk" compress the gossip wire).
+    overrides ``protocol.codec``: "q8" or "topk" compress the gossip wire),
+    ``faults`` (a :class:`~repro_torch.common.config.FaultConfig`: the
+    message-level fault plane of :mod:`repro_torch.faults`).
     """
 
     def __init__(self, *, engine: str = "sim", protocol: ProtocolConfig,

@@ -1,8 +1,8 @@
 """Configuration dataclasses read by the port's sim path.
 
-Copies of ``ProtocolConfig`` and ``OptimizerConfig`` from the reference
-(``repro.common.config``) with the same fields and defaults, so one set of
-knobs configures both packages.
+Copies of ``ProtocolConfig``, ``OptimizerConfig`` and ``FaultConfig`` from
+the reference (``repro.common.config``) with the same fields and defaults,
+so one set of knobs configures both packages.
 """
 from __future__ import annotations
 
@@ -27,10 +27,10 @@ class ProtocolConfig:
     codec: str = "none"
     codec_block: int = 512
     codec_topk_frac: float = 0.05
-    # robust mixing knobs (clipped_gossip / trimmed_gossip, not ported yet)
-    robust_clip: float = 0.1
-    robust_trim: float = 6.0
-    stale_adapt: float = 0.0
+    # robust mixing knobs (clipped_gossip / trimmed_gossip)
+    robust_clip: float = 0.1         # clipped: max displacement / own row norm
+    robust_trim: float = 6.0         # trimmed: coordinate cap in units of row RMS
+    stale_adapt: float = 0.0         # staleness-adaptive alpha (async engine only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,3 +48,32 @@ class OptimizerConfig:
     decay_steps: int = 0
     step_anneal_at: Tuple[int, ...] = ()
     step_anneal_factor: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Message-level fault plane (:mod:`repro_torch.faults`).
+
+    Selects a registered fault model (what goes wrong with a wire) and a
+    registered delay model (when the wire arrives). All stochastic draws are
+    pure hashes of ``(seed, worker, step)``, so a fault trace is
+    bit-reproducible and independent of any host RNG. The delay, rendezvous,
+    timeout and retry fields are read only by the async engine, which is not
+    ported yet; they are kept so that one config drives both packages.
+    """
+    # fault model: none | drop | corrupt | byzantine_scale | byzantine_noise
+    # | any @register_fault_model name
+    fault_model: str = "none"
+    fault_rate: float = 0.0          # drop/corrupt: per-(sender, step) probability
+    fault_frac: float = 0.0          # byzantine_*: fraction of fleet that is
+    #                                  Byzantine (first round(frac*W) workers)
+    scale: float = 100.0             # byzantine_scale: garbage multiplier
+    noise_std: float = 1.0           # byzantine_noise: garbage row std
+    seed: int = 0                    # hash-seed for per-(worker, step) draws
+    # delay model (async engine): none | constant | uniform | lognormal
+    delay_model: str = "none"
+    delay: float = 0.0               # mean wire latency (virtual seconds)
+    delay_sigma: float = 0.25        # lognormal: log-space std
+    rendezvous: bool = False         # apply at the partner's next step boundary
+    timeout: float = 0.0             # per-exchange timeout (0 = never)
+    max_retries: int = 0             # re-dispatches of a timed-out exchange

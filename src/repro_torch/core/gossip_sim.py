@@ -18,15 +18,25 @@ With a codec (:mod:`repro_torch.comm`, ``ProtocolConfig(codec="q8" |
 B6/B7 on the card, once per bucket on every step (see
 :meth:`SimTrainer._codec_transmit`).
 
+With a fault plane (``faults=FaultConfig(...)``, :mod:`repro_torch.faults`)
+the wire boundary of the step injects the fault model's faults: Byzantine
+rows garble what they publish, corrupted wires go through the checksummed
+uint8 wire and fail verification, and the drop and corrupt masks reach
+``comm_update`` as a :class:`~repro_torch.api.protocols.WireFaults`, which
+discards those wires. Every mask is a hash of the device step counter: no
+host sync. The robust protocols (``clipped_gossip``/``trimmed_gossip``)
+run kernel B8 inside their ``comm_update``.
+
 The step updates ``state.theta`` and ``state.opt.mu`` IN PLACE (the
 reference donates the state to its jitted step instead) and advances the
 state's generator.
 
-Not ported yet, and refused with NotImplementedError: faults (slice 3),
-fleet, shard, the async engine's worker mask (slice 4), and obs (slice 6).
+Not ported yet, and refused with NotImplementedError: fleet, shard, the
+async engine's worker mask (slice 4), and obs (slice 6).
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -75,7 +85,6 @@ class SimTrainer:
     def __init__(self, loss_fn: Callable, num_workers: int,
                  protocol: ProtocolConfig, optimizer: OptimizerConfig,
                  fused_update: bool = True, faults=None, fleet=None, shard=None):
-        _refuse("faults", faults, "port slice 3")
         _refuse("fleet", fleet, "port slice 4")
         _refuse("shard", shard, "port slice 4")
         self.loss_fn = loss_fn
@@ -91,6 +100,30 @@ class SimTrainer:
         # gossip-compression codec: pairwise protocols only (enforced by
         # Protocol.__init__); None when cfg.codec == "none"
         self.codec = comm.active_codec(protocol)
+        # message-level fault plane: hash-seeded drop/corrupt masks and
+        # Byzantine garbling at the wire boundary; None adds no work
+        self.faults = faults
+        self.fault_model = None
+        if faults is not None:
+            from repro_torch.faults import resolve_fault_model
+            self.fault_model = resolve_fault_model(faults)
+        # a registered protocol may override comm_update without the
+        # wire_faults kwarg; one that discards wires then cannot honour the
+        # fault plane, so it is refused here rather than over-counted later
+        try:
+            params = inspect.signature(self._impl.comm_update).parameters.values()
+            self._pass_wire_faults = any(
+                p.name == "wire_faults" or p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params)
+        except (TypeError, ValueError):
+            self._pass_wire_faults = False
+        fm = self.fault_model
+        if (fm is not None and (fm.injects_drop or fm.injects_corrupt)
+                and self._impl.pairwise and not self._pass_wire_faults):
+            raise ValueError(
+                f"fault model {fm.name!r} discards wires, but protocol "
+                f"{protocol.method!r} overrides comm_update without a "
+                "wire_faults kwarg — it cannot honor the discard")
 
     def _wire_bytes(self, spec: flat_plane.FlatSpec) -> float:
         """Exact per-replica wire bytes: raw, the unpadded slot sizes (the
@@ -108,20 +141,28 @@ class SimTrainer:
         dev = next(iter(theta.values())).device
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
+        proto = self._impl.init_state(theta)
+        if self.fault_model is not None:
+            # seed the fault counters so the state's fields are stable
+            # across steps (comm_update replaces them)
+            proto = proto._replace(
+                wire_dropped=torch.zeros((), dtype=torch.int32, device=dev),
+                wire_corrupt=torch.zeros((), dtype=torch.int32, device=dev))
         return FlatState(
             spec=spec,
             theta=theta,
             opt=self.optimizer.init(theta),
-            proto=self._impl.init_state(theta),
+            proto=proto,
             comm=comm.init_comm_state(self.codec, theta),
             key=gen,
             step=torch.zeros((), dtype=torch.int32, device=dev))
 
-    def _codec_transmit(self, state: FlatState, active: torch.Tensor):
-        """decode(encode(theta)) on the resident plane: what peers RECEIVE
-        this round, plus the advanced error-feedback residual. Seeds derive
-        from (comm round counter before this step, worker index), as in the
-        reference.
+    def _codec_transmit(self, state: FlatState, active: torch.Tensor, publish=None):
+        """decode(encode(publish)) on the resident plane: what peers RECEIVE
+        this round, plus the advanced error-feedback residual. ``publish``
+        is what the workers put on the wire (``state.theta``, or the fault
+        model's Byzantine garbling of it). Seeds derive from (comm round
+        counter before this step, worker index), as in the reference.
 
         The reference skips the pass with ``lax.cond`` when nobody fires;
         here it runs on every step, since branching on ``active.any()``
@@ -131,14 +172,101 @@ class SimTrainer:
         for rows whose own gate fired (``roundtrip_bufs(gate=)``), so it is
         carried unchanged. Returns (transmit, CommState')."""
         codec = self.codec
+        if publish is None:
+            publish = state.theta
         seeds = comm.codec_seeds(state.proto.comm_rounds,
                                  torch.arange(self.num_workers, device=active.device))
         res = state.comm.residual if codec.stateful else None
-        hat, new_res = comm.roundtrip_bufs(codec, state.theta, seeds, res,
+        hat, new_res = comm.roundtrip_bufs(codec, publish, seeds, res,
                                            gate=active.reshape(-1, 1))
         # decode reconstructs in f32; the wire mixes in the storage dtype
         hat = {k: v.to(state.theta[k].dtype) for k, v in hat.items()}
         return hat, (comm.CommState(new_res) if codec.stateful else state.comm)
+
+    def _codec_transmit_checked(self, state: FlatState, active: torch.Tensor,
+                                publish, corrupt_mask: torch.Tensor):
+        """:meth:`_codec_transmit` through the PACKED uint8 wire with a
+        checksum tail and in-flight corruption: per bucket (sorted order,
+        salt ``SALT_BYTE + i``), encode -> pack -> append checksum ->
+        corrupt -> verify -> unpack -> decode. Returns (transmit,
+        CommState', ok bool[W]); rows failing verification are zeroed (the
+        mix discards them; zeroing keeps NaN bytes out of the matmul).
+
+        Like :meth:`_codec_transmit` it runs on every step, where the
+        reference skips it with ``lax.cond`` when nobody fires. On such a
+        step the result cannot differ: the identity mix ignores the
+        transmit, ``discard_lost`` of the identity is the identity, the
+        residual advances only for fired rows, and the fault counters count
+        only ``active & mask``, so a corrupted row that nobody engaged adds
+        nothing."""
+        from repro_torch.faults import wire as fwire
+        from repro_torch.faults.models import SALT_BYTE
+        codec = self.codec
+        if publish is None:
+            publish = state.theta
+        seeds = comm.codec_seeds(state.proto.comm_rounds,
+                                 torch.arange(self.num_workers, device=active.device))
+        gate = active.reshape(-1, 1)
+        res_bufs = (state.comm.residual if codec.stateful else None) or {}
+        hat, new_res, ok = {}, {}, None
+        for i, k in enumerate(sorted(publish)):
+            b = publish[k]
+            r = res_bufs.get(k)
+            if r is None and codec.stateful:
+                r = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+            wire_arrays, r2 = codec.encode(b, seeds, r)
+            packed = fwire.append_checksum(codec.pack(wire_arrays))
+            packed = fwire.corrupt_wire(packed, corrupt_mask, self.faults.seed,
+                                        state.step, SALT_BYTE + i)
+            payload, ok_b = fwire.verify_strip(packed)
+            dec = codec.decode(codec.unpack(payload, b.shape[1]), b.shape[1])
+            dec = torch.where(ok_b[:, None], dec, torch.zeros((), dtype=dec.dtype,
+                                                              device=dec.device))
+            hat[k] = dec.to(state.theta[k].dtype)
+            ok = ok_b if ok is None else ok & ok_b
+            if codec.stateful:
+                new_res[k] = torch.where(gate, r2, r)
+        comm_new = comm.CommState(new_res) if codec.stateful else state.comm
+        return hat, comm_new, ok
+
+    def _wire_faults(self, state: FlatState, active: torch.Tensor):
+        """The wire boundary of a step under a fault plane: Byzantine rows
+        garble what they publish, corrupted wires cross the checksummed
+        uint8 wire, drop and corrupt masks are hashes of the device step
+        counter. Returns (transmit or None, CommState', WireFaults or
+        None)."""
+        from repro_torch.api.protocols import WireFaults
+        fm, W = self.fault_model, self.num_workers
+        publish = corrupt_mask = dropped = detected = None
+        if fm.injects_byzantine and fm.num_byzantine(W) > 0:
+            publish = fm.garble_bufs(state.theta, state.step, W)
+        if fm.injects_corrupt:
+            corrupt_mask = fm.corrupt_mask_dev(state.step, W)
+        if fm.injects_drop:
+            dropped = fm.drop_mask_dev(state.step, W)
+
+        comm_new = state.comm
+        if self.codec is not None:
+            if corrupt_mask is not None:
+                transmit, comm_new, ok = self._codec_transmit_checked(
+                    state, active, publish, corrupt_mask)
+                detected = ~ok
+            else:
+                transmit, comm_new = self._codec_transmit(state, active, publish)
+        elif corrupt_mask is not None:
+            # uncompressed wire: bitcast -> checksum -> corrupt -> verify
+            from repro_torch.faults import wire as fwire
+            transmit, ok = fwire.corrupt_roundtrip_bufs(
+                publish if publish is not None else state.theta,
+                corrupt_mask, self.faults.seed, state.step)
+            detected = ~ok
+        else:
+            # Byzantine garbage (or nothing) rides the uncompressed wire
+            transmit = publish
+        wire_faults = None
+        if dropped is not None or detected is not None:
+            wire_faults = WireFaults(dropped=dropped, corrupt=detected)
+        return transmit, comm_new, wire_faults
 
     # -- one synchronous step across all workers ---------------------------
     def _grads(self, state: FlatState, x, y):
@@ -180,14 +308,17 @@ class SimTrainer:
 
             # communication-related component (lines 4-8), one mixing matmul
             # per dtype bucket on the resident buffers; peers read the
-            # codec's reconstruction when a codec rides the wire
-            transmit, comm_new = None, state.comm
-            if self.codec is not None:
+            # codec's reconstruction when a codec rides the wire, and the
+            # fault plane garbles, corrupts or drops wires at this boundary
+            transmit, comm_new, wire_faults = None, state.comm, None
+            if self.fault_model is not None:
+                transmit, comm_new, wire_faults = self._wire_faults(state, active)
+            elif self.codec is not None:
                 transmit, comm_new = self._codec_transmit(state, active)
             theta_comm, proto_new = protocols.comm_update(
                 cfg, state.key, active, state.theta, state.proto, step=state.step,
                 transmit=transmit, wire_bytes=self._wire_bytes(state.spec),
-                peers=peers)
+                peers=peers, wire_faults=wire_faults)
             return self._step_epilogue(state, theta_comm, proto_new, comm_new,
                                        grads, losses, active)
 

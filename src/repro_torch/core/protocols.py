@@ -30,11 +30,14 @@ def gradient_transform(cfg: ProtocolConfig, grads_stack: PyTree) -> PyTree:
 
 def comm_update(cfg: ProtocolConfig, gen, active, theta_stack: PyTree,
                 state: ProtocolState, step=None, transmit=None, wire_bytes=None,
-                peers=None):
-    """Communication-related component on stacked params [W, ...]."""
+                peers=None, wire_faults=None):
+    """Communication-related component on stacked params [W, ...].
+    ``wire_faults`` is forwarded only when set, so a registered protocol
+    whose ``comm_update`` predates the fault plane keeps working."""
+    kw = {} if wire_faults is None else {"wire_faults": wire_faults}
     return registry.resolve(cfg).comm_update(gen, active, theta_stack, state,
                                              step=step, transmit=transmit,
-                                             wire_bytes=wire_bytes, peers=peers)
+                                             wire_bytes=wire_bytes, peers=peers, **kw)
 
 
 def comm_cost(cfg: ProtocolConfig, param_bytes: int, num_workers: int) -> CommCost:

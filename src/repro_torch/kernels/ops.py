@@ -1,10 +1,11 @@
 """Dispatch for the port's kernels (port of ``repro.kernels.ops``: the fused
-update B1 and the codecs B4-B7).
+update B1, the codecs B4-B7 and the robust apply B8).
 
 A CUDA tensor always goes to the hand-written kernel, which launches or
 raises. A CPU tensor goes to the plain version in :mod:`ref`, whose result
 is copied back into theta and v so that both devices share one in-place
-contract (the codec entry points return new tensors on both devices).
+contract (the codec and robust entry points return new tensors on both
+devices).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
+from repro_torch.kernels import robust as _robust
 
 
 def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
@@ -34,6 +36,22 @@ def fused_bufs_elastic_nag(theta_bufs, peer_bufs, v_bufs, g_bufs, coef, eta, mu)
         fused_flat_elastic_nag_update(theta_bufs[k], peer_bufs[k], v_bufs[k],
                                       g_bufs[k], coef, eta, mu)
     return theta_bufs, v_bufs
+
+
+def robust_flat_apply(theta, delta, scale, thr):
+    """[W, N] robust displacement apply ``theta + scale * trim(delta, thr)``
+    into a NEW tensor in theta's dtype (theta is never written); ``delta``
+    f32, ``scale``/``thr`` scalars or [W]."""
+    if theta.device.type == "cpu":
+        return ref.robust_flat_apply(theta, delta, scale, thr)
+    return _robust.robust_flat_apply(theta, delta, scale, thr)
+
+
+def robust_bufs_apply(theta_bufs, delta_bufs, scale, thr):
+    """Per-dtype-bucket dispatch of :func:`robust_flat_apply` over flat-buffer
+    dicts: the robust protocols' comm hot path. Returns a new dict."""
+    return {k: robust_flat_apply(theta_bufs[k], delta_bufs[k], scale, thr)
+            for k in theta_bufs}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets, port
-of ``repro.kernels.ref``). Pure functions: they return new tensors."""
+of ``repro.kernels.ref``): B1, B8 and the codecs B4-B7. Pure functions:
+they return new tensors."""
 from __future__ import annotations
 
 import torch
@@ -31,6 +32,22 @@ def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
     v_new = m * vf - eg
     theta_new = tf - c * (tf - pf) - eg + m * v_new
     return theta_new.to(theta.dtype), v_new.to(v.dtype)
+
+
+def robust_flat_apply(theta, delta, scale, thr):
+    """Robust-gossip displacement apply on ``[W, N]`` buffers (B8's plain
+    version): ``theta + scale * (delta * keep)`` in f32 with ``keep = 1.0``
+    where ``|delta| <= thr`` and ``0.0`` elsewhere, MULTIPLIED (not
+    selected), so a trimmed inf or NaN gives NaN and a trimmed coordinate
+    adds +0.0, as in the reference. ``scale``/``thr`` are scalars or [W]
+    (``thr = +inf`` turns the trim off). Returns a new tensor in theta's
+    dtype."""
+    W, dev = theta.shape[0], theta.device
+    s, t = _per_replica(scale, W, dev), _per_replica(thr, W, dev)
+    df = delta.to(torch.float32)
+    keep = (torch.abs(df) <= t).to(torch.float32)
+    out = theta.to(torch.float32) + s * (df * keep)
+    return out.to(theta.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +146,18 @@ def topk_encode(buf, residual, *, k: int, block: int):
 def topk_decode(values, idx, n: int, *, k: int, block: int):
     """Inverse of :func:`topk_encode`: the kept (value, index) pairs summed
     into a zero block (a kept -0.0 decodes to +0.0, as in the reference)
-    -> [W, n] float32."""
+    -> [W, n] float32. An index outside the block (only a corrupted wire
+    carries one) matches no column and is dropped, as in the kernel and the
+    reference's one-hot sum."""
     W = values.shape[0]
     nb = values.shape[1] // k
+    i = idx.reshape(W, nb, k).to(torch.int64)
+    v = values.to(torch.float32).reshape(W, nb, k)
+    valid = (i >= 0) & (i < block)
+    # a dropped pair adds +0.0 to column 0, which leaves every sum as it is
+    # (columns sum from +0.0, so none holds -0.0)
+    i = torch.where(valid, i, torch.zeros_like(i))
+    v = torch.where(valid, v, torch.zeros_like(v))
     dense = torch.zeros((W, nb, block), dtype=torch.float32, device=values.device)
-    dense.scatter_add_(-1, idx.reshape(W, nb, k).to(torch.int64),
-                       values.to(torch.float32).reshape(W, nb, k))
+    dense.scatter_add_(-1, i, v)
     return dense.reshape(W, nb * block)[:, :n]

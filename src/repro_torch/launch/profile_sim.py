@@ -1,17 +1,26 @@
 """Where one sim step's time goes on the card: the main path
 (GossipTrainer(engine="sim", method="elastic_gossip"), NAG, the §4.1 MLP at
-full width) under ``torch.profiler``.
+full width) under ``torch.profiler``, or the same run with another
+protocol, a codec or a fault plane.
 
     python -m repro_torch.launch.profile_sim [--workers 8] [--batch 16] [--steps 10]
                                              [--codec none|q8|topk]
+                                             [--method clipped_gossip] [--p 0.5]
+                                             [--fault-model drop_byzantine]
+                                             [--fault-rate 0.2] [--fault-frac 0.125]
+
+``--method``, ``--p`` and the ``--fault-*`` flags mirror the reference's
+``launch.train``; a FaultConfig is built only when ``--fault-model`` is not
+"none". ``drop_byzantine`` is the reference's benchmarks/faults.py
+composite (drop and Byzantine noise at once), registered here on demand.
 
 Prints the synchronised step time, the device-busy share of the profiled
 window (the union of kernel intervals over the span from the first kernel's
 start to the last one's end), and the kernels by total device time, then one
 JSON line with the same numbers. Kernel names are grouped into the step's
 phases: the model's gradients (vmapped matmuls, softmax and reductions), the
-mixing matmul, kernel B1, the codec kernels B4-B7 (with ``--codec``) and the
-rest.
+mixing matmul, kernel B1, the codec kernels B4-B7 (with ``--codec``),
+kernel B8 (with a robust ``--method``) and the rest.
 """
 from __future__ import annotations
 
@@ -26,7 +35,18 @@ import torch
 FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
 
 
-def _trainer(W: int, device, codec: str = "none"):
+def _ensure_drop_byzantine() -> None:
+    from repro_torch.faults import available_fault_models, register_fault_model
+    from repro_torch.faults.models import ByzantineNoise, DropFault
+    if "drop_byzantine" not in available_fault_models():
+        @register_fault_model("drop_byzantine")
+        class DropByzantine(ByzantineNoise, DropFault):
+            """fault_rate of wires dropped + the first round(fault_frac*W)
+            workers publishing noise rows."""
+
+
+def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip",
+             p: float = 0.125, faults=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -35,10 +55,10 @@ def _trainer(W: int, device, codec: str = "none"):
         return simple.xent_loss(simple.mlp_logits(prm, x), y)
 
     return GossipTrainer(
-        protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
-                                comm_probability=0.125, topology="uniform"),
+        protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
+                                topology="uniform"),
         optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
-        loss_fn=loss_fn, num_workers=W, device=device, codec=codec,
+        loss_fn=loss_fn, num_workers=W, device=device, codec=codec, faults=faults,
         init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
 
 
@@ -58,13 +78,22 @@ def _busy_us(intervals):
 
 
 def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
-            codec: str = "none") -> dict:
+            codec: str = "none", method: str = "elastic_gossip", p: float = 0.125,
+            fault_model: str = "none", fault_rate: float = 0.0,
+            fault_frac: float = 0.0) -> dict:
+    from repro_torch.common.config import FaultConfig
     from repro_torch.data.partition import batches_for_step, partition_iid
     from repro_torch.data.synthetic import load_mnist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    trainer = _trainer(W, device, codec)
+    faults = None
+    if fault_model != "none":
+        if fault_model == "drop_byzantine":
+            _ensure_drop_byzantine()
+        faults = FaultConfig(fault_model=fault_model, fault_rate=fault_rate,
+                             fault_frac=fault_frac)
+    trainer = _trainer(W, device, codec, method, p, faults)
     dev = trainer.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     train, _ = load_mnist(num_train=25600, num_test=10)
@@ -102,6 +131,8 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
+        "method": method, "p": p, "fault_model": fault_model, "fault_rate": fault_rate,
+        "fault_frac": fault_frac,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "step_ms_median": statistics.median(step_s) * 1e3,
         "kernel_launches_per_step": len(kernels) / steps,
@@ -117,6 +148,8 @@ def _phase(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "fused_flat_elastic_nag" in n:
         return "B1 fused update"
+    if "robust_flat_apply" in n:
+        return "B8 robust apply"
     if any(k in n for k in ("q8_encode", "q8_decode", "topk_encode", "topk_decode")):
         return "B4-B7 codec"
     if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n or "matmul" in n:
@@ -135,9 +168,19 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--codec", default="none", help="wire codec: none, q8 or topk")
+    ap.add_argument("--method", default="elastic_gossip",
+                    help="registered protocol, e.g. clipped_gossip or trimmed_gossip")
+    ap.add_argument("--p", type=float, default=0.125, help="comm probability per worker")
+    ap.add_argument("--fault-model", default="none",
+                    help="none, drop, corrupt, byzantine_scale, byzantine_noise or "
+                         "drop_byzantine")
+    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--fault-frac", type=float, default=0.0)
     a = ap.parse_args(argv)
-    r = profile(a.workers, a.batch, a.steps, a.device, a.codec)
-    print(f"W={r['workers']} batch={r['batch_per_worker']} codec={r['codec']}: median step "
+    r = profile(a.workers, a.batch, a.steps, a.device, a.codec, a.method, a.p,
+                a.fault_model, a.fault_rate, a.fault_frac)
+    print(f"W={r['workers']} batch={r['batch_per_worker']} codec={r['codec']} "
+          f"method={r['method']} p={r['p']} faults={r['fault_model']}: median step "
           f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
           f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "
           f"{r['device_busy_share']}")

@@ -1,6 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: kernels B1 and B4-B7 against
-their plain versions on the card, and the sim engine launching them (B1
-once per step; with a codec, its encode and decode kernels once per step).
+"""Tests of the port that need an NVIDIA GPU: kernels B1, B4-B7 and B8
+against their plain versions on the card, and the sim engine launching them
+(B1 once per step; with a codec, its encode and decode kernels once per
+step; with a robust protocol, B8 once per step).
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,6 +16,7 @@ from repro_torch.kernels import codec as tcodec  # noqa: E402
 from repro_torch.kernels import fused_update as tfu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import robust as trobust  # noqa: E402
 
 # Both sides round the same f32 formula in the same order (the kernel uses
 # non-contracting _rn intrinsics), so the error is expected to be 0; the
@@ -185,3 +187,122 @@ def test_sim_codec_step_launches_its_kernels_once_per_step(cuda, codec):
     assert torch.isfinite(m["loss"])
     if codec == "topk":
         assert bool(torch.isfinite(st.comm.residual["float32"]).all())
+
+
+# ---------------------------------------------------------------------------
+# B8: the robust apply, byte-equal to its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n", [(8, 35968 * 3), (4, 1000), (3, 1001), (1, 1)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["clipped", "trimmed", "scalar"])
+def test_b8_matches_plain_version_byte_for_byte(cuda, W, n, tdt, kind):
+    g = torch.Generator(device=cuda).manual_seed(W * 7 + n)
+    t = torch.randn(W, n, generator=g, device=cuda).to(tdt)
+    d = 3 * torch.randn(W, n, generator=g, device=cuda)
+    scale, thr = {"clipped": (torch.rand(W, generator=g, device=cuda),
+                              torch.full((W,), float("inf"), device=cuda)),
+                  "trimmed": (torch.ones(W, device=cuda),
+                              0.5 + torch.rand(W, generator=g, device=cuda)),
+                  "scalar": (0.37, 1.25)}[kind]
+    t0 = t.clone()
+    launches = trobust.LAUNCHES
+    got = ops.robust_flat_apply(t, d, scale, thr)
+    torch.cuda.synchronize()
+    assert trobust.LAUNCHES == launches + 1
+    want = tref.robust_flat_apply(t, d, scale, thr)
+    assert got.dtype == tdt and torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(t), _bits(t0))
+
+
+@pytest.mark.cuda
+def test_b8_specials_follow_the_multiply(cuda):
+    """+-inf, NaN and -0.0 in delta, -0.0 in theta: byte-equal to the plain
+    version; a NaN stays NaN, a trimmed inf gives NaN, a trimmed coordinate
+    on theta = -0.0 gives +0.0."""
+    t = torch.randn(4, 1024, device=cuda)
+    d = 3 * torch.randn(4, 1024, device=cuda)
+    t[:, :8] = -0.0
+    d[:, 0], d[:, 1], d[:, 2], d[:, 3] = float("inf"), float("-inf"), float("nan"), 5.0
+    thr = torch.tensor([float("inf"), 1.0, 0.1, 3.0], device=cuda)
+    got = trobust.robust_flat_apply(t, d, torch.full((4,), 0.5, device=cuda), thr)
+    want = tref.robust_flat_apply(t, d, torch.full((4,), 0.5, device=cuda), thr)
+    assert torch.equal(_bits(got), _bits(want))
+    g = got.cpu()
+    assert torch.isposinf(g[0, 0]) and torch.isnan(g[1, 0]) and bool(torch.isnan(g[:, 2]).all())
+    assert float(g[2, 3]) == 0.0 and not bool(torch.signbit(g[2, 3]))
+
+
+@pytest.mark.cuda
+def test_b8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    t = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        trobust.robust_flat_apply(t.T.contiguous().T, t, 1.0, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        trobust.robust_flat_apply(torch.zeros((2, 512), device=cuda)[:, :256], t, 1.0, 1.0)
+    with pytest.raises(ValueError, match="delta must be float32"):
+        trobust.robust_flat_apply(t, t.bfloat16(), 1.0, 1.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        trobust.robust_flat_apply(t.double(), t, 1.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trobust.robust_flat_apply(t, t.cpu(), 1.0, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["clipped_gossip", "trimmed_gossip"])
+def test_sim_robust_step_launches_b8_and_b1_once_per_step(cuda, method):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import FaultConfig, ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(p, x, y):
+        return simple.xent_loss(simple.mlp_logits(p, x), y)
+
+    tr = GossipTrainer(protocol=ProtocolConfig(method=method, comm_probability=0.5,
+                                               topology="uniform"),
+                       loss_fn=loss_fn, num_workers=4, device=cuda,
+                       faults=FaultConfig(fault_model="drop", fault_rate=0.2),
+                       init_fn=lambda g: simple.init_mlp(g, 784, 64, 2, 10)[0])
+    st = tr.init_state(0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 16, 784, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (4, 16), generator=gen, device=cuda)
+    b8, b1 = trobust.LAUNCHES, tfu.LAUNCHES
+    for _ in range(5):
+        st, m = tr.step(st, (x, y))
+    torch.cuda.synchronize()
+    assert trobust.LAUNCHES == b8 + 5 and tfu.LAUNCHES == b1 + 5
+    assert torch.isfinite(m["loss"]) and bool(torch.isfinite(st.theta["float32"]).all())
+    assert int(st.proto.wire_dropped) >= 0 and st.proto.wire_corrupt is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["none", "q8"])
+def test_sim_corrupt_wire_detects_every_corruption(cuda, codec):
+    """Under corrupt 0.5 with every gate open, each step's wire_corrupt
+    increment is exactly the number of corrupted rows."""
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import FaultConfig, ProtocolConfig
+    from repro_torch.faults.models import SALT_CORRUPT, bernoulli_np
+    from repro_torch.models import simple
+    import numpy as np
+
+    def loss_fn(p, x, y):
+        return simple.xent_loss(simple.mlp_logits(p, x), y)
+
+    tr = GossipTrainer(protocol=ProtocolConfig(comm_probability=1.0, topology="uniform"),
+                       codec=codec, loss_fn=loss_fn, num_workers=4, device=cuda,
+                       faults=FaultConfig(fault_model="corrupt", fault_rate=0.5, seed=9),
+                       init_fn=lambda g: simple.init_mlp(g, 784, 64, 2, 10)[0])
+    st = tr.init_state(0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 16, 784, generator=gen, device=cuda)
+    y = torch.randint(0, 10, (4, 16), generator=gen, device=cuda)
+    want = 0
+    for step in range(6):
+        st, m = tr.step(st, (x, y))
+        want += int(bernoulli_np(9, np.arange(4), step, 0.5, SALT_CORRUPT).sum())
+    assert int(st.proto.wire_corrupt) == want > 0
+    assert int(st.proto.comm_units) == 6 * 4 - want
+    assert bool(torch.isfinite(st.theta["float32"]).all())

@@ -261,12 +261,19 @@ def test_unported_features_refuse():
     tr = TTrainer(protocol=TProto(comm_probability=0.5, codec="q8"), loss_fn=_tloss,
                   num_workers=2, device="cpu")
     assert tr.codec is not None and tr.codec.name == "q8" and tr.sim.codec is tr.codec
+    # the fault plane is ported (slice 3): faults=FaultConfig(...) now builds
+    from repro_torch.common.config import FaultConfig as TFault
+    tr = TTrainer(protocol=TProto(method="clipped_gossip", comm_probability=0.5),
+                  loss_fn=_tloss, num_workers=2, device="cpu",
+                  faults=TFault(fault_model="drop", fault_rate=0.2))
+    assert tr.sim.fault_model.name == "drop" and tr.sim.faults.fault_rate == 0.2
     with pytest.raises(NotImplementedError, match="slice 5"):
         TTrainer(engine="dist", protocol=TProto(comm_probability=0.5),
                  loss_fn=_tloss, num_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss,
-                 num_workers=2, device="cpu", faults=object())
+    for name in ("fleet", "shard"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss,
+                     num_workers=2, device="cpu", **{name: object()})
 
 
 def test_cuda_request_without_a_card_raises():
