@@ -8,8 +8,8 @@ prints no result line):
 
 1. build   — the card's name and power limit, then the kernel sources built
              with nvcc for sm_90a into ``build/repro_torch/``, one nvcc per
-             source, all started together: B1 (``fused_update.cu``), B4-B7
-             (``codec.cu``) and B8 (``robust.cu``);
+             source, all started together: B1-B3 (``fused_update.cu``),
+             B4-B7 (``codec.cu``) and B8 (``robust.cu``);
 2. kernels — B1 held against its plain PyTorch version on the card at the
              main path's shapes ([8, 2913408], [4, 2913408] f32), a ragged
              N=1000 and bf16 / bf16+f32-velocity storage, scalar and [W] coef,
@@ -20,10 +20,16 @@ prints no result line):
              byte for byte against its plain version at [8, 2913408] with
              [W] scale and thr = +inf (clipped) or finite [W] thr (trimmed),
              scalar scale and thr, a ragged [4, 1000], bf16 theta, and a
-             delta holding +-inf, NaN and -0.0 beside a theta of -0.0; then
-             every kernel and its plain version timed with CUDA events
-             (median of 60 launches) beside its bound, and the fault plane's
-             checksummed wire round trip timed at the main path's plane;
+             delta holding +-inf, NaN and -0.0 beside a theta of -0.0; B2
+             (pure NAG, in place) byte for byte at [8, 2913408] and
+             [4, 2913408] f32, bf16 theta with f32 v, bf16 with bf16 v, a
+             ragged [4, 1000], eta/mu as device scalars, its outputs
+             aliasing its inputs; B3 (the per-array update) byte for byte at
+             [1024, 1000] f32 and bf16 with a scalar coef_gate, its inputs
+             unwritten; then every kernel and its plain version timed with
+             CUDA events (median of 60 launches) beside its bound, and the
+             fault plane's checksummed wire round trip timed at the main
+             path's plane;
 3. main    — GossipTrainer(engine="sim", method="elastic_gossip") with NAG on
              the §4.1 MLP at full width (784 -> 3x1024 -> 10, random weights
              from a seed) over the synthetic MNIST stand-in, 50 steps each,
@@ -55,6 +61,25 @@ prints no result line):
              honest workers' rows must be finite. Then the zero-fault
              anchor: FaultConfig(drop, rate 0) must reproduce the
              fault-free elastic_gossip run bit for bit on the same draws.
+5. dist    — GossipTrainer(engine="dist"): 8 processes, one per gossip
+             worker, all on this card, joined by gloo
+             (``repro_torch.launch.dist_run``), the §4.1 MLP at full width
+             from the same random weights, batch 16 per worker, p 0.125,
+             alpha 0.5, random matchings, 50 steps each: elastic_gossip
+             uncompressed, with codec="q8", and allreduce. The parent
+             replays the host schedule (GossipSchedule from seed + 1): on
+             every rank B1 must launch exactly once per firing step and B2
+             once per other step, B4/B5 once per firing step in the q8 run
+             only, one send and one recv per firing step, and comm_bytes must
+             equal the host's float64 recomputation from the wire per event
+             (11,653,160 B raw, 2,936,556 B q8). The loss must be finite and
+             fall (elastic, q8), equal on every rank. Then 10 steps of the
+             dist engine against the sim engine fed the same schedule's
+             gates and partners through draws=, theta and velocity held
+             within rtol 1e-4 / atol 1e-5. Logged: rank 0's median
+             synchronised step for firing and non-firing steps, the exchange
+             split into device-to-host copy, gloo and host-to-device copy,
+             and the fleet-mean loss all-reduce.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -77,6 +102,8 @@ FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
 N_FULL = 2913408                    # f32 elements of the full-width MLP plane
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 FLOPS_PER_ELEMENT = 9               # B1: 4 multiplies + 5 adds/subtracts
+NAG_FLOPS_PER_ELEMENT = 6           # B2: 3 multiplies + 3 adds/subtracts
+B1, B2, B3 = "fused_flat_elastic_nag_update", "fused_flat_nag_update", "fused_elastic_nag_update"
 BLOCK, TOPK = 512, 26               # the codecs' defaults: codec_block, round(0.05 * 512)
 # exact wire bytes per event on the full-width plane (the reference's
 # wire_param_bytes / SimTrainer._wire_bytes)
@@ -203,6 +230,123 @@ def time_b1(torch, fu, ref, dev, W, bw, peak):
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
     del t, p, v, g
     return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels B2 and B3 against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_b2(torch, fu, ref, dev):
+    """B2 byte for byte against its plain version, in place: the outputs
+    are the input tensors. Returns the max abs error (0.0 when exact)."""
+    worst = 0.0
+    cases = [(8, N_FULL, torch.float32, torch.float32, "python"),
+             (4, N_FULL, torch.float32, torch.float32, "device"),
+             (8, N_FULL, torch.bfloat16, torch.float32, "device"),
+             (8, N_FULL, torch.bfloat16, torch.bfloat16, "python"),
+             (4, 1000, torch.float32, torch.float32, "device"),
+             (4, 1000, torch.bfloat16, torch.float32, "python")]
+    for i, (W, n, tdt, vdt, scalars) in enumerate(cases):
+        t, _, v, g, _ = b1_inputs(torch, W, n, tdt, vdt, 40 + i, dev)
+        eta, mu = ((1e-3, 0.99) if scalars == "python" else
+                   (torch.full((), 1e-3, device=dev), torch.full((), 0.99, device=dev)))
+        want_t, want_v = ref.fused_flat_nag_update(t, v, g, eta, mu)
+        kt, kv = t.clone(), v.clone()
+        out = fu.fused_flat_nag_update(kt, kv, g, eta, mu)
+        torch.cuda.synchronize()
+        if out[0] is not kt or out[1] is not kv:
+            raise AssertionError("B2 must update theta and v in place")
+        for got, want in ((kt, want_t), (kv, want_v)):
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"B2 disagrees with its plain version: W={W} N={n} "
+                                     f"{tdt}/{vdt}, eta/mu {scalars}: max abs err "
+                                     f"{float((got.float() - want.float()).abs().max())!r}")
+        del t, v, g, kt, kv, want_t, want_v
+    log(f"[kernels] B2 vs plain version: {len(cases)} cases ([8|4, {N_FULL}] f32, bf16 "
+        f"theta with f32 or bf16 v, ragged [4, 1000], eta/mu python or device scalars), "
+        f"byte-equal, in place; max abs err {worst!r}")
+    return worst
+
+
+def check_b3(torch, fu, ref, dev):
+    """B3 byte for byte against its plain version on [1024, 1000] f32 and
+    bf16 arrays with a scalar coef_gate; its inputs must come back
+    unwritten. Returns the max abs error (0.0 when exact)."""
+    worst = 0.0
+    for i, tdt in enumerate((torch.float32, torch.bfloat16)):
+        g = torch.Generator(device=dev).manual_seed(50 + i)
+        t, p, v, gr = (torch.randn(1024, 1000, generator=g, device=dev).to(tdt)
+                       for _ in range(4))
+        before = [x.clone() for x in (t, p, v, gr)]
+        coef = torch.full((), 0.5, device=dev)
+        want_t, want_v = ref.fused_elastic_nag_update(t, p, v, gr, coef, eta=1e-3, mu=0.99)
+        got_t, got_v = fu.fused_elastic_nag_update(t, p, v, gr, coef, eta=1e-3, mu=0.99)
+        torch.cuda.synchronize()
+        for got, want in ((got_t, want_t), (got_v, want_v)):
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"B3 disagrees with its plain version: [1024, 1000] {tdt}")
+        if not all(bits_equal(torch, a, b) for a, b in zip(before, (t, p, v, gr))):
+            raise AssertionError(f"B3 wrote into an input ({tdt})")
+    log(f"[kernels] B3 vs plain version: [1024, 1000] f32 and bf16, scalar coef_gate, "
+        f"byte-equal, inputs unwritten; max abs err {worst!r}")
+    return worst
+
+
+def time_b2_b3(torch, fu, ref, dev, W, bw, peak):
+    """B2 and B3 (on a [W, N] array) and their plain versions at
+    [W, 2913408] f32 beside their bounds. B2 moves five streams (read
+    theta/v/g, write theta/v) and the [W, 2] scalars; B3 six (read
+    theta/peer/v/g, write theta'/v')."""
+    t, p, v, g, _ = b1_inputs(torch, W, N_FULL, torch.float32, torch.float32, 60 + W, dev)
+    eta = torch.full((), 1e-3, device=dev)
+    out = {}
+    calls = {
+        B2: (lambda: fu.fused_flat_nag_update(t, v, g, eta, 0.99),
+             lambda: ref.fused_flat_nag_update(t, v, g, eta, 0.99),
+             W * N_FULL * 20 + W * 8, NAG_FLOPS_PER_ELEMENT),
+        B3: (lambda: fu.fused_elastic_nag_update(t, p, v, g, 0.5, eta=1e-3, mu=0.99),
+             lambda: ref.fused_elastic_nag_update(t, p, v, g, 0.5, eta=1e-3, mu=0.99),
+             W * N_FULL * 24, FLOPS_PER_ELEMENT),
+    }
+    for kname, (kern, plain, nbytes, flops) in calls.items():
+        ms = time_launches(torch, kern)
+        plain_ms = time_launches(torch, plain)
+        bytes_ms = nbytes / bw * 1e3
+        ops_ms = flops * W * N_FULL / peak * 1e3
+        out[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=max(bytes_ms, ops_ms),
+                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"[kernels] {KERNELS[kname][0]} [{W}, {N_FULL}] f32: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB "
+            f"at {bw / 1e12:.2f} TB/s; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
+    out[B2]["library_ms"] = time_fused_sgd(torch, t, v, g, W)
+    del t, p, v, g
+    return out
+
+
+def time_fused_sgd(torch, t, v, g, W):
+    """Library time for B2: PyTorch's fused Nesterov SGD step
+    (``torch._fused_sgd_``, one launch) on the same [W, N] f32 buffers. It
+    keeps the velocity as buf = -v/eta (buf' = mu*buf + g; theta' = theta -
+    eta*(g + mu*buf')), the same update in another parameterisation and the
+    same five streams. Checked against B2's plain version on one step, then
+    timed in place. The port never calls it."""
+    from repro_torch.kernels import ref
+    kw = dict(weight_decay=0.0, momentum=0.99, lr=1e-3, dampening=0.0, nesterov=True,
+              maximize=False, is_first_step=False)
+    lt, lbuf = t.clone(), (v / -1e-3).contiguous()
+    torch._fused_sgd_([lt], [g], [lbuf], **kw)
+    want_t, _ = ref.fused_flat_nag_update(t.clone(), v.clone(), g, 1e-3, 0.99)
+    diff = float((lt - want_t).abs().max())
+    if not diff <= 1e-5 * (1.0 + float(want_t.abs().max())):
+        raise AssertionError(f"torch._fused_sgd_ is not B2's update: max abs diff {diff!r}")
+    ms = time_launches(torch, lambda: torch._fused_sgd_([lt], [g], [lbuf], **kw))
+    log(f"[kernels] library for B2 [{W}, {N_FULL}] f32: torch._fused_sgd_ (nesterov) "
+        f"{ms:.4f} ms; theta after one step within {diff!r} of B2's plain version")
+    del lt, lbuf, want_t
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -456,27 +600,17 @@ def staged_batches(torch, train, W, batch, steps, dev):
     return out
 
 
-def zero_counts(fu, ck, rb):
-    fu.LAUNCHES = 0
-    rb.LAUNCHES = 0
-    for kname in ck.LAUNCHES:
-        ck.LAUNCHES[kname] = 0
-
-
-def read_counts(fu, ck, rb):
-    return {"fused_flat_elastic_nag_update": fu.LAUNCHES, **ck.LAUNCHES, B8: rb.LAUNCHES}
-
-
-def run_main_path(torch, train, test, W, batch, dev, fu, ck, rb, codec=None):
+def run_main_path(torch, train, test, W, batch, dev, codec=None):
     """One main-path run. Every kernel's launch count is set to 0 just
     before the run and read just after; returns ({kernel: launches},
     median step ms)."""
+    from repro_torch.kernels import ops
     from repro_torch.models import simple
     trainer = make_trainer(torch, W, dev, codec=codec)
     state = trainer.init_state(0)
     batches = staged_batches(torch, train, W, batch, STEPS, dev)
     torch.cuda.synchronize()
-    zero_counts(fu, ck, rb)
+    ops.zero_launch_counts()
     losses, active, step_s = [], [], []
     residual_checked = codec != "topk"
     for xb, yb in batches:
@@ -494,7 +628,7 @@ def run_main_path(torch, train, test, W, batch, dev, fu, ck, rb, codec=None):
                                      f"{bool(torch.isfinite(res).all())}, "
                                      f"L1 {float(res.abs().sum())}")
             residual_checked = True
-    launches = read_counts(fu, ck, rb)
+    launches = ops.launch_counts()
     tag = f"W={W}" + (f" codec={codec}" if codec else "")
     losses = [float(x) for x in losses]
     gates = sum(int(a) for a in active)
@@ -638,11 +772,12 @@ def expected_fault_counters(fcfg, fm, gates, W):
     return {"wire_dropped": dropped, "wire_corrupt": corrupt, "comm_units": units}
 
 
-def run_fault_path(torch, train, dev, fu, ck, rb, tag, method, fkw, codec, W=8, batch=16):
+def run_fault_path(torch, train, dev, tag, method, fkw, codec, W=8, batch=16):
     """One full-width fault run. Every kernel's count is set to 0 just
     before the run and read just after; returns ({kernel: launches},
     median step ms)."""
     from repro_torch.common.config import FaultConfig
+    from repro_torch.kernels import ops
     fcfg = FaultConfig(**fkw)
     trainer = make_trainer(torch, W, dev, codec=codec, method=method, p=FAULT_P, faults=fcfg)
     fm = trainer.sim.fault_model
@@ -650,7 +785,7 @@ def run_fault_path(torch, train, dev, fu, ck, rb, tag, method, fkw, codec, W=8, 
     batches = staged_batches(torch, train, W, batch, FAULT_STEPS, dev)
     draws = fault_draws(torch, W, FAULT_STEPS, dev, seed=31)
     torch.cuda.synchronize()
-    zero_counts(fu, ck, rb)
+    ops.zero_launch_counts()
     losses, step_s = [], []
     for (xb, yb), draw in zip(batches, draws):
         t0 = time.perf_counter()
@@ -658,7 +793,7 @@ def run_fault_path(torch, train, dev, fu, ck, rb, tag, method, fkw, codec, W=8, 
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(m["loss"])
-    launches = read_counts(fu, ck, rb)
+    launches = ops.launch_counts()
     robust = method in ("clipped_gossip", "trimmed_gossip")
     for kname, n in launches.items():
         want = FAULT_STEPS if (kname == "fused_flat_elastic_nag_update"
@@ -727,10 +862,192 @@ def zero_fault_anchor(torch, train, dev, W=8, batch=16, steps=10):
         f"{int(b.proto.comm_units)}, wire_dropped 0)")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the dist engine, one process per gossip worker
+# ---------------------------------------------------------------------------
+
+DIST_W, DIST_BATCH, DIST_STEPS, DIST_SEED, LOCK_STEPS = 8, 16, 50, 0, 10
+DIST_EG = dict(method="elastic_gossip", comm_probability=0.125, moving_rate=0.5,
+               topology="uniform")
+DIST_OPT = dict(name="nag", learning_rate=1e-3, momentum=0.99)
+# (tag, protocol kwargs, codec, steps, gather the final plane)
+DIST_RUNS = (("elastic", DIST_EG, None, DIST_STEPS, False),
+             ("elastic q8", DIST_EG, "q8", DIST_STEPS, False),
+             ("allreduce", dict(method="allreduce"), None, DIST_STEPS, False),
+             ("lockstep", DIST_EG, None, LOCK_STEPS, True))
+
+
+def dist_mesh():
+    from repro_torch.common.config import MeshConfig
+    return MeshConfig(data=DIST_W, model=1, pods=1, workers_per_pod=DIST_W)
+
+
+def host_schedule(proto_kw, steps):
+    """The dist engine's host schedule, replayed here: [(fire, active,
+    round, partners)] per step, from GossipSchedule(seed + 1) as every rank
+    polls it."""
+    from repro_torch.common.config import ProtocolConfig
+    from repro_torch.core.scheduler import GossipSchedule
+    sched = GossipSchedule(ProtocolConfig(**proto_kw), DIST_W, seed=DIST_SEED + 1,
+                           mesh_cfg=dist_mesh())
+    out = []
+    for i in range(steps):
+        fire, active, rnd = sched.poll(i)
+        out.append((fire, active, rnd, sched.partners(rnd)))
+    return out
+
+
+def expected_comm_bytes(proto_kw, codec, sched):
+    """comm_bytes per step, recomputed on the host in float64 as the
+    reference's dist backend accumulates it."""
+    total, out = 0.0, []
+    for fire, active, _, _ in sched:
+        if proto_kw["method"] == "allreduce":
+            total += 2.0 * (DIST_W - 1) / DIST_W * WIRE[None]
+        elif fire:
+            total += float(WIRE[codec]) * float(sum(active) / len(active))
+        out.append(total)
+    return out
+
+
+def check_dist_run(ranks, tag, proto_kw, codec, steps):
+    """One dist run against the host's replay of its schedule, on every
+    rank. Returns ({kernel: launches summed over ranks}, rank 0's run)."""
+    import numpy as np
+    sched = host_schedule(proto_kw, steps)
+    fires = [bool(f) for f, _, _, _ in sched]
+    nfire = sum(fires)
+    pairwise = proto_kw["method"] != "allreduce"
+    want = dict.fromkeys(KERNELS, 0)
+    if pairwise:
+        want[B1], want[B2] = nfire, steps - nfire
+        for kname in CODEC_KERNELS.get(codec, ()):
+            want[kname] = nfire
+    bytes_want = expected_comm_bytes(proto_kw, codec, sched)
+    total = dict.fromkeys(KERNELS, 0)
+    runs = [next(r for r in rk["runs"] if r["tag"] == tag) for rk in ranks]
+    for rank, run in enumerate(runs):
+        if run["fired"] != fires:
+            raise AssertionError(f"[dist] {tag} rank {rank}: fired {run['fired']} != host "
+                                 f"schedule {fires}")
+        got = {k: run["launches"][k] for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"[dist] {tag} rank {rank}: launches {got}, expected {want} "
+                                 f"({nfire} firing of {steps} steps)")
+        sr = nfire if pairwise else 0
+        if run["sends"] != sr or run["recvs"] != sr:
+            raise AssertionError(f"[dist] {tag} rank {rank}: {run['sends']} sends / "
+                                 f"{run['recvs']} recvs, expected {sr} each (one per bucket "
+                                 f"per firing step)")
+        if run["comm_bytes"] != bytes_want:
+            raise AssertionError(f"[dist] {tag} rank {rank}: comm_bytes {run['comm_bytes'][-1]!r} "
+                                 f"!= host recomputation {bytes_want[-1]!r}")
+        if pairwise and run["wire_bytes"] != WIRE[codec]:
+            raise AssertionError(f"[dist] {tag}: wire {run['wire_bytes']} B per event, expected "
+                                 f"{WIRE[codec]}")
+        if run["loss"] != runs[0]["loss"]:
+            raise AssertionError(f"[dist] {tag}: rank {rank} reports another fleet-mean loss")
+        for k in KERNELS:
+            total[k] += got[k]
+    losses = runs[0]["loss"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[dist] {tag}: non-finite loss {losses}")
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if tag in ("elastic", "elastic q8") and not tail < head:
+        raise AssertionError(f"[dist] {tag}: loss not falling: first 10 {head}, last 10 {tail}")
+    r0 = runs[0]
+    fire_ms = [ms for ms, f in zip(r0["step_ms"], fires) if f]
+    quiet_ms = [ms for ms, f in zip(r0["step_ms"], fires) if not f]
+    med = (lambda xs: statistics.median(xs) if xs else float("nan"))
+    # (the copies are None off the card)
+    split = {k: med([e[k] for e in r0["exchanges"] if e[k] is not None])
+             for k in ("d2h_ms", "gloo_ms", "h2d_ms")}
+    log(f"[dist] {tag} (W={DIST_W} processes on one card, batch {DIST_BATCH}/worker, "
+        f"{steps} steps" + (f", codec={codec}" if codec else "") + f"): loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} (first-10 mean {head:.4f}, last-10 mean {tail:.4f}), "
+        f"{nfire} firing steps = host schedule, launches per rank {want} on every rank, "
+        f"sends = recvs = {nfire if pairwise else 0} per rank, comm_bytes "
+        f"{r0['comm_bytes'][-1]!r} = host recomputation, wire {r0['wire_bytes']:.0f} B/event")
+    log(f"[dist] {tag} rank 0: median synchronised step {med(r0['step_ms']):.3f} ms (firing "
+        f"{med(fire_ms):.3f} ms over {len(fire_ms)}, non-firing {med(quiet_ms):.3f} ms over "
+        f"{len(quiet_ms)}); exchange median d2h {split['d2h_ms']:.3f} ms, gloo "
+        f"{split['gloo_ms']:.3f} ms, h2d {split['h2d_ms']:.3f} ms; fleet-mean loss all-reduce "
+        f"median {med(r0['loss_reduce_ms']):.3f} ms; after a barrier (no wait for the slowest "
+        f"rank): " + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["probe"].items()))
+    return total, r0, dict(fire_ms=med(fire_ms), quiet_ms=med(quiet_ms),
+                           loss_reduce_ms=med(r0["loss_reduce_ms"]), **split,
+                           probe=r0["probe"])
+
+
+def dist_vs_sim(torch, r0, params, x, y, dev):
+    """The lockstep run: the sim engine fed the dist schedule's gates and
+    partners through draws=, from the same params and batches; theta and
+    velocity of every worker after LOCK_STEPS steps and each step's
+    fleet-mean loss held within rtol 1e-4 / atol 1e-5 (the sim mixes with a
+    matmul, the dist engine subtracts the peer inside B1; they round
+    differently)."""
+    from repro_torch.models.simple import params_from_jax
+    tr = make_trainer(torch, DIST_W, dev)
+    st = tr.init_state(0, params=params_from_jax(params, dev))
+    losses = []
+    for i, (fire, active, _, partners) in enumerate(host_schedule(DIST_EG, LOCK_STEPS)):
+        draws = (torch.as_tensor(active > 0, device=dev), torch.as_tensor(partners, device=dev))
+        st, m = tr.step(st, (torch.as_tensor(x[i], device=dev), torch.as_tensor(y[i], device=dev)),
+                        draws=draws)
+        losses.append(float(m["loss"]))
+    worst = {}
+    for name, got, want in (("theta", r0["theta"]["float32"], st.theta["float32"]),
+                            ("velocity", r0["velocity"]["float32"], st.opt.mu["float32"])):
+        got = torch.as_tensor(got, device=dev)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"dist vs sim {name}: {m}")
+        worst[name] = float((got - want).abs().max())
+    torch.testing.assert_close(torch.tensor(r0["loss"]), torch.tensor(losses), rtol=1e-4,
+                               atol=0.0)
+    log(f"[dist] dist vs sim, {LOCK_STEPS} steps at W={DIST_W} on the dist schedule's gates "
+        f"and partners ({sum(r0['fired'])} firing): theta max abs diff {worst['theta']!r}, "
+        f"velocity {worst['velocity']!r}, losses within rtol 1e-4 (rtol 1e-4, atol 1e-5)")
+
+
+def run_dist_phase(torch, train, dev):
+    """Spawn the 8 ranks once for every dist run; returns ({kernel:
+    launches over all ranks and runs}, {tag: step summary})."""
+    import numpy as np
+    from repro_torch.data.partition import batches_for_step, partition_iid
+    from repro_torch.launch import dist_run
+    from repro_torch.models import simple
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    params = {k: v.cpu().numpy() for k, v in simple.init_mlp(gen, **FULL)[0].items()}
+    shards = partition_iid(train, DIST_W, 0)
+    xs, ys = zip(*(batches_for_step(shards, i, DIST_BATCH) for i in range(DIST_STEPS)))
+    x, y = np.stack(xs).astype(np.float32), np.stack(ys)
+    runs = [dict(kind="train", tag=tag, protocol=pkw, codec=codec, optimizer=DIST_OPT,
+                 steps=steps, seed=DIST_SEED, gather=gather)
+            for tag, pkw, codec, steps, gather in DIST_RUNS]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist_run.run_fleet(dist_mesh(), dev, dict(params=params, x=x, y=y, runs=runs),
+                               timeout_s=180, join_timeout_s=600)
+    log(f"[dist] {DIST_W} ranks spawned on {ranks[0]['device']}, {len(runs)} runs, joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches, summary = dict.fromkeys(KERNELS, 0), {}
+    for tag, pkw, codec, steps, _ in DIST_RUNS:
+        got, r0, summary[tag] = check_dist_run(ranks, tag, pkw, codec, steps)
+        for kname, n in got.items():
+            launches[kname] += n
+    dist_vs_sim(torch, next(r for r in ranks[0]["runs"] if r["tag"] == "lockstep"), params,
+                x, y, dev)
+    return launches, summary
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
-    "fused_flat_elastic_nag_update": ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
-                                      "src/repro/kernels/fused_update.py:87"),
+    B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
+         "src/repro/kernels/fused_update.py:87"),
+    B2: ("B2", "src/repro_torch/kernels/csrc/fused_update.cu",
+         "src/repro/kernels/fused_update.py:100"),
+    B3: ("B3", "src/repro_torch/kernels/csrc/fused_update.cu",
+         "src/repro/kernels/fused_update.py:36"),
     "q8_encode": ("B4", "src/repro_torch/kernels/csrc/codec.cu", "src/repro/kernels/codec.py:44"),
     "q8_decode": ("B5", "src/repro_torch/kernels/csrc/codec.cu", "src/repro/kernels/codec.py:59"),
     "topk_encode": ("B6", "src/repro_torch/kernels/csrc/codec.cu",
@@ -770,19 +1087,23 @@ def main():
         list(ex.map(build.build, sources))
     for name in sources:
         build.load(name)
-    log(f"[build] fused_update.cu (B1), codec.cu (B4-B7) and robust.cu (B8) in parallel: "
+    log(f"[build] fused_update.cu (B1-B3), codec.cu (B4-B7) and robust.cu (B8) in parallel: "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in sources) + ")")
 
-    err = {"fused_flat_elastic_nag_update": check_b1(torch, fu, ref, dev)}
+    err = {B1: check_b1(torch, fu, ref, dev), B2: check_b2(torch, fu, ref, dev),
+           B3: check_b3(torch, fu, ref, dev)}
     err.update(check_codec(torch, ck, ref, codec_seeds, dev))
     err[B8] = check_b8(torch, rb, ref, dev)
     ms8, plain8, bound8, by8 = time_b1(torch, fu, ref, dev, 8, bw, peak)
     ms4, plain4, bound4, _ = time_b1(torch, fu, ref, dev, 4, bw, peak)
-    times = {"fused_flat_elastic_nag_update": dict(ms=ms8, plain_ms=plain8, library_ms=None,
-                                                   bound_ms=bound8, bound_by=by8,
-                                                   ms_w4=ms4, plain_ms_w4=plain4,
-                                                   bound_ms_w4=bound4)}
+    times = {B1: dict(ms=ms8, plain_ms=plain8, library_ms=None, bound_ms=bound8, bound_by=by8,
+                      ms_w4=ms4, plain_ms_w4=plain4, bound_ms_w4=bound4)}
+    t23 = {W: time_b2_b3(torch, fu, ref, dev, W, bw, peak) for W in (8, 4)}
+    for kname in (B2, B3):
+        times[kname] = dict(t23[8][kname], ms_w4=t23[4][kname]["ms"],
+                            plain_ms_w4=t23[4][kname]["plain_ms"],
+                            bound_ms_w4=t23[4][kname]["bound_ms"])
     times.update(time_codec(torch, ck, ref, codec_seeds, dev, bw, peak))
     times[B8] = time_b8(torch, rb, ref, dev, bw, peak)
     wire_ms = time_wire(torch, dev)
@@ -791,8 +1112,7 @@ def main():
     launches = dict.fromkeys(KERNELS, 0)
     step_ms = {}
     for W, batch, codec in ((8, 16, None), (4, 32, None), (8, 16, "q8"), (8, 16, "topk")):
-        got, step_ms[(W, codec)] = run_main_path(torch, train, test, W, batch, dev, fu, ck,
-                                                 rb, codec)
+        got, step_ms[(W, codec)] = run_main_path(torch, train, test, W, batch, dev, codec)
         for kname, n in got.items():
             launches[kname] += n
     log("[main] median synchronised step at W=8, batch 16: "
@@ -804,13 +1124,22 @@ def main():
     register_drop_byzantine()
     fault_ms = {}
     for tag, method, fkw, codec in FAULT_RUNS:
-        got, fault_ms[tag] = run_fault_path(torch, train, dev, fu, ck, rb, tag, method, fkw, codec)
+        got, fault_ms[tag] = run_fault_path(torch, train, dev, tag, method, fkw, codec)
         for kname, n in got.items():
             launches[kname] += n
     log("[faults] median synchronised step at W=8, batch 16, p 0.5: "
         + ", ".join(f"{t} {ms:.3f} ms" for t, ms in fault_ms.items())
         + f"; checksummed raw wire round trip {wire_ms['roundtrip_ms']:.4f} ms")
     zero_fault_anchor(torch, train, dev)
+
+    dist_launches, dist_ms = run_dist_phase(torch, train, dev)
+    for kname, n in dist_launches.items():
+        launches[kname] += n
+    e, q = dist_ms["elastic"], dist_ms["elastic q8"]
+    log(f"[dist] rank 0's median synchronised step at W={DIST_W}, batch {DIST_BATCH}: elastic "
+        f"firing {e['fire_ms']:.3f} ms / non-firing {e['quiet_ms']:.3f} ms, q8 firing "
+        f"{q['fire_ms']:.3f} / non-firing {q['quiet_ms']:.3f} ms, allreduce "
+        f"{dist_ms['allreduce']['quiet_ms']:.3f} ms")
 
     kernels = []
     for kname, (kid, source, replaces) in KERNELS.items():

@@ -4,9 +4,13 @@
 Each protocol carries the paper's two components (§2.2): a
 ``gradient_transform`` (only All-reduce SGD averages gradients) and a gated
 ``comm_update`` on the stacked ``[W, N]`` buffers, plus ``comm_cost``
-accounting and the capability flags the engine reads (``communicates``,
-``pairwise``). Both components read the step-t state, so
-the engine composes them additively (§2.3).
+accounting and the capability flags the engines and the scheduler read
+(``communicates``, ``pairwise``, ``uses_center``, ``per_worker_gate``).
+Both components read the step-t state, so the engine composes them
+additively (§2.3). The dist engine realises pairwise protocols through
+``pair_gate_coef`` over the static matching schedule that
+``schedule_partners`` surfaces; its cross-worker reductions (the gradient
+mean, the EASGD center) take the rank's ``group``.
 
 ``ProtocolState.comm_units`` is an exact int32 participation count that
 saturates at int32 max; ``comm_bytes`` is derived from it every update as
@@ -24,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, ClassVar, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.registry import register_protocol
@@ -102,8 +107,11 @@ class Protocol:
     """
 
     name: ClassVar[str] = ""
-    communicates: ClassVar[bool] = True
-    pairwise: ClassVar[bool] = False
+    # capability flags consumed by the engines / scheduler / facade:
+    communicates: ClassVar[bool] = True    # has a gated communication component
+    pairwise: ClassVar[bool] = False       # pairwise gossip (one send/recv per round)
+    uses_center: ClassVar[bool] = False    # EASGD-style center variable
+    per_worker_gate: ClassVar[bool] = True  # Bernoulli per worker (vs one draw)
 
     def __init__(self, cfg: ProtocolConfig):
         self.cfg = cfg
@@ -130,7 +138,9 @@ class Protocol:
         return None
 
     # ----------------------------------------------------- gradient component
-    def gradient_transform(self, grads_stack: PyTree) -> PyTree:
+    def gradient_transform(self, grads_stack: PyTree, group=None) -> PyTree:
+        """``group``: the dist engine's worker group, over which a protocol
+        that reduces across workers reduces (None on the sim engine)."""
         return grads_stack
 
     # ------------------------------------------------------------ scheduling
@@ -207,6 +217,44 @@ class Protocol:
     def mix_matrix(self, peers, active, step=None) -> torch.Tensor:
         """[W, W] mixing matrix over the worker axis."""
         raise ValueError(f"protocol {self.name!r} is not a pairwise-gossip method")
+
+    # ------------------------------------- pairwise (dist-engine) realization
+    def pair_gate_coef(self, my_active, peer_active):
+        """Gate/coefficient for a matched pair in the dist engine:
+        theta <- theta - coef*gate*(theta - peer)."""
+        raise ValueError(f"protocol {self.name!r} is not a pairwise-gossip method")
+
+    # ------------------------------------------------ host-side topology hook
+    def _host_schedule(self, num_workers: int, mesh_cfg=None, seed: int = 0):
+        from repro_torch.common.config import MeshConfig
+        from repro_torch.core import gossip_dist
+        mcfg = mesh_cfg or MeshConfig(data=num_workers, model=1, pods=1,
+                                      workers_per_pod=num_workers)
+        kind = "hypercube" if self.cfg.topology == "matching" else "random"
+        cache = self.__dict__.setdefault("_host_sched_cache", {})
+        key = (mcfg, kind, seed)
+        if key not in cache:
+            cache[key] = (gossip_dist.build_schedule(mcfg, kind, seed=seed), mcfg)
+        return cache[key]
+
+    def schedule_rounds(self, num_workers: int, mesh_cfg=None, seed: int = 0) -> int:
+        """Number of distinct rounds in the host-side matching schedule
+        (cycled by round index)."""
+        return len(self._host_schedule(num_workers, mesh_cfg, seed)[0])
+
+    def schedule_partners(self, round_idx: int, num_workers: int, mesh_cfg=None,
+                          seed: int = 0) -> np.ndarray:
+        """Host-side partner index per worker for one gossip round, the
+        time-varying topology hook: it replays exactly the static
+        ``gossip_dist.build_schedule`` the dist engine exchanges over, so the
+        facade surfaces (``GossipTrainer.matching_partners``,
+        ``GossipSchedule.partners``) and the engine stay in lock-step; a
+        registered subclass overriding this changes every host consumer at
+        once."""
+        from repro_torch.core import gossip_dist
+        sched, mcfg = self._host_schedule(num_workers, mesh_cfg, seed)
+        return np.array([gossip_dist.partner_of(sched, round_idx, w, mcfg)
+                         for w in range(mcfg.num_workers)])
 
     # ------------------------------------------------------------- accounting
     def events_per_step(self) -> float:
@@ -288,7 +336,10 @@ class AllReduceSGD(Protocol):
     """Alg. 1: gradient averaging every step (ring all-reduce accounting)."""
     communicates = False
 
-    def gradient_transform(self, grads_stack: PyTree) -> PyTree:
+    def gradient_transform(self, grads_stack: PyTree, group=None) -> PyTree:
+        if group is not None:
+            # the dist engine: each rank's [1, N] row becomes the fleet mean
+            return tree_map(lambda g: group.all_reduce_sum(g) / group.world, grads_stack)
         return tree_map(lambda g: torch.mean(g, dim=0, keepdim=True).expand_as(g),
                         grads_stack)
 
@@ -317,24 +368,30 @@ class AllReduceSGD(Protocol):
 @register_protocol("easgd")
 class EASGD(Protocol):
     """Alg. 2: elastic averaging against an explicit center variable."""
+    uses_center = True
+    per_worker_gate = False   # all workers exchange with the center together
 
     def init_center(self, params_stack: PyTree) -> PyTree:
         # center initialized to the common init (= worker 0's replica)
         return tree_map(lambda x: x[0].clone(), params_stack)
 
-    def center_step(self, theta_stack: PyTree, center: PyTree, active, step=None):
+    def center_step(self, theta_stack: PyTree, center: PyTree, active, step=None,
+                    group=None):
         """Alg. 2 lines 5-7, gated: z_i = alpha gate_i (theta_i - center).
-        Returns (delta, center') with delta = -z per worker."""
+        Returns (delta, center') with delta = -z per worker. ``active`` is a
+        [W] mask (sim engine) or one shared gate (dist engine, where
+        ``group`` sums z over the ranks' rows)."""
+        from repro_torch.core.consensus import worker_sum
         a = self.cfg.moving_rate if step is None else self.alpha_at(step)
         W = _first_leaf(theta_stack).shape[0]
-        act = torch.as_tensor(active).float().expand(W)
+        act = torch.as_tensor(active, device=_first_leaf(theta_stack).device).float().expand(W)
         deltas, centers = {}, {}
         for k in theta_stack:
             x, c = theta_stack[k], center[k]
             gate = act.reshape((W,) + (1,) * (x.dim() - 1))
             z = a * gate * (x.float() - c.float()[None])
             deltas[k] = (-z).to(x.dtype)
-            centers[k] = c + torch.sum(z, dim=0).to(c.dtype)
+            centers[k] = c + worker_sum(z, group).to(c.dtype)
         return deltas, centers
 
     def comm_update(self, gen, active, theta_stack, state, step=None,
@@ -373,6 +430,10 @@ class ElasticGossip(PairwiseGossip):
         a = self.cfg.moving_rate if step is None else self.alpha_at(step)
         return topology.elastic_gossip_mix(peers, active, a)
 
+    def pair_gate_coef(self, my_active, peer_active):
+        # fires if either endpoint selected the pair (passive peers respond)
+        return torch.maximum(my_active, peer_active), self.cfg.moving_rate
+
 
 @register_protocol("gossiping_pull")
 class GossipingPull(PairwiseGossip):
@@ -381,6 +442,9 @@ class GossipingPull(PairwiseGossip):
     def mix_matrix(self, peers, active, step=None):
         return topology.gossip_pull_mix(peers, active)
 
+    def pair_gate_coef(self, my_active, peer_active):
+        return my_active, 0.5
+
 
 @register_protocol("gossiping_push")
 class GossipingPush(PairwiseGossip):
@@ -388,6 +452,9 @@ class GossipingPush(PairwiseGossip):
 
     def mix_matrix(self, peers, active, step=None):
         return topology.gossip_push_mix(peers, active)
+
+    def pair_gate_coef(self, my_active, peer_active):
+        return peer_active, 0.5
 
 
 # The robust mixing protocols (clipped_gossip / trimmed_gossip) live in their

@@ -8,8 +8,8 @@
     class MyGossip(PairwiseGossip):
         ...
 
-The engine registry of the reference is a plain dict in
-:mod:`repro_torch.api.trainer` until a second engine is ported.
+The engine registry of the reference is the plain dict ``ENGINES`` in
+:mod:`repro_torch.api.trainer` ("sim" and "dist").
 """
 from __future__ import annotations
 

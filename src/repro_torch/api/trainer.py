@@ -1,5 +1,5 @@
 """GossipTrainer facade — the port's entry point (port of
-``repro.api.trainer`` for ``engine="sim"``).
+``repro.api.trainer`` for ``engine="sim"`` and ``engine="dist"``).
 
     from repro_torch.api.trainer import GossipTrainer
 
@@ -11,32 +11,47 @@
 
 Everything runs on ``device`` ("cuda" unless the caller passes another);
 asking for CUDA without a card raises, nothing moves to the CPU quietly.
-The step updates the resident buffers of ``state`` in place (see
-:mod:`repro_torch.core.gossip_sim`). Metrics carry
-:data:`repro_torch.obs.schema.CORE_STEP_KEYS` as device tensors (no host
-sync per step).
 
-Only the sim engine is ported. ``gossip_exchange``/``matching_partners``
-(they need the dist engine's schedules) and checkpoints come in later
-slices.
+Engines:
+
+- ``engine="sim"``: exact Alg. 1-6 on W stacked replicas in one process
+  (:class:`repro_torch.core.gossip_sim.SimTrainer`). The step updates the
+  resident buffers of ``state`` in place; metrics are device tensors (no
+  host sync per step).
+- ``engine="dist"``: one process per gossip worker
+  (:class:`repro_torch.train.step.DistTrainer` over
+  :mod:`repro_torch.core.gossip_dist`). Each rank builds its own facade with
+  ``group=`` (its :class:`~repro_torch.launch.mesh.WorkerGroup`, e.g. from
+  :func:`repro_torch.launch.mesh.spawn_workers`) and steps it on its own
+  batch ``(x [pw, ...], y [pw])``. Scheduling is host-side and replayable
+  (:class:`repro_torch.core.scheduler.GossipSchedule` from ``seed + 1``,
+  equal on every rank); ``comm_bytes`` is a host float64 accumulator and
+  ``loss`` the fleet mean (a gloo all-reduce per step).
+
+Both engines expose the shared matching schedule (:meth:`matching_partners`,
+:attr:`num_gossip_rounds`) and one communication round as the parity
+surface :meth:`gossip_exchange` (the mixing-matrix oracle on the sim
+engine, the real exchange on the dist engine). Checkpoints and the async
+engine come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api import registry
 from repro_torch.api.protocols import CommCost
-from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+from repro_torch.common.config import MeshConfig, OptimizerConfig, ProtocolConfig, TrainConfig
 from repro_torch.common.pytree import tree_map
 from repro_torch.obs import schema as obs_schema
 from repro_torch.serving.engine import consensus_params
 
 PyTree = Any
 
-PORTED_LATER = {"dist": "port slice 5", "async": "port slice 4"}
+PORTED_LATER = {"async": "port slice 4"}
 
 
 def resolve_device(device) -> torch.device:
@@ -48,16 +63,209 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class GossipTrainer:
-    """Protocol-agnostic trainer facade over the sim engine.
+def _init_params(facade, seed, params):
+    """``params``, or ``init_fn`` called with a generator on the facade's
+    device seeded by ``seed``."""
+    if params is not None:
+        return params
+    if facade.init_fn is None:
+        raise ValueError("provide init_fn at construction or params here")
+    gen = torch.Generator(device=facade.device)
+    gen.manual_seed(int(seed))
+    return facade.init_fn(gen)
 
-    Arguments: ``protocol`` (ProtocolConfig), ``optimizer`` (default NAG, as
-    the paper), ``loss_fn(params, x, y)`` for one worker, ``num_workers``,
-    ``init_fn(generator) -> params`` (optional), ``fused_update`` (kernel B1
-    on pairwise + NAG), ``device``, ``codec`` (a registered codec name that
-    overrides ``protocol.codec``: "q8" or "topk" compress the gossip wire),
-    ``faults`` (a :class:`~repro_torch.common.config.FaultConfig`: the
-    message-level fault plane of :mod:`repro_torch.faults`).
+
+class _MatchingScheduleMixin:
+    """The host-side matching schedule (hypercube or random matchings),
+    shared by both engines through the protocol's ONE overridable
+    :meth:`~repro_torch.api.protocols.Protocol.schedule_partners` hook."""
+
+    def matching_partners(self, round_idx: int) -> np.ndarray:
+        mcfg = self._sched_mesh_cfg()
+        return self.facade.impl.schedule_partners(round_idx, mcfg.num_workers,
+                                                  mesh_cfg=mcfg)
+
+    @property
+    def num_gossip_rounds(self) -> int:
+        mcfg = self._sched_mesh_cfg()
+        return self.facade.impl.schedule_rounds(mcfg.num_workers, mesh_cfg=mcfg)
+
+
+class _SimBackend(_MatchingScheduleMixin):
+    def __init__(self, facade, kw: dict):
+        from repro_torch.core.gossip_sim import SimTrainer
+        if kw["loss_fn"] is None or kw["num_workers"] is None:
+            raise ValueError('engine="sim" requires loss_fn and num_workers')
+        self.facade = facade
+        self.num_workers = kw["num_workers"]
+        self.mesh_cfg = kw["mesh_cfg"]
+        self.sim = SimTrainer(kw["loss_fn"], self.num_workers, facade.protocol,
+                              facade.optimizer, fused_update=facade.fused_update,
+                              faults=kw["faults"], fleet=kw["fleet"], shard=kw["shard"])
+        self.codec = self.sim.codec
+        self.wire = None
+
+    def _sched_mesh_cfg(self) -> MeshConfig:
+        return self.mesh_cfg or MeshConfig(data=self.num_workers, model=1, pods=1,
+                                           workers_per_pod=self.num_workers)
+
+    def init_state(self, seed, params):
+        params = _init_params(self.facade, seed, params)
+        W = self.num_workers
+        stacked = tree_map(lambda x: x.to(self.facade.device)[None].expand(
+            (W,) + tuple(x.shape)), params)
+        self.wire = int(self.facade.impl.wire_stack_bytes(stacked))
+        return self.sim.init(stacked, int(seed))
+
+    def step(self, state, x, y, draws=None):
+        state, m = self.sim.step(state, x, y, draws=draws)
+        metrics = dict(m)
+        metrics["loss"] = m["loss_mean"]
+        metrics["fired"] = m["comm_active"] > 0
+        metrics["comm_round"] = state.proto.comm_rounds
+        metrics["comm_bytes"] = state.proto.comm_bytes
+        return state, metrics
+
+    def gossip_exchange(self, params_stack, active, round_idx: int):
+        """Mixing-matrix oracle over the shared matching schedule: exactly
+        Alg. 3/4/6 restricted to the round's perfect matching, on the flat
+        plane. With a codec, off-diagonal contributions read the
+        decode(encode(theta)) reconstruction, seeded by (round, worker) as
+        the dist engine's wire."""
+        from repro_torch import comm
+        from repro_torch.common.flat import FlatSpec
+        from repro_torch.core import topology
+        spec = FlatSpec.build(params_stack, leading=1)
+        bufs = spec.flatten(params_stack)
+        dev = next(iter(bufs.values())).device
+        peers = torch.as_tensor(self.matching_partners(round_idx), device=dev)
+        gate = torch.as_tensor(np.asarray(active), device=dev) > 0
+        mix = self.facade.impl.mix_matrix(peers, gate)
+        codec = self.codec
+        if codec is None:
+            return spec.unflatten(topology.apply_mix(mix, bufs))
+        W = spec.lead_shape[0]
+        hat, _ = comm.roundtrip_bufs(codec, bufs,
+                                     comm.codec_seeds(round_idx, torch.arange(W, device=dev)))
+        hat = {k: v.to(bufs[k].dtype) for k, v in hat.items()}
+        return spec.unflatten(topology.apply_mix_split(mix, bufs, hat))
+
+    def rank0_params(self, state):
+        return self.sim.rank0_params(state)
+
+
+class _DistBackend(_MatchingScheduleMixin):
+    def __init__(self, facade, kw: dict):
+        from repro_torch.core.scheduler import GossipSchedule
+        from repro_torch.train.step import DistTrainer
+        if kw["faults"] is not None:
+            raise ValueError(
+                'engine="dist" does not support fault injection: the fault '
+                'plane rides the single-controller wire boundary (use '
+                'engine="sim" or engine="async")')
+        for name in ("fleet", "shard"):
+            if kw[name] is not None:
+                raise NotImplementedError(f'{name}= on engine="dist" is not ported yet '
+                                          "(port slice 4)")
+        group = kw["group"]
+        if kw["loss_fn"] is None or group is None:
+            raise ValueError('engine="dist" requires loss_fn and group (the rank\'s '
+                             'WorkerGroup, see repro_torch.launch.mesh)')
+        mesh_cfg = kw["mesh_cfg"] or group.mesh_cfg
+        if kw["num_workers"] not in (None, mesh_cfg.num_workers):
+            raise ValueError(f"num_workers={kw['num_workers']} but the mesh has "
+                             f"{mesh_cfg.num_workers} workers")
+        dev = facade.device
+        if dev.type != group.device.type or dev.index not in (None, group.device.index):
+            raise ValueError(f"the facade runs on {dev}, the group's rank on "
+                             f"{group.device}")
+        facade.device = group.device      # "cuda" means the rank's card
+        self.facade = facade
+        self.group = group
+        self.mesh_cfg = mesh_cfg
+        self.num_workers = mesh_cfg.num_workers
+        tcfg = TrainConfig(protocol=facade.protocol, optimizer=facade.optimizer,
+                           fused_update=facade.fused_update)
+        self.trainer = DistTrainer(group, mesh_cfg, tcfg, kw["loss_fn"])
+        self.codec = self.trainer._codec
+        self.sched = GossipSchedule(facade.protocol, self.num_workers,
+                                    seed=int(kw["seed"]) + 1, mesh_cfg=mesh_cfg)
+        # host-side float64 accumulator, as the reference's
+        self.comm_bytes = 0.0
+        self.wire = None
+        self._cost = None
+        # host mirror of state.step: the schedule is polled with it, so the
+        # step never reads the device counter back
+        self._host_step = 0
+
+    def _sched_mesh_cfg(self) -> MeshConfig:
+        return self.mesh_cfg
+
+    def init_state(self, seed, params):
+        params = _init_params(self.facade, seed, params)
+        self._host_step = 0
+        self.comm_bytes = 0.0
+        self.wire = int(self.facade.impl.wire_stack_bytes(
+            tree_map(lambda x: x[None], params)))
+        self._cost = self.facade.impl.comm_cost(self.wire, self.num_workers)
+        return self.trainer.init_state(params)
+
+    def step(self, state, x, y, draws=None):
+        if draws is not None:
+            raise ValueError('engine="dist" draws from its host schedule; draws= is '
+                             'the sim engine\'s parity hook')
+        impl = self.facade.impl
+        fire, active, rnd = self.sched.poll(self._host_step)
+        self._host_step += 1
+        # the two programs of the reference: gradient only, or gradient and
+        # one gossip round
+        if impl.pairwise and fire:
+            state, m = self.trainer._train_gossip_step(state, x, y, active, rnd)
+        else:
+            state, m = self.trainer._train_step(state, x, y,
+                                                float(fire) if impl.uses_center else 0.0)
+        cost = self._cost
+        if not impl.communicates:
+            self.comm_bytes += cost.bytes_per_step   # allreduce: every step; none: 0
+        elif fire:
+            self.comm_bytes += cost.bytes_per_event * float(np.mean(active))
+        metrics = dict(m)
+        # the loss is the fleet mean; per-worker losses are not gathered,
+        # so mean == max == loss (the reference's documented degeneracy)
+        metrics["loss_mean"] = m["loss"]
+        metrics["loss_max"] = m["loss"]
+        metrics["fired"] = bool(fire)
+        metrics["comm_active"] = int(np.sum(active)) if fire and active is not None else 0
+        metrics["comm_round"] = rnd
+        metrics["comm_bytes"] = self.comm_bytes
+        return state, metrics
+
+    def gossip_exchange(self, params_stack, active, round_idx: int):
+        return self.trainer.gossip_exchange(params_stack, active, int(round_idx))
+
+    def rank0_params(self, state):
+        """Worker 0's replica, broadcast to every rank (a gather)."""
+        return state.spec.with_lead(()).unflatten(
+            {k: b[0] for k, b in self.trainer.gather_theta(state).items()})
+
+
+ENGINES = {"sim": _SimBackend, "dist": _DistBackend}
+
+
+class GossipTrainer:
+    """Protocol-agnostic trainer facade over the sim and dist engines.
+
+    Arguments: ``engine`` ("sim" or "dist"), ``protocol`` (ProtocolConfig),
+    ``optimizer`` (default NAG, as the paper), ``loss_fn(params, x, y)`` for
+    one worker, ``num_workers`` (sim; the dist engine takes the mesh's),
+    ``init_fn(generator) -> params`` (optional), ``fused_update`` (kernels
+    B1/B2 on pairwise + NAG), ``device``, ``codec`` (a registered codec name
+    that overrides ``protocol.codec``: "q8" or "topk" compress the gossip
+    wire), ``faults`` (sim only: a
+    :class:`~repro_torch.common.config.FaultConfig`), ``mesh_cfg`` (the
+    matching schedule's pods x workers layout), ``group`` (dist: the rank's
+    :class:`~repro_torch.launch.mesh.WorkerGroup`) and ``seed`` (dist: the
+    host schedule draws from ``seed + 1``).
     """
 
     def __init__(self, *, engine: str = "sim", protocol: ProtocolConfig,
@@ -67,19 +275,17 @@ class GossipTrainer:
                  num_workers: Optional[int] = None,
                  fused_update: bool = True, device="cuda",
                  codec: Optional[str] = None, faults=None, fleet=None,
-                 shard=None, publish_every: Optional[int] = None, obs=None):
+                 shard=None, publish_every: Optional[int] = None, obs=None,
+                 mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0):
         if engine in PORTED_LATER:
             raise NotImplementedError(
                 f'engine="{engine}" is not ported yet ({PORTED_LATER[engine]})')
-        if engine != "sim":
-            raise ValueError(f"unknown engine {engine!r}; ported: ['sim']")
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
         for name, value, where in (("publish_every", publish_every, "port slice 7"),
                                    ("obs", obs, "port slice 6")):
             if value is not None:
                 raise NotImplementedError(f"{name}= is not ported yet ({where})")
-        if loss_fn is None or num_workers is None:
-            raise ValueError('engine="sim" requires loss_fn and num_workers')
-        from repro_torch.core.gossip_sim import SimTrainer
         self.engine = engine
         # an explicit codec= overrides the protocol config's codec
         if codec is not None:
@@ -90,55 +296,70 @@ class GossipTrainer:
         self.fused_update = fused_update
         self.device = resolve_device(device)
         self.init_fn = init_fn
-        self.num_workers = num_workers
-        self.sim = SimTrainer(loss_fn, num_workers, protocol, self.optimizer,
-                              fused_update=fused_update, faults=faults,
-                              fleet=fleet, shard=shard)
-        self.codec = self.sim.codec      # the active Codec, or None
+        self._backend = ENGINES[engine](self, dict(
+            loss_fn=loss_fn, num_workers=num_workers, faults=faults, fleet=fleet,
+            shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed))
+        self.num_workers = self._backend.num_workers
+        self.codec = self._backend.codec      # the active Codec, or None
         self._host_steps = 0
-        self._wire = None
+
+    @property
+    def sim(self):
+        """The sim engine's :class:`~repro_torch.core.gossip_sim.SimTrainer`."""
+        return self._backend.sim
+
+    @property
+    def dist(self):
+        """The dist engine's :class:`~repro_torch.train.step.DistTrainer`."""
+        return self._backend.trainer
 
     # ------------------------------------------------------------------ core
     def init_state(self, seed=0, params: Optional[PyTree] = None):
         """Fresh trainer state. ``params`` (optional): single-replica params
-        to broadcast (e.g. from :func:`repro_torch.models.simple.
-        params_from_jax`) instead of calling ``init_fn`` with a generator
-        seeded by ``seed``."""
+        (e.g. from :func:`repro_torch.models.simple.params_from_jax`) instead
+        of calling ``init_fn`` with a generator seeded by ``seed``; on the
+        dist engine every rank must start from the same params."""
         self._host_steps = 0
-        if params is None:
-            if self.init_fn is None:
-                raise ValueError("provide init_fn at construction or params here")
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            params = self.init_fn(gen)
-        W = self.num_workers
-        stacked = tree_map(lambda x: x.to(self.device)[None].expand((W,) + tuple(x.shape)),
-                           params)
-        self._wire = int(self.impl.wire_stack_bytes(stacked))
-        return self.sim.init(stacked, int(seed))
+        return self._backend.init_state(seed, params)
 
     def step(self, state, batch, draws=None):
         """ONE training step: gradient component + (internally scheduled)
         communication component. Returns (state', metrics). ``draws`` is the
-        parity hook of :meth:`SimTrainer.step`."""
+        sim engine's parity hook (:meth:`SimTrainer.step`). On the dist
+        engine ``batch`` is this rank's ``(x [pw, ...], y [pw])``."""
         x, y = (batch["x"], batch["y"]) if isinstance(batch, dict) else batch
-        state, m = self.sim.step(state, x, y, draws=draws)
-        metrics = dict(m)
-        metrics["loss"] = m["loss_mean"]
-        metrics["fired"] = m["comm_active"] > 0
-        metrics["comm_round"] = state.proto.comm_rounds
-        metrics["comm_bytes"] = state.proto.comm_bytes
+        state, metrics = self._backend.step(state, x, y, draws=draws)
         metrics = obs_schema.normalize_step_metrics(metrics, step=self._host_steps)
         self._host_steps += 1
         return state, metrics
 
+    # ------------------------------------------------------- parity surface
+    def matching_partners(self, round_idx: int) -> np.ndarray:
+        """Partner index per worker in gossip round ``round_idx`` of the
+        shared matching schedule (both engines)."""
+        return self._backend.matching_partners(round_idx)
+
+    @property
+    def num_gossip_rounds(self) -> int:
+        return self._backend.num_gossip_rounds
+
+    def gossip_exchange(self, params_stack: PyTree, active, round_idx: int) -> PyTree:
+        """ONE communication round on a stacked ``[W, ...]`` params pytree
+        over the shared matching schedule: the mixing-matrix oracle on the
+        sim engine, the exchange itself on the dist engine (every rank
+        passes the same stack and gets the whole result)."""
+        return self._backend.gossip_exchange(params_stack, active, round_idx)
+
     # ---------------------------------------------------------------- params
     def rank0_params(self, state) -> PyTree:
         """Worker 0's replica (paper 'Rank-0 Accuracy')."""
-        return self.sim.rank0_params(state)
+        return self._backend.rank0_params(state)
 
     def consensus_params(self, state) -> PyTree:
         """Worker-averaged replica (paper 'Aggregate Accuracy')."""
+        if self.engine == "dist":
+            from repro_torch.core.consensus import aggregate
+            return aggregate(state.params, group=self._backend.group)
         return consensus_params(state)
 
     aggregate_params = consensus_params
@@ -149,7 +370,7 @@ class GossipTrainer:
         defaults to the live wire size per event (known after init_state):
         the codec's wire when a codec is active, else the raw params."""
         if param_bytes is None:
-            if self._wire is None:
+            param_bytes = self._backend.wire
+            if param_bytes is None:
                 raise ValueError("wire size unknown before init_state; pass param_bytes")
-            param_bytes = self._wire
         return self.impl.comm_cost(param_bytes, self.num_workers)

@@ -1,13 +1,39 @@
-"""Configuration dataclasses read by the port's sim path.
+"""Configuration dataclasses read by the port's engines.
 
-Copies of ``ProtocolConfig``, ``OptimizerConfig`` and ``FaultConfig`` from
-the reference (``repro.common.config``) with the same fields and defaults,
-so one set of knobs configures both packages.
+Copies of ``MeshConfig``, ``ProtocolConfig``, ``OptimizerConfig``,
+``FaultConfig`` and the fields of ``TrainConfig`` that the dist engine reads,
+from the reference (``repro.common.config``) with the same fields and
+defaults, so one set of knobs configures both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The reference's production mesh: ``pods`` x ``data`` x ``model``
+    chips, the data axis factored into (worker, fsdp). The dist engine runs
+    one process per gossip worker (``pods * workers_per_pod``); ``fsdp`` and
+    ``model`` must be 1 there (see :mod:`repro_torch.launch.mesh`)."""
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+    workers_per_pod: int = 4       # gossip replicas per pod; fsdp = data // workers_per_pod
+
+    @property
+    def fsdp(self) -> int:
+        assert self.data % self.workers_per_pod == 0, (self.data, self.workers_per_pod)
+        return self.data // self.workers_per_pod
+
+    @property
+    def num_workers(self) -> int:
+        return self.pods * self.workers_per_pod
+
+    @property
+    def num_chips(self) -> int:
+        return self.pods * self.data * self.model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,3 +103,16 @@ class FaultConfig:
     rendezvous: bool = False         # apply at the partner's next step boundary
     timeout: float = 0.0             # per-exchange timeout (0 = never)
     max_retries: int = 0             # re-dispatches of a timed-out exchange
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the reference's ``TrainConfig`` that the dist engine
+    reads (the steps, dtypes, checkpoint and logging fields come with the
+    launcher)."""
+    protocol: ProtocolConfig = ProtocolConfig(comm_probability=0.03125)
+    optimizer: OptimizerConfig = OptimizerConfig()
+    # fused flat-plane update (kernels B1/B2): pairwise protocols only
+    fused_update: bool = True
+    # gossip-compression codec override: "" inherits protocol.codec
+    codec: str = ""

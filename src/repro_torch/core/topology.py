@@ -12,10 +12,14 @@ worker axis, ``theta_new = M @ theta`` on the stacked ``[W, ...]`` plane:
 Draws come from an explicit ``torch.Generator`` on the run's device; they
 cannot reproduce ``jax.random``'s threefry bits, so parity tests inject the
 reference's draws instead. The static matching schedules of the dist engine
-are not ported yet.
+(:func:`hypercube_schedule`, :func:`random_matching_schedule`) are numpy,
+copied bit for bit.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
+import numpy as np
 import torch
 
 
@@ -127,3 +131,43 @@ def discard_lost(mix: torch.Tensor, lost: torch.Tensor) -> torch.Tensor:
     off = mix * (1.0 - eye)
     returned = torch.sum(off * lost_f[None, :], dim=1)
     return mix * (1.0 - lost_f[None, :] * (1.0 - eye)) + torch.diag(returned)
+
+
+# ---------------------------------------------------------------------------
+# Static matching schedules: the dist engine (one send/recv per round)
+# ---------------------------------------------------------------------------
+
+def hypercube_schedule(num_workers: int) -> List[List[Tuple[int, int]]]:
+    """log2(W) perfect matchings: round r pairs i <-> i XOR 2^r. Cycling
+    through rounds gives full mixing in log2(W) gossip rounds."""
+    assert num_workers & (num_workers - 1) == 0 and num_workers >= 2, num_workers
+    rounds = []
+    r = 0
+    while (1 << r) < num_workers:
+        rounds.append([(i, i ^ (1 << r)) for i in range(num_workers)])
+        r += 1
+    return rounds
+
+
+def random_matching_schedule(num_workers: int, num_rounds: int,
+                             seed: int = 0) -> List[List[Tuple[int, int]]]:
+    """Precomputed random perfect matchings from numpy's ``RandomState``
+    (odd W: the last worker of each permutation partners itself)."""
+    rng = np.random.RandomState(seed)
+    rounds = []
+    for _ in range(num_rounds):
+        perm = rng.permutation(num_workers)
+        partner = np.empty(num_workers, np.int64)
+        for j in range(0, num_workers - 1, 2):
+            partner[perm[j]], partner[perm[j + 1]] = perm[j + 1], perm[j]
+        if num_workers % 2 == 1:
+            partner[perm[-1]] = perm[-1]
+        rounds.append([(i, int(partner[i])) for i in range(num_workers)])
+    return rounds
+
+
+def matching_partner_array(pairs: List[Tuple[int, int]]) -> np.ndarray:
+    partner = np.empty(len(pairs), np.int64)
+    for i, k in pairs:
+        partner[i] = k
+    return partner

@@ -1,7 +1,7 @@
 // Fused elastic-gossip + NAG update on the flat parameter plane, for Hopper
-// (sm_90a).
+// (sm_90a): kernels B1 and B2 (B3 runs B1 on a [1, numel] view).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/fused_update.py::_flat_kernel
+// B1 replaces the Pallas TPU kernel src/repro/kernels/fused_update.py::_flat_kernel
 // (wrapper fused_flat_elastic_nag_update). Per element of row w of the
 // [W, N] plane, in f32 and in the reference's operation order:
 //
@@ -12,19 +12,28 @@
 // Every element's inputs are read before the same thread writes its outputs,
 // so peer may alias theta.
 //
-// Bound: memory bandwidth. Six streams (read theta/peer/v/g, write theta/v)
-// against ~9 flops per element, about 0.4 flop/byte in f32, far below the
-// card's ridge point. The design does nothing but stream: a 2-D grid puts
-// one row per blockIdx.y (so a row's scalars are read once per thread and no
-// index is divided), and a grid-stride loop over the row's columns with
-// coalesced scalar loads. The arithmetic uses the _rn intrinsics, which the
-// compiler does not contract into FMAs, so the result rounds exactly as the
-// plain PyTorch version does. Tuning the vector width and the grid is later
-// work.
+// B2 replaces src/repro/kernels/fused_update.py::_flat_nag_kernel (wrapper
+// fused_flat_nag_update): B1 without the peer stream, the non-firing step of
+// the dist engine,
+//
+//     v'     = mu*v - eta*g
+//     theta' = theta - eta*g + mu*v'
+//
+// with (eta, mu) = sc[w, 0..1], in place on theta and v.
+//
+// Bound: memory bandwidth. B1 moves six streams (read theta/peer/v/g, write
+// theta/v) against ~9 flops per element, B2 five streams against 5 flops,
+// both below 0.5 flop/byte in f32, far below the card's ridge point. The
+// design does nothing but stream: a 2-D grid puts one row per blockIdx.y (so
+// a row's scalars are read once per thread and no index is divided), and a
+// grid-stride loop over the row's columns with coalesced scalar loads. The
+// arithmetic uses the _rn intrinsics, which the compiler does not contract
+// into FMAs, so the result rounds exactly as the plain PyTorch version does.
+// Tuning the vector width and the grid is later work.
 //
 // Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// and called through ctypes (plain C entry point below).
+// and called through ctypes (plain C entry points below).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,19 +80,59 @@ __global__ void fused_flat_elastic_nag_kernel(T* theta,
   }
 }
 
+// B2, one element: (theta', v') from (theta, v, g) in f32
+__device__ __forceinline__ void nag_one(float t, float vv, float gg, float eta, float mu,
+                                        float* t_new, float* v_new) {
+  const float eg = __fmul_rn(eta, gg);
+  *v_new = __fsub_rn(__fmul_rn(mu, vv), eg);
+  *t_new = __fadd_rn(__fsub_rn(t, eg), __fmul_rn(mu, *v_new));
+}
+
+template <typename T, typename V>
+__global__ void fused_flat_nag_kernel(T* __restrict__ theta, V* __restrict__ v,
+                                      const T* __restrict__ g,
+                                      const float* __restrict__ sc, int64_t n) {
+  const int64_t row = blockIdx.y;
+  const float eta = sc[row * 2 + 0];
+  const float mu = sc[row * 2 + 1];
+  const int64_t base = row * n;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += stride) {
+    const int64_t i = base + j;
+    float t_new, v_new;
+    nag_one(load_f32(theta, i), load_f32(v, i), load_f32(g, i), eta, mu, &t_new, &v_new);
+    store(theta, i, t_new);
+    store(v, i, v_new);
+  }
+}
+
+// one row per blockIdx.y, about eight blocks per SM over the whole grid
+dim3 row_grid(int64_t items, int64_t w, int threads) {
+  int64_t blocks = (items + threads - 1) / threads;
+  int64_t cap = (132 * 8 + w - 1) / w;
+  if (cap < 1) cap = 1;
+  if (blocks > cap) blocks = cap;
+  return dim3((unsigned)blocks, (unsigned)w);
+}
+
+template <typename T, typename V>
+cudaError_t launch_nag(void* theta, void* v, const void* g, const float* sc, int64_t w,
+                       int64_t n, cudaStream_t stream) {
+  if (w <= 0 || n <= 0) return cudaSuccess;
+  if (w > 65535) return cudaErrorInvalidValue;
+  const int threads = 256;
+  fused_flat_nag_kernel<T, V><<<row_grid(n, w, threads), threads, 0, stream>>>(
+      static_cast<T*>(theta), static_cast<V*>(v), static_cast<const T*>(g), sc, n);
+  return cudaGetLastError();
+}
+
 template <typename T, typename V>
 cudaError_t launch(void* theta, const void* peer, void* v, const void* g,
                    const float* sc, int64_t w, int64_t n, cudaStream_t stream) {
   if (w <= 0 || n <= 0) return cudaSuccess;
   if (w > 65535) return cudaErrorInvalidValue;
   const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  // about eight blocks per SM over the whole grid; rows share them
-  int64_t cap = (132 * 8 + w - 1) / w;
-  if (cap < 1) cap = 1;
-  if (blocks > cap) blocks = cap;
-  dim3 grid((unsigned)blocks, (unsigned)w);
-  fused_flat_elastic_nag_kernel<T, V><<<grid, threads, 0, stream>>>(
+  fused_flat_elastic_nag_kernel<T, V><<<row_grid(n, w, threads), threads, 0, stream>>>(
       static_cast<T*>(theta), static_cast<const T*>(peer), static_cast<V*>(v),
       static_cast<const T*>(g), sc, n);
   return cudaGetLastError();
@@ -104,5 +153,21 @@ extern "C" int repro_fused_flat_elastic_nag(int t_dtype, int v_dtype, void* thet
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(theta, peer, v, g, s, w, n, st);
   if (t_dtype == 1 && v_dtype == 0)
     return (int)launch<__nv_bfloat16, float>(theta, peer, v, g, s, w, n, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2. dtype codes as above; sc is [w, 2] f32 (eta, mu). Returns a
+// cudaError_t (0 = success).
+extern "C" int repro_fused_flat_nag(int t_dtype, int v_dtype, void* theta, void* v,
+                                    const void* g, const void* sc, int64_t w, int64_t n,
+                                    void* stream) {
+  const float* s = static_cast<const float*>(sc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t_dtype == 0 && v_dtype == 0)
+    return (int)launch_nag<float, float>(theta, v, g, s, w, n, st);
+  if (t_dtype == 1 && v_dtype == 1)
+    return (int)launch_nag<__nv_bfloat16, __nv_bfloat16>(theta, v, g, s, w, n, st);
+  if (t_dtype == 1 && v_dtype == 0)
+    return (int)launch_nag<__nv_bfloat16, float>(theta, v, g, s, w, n, st);
   return (int)cudaErrorInvalidValue;
 }

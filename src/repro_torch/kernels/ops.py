@@ -1,5 +1,5 @@
 """Dispatch for the port's kernels (port of ``repro.kernels.ops``: the fused
-update B1, the codecs B4-B7 and the robust apply B8).
+updates B1-B3, the codecs B4-B7 and the robust apply B8).
 
 A CUDA tensor always goes to the hand-written kernel, which launches or
 raises. A CPU tensor goes to the plain version in :mod:`ref`, whose result
@@ -15,6 +15,22 @@ from repro_torch.kernels import codec as _codec
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import robust as _robust
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} of every kernel wrapper since its count was last
+    set to 0 (each wrapper counts where it launches, and nowhere else)."""
+    return {"fused_flat_elastic_nag_update": _fu.LAUNCHES,
+            "fused_flat_nag_update": _fu.NAG_LAUNCHES,
+            "fused_elastic_nag_update": _fu.ARRAY_LAUNCHES,
+            **_codec.LAUNCHES, "robust_flat_apply": _robust.LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    _fu.LAUNCHES = _fu.NAG_LAUNCHES = _fu.ARRAY_LAUNCHES = 0
+    _robust.LAUNCHES = 0
+    for name in _codec.LAUNCHES:
+        _codec.LAUNCHES[name] = 0
 
 
 def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
@@ -36,6 +52,34 @@ def fused_bufs_elastic_nag(theta_bufs, peer_bufs, v_bufs, g_bufs, coef, eta, mu)
         fused_flat_elastic_nag_update(theta_bufs[k], peer_bufs[k], v_bufs[k],
                                       g_bufs[k], coef, eta, mu)
     return theta_bufs, v_bufs
+
+
+def fused_flat_nag_update(theta, v, g, eta, mu):
+    """[W, N] flat-buffer pure-NAG update (no peer stream), IN PLACE on theta
+    and v; scalar eta/mu. Returns (theta, v)."""
+    if theta.device.type == "cpu":
+        t_new, v_new = ref.fused_flat_nag_update(theta, v, g, eta, mu)
+        theta.copy_(t_new)
+        v.copy_(v_new)
+        return theta, v
+    return _fu.fused_flat_nag_update(theta, v, g, eta, mu)
+
+
+def fused_bufs_nag(theta_bufs, v_bufs, g_bufs, eta, mu):
+    """Per-dtype-bucket pure-NAG update over flat-buffer dicts: the dist
+    engine's non-firing hot path. Updates theta and v in place; returns
+    (theta_bufs, v_bufs)."""
+    for k in theta_bufs:
+        fused_flat_nag_update(theta_bufs[k], v_bufs[k], g_bufs[k], eta, mu)
+    return theta_bufs, v_bufs
+
+
+def fused_elastic_nag_update(theta, peer, v, g, coef_gate, *, eta, mu):
+    """The update on arrays of any shape with a scalar ``coef_gate``; returns
+    NEW (theta', v') on both devices and writes no input."""
+    if theta.device.type == "cpu":
+        return ref.fused_elastic_nag_update(theta, peer, v, g, coef_gate, eta=eta, mu=mu)
+    return _fu.fused_elastic_nag_update(theta, peer, v, g, coef_gate, eta=eta, mu=mu)
 
 
 def robust_flat_apply(theta, delta, scale, thr):

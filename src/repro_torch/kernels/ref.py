@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets, port
-of ``repro.kernels.ref``): B1, B8 and the codecs B4-B7. Pure functions:
+of ``repro.kernels.ref``): B1-B3, B8 and the codecs B4-B7. Pure functions:
 they return new tensors."""
 from __future__ import annotations
 
@@ -32,6 +32,34 @@ def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
     v_new = m * vf - eg
     theta_new = tf - c * (tf - pf) - eg + m * v_new
     return theta_new.to(theta.dtype), v_new.to(v.dtype)
+
+
+def fused_flat_nag_update(theta, v, g, eta, mu):
+    """Flat-plane pure NAG (Alg. 5 lines 3 and 9, no communication; B2's
+    plain version) on ``[W, N]`` buffers, scalar ``eta``/``mu``, in f32:
+
+        v'     = mu * v - eta * g
+        theta' = theta - eta * g + mu * v'
+
+    Returns (theta', v') in theta's / v's dtypes."""
+    W, dev = theta.shape[0], theta.device
+    e = _per_replica(eta, W, dev)
+    m = _per_replica(mu, W, dev)
+    eg = e * g.float()
+    v_new = m * v.float() - eg
+    theta_new = theta.float() - eg + m * v_new
+    return theta_new.to(theta.dtype), v_new.to(v.dtype)
+
+
+def fused_elastic_nag_update(theta, peer, v, g, coef_gate, *, eta, mu):
+    """The per-array update (B3's plain version): B1's math on arrays of any
+    shape with a scalar ``coef_gate`` (= alpha * participation gate), in f32.
+    Returns (theta', v') in theta's / v's dtypes and shapes."""
+    n = theta.numel()
+    t, v_new = fused_flat_elastic_nag_update(
+        theta.reshape(1, n), peer.reshape(1, n), v.reshape(1, n), g.reshape(1, n),
+        coef_gate, eta, mu)
+    return t.reshape(theta.shape), v_new.reshape(v.shape)
 
 
 def robust_flat_apply(theta, delta, scale, thr):

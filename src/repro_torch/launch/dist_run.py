@@ -1,0 +1,170 @@
+"""One dist-engine run of the §4.1 MLP: the body of each rank and the call
+that spawns the fleet.
+
+    from repro_torch.launch import dist_run
+    results = dist_run.run_fleet(mesh_cfg, "cuda", job)
+
+``job`` is a dict the parent builds once and every rank receives:
+
+- ``model``: the MLP's widths (``in_dim``, ``hidden``, ``depth``,
+  ``num_classes``);
+- ``params``: the single-replica parameters as numpy arrays (every rank
+  starts from them);
+- ``x`` ``[steps, W, pw, in_dim]`` and ``y`` ``[steps, W, pw]``: the staged
+  batches; rank r trains on row r;
+- ``runs``: a list of runs, each ``{"kind": "train", "tag", "protocol":
+  ProtocolConfig kwargs, "optimizer": OptimizerConfig kwargs, "codec",
+  "fused_update", "steps", "seed", "gather"}`` or ``{"kind": "exchange",
+  "tag", "protocol", "codec", "params_stack": {name: [W, ...] numpy array or
+  tensor}, "active": [W], "rounds": [...]}``.
+
+Each rank runs the runs in order through ``GossipTrainer(engine="dist")``
+and returns, per run: the per-step metrics, the launches of every kernel
+wrapper (counts set to 0 just before the run, read just after), the sends
+and receives of its group, the synchronised step times, the time of the
+fleet-mean loss all-reduce, the exchange split into its device-to-host
+copy, gloo and host-to-device copy, the same collectives timed once more
+after a barrier (``probe``: without the wait for the slowest rank), and,
+with ``gather``, the whole
+``[W, total]`` theta and velocity (rank 0 only). Exchange runs return the
+exchanged stack of every round (rank 0 only).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import MeshConfig, OptimizerConfig, ProtocolConfig
+from repro_torch.launch.mesh import spawn_workers
+
+
+def _loss_fn(params, x, y):
+    from repro_torch.models import simple
+    return simple.xent_loss(simple.mlp_logits(params, x), y)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _numpy_tree(tree):
+    """Tensors -> numpy arrays (bfloat16, which numpy lacks, as float32)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _trainer(group, run: Dict[str, Any]):
+    from repro_torch.api import GossipTrainer
+    return GossipTrainer(
+        engine="dist", protocol=ProtocolConfig(**run["protocol"]),
+        optimizer=OptimizerConfig(**run.get("optimizer", {})), loss_fn=_loss_fn,
+        fused_update=run.get("fused_update", True), device=group.device,
+        codec=run.get("codec"), group=group, seed=run.get("seed", 0))
+
+
+def _train(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
+    from repro_torch.kernels import ops
+    from repro_torch.models.simple import params_from_jax
+    dev = group.device
+    tr = _trainer(group, run)
+    state = tr.init_state(run.get("seed", 0), params=params_from_jax(job["params"], dev))
+    steps = run["steps"]
+    xs = torch.as_tensor(np.ascontiguousarray(job["x"][:steps, group.rank]), device=dev)
+    ys = torch.as_tensor(np.ascontiguousarray(job["y"][:steps, group.rank]), device=dev)
+    _sync(dev)
+    group.barrier()
+    ops.zero_launch_counts()
+    group.sends = group.recvs = 0
+    group.exchange_times()
+    rec = {k: [] for k in ("loss", "fired", "comm_round", "comm_active", "comm_bytes",
+                           "step_ms", "loss_reduce_ms")}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = tr.step(state, (xs[i], ys[i]))
+        _sync(dev)
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["loss_reduce_ms"].append(tr.dist.last_loss_reduce_s * 1e3)
+        for k in ("loss", "fired", "comm_round", "comm_active", "comm_bytes"):
+            rec[k].append(m[k])
+    out = {"tag": run["tag"], "launches": ops.launch_counts(), "sends": group.sends,
+           "recvs": group.recvs, "exchanges": group.exchange_times(),
+           "wire_bytes": tr.comm_cost().bytes_per_event, **rec}
+    out["probe"] = _probe(group, tr, state)
+    if run.get("gather"):
+        theta = tr.dist.gather_theta(state)
+        vel = tr.dist.gather_bufs(state.opt.mu)
+        if group.rank == 0:
+            out["theta"] = _numpy_tree(theta)
+            out["velocity"] = _numpy_tree(vel)
+    return out
+
+
+def _probe(group, tr, state, reps: int = 5) -> Dict[str, float]:
+    """The run's collectives without the ranks' skew: each one timed after
+    a barrier, median of ``reps`` (in a step, the same operations also wait
+    for the slowest rank). The one-float loss all-reduce; for a pairwise
+    protocol one exchange of a wire of this run's size with the round-0
+    partner (its parts as in ``exchange_times``); for allreduce the
+    gradient all-reduce of the rank's plane."""
+    dev = group.device
+    med = lambda xs: float(np.median(xs))   # noqa: E731
+    loss = torch.ones(1, device=dev)
+    plane = next(iter(state.theta.values()))
+    times: Dict[str, list] = {"loss_allreduce_ms": [], "plane_allreduce_ms": []}
+    parts: List[Dict[str, Any]] = []
+    for _ in range(reps):
+        group.barrier()
+        t0 = time.perf_counter()
+        group.all_reduce_sum(loss)
+        times["loss_allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+        if tr.impl.pairwise:
+            wire = torch.zeros(1, int(tr.comm_cost().bytes_per_event) + 1, dtype=torch.uint8,
+                               device=dev)
+            group.barrier()
+            group.exchange([wire], int(tr.matching_partners(0)[group.rank]))
+            parts += group.exchange_times()
+        elif tr.impl.name == "allreduce":
+            group.barrier()
+            t0 = time.perf_counter()
+            group.all_reduce_sum(plane)
+            _sync(dev)
+            times["plane_allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    out = {k: med(v) for k, v in times.items() if v}
+    for k in ("d2h_ms", "gloo_ms", "h2d_ms"):
+        vals = [p[k] for p in parts if p[k] is not None]
+        if vals:
+            out["exchange_" + k] = med(vals)
+    return out
+
+
+def _exchange(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
+    tr = _trainer(group, run)
+    stack = {k: torch.as_tensor(v).to(group.device) for k, v in run["params_stack"].items()}
+    group.sends = group.recvs = 0
+    outs = []
+    for r in run["rounds"]:
+        got = tr.gossip_exchange(stack, run["active"], r)
+        outs.append(_numpy_tree(got) if group.rank == 0 else None)
+    return {"tag": run["tag"], "rounds": outs, "sends": group.sends, "recvs": group.recvs,
+            "num_gossip_rounds": tr.num_gossip_rounds,
+            "partners": [tr.matching_partners(r) for r in run["rounds"]]}
+
+
+def run_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
+    """The body of one rank: every run of ``job`` in order."""
+    kinds = {"train": _train, "exchange": _exchange}
+    return {"rank": group.rank, "device": str(group.device),
+            "runs": [kinds[run["kind"]](group, job, run) for run in job["runs"]]}
+
+
+def run_fleet(mesh_cfg: MeshConfig, device, job: Dict[str, Any], **spawn_kw) -> List[Dict]:
+    """Spawn one process per worker of ``mesh_cfg`` on ``device`` and run
+    ``job`` on each; returns the ranks' results in rank order. The kernels
+    must be built before (the ranks only load them)."""
+    return spawn_workers(run_rank, mesh_cfg, device, args=(job,), **spawn_kw)

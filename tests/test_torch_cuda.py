@@ -1,7 +1,8 @@
-"""Tests of the port that need an NVIDIA GPU: kernels B1, B4-B7 and B8
-against their plain versions on the card, and the sim engine launching them
-(B1 once per step; with a codec, its encode and decode kernels once per
-step; with a robust protocol, B8 once per step).
+"""Tests of the port that need an NVIDIA GPU: kernels B1-B8 against their
+plain versions on the card, the sim engine launching them (B1 once per
+step; with a codec, its encode and decode kernels once per step; with a
+robust protocol, B8 once per step), and a 2-rank dist engine on the card
+(B1 on the firing steps, B2 on the others).
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -306,3 +307,96 @@ def test_sim_corrupt_wire_detects_every_corruption(cuda, codec):
     assert int(st.proto.wire_corrupt) == want > 0
     assert int(st.proto.comm_units) == 6 * 4 - want
     assert bool(torch.isfinite(st.theta["float32"]).all())
+
+
+# ---------------------------------------------------------------------------
+# B2 and B3: byte-equal to their plain versions; the dist engine on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n", [(8, 35968 * 3), (4, 1000), (3, 1001), (1, 1)])
+@pytest.mark.parametrize("dkind", sorted(DTYPES))
+@pytest.mark.parametrize("scalars", ["python", "tensor"])
+def test_b2_matches_plain_version_byte_for_byte(cuda, W, n, dkind, scalars):
+    tdt, vdt = DTYPES[dkind]
+    t, _, v, g, _ = _inputs(W, n, tdt, vdt, cuda, seed=5)
+    eta, mu = ((0.01, 0.9) if scalars == "python"
+               else (torch.full((), 0.01, device=cuda), torch.full((), 0.9, device=cuda)))
+    want_t, want_v = tref.fused_flat_nag_update(t, v, g, eta, mu)
+    kt, kv = t.clone(), v.clone()
+    ptr = (kt.data_ptr(), kv.data_ptr())
+    launches = tfu.NAG_LAUNCHES
+    out = ops.fused_flat_nag_update(kt, kv, g, eta, mu)
+    torch.cuda.synchronize()
+    assert tfu.NAG_LAUNCHES == launches + 1
+    assert (out[0].data_ptr(), out[1].data_ptr()) == ptr
+    assert torch.equal(_bits(kt), _bits(want_t)) and torch.equal(_bits(kv), _bits(want_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 1000), (33, 65), (4, 7, 130), (1,)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_b3_matches_plain_version_byte_for_byte(cuda, shape, tdt):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    t, p, v, gr = (torch.randn(*shape, generator=g, device=cuda).to(tdt) for _ in range(4))
+    before = [x.clone() for x in (t, p, v, gr)]
+    coef = torch.full((), 0.5, device=cuda)
+    want_t, want_v = tref.fused_elastic_nag_update(t, p, v, gr, coef, eta=0.01, mu=0.9)
+    launches = tfu.ARRAY_LAUNCHES
+    got_t, got_v = ops.fused_elastic_nag_update(t, p, v, gr, coef, eta=0.01, mu=0.9)
+    torch.cuda.synchronize()
+    assert tfu.ARRAY_LAUNCHES == launches + 1
+    assert got_t.shape == shape and got_v.shape == shape
+    assert torch.equal(_bits(got_t), _bits(want_t)) and torch.equal(_bits(got_v), _bits(want_v))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(before, (t, p, v, gr)))
+
+
+@pytest.mark.cuda
+def test_b2_b3_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    t = torch.zeros((2, 256), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfu.fused_flat_nag_update(t.T.contiguous().T, t, t, 0.1, 0.9)
+    with pytest.raises(ValueError, match="share"):
+        tfu.fused_flat_nag_update(t, t, t.double(), 0.1, 0.9)
+    with pytest.raises(ValueError, match="v must be"):
+        tfu.fused_flat_nag_update(t, t.bfloat16(), t, 0.1, 0.9)
+    with pytest.raises(ValueError, match="one shape"):
+        tfu.fused_elastic_nag_update(t, t[:1], t, t, 0.5, eta=0.1, mu=0.9)
+    with pytest.raises(ValueError, match="scalar"):
+        tfu.fused_elastic_nag_update(t, t, t, t, torch.ones(2, device=cuda), eta=0.1, mu=0.9)
+
+
+@pytest.mark.cuda
+def test_dist_engine_on_the_card_launches_b1_and_b2(cuda, tmp_path):
+    """2 ranks on this card: B1 once per firing step, B2 once per other
+    step on each rank; one send and one recv per firing step; the two
+    ranks report one fleet-mean loss."""
+    import numpy as np
+    from repro_torch.common.config import MeshConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dist_run
+    from repro_torch.models import simple
+    build.build("fused_update")      # the ranks only load it
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.numpy() for k, v in simple.init_mlp(gen, 784, 64, 2, 10)[0].items()}
+    rng = np.random.RandomState(0)
+    steps = 12
+    job = dict(params=params, x=rng.rand(steps, 2, 8, 784).astype(np.float32),
+               y=rng.randint(0, 10, (steps, 2, 8)).astype(np.int64),
+               runs=[dict(kind="train", tag="eg", steps=steps, seed=1,
+                          protocol=dict(method="elastic_gossip", comm_probability=0.3,
+                                        moving_rate=0.5),
+                          optimizer=dict(name="nag", learning_rate=0.01, momentum=0.9))])
+    res = dist_run.run_fleet(MeshConfig(data=2, model=1, pods=1, workers_per_pod=2), "cuda",
+                             job, timeout_s=60, join_timeout_s=300,
+                             rendezvous_dir=str(tmp_path))
+    runs = [r["runs"][0] for r in res]
+    fired = sum(runs[0]["fired"])
+    assert 0 < fired < steps
+    for run in runs:
+        assert run["fired"] == runs[0]["fired"] and run["loss"] == runs[0]["loss"]
+        assert run["launches"]["fused_flat_elastic_nag_update"] == fired
+        assert run["launches"]["fused_flat_nag_update"] == steps - fired
+        assert run["sends"] == run["recvs"] == fired
+        assert len(run["exchanges"]) == fired
+        assert all(np.isfinite(run["loss"]))

@@ -159,7 +159,10 @@ def test_import_repro_torch_loads_neither_jax_nor_repro():
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert {'repro_torch.comm.codecs', 'repro_torch.comm.registry',\n"
-        "        'repro_torch.kernels.codec'} <= set(sys.modules)\n"
+        "        'repro_torch.kernels.codec', 'repro_torch.core.gossip_dist',\n"
+        "        'repro_torch.core.scheduler', 'repro_torch.core.consensus',\n"
+        "        'repro_torch.train.step', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.dist_run'} <= set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -123,3 +123,84 @@ def test_failed_build_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build("fused_update")
     assert not build.BUILD_DIR.exists()
+
+
+# ---------------------------------------------------------------------------
+# B2 (pure NAG on the flat plane, the dist engine's non-firing step) and B3
+# (the per-array update): plain versions against the reference
+# ---------------------------------------------------------------------------
+
+B2_CASES = [(W, n, dkind, scalars) for W in (1, 8) for n in (1000, 35968 * 3)
+            for dkind in sorted(DTYPES) for scalars in ("python", "tensor")]
+
+
+@pytest.mark.parametrize("W,n,dkind,scalars", B2_CASES)
+def test_b2_plain_version_matches_reference(W, n, dkind, scalars):
+    """B2's plain version against the reference's Pallas kernel in
+    interpret mode and its jnp oracle (TOL: 1e-6 f32, 2e-2 bf16), through
+    the in-place dispatch; eta and mu as python numbers or 0-d tensors."""
+    dt, vdt = DTYPES[dkind]
+    (jt, _, jv, jg), (tt, _, tv, tg), _ = _inputs(W, n, dt, vdt, seed=2)
+    j_out = jfu.fused_flat_nag_update(jt, jv, jg, ETA, MU, interpret=True)
+    o_out = jax.jit(jref.fused_flat_nag_update)(jt, jv, jg, ETA, MU)
+    eta, mu = (ETA, MU) if scalars == "python" else (torch.tensor(ETA), torch.tensor(MU))
+    t_in, v_in = tt.clone(), tv.clone()
+    ptr = (t_in.data_ptr(), v_in.data_ptr())
+    t_out, v_out = ops.fused_flat_nag_update(t_in, v_in, tg, eta, mu)
+    assert (t_out.data_ptr(), v_out.data_ptr()) == ptr
+    assert t_out.dtype == tt.dtype and v_out.dtype == tv.dtype
+    for ref_t, ref_v in (j_out, o_out):
+        _close(t_out, ref_t, dt)
+        _close(v_out, ref_v, vdt)
+    # B2 is B1 with the peer stream gone: peer = theta gives the same bits
+    w_t, w_v = tref.fused_flat_elastic_nag_update(tt, tt, tv, tg, 0.7, eta, mu)
+    assert torch.equal(t_out, w_t) and torch.equal(v_out, w_v)
+
+
+@pytest.mark.parametrize("shape", [(128,), (1000,), (33, 65), (4, 7, 130), (1,)])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_b3_plain_version_matches_reference(shape, dt):
+    """B3's plain version on arrays of any shape (scalar coef_gate, f32
+    velocity and gradient beside a bf16 theta, as the reference's oracle
+    test) against the reference's Pallas kernel in interpret mode and its
+    jnp oracle; it returns new tensors and writes no input."""
+    rng = np.random.RandomState(3)
+    t, p, v, g = (rng.randn(*shape).astype(np.float32) for _ in range(4))
+    jt, jp = jnp.asarray(t, dt), jnp.asarray(p, dt)
+    jv, jg = jnp.asarray(v), jnp.asarray(g)
+    j_out = jfu.fused_elastic_nag_update(jt, jp, jv, jg, 0.5, eta=ETA, mu=MU, block=256,
+                                         interpret=True)
+    o_out = jref.fused_elastic_nag_update(jt, jp, jv, jg, coef_gate=0.5, eta=ETA, mu=MU)
+    to_t = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    tt, tp = (torch.from_numpy(np.array(a, np.float32)).to(to_t) for a in (jt, jp))
+    tv, tg = torch.from_numpy(v), torch.from_numpy(g)
+    before = [x.clone() for x in (tt, tp, tv, tg)]
+    t_out, v_out = ops.fused_elastic_nag_update(tt, tp, tv, tg, 0.5, eta=ETA, mu=MU)
+    assert t_out.shape == shape and t_out.dtype == tt.dtype and v_out.dtype == tv.dtype
+    assert all(torch.equal(a, b) for a, b in zip(before, (tt, tp, tv, tg)))
+    for ref_t, ref_v in (j_out, o_out):
+        _close(t_out, ref_t, dt)
+        _close(v_out, ref_v, "float32")
+
+
+def test_b2_b3_wrappers_refuse_cpu_tensors_and_count_nothing(monkeypatch):
+    """The kernel wrappers take CUDA tensors only; a non-CPU tensor never
+    reaches a plain version."""
+    x = torch.zeros((2, 256))
+    counts = (tfu.NAG_LAUNCHES, tfu.ARRAY_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfu.fused_flat_nag_update(x, x, x, ETA, MU)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfu.fused_elastic_nag_update(x, x, x, x, 0.5, eta=ETA, mu=MU)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a non-CPU tensor")
+    monkeypatch.setattr(tref, "fused_flat_nag_update", boom)
+    monkeypatch.setattr(tref, "fused_elastic_nag_update", boom)
+    m = torch.empty((2, 256), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.fused_flat_nag_update(m, m, m, ETA, MU)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.fused_elastic_nag_update(m, m, m, m, 0.5, eta=ETA, mu=MU)
+    assert (tfu.NAG_LAUNCHES, tfu.ARRAY_LAUNCHES) == counts
+    assert ops.launch_counts()["fused_flat_nag_update"] == counts[0]

@@ -267,8 +267,13 @@ def test_unported_features_refuse():
                   loss_fn=_tloss, num_workers=2, device="cpu",
                   faults=TFault(fault_model="drop", fault_rate=0.2))
     assert tr.sim.fault_model.name == "drop" and tr.sim.faults.fault_rate == 0.2
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # the dist engine is ported (slice 5): it builds on a rank's group and
+    # asks for one without it; the async engine is slice 4
+    with pytest.raises(ValueError, match="requires loss_fn and group"):
         TTrainer(engine="dist", protocol=TProto(comm_probability=0.5),
+                 loss_fn=_tloss, num_workers=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        TTrainer(engine="async", protocol=TProto(comm_probability=0.5),
                  loss_fn=_tloss, num_workers=2, device="cpu")
     for name in ("fleet", "shard"):
         with pytest.raises(NotImplementedError, match="slice 4"):
