@@ -80,6 +80,28 @@ prints no result line):
              synchronised step for firing and non-firing steps, the exchange
              split into device-to-host copy, gloo and host-to-device copy,
              and the fleet-mean loss all-reduce.
+6. serve   — B9 (flash attention) held against its plain version in f32
+             (2e-5) and bf16 (3e-2): causal prefill at G in {1, 4, 8} and
+             hd in {64, 128, 256}, a q_offset suffix, decode over a
+             [8, 1024, 4, 64] cache with kv_len 1 / 513 / 1024 (causal at
+             pos, and the ring buffer's non-causal form), windows 1 / 7 /
+             4096, softcap 50 at hd 256, kv_start per row, a strided layer
+             view of a stacked cache; NaN and inf below kv_start must give
+             the bits of zeroed rows. B9, its plain version and SDPA timed
+             at the prefill ([8, 512, 32, 64] causal) and decode
+             ([8, 1, 32, 64] over the cache at pos 512) shapes in bf16. Then
+             TinyLlama-1.1B at full width (22 layers, d 2048, 32 / 4 heads,
+             random weights from seed 0, bf16 params and cache, 8 slots,
+             max_len 1024): the serve_decode entry point (512-token
+             prompts, 64 greedy steps, a hot swap at step 32), B9 launched
+             exactly 22 times in the prefill and in every step and no other
+             kernel; a ContinuousBatcher over a TrafficGen stream (seed 1,
+             rate 0.5, 32 requests, prompts 8-64, budgets 16-64) until it
+             drains (at most 384 boundaries), invariants held and every
+             admitted request complete, B9 22 times a boundary; and the same
+             prefill and 8 decode steps in f32 through B9 and through the
+             plain version (patched into the op), logits within 1e-3 of the
+             largest logit.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -124,9 +146,10 @@ FAULT_RUNS = (
      "q8"),
 )
 
-# (memory bytes/s, f32 non-tensor FLOP/s) by card name, from NVIDIA's data sheets
-CARDS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12)]
+# (memory bytes/s, f32 non-tensor FLOP/s, bf16 dense tensor-core FLOP/s) by
+# card name, from NVIDIA's data sheets
+CARDS = [("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100", 3.35e12, 67e12, 989e12)]
 
 
 def log(msg):
@@ -134,9 +157,9 @@ def log(msg):
 
 
 def card_rates(name):
-    for key, bw, flops in CARDS:
+    for key, bw, flops, bf16_flops in CARDS:
         if key in name:
-            return bw, flops
+            return bw, flops, bf16_flops
     raise RuntimeError(f"no memory/compute rates known for {name!r}")
 
 
@@ -1040,6 +1063,324 @@ def run_dist_phase(torch, train, dev):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serving path on TinyLlama-1.1B, kernel B9
+# ---------------------------------------------------------------------------
+
+B9 = "flash_attention"
+B9_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's kernel tests'
+# bf16 outputs are held tighter too: to 2^-6 of the case's max |plain|, two to
+# four bf16 ulps at the largest output (kernel and plain both round one f32
+# result, so they differ by at most one ulp of an element)
+B9_BF16_REL = 2.0 ** -6
+SERVE_ARCH = "tinyllama_1_1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN = 8, 512, 1024
+SERVE_TOKENS, SERVE_SWAP_AT = 64, 32
+TRAFFIC = dict(rate=0.5, num_requests=32, prompt_len=(8, 64), max_new=(16, 64))
+TRAFFIC_SEED, TRAFFIC_BOUNDARIES = 1, 384
+PARITY_STEPS, PARITY_TOL = 8, 1e-3   # f32 logits: max |kernel - plain| / max |plain|
+
+
+def plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
+                    kv_len=None, kv_start=None):
+    """B9's plain version behind the op's signature (patched into
+    ``kernels.ops.attention`` for the plain runs of this phase only)."""
+    from repro_torch.kernels import ref
+    return ref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap,
+                         q_offset=q_offset, kv_len=kv_len, kv_start=kv_start)
+
+
+def b9_cases(torch, dev, dt):
+    """(tag, q, k, v, kwargs) at the shapes of the checks: causal prefill
+    over G and hd, a q_offset suffix, decode over a [8, 1024, 4, 64] cache
+    with kv_len 1 / mid / full, windows, softcap, kv_start per row and a
+    strided layer view of a stacked cache."""
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    cases = []
+    for G in (1, 4, 8):
+        for hd in (64, 128, 256):
+            cases.append((f"prefill G={G} hd={hd}", rnd(2, 200, 2 * G, hd), rnd(2, 200, 2, hd),
+                          rnd(2, 200, 2, hd), dict(causal=True)))
+    q, k, v = rnd(1, 256, 32, 64), rnd(1, 256, 4, 64), rnd(1, 256, 4, 64)
+    cases.append(("q_offset 200", q[:, 200:], k, v, dict(causal=True, q_offset=i32(200))))
+    ck, cv = rnd(SERVE_BATCH, SERVE_MAX_LEN, 4, 64), rnd(SERVE_BATCH, SERVE_MAX_LEN, 4, 64)
+    qd = rnd(SERVE_BATCH, 1, 32, 64)
+    for n in (1, 513, SERVE_MAX_LEN):
+        cases.append((f"decode kv_len {n}", qd, ck, cv,
+                      dict(causal=True, q_offset=i32(n - 1), kv_len=i32(n))))
+        cases.append((f"ring kv_len {n}", qd, ck, cv, dict(causal=False, kv_len=i32(n))))
+    qw, kw_, vw = rnd(1, 300, 8, 64), rnd(1, 300, 2, 64), rnd(1, 300, 2, 64)
+    for w in (1, 7, 4096):
+        cases.append((f"window {w}", qw, kw_, vw, dict(causal=True, window=w)))
+    cases.append(("softcap 50 hd=256", rnd(1, 128, 4, 256), rnd(1, 128, 2, 256),
+                  rnd(1, 128, 2, 256), dict(causal=True, softcap=50.0)))
+    start = torch.tensor([0, 100, 512, 700, 3, 699, 250, 1], dtype=torch.int32, device=dev)
+    cases.append(("kv_start", qd, ck, cv,
+                  dict(causal=True, q_offset=i32(700), kv_len=i32(701), kv_start=start)))
+    stack = rnd(3, SERVE_BATCH, SERVE_MAX_LEN, 4, 64)
+    cases.append(("strided layer view", qd, stack[1, :, :600], stack[2, :, :600],
+                  dict(causal=True, q_offset=i32(599))))
+    return cases, (qd, ck, cv, start)
+
+
+def b9_err(tag, got, want):
+    """Max |B9 - plain| of one case, raising past the dtype's bound."""
+    name = str(want.dtype).split(".")[-1]
+    err = float((got.float() - want.float()).abs().max())
+    tol = B9_TOL[name]
+    if name == "bfloat16":
+        tol = min(tol, B9_BF16_REL * float(want.float().abs().max()))
+    if not err <= tol:
+        raise RuntimeError(f"B9 {tag} {name}: max abs err {err} > {tol}")
+    return err
+
+
+def check_b9(torch, ops, fa, dev):
+    """B9 against its plain version in every case, f32 and bf16; keys below
+    kv_start holding garbage (NaN, inf) give the bits of zeroed ones."""
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        cases, (qd, ck, cv, start) = b9_cases(torch, dev, dt)
+        worst[name] = 0.0
+        for tag, q, k, v, kw in cases:
+            n = fa.LAUNCHES
+            got = ops.attention(q, k, v, **kw)
+            want = plain_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES != n + 1:
+                raise RuntimeError(f"B9 {tag}: the op did not launch the kernel")
+            worst[name] = max(worst[name], b9_err(tag, got, want))
+        rows = torch.arange(SERVE_MAX_LEN, device=dev)[None, :, None, None]
+        below = rows < start.reshape(-1, 1, 1, 1)
+        kw = dict(causal=True, q_offset=torch.tensor(700, dtype=torch.int32, device=dev),
+                  kv_len=torch.tensor(701, dtype=torch.int32, device=dev), kv_start=start)
+        zeroed = ops.attention(qd, ck.masked_fill(below, 0), cv.masked_fill(below, 0), **kw)
+        kg, vg = ck.masked_fill(below, float("nan")), cv.masked_fill(below, float("inf"))
+        garbage = ops.attention(qd, kg, vg, **kw)
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        if not torch.equal(zeroed.view(bits), garbage.view(bits)):
+            raise RuntimeError(f"B9 {name}: garbage below kv_start changed the output")
+        log(f"[serve] B9 vs plain version, {name}: {len(cases)} cases, max abs err "
+            f"{worst[name]:.3e} (tolerance {B9_TOL[name]}"
+            + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
+            + "); garbage below kv_start = zeroed, bit for bit")
+    return worst
+
+
+def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak):
+    """(bound ms, by): q, the visible K/V rows and out moved once against 4 hd
+    flops per (query row, visible key) at the bf16 tensor-core peak."""
+    nbytes = (2 * B * Sq * H * hd + 2 * B * visible * Hkv * hd) * size
+    flops = 4 * hd * H * B * (visible if Sq == 1 else Sq * (Sq + 1) // 2)
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_b9(torch, ops, dev, bw, peak):
+    """B9, its plain version and SDPA at the serve path's two shapes, bf16:
+    prefill q [8, 512, 32, 64] causal, and decode q [8, 1, 32, 64] over the
+    [8, 1024, 4, 64] cache at pos 512 (SDPA gets K/V cut to the live rows).
+    The kernel is first held against the plain version on those inputs.
+    Returns (times by shape, max abs err)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(32)
+    dt, B, S, H, Hkv, hd = torch.bfloat16, SERVE_BATCH, SERVE_PROMPT, 32, 4, 64
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device=dev).to(dt) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out = {}
+    err = b9_err("prefill [8, 512, 32, 64]", ops.attention(q, k, v, causal=True),
+                 plain_attention(q, k, v, causal=True))
+    pre = dict(ms=time_launches(torch, lambda: ops.attention(q, k, v, causal=True)),
+               plain_ms=time_launches(torch, lambda: plain_attention(q, k, v, causal=True)),
+               library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)))
+    pre["bound_ms"], pre["bound_by"] = b9_bound(B, S, H, Hkv, hd, S, 2, bw, peak)
+    out["prefill"] = pre
+    pos = SERVE_PROMPT
+    ck, cv = (torch.randn(B, SERVE_MAX_LEN, Hkv, hd, generator=g, device=dev).to(dt)
+              for _ in range(2))
+    qd = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
+    p_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n_t = p_t + 1
+    qdt = qd.transpose(1, 2).contiguous()
+    kl, vl = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (ck, cv))
+    err = max(err, b9_err("decode [8, 1, 32, 64] at pos 512",
+                          ops.attention(qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t),
+                          plain_attention(qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t)))
+    dec = dict(ms=time_launches(torch, lambda: ops.attention(qd, ck, cv, causal=True,
+                                                             q_offset=p_t, kv_len=n_t)),
+               plain_ms=time_launches(torch, lambda: plain_attention(
+                   qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t)),
+               library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                   qdt, kl, vl, enable_gqa=True)))
+    dec["bound_ms"], dec["bound_by"] = b9_bound(B, 1, H, Hkv, hd, pos + 1, 2, bw, peak)
+    out["decode"] = dec
+    log(f"[serve] B9 vs plain version at the timed shapes, bfloat16: max abs err {err:.3e}")
+    for tag, r in out.items():
+        log(f"[serve] B9 {tag} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out, err
+
+
+def serve_flow(torch, ops, cfg, dev):
+    """The serve_decode entry point at full width: 512-token prompts, 64
+    greedy steps, one hot swap at step 32. B9 must launch once per layer in
+    the prefill and in every decode step, and nowhere else."""
+    from repro_torch.launch.serve_decode import serve_decode
+    L = cfg.num_layers
+    ops.zero_launch_counts()
+    r = serve_decode(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, tokens=SERVE_TOKENS,
+                     max_len=SERVE_MAX_LEN, device=dev, seed=0, swap_at=SERVE_SWAP_AT,
+                     log=lambda m: log(f"[serve] {m}"))
+    counts = ops.launch_counts()
+    want = L * (1 + SERVE_TOKENS)
+    if r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts[B9] != want:
+        raise RuntimeError(f"B9 launches: prefill {r['prefill_launches']}, per step "
+                           f"{sorted(set(r['step_launches']))}, total {counts[B9]}; want "
+                           f"{L}, {L}, {want}")
+    others = {k: n for k, n in counts.items() if k != B9 and n}
+    if others:
+        raise RuntimeError(f"the serve path launched other kernels: {others}")
+    if r["swaps"] != 2 or not r["final_logits_finite"] or \
+            r["cache_pos"] != SERVE_PROMPT + SERVE_TOKENS or \
+            tuple(r["stream"].shape) != (SERVE_BATCH, SERVE_TOKENS):
+        raise RuntimeError(f"serve_decode: swaps {r['swaps']}, finite "
+                           f"{r['final_logits_finite']}, pos {r['cache_pos']}, stream "
+                           f"{tuple(r['stream'].shape)}")
+    step = statistics.median(r["step_ms"])
+    log(f"[serve] {cfg.name} bf16, batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, max_len "
+        f"{SERVE_MAX_LEN}: prefill {r['prefill_ms']:.3f} ms, median decode step {step:.3f} ms "
+        f"({SERVE_BATCH / step * 1e3:.1f} tokens/s), swap pause "
+        f"{r['swap_pause_s'] * 1e3:.3f} ms, B9 launches {counts[B9]} = {L} x (1 + "
+        f"{SERVE_TOKENS})")
+    return counts[B9], dict(prefill_ms=r["prefill_ms"], step_ms=step,
+                            swap_ms=r["swap_pause_s"] * 1e3)
+
+
+def serve_batcher(torch, ops, cfg, dev):
+    """A ContinuousBatcher over a TrafficGen stream until it drains (at most
+    384 boundaries): invariants hold, every admitted request completes with
+    its budget, B9 launches once per layer per boundary."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve import ContinuousBatcher, LiveServer, SnapshotBus, TrafficGen
+    from repro_torch.serving.engine import make_serve_program
+    prog = make_serve_program(cfg, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, device=dev)
+    bus = SnapshotBus()
+    with torch.no_grad():
+        bus.publish_params(tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)[0])
+    server = LiveServer(prog, bus)
+    server.maybe_swap()
+    reqs = TrafficGen(TRAFFIC_SEED, vocab=cfg.vocab_size, **TRAFFIC).requests()
+    bat = ContinuousBatcher(server, reqs)
+    ops.zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = 0
+    while t < TRAFFIC_BOUNDARIES and (bat.pending or bat.in_flight):
+        bat.step(t)
+        t += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()[B9]
+    bat.check_invariants()
+    lat = bat.latency_summary()
+    by_rid = {r.rid: r for r in reqs}
+    if lat["completed"] != lat["admitted"] or bat.pending or any(
+            len(rec["tokens"]) != by_rid[rec["rid"]].max_new for rec in bat.completed):
+        raise RuntimeError(f"batcher did not complete every admitted request: {lat}")
+    if launches != cfg.num_layers * t:
+        raise RuntimeError(f"B9 launches {launches} != {cfg.num_layers} x {t} boundaries")
+    tps = lat["generated_tokens"] / wall
+    log(f"[serve] continuous batching: {t} boundaries in {wall:.3f} s "
+        f"({wall / t * 1e3:.3f} ms a boundary), {lat['completed']} of {len(reqs)} requests "
+        f"completed, {lat['generated_tokens']} tokens, {tps:.1f} tokens/s; latency in "
+        f"boundaries: ttft p50 {lat['ttft_p50_boundaries']} p99 {lat['ttft_p99_boundaries']}, "
+        f"total p50 {lat['latency_p50_boundaries']} p99 {lat['latency_p99_boundaries']}; "
+        f"B9 launches {launches}")
+    return launches, dict(tokens_per_s=tps, boundary_ms=wall / t * 1e3, **lat)
+
+
+def serve_parity(torch, ops, cfg, dev):
+    """f32 at full width: the same prefill and 8 decode steps through B9 and
+    through the plain version (patched into the op), on the same weights
+    and tokens."""
+    from unittest import mock
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import make_serve_program
+    params = tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)[0]
+    prog = make_serve_program(cfg, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                              param_dtype=torch.float32, cache_dtype=torch.float32,
+                              with_prefill=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                           device=dev, dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PARITY_STEPS), generator=g,
+                          device=dev, dtype=torch.int32)
+
+    def run():
+        logits, cache = prog.prefill_fn(params, prompt)
+        out = [logits]
+        for t in range(PARITY_STEPS):
+            logits, cache = prog.decode_fn(params, cache, steps[:, t:t + 1])
+            out.append(logits)
+        return torch.stack(out).float()
+
+    n = ops.launch_counts()[B9]
+    got = run()
+    with mock.patch.object(ops, "attention", plain_attention):
+        want = run()
+    torch.cuda.synchronize()
+    if ops.launch_counts()[B9] - n != cfg.num_layers * (1 + PARITY_STEPS):
+        raise RuntimeError("the f32 kernel run did not launch B9 once per layer and step")
+    gap = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not (torch.isfinite(got).all() and gap <= PARITY_TOL):
+        raise RuntimeError(f"f32 logits through B9 vs plain: relative gap {gap} > {PARITY_TOL}")
+    log(f"[serve] f32 prefill + {PARITY_STEPS} decode steps, B9 vs plain version: logits max "
+        f"|diff| / max |logit| = {gap:.3e} (tolerance {PARITY_TOL}), greedy tokens agree "
+        f"{agree:.4f}")
+    return gap
+
+
+def run_serve_phase(torch, ops, fa, dev, bw, peak):
+    """Phase 6. Returns (B9 launches on the serve path, numbers for the
+    kernels line). B9's work could run on the tensor cores, so its bound
+    counts operations at the bf16 dense peak ``peak``."""
+    from repro_torch.configs import get_config
+    err = check_b9(torch, ops, fa, dev)
+    times, err_full = time_b9(torch, ops, dev, bw, peak)
+    err["bfloat16"] = max(err["bfloat16"], err_full)
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    n_flow, flow = serve_flow(torch, ops, cfg, dev)
+    torch.cuda.empty_cache()
+    n_bat, bat = serve_batcher(torch, ops, cfg, dev)
+    torch.cuda.empty_cache()
+    gap = serve_parity(torch, ops, cfg, dev)
+    torch.cuda.empty_cache()
+    pre, dec = times["prefill"], times["decode"]
+    entry = dict(max_abs_err=err["float32"], max_abs_err_bf16=err["bfloat16"], **pre,
+                 shape=[SERVE_BATCH, SERVE_PROMPT, 32, 64],
+                 decode_shape=[SERVE_BATCH, 1, 32, 64], decode_cache=[SERVE_BATCH, SERVE_MAX_LEN, 4, 64],
+                 decode_ms=dec["ms"], decode_plain_ms=dec["plain_ms"],
+                 decode_library_ms=dec["library_ms"], decode_bound_ms=dec["bound_ms"],
+                 decode_bound_by=dec["bound_by"], library="scaled_dot_product_attention",
+                 serve=dict(flow, **{k: bat[k] for k in ("tokens_per_s", "boundary_ms",
+                                                         "ttft_p50_boundaries",
+                                                         "latency_p99_boundaries")},
+                            f32_logit_gap=gap))
+    return n_flow + n_bat, entry
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -1055,6 +1396,8 @@ KERNELS = {
     "topk_decode": ("B7", "src/repro_torch/kernels/csrc/codec.cu",
                     "src/repro/kernels/codec.py:131"),
     B8: ("B8", "src/repro_torch/kernels/csrc/robust.cu", "src/repro/kernels/robust.py:30"),
+    B9: ("B9", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:28"),
 }
 
 
@@ -1070,7 +1413,9 @@ def main():
     from repro_torch.data.synthetic import load_mnist
     from repro_torch.kernels import build
     from repro_torch.kernels import codec as ck
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref
     from repro_torch.kernels import robust as rb
 
@@ -1080,14 +1425,15 @@ def main():
     log(smi)
     log(f"[build] torch {torch.__version__} cuda {torch.version.cuda}, device {kind}; "
         "TF32 off for matmul and cuDNN")
-    bw, peak = card_rates(kind)
+    bw, peak, peak_bf16 = card_rates(kind)
     t0 = time.perf_counter()
-    sources = ("fused_update", "codec", "robust")
+    sources = ("fused_update", "codec", "robust", "flash_attention")
     with ThreadPoolExecutor(len(sources)) as ex:      # one nvcc per source, together
         list(ex.map(build.build, sources))
     for name in sources:
         build.load(name)
-    log(f"[build] fused_update.cu (B1-B3), codec.cu (B4-B7) and robust.cu (B8) in parallel: "
+    log(f"[build] fused_update.cu (B1-B3), codec.cu (B4-B7), robust.cu (B8) and "
+        f"flash_attention.cu (B9) in parallel: "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in sources) + ")")
 
@@ -1141,12 +1487,16 @@ def main():
         f"{q['fire_ms']:.3f} / non-firing {q['quiet_ms']:.3f} ms, allreduce "
         f"{dist_ms['allreduce']['quiet_ms']:.3f} ms")
 
+    n_serve, times[B9] = run_serve_phase(torch, ops, fa, dev, bw, peak_bf16)
+    launches[B9] += n_serve
+    err[B9] = times[B9].pop("max_abs_err")
+
     kernels = []
     for kname, (kid, source, replaces) in KERNELS.items():
         kernels.append({"name": kname, "id": kid, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": err[kname], **times[kname],
-                        "shape": [8, N_FULL], "card": smi})
+                        "max_abs_err": err[kname], "shape": [8, N_FULL], **times[kname],
+                        "card": smi})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

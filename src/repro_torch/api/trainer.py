@@ -282,7 +282,8 @@ class GossipTrainer:
                 f'engine="{engine}" is not ported yet ({PORTED_LATER[engine]})')
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
-        for name, value, where in (("publish_every", publish_every, "port slice 7"),
+        for name, value, where in (("publish_every", publish_every,
+                                    "port slice 7b, train-while-serve"),
                                    ("obs", obs, "port slice 6")):
             if value is not None:
                 raise NotImplementedError(f"{name}= is not ported yet ({where})")

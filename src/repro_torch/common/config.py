@@ -1,14 +1,16 @@
 """Configuration dataclasses read by the port's engines.
 
 Copies of ``MeshConfig``, ``ProtocolConfig``, ``OptimizerConfig``,
-``FaultConfig`` and the fields of ``TrainConfig`` that the dist engine reads,
-from the reference (``repro.common.config``) with the same fields and
-defaults, so one set of knobs configures both packages.
+``FaultConfig``, the fields of ``TrainConfig`` that the dist engine reads,
+and ``ModelConfig`` with the dataclasses it references (the transformer
+architectures of :mod:`repro_torch.configs`), from the reference
+(``repro.common.config``) with the same fields and defaults, so one set of
+knobs configures both packages.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +118,198 @@ class TrainConfig:
     fused_update: bool = True
     # gossip-compression codec override: "" inherits protocol.codec
     codec: str = ""
+
+
+# ---------------------------------------------------------------------------
+# Model (copied; pure dataclasses)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    num_shared_experts: int = 0
+    d_ff_expert: int = 0           # per-expert hidden size (0 -> use model d_ff)
+    capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.01
+    # which layers are MoE (deepseek keeps layer 0 dense)
+    first_dense_layers: int = 0
+    # local dispatch: tokens are routed independently within this many shards
+    # (aligned with the batch sharding), each with capacity C/shards — keeps
+    # the sort/scatter local to the data shards (MaxText-style). 1 = global.
+    dispatch_shards: int = 1
+    # mesh axes the dispatch-shard dim lives on (train steps vmap over the
+    # worker dim, so only 'fsdp' remains available there; serving uses all
+    # data axes) — set by launch.specs.cfg_for_mesh
+    dispatch_axes: tuple = ("pod", "worker", "fsdp")
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0 -> full-rank q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block parameters."""
+    state_dim: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_dim: int = 4
+    chunk_size: int = 256
+    ngroups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    # indices i with (i % slstm_every == slstm_offset) are sLSTM blocks
+    slstm_every: int = 6
+    slstm_offset: int = 5
+    proj_factor: float = 2.0       # up-projection inside m/sLSTM blocks
+    conv_dim: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: Mamba2 backbone + shared (reused-weights) attention blocks."""
+    shared_attn_every: int = 6     # insert a shared attn+mlp block every N ssm layers
+    num_shared_blocks: int = 2     # distinct shared blocks, used alternately
+
+
+@dataclasses.dataclass(frozen=True)
+class VLMConfig:
+    """Llama-3.2-Vision-style cross-attention decoder."""
+    cross_attn_layers: Tuple[int, ...] = (3, 8, 13, 18, 23, 28, 33, 38)
+    num_image_tokens: int = 1601   # stubbed patch embeddings per image
+    image_embed_dim: int = 4096    # dim of the (stubbed) projected patch embeds
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """MusicGen-style decoder over EnCodec tokens."""
+    num_codebooks: int = 4
+    num_cond_tokens: int = 64      # stubbed conditioning frame embeddings
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                 # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // num_heads
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # gemma2-style extras
+    local_window: int = 0          # >0 -> alternating local/global attention
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    post_norms: bool = False       # gemma2 post-attn/post-ffn norms
+    # activation: swiglu (llama) | gelu (gpt) | geglu (gemma) | relu
+    activation: str = "swiglu"
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    vlm: Optional[VLMConfig] = None
+    audio: Optional[AudioConfig] = None
+    # serving: archs without sub-quadratic path use a bounded-window decode
+    # variant for long_500k (DESIGN.md §4)
+    sw_decode_window: int = 8192
+    # rematerialize per-layer activations in the training forward (scan body)
+    remat: bool = True
+    source: str = ""               # citation bracket from the assignment
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs and sanity checks)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = V * d  # embed
+        if not self.tie_embeddings:
+            total += d * V
+        if self.audio is not None:
+            total += (self.audio.num_codebooks - 1) * V * d      # extra codebook embeds
+            total += (self.audio.num_codebooks - 1) * d * V      # extra heads
+        per_layer_attn = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+        if self.mla is not None:
+            m = self.mla
+            q_in = m.q_lora_rank or d
+            per_layer_attn = (
+                (d * m.q_lora_rank if m.q_lora_rank else 0)
+                + q_in * n_q * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * n_q * (m.qk_nope_head_dim + m.v_head_dim)
+                + n_q * m.v_head_dim * d
+            )
+        if self.activation in ("swiglu", "geglu"):
+            per_layer_ffn = 3 * d * self.d_ff
+        else:
+            per_layer_ffn = 2 * d * self.d_ff
+        n_attn_layers = L
+        n_ffn_layers = L
+        if self.arch_type == "ssm" and self.xlstm is not None:
+            # xLSTM: no separate FFN; blocks have their own projections
+            x = self.xlstm
+            d_in = int(d * x.proj_factor)
+            per_layer = 2 * d * d_in + 3 * d_in * d_in // 4 + d_in * d  # rough qkv/gates
+            total += L * per_layer + L * 2 * d
+            return total
+        if self.arch_type in ("ssm", "hybrid") and self.ssm is not None:
+            s = self.ssm
+            d_inner = s.expand * d
+            nheads = d_inner // s.head_dim
+            per_ssm = (
+                d * (2 * d_inner + 2 * s.ngroups * s.state_dim + nheads)  # in_proj
+                + s.conv_dim * (d_inner + 2 * s.ngroups * s.state_dim)    # conv
+                + nheads * 2                                               # A, D
+                + d_inner * d                                              # out_proj
+            )
+            if self.arch_type == "ssm":
+                total += L * (per_ssm + 2 * d)
+                return total
+            # hybrid: ssm layers + shared attn blocks (counted once)
+            h = self.hybrid
+            n_shared = h.num_shared_blocks if h else 0
+            total += L * (per_ssm + 2 * d)
+            total += n_shared * (per_layer_attn + per_layer_ffn + 2 * d)
+            return total
+        if self.moe is not None:
+            m = self.moe
+            dff_e = m.d_ff_expert or self.d_ff
+            n_moe = L - m.first_dense_layers
+            mult = 3 if self.activation in ("swiglu", "geglu") else 2
+            per_moe = m.num_experts * mult * d * dff_e + m.num_shared_experts * mult * d * dff_e + d * m.num_experts
+            total += m.first_dense_layers * per_layer_ffn + n_moe * per_moe
+            total += n_attn_layers * per_layer_attn + L * 2 * d
+            return total
+        total += n_attn_layers * per_layer_attn + n_ffn_layers * per_layer_ffn + L * 2 * d
+        if self.vlm is not None:
+            total += len(self.vlm.cross_attn_layers) * (per_layer_attn + per_layer_ffn + 2 * d)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: routed top-k only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        dff_e = m.d_ff_expert or self.d_ff
+        mult = 3 if self.activation in ("swiglu", "geglu") else 2
+        n_moe = self.num_layers - m.first_dense_layers
+        inactive = n_moe * (m.num_experts - m.top_k) * mult * self.d_model * dff_e
+        return self.param_count() - inactive

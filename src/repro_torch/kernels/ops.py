@@ -1,5 +1,6 @@
 """Dispatch for the port's kernels (port of ``repro.kernels.ops``: the fused
-updates B1-B3, the codecs B4-B7 and the robust apply B8).
+updates B1-B3, the codecs B4-B7, the robust apply B8 and flash attention
+B9).
 
 A CUDA tensor always goes to the hand-written kernel, which launches or
 raises. A CPU tensor goes to the plain version in :mod:`ref`, whose result
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import codec as _codec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import robust as _robust
@@ -23,12 +25,14 @@ def launch_counts() -> dict:
     return {"fused_flat_elastic_nag_update": _fu.LAUNCHES,
             "fused_flat_nag_update": _fu.NAG_LAUNCHES,
             "fused_elastic_nag_update": _fu.ARRAY_LAUNCHES,
-            **_codec.LAUNCHES, "robust_flat_apply": _robust.LAUNCHES}
+            **_codec.LAUNCHES, "robust_flat_apply": _robust.LAUNCHES,
+            "flash_attention": _fa.LAUNCHES}
 
 
 def zero_launch_counts() -> None:
     _fu.LAUNCHES = _fu.NAG_LAUNCHES = _fu.ARRAY_LAUNCHES = 0
     _robust.LAUNCHES = 0
+    _fa.LAUNCHES = 0
     for name in _codec.LAUNCHES:
         _codec.LAUNCHES[name] = 0
 
@@ -129,3 +133,31 @@ def topk_decode(values, idx, n: int, *, k: int, block: int):
     if values.device.type == "cpu":
         return ref.topk_decode(values, idx, n, k=k, block=block)
     return _codec.topk_decode(values, idx, n, k=k, block=block)
+
+
+# ---------------------------------------------------------------------------
+# Attention (B9)
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+              q_offset=0, kv_len=None, kv_start=None):
+    """BSHD attention, the model's entry: q [B, Sq, H, hd]; k, v
+    [B, Skv, Hkv, hd] (any strides with a contiguous head dim: the cache
+    goes in without a copy). ``q_offset``/``kv_len`` are ints or device
+    scalars, ``kv_start`` None or [B]. Returns [B, Sq, H, hd] in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap,
+                             q_offset=q_offset, kv_len=kv_len, kv_start=kv_start)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               q_offset=q_offset, kv_len=kv_len, kv_start=kv_start)
+
+
+def flash_attention(q, k, v, kv_len=None, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset=0, kv_start=None):
+    """q: [B, H, Sq, hd]; k, v: [B, Hkv, Skv, hd] (BHSD layout, the
+    reference's ``ops.flash_attention`` signature, plus ``kv_start``).
+    Returns [B, H, Sq, hd]: :func:`attention` on the BSHD views, with no
+    transposing copy."""
+    return attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                     window=window, softcap=softcap, q_offset=q_offset, kv_len=kv_len,
+                     kv_start=kv_start).transpose(1, 2)

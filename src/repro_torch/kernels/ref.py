@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets, port
-of ``repro.kernels.ref``): B1-B3, B8 and the codecs B4-B7. Pure functions:
-they return new tensors."""
+of ``repro.kernels.ref``): B1-B3, B8, the codecs B4-B7 and attention (B9).
+Pure functions: they return new tensors."""
 from __future__ import annotations
 
 import torch
@@ -189,3 +189,47 @@ def topk_decode(values, idx, n: int, *, k: int, block: int):
     dense = torch.zeros((W, nb, block), dtype=torch.float32, device=values.device)
     dense.scatter_add_(-1, i, v)
     return dense.reshape(W, nb * block)[:, :n]
+
+
+NEG_INF = -1e30   # the reference's finite mask value
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              logit_softcap: float = 0.0, q_offset=0, kv_len=None, kv_start=None):
+    """Full-softmax attention (B9's plain version; port of the reference's
+    oracle ``repro.kernels.ref.attention``).
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd] (BSHD), H % Hkv == 0.
+    Scores in f32, ``softcap * tanh(s / softcap)`` when set, then the masks
+    (the finite -1e30), softmax over keys, output in q's dtype.
+    ``q_offset`` (absolute position of q[:, 0]) and ``kv_len`` (count of
+    valid keys) may be python ints or 0-d tensors on q's device;
+    ``kv_start`` (optional [B]) is the per-row first visible key, the
+    continuous-batching bound that the reference's ``chunked_attention``
+    takes. Materialises [B, H, Sq, Skv]: test and check shapes only."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    dev = q.device
+    kr = torch.repeat_interleave(k.float(), G, dim=2)
+    vr = torch.repeat_interleave(v.float(), G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * (hd ** -0.5)
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    q_pos = q_offset + torch.arange(Sq, device=dev)[:, None]
+    kv_pos = torch.arange(Skv, device=dev)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kv_pos <= q_pos)
+    if window:
+        mask = mask & ((q_pos - kv_pos) < window)
+    if kv_len is not None:
+        mask = mask & (kv_pos < kv_len)
+    mask = mask[None, None]                                   # [1, 1, Sq, Skv]
+    if kv_start is not None:
+        ks = torch.as_tensor(kv_start, device=dev).reshape(B, 1, 1, 1)
+        mask = mask & (kv_pos[None, None] >= ks)              # [B, 1, Sq, Skv]
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    return o.to(q.dtype)

@@ -1,0 +1,121 @@
+"""Where the serve path's time goes on the card: TinyLlama-1.1B at full
+width through ``make_serve_program`` (bf16, 8 slots, 512-token prompts,
+``max_len`` 1024), one prefill and 10 decode steps under ``torch.profiler``.
+
+    python -m repro_torch.launch.profile_serve
+
+Random weights from seed 0. For the prefill and for the decode window it
+prints the synchronised host time, the kernels launched, the device-busy
+share (the union of kernel intervals over the span from the first kernel's
+start to the last one's end) and the device time by phase: attention (kernel
+B9), the matmuls, elementwise kernels (norms, RoPE, residuals, casts),
+reductions, the KV-cache writes and the rest; then one JSON line.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import time
+from collections import defaultdict
+
+import torch
+
+from repro_torch.launch.profile_sim import _busy_us
+
+ARCH, BATCH, PROMPT_LEN, MAX_LEN, STEPS = "tinyllama_1_1b", 8, 512, 1024, 10
+
+
+def _phase(kernel_name: str) -> str:
+    n = kernel_name.lower()
+    if "flash_attention" in n:
+        return "B9 attention"
+    if any(s in n for s in ("gemm", "xmma", "cutlass", "sm90_", "nvjet", "cublas")):
+        return "matmul"
+    if "index_copy" in n or "indexcopy" in n or "index_put" in n:
+        return "cache write"
+    if "reduce" in n:
+        return "reduction"
+    if "elementwise" in n or "vectorized" in n or "unrolled" in n:
+        return "elementwise"
+    return "other"
+
+
+def _summary(prof_events, n: int, host_s) -> dict:
+    kernels = [e for e in prof_events if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    phases = defaultdict(float)
+    for name, (us, _) in by_name.items():
+        phases[_phase(name)] += us
+    span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+            if kernels else 0.0)
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"host_ms_median": statistics.median(host_s) * 1e3,
+            "kernel_launches": len(kernels) / n,
+            "device_busy_ms": busy / n / 1e3,
+            "device_busy_share": (busy / span) if span else None,
+            "phase_ms": {k: v / n / 1e3 for k, v in sorted(phases.items())},
+            "top_kernels": [{"name": nm[:100], "ms": us / n / 1e3, "calls": c / n}
+                            for nm, (us, c) in top]}
+
+
+def profile() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import make_serve_program
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    cfg = get_config(ARCH)
+    prog = make_serve_program(cfg, batch=BATCH, max_len=MAX_LEN, with_prefill=True, device=dev)
+    with torch.no_grad():
+        params = prog.place_params(tr.init_lm(torch.Generator(device=dev).manual_seed(0),
+                                              cfg, torch.bfloat16)[0])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device=dev,
+                           dtype=torch.int32)
+    logits, cache = prog.prefill_fn(params, prompt)          # warm-up: cuBLAS, the build
+    for _ in range(3):
+        logits, cache = prog.decode_fn(params, cache, logits.argmax(-1).int()[:, None])
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = prog.prefill_fn(params, prompt)
+        sync()
+        pre_s = [time.perf_counter() - t0]
+    prefill = _summary(prof.events(), 1, pre_s)
+    step_s = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            logits, cache = prog.decode_fn(params, cache, logits.argmax(-1).int()[:, None])
+            sync()
+            step_s.append(time.perf_counter() - t0)
+    decode = _summary(prof.events(), STEPS, step_s)
+    return {"arch": ARCH, "batch": BATCH, "prompt_len": PROMPT_LEN, "max_len": MAX_LEN,
+            "dtype": "bfloat16", "layers": cfg.num_layers,
+            "device": torch.cuda.get_device_name(dev), "prefill": prefill, "decode_step": decode}
+
+
+def main() -> int:
+    r = profile()
+    for tag in ("prefill", "decode_step"):
+        s = r[tag]
+        print(f"{tag}: {s['host_ms_median']:.3f} ms synchronised, "
+              f"{s['kernel_launches']:.0f} kernels, device busy {s['device_busy_ms']:.3f} ms "
+              f"(share {s['device_busy_share'] or 0:.3f})")
+        for ph, ms in sorted(s["phase_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"  {ph:<12} {ms:.3f} ms")
+        for k in s["top_kernels"][:6]:
+            print(f"    {k['ms']:.4f} ms x{k['calls']:.0f}  {k['name']}")
+    print(json.dumps(r))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,162 @@
+"""Block assembly (port of ``repro.models.blocks``): the kind ``"attn"``,
+self-attention (GQA) with a dense FFN, with the reference's
+init / forward / prefill / decode / cache interface.
+
+The reference's other kinds (``attn_cross``, ``mamba``, ``mlstm``,
+``slstm``, ``cross_blk``), MoE FFNs and MLA attention raise
+NotImplementedError: they wait for the rest of slice 7 (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import init_rmsnorm, rmsnorm, split_tree
+from repro_torch.models.mlp import ffn_forward, init_ffn_cfg
+
+PyTree = Any
+
+
+def _require_dense_attn(kind: str, cfg: ModelConfig, use_moe: bool = False) -> None:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} waits for the rest of slice 7 (ROADMAP.md: "
+            "SSM/xLSTM blocks, cross-attention)")
+    if use_moe or cfg.mla is not None:
+        raise NotImplementedError(
+            "MoE FFNs and MLA attention wait for the rest of slice 7 (ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bool = False,
+               dtype=torch.float32) -> Tuple[PyTree, PyTree]:
+    _require_dense_attn(kind, cfg, use_moe)
+    dev = gen.device
+    tree = {
+        "ln1": init_rmsnorm(cfg.d_model, dtype, dev),
+        "attn": attn.init_gqa(gen, cfg, dtype),
+        "ln2": init_rmsnorm(cfg.d_model, dtype, dev),
+        "ffn": init_ffn_cfg(gen, cfg, dtype),
+    }
+    if cfg.post_norms:
+        tree["post_ln1"] = init_rmsnorm(cfg.d_model, dtype, dev)
+        tree["post_ln2"] = init_rmsnorm(cfg.d_model, dtype, dev)
+    return split_tree(tree)
+
+
+# ---------------------------------------------------------------------------
+# forward (training, full sequence, no cache)
+# ---------------------------------------------------------------------------
+
+def _ffn_half(p, x, cfg: ModelConfig):
+    """The block's second residual half: x + post_ln2(ffn(ln2(x)))."""
+    y = ffn_forward(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.activation)
+    if cfg.post_norms:
+        y = rmsnorm(p["post_ln2"], y, cfg.norm_eps)
+    return x + y
+
+
+def _attn_residual(p, x, y, cfg: ModelConfig):
+    if cfg.post_norms:
+        y = rmsnorm(p["post_ln1"], y, cfg.norm_eps)
+    return x + y
+
+
+def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
+                  window=0, cond=None):
+    """Returns (x, aux_loss)."""
+    _require_dense_attn(kind, cfg, use_moe)
+    y, _ = attn.gqa_forward(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, window=window)
+    x = _attn_residual(p, x, y, cfg)
+    return _ffn_half(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     *, dtype=torch.float32, window: int = 0, device=None):
+    """Returns (cache, axes). window > 0 -> bounded ring buffer (sw decode)."""
+    _require_dense_attn(kind, cfg)
+    size = min(window, max_len) if window else max_len
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    cache = {"k": torch.zeros((batch, size, hkv, hd), dtype=dtype, device=device),
+             "v": torch.zeros((batch, size, hkv, hd), dtype=dtype, device=device)}
+    axes = {"k": ("batch", "seq_kv", "kv_heads", None),
+            "v": ("batch", "seq_kv", "kv_heads", None)}
+    return cache, axes
+
+
+# ---------------------------------------------------------------------------
+# decode (one token, cache updated in place)
+# ---------------------------------------------------------------------------
+
+def _attn_decode(p_attn, h, cache, pos, cfg: ModelConfig, window: int, window_mask=0,
+                 kv_start=None):
+    """window (python int): 0 = full cache at max_len; >0 = ring buffer of
+    that size (keys already roped at absolute positions; every live entry
+    is within the window by construction). window_mask (python int): extra
+    local-attention mask in full-cache mode (gemma2 local layers). kv_start
+    (optional [B]): per-slot first valid cache row, full-cache mode only.
+    Both modes write the new K/V row in place and attend through B9."""
+    if window:
+        if kv_start is not None:
+            raise ValueError(
+                "per-slot kv_start is not supported in ring-buffer window mode "
+                "(cache rows are recycled mod window, so an absolute lower bound "
+                "has no fixed row)")
+        size = cache["k"].shape[1]
+        positions = pos.reshape(1)
+        q, k, v = attn.gqa_qkv(p_attn, h, positions, cfg.rope_theta)
+        slot = torch.remainder(positions, size).long()
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        valid = torch.clamp(pos + 1, max=size)
+        o = attn.chunked_attention(q, cache["k"], cache["v"], causal=False, kv_len=valid,
+                                   logit_softcap=cfg.attn_logit_softcap, chunk=min(1024, size))
+        return attn.out_proj(o, p_attn["wo"]), cache
+    y, ck, cv = attn.gqa_decode(p_attn, h, cache["k"], cache["v"], pos, cfg,
+                                window=window_mask, kv_start=kv_start, chunk=2048)
+    return y, {"k": ck, "v": cv}
+
+
+def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool = False,
+                 window: int = 0, window_mask=0, cond=None, kv_start=None):
+    """x: [B, 1, d]. Returns (x, cache) with the cache written in place.
+    kv_start (optional [B]): per-slot first valid cache row, threaded into
+    the attention mask (continuous batching)."""
+    _require_dense_attn(kind, cfg, use_moe)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    y, new_cache = _attn_decode(p["attn"], h, cache, pos, cfg, window, window_mask,
+                                kv_start=kv_start)
+    x = _attn_residual(p, x, y, cfg)
+    return _ffn_half(p, x, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# prefill (full sequence, returns a cache padded to max_len rows)
+# ---------------------------------------------------------------------------
+
+def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
+                  window=0, cond=None, cache_dtype=torch.float32, max_len: int = 0):
+    """Returns (x, cache) covering positions [0, S), zero-padded to max_len
+    rows; K/V are cast to ``cache_dtype`` as the reference's are."""
+    _require_dense_attn(kind, cfg, use_moe)
+    y, (k, v) = attn.gqa_forward(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                                 window=window)
+    B, S = x.shape[:2]
+    rows = max(max_len, S)
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        buf = torch.zeros((B, rows) + tuple(t.shape[2:]), dtype=cache_dtype, device=x.device)
+        buf[:, :S] = t
+        cache[name] = buf
+    x = _attn_residual(p, x, y, cfg)
+    return _ffn_half(p, x, cfg), cache

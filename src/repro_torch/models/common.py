@@ -1,11 +1,17 @@
-"""Shared model building blocks (port of ``repro.models.common``, the part
-the MLP uses). Every ``init_*`` returns ``(params, axes)``."""
+"""Shared model building blocks (port of ``repro.models.common``).
+
+Every ``init_*`` returns ``(params, axes)``: parallel dicts whose axes
+leaves name each array dim logically, as the reference's do. The
+reference's ``maybe_shard`` has no counterpart: the port serves on one
+card, with no mesh.
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
@@ -19,6 +25,14 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
     return (w * std).to(dtype), axes
 
 
+def zeros_init(shape, axes, dtype=torch.float32, device=None):
+    return torch.zeros(shape, dtype=dtype, device=device), axes
+
+
+def ones_init(shape, axes, dtype=torch.float32, device=None):
+    return torch.ones(shape, dtype=dtype, device=device), axes
+
+
 def split_tree(pairs: dict) -> Tuple[dict, dict]:
     """{'name': (param, axes)} possibly nested -> (params, axes) trees."""
     params, axes = {}, {}
@@ -28,3 +42,65 @@ def split_tree(pairs: dict) -> Tuple[dict, dict]:
         else:
             params[k], axes[k] = v
     return params, axes
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype=torch.float32, device=None):
+    return ones_init((d,), ("act_embed",), dtype, device)
+
+
+def rmsnorm(w, x, eps: float = 1e-5, plus_one: bool = False):
+    """RMS norm in f32, cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (y * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] or [S]. Rotates the split
+    halves by f32 angles, as the reference does."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # [hd/2]
+    ang = positions[..., :, None].float() * freqs              # [..., S, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]                      # broadcast over heads
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default form
+
+
+def activation_fn(name: str):
+    return {
+        "relu": F.relu,
+        "gelu": _gelu_tanh,
+        "silu": F.silu,
+        "swiglu": F.silu,   # gating handled by the MLP module
+        "geglu": _gelu_tanh,
+    }[name]

@@ -1,0 +1,222 @@
+"""Transformer LM (port of ``repro.models.transformer``): segment-planned,
+with train / prefill / decode entry points.
+
+The dense architectures only (one ``"attn"`` segment; gemma2's per-layer
+local/global windows included): MoE, MLA, SSM/hybrid, audio and vision
+models raise NotImplementedError until the rest of slice 7 (ROADMAP.md).
+The parameter tree is the reference's, layers stacked on a leading
+``[count]`` axis per segment, so ``FlatSpec`` offsets equal the
+reference's and a snapshot flattens to the same buffers. The reference's
+``lax.scan`` over layers is a python loop over ``p[i]`` views here, and
+decode writes the KV cache in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.pytree import tree_map
+from repro_torch.models import blocks
+from repro_torch.models.common import dense_init, init_rmsnorm, rmsnorm, softcap
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    name: str
+    kind: str                 # blocks.py kind
+    count: int
+    use_moe: bool = False
+    windows: Optional[Tuple[int, ...]] = None   # per-layer window (gemma2)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    events: Tuple[Tuple[str, Any], ...]
+    segments: Tuple[Segment, ...]
+    num_cross: int = 0
+    num_shared_blocks: int = 0
+    num_shared_sites: int = 0
+
+
+def make_plan(cfg: ModelConfig) -> Plan:
+    """The reference's plan for a dense model: one ``attn`` segment over all
+    layers, gemma2's even layers local (``local_window``), odd ones global."""
+    if cfg.arch_type != "dense" or cfg.moe is not None or cfg.mla is not None \
+            or cfg.vlm is not None or cfg.audio is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: arch_type {cfg.arch_type!r} (MoE, MLA, SSM, hybrid, audio, "
+            "vision) waits for the rest of slice 7 (ROADMAP.md); the port serves "
+            "dense models")
+    windows = None
+    if cfg.local_window:
+        windows = tuple(cfg.local_window if j % 2 == 0 else 0 for j in range(cfg.num_layers))
+    seg = Segment("seg0_attn", "attn", cfg.num_layers, False, windows)
+    return Plan((("seg", seg.name),), (seg,))
+
+
+def _layer_windows(seg: Segment, default: int) -> List[int]:
+    return list(seg.windows) if seg.windows is not None else [default] * seg.count
+
+
+def _layer(seg_params, i: int):
+    return tree_map(lambda t: t[i], seg_params)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tuple[PyTree, PyTree]:
+    """(params, axes) on ``gen``'s device, in the reference's tree:
+    ``embed [1, V, d]``, ``segments/<seg>/...`` stacked ``[count, ...]``,
+    ``final_norm [d]`` and ``lm_head [1, d, V]`` (unless tied)."""
+    plan = make_plan(cfg)
+    params: dict = {}
+    axes: dict = {}
+    params["embed"], axes["embed"] = dense_init(
+        gen, (1, cfg.vocab_size, cfg.d_model), (None, "vocab", "embed"), dtype,
+        fan_in=cfg.d_model, scale=0.5)
+    segs_p, segs_a = {}, {}
+    for seg in plan.segments:
+        layers = [blocks.init_block(gen, seg.kind, cfg, use_moe=seg.use_moe, dtype=dtype)
+                  for _ in range(seg.count)]
+        segs_p[seg.name] = tree_map(lambda *xs: torch.stack(xs), *[p for p, _ in layers])
+        segs_a[seg.name] = _lead_axes(layers[0][1])
+    params["segments"], axes["segments"] = segs_p, segs_a
+    params["final_norm"], axes["final_norm"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"], axes["lm_head"] = dense_init(
+            gen, (1, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab"), dtype,
+            fan_in=cfg.d_model)
+    return params, axes
+
+
+def _lead_axes(a):
+    if isinstance(a, dict):
+        return {k: _lead_axes(v) for k, v in a.items()}
+    return (None,) + tuple(a)
+
+
+def params_from_jax(tree, device, dtype=None) -> PyTree:
+    """The reference's ``init_lm`` parameters (leaves as numpy arrays, e.g.
+    via ``np.asarray``) -> the port's tensors on ``device`` with the same
+    keys and shapes; cast to ``dtype`` when given, else the leaves' own
+    dtypes (bfloat16 leaves go through float32)."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embedding / head helpers
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    """tokens: [B, S] -> [B, S, d]."""
+    return params["embed"][0][tokens.long()]
+
+
+def lm_logits(params, cfg: ModelConfig, x):
+    """x: [B, S, d] -> [B, S, V]."""
+    head = params["embed"][0].t() if cfg.tie_embeddings else params["lm_head"][0]
+    logits = x @ head.to(x.dtype)
+    if cfg.final_logit_softcap:
+        logits = softcap(logits.float(), cfg.final_logit_softcap).to(logits.dtype)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, tokens, cond=None):
+    """Training forward. tokens: [B, S]. Returns (hidden [B, S, d], aux)."""
+    plan = make_plan(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg in plan.segments:
+        sp = params["segments"][seg.name]
+        for i, w in enumerate(_layer_windows(seg, 0)):
+            x, aux = blocks.block_forward(seg.kind, _layer(sp, i), x, cfg,
+                                          use_moe=seg.use_moe, window=w, cond=cond)
+            aux_total = aux_total + aux
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
+
+
+# ---------------------------------------------------------------------------
+# caches / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32,
+               window: int = 0, device=None) -> Tuple[PyTree, PyTree]:
+    """({"segments": {seg: {"k", "v": [count, B, size, Hkv, hd]}}, "pos":
+    int32 0-d}, axes); size = max_len, or ``window`` for the ring buffer."""
+    plan = make_plan(cfg)
+    cache = {"segments": {}, "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    axes = {"segments": {}, "pos": ()}
+    for seg in plan.segments:
+        c, a = blocks.init_block_cache(seg.kind, cfg, batch, max_len, dtype=dtype,
+                                       window=window, device=device)
+        cache["segments"][seg.name] = {k: torch.zeros((seg.count,) + tuple(t.shape),
+                                                      dtype=t.dtype, device=device)
+                                       for k, t in c.items()}
+        axes["segments"][seg.name] = _lead_axes(a)
+    return cache, axes
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: int = 0,
+                kv_start=None):
+    """One-token decode. tokens: [B, 1]. kv_start (optional [B]): per-row
+    first valid cache position, the continuous-batching slot boundary.
+    The cache's K/V rows at ``pos`` are written IN PLACE; the returned cache
+    holds the same K/V tensors and a new ``pos + 1``.
+    Returns (logits [B, V], cache)."""
+    plan = make_plan(cfg)
+    pos = cache["pos"]
+    x = embed_tokens(params, cfg, tokens)
+    new_cache = {"segments": {}, "pos": pos + 1}
+    for seg in plan.segments:
+        sp, sc = params["segments"][seg.name], cache["segments"][seg.name]
+        for i, w in enumerate(_layer_windows(seg, window)):
+            # `window` (python int) selects the ring-buffer mode; the
+            # per-layer `w` masks gemma2's local layers in full-cache mode
+            x, _ = blocks.block_decode(seg.kind, _layer(sp, i), x, _layer(sc, i), pos, cfg,
+                                       use_moe=seg.use_moe, window=window, window_mask=w,
+                                       cond=cond, kv_start=kv_start)
+        new_cache["segments"][seg.name] = sc
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, cfg, x)[:, 0], new_cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float32,
+            max_len: int = 0):
+    """Full-sequence prefill: returns (last-token logits [B, V], cache).
+    Attention caches are zero-padded to ``max_len`` rows so decode can
+    continue in place."""
+    plan = make_plan(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    S = x.shape[1]
+    cache = {"segments": {}, "pos": torch.full((), S, dtype=torch.int32, device=x.device)}
+    for seg in plan.segments:
+        sp = params["segments"][seg.name]
+        layers = []
+        for i, w in enumerate(_layer_windows(seg, 0)):
+            x, c = blocks.block_prefill(seg.kind, _layer(sp, i), x, cfg, use_moe=seg.use_moe,
+                                        window=w, cond=cond, cache_dtype=cache_dtype,
+                                        max_len=max_len)
+            layers.append(c)
+        cache["segments"][seg.name] = {k: torch.stack([c[k] for c in layers])
+                                       for k in layers[0]}
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, cfg, x[:, -1:])[:, 0], cache

@@ -1,0 +1,176 @@
+"""SnapshotBus — atomic, double-buffered consensus snapshots for serving
+(port of ``repro.serve.snapshot``).
+
+Training publishes the consensus (worker-averaged) parameters; the serving
+side (:class:`repro_torch.serve.LiveServer`) hot-swaps to the latest
+snapshot between decode batches. The bus is the only coupling between the
+two loops.
+
+- **Consensus on the flat plane.** :meth:`SnapshotBus.publish_state` reduces
+  the resident ``{bucket: [W, total]}`` buffers with
+  :func:`repro_torch.serving.engine.consensus_bufs` into fresh
+  single-replica buffers; pytree views appear only when a consumer asks
+  (:attr:`Snapshot.params`).
+- **Atomic double buffering.** Publishes alternate between two slots: the new
+  snapshot is fully built in the non-head slot, then the head index flips
+  in one assignment. A reader holding a snapshot keeps it intact across
+  later publishes: the buffers are fresh tensors that nothing writes.
+- The checkpoint-v2 disk form (``Snapshot.save``/``load``) waits for the
+  checkpoint port (ROADMAP.md A.1); the manifest is already the
+  reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.common.flat import FlatSpec, dtype_name
+
+PyTree = Any
+Buffers = Dict[str, torch.Tensor]
+SEP = "::"   # the reference's checkpoint path separator
+
+
+def _leaf_keys(spec: FlatSpec) -> List[str]:
+    """Per-slot path keys of the spec's tree in flatten order, joined by
+    ``::`` (the reference's ``checkpoint.io._leaf_keys``)."""
+    def walk(d, prefix):
+        kind = d[0]
+        if kind == "leaf":
+            return [SEP.join(prefix)]
+        if kind == "none":
+            return []
+        names = d[1] if kind == "dict" else [str(i) for i in range(d[1])]
+        return [k for name, sub in zip(names, d[2]) for k in walk(sub, prefix + [str(name)])]
+    return walk(spec.treedef, [])
+
+
+def flat_spec_manifest(spec: FlatSpec) -> dict:
+    """JSON-serializable description of a FlatSpec (a copy of the
+    reference's ``checkpoint.io.flat_spec_manifest``): enough to locate every
+    parameter inside the flat buffers without the producing code."""
+    return {
+        "leading": spec.leading,
+        "lead_shape": list(spec.lead_shape),
+        "align": spec.align,
+        "totals": {k: int(n) for k, n in spec.totals.items()},
+        "slots": [{"path": key, "bucket": s.bucket, "offset": s.offset,
+                   "size": s.size, "shape": list(s.shape), "dtype": dtype_name(s.dtype)}
+                  for key, s in zip(_leaf_keys(spec), spec.slots)],
+    }
+
+
+def snapshot_valid(bufs: Buffers, spec0: FlatSpec) -> Tuple[bool, str]:
+    """(ok, reason): is this a servable consensus snapshot? Checks the
+    manifest (every spec bucket present with its exact flat length) and that
+    every float buffer is fully finite: a diverged or fault-corrupted
+    training state must never reach the decode engine (the bus and the
+    server pin the last good snapshot instead)."""
+    totals = spec0.totals
+    if set(bufs) != set(totals):
+        return False, (f"bucket mismatch: snapshot has {sorted(bufs)}, "
+                       f"spec expects {sorted(totals)}")
+    for k, v in bufs.items():
+        if tuple(v.shape) != (totals[k],):
+            return False, (f"bucket {k!r} shape {tuple(v.shape)} != "
+                           f"({totals[k]},)")
+        if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
+            return False, f"bucket {k!r} contains non-finite values"
+    return True, ""
+
+
+@dataclasses.dataclass(frozen=True)
+class Snapshot:
+    """One published consensus snapshot (immutable).
+
+    seq:        monotonic publish sequence number (bus-wide)
+    train_step: facade train step that produced the parameters
+    bufs:       single-replica consensus flat buffers, ``{bucket: [total]}``
+    manifest:   JSON FlatSpec manifest (checkpoint-v2 metadata form)
+    spec:       the lead-() FlatSpec the buffers unflatten through
+    """
+    seq: int
+    train_step: int
+    bufs: Buffers
+    manifest: dict
+    spec: FlatSpec
+
+    @property
+    def params(self) -> PyTree:
+        """Parameter tree as slice/reshape views of the flat buffers."""
+        return self.spec.unflatten(self.bufs)
+
+    def save(self, path: str) -> None:
+        raise NotImplementedError(
+            "Snapshot.save waits for the checkpoint-v2 port (ROADMAP.md A.1)")
+
+    @staticmethod
+    def load(path: str, spec: FlatSpec) -> "Snapshot":
+        raise NotImplementedError(
+            "Snapshot.load waits for the checkpoint-v2 port (ROADMAP.md A.1)")
+
+
+class SnapshotBus:
+    """Single-producer, many-reader snapshot mailbox (double-buffered).
+
+    The producer is a training loop (:meth:`publish_state`) or a caller with
+    a parameter tree (:meth:`publish_params`); readers call :meth:`latest`
+    whenever they want the freshest consensus, typically
+    ``LiveServer.maybe_swap`` between decode batches.
+    """
+
+    def __init__(self):
+        self._slots: list = [None, None]
+        self._head: int = -1     # index of the slot holding the latest publish
+        self._seq: int = 0       # last published sequence number (0 = none)
+        self.rejected: int = 0   # publishes refused by validation
+
+    def _publish(self, bufs: Buffers, spec0: FlatSpec,
+                 train_step: int) -> Optional[Snapshot]:
+        ok, why = snapshot_valid(bufs, spec0)
+        if not ok:
+            # a bad publish never flips the head: every reader keeps the
+            # last good snapshot
+            self.rejected += 1
+            warnings.warn(
+                f"SnapshotBus rejected publish at train step {train_step}: "
+                f"{why} — serving keeps snapshot seq={self._seq}",
+                RuntimeWarning, stacklevel=3)
+            return None
+        snap = Snapshot(seq=self._seq + 1, train_step=int(train_step),
+                        bufs=bufs, manifest=flat_spec_manifest(spec0), spec=spec0)
+        back = 1 - self._head if self._head >= 0 else 0
+        self._slots[back] = snap     # fully built before the flip
+        self._head = back            # the atomic publish: one int assignment
+        self._seq = snap.seq
+        return snap
+
+    def publish_state(self, state, train_step: int = 0) -> Optional[Snapshot]:
+        """Publish the consensus of a flat-resident trainer state
+        (:class:`repro_torch.api.FlatState`): the mean over the ``W``
+        replica rows, computed on the flat plane into fresh buffers. Returns
+        None (and counts :attr:`rejected`) when validation refuses it."""
+        from repro_torch.serving.engine import consensus_bufs
+        return self._publish(consensus_bufs(state.theta),
+                             state.spec.with_lead(()), train_step)
+
+    def publish_params(self, params: PyTree, train_step: int = 0) -> Optional[Snapshot]:
+        """Publish a single-replica parameter tree directly (no trainer in
+        the loop: the serve_decode entry point, or restored weights). The
+        tree is flattened into fresh buffers."""
+        spec0 = FlatSpec.build(params, leading=0)
+        return self._publish(spec0.flatten(params), spec0, train_step)
+
+    def latest(self) -> Optional[Snapshot]:
+        """The most recently published snapshot, or None before the first
+        publish. Holding it across later publishes is safe."""
+        head = self._head
+        return self._slots[head] if head >= 0 else None
+
+    @property
+    def seq(self) -> int:
+        """Sequence number of the latest publish (0 before any)."""
+        return self._seq

@@ -1,15 +1,97 @@
-"""Consensus reduction over the flat plane (port of the part of
-``repro.serving.engine`` that training uses; the serving program itself is
-a later slice)."""
+"""Serving engine: consensus parameters, prefill and batched single-token
+decode (port of ``repro.serving.engine``).
+
+Inference uses the consensus (worker-averaged) parameters: gossip is a
+training-time protocol. The port serves on ONE card with no mesh, a
+deliberate difference from the reference, whose programs shard params,
+batch and KV cache over a device mesh (ROADMAP.md §C). Attention in
+prefill and decode is kernel B9 (:mod:`repro_torch.kernels.flash_attention`)
+on the card. Decode writes the KV cache in place where the reference
+donates it.
+"""
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.api.state import FlatState
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.pytree import tree_map
+from repro_torch.models import transformer as tr
 
 PyTree = Any
+
+
+class ShapeDtype(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class ServeProgram:
+    model_cfg: ModelConfig
+    decode_fn: Callable          # (params, cache, tokens[, cond]) -> (logits, cache)
+    prefill_fn: Optional[Callable]
+    batch: int
+    max_len: int
+    window: int
+    # continuous-batching decode: (params, cache, tokens, cond, kv_start[B])
+    # -> (logits, cache)
+    decode_slots_fn: Optional[Callable] = None
+    param_dtype: Any = torch.bfloat16
+    cache_dtype: Any = torch.bfloat16
+    device: Any = "cuda"
+
+    # ----------------------------------------------------------- swap surface
+    def place_params(self, params: PyTree) -> PyTree:
+        """A single-replica parameter tree on the serving device, cast to the
+        serving dtype (a leaf already there is returned as is, not copied)."""
+        return tree_map(lambda x: x.to(device=self.device, dtype=self.param_dtype), params)
+
+    def init_cache(self) -> PyTree:
+        """Fresh zero KV cache (pos = 0), the continuous-batching harness's
+        starting state."""
+        cache, _ = tr.init_cache(self.model_cfg, self.batch, self.max_len,
+                                 dtype=self.cache_dtype, window=self.window,
+                                 device=self.device)
+        return cache
+
+    def token_shapes(self, seq: int = 1) -> ShapeDtype:
+        return ShapeDtype((self.batch, seq), torch.int32)
+
+
+def make_serve_program(cfg: ModelConfig, *, batch: int, max_len: int, window: int = 0,
+                       param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                       with_prefill: bool = False, device="cuda") -> ServeProgram:
+    """The serving program of ``cfg`` on one device (``cuda`` unless the
+    caller asks for the CPU). ``window > 0`` decodes over a ring buffer of
+    that many rows."""
+    tr.make_plan(cfg)            # refuses the architectures the port cannot serve yet
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_serve_program: no CUDA device (pass device='cpu' "
+                           "to run the plain versions on the CPU)")
+
+    @torch.no_grad()
+    def decode(params, cache, tokens, cond=None):
+        return tr.decode_step(params, cfg, cache, tokens, cond, window=window)
+
+    @torch.no_grad()
+    def decode_slots(params, cache, tokens, cond, kv_start):
+        return tr.decode_step(params, cfg, cache, tokens, cond, window=window,
+                              kv_start=kv_start)
+
+    prefill_fn = None
+    if with_prefill:
+        @torch.no_grad()
+        def prefill_fn(params, tokens, cond=None):
+            return tr.prefill(params, cfg, tokens, cond, cache_dtype=cache_dtype,
+                              max_len=max_len)
+
+    return ServeProgram(cfg, decode, prefill_fn, batch, max_len, window,
+                        decode_slots_fn=decode_slots, param_dtype=param_dtype,
+                        cache_dtype=cache_dtype, device=device)
 
 
 def consensus_bufs(theta) -> dict:
@@ -19,7 +101,8 @@ def consensus_bufs(theta) -> dict:
             for k, v in theta.items()}
 
 
-def consensus_params(state: FlatState) -> PyTree:
-    """Worker-averaged parameters (paper 'Aggregate'): the mean over the
-    resident buffers, then one-replica views."""
+def consensus_params(state) -> PyTree:
+    """Worker-averaged parameters (paper 'Aggregate') of a
+    :class:`repro_torch.api.FlatState`: the mean over the resident buffers,
+    then one-replica views."""
     return state.spec.with_lead(()).unflatten(consensus_bufs(state.theta))

@@ -1,0 +1,159 @@
+"""Kernel B9 (flash attention): the port's plain version and the model's
+``chunked_attention`` against the reference's Pallas kernel (interpret
+mode), its oracle ``ref.attention`` and its ``chunked_attention`` (with
+``kv_start``), on the same numpy inputs. The CUDA kernel itself runs only on
+the card (tests/test_torch_cuda.py and chip_smoke.py)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # several xdist workers share a few cores
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+# the reference's own kernel tests' tolerances (tests/test_kernels.py): f32
+# sums in another order; bf16 one rounding of the output
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _qkv(B, H, Hkv, Sq, Skv, hd, dtype="float32", seed=0):
+    """BHSD numpy inputs, rounded to ``dtype``, as (jax, torch) pairs."""
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(B, H, Sq, hd), rng.randn(B, Hkv, Skv, hd), rng.randn(B, Hkv, Skv, hd)]
+    j = [jnp.asarray(a.astype(np.float32), dtype) for a in arrs]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    t = [torch.from_numpy(np.array(x, np.float32)).to(tdt) for x in j]
+    return j, t
+
+
+def _ref_bhsd(q, k, v, **kw):
+    o = jref.attention(jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2), **kw)
+    return jnp.swapaxes(o, 1, 2)
+
+
+def _close(port, want, dtype="float32", tol=None):
+    tol = TOL[dtype] if tol is None else tol
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,hd", [
+    (1, 2, 2, 64, 16), (2, 4, 2, 128, 32), (1, 8, 1, 96, 64), (2, 4, 4, 33, 8),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_b9_causal_sweep_matches_reference_kernel_and_oracle(B, H, Hkv, S, hd, dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(B, H, Hkv, S, S, hd, dtype)
+    port = ops.flash_attention(q, k, v, causal=True)
+    assert port.dtype == q.dtype and port.shape == q.shape
+    _close(port, jflash(jq, jk, jv, block_q=32, block_k=32, interpret=True), dtype)
+    _close(port, _ref_bhsd(jq, jk, jv, causal=True), dtype)
+
+
+@pytest.mark.parametrize("window", [1, 7, 33, 100])
+def test_plain_b9_sliding_window(window):
+    (jq, jk, jv), (q, k, v) = _qkv(1, 2, 2, 100, 100, 16)
+    port = ops.flash_attention(q, k, v, causal=True, window=window)
+    _close(port, jflash(jq, jk, jv, window=window, block_q=32, block_k=32, interpret=True))
+    _close(port, _ref_bhsd(jq, jk, jv, causal=True, window=window))
+
+
+@pytest.mark.parametrize("softcap", [10.0, 50.0])
+def test_plain_b9_softcap(softcap):
+    (jq, jk, jv), (q, k, v) = _qkv(1, 4, 2, 64, 64, 32, seed=3)
+    port = ops.flash_attention(q, k, v, causal=True, softcap=softcap)
+    _close(port, jflash(jq, jk, jv, softcap=softcap, block_q=32, block_k=32, interpret=True))
+    _close(port, _ref_bhsd(jq, jk, jv, causal=True, logit_softcap=softcap))
+
+
+@pytest.mark.parametrize("kvlen", [1, 100, 256])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_plain_b9_decode_q1_with_kv_len(kvlen, as_tensor):
+    (jq, jk, jv), (q, k, v) = _qkv(2, 4, 2, 1, 256, 32, seed=5)
+    kl = torch.tensor(kvlen, dtype=torch.int32) if as_tensor else kvlen
+    port = ops.flash_attention(q, k, v, kl, causal=False)
+    _close(port, jflash(jq, jk, jv, jnp.int32(kvlen), causal=False, block_q=8, block_k=64,
+                        interpret=True), tol=3e-5)
+    _close(port, _ref_bhsd(jq, jk, jv, causal=False, kv_len=kvlen), tol=3e-5)
+
+
+def test_plain_b9_q_offset_matches_suffix_of_full():
+    (jq, jk, jv), (q, k, v) = _qkv(1, 2, 2, 64, 64, 16, seed=8)
+    off = 48
+    port = ops.flash_attention(q[:, :, off:], k, v, causal=True, q_offset=off)
+    _close(port, jflash(jq[:, :, off:], jk, jv, q_offset=off, causal=True, block_q=8,
+                        block_k=32, interpret=True))
+    _close(port, _ref_bhsd(jq, jk, jv, causal=True)[:, :, off:])
+
+
+@pytest.mark.parametrize("seed,S,hd", [(0, 17, 8), (1, 64, 32), (2, 130, 8), (3, 130, 32)])
+def test_plain_b9_property_sweep(seed, S, hd):
+    (jq, jk, jv), (q, k, v) = _qkv(1, 2, 1, S, S, hd, seed=seed)
+    port = ops.flash_attention(q, k, v, causal=True)
+    _close(port, jflash(jq, jk, jv, block_q=16, block_k=16, interpret=True), tol=3e-5)
+
+
+def test_bhsd_and_bshd_entries_agree():
+    _, (q, k, v) = _qkv(2, 8, 2, 40, 40, 16, seed=9)
+    a = ops.flash_attention(q, k, v, causal=True, window=5, softcap=20.0)
+    b = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      causal=True, window=5, softcap=20.0)
+    assert torch.equal(a.transpose(1, 2), b)
+
+
+@pytest.mark.parametrize("case", ["prefill", "window", "softcap", "decode", "kv_start"])
+def test_chunked_attention_matches_reference(case):
+    """The model's BSHD adapter against the reference's chunked_attention
+    (online softmax over chunks) in the calls the serve path makes."""
+    B, H, Hkv, hd = 3, 8, 2, 16
+    Sq, Skv = (1, 48) if case in ("decode", "kv_start") else (40, 40)
+    (jq, jk, jv), (q, k, v) = _qkv(B, H, Hkv, Sq, Skv, hd, seed=11)
+    jq, jk, jv = (jnp.swapaxes(x, 1, 2) for x in (jq, jk, jv))
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    kw = dict(causal=True)
+    if case == "window":
+        kw["window"] = 9
+    if case == "softcap":
+        kw["logit_softcap"] = 30.0
+    if case in ("decode", "kv_start"):
+        kw.update(q_offset=30, kv_len=31)
+    jkw, tkw = dict(kw), dict(kw)
+    if case == "kv_start":
+        start = np.array([0, 12, 30], np.int32)
+        jkw["kv_start"], tkw["kv_start"] = jnp.asarray(start), torch.from_numpy(start)
+    if case in ("decode", "kv_start"):
+        tkw.update(q_offset=torch.tensor(30, dtype=torch.int32),
+                   kv_len=torch.tensor(31, dtype=torch.int32))
+    want = jattn.chunked_attention(jq, jk, jv, chunk=16, **jkw)
+    port = tattn.chunked_attention(q, k, v, chunk=16, **tkw)
+    _close(port, want)
+
+
+def test_plain_kv_start_hides_previous_rows_exactly():
+    """Rows below kv_start[b] contribute exactly nothing to the plain
+    version: garbage there gives the same bits as zeros."""
+    _, (q, k, v) = _qkv(3, 8, 2, 1, 48, 16, seed=12)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    start = torch.tensor([0, 20, 47], dtype=torch.int32)
+    below = torch.arange(48)[None, :, None, None] < start.reshape(3, 1, 1, 1)
+    kw = dict(causal=True, q_offset=47, kv_len=48, kv_start=start)
+    a = tref.attention(q, k.masked_fill(below, 0), v.masked_fill(below, 0), **kw)
+    b = tref.attention(q, k + 3 * below, v - 5 * below, **kw)
+    assert torch.equal(a, b)
+    # kv_start = 0 changes nothing
+    c = tref.attention(q, k, v, causal=True, q_offset=47, kv_len=48)
+    d = tref.attention(q, k, v, causal=True, q_offset=47, kv_len=48,
+                       kv_start=torch.zeros(3, dtype=torch.int32))
+    assert torch.equal(c, d)
+
+
+def test_chunked_attention_refuses_mla_values():
+    q = torch.zeros(1, 2, 2, 16)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        tattn.chunked_attention(q, q[:, :, :1], torch.zeros(1, 2, 1, 8))

@@ -1,8 +1,9 @@
-"""Tests of the port that need an NVIDIA GPU: kernels B1-B8 against their
+"""Tests of the port that need an NVIDIA GPU: kernels B1-B9 against their
 plain versions on the card, the sim engine launching them (B1 once per
 step; with a codec, its encode and decode kernels once per step; with a
-robust protocol, B8 once per step), and a 2-rank dist engine on the card
-(B1 on the firing steps, B2 on the others).
+robust protocol, B8 once per step), a 2-rank dist engine on the card
+(B1 on the firing steps, B2 on the others), and the serving path (B9 once
+per layer in prefill and in every decode step).
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import codec as tcodec  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import fused_update as tfu  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -400,3 +402,181 @@ def test_dist_engine_on_the_card_launches_b1_and_b2(cuda, tmp_path):
         assert run["sends"] == run["recvs"] == fired
         assert len(run["exchanges"]) == fired
         assert all(np.isfinite(run["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# B9: flash attention
+# ---------------------------------------------------------------------------
+
+# as the reference's own kernel tests (tests/test_kernels.py): f32 sums in
+# another order, bf16 one rounding of the output
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(B, Sq, Skv, H, Hkv, hd, dt, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dt),
+            torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).to(dt),
+            torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).to(dt))
+
+
+def _check_b9(q, k, v, **kw):
+    want = tref.attention(q, k, v, causal=kw.get("causal", True), window=kw.get("window", 0),
+                          logit_softcap=kw.get("softcap", 0.0),
+                          q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"),
+                          kv_start=kw.get("kv_start"))
+    n = tfa.LAUNCHES
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == n + 1
+    tol = ATOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [8, 64, 128, 256])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_causal_prefill_matches_plain_version(cuda, G, hd, dt):
+    q, k, v = _qkv(2, 77, 77, 2 * G, 2, hd, dt, cuda, seed=G + hd)
+    _check_b9(q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scalar", ["int", "device"])
+def test_b9_q_offset_is_the_suffix_of_full_attention(cuda, dt, scalar):
+    q, k, v = _qkv(1, 96, 96, 8, 2, 64, dt, cuda, seed=8)
+    off = 61
+    full = ops.attention(q, k, v, causal=True)
+    qo = off if scalar == "int" else torch.tensor(off, dtype=torch.int32, device=cuda)
+    got = _check_b9(q[:, off:], k, v, causal=True, q_offset=qo)
+    tol = ATOL[dt]
+    torch.testing.assert_close(got.float(), full[:, off:].float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 100, 256])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_decode_with_device_kv_len(cuda, kv_len, dt):
+    q, k, v = _qkv(2, 1, 256, 32, 4, 64, dt, cuda, seed=5)
+    _check_b9(q, k, v, causal=False,
+              kv_len=torch.tensor(kv_len, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 7, 33, 4096])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_sliding_window(cuda, window, dt):
+    q, k, v = _qkv(1, 130, 130, 4, 2, 64, dt, cuda, seed=window)
+    _check_b9(q, k, v, causal=True, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [10.0, 50.0])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_softcap(cuda, softcap, dt):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, dt, cuda, seed=3)
+    _check_b9(q, k, v, causal=True, softcap=softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_kv_start_hides_garbage_exactly(cuda, dt):
+    """Keys below kv_start[b] contribute exactly nothing: a cache whose
+    early rows hold garbage (inf and NaN included) gives the same bits as
+    one with those rows zeroed."""
+    B, L, pos = 4, 128, 70
+    q, k, v = _qkv(B, 1, L, 32, 4, 64, dt, cuda, seed=11)
+    start = torch.tensor([70, 3, 0, 41], dtype=torch.int32, device=cuda)
+    rows = torch.arange(L, device=cuda)[None, :, None, None]
+    below = rows < start.reshape(B, 1, 1, 1)
+    kz, vz = k.masked_fill(below, 0), v.masked_fill(below, 0)
+    kg, vg = k.clone(), v.clone()
+    kg[0, :70] = float("nan")
+    vg[0, :70] = float("inf")
+    vg[1, :3] = float("nan")
+    kw = dict(causal=True, q_offset=torch.tensor(pos, dtype=torch.int32, device=cuda),
+              kv_len=torch.tensor(pos + 1, dtype=torch.int32, device=cuda), kv_start=start)
+    a = _check_b9(q, kz, vz, **kw)
+    b = ops.attention(q, kg, vg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if dt == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_reads_a_strided_cache_slice_and_bhsd_views(cuda, dt):
+    """A layer's view of the stacked [count, B, max_len, Hkv, hd] cache,
+    sliced to its live rows, goes in through its strides; the BHSD op
+    gives the same as the BSHD one."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cache = torch.randn(3, 2, 200, 4, 64, generator=g, device=cuda).to(dt)
+    q = torch.randn(2, 5, 16, 64, generator=g, device=cuda).to(dt)
+    k, v = cache[1, :, :150], cache[2, :, :150]
+    assert not k.is_contiguous()
+    got = _check_b9(q, k, v, causal=True, q_offset=145)
+    bhsd = ops.flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True, q_offset=145)
+    torch.cuda.synchronize()
+    assert torch.equal(bhsd.transpose(1, 2), got)
+
+
+@pytest.mark.cuda
+def test_b9_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(1, 4, 4, 2, 1, 12, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_attention(q, k, v)
+    q, k, v = _qkv(1, 4, 4, 2, 1, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, k, v[..., :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        tfa.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), v)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        tfa.flash_attention(q[:, :, :1].expand(1, 4, 3, 16).contiguous(),
+                            k.expand(1, 4, 2, 16).contiguous(), v.expand(1, 4, 2, 16).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "gemma2_9b"])
+def test_serve_path_launches_b9_once_per_layer(cuda, arch):
+    """Reduced configs on the card: prefill and every decode step launch B9
+    once per layer, and the logits match the plain version's run."""
+    from unittest import mock
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import make_serve_program
+    cfg = get_reduced(arch)
+    params = tr.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)[0]
+    prog = make_serve_program(cfg, batch=2, max_len=40, param_dtype=torch.float32,
+                              cache_dtype=torch.float32, with_prefill=True, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda, dtype=torch.int32,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run():
+        out = []
+        logits, cache = prog.prefill_fn(params, toks)
+        out.append(logits)
+        for t in range(4):
+            logits, cache = prog.decode_fn(params, cache, toks[:, t:t + 1])
+            out.append(logits)
+        return torch.stack(out)
+
+    ops.zero_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 5 * cfg.num_layers
+    with mock.patch.object(ops, "attention", _plain_attention):
+        want = run()
+    assert ops.launch_counts()["flash_attention"] == 5 * cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
+                     kv_len=None, kv_start=None):
+    return tref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap,
+                          q_offset=q_offset, kv_len=kv_len, kv_start=kv_start)

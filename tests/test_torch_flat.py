@@ -162,7 +162,11 @@ def test_import_repro_torch_loads_neither_jax_nor_repro():
         "        'repro_torch.kernels.codec', 'repro_torch.core.gossip_dist',\n"
         "        'repro_torch.core.scheduler', 'repro_torch.core.consensus',\n"
         "        'repro_torch.train.step', 'repro_torch.launch.mesh',\n"
-        "        'repro_torch.launch.dist_run'} <= set(sys.modules)\n"
+        "        'repro_torch.launch.dist_run', 'repro_torch.kernels.flash_attention',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.serving.engine',\n"
+        "        'repro_torch.serve.traffic', 'repro_torch.obs.metrics',\n"
+        "        'repro_torch.configs.gemma2_9b',\n"
+        "        'repro_torch.launch.serve_decode'} <= set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
