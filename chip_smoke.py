@@ -16,8 +16,9 @@ prints no result line):
              and peer is theta; B4-B7 (q8 encode/decode, top-k
              encode/decode) held exactly against theirs at [8, 2913408]
              (block 512, k 26), a ragged [4, 1000] (block 128, k 13), an
-             all-zero block and tied magnitudes; B8 (the robust apply) held
-             byte for byte against its plain version at [8, 2913408] with
+             all-zero block and tied magnitudes, a block tied across its
+             20th magnitude at k 20, k = 1 and k = block; B8 (the robust
+             apply) held byte for byte against its plain version at [8, 2913408] with
              [W] scale and thr = +inf (clipped) or finite [W] thr (trimmed),
              scalar scale and thr, a ragged [4, 1000], bf16 theta, and a
              delta holding +-inf, NaN and -0.0 beside a theta of -0.0; B2
@@ -82,16 +83,23 @@ prints no result line):
              and the fleet-mean loss all-reduce.
 6. serve   — B9 (flash attention) held against its plain version in f32
              (2e-5) and bf16 (3e-2): causal prefill at G in {1, 4, 8} and
-             hd in {64, 128, 256}, a q_offset suffix, decode over a
-             [8, 1024, 4, 64] cache with kv_len 1 / 513 / 1024 (causal at
-             pos, and the ring buffer's non-causal form), windows 1 / 7 /
-             4096, softcap 50 at hd 256, kv_start per row, a strided layer
-             view of a stacked cache; NaN and inf below kv_start must give
-             the bits of zeroed rows. B9, its plain version and SDPA timed
-             at the prefill ([8, 512, 32, 64] causal) and decode
-             ([8, 1, 32, 64] over the cache at pos 512) shapes in bf16. Then
-             TinyLlama-1.1B at full width (22 layers, d 2048, 32 / 4 heads,
-             random weights from seed 0, bf16 params and cache, 8 slots,
+             hd in {64, 128, 256}, at Sq 77 and 513, MQA at G 48 and hd
+             128, a q_offset suffix, decode over a [8, 1024, 4, 64] cache
+             with kv_len 1 / 31 / 32 / 33 / 63 / 64 / 65 / 513 / 1024
+             (causal at pos) and 1 / 513 / 1024 (the ring buffer's
+             non-causal form), windows 1 / 7 / 4096, softcap 50 at hd 256
+             (also with window 100), kv_start per row (also leaving whole
+             32-row splits empty), a strided layer view of a stacked cache;
+             NaN and inf below kv_start must give the bits of zeroed rows,
+             in a decode and a prefill suffix; each of B9's three forms
+             (mma, split, simt) must have run. B9, its plain version and
+             SDPA timed at the prefill ([8, 512, 32, 64] causal, the mma
+             form) and decode ([8, 1, 32, 64] over the cache at pos 512,
+             the split form) shapes in bf16, with CUDA events back to
+             back and, for B9 and SDPA, their device time alone under
+             torch.profiler. Then TinyLlama-1.1B at full width (22 layers,
+             d 2048, 32 / 4 heads, random weights from seed 0, bf16 params
+             and cache, 8 slots,
              max_len 1024): the serve_decode entry point (512-token
              prompts, 64 greedy steps, a hot swap at step 32), B9 launched
              exactly 22 times in the prefill and in every step and no other
@@ -401,15 +409,30 @@ def check_codec(torch, ck, ref, codec_seeds, dev):
     """B4-B7 against their plain versions, exactly, on: the main path's
     [8, 2913408] at block 512 and k 26; a ragged [4, 1000] at block 128 and
     k 13; a block of zeros (scale 1) beside a block of tied magnitudes
-    (including -0.0). Returns the max abs error per kernel (0.0 when exact)."""
+    (including -0.0); a block tied across its k-th magnitude (k 20); k = 1
+    and k = block. Returns the max abs error per kernel (0.0 when exact)."""
     g = torch.Generator(device=dev).manual_seed(11)
     special = torch.zeros(2, 2 * BLOCK, device=dev)
     special[:, BLOCK:] = torch.tensor([1.5, -1.5, 0.5, -0.0], device=dev).repeat(BLOCK // 4)
+    # 40 entries of each row's first block tied at its 20th largest magnitude
+    # (signs mixed), so k 20 keeps fewer than 20 above the tie and the
+    # lowest-index ones of the 40
+    straddle = torch.randn(2, 2 * BLOCK, generator=g, device=dev)
+    for w in range(2):
+        t = straddle[w, :BLOCK].abs().sort(descending=True).values[19]
+        pos = torch.randperm(BLOCK, generator=g, device=dev)[:40]
+        straddle[w, pos] = t * torch.where(torch.rand(40, generator=g, device=dev) < 0.5, -1.0, 1.0)
     cases = [("[8, 2913408]", torch.randn(8, N_FULL, generator=g, device=dev),
               0.1 * torch.randn(8, N_FULL, generator=g, device=dev), BLOCK, TOPK),
              ("[4, 1000]", torch.randn(4, 1000, generator=g, device=dev),
               0.1 * torch.randn(4, 1000, generator=g, device=dev), 128, 13),
-             ("zero block + ties [2, 1024]", special, torch.zeros_like(special), BLOCK, TOPK)]
+             ("zero block + ties [2, 1024]", special, torch.zeros_like(special), BLOCK, TOPK),
+             ("tie straddling the 20th [2, 1024] k 20", straddle, torch.zeros_like(straddle),
+              BLOCK, 20),
+             ("[4, 100000] k 1", torch.randn(4, 100000, generator=g, device=dev),
+              0.1 * torch.randn(4, 100000, generator=g, device=dev), BLOCK, 1),
+             ("[4, 100000] k = block", torch.randn(4, 100000, generator=g, device=dev),
+              0.1 * torch.randn(4, 100000, generator=g, device=dev), BLOCK, BLOCK)]
     worst = dict.fromkeys(ck.LAUNCHES, 0.0)
     for name, x, r, block, k in cases:
         seeds = codec_seeds(3, torch.arange(x.shape[0], device=dev))
@@ -483,7 +506,8 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
             f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
             f"({nbytes[kname] / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
             f"{nbytes[kname] / (ms * 1e-3) / 1e12:.3f} TB/s achieved)"
-            + (f", torch.topk selection only {lib_ms:.4f} ms" if lib_ms is not None else ""))
+            + (f", torch.topk selection only {lib_ms:.4f} ms ({ms / lib_ms:.2f}x torch.topk)"
+               if lib_ms is not None else ""))
     del x, r, v, sc, vals, idx, mag
     return out
 
@@ -1092,9 +1116,11 @@ def plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
 
 def b9_cases(torch, dev, dt):
     """(tag, q, k, v, kwargs) at the shapes of the checks: causal prefill
-    over G and hd, a q_offset suffix, decode over a [8, 1024, 4, 64] cache
-    with kv_len 1 / mid / full, windows, softcap, kv_start per row and a
-    strided layer view of a stacked cache."""
+    over G and hd and at query counts off the 64-row tile (77, 200, 513),
+    MQA at G = 48 and hd 128, a q_offset suffix, decode over a
+    [8, 1024, 4, 64] cache with kv_len on and around the 32-row splits,
+    windows, softcap (with a window at hd 256), kv_start per row (one
+    leaving whole splits empty) and a strided layer view of a stacked cache."""
     g = torch.Generator(device=dev).manual_seed(31)
 
     def rnd(*shape):
@@ -1108,26 +1134,50 @@ def b9_cases(torch, dev, dt):
         for hd in (64, 128, 256):
             cases.append((f"prefill G={G} hd={hd}", rnd(2, 200, 2 * G, hd), rnd(2, 200, 2, hd),
                           rnd(2, 200, 2, hd), dict(causal=True)))
+    for S in (77, 513):
+        cases.append((f"prefill Sq={S} G=8 hd=64", rnd(2, S, 32, 64), rnd(2, S, 4, 64),
+                      rnd(2, S, 4, 64), dict(causal=True)))
+    cases.append(("MQA G=48 hd=128", rnd(2, 160, 48, 128), rnd(2, 160, 1, 128),
+                  rnd(2, 160, 1, 128), dict(causal=True)))
     q, k, v = rnd(1, 256, 32, 64), rnd(1, 256, 4, 64), rnd(1, 256, 4, 64)
     cases.append(("q_offset 200", q[:, 200:], k, v, dict(causal=True, q_offset=i32(200))))
     ck, cv = rnd(SERVE_BATCH, SERVE_MAX_LEN, 4, 64), rnd(SERVE_BATCH, SERVE_MAX_LEN, 4, 64)
     qd = rnd(SERVE_BATCH, 1, 32, 64)
-    for n in (1, 513, SERVE_MAX_LEN):
+    for n in (1, 31, 32, 33, 63, 64, 65, 513, SERVE_MAX_LEN):
         cases.append((f"decode kv_len {n}", qd, ck, cv,
                       dict(causal=True, q_offset=i32(n - 1), kv_len=i32(n))))
+    for n in (1, 513, SERVE_MAX_LEN):
         cases.append((f"ring kv_len {n}", qd, ck, cv, dict(causal=False, kv_len=i32(n))))
     qw, kw_, vw = rnd(1, 300, 8, 64), rnd(1, 300, 2, 64), rnd(1, 300, 2, 64)
     for w in (1, 7, 4096):
         cases.append((f"window {w}", qw, kw_, vw, dict(causal=True, window=w)))
     cases.append(("softcap 50 hd=256", rnd(1, 128, 4, 256), rnd(1, 128, 2, 256),
                   rnd(1, 128, 2, 256), dict(causal=True, softcap=50.0)))
+    cases.append(("window 100 softcap 50 hd=256", rnd(1, 300, 8, 256), rnd(1, 300, 2, 256),
+                  rnd(1, 300, 2, 256), dict(causal=True, window=100, softcap=50.0)))
     start = torch.tensor([0, 100, 512, 700, 3, 699, 250, 1], dtype=torch.int32, device=dev)
     cases.append(("kv_start", qd, ck, cv,
                   dict(causal=True, q_offset=i32(700), kv_len=i32(701), kv_start=start)))
+    empty = torch.tensor([960, 64, 0, 1000, 1000, 500, 963, 700], dtype=torch.int32, device=dev)
+    cases.append(("kv_start emptying splits", qd, ck, cv,
+                  dict(causal=True, q_offset=i32(1000), kv_len=i32(1001), kv_start=empty)))
     stack = rnd(3, SERVE_BATCH, SERVE_MAX_LEN, 4, 64)
     cases.append(("strided layer view", qd, stack[1, :, :600], stack[2, :, :600],
                   dict(causal=True, q_offset=i32(599))))
     return cases, (qd, ck, cv, start)
+
+
+def b9_garbage_cases(torch, dev, dt, qd, ck, cv, start):
+    """(tag, q, kwargs) whose keys below kv_start get NaN / inf: the decode
+    at pos 700 (split form) and a 100-query suffix at q_offset 600 (the mma
+    form in bf16, simt in f32), both over the [8, 1024, 4, 64] cache."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    qp = torch.randn(SERVE_BATCH, 100, 32, 64, generator=g, device=dev).to(dt)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=dev))
+    return [("decode", qd, dict(causal=True, q_offset=i32(700), kv_len=i32(701),
+                                kv_start=start)),
+            ("prefill suffix", qp, dict(causal=True, q_offset=i32(600), kv_len=i32(700),
+                                        kv_start=start.clamp(max=599)))]
 
 
 def b9_err(tag, got, want):
@@ -1144,12 +1194,14 @@ def b9_err(tag, got, want):
 
 def check_b9(torch, ops, fa, dev):
     """B9 against its plain version in every case, f32 and bf16; keys below
-    kv_start holding garbage (NaN, inf) give the bits of zeroed ones."""
-    worst = {}
+    kv_start holding garbage (NaN, inf) give the bits of zeroed ones, in
+    every form. Returns (max abs err by dtype, the forms that ran)."""
+    worst, forms = {}, dict.fromkeys(fa.FORM_LAUNCHES, 0)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         cases, (qd, ck, cv, start) = b9_cases(torch, dev, dt)
         worst[name] = 0.0
+        before = dict(fa.FORM_LAUNCHES)
         for tag, q, k, v, kw in cases:
             n = fa.LAUNCHES
             got = ops.attention(q, k, v, **kw)
@@ -1159,20 +1211,26 @@ def check_b9(torch, ops, fa, dev):
                 raise RuntimeError(f"B9 {tag}: the op did not launch the kernel")
             worst[name] = max(worst[name], b9_err(tag, got, want))
         rows = torch.arange(SERVE_MAX_LEN, device=dev)[None, :, None, None]
-        below = rows < start.reshape(-1, 1, 1, 1)
-        kw = dict(causal=True, q_offset=torch.tensor(700, dtype=torch.int32, device=dev),
-                  kv_len=torch.tensor(701, dtype=torch.int32, device=dev), kv_start=start)
-        zeroed = ops.attention(qd, ck.masked_fill(below, 0), cv.masked_fill(below, 0), **kw)
-        kg, vg = ck.masked_fill(below, float("nan")), cv.masked_fill(below, float("inf"))
-        garbage = ops.attention(qd, kg, vg, **kw)
         bits = torch.int16 if dt == torch.bfloat16 else torch.int32
-        if not torch.equal(zeroed.view(bits), garbage.view(bits)):
-            raise RuntimeError(f"B9 {name}: garbage below kv_start changed the output")
+        for tag, q, kw in b9_garbage_cases(torch, dev, dt, qd, ck, cv, start):
+            below = rows < kw["kv_start"].reshape(-1, 1, 1, 1)
+            zeroed = ops.attention(q, ck.masked_fill(below, 0), cv.masked_fill(below, 0), **kw)
+            garbage = ops.attention(q, ck.masked_fill(below, float("nan")),
+                                    cv.masked_fill(below, float("inf")), **kw)
+            if not torch.equal(zeroed.view(bits), garbage.view(bits)):
+                raise RuntimeError(f"B9 {name} {tag}: garbage below kv_start changed the output")
+        ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
+        for f in ran:
+            forms[f] += ran[f]
         log(f"[serve] B9 vs plain version, {name}: {len(cases)} cases, max abs err "
             f"{worst[name]:.3e} (tolerance {B9_TOL[name]}"
             + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
-            + "); garbage below kv_start = zeroed, bit for bit")
-    return worst
+            + f"); garbage below kv_start = zeroed, bit for bit (decode and prefill "
+            f"suffix); forms {ran}")
+    missing = [f for f, n in forms.items() if not n]
+    if missing:
+        raise RuntimeError(f"B9 checks never ran the {missing} form(s): {forms}")
+    return worst, forms
 
 
 def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak):
@@ -1184,12 +1242,40 @@ def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def time_b9(torch, ops, dev, bw, peak):
+def device_ms(torch, fn, match="", n=20):
+    """Device ms per call of fn: the summed durations of its kernels whose
+    name holds ``match``, under torch.profiler (no host time)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+    if not us:
+        raise RuntimeError(f"the profiler saw no device time for {match!r}")
+    return us / n / 1e3
+
+
+def timed_form(torch, fa, fn):
+    """(median ms of fn, the one B9 form its launches went through)."""
+    before = dict(fa.FORM_LAUNCHES)
+    ms = time_launches(torch, fn)
+    ran = [f for f in before if fa.FORM_LAUNCHES[f] != before[f]]
+    if len(ran) != 1:
+        raise RuntimeError(f"B9 timing ran forms {ran}")
+    return ms, ran[0]
+
+
+def time_b9(torch, ops, fa, dev, bw, peak):
     """B9, its plain version and SDPA at the serve path's two shapes, bf16:
-    prefill q [8, 512, 32, 64] causal, and decode q [8, 1, 32, 64] over the
-    [8, 1024, 4, 64] cache at pos 512 (SDPA gets K/V cut to the live rows).
-    The kernel is first held against the plain version on those inputs.
-    Returns (times by shape, max abs err)."""
+    prefill q [8, 512, 32, 64] causal (the mma form), and decode
+    q [8, 1, 32, 64] over the [8, 1024, 4, 64] cache at pos 512 (the split
+    form; SDPA gets K/V cut to the live rows). The kernel is first held
+    against the plain version on those inputs. Returns (times by shape, max
+    abs err)."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(32)
     dt, B, S, H, Hkv, hd = torch.bfloat16, SERVE_BATCH, SERVE_PROMPT, 32, 4, 64
@@ -1199,10 +1285,15 @@ def time_b9(torch, ops, dev, bw, peak):
     out = {}
     err = b9_err("prefill [8, 512, 32, 64]", ops.attention(q, k, v, causal=True),
                  plain_attention(q, k, v, causal=True))
-    pre = dict(ms=time_launches(torch, lambda: ops.attention(q, k, v, causal=True)),
+    ms, form = timed_form(torch, fa, lambda: ops.attention(q, k, v, causal=True))
+    pre = dict(ms=ms, form=form,
                plain_ms=time_launches(torch, lambda: plain_attention(q, k, v, causal=True)),
                library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True)))
+    pre["device_ms"] = device_ms(torch, lambda: ops.attention(q, k, v, causal=True),
+                                 "flash_attention")
+    pre["library_device_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
     pre["bound_ms"], pre["bound_by"] = b9_bound(B, S, H, Hkv, hd, S, 2, bw, peak)
     out["prefill"] = pre
     pos = SERVE_PROMPT
@@ -1216,22 +1307,30 @@ def time_b9(torch, ops, dev, bw, peak):
     err = max(err, b9_err("decode [8, 1, 32, 64] at pos 512",
                           ops.attention(qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t),
                           plain_attention(qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t)))
-    dec = dict(ms=time_launches(torch, lambda: ops.attention(qd, ck, cv, causal=True,
-                                                             q_offset=p_t, kv_len=n_t)),
+    ms, form = timed_form(torch, fa, lambda: ops.attention(qd, ck, cv, causal=True,
+                                                           q_offset=p_t, kv_len=n_t))
+    dec = dict(ms=ms, form=form,
                plain_ms=time_launches(torch, lambda: plain_attention(
                    qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t)),
                library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                    qdt, kl, vl, enable_gqa=True)))
+    dec["device_ms"] = device_ms(torch, lambda: ops.attention(
+        qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t), "flash_attention")
+    dec["library_device_ms"] = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qdt, kl, vl, enable_gqa=True))
     dec["bound_ms"], dec["bound_by"] = b9_bound(B, 1, H, Hkv, hd, pos + 1, 2, bw, peak)
     out["decode"] = dec
     log(f"[serve] B9 vs plain version at the timed shapes, bfloat16: max abs err {err:.3e}")
     for tag, r in out.items():
-        log(f"[serve] B9 {tag} bf16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"[serve] B9 {tag} bf16 ({r['form']} form): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); device time alone (profiler): kernel "
+            f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms")
     return out, err
 
 
-def serve_flow(torch, ops, cfg, dev):
+def serve_flow(torch, ops, fa, cfg, dev):
     """The serve_decode entry point at full width: 512-token prompts, 64
     greedy steps, one hot swap at step 32. B9 must launch once per layer in
     the prefill and in every decode step, and nowhere else."""
@@ -1242,6 +1341,7 @@ def serve_flow(torch, ops, cfg, dev):
                      max_len=SERVE_MAX_LEN, device=dev, seed=0, swap_at=SERVE_SWAP_AT,
                      log=lambda m: log(f"[serve] {m}"))
     counts = ops.launch_counts()
+    forms = dict(fa.FORM_LAUNCHES)
     want = L * (1 + SERVE_TOKENS)
     if r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts[B9] != want:
         raise RuntimeError(f"B9 launches: prefill {r['prefill_launches']}, per step "
@@ -1261,12 +1361,12 @@ def serve_flow(torch, ops, cfg, dev):
         f"{SERVE_MAX_LEN}: prefill {r['prefill_ms']:.3f} ms, median decode step {step:.3f} ms "
         f"({SERVE_BATCH / step * 1e3:.1f} tokens/s), swap pause "
         f"{r['swap_pause_s'] * 1e3:.3f} ms, B9 launches {counts[B9]} = {L} x (1 + "
-        f"{SERVE_TOKENS})")
-    return counts[B9], dict(prefill_ms=r["prefill_ms"], step_ms=step,
-                            swap_ms=r["swap_pause_s"] * 1e3)
+        f"{SERVE_TOKENS}), by form {forms}")
+    return counts[B9], forms, dict(prefill_ms=r["prefill_ms"], step_ms=step,
+                                   swap_ms=r["swap_pause_s"] * 1e3)
 
 
-def serve_batcher(torch, ops, cfg, dev):
+def serve_batcher(torch, ops, fa, cfg, dev):
     """A ContinuousBatcher over a TrafficGen stream until it drains (at most
     384 boundaries): invariants hold, every admitted request completes with
     its budget, B9 launches once per layer per boundary."""
@@ -1291,6 +1391,7 @@ def serve_batcher(torch, ops, cfg, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()[B9]
+    forms = dict(fa.FORM_LAUNCHES)
     bat.check_invariants()
     lat = bat.latency_summary()
     by_rid = {r.rid: r for r in reqs}
@@ -1305,8 +1406,8 @@ def serve_batcher(torch, ops, cfg, dev):
         f"completed, {lat['generated_tokens']} tokens, {tps:.1f} tokens/s; latency in "
         f"boundaries: ttft p50 {lat['ttft_p50_boundaries']} p99 {lat['ttft_p99_boundaries']}, "
         f"total p50 {lat['latency_p50_boundaries']} p99 {lat['latency_p99_boundaries']}; "
-        f"B9 launches {launches}")
-    return launches, dict(tokens_per_s=tps, boundary_ms=wall / t * 1e3, **lat)
+        f"B9 launches {launches}, by form {forms}")
+    return launches, forms, dict(tokens_per_s=tps, boundary_ms=wall / t * 1e3, **lat)
 
 
 def serve_parity(torch, ops, cfg, dev):
@@ -1334,8 +1435,11 @@ def serve_parity(torch, ops, cfg, dev):
             out.append(logits)
         return torch.stack(out).float()
 
+    from repro_torch.kernels import flash_attention as fa
     n = ops.launch_counts()[B9]
+    before = dict(fa.FORM_LAUNCHES)
     got = run()
+    forms = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
     with mock.patch.object(ops, "attention", plain_attention):
         want = run()
     torch.cuda.synchronize()
@@ -1347,7 +1451,7 @@ def serve_parity(torch, ops, cfg, dev):
         raise RuntimeError(f"f32 logits through B9 vs plain: relative gap {gap} > {PARITY_TOL}")
     log(f"[serve] f32 prefill + {PARITY_STEPS} decode steps, B9 vs plain version: logits max "
         f"|diff| / max |logit| = {gap:.3e} (tolerance {PARITY_TOL}), greedy tokens agree "
-        f"{agree:.4f}")
+        f"{agree:.4f}; B9 forms {forms}")
     return gap
 
 
@@ -1356,14 +1460,14 @@ def run_serve_phase(torch, ops, fa, dev, bw, peak):
     kernels line). B9's work could run on the tensor cores, so its bound
     counts operations at the bf16 dense peak ``peak``."""
     from repro_torch.configs import get_config
-    err = check_b9(torch, ops, fa, dev)
-    times, err_full = time_b9(torch, ops, dev, bw, peak)
+    err, check_forms = check_b9(torch, ops, fa, dev)
+    times, err_full = time_b9(torch, ops, fa, dev, bw, peak)
     err["bfloat16"] = max(err["bfloat16"], err_full)
     torch.cuda.empty_cache()
     cfg = get_config(SERVE_ARCH)
-    n_flow, flow = serve_flow(torch, ops, cfg, dev)
+    n_flow, flow_forms, flow = serve_flow(torch, ops, fa, cfg, dev)
     torch.cuda.empty_cache()
-    n_bat, bat = serve_batcher(torch, ops, cfg, dev)
+    n_bat, bat_forms, bat = serve_batcher(torch, ops, fa, cfg, dev)
     torch.cuda.empty_cache()
     gap = serve_parity(torch, ops, cfg, dev)
     torch.cuda.empty_cache()
@@ -1371,9 +1475,13 @@ def run_serve_phase(torch, ops, fa, dev, bw, peak):
     entry = dict(max_abs_err=err["float32"], max_abs_err_bf16=err["bfloat16"], **pre,
                  shape=[SERVE_BATCH, SERVE_PROMPT, 32, 64],
                  decode_shape=[SERVE_BATCH, 1, 32, 64], decode_cache=[SERVE_BATCH, SERVE_MAX_LEN, 4, 64],
-                 decode_ms=dec["ms"], decode_plain_ms=dec["plain_ms"],
-                 decode_library_ms=dec["library_ms"], decode_bound_ms=dec["bound_ms"],
+                 decode_ms=dec["ms"], decode_form=dec["form"], decode_plain_ms=dec["plain_ms"],
+                 decode_library_ms=dec["library_ms"], decode_device_ms=dec["device_ms"],
+                 decode_library_device_ms=dec["library_device_ms"],
+                 decode_bound_ms=dec["bound_ms"],
                  decode_bound_by=dec["bound_by"], library="scaled_dot_product_attention",
+                 launches_by_form={f: flow_forms[f] + bat_forms[f] for f in flow_forms},
+                 check_launches_by_form=check_forms,
                  serve=dict(flow, **{k: bat[k] for k in ("tokens_per_s", "boundary_ms",
                                                          "ttft_p50_boundaries",
                                                          "latency_p99_boundaries")},

@@ -8,15 +8,16 @@
 //   B7 _topk_decode_kernel (wrapper topk_decode)
 // Each computes what its TPU kernel computes on a [W, n] f32 bucket cut into
 // codec blocks of `block` elements (nb = ceil(n / block); the tail of the
-// last block reads as zeros). One thread block per (codec block j, row w):
-// grid (nb, W), blockIdx.x = j, blockIdx.y = w.
+// last block reads as zeros). B4 and B7 take one codec block (j, row w) per
+// thread block, grid (nb, W), blockIdx.x = j, blockIdx.y = w; B6 takes one
+// per warp, several per thread block; B5 is a grid-stride loop per row.
 //
-// Bound: memory bandwidth for B4, B5 and B7 (one read and one write of the
-// plane, a few operations per element). B6 ranks every element of a block
-// against every other in shared memory, O(block^2) comparisons (cut short
-// once an element's rank reaches k), so at block 512 it is bound by those
-// operations, not by its bytes. A selection that scales better is later
-// work.
+// Bound: memory bandwidth for all four (one read and one write of the
+// plane, a few operations per element). B6 is a radix select, one warp per
+// codec block: about 16-20 one-bit passes over the block's magnitude bits in
+// shared memory (each pass three or four operations per element), then one
+// pass that keeps, writes the residual and compacts, and an O(k^2) rank of
+// the k kept pairs; see topk_encode_kernel.
 //
 // Exactness: the outputs equal the plain PyTorch versions bit for bit.
 //   - The rounding noise is the reference's uint32 hash, computed in
@@ -46,6 +47,7 @@ constexpr int kBlockThreads = 128;   // a codec block is a multiple of 128
 constexpr float kInv127 = (float)(1.0 / 127.0);
 constexpr int64_t kMaxRows = 65535;  // gridDim.y
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float stochastic_uniform(uint32_t idx, uint32_t seed) {
   uint32_t x = idx ^ seed;
@@ -117,44 +119,107 @@ __global__ void q8_decode_kernel(const int8_t* __restrict__ values,
     orow[c] = __fmul_rn((float)vr[c], sr[c / block]);
 }
 
-// B6: acc = x + r over the block (staged in shared memory, padded lanes 0);
-// rank(i) = #{j : |a_j| > |a_i| or (|a_j| == |a_i| and j < i)}; the k
-// entries of rank < k are written at position rank (values and in-block
-// indices), and r'[c] = rank < k ? 0 : acc for c < n.
-__global__ void topk_encode_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ r,
-                                   float* __restrict__ vals,
-                                   int32_t* __restrict__ idx,
-                                   float* __restrict__ res,
-                                   int64_t n, int block, int k, int64_t nb) {
+// B6: acc = x + r over the block (padded lanes 0); the k entries of
+// largest |acc|, in descending order, ties to the lowest index; values and
+// in-block indices at out0 + rank, and r'[c] = kept ? 0 : acc for c < n.
+//
+// One warp per codec block, kTopkWarps codec blocks per thread block; the
+// warp stages its block in shared memory (lane l holds indices l + 32 c, so
+// loads and residual stores are coalesced). For finite acc the bits of
+// |acc| as uint32 order like the magnitudes, so the k-th largest magnitude
+// is found MSB-first one bit at a time: with `want` the bits fixed so far
+// and `need` how many of the elements whose top bits equal it are still to
+// be taken, a pass counts the candidates whose next bit is 1 (a warp sum)
+// and fixes that bit. The select stops as soon as every candidate is to be
+// taken (ceq == need), usually well before bit 0. Then, with M masking the
+// fixed bits, an element is kept if |acc| & M > want, or if it equals want
+// and fewer than `need` equal elements have a lower index (a running ballot
+// count over the columns: lane order within a column, columns in order, is
+// index order). The kept pairs are compacted in index order, and each one's
+// output slot is its rank among the kept (greater magnitude, or equal and
+// earlier): O(k^2) comparisons, 676 at k = 26.
+constexpr int kTopkWarps = 4;
+
+__global__ void __launch_bounds__(kTopkWarps * 32)
+topk_encode_kernel(const float* __restrict__ x, const float* __restrict__ r,
+                   float* __restrict__ vals, int32_t* __restrict__ idx,
+                   float* __restrict__ res, int64_t n, int block, int k, int64_t nb,
+                   int64_t total, int wpc) {
   extern __shared__ float smem[];
-  float* acc = smem;           // [block]
-  float* mag = smem + block;   // [block]
-  const int64_t j = blockIdx.x, w = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t gid = (int64_t)blockIdx.x * wpc + warp;
+  if (gid >= total) return;
+  float* acc = smem + (size_t)warp * (block + 2 * k);   // [block]
+  float* cv = acc + block;                              // [k] kept values
+  int32_t* ci = reinterpret_cast<int32_t*>(cv + k);     // [k] their indices
+  const int64_t w = gid / nb, j = gid - (gid / nb) * nb;
   const int64_t c0 = j * block;
   const int64_t row = w * n;
-  for (int l = threadIdx.x; l < block; l += blockDim.x) {
-    const int64_t c = c0 + l;
-    const float a = c < n ? __fadd_rn(x[row + c], r[row + c]) : 0.0f;
-    acc[l] = a;
-    mag[l] = fabsf(a);
+  const int cols = block >> 5;
+#pragma unroll 4
+  for (int c = 0; c < cols; ++c) {
+    const int i = lane + 32 * c;
+    const int64_t g = c0 + i;
+    acc[i] = g < n ? __fadd_rn(x[row + g], r[row + g]) : 0.0f;
   }
-  __syncthreads();
-  const int64_t out0 = (w * nb + j) * k;
-  for (int l = threadIdx.x; l < block; l += blockDim.x) {
-    const float m = mag[l];
+  __syncwarp();
+
+  // radix select of the k-th largest |acc| bit pattern
+  uint32_t want = 0u, M = 0u;
+  int need = k, ceq = block;
+  for (int sh = 30; sh >= 0 && ceq != need; --sh) {   // bit 31 is the sign
+    const uint32_t Mn = 0x7fffffffu & (0xffffffffu << sh);
+    const uint32_t wn = want | (1u << sh);
+    int cnt = 0;
+#pragma unroll 4
+    for (int c = 0; c < cols; ++c)
+      cnt += (__float_as_uint(acc[lane + 32 * c]) & Mn) == wn;
+    cnt = (int)__reduce_add_sync(FULL_MASK, (unsigned)cnt);
+    if (cnt >= need) {
+      want = wn;
+      ceq = cnt;
+    } else {
+      need -= cnt;
+      ceq -= cnt;
+    }
+    M = Mn;
+  }
+
+  // keep, write the residual, compact the kept pairs in index order
+  const unsigned lt = (1u << lane) - 1u;
+  int eq_before = 0, kept_before = 0;
+  for (int c = 0; c < cols; ++c) {
+    const int i = lane + 32 * c;
+    const float a = acc[i];
+    const uint32_t u = __float_as_uint(a) & M;
+    const bool eq = u == want;
+    const unsigned eb = __ballot_sync(FULL_MASK, eq);
+    const bool kept = u > want || (eq && eq_before + __popc(eb & lt) < need);
+    eq_before += __popc(eb);
+    const unsigned kb = __ballot_sync(FULL_MASK, kept);
+    if (kept) {
+      const int slot = kept_before + __popc(kb & lt);
+      cv[slot] = a;
+      ci[slot] = i;
+    }
+    kept_before += __popc(kb);
+    const int64_t g = c0 + i;
+    if (g < n) res[row + g] = kept ? 0.0f : a;
+  }
+  __syncwarp();
+
+  // each kept pair's output slot: its rank among the kept
+  const int64_t out0 = gid * k;
+  for (int p = lane; p < k; p += 32) {
+    const float a = cv[p];
+    const uint32_t up = __float_as_uint(a) & 0x7fffffffu;
     int rank = 0;
-    for (int i = 0; i < block && rank < k; ++i) {
-      const float o = mag[i];
-      rank += (o > m) | ((o == m) & (i < l));
+    for (int q = 0; q < k; ++q) {
+      const uint32_t uq = __float_as_uint(cv[q]) & 0x7fffffffu;
+      rank += (uq > up) | ((uq == up) & (q < p));
     }
-    const float a = acc[l];
-    if (rank < k) {
-      vals[out0 + rank] = a;
-      idx[out0 + rank] = l;
-    }
-    const int64_t c = c0 + l;
-    if (c < n) res[row + c] = rank < k ? 0.0f : a;
+    vals[out0 + rank] = a;
+    idx[out0 + rank] = ci[p];
   }
 }
 
@@ -241,14 +306,21 @@ extern "C" int repro_topk_encode(const void* x, const void* r, void* vals, void*
   const int64_t nb = (n + block - 1) / block;
   cudaError_t e = check_grid(w, nb);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = 2 * (size_t)block * sizeof(float);
+  // kTopkWarps codec blocks per thread block while they fit the default
+  // shared memory, fewer (down to one, opted in past 48 KB) for big blocks
+  const size_t per_warp = (size_t)(block + 2 * k) * sizeof(float);
+  int wpc = kTopkWarps;
+  while (wpc > 1 && wpc * per_warp > (size_t)kDefaultSmem) wpc >>= 1;
+  const size_t smem = wpc * per_warp;
   e = allow_smem(topk_encode_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  topk_encode_kernel<<<dim3((unsigned)nb, (unsigned)w), kBlockThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const int64_t total = w * nb;
+  const int64_t grid = (total + wpc - 1) / wpc;
+  if (grid > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  topk_encode_kernel<<<(unsigned)grid, wpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(r),
       static_cast<float*>(vals), static_cast<int32_t*>(idx), static_cast<float*>(res),
-      n, (int)block, (int)k, nb);
+      n, (int)block, (int)k, nb, total, wpc);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,7 @@
 //
 //     s   = (q . k) * hd^-0.5                      (f32)
 //     s   = softcap * tanh(s / softcap)            (when softcap > 0)
-//     s   = visible ? s : -1e30                    (a select, never -inf)
+//     s   = visible ? s : -1e30                    (the reference's mask)
 //     out = sum_k softmax(s)_k v_k                 (online, f32 m / l / acc)
 //     out = acc / max(l, 1e-30)                    (cast to q's dtype)
 //
@@ -22,42 +22,75 @@
 // contiguous: the model's BSHD tensors, the [B, max_len, Hkv, hd] cache and
 // the op's BHSD views all go in without a copy. H = G * Hkv (GQA).
 //
-// Grid and block. The TPU kernel walks (b, h, q tile) in parallel and the kv
-// tiles in order, reloading each kv tile per query head. Here one block
-// takes one (batch row, kv head) and RW = 8 query rows of the G * Sq rows
-// that share that kv head, row r being query s = r / G of head g = r % G;
-// at TinyLlama's G = 8 a block is one query position for all eight heads,
-// so every K/V row it reads serves eight heads. Nothing carries across
-// blocks. The block's NW warps split the kv range: warp w takes the tiles
-// of BK = 32 keys starting at lo + 32 (w + NW t), stages them into its own
-// shared-memory tile (16-byte loads, converted to f32), and keeps its own
-// running max m, sum l and accumulator acc for the RW rows; at the end the
-// warps merge (m, l, acc) through shared memory. Inside a tile lane j owns
-// key j for the scores (its K row against the RW rows of Q held in shared
-// memory, float4 broadcast reads) and head dims j, j + 32, ... for P.V.
+// Three forms compute this function. The wrapper picks one from host-known
+// shapes alone (kernels/flash_attention.py::_form; never from kv_len, which
+// is a device scalar) and passes it in:
 //
-// Block skipping. The block only visits keys in [lo, hi): lo the largest of
+//   rows = (H / Hkv) * Sq, the query rows that share one kv head
+//   rows <= 16                          -> SPLIT (decode; f32 and bf16, any hd)
+//   bf16 and hd in {64, 128, 256}       -> MMA   (prefill on the tensor cores)
+//   otherwise                           -> SIMT  (f32 prefill, other hd)
+//
+// Every form visits only the keys in [lo, hi): lo the largest of
 // kv_start[b] and the window's lower edge for the block's first query, hi
-// the smallest of kv_len, Skv and (causal) its last query + 1. A tile that
-// is fully masked for every row of the block is never read: decode reads
-// the pos + 1 live cache rows, not max_len, and causal prefill stops at the
-// diagonal. This is exact for any row with at least one visible key, since
-// the first visible key's correction exp(-1e30 - m) is exactly 0 in the
-// reference too. Keys in a tile past hi are staged as zeros and a masked
-// key's probability is selected to 0, so whatever garbage lies below
-// kv_start or past kv_len contributes exactly nothing. A row with no
+// the smallest of kv_len, Skv and (causal) its last query + 1. Keys outside
+// are never read (staged as zeros where a tile overhangs), and a key masked
+// for one row has its probability selected to 0, so whatever garbage lies
+// below kv_start or past kv_len contributes exactly nothing. This is exact
+// for any row with at least one visible key, since the first visible key's
+// correction exp(-1e30 - m) is exactly 0 in the reference too. A row with no
 // visible key at all is out of contract (no path produces one): it gives 0
-// here and the mean of v in the reference.
+// here and the mean of v in the reference. Query rows are packed s-major,
+// row r being query s = r / G of head g = r % G (G = H / Hkv), so every K/V
+// row a block reads serves all G heads.
+//
+// MMA (bf16; FA2's structure on mma.sync). A block of 4 warps takes one
+// (batch row, kv head) and 128 of its query rows at hd 64 (each warp two
+// 16-row atoms, so every K and V fragment it reads feeds 32 rows), 64 at
+// hd 128 and 256 (one atom a warp, for registers). Q is copied once into
+// shared memory; K/V tiles of 64 keys (32 at hd 256) go through a double
+// buffer with 16-byte cp.async, so tile t + 1 loads while tile t is
+// computed. S = Q K^T is mma.sync.m16n8k16 bf16 -> f32 with Q and K read by
+// ldmatrix. Scores are scaled (and softcapped) into log2 units, so each
+// probability is one ex2; on a tile that some row of the warp does not
+// wholly see, masked scores are selected to -inf (ex2 gives exactly 0), and
+// wholly visible tiles skip the masks. The running max, sum and correction
+// stay in f32 registers; P is rounded to bf16 and O += P V is mma.sync with
+// V read by ldmatrix.trans. Rows are padded by 16 bytes in shared memory,
+// so ldmatrix's eight rows fall on distinct banks. O is normalised in f32,
+// cast once and staged through shared memory into 16-byte stores. Blocks
+// are issued longest-first across the whole grid (the last query rows see
+// the most keys under causal masking), which balances the SMs' work.
+//
+// SPLIT (flash-decoding; f32 CUDA-core math). Launch 1 has a block per
+// (split, kv head, batch row); split c takes the keys [32 c, 32 c + 32)
+// of [lo, hi) (nsplit = ceil(Skv / 32), from the host-known Skv), a key per
+// lane. It stages its keys with cp.async and its <= 16 query rows, and
+// writes its partial state (m, l, acc[hd]) per row to a scratch buffer the
+// wrapper allocated; a split with no key in [lo, hi) writes m = -1e30,
+// l = 0 and exits. Launch 2, a block per (query row, kv head, batch row),
+// merges the splits whose l > 0 into
+// out = sum acc e^(m - M) / sum l e^(m - M), over a compacted list of them.
+//
+// SIMT (the first form, f32 on the CUDA cores). One block takes one (batch
+// row, kv head) and RW = 8 query rows. The block's NW warps split the kv
+// range: warp w takes the tiles of BK = 32 keys starting at lo + 32 (w + NW
+// t), stages them into its own shared-memory tile (16-byte loads, converted
+// to f32), and keeps its own running max m, sum l and accumulator acc for
+// the RW rows; at the end the warps merge (m, l, acc) through shared
+// memory. Inside a tile lane j owns key j for the scores (its K row against
+// the RW rows of Q held in shared memory, float4 broadcast reads) and head
+// dims j, j + 32, ... for P.V. Shared memory: Q [RW][hd], P [NW][RW][32],
+// K [NW][32][hd + 4], V [NW][32][hd]; about 72 KB at hd 64 and 139 KB at hd
+// 256 (NW = 2 there), opted in with cudaFuncSetAttribute.
 //
 // Bound on this card: the larger of the bytes (q, the visible K/V rows and
 // out, each moved once) and the operations (4 * hd flops per row and
 // visible key) at the bf16 tensor-core peak; at the serve path's shapes the
-// bytes, for prefill and decode alike. This first kernel runs on the CUDA
-// cores in f32 (no tensor cores, no TMA, no wgmma): a simple kernel that is
-// right, far from that bound. Shared memory: Q [RW][hd], P [NW][RW][32],
-// K [NW][32][hd + 4] (the +4 keeps the lanes' float4 reads of their own K
-// row on distinct banks), V [NW][32][hd]; about 72 KB at hd 64 and 139 KB
-// at hd 256 (NW = 2 there), opted in with cudaFuncSetAttribute.
+// bytes, for prefill and decode alike. MMA keeps the K/V traffic at one read
+// per 64 or 128 query rows and the math on the tensor cores; SPLIT spreads
+// the decode keys over 32 times as many blocks as one per (batch row, kv
+// head) would.
 //
 // Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -70,10 +103,15 @@
 
 namespace {
 
-constexpr int RW = 8;            // query rows per block
-constexpr int BK = 32;           // keys per warp tile: one per lane
+constexpr int RW = 8;            // query rows per block (SIMT)
+constexpr int BK = 32;           // keys per warp tile, one per lane (SIMT)
 constexpr float NEG = -1e30f;    // the reference's finite mask value
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SPLIT_KEYS = 32;   // keys per split (SPLIT): a key per lane
+constexpr int SPLIT_ROWS = 16;   // most query rows per kv head (SPLIT)
+constexpr int SPLIT_THREADS = 128;
+constexpr int MMA_THREADS = 128;
+enum Form { SIMT = 0, MMA = 1, SPLIT = 2 };
 
 struct Args {
   const void* q;
@@ -88,6 +126,8 @@ struct Args {
   const int* q_offset_ptr;
   const int* kv_len_ptr;
   const int* kv_start;           // [B] or null
+  float* part;                   // SPLIT's partial states, or null
+  int nsplit;
 };
 
 template <typename T> struct VecN;
@@ -110,6 +150,18 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// 4 elements at p (8 bytes of bf16 or 16 of f32, aligned to that) as f32
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
+  out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
@@ -119,6 +171,57 @@ __device__ __forceinline__ void put(float* dst, const float* src) {
 #pragma unroll
   for (int i = 0; i < N; i += 4)
     *reinterpret_cast<float4*>(dst + i) = make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+}
+
+// The keys [lo, hi) that query rows [r0, r0 + nrows) of batch row b may see
+// (the union over the rows), with the scalars they come from.
+struct Span {
+  int q_offset, kv_len, start, lo, hi;
+};
+
+__device__ __forceinline__ Span span_of(const Args& a, int b, int r0, int nrows, int G) {
+  Span sp;
+  sp.q_offset = a.q_offset_ptr ? *a.q_offset_ptr : a.q_offset;
+  sp.kv_len = a.kv_len_ptr ? *a.kv_len_ptr : a.kv_len;
+  sp.start = a.kv_start ? a.kv_start[b] : 0;
+  const int qp_lo = sp.q_offset + r0 / G;
+  const int qp_hi = sp.q_offset + (r0 + nrows - 1) / G;
+  sp.lo = max(sp.start, 0);
+  if (a.window > 0) sp.lo = max(sp.lo, qp_lo - a.window + 1);
+  sp.hi = min(sp.kv_len, a.Skv);
+  if (a.causal) sp.hi = min(sp.hi, qp_hi + 1);
+  return sp;
+}
+
+// [lo, hi) of the keys that the query at absolute position qpos may see
+__device__ __forceinline__ void row_bounds(const Args& a, const Span& sp, int qpos, int& lo,
+                                           int& hi) {
+  lo = max(sp.start, 0);
+  if (a.window > 0) lo = max(lo, qpos - a.window + 1);
+  hi = min(sp.kv_len, a.Skv);
+  if (a.causal) hi = min(hi, qpos + 1);
+}
+
+// a score scaled and, when softcap > 0, softcapped (SPLIT)
+__device__ __forceinline__ float cap(const Args& a, float s) {
+  const float x = s * a.scale;
+  return a.softcap > 0.f ? a.softcap * tanhf(x / a.softcap) : x;
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+// (src is then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T, int HDC, int NW>
@@ -142,15 +245,8 @@ flash_attention_kernel(Args a) {
   const int r0 = blockIdx.x * RW;
   const int nrows = min(RW, G * a.Sq - r0);
 
-  const int q_offset = a.q_offset_ptr ? *a.q_offset_ptr : a.q_offset;
-  const int kv_len = a.kv_len_ptr ? *a.kv_len_ptr : a.kv_len;
-  const int start = a.kv_start ? a.kv_start[b] : 0;
-  const int qp_lo = q_offset + r0 / G;
-  const int qp_hi = q_offset + (r0 + nrows - 1) / G;
-  int lo = max(start, 0);
-  if (a.window > 0) lo = max(lo, qp_lo - a.window + 1);
-  int hi = min(kv_len, a.Skv);
-  if (a.causal) hi = min(hi, qp_hi + 1);
+  const Span sp = span_of(a, b, r0, nrows, G);
+  const int q_offset = sp.q_offset, lo = sp.lo, hi = sp.hi;
 
   // the block's RW query rows, f32, zero for rows past the end
   const T* q = static_cast<const T*>(a.q);
@@ -339,24 +435,603 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
   return launch<T, 8, 2>(a, stream);
 }
 
+// ---------------------------------------------------------------------------
+// MMA: bf16 prefill on the tensor cores
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// a 2^x that maps to one MUFU op; 2^-inf = +0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+struct MmaTile {
+  static constexpr int RA = HD == 64 ? 2 : 1;       // 16-row atoms per warp
+  static constexpr int ROWS = 4 * 16 * RA;          // query rows per block
+  static constexpr int BKN = HD > 128 ? 32 : 64;    // keys per K/V tile
+  static constexpr int LD = HD + 8;                 // smem row stride (elements)
+  static constexpr size_t smem = sizeof(bf16) * (size_t)(ROWS + 4 * BKN) * LD;
+};
+
+// Fragment layouts of mma.m16n8k16 (lane = 4 g + t): A row g / g + 8, cols
+// 2t, 2t + 1 (+ 8); B col g, rows 2t, 2t + 1 (+ 8); C/D row g / g + 8, cols
+// 2t, 2t + 1. So for each of its RA row atoms a thread holds rows g and
+// g + 8, and in S the keys 8 n + 2 t + {0, 1} of each 8-key block n. Each K
+// and V fragment read from shared memory feeds the warp's RA atoms. Scores
+// are kept in log2 units (scaled by log2 e), so each probability is one
+// ex2; masked scores are -inf, whose ex2 is exactly 0.
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_attention_mma_kernel(Args a) {
+  using Tile = MmaTile<HD>;
+  constexpr int RA = Tile::RA, ROWS = Tile::ROWS, BKN = Tile::BKN, LD = Tile::LD;
+  constexpr int NB = BKN / 8;      // 8-key blocks of S per tile
+  constexpr int DB = HD / 8;       // 8-dim blocks of O
+  constexpr int CH = HD / 8;       // 16-byte chunks per row
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);   // [ROWS][LD]
+  bf16* Ks = Qs + ROWS * LD;                     // [2][BKN][LD]
+  bf16* Vs = Ks + 2 * BKN * LD;                  // [2][BKN][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // a 1-d grid, longest first over the whole grid: every (kv head, batch
+  // row) of the last row tile, then of the one before, ...
+  const int G = a.H / a.Hkv;
+  const int pairs = a.Hkv * a.B;
+  const int hk = (int)(blockIdx.x % pairs) % a.Hkv, b = (int)(blockIdx.x % pairs) / a.Hkv;
+  const int r0 = (int)(gridDim.x / pairs - 1 - blockIdx.x / pairs) * ROWS;
+  const int nrows = min(ROWS, G * a.Sq - r0);
+  const Span sp = span_of(a, b, r0, nrows, G);
+  const int lo = sp.lo, hi = sp.hi;
+  const int wr0 = warp * 16 * RA;                      // the warp's first row
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < ROWS * CH; e += MMA_THREADS) {
+    const int r = e / CH, c = e - (e / CH) * CH;
+    const int rr = r0 + min(r, nrows - 1);
+    const int sq = rr / G, h = hk * G + rr % G;
+    cp_async16(Qs + r * LD + c * 8, q + b * a.qb + sq * a.qs + h * a.qh + c * 8, r < nrows);
+  }
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.kb + hk * a.kh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vb + hk * a.vh;
+  const int ntiles = hi > lo ? (hi - lo + BKN - 1) / BKN : 0;
+  auto load_kv = [&](int t0, int buf) {
+    for (int e = tid; e < BKN * CH; e += MMA_THREADS) {
+      const int j = e / CH, c = e - (e / CH) * CH;
+      const bool ok = t0 + j < hi;
+      const int64_t row = ok ? t0 + j : t0;
+      cp_async16(Ks + (buf * BKN + j) * LD + c * 8, kp + row * a.ks + c * 8, ok);
+      cp_async16(Vs + (buf * BKN + j) * LD + c * 8, vp + row * a.vs + c * 8, ok);
+    }
+  };
+  if (ntiles > 0) load_kv(lo, 0);
+  cp_async_commit();
+
+  // this thread's rows: their visible key ranges (empty past nrows)
+  int rlo[RA][2], rhi[RA][2];
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wr0 + ra * 16 + g + 8 * hh;
+      if (r < nrows) {
+        row_bounds(a, sp, sp.q_offset + (r0 + r) / G, rlo[ra][hh], rhi[ra][hh]);
+      } else {
+        rlo[ra][hh] = 1;
+        rhi[ra][hh] = 0;
+      }
+    }
+  }
+  float o[RA][DB][4];
+  float m[RA][2], l[RA][2];
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra) {
+#pragma unroll
+    for (int i = 0; i < DB; ++i) o[ra][i][0] = o[ra][i][1] = o[ra][i][2] = o[ra][i][3] = 0.f;
+    m[ra][0] = m[ra][1] = NEG;
+    l[ra][0] = l[ra][1] = 0.f;
+  }
+  const float sl2 = a.scale * LOG2E;                  // s -> log2 units
+  const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
+  const float cap_l2 = a.softcap * LOG2E;             // softcap tanh(.) -> log2 units
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int t0 = lo + t * BKN;
+    if (t + 1 < ntiles) load_kv(t0 + BKN, (t + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + (t & 1) * BKN * LD;
+    const bf16* Vt = Vs + (t & 1) * BKN * LD;
+
+    float s[RA][NB][4];
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+      for (int n = 0; n < NB; ++n) s[ra][n][0] = s[ra][n][1] = s[ra][n][2] = s[ra][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[RA][4];
+#pragma unroll
+      for (int ra = 0; ra < RA; ++ra)
+        ldmatrix_x4(qa[ra], Qs + (wr0 + ra * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Kt + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int ra = 0; ra < RA; ++ra) {
+          mma16816(s[ra][2 * n2], qa[ra], kb[0], kb[1]);
+          mma16816(s[ra][2 * n2 + 1], qa[ra], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // scale (and softcap) into log2 units; masks only on a tile that some
+    // row of the warp does not wholly see
+    bool full = true;
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) full = full && rlo[ra][hh] <= t0 && rhi[ra][hh] >= t0 + BKN;
+    full = __all_sync(FULL, full);
+    if (a.softcap > 0.f) {        // a uniform branch around the loop, never per score
+#pragma unroll
+      for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[ra][n][i] = cap_l2 * tanhf(s[ra][n][i] * cap_in);
+    } else {
+#pragma unroll
+      for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[ra][n][i] *= sl2;
+    }
+    if (!full) {
+#pragma unroll
+      for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = t0 + n * 8 + 2 * t4 + (i & 1);
+            const int hh = i >> 1;
+            if (!(key >= rlo[ra][hh] && key < rhi[ra][hh])) s[ra][n][i] = -INFINITY;
+          }
+    }
+    float mx[RA][2];
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra) {
+      mx[ra][0] = mx[ra][1] = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[ra][i >> 1] = fmaxf(mx[ra][i >> 1], s[ra][n][i]);
+      }
+    }
+    // the online softmax per row (a quad of lanes holds a row)
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra) {
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = mx[ra][hh];
+        v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+        v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+        const float mn = fmaxf(m[ra][hh], v);
+        corr[hh] = exp2_approx(m[ra][hh] - mn);
+        m[ra][hh] = mn;
+        l[ra][hh] *= corr[hh];
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = exp2_approx(s[ra][n][i] - m[ra][i >> 1]);
+          s[ra][n][i] = p;
+          l[ra][i >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < DB; ++i) {
+        o[ra][i][0] *= corr[0];
+        o[ra][i][1] *= corr[0];
+        o[ra][i][2] *= corr[1];
+        o[ra][i][3] *= corr[1];
+      }
+    }
+
+    // O += P V: P's C fragments of two 8-key blocks are an A fragment
+#pragma unroll
+    for (int kc = 0; kc < BKN / 16; ++kc) {
+      uint32_t pa[RA][4];
+#pragma unroll
+      for (int ra = 0; ra < RA; ++ra) {
+        pa[ra][0] = pack_bf16(s[ra][2 * kc][0], s[ra][2 * kc][1]);
+        pa[ra][1] = pack_bf16(s[ra][2 * kc][2], s[ra][2 * kc][3]);
+        pa[ra][2] = pack_bf16(s[ra][2 * kc + 1][0], s[ra][2 * kc + 1][1]);
+        pa[ra][3] = pack_bf16(s[ra][2 * kc + 1][2], s[ra][2 * kc + 1][3]);
+      }
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                  d2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int ra = 0; ra < RA; ++ra) {
+          mma16816(o[ra][2 * d2], pa[ra], vb[0], vb[1]);
+          mma16816(o[ra][2 * d2 + 1], pa[ra], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // Q rows land before a warp reuses them (no tile: no barrier yet)
+
+  // normalise, stage the warp's rows in its own Q rows, store 16 bytes a lane
+  bf16* Ow = Qs + wr0 * LD;
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra) {
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = l[ra][hh];
+      v += __shfl_xor_sync(FULL, v, 1);
+      v += __shfl_xor_sync(FULL, v, 2);
+      inv[hh] = 1.f / fmaxf(v, 1e-30f);
+    }
+#pragma unroll
+    for (int i = 0; i < DB; ++i) {
+      *reinterpret_cast<uint32_t*>(Ow + (ra * 16 + g) * LD + i * 8 + 2 * t4) =
+          pack_bf16(o[ra][i][0] * inv[0], o[ra][i][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(Ow + (ra * 16 + g + 8) * LD + i * 8 + 2 * t4) =
+          pack_bf16(o[ra][i][2] * inv[1], o[ra][i][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+  bf16* out = static_cast<bf16*>(a.o);
+  for (int e = lane; e < 16 * RA * CH; e += 32) {
+    const int r = e / CH, c = e - (e / CH) * CH;
+    const int rw = wr0 + r;
+    if (rw < nrows) {
+      const int rr = r0 + rw;
+      const int sq = rr / G, h = hk * G + rr % G;
+      *reinterpret_cast<uint4*>(out + b * a.ob + sq * a.os + h * a.oh + c * 8) =
+          *reinterpret_cast<const uint4*>(Ow + r * LD + c * 8);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  const size_t smem = MmaTile<HD>::smem;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_attention_mma_kernel<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = a.H / a.Hkv * a.Sq;
+  constexpr int ROWS = MmaTile<HD>::ROWS;
+  const int64_t blocks = (int64_t)((rows + ROWS - 1) / ROWS) * a.Hkv * a.B;
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  flash_attention_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// SPLIT: decode as split-KV, f32 math
+// ---------------------------------------------------------------------------
+
+// the partial states: m [B][Hkv][nsplit][16], then l of the same shape, then
+// acc [B][Hkv][nsplit][16][hd]
+struct Parts {
+  float *m, *l, *acc;
+};
+__device__ __forceinline__ Parts parts_of(const Args& a) {
+  const size_t ml = (size_t)a.B * a.Hkv * a.nsplit * SPLIT_ROWS;
+  return Parts{a.part, a.part + ml, a.part + 2 * ml};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+flash_attention_split_kernel(Args a) {
+  constexpr int VN = VecN<T>::N;
+  constexpr int NWARP = SPLIT_THREADS / 32;
+  extern __shared__ float4 smem4[];
+  const int hd = a.hd;
+  const int ldk = hd + VN;                                     // +16 bytes a row
+  float* Qs = reinterpret_cast<float*>(smem4);                 // [16][hd]
+  float* Ps = Qs + SPLIT_ROWS * hd;                            // [16][32]
+  T* Ks = reinterpret_cast<T*>(Ps + SPLIT_ROWS * SPLIT_KEYS);  // [32][ldk]
+  T* Vs = Ks + SPLIT_KEYS * ldk;                               // [32][ldk]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const int rows = G * a.Sq;
+  const Span sp = span_of(a, b, 0, rows, G);
+  const int c0 = max(sp.lo, split * SPLIT_KEYS);
+  const int c1 = min(sp.hi, split * SPLIT_KEYS + SPLIT_KEYS);
+  const Parts P = parts_of(a);
+  const size_t pid = ((size_t)b * a.Hkv + hk) * a.nsplit + split;
+  float* pm = P.m + pid * SPLIT_ROWS;
+  float* pl = P.l + pid * SPLIT_ROWS;
+  float* pacc = P.acc + pid * SPLIT_ROWS * hd;
+  if (c0 >= c1) {
+    if (tid < rows) {
+      pm[tid] = NEG;
+      pl[tid] = 0.f;
+    }
+    return;
+  }
+  const int nk = c1 - c0;
+  const int nch = hd / VN;
+  const T* kp = static_cast<const T*>(a.k) + b * a.kb + hk * a.kh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.vb + hk * a.vh;
+  for (int e = tid; e < SPLIT_KEYS * nch; e += SPLIT_THREADS) {
+    const int j = e / nch, c = e - (e / nch) * nch;
+    const bool ok = j < nk;
+    const int64_t row = ok ? c0 + j : c0;
+    cp_async16(Ks + j * ldk + c * VN, kp + row * a.ks + c * VN, ok);
+    cp_async16(Vs + j * ldk + c * VN, vp + row * a.vs + c * VN, ok);
+  }
+  cp_async_commit();
+  const T* q = static_cast<const T*>(a.q);
+  for (int e = tid; e < rows * nch; e += SPLIT_THREADS) {
+    const int r = e / nch, c = e - (e / nch) * nch;
+    const int sq = r / G, h = hk * G + r % G;
+    float buf[VN];
+    load16(q + b * a.qb + sq * a.qs + h * a.qh + c * VN, buf);
+    put<VN>(Qs + r * hd + c * VN, buf);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // lane j scores key c0 + j against rows warp, warp + 4, ...; the warp then
+  // holds whole rows, so their max and sum are warp reductions (the rows'
+  // chains interleaved)
+  constexpr int RPW = SPLIT_ROWS / NWARP;   // rows per warp
+  float s[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) s[i] = 0.f;
+  const T* krow = Ks + lane * ldk;
+  for (int d = 0; d < hd; d += VN) {
+    float kf[VN];
+    load16(krow + d, kf);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + NWARP * i;
+      if (r < rows) {
+        const float* qr = Qs + r * hd + d;
+#pragma unroll
+        for (int v4 = 0; v4 < VN; v4 += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qr + v4);
+          s[i] += qq.x * kf[v4] + qq.y * kf[v4 + 1] + qq.z * kf[v4 + 2] + qq.w * kf[v4 + 3];
+        }
+      }
+    }
+  }
+  const int key = c0 + lane;
+  float mx[RPW], p[RPW], sum[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = warp + NWARP * i;
+    bool ok = false;
+    if (r < rows && lane < nk) {
+      int rlo, rhi;
+      row_bounds(a, sp, sp.q_offset + r / G, rlo, rhi);
+      ok = key >= rlo && key < rhi;
+    }
+    s[i] = ok ? cap(a, s[i]) : -INFINITY;
+    mx[i] = s[i];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], off));
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    mx[i] = fmaxf(mx[i], NEG);                // a row with no key here: m = -1e30, l = 0
+    p[i] = expf(s[i] - mx[i]);
+    sum[i] = p[i];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) sum[i] += __shfl_xor_sync(FULL, sum[i], off);
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = warp + NWARP * i;
+    if (r < rows) {
+      Ps[r * SPLIT_KEYS + lane] = p[i];
+      if (lane == 0) {
+        pm[r] = mx[i];
+        pl[r] = sum[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // acc[r][d .. d + 3] = sum_j p[r][j] v[j][d .. d + 3]: four chains a thread
+  const int nd4 = hd / 4;
+  for (int e = tid; e < rows * nd4; e += SPLIT_THREADS) {
+    const int r = e / nd4, d = (e - (e / nd4) * nd4) * 4;
+    const float* pr = Ps + r * SPLIT_KEYS;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      float vv[4];
+      load4(Vs + j * ldk + d, vv);
+      const float pj = pr[j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] += pj * vv[i];
+    }
+    *reinterpret_cast<float4*>(pacc + r * hd + d) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// A block per (query row, kv head, batch row). Warp 0 lists the splits that
+// saw a key (l > 0) in shared memory, compacted, with their weights
+// e^(m - M), and sums L; then every thread sums its head dims over the list
+// (no branch in that loop, so its loads go out together).
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+flash_attention_merge_kernel(Args a) {
+  extern __shared__ float wsm[];                 // [nsplit] weights, then [nsplit] indices
+  __shared__ float Lsh;
+  __shared__ int nlive;
+  int* live = reinterpret_cast<int*>(wsm + a.nsplit);
+  const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int G = a.H / a.Hkv, hd = a.hd, nsplit = a.nsplit;
+  const Parts P = parts_of(a);
+  const size_t p0 = ((size_t)b * a.Hkv + hk) * nsplit;
+  if (tid < 32) {
+    float M = NEG;
+    for (int c = tid; c < nsplit; c += 32) {
+      const size_t i = (p0 + c) * SPLIT_ROWS + r;
+      if (P.l[i] > 0.f) M = fmaxf(M, P.m[i]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, off));
+    float L = 0.f;
+    int n = 0;
+    for (int c0 = 0; c0 < nsplit; c0 += 32) {   // warp-uniform trip count
+      const int c = c0 + tid;
+      const size_t i = (p0 + c) * SPLIT_ROWS + r;
+      const float l = c < nsplit ? P.l[i] : 0.f;
+      const bool ok = l > 0.f;
+      const unsigned bal = __ballot_sync(FULL, ok);
+      if (ok) {
+        const float w = expf(P.m[i] - M);
+        const int slot = n + __popc(bal & ((1u << tid) - 1u));
+        wsm[slot] = w;
+        live[slot] = c;
+        L += l * w;
+      }
+      n += __popc(bal);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(FULL, L, off);
+    if (tid == 0) {
+      Lsh = L;
+      nlive = n;
+    }
+  }
+  __syncthreads();
+  const float inv = 1.f / fmaxf(Lsh, 1e-30f);
+  const int n = nlive;
+  T* o = static_cast<T*>(a.o);
+  const int sq = r / G, h = hk * G + r % G;
+  const float* acc = P.acc + (p0 * SPLIT_ROWS + r) * hd;
+  for (int d = tid; d < hd; d += SPLIT_THREADS) {
+    float A = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < n; ++t) A += wsm[t] * acc[(size_t)live[t] * SPLIT_ROWS * hd + d];
+    store(o + b * a.ob + sq * a.os + h * a.oh + d, A * inv);
+  }
+}
+
+template <typename T>
+cudaError_t launch_split(const Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)SPLIT_ROWS * (a.hd + SPLIT_KEYS) +
+                      sizeof(T) * 2 * (size_t)SPLIT_KEYS * (a.hd + VecN<T>::N);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_attention_split_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  flash_attention_split_kernel<T><<<dim3((unsigned)a.nsplit, (unsigned)a.Hkv, (unsigned)a.B),
+                                    SPLIT_THREADS, smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t wsmem = 2 * sizeof(float) * (size_t)a.nsplit;
+  if (wsmem > 48 * 1024) {
+    e = cudaFuncSetAttribute(flash_attention_merge_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = a.H / a.Hkv * a.Sq;
+  flash_attention_merge_kernel<T><<<dim3((unsigned)rows, (unsigned)a.Hkv, (unsigned)a.B),
+                                    SPLIT_THREADS, wsmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
-// strides: 12 element strides (q, k, v, out; each batch, seq, head), the
-// head dim contiguous. q_offset_ptr / kv_len_ptr: int32 device scalars or
-// null (then the int beside them is used); kv_start: int32 [B] or null.
-// Returns a cudaError_t (0 = success).
-extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* o, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
-                                     int64_t Hkv, int64_t hd, const int64_t* strides,
-                                     int causal, int window, float softcap, int q_offset,
-                                     const void* q_offset_ptr, int kv_len,
-                                     const void* kv_len_ptr, const void* kv_start,
-                                     void* stream) {
+// What every call with one signature of q, k and v passes (built once per
+// signature by the wrapper, kernels/flash_attention.py::_plan).
+struct Plan {
+  int32_t form;     // 0 SIMT, 1 MMA (bf16, hd 64 / 128 / 256), 2 SPLIT ((H / Hkv) * Sq <= 16)
+  int32_t dtype;    // 0 float32, 1 bfloat16 (q, k, v and out share it)
+  int64_t B, Sq, Skv, H, Hkv, hd;
+  int64_t nsplit;   // SPLIT: max(1, ceil(Skv / 32)); else 0
+  int64_t strides[12];   // q, k, v, out: each batch, seq, head, in elements
+};
+
+// part: SPLIT's f32 scratch of B * Hkv * nsplit * 16 * (hd + 2) floats, else
+// null. q_offset_ptr / kv_len_ptr: int32 device scalars or null (then the
+// int beside them is used); kv_start: int32 [B] or null. The head dim is
+// contiguous. Returns a cudaError_t (0 = success).
+extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k,
+                                     const void* v, void* o, int causal, int window,
+                                     float softcap, int q_offset, const void* q_offset_ptr,
+                                     int kv_len, const void* kv_len_ptr, const void* kv_start,
+                                     void* part, void* stream) {
+  const int64_t B = p->B, Sq = p->Sq, Skv = p->Skv, H = p->H, Hkv = p->Hkv, hd = p->hd;
+  const int form = p->form, dtype = p->dtype;
+  const int64_t nsplit = p->nsplit;
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || hd < 8 || hd > 256 || hd % 8 != 0 || B > 65535 ||
-      Hkv > 65535 || (H / Hkv) * Sq > (int64_t)1 << 30 || Skv < 0)
+      Hkv > 65535 || (H / Hkv) * Sq > (int64_t)1 << 30 || Skv < 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
+  const int64_t rows = (H / Hkv) * Sq;
+  if (form == SPLIT && (rows > SPLIT_ROWS || part == nullptr ||
+                        nsplit != (Skv > SPLIT_KEYS ? (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS : 1)))
+    return (int)cudaErrorInvalidValue;
+  if (form == MMA && (dtype != 1 || (hd != 64 && hd != 128 && hd != 256)))
+    return (int)cudaErrorInvalidValue;
+  if (form != SIMT && form != MMA && form != SPLIT) return (int)cudaErrorInvalidValue;
+  const int64_t* strides = p->strides;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.qb = strides[0]; a.qs = strides[1]; a.qh = strides[2];
@@ -372,8 +1047,15 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   a.q_offset_ptr = static_cast<const int*>(q_offset_ptr);
   a.kv_len_ptr = static_cast<const int*>(kv_len_ptr);
   a.kv_start = static_cast<const int*>(kv_start);
+  a.part = static_cast<float*>(part);
+  a.nsplit = (int)nsplit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(a, st);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, st);
-  return (int)cudaErrorInvalidValue;
+  if (form == MMA) {
+    if (hd == 64) return (int)launch_mma<64>(a, st);
+    if (hd == 128) return (int)launch_mma<128>(a, st);
+    return (int)launch_mma<256>(a, st);
+  }
+  if (form == SPLIT)
+    return (int)(dtype == 0 ? launch_split<float>(a, st) : launch_split<__nv_bfloat16>(a, st));
+  return (int)(dtype == 0 ? dispatch<float>(a, st) : dispatch<__nv_bfloat16>(a, st));
 }

@@ -1,17 +1,19 @@
 """Kernel B9 on Hopper: blockwise online-softmax (flash) attention.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_kernel``
-(wrapper ``flash_attention``). The CUDA C++ source is
-``csrc/flash_attention.cu``: one block per (batch row, kv head, 8 query rows
-of the heads that share it), its warps splitting the visible keys into
-32-key tiles and merging their online-softmax states at the end; causal,
-``q_offset``, sliding window, logit softcap, GQA, a ``kv_len`` and the
-per-row ``kv_start`` bound of continuous batching.
+(wrapper ``flash_attention``): causal, ``q_offset``, sliding window, logit
+softcap, GQA, a ``kv_len`` and the per-row ``kv_start`` bound of continuous
+batching. The CUDA C++ source is ``csrc/flash_attention.cu``, in three forms
+that :func:`_form` picks from host-known shapes: ``"mma"`` (bf16 prefill on
+the tensor cores, FA2's structure on ``mma.sync``), ``"split"`` (decode as
+split-KV in two launches, a split per 32 cache rows, then a merge) and
+``"simt"`` (f32 on the CUDA cores: f32 prefill, other head dims).
 
 This wrapper takes CUDA tensors only and raises on anything else; callers
 reach it through :mod:`repro_torch.kernels.ops`, which sends CPU tensors to
 the plain version :func:`repro_torch.kernels.ref.attention`. ``LAUNCHES``
-counts launches of the kernel (and nothing else).
+counts the calls that launched the kernel (one per call, whatever the
+form), and ``FORM_LAUNCHES[form]`` the same calls by form.
 """
 from __future__ import annotations
 
@@ -20,9 +22,36 @@ import ctypes
 import torch
 
 LAUNCHES = 0
+FORM_LAUNCHES = {"mma": 0, "split": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FORM_CODE = {"simt": 0, "mma": 1, "split": 2}
+SPLIT_ROWS = 16                  # most query rows per kv head in the split form
+SPLIT_KEYS = 32                  # cache rows per split
+MMA_HEAD_DIMS = (64, 128, 256)
 _FN = None
+
+
+def _form(dtype, B: int, Sq: int, H: int, Hkv: int, hd: int, Skv: int) -> str:
+    """The kernel form for these shapes, from what the host knows (never
+    from ``kv_len``, a device scalar): ``"split"`` when at most 16 query
+    rows share a kv head (decode), else ``"mma"`` for bf16 at a head dim of
+    64, 128 or 256, else ``"simt"``. ``B`` and ``Skv`` do not change the
+    choice; ``Skv`` sets the split form's number of splits."""
+    if H // Hkv * Sq <= SPLIT_ROWS:
+        return "split"
+    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
+        return "mma"
+    return "simt"
+
+
+class _Plan(ctypes.Structure):
+    """The C side's ``struct Plan``: what every call with one signature of
+    q, k and v passes."""
+    _fields_ = [("form", ctypes.c_int32), ("dtype", ctypes.c_int32),
+                ("B", ctypes.c_int64), ("Sq", ctypes.c_int64), ("Skv", ctypes.c_int64),
+                ("H", ctypes.c_int64), ("Hkv", ctypes.c_int64), ("hd", ctypes.c_int64),
+                ("nsplit", ctypes.c_int64), ("strides", ctypes.c_int64 * 12)]
 
 
 def _fn():
@@ -30,9 +59,9 @@ def _fn():
     if _FN is None:
         from repro_torch.kernels import build
         f = build.load("flash_attention").repro_flash_attention
-        f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
-                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        f.argtypes = ([ctypes.POINTER(_Plan)] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_void_p])
         f.restype = ctypes.c_int
         _FN = f
@@ -41,8 +70,10 @@ def _fn():
 
 def _scalar(x, name, dev):
     """A python int -> (x, None); a one-element integer tensor on ``dev`` ->
-    (0, int32 0-d tensor) whose pointer the kernel reads."""
+    (0, an int32 tensor of that one element) whose pointer the kernel reads."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.int32 and x.device == dev and x.numel() == 1:
+            return 0, x
         if x.device != dev or x.numel() != 1 or x.dtype.is_floating_point:
             raise ValueError(f"{name} must be a python int or a one-element integer "
                              f"tensor on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
@@ -50,17 +81,16 @@ def _scalar(x, name, dev):
     return int(x), None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_offset=0, kv_len=None, kv_start=None):
-    """Attention of CUDA ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv, hd]``
-    (BSHD, any strides with the head dim contiguous and 16-byte aligned
-    rows); returns a new BSHD tensor in q's dtype.
+# (shapes, strides, dtypes, devices of q, k, v) -> _plan(q, k, v), a pure
+# function of that key, so calls with a signature seen before skip the checks
+_PLANS = {}
+_MAX_PLANS = 256
 
-    ``q_offset`` and ``kv_len`` are python ints or one-element integer
-    tensors on the card (read there by the kernel: no host sync);
-    ``kv_start`` is None or a ``[B]`` integer tensor on the card. ``window``
-    is a python int (0 = none), ``softcap`` a python float (0 = none)."""
-    global LAUNCHES
+
+def _plan(q, k, v):
+    """Check q, k, v once per signature (device, dtype, shapes, strides) and
+    return (form, a pointer to the C plan every call with that signature
+    passes, dims, the split form's scratch size in floats)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got "
@@ -83,16 +113,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"heads {H} must be a multiple of kv heads {Hkv}")
     if hd % 8 != 0 or not 8 <= hd <= 256:
         raise ValueError(f"head dim must be a multiple of 8 in [8, 256], got {hd}")
+    size = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any((t.stride(i) * size) % 16 for i in range(3)):
+            raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned "
+                             f"rows, got strides {t.stride()}")
+    form = _form(q.dtype, B, Sq, H, Hkv, hd, Skv)
+    nsplit = max(1, -(-Skv // SPLIT_KEYS)) if form == "split" else 0
+    out_strides = (Sq * H * hd, H * hd, hd)   # of the new contiguous output
+    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v) for i in range(3)),
+                                    *out_strides)
+    c_plan = ctypes.pointer(_Plan(_FORM_CODE[form], _DTYPE_CODE[q.dtype], B, Sq, Skv, H, Hkv,
+                                  hd, nsplit, strides))
+    part = B * Hkv * nsplit * SPLIT_ROWS * (hd + 2)   # the split form's (m, l, acc)
+    return form, c_plan, (B, Sq, Skv, H, hd), part
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset=0, kv_len=None, kv_start=None):
+    """Attention of CUDA ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv, hd]``
+    (BSHD, any strides with the head dim contiguous and 16-byte aligned
+    rows); returns a new BSHD tensor in q's dtype.
+
+    ``q_offset`` and ``kv_len`` are python ints or one-element integer
+    tensors on the card (read there by the kernel: no host sync);
+    ``kv_start`` is None or a ``[B]`` integer tensor on the card. ``window``
+    is a python int (0 = none), ``softcap`` a python float (0 = none)."""
+    global LAUNCHES
+    try:
+        key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
+               q.dtype, k.dtype, v.dtype, q.device, k.device, v.device)
+        plan = _PLANS.get(key)
+    except (AttributeError, TypeError):
+        key, plan = None, None
+    if plan is None:
+        plan = _plan(q, k, v)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    form, c_plan, (B, Sq, Skv, H, hd), part_size = plan
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("q, k and v need 16-byte aligned rows")
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"window must be a python int >= 0, got {window!r}")
     dev = q.device
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
-    size = q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-                (t.stride(i) * size) % 16 for i in range(3)):
-            raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned "
-                             f"rows, got strides {t.stride()}")
     qo, qo_t = _scalar(q_offset, "q_offset", dev)
     kl, kl_t = _scalar(Skv if kv_len is None else kv_len, "kv_len", dev)
     ks_t = None
@@ -100,16 +164,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if (not isinstance(kv_start, torch.Tensor) or kv_start.device != dev
                 or kv_start.numel() != B or kv_start.dtype.is_floating_point):
             raise ValueError(f"kv_start must be an integer [B={B}] tensor on {dev}")
-        ks_t = kv_start.reshape(B).to(torch.int32).contiguous()
-    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+        ks_t = kv_start if kv_start.dtype == torch.int32 and kv_start.is_contiguous() \
+            else kv_start.reshape(B).to(torch.int32).contiguous()
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    part = torch.empty(part_size, dtype=torch.float32, device=dev) if part_size else None
     ptr = (lambda t: None if t is None else t.data_ptr())
+    args = (c_plan, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            1 if causal else 0, window, float(softcap), qo, ptr(qo_t), kl, ptr(kl_t),
+            ptr(ks_t), ptr(part))
     fn = _fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), B, Sq, Skv, H, Hkv, hd, strides, int(bool(causal)),
-                 window, float(softcap), qo, ptr(qo_t), kl, ptr(kl_t), ptr(ks_t), stream)
+    # the raw stream handle: torch.cuda.current_stream() builds a Python
+    # Stream object on every call, and a decode step makes one call a layer
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({form} form): "
+                           f"cudaError {err}")
     LAUNCHES += 1
+    FORM_LAUNCHES[form] += 1
     return out

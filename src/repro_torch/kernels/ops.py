@@ -33,6 +33,8 @@ def zero_launch_counts() -> None:
     _fu.LAUNCHES = _fu.NAG_LAUNCHES = _fu.ARRAY_LAUNCHES = 0
     _robust.LAUNCHES = 0
     _fa.LAUNCHES = 0
+    for form in _fa.FORM_LAUNCHES:
+        _fa.FORM_LAUNCHES[form] = 0
     for name in _codec.LAUNCHES:
         _codec.LAUNCHES[name] = 0
 

@@ -157,3 +157,33 @@ def test_chunked_attention_refuses_mla_values():
     q = torch.zeros(1, 2, 2, 16)
     with pytest.raises(NotImplementedError, match="MLA"):
         tattn.chunked_attention(q, q[:, :, :1], torch.zeros(1, 2, 1, 8))
+
+
+# kernel B9's form by shape (kernels/flash_attention.py::_form): host-known
+# ints and a dtype only, so routing never reads a device scalar
+@pytest.mark.parametrize("name,dtype,shape,form", [
+    ("serve prefill", torch.bfloat16, (8, 512, 32, 4, 64, 512), "mma"),
+    ("serve decode", torch.bfloat16, (8, 1, 32, 4, 64, 1024), "split"),
+    ("f32 decode", torch.float32, (8, 1, 32, 4, 64, 1024), "split"),
+    ("f32 prefill", torch.float32, (8, 512, 32, 4, 64, 512), "simt"),
+    ("hd 8 prefill", torch.bfloat16, (2, 77, 16, 2, 8, 77), "simt"),
+    ("hd 8 decode", torch.bfloat16, (2, 1, 16, 2, 8, 77), "split"),
+    ("hd 32 prefill", torch.bfloat16, (1, 64, 4, 2, 32, 64), "simt"),
+    ("hd 256 prefill", torch.bfloat16, (1, 128, 4, 2, 256, 128), "mma"),
+    ("G 48 prefill", torch.bfloat16, (2, 100, 48, 1, 128, 100), "mma"),
+    ("G 48 f32 prefill", torch.float32, (2, 100, 48, 1, 128, 100), "simt"),
+    ("G 48 decode", torch.bfloat16, (2, 1, 48, 1, 128, 1024), "mma"),
+    ("16 rows", torch.bfloat16, (1, 2, 8, 1, 64, 256), "split"),
+    ("17 rows", torch.bfloat16, (1, 17, 1, 1, 64, 256), "mma"),
+])
+def test_b9_form_follows_the_host_known_shapes(name, dtype, shape, form):
+    from repro_torch.kernels import flash_attention as tfa
+    assert tfa._form(dtype, *shape) == form, name
+
+
+def test_zeroing_the_launch_counts_zeroes_the_b9_forms():
+    from repro_torch.kernels import flash_attention as tfa
+    tfa.FORM_LAUNCHES["mma"] += 3
+    ops.zero_launch_counts()
+    assert tfa.FORM_LAUNCHES == {"mma": 0, "split": 0, "simt": 0}
+    assert ops.launch_counts()["flash_attention"] == 0

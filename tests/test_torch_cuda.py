@@ -152,6 +152,33 @@ def test_topk_kernels_match_plain_versions(cuda, W, n, k, block):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tie straddle", "k 1", "k block", "all tied"])
+def test_topk_encode_radix_select_edges_byte_equal(cuda, case):
+    """B6's select where it is easiest to get wrong: 40 entries tied at the
+    20th largest magnitude (k 20 keeps the 5 lowest-index ones of them, with
+    -0.0 and sign mixed in), k = 1, k = block, and a block of one magnitude."""
+    block = 512
+    x, r = _codec_input(3, 3 * block - 100, cuda, 77)
+    r.zero_()
+    k = {"tie straddle": 20, "k 1": 1, "k block": block, "all tied": 26}[case]
+    if case == "tie straddle":
+        mag = x[:, :block].abs().sort(dim=1, descending=True).values[:, 19:20]
+        g = torch.Generator(device=cuda).manual_seed(5)
+        for w in range(x.shape[0]):
+            pos = torch.randperm(block, generator=g, device=cuda)[:40]
+            x[w, pos] = mag[w] * torch.where(torch.rand(40, generator=g, device=cuda) < 0.5,
+                                             -1.0, 1.0)
+        x[:, block + 7] = -0.0
+    if case == "all tied":
+        x[:, :block] = 0.75 * torch.where(torch.arange(block, device=cuda) % 3 == 0, -1.0, 1.0)
+    vals, idx, res = ops.topk_encode(x, r, k=k, block=block)
+    pv, pi, pr = tref.topk_encode(x, r, k=k, block=block)
+    torch.cuda.synchronize()
+    for got, want in ((vals, pv), (idx, pi), (res, pr)):
+        assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
 def test_codec_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 256), device=cuda)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -420,15 +447,18 @@ def _qkv(B, Sq, Skv, H, Hkv, hd, dt, dev, seed=0):
             torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).to(dt))
 
 
-def _check_b9(q, k, v, **kw):
+def _check_b9(q, k, v, form=None, **kw):
     want = tref.attention(q, k, v, causal=kw.get("causal", True), window=kw.get("window", 0),
                           logit_softcap=kw.get("softcap", 0.0),
                           q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"),
                           kv_start=kw.get("kv_start"))
     n = tfa.LAUNCHES
+    forms = dict(tfa.FORM_LAUNCHES)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES == n + 1
+    if form is not None:
+        assert tfa.FORM_LAUNCHES[form] == forms[form] + 1, tfa.FORM_LAUNCHES
     tol = ATOL[q.dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     return got
@@ -522,6 +552,86 @@ def test_b9_reads_a_strided_cache_slice_and_bhsd_views(cuda, dt):
                                v.transpose(1, 2), causal=True, q_offset=145)
     torch.cuda.synchronize()
     assert torch.equal(bhsd.transpose(1, 2), got)
+
+
+def _bf16_bound(got, want):
+    """bf16 outputs also within 2^-6 of the case's max |plain| (two to four
+    bf16 ulps at the largest output), as chip_smoke.py holds them."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -6 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [77, 513])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_prefill_off_the_tile_grid(cuda, Sq, G, dt):
+    """Query counts that are not a multiple of the 64-row tile, through the
+    mma form (bf16) and the simt form (f32)."""
+    q, k, v = _qkv(2, Sq, Sq, 4 * G, 4, 64, dt, cuda, seed=Sq + G)
+    got = _check_b9(q, k, v, form="mma" if dt == torch.bfloat16 else "simt", causal=True)
+    if dt == torch.bfloat16:
+        _bf16_bound(got, tref.attention(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_mqa_at_granite_shape(cuda, dt):
+    """G = 48 query heads on one kv head at hd 128 (granite-20b's attention)."""
+    q, k, v = _qkv(2, 100, 100, 48, 1, 128, dt, cuda, seed=48)
+    _check_b9(q, k, v, form="mma" if dt == torch.bfloat16 else "simt", causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [7, 100])
+def test_b9_mma_hd256_with_window_and_softcap(cuda, window):
+    q, k, v = _qkv(1, 200, 200, 4, 2, 256, torch.bfloat16, cuda, seed=window)
+    got = _check_b9(q, k, v, form="mma", causal=True, window=window, softcap=50.0)
+    _bf16_bound(got, tref.attention(q, k, v, causal=True, window=window, logit_softcap=50.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 31, 32, 33, 63, 64, 65, 513, 1024])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_split_decode_around_the_split_size(cuda, kv_len, dt):
+    """Decode over a [8, 1024, 4, 64] cache: kv_len on and around the
+    32-row splits, causal at pos = kv_len - 1, through the split form."""
+    q, k, v = _qkv(8, 1, 1024, 32, 4, 64, dt, cuda, seed=kv_len)
+    pos = torch.tensor(kv_len - 1, dtype=torch.int32, device=cuda)
+    _check_b9(q, k, v, form="split", causal=True, q_offset=pos, kv_len=pos + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_split_kv_start_leaves_whole_splits_empty(cuda, dt):
+    """kv_start rows that leave the first 2 to 31 splits without a visible key."""
+    q, k, v = _qkv(4, 1, 1024, 32, 4, 64, dt, cuda, seed=17)
+    start = torch.tensor([700, 64, 0, 1000], dtype=torch.int32, device=cuda)
+    pos = torch.tensor(1000, dtype=torch.int32, device=cuda)
+    _check_b9(q, k, v, form="split", causal=True, q_offset=pos, kv_len=pos + 1, kv_start=start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["mma", "simt", "split"])
+def test_b9_garbage_below_kv_start_is_invisible_in_every_form(cuda, form):
+    """NaN and inf below kv_start give the bits of zeroed rows, in each form:
+    a prefill-shaped suffix (q_offset 200, 100 queries) in bf16 (mma) and f32
+    (simt), and a decode in bf16 (split)."""
+    dt = torch.float32 if form == "simt" else torch.bfloat16
+    Sq = 1 if form == "split" else 100
+    B, L, off = 4, 320, 200
+    q, k, v = _qkv(B, Sq, L, 32, 4, 64, dt, cuda, seed=23)
+    start = torch.tensor([150, 3, 0, 199], dtype=torch.int32, device=cuda)
+    below = torch.arange(L, device=cuda)[None, :, None, None] < start.reshape(B, 1, 1, 1)
+    kz, vz = k.masked_fill(below, 0), v.masked_fill(below, 0)
+    kg, vg = k.masked_fill(below, float("nan")), v.masked_fill(below, float("inf"))
+    qo = torch.tensor(off, dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, q_offset=qo, kv_len=qo + Sq, kv_start=start)
+    a = _check_b9(q, kz, vz, form=form, **kw)
+    b = ops.attention(q, kg, vg, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.cuda
