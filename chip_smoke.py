@@ -17,7 +17,12 @@ prints no result line):
              encode/decode) held exactly against theirs at [8, 2913408]
              (block 512, k 26), a ragged [4, 1000] (block 128, k 13), an
              all-zero block and tied magnitudes, a block tied across its
-             20th magnitude at k 20, k = 1 and k = block; B8 (the robust
+             20th magnitude at k 20, k = 1 and k = block, blocks 128 to
+             4096 at n % 4 = 1 and n % 4 = 0 with a partial last block, and
+             40 rows; B4 on NaN, +-inf and -0.0 blocks (scales byte-equal,
+             int8 equal at finite elements) and B7 on a corrupted wire
+             (duplicate and out-of-block indices) against the plain version
+             on the CPU; B8 (the robust
              apply) held byte for byte against its plain version at [8, 2913408] with
              [W] scale and thr = +inf (clipped) or finite [W] thr (trimmed),
              scalar scale and thr, a ragged [4, 1000], bf16 theta, and a
@@ -28,7 +33,8 @@ prints no result line):
              aliasing its inputs; B3 (the per-array update) byte for byte at
              [1024, 1000] f32 and bf16 with a scalar coef_gate, its inputs
              unwritten; then every kernel and its plain version timed with
-             CUDA events (median of 60 launches) beside its bound, and the
+             CUDA events (median of 60 launches) beside its bound (B4-B7
+             and B9 also by their device time under torch.profiler), and the
              fault plane's checksummed wire round trip timed at the main
              path's plane;
 3. main    — GossipTrainer(engine="sim", method="elastic_gossip") with NAG on
@@ -405,12 +411,24 @@ def codec_outputs(torch, mod, x, r, seeds, block, k):
     return out
 
 
+def codec_case(torch, g, dev, W, n, block, k, name=None):
+    """(name, x, r, block, k): random rows and a 0.1-scaled residual."""
+    return (name or f"[{W}, {n}] block {block} k {k}",
+            torch.randn(W, n, generator=g, device=dev),
+            0.1 * torch.randn(W, n, generator=g, device=dev), block, k)
+
+
 def check_codec(torch, ck, ref, codec_seeds, dev):
     """B4-B7 against their plain versions, exactly, on: the main path's
     [8, 2913408] at block 512 and k 26; a ragged [4, 1000] at block 128 and
     k 13; a block of zeros (scale 1) beside a block of tied magnitudes
     (including -0.0); a block tied across its k-th magnitude (k 20); k = 1
-    and k = block. Returns the max abs error per kernel (0.0 when exact)."""
+    and k = block; at blocks 128, 256, 512, 1024 and 4096 (past B4's
+    registers) rows of n % 4 = 1 (the scalar paths) and of n % 4 = 0 with a
+    partial last block; 40 rows over thousands of thread blocks. Then B4 on
+    NaN, inf and -0.0 blocks and B7 on a corrupted wire
+    (:func:`check_codec_faults`). Returns the max abs error per kernel (0.0
+    when exact)."""
     g = torch.Generator(device=dev).manual_seed(11)
     special = torch.zeros(2, 2 * BLOCK, device=dev)
     special[:, BLOCK:] = torch.tensor([1.5, -1.5, 0.5, -0.0], device=dev).repeat(BLOCK // 4)
@@ -422,17 +440,16 @@ def check_codec(torch, ck, ref, codec_seeds, dev):
         t = straddle[w, :BLOCK].abs().sort(descending=True).values[19]
         pos = torch.randperm(BLOCK, generator=g, device=dev)[:40]
         straddle[w, pos] = t * torch.where(torch.rand(40, generator=g, device=dev) < 0.5, -1.0, 1.0)
-    cases = [("[8, 2913408]", torch.randn(8, N_FULL, generator=g, device=dev),
-              0.1 * torch.randn(8, N_FULL, generator=g, device=dev), BLOCK, TOPK),
-             ("[4, 1000]", torch.randn(4, 1000, generator=g, device=dev),
-              0.1 * torch.randn(4, 1000, generator=g, device=dev), 128, 13),
+    cases = [codec_case(torch, g, dev, 8, N_FULL, BLOCK, TOPK, "[8, 2913408]"),
+             codec_case(torch, g, dev, 4, 1000, 128, 13, "[4, 1000]"),
              ("zero block + ties [2, 1024]", special, torch.zeros_like(special), BLOCK, TOPK),
              ("tie straddling the 20th [2, 1024] k 20", straddle, torch.zeros_like(straddle),
               BLOCK, 20),
-             ("[4, 100000] k 1", torch.randn(4, 100000, generator=g, device=dev),
-              0.1 * torch.randn(4, 100000, generator=g, device=dev), BLOCK, 1),
-             ("[4, 100000] k = block", torch.randn(4, 100000, generator=g, device=dev),
-              0.1 * torch.randn(4, 100000, generator=g, device=dev), BLOCK, BLOCK)]
+             codec_case(torch, g, dev, 4, 100000, BLOCK, 1, "[4, 100000] k 1"),
+             codec_case(torch, g, dev, 4, 100000, BLOCK, BLOCK, "[4, 100000] k = block")]
+    cases += [codec_case(torch, g, dev, 3, 3 * block + tail, block, round(0.05 * block))
+              for block in (128, 256, 512, 1024, 4096) for tail in (37, 64)]
+    cases.append(codec_case(torch, g, dev, 40, 20011, 256, 13))
     worst = dict.fromkeys(ck.LAUNCHES, 0.0)
     for name, x, r, block, k in cases:
         seeds = codec_seeds(3, torch.arange(x.shape[0], device=dev))
@@ -454,13 +471,73 @@ def check_codec(torch, ck, ref, codec_seeds, dev):
     log(f"[kernels] B4-B7 vs plain versions: {len(cases)} cases ({', '.join(c[0] for c in cases)}), "
         f"int8 values, scales, top-k values, indices, residual and both decodes byte-equal; "
         f"max abs err {worst}")
+    check_codec_faults(torch, ck, ref, codec_seeds, dev)
     return worst
+
+
+def check_codec_faults(torch, ck, ref, codec_seeds, dev):
+    """B4 on rows holding NaN, +-inf and -0.0 in different blocks (block 512
+    and 4096): scales byte-equal to the plain version's (NaN block 1, inf
+    block inf, all -0.0 block 1), int8 values equal at every finite element
+    (NaN -> int8 is defined by neither side). B7 on a corrupted top-k wire
+    (duplicate indices over twelve decades of values, so the sums depend on
+    their order, and indices -5, block, 2**31 - 1, -2**31), byte-equal to
+    the plain version run on the CPU, which sums in pair order
+    (``scatter_add_`` on the card promises no order among duplicates)."""
+    g = torch.Generator().manual_seed(13)
+    for block in (BLOCK, 4096):
+        x = torch.randn(2, 6 * block + 37, generator=g)
+        x[0, 5], x[0, block + 9], x[0, 2 * block + 100] = float("nan"), float("inf"), -float("inf")
+        x[0, 3 * block + 3] = -0.0
+        x[0, 4 * block:5 * block] = -0.0
+        x[1, 17], x[1, 20] = -float("nan"), float("inf")
+        x[1, 6 * block + 18] = float("nan")
+        x = x.to(dev)
+        seeds = codec_seeds(3, torch.arange(2, device=dev))
+        (v, sc), (pv, ps) = ck.q8_encode(x, seeds, block=block), ref.q8_encode(x, seeds, block=block)
+        torch.cuda.synchronize()
+        fin = torch.nn.functional.pad(torch.isfinite(x), (0, v.shape[1] - x.shape[1]), value=True)
+        if not bits_equal(torch, sc, ps) or not torch.equal(v[fin], pv[fin]):
+            raise AssertionError(f"B4 on NaN/inf blocks at block {block}: scales {sc.tolist()} "
+                                 f"against the plain version's {ps.tolist()}")
+        if sc[0, :5].tolist()[:3] != [1.0, float("inf"), float("inf")] or float(sc[0, 4]) != 1.0:
+            raise AssertionError(f"B4 NaN/inf/-0.0 scales {sc[0, :5].tolist()}")
+    W, nb, k, block = 4, 3000, TOPK, BLOCK
+    n = nb * block - 3
+    pool = torch.randint(0, block, (W, nb, 6), generator=g)
+    idx = torch.gather(pool, 2, torch.randint(0, 6, (W, nb, k), generator=g))
+    out = torch.rand(W, nb, k, generator=g) < 0.2
+    bad = torch.tensor([-5, block, 2**31 - 1, -2**31])
+    idx[out] = bad[torch.randint(0, 4, (int(out.sum()),), generator=g)]
+    vals = torch.randn(W, nb, k, generator=g) * 10.0 ** torch.randint(-3, 9, (W, nb, k),
+                                                                      generator=g)
+    idx[0, 0, :3], vals[0, 0, :3] = 5, torch.tensor([1.0, 1e8, -1e8])
+    vals, idx = vals.float().reshape(W, nb * k), idx.to(torch.int32).reshape(W, nb * k)
+    d = ck.topk_decode(vals.to(dev), idx.to(dev), n, k=k, block=block)
+    want = ref.topk_decode(vals, idx, n, k=k, block=block)
+    if not bits_equal(torch, d.cpu(), want) or float(d[0, 5]) != 0.0:
+        raise AssertionError(f"B7 on a corrupted top-k wire: max abs err "
+                             f"{float((d.cpu().double() - want.double()).abs().max())!r}, "
+                             f"column 5 {float(d[0, 5])} (pair order gives 0.0)")
+    log(f"[kernels] B4 on NaN / +-inf / -0.0 blocks (block {BLOCK} and 4096): scales byte-equal "
+        f"(NaN block 1.0, inf block inf), int8 equal at every finite element; B7 on a "
+        f"corrupted top-k wire [{W}, {nb * k}] (duplicates, indices -5, {block}, 2**31 - 1, "
+        f"-2**31) byte-equal to the plain version on the CPU")
+
+
+# kernel -> the name its CUDA kernel carries in a profiler trace
+CODEC_KERNEL_NAMES = {"q8_encode": "q8_encode_kernel", "q8_decode": "q8_decode_kernel",
+                      "topk_encode": "topk_encode_kernel", "topk_decode": "topk_decode_kernel"}
 
 
 def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
     """Each of B4-B7 and its plain version at [8, 2913408], block 512, k 26,
-    beside its bound; B6 also beside torch.topk over the block magnitudes
-    (selection only: no residual, no tie rule)."""
+    beside its bound: CUDA events back to back, and the kernel's device time
+    alone under torch.profiler (the events of a ~0.04 ms kernel can show the
+    wrapper's host cost instead). Beside B5 one torch.mul of the int8 values
+    by the scales (int8 * f32 promotes to f32; checked byte-equal to B5's
+    output first), beside B6 torch.topk over the block magnitudes (selection
+    only: no residual, no tie rule). B4 and B7 have no single PyTorch call."""
     W, n, block, k = 8, N_FULL, BLOCK, TOPK
     nb = -(-n // block)
     npad = W * nb * block
@@ -471,6 +548,10 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
     v, sc = ck.q8_encode(x, seeds, block=block)
     vals, idx, _ = ck.topk_encode(x, r, k=k, block=block)
     mag = torch.abs(torch.nn.functional.pad(x + r, (0, nb * block - n))).reshape(W, nb, block)
+    v3, sc3 = v.view(W, nb, block), sc[..., None]
+    if not bits_equal(torch, torch.mul(v3, sc3).view(W, nb * block)[:, :n],
+                      ck.q8_decode(v, sc, n, block=block)):
+        raise AssertionError("torch.mul(values, scales) differs from B5's output")
     # least bytes: each input read once, each output written once
     nbytes = {"q8_encode": W * n * 4 + W * 8 + npad + W * nb * 4,
               "q8_decode": npad + W * nb * 4 + W * n * 4,
@@ -483,32 +564,40 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
            "topk_encode": 4 * npad, "topk_decode": 2 * W * n}
     calls = {
         "q8_encode": (lambda: ck.q8_encode(x, seeds, block=block),
-                      lambda: ref.q8_encode(x, seeds, block=block), None),
+                      lambda: ref.q8_encode(x, seeds, block=block), None, None),
         "q8_decode": (lambda: ck.q8_decode(v, sc, n, block=block),
-                      lambda: ref.q8_decode(v, sc, n, block=block), None),
+                      lambda: ref.q8_decode(v, sc, n, block=block),
+                      lambda: torch.mul(v3, sc3), "torch.mul"),
         "topk_encode": (lambda: ck.topk_encode(x, r, k=k, block=block),
                         lambda: ref.topk_encode(x, r, k=k, block=block),
-                        lambda: torch.topk(mag, k, dim=-1)),
+                        lambda: torch.topk(mag, k, dim=-1), "torch.topk (selection only)"),
         "topk_decode": (lambda: ck.topk_decode(vals, idx, n, k=k, block=block),
-                        lambda: ref.topk_decode(vals, idx, n, k=k, block=block), None),
+                        lambda: ref.topk_decode(vals, idx, n, k=k, block=block), None, None),
     }
     out = {}
-    for kname, (kern, plain, lib) in calls.items():
+    for kname, (kern, plain, lib, lib_name) in calls.items():
         ms = time_launches(torch, kern)
+        dev_ms = device_ms(torch, kern, CODEC_KERNEL_NAMES[kname])
         plain_ms = time_launches(torch, plain)
         lib_ms = time_launches(torch, lib) if lib is not None else None
+        lib_dev_ms = device_ms(torch, lib) if lib is not None else None
         bytes_ms = nbytes[kname] / bw * 1e3
         ops_ms = ops[kname] / peak * 1e3
-        out[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=max(bytes_ms, ops_ms),
+        bound = max(bytes_ms, ops_ms)
+        out[kname] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library=lib_name,
+                          library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bound,
                           bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        log(f"[kernels] {kname} [{W}, {n}] block {block} k {k}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        log(f"[kernels] {kname} [{W}, {n}] block {block} k {k}: kernel {ms:.4f} ms (device "
+            f"alone {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({nbytes[kname] / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
-            f"{nbytes[kname] / (ms * 1e-3) / 1e12:.3f} TB/s achieved)"
-            + (f", torch.topk selection only {lib_ms:.4f} ms ({ms / lib_ms:.2f}x torch.topk)"
-               if lib_ms is not None else ""))
-    del x, r, v, sc, vals, idx, mag
+            f"{nbytes[kname] / (dev_ms * 1e-3) / 1e12:.3f} TB/s achieved on the device, "
+            f"{bound / dev_ms:.0%} of the bound)"
+            + (f", {lib_name} {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms; kernel "
+               f"{dev_ms / lib_dev_ms:.2f}x on the device)" if lib is not None else ""))
+    out["topk_decode"]["library_note"] = (
+        "no single PyTorch call: a zeroed buffer plus scatter_add_, which on the card "
+        "promises no order among duplicate indices")
+    del x, r, v, sc, vals, idx, mag, v3, sc3
     return out
 
 

@@ -43,6 +43,29 @@ def _fn(name: str):
     return f
 
 
+# Signatures that passed the checks with no conversion: (kernel, its static
+# arguments, and the shape, strides, dtype and device of each tensor). A
+# call with a signature seen before skips the checks, as B9's wrapper does:
+# at ~0.04 ms of device work a call, the checks would be most of its time.
+_CHECKED = set()
+_MAX_CHECKED = 256
+
+
+def _signature(name: str, statics, *ts):
+    try:
+        return (name, statics) + tuple((t.shape, t.stride(), t.dtype, t.device) for t in ts)
+    except (AttributeError, TypeError):
+        return None
+
+
+def _remember(key) -> None:
+    if key is None:
+        return
+    if len(_CHECKED) >= _MAX_CHECKED:
+        _CHECKED.clear()
+    _CHECKED.add(key)
+
+
 def _check(name: str, t, dtype=None, shape=None, device=None) -> None:
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got "
@@ -66,9 +89,14 @@ def _f32_rows(name: str, buf) -> torch.Tensor:
 
 
 def _launch(name: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    # the raw stream handle, and no device context unless the tensors are on
+    # another card than the current one
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
         err = _fn(name)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = _fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -83,15 +111,26 @@ def _check_block(block: int) -> None:
         raise ValueError(f"block must be a positive multiple of 128, got {block}")
 
 
+def _check_k(k: int, block: int) -> None:
+    if not 0 < k <= block:
+        raise ValueError(f"k must be in [1, block], got {k}")
+
+
 def q8_encode(buf, seeds, *, block: int):
     """B4. buf: CUDA [W, N] float bucket; seeds: [W] per-row seeds (uint32
     values). Returns (values int8 [W, nb*block], scales f32 [W, nb])."""
-    _check_block(block)
-    x = _f32_rows("buf", buf)
+    key = _signature("q8_encode", block, buf, seeds)
+    if key in _CHECKED:
+        x, sd = buf, seeds
+    else:
+        _check_block(block)
+        x = _f32_rows("buf", buf)
+        sd = seeds if isinstance(seeds, torch.Tensor) and seeds.dtype == torch.int64 \
+            else as_u32(seeds).to(x.device)
+        _check("seeds", sd, torch.int64, (x.shape[0],), x.device)
+        if x is buf and sd is seeds:
+            _remember(key)
     W, n = x.shape
-    sd = seeds if isinstance(seeds, torch.Tensor) and seeds.dtype == torch.int64 \
-        else as_u32(seeds).to(x.device)
-    _check("seeds", sd, torch.int64, (W,), x.device)
     nb = _nb(n, block)
     values = torch.empty((W, nb * block), dtype=torch.int8, device=x.device)
     scales = torch.empty((W, nb), dtype=torch.float32, device=x.device)
@@ -102,12 +141,16 @@ def q8_encode(buf, seeds, *, block: int):
 
 def q8_decode(values, scales, n: int, *, block: int):
     """B5. (values int8 [W, nb*block], scales f32 [W, nb]) -> f32 [W, n]."""
-    _check_block(block)
-    _check("scales", scales, torch.float32)
+    key = _signature("q8_decode", (n, block), values, scales)
+    if key not in _CHECKED:
+        _check_block(block)
+        _check("scales", scales, torch.float32)
+        W, nb = scales.shape
+        _check("values", values, torch.int8, (W, nb * block), scales.device)
+        if W == 0 or not 0 < n <= nb * block:
+            raise ValueError(f"n={n} outside the wire's {nb * block} elements (W={W})")
+        _remember(key)
     W, nb = scales.shape
-    _check("values", values, torch.int8, (W, nb * block), scales.device)
-    if W == 0 or not 0 < n <= nb * block:
-        raise ValueError(f"n={n} outside the wire's {nb * block} elements (W={W})")
     out = torch.empty((W, n), dtype=torch.float32, device=values.device)
     _launch("q8_decode", values.device, values.data_ptr(), scales.data_ptr(),
             out.data_ptr(), W, n, block, nb)
@@ -118,12 +161,17 @@ def topk_encode(buf, residual, *, k: int, block: int):
     """B6. buf: CUDA [W, N] float bucket; residual: f32 [W, N]. Returns
     (values f32 [W, nb*k], in-block indices int32 [W, nb*k], residual' f32
     [W, N])."""
-    _check_block(block)
-    if not 0 < k <= block:
-        raise ValueError(f"k must be in [1, block], got {k}")
-    x = _f32_rows("buf", buf)
+    key = _signature("topk_encode", (k, block), buf, residual)
+    if key in _CHECKED:
+        x = buf
+    else:
+        _check_block(block)
+        _check_k(k, block)
+        x = _f32_rows("buf", buf)
+        _check("residual", residual, torch.float32, x.shape, x.device)
+        if x is buf:
+            _remember(key)
     W, n = x.shape
-    _check("residual", residual, torch.float32, (W, n), x.device)
     nb = _nb(n, block)
     vals = torch.empty((W, nb * k), dtype=torch.float32, device=x.device)
     idx = torch.empty((W, nb * k), dtype=torch.int32, device=x.device)
@@ -135,16 +183,18 @@ def topk_encode(buf, residual, *, k: int, block: int):
 
 def topk_decode(values, idx, n: int, *, k: int, block: int):
     """B7. (values f32 [W, nb*k], indices int32 [W, nb*k]) -> f32 [W, n]."""
-    _check_block(block)
-    if not 0 < k <= block:
-        raise ValueError(f"k must be in [1, block], got {k}")
-    _check("values", values, torch.float32)
+    key = _signature("topk_decode", (n, k, block), values, idx)
+    if key not in _CHECKED:
+        _check_block(block)
+        _check_k(k, block)
+        _check("values", values, torch.float32)
+        W, m = values.shape
+        _check("idx", idx, torch.int32, (W, m), values.device)
+        if W == 0 or m % k or not 0 < n <= m // k * block:
+            raise ValueError(f"wire of {m} pairs does not hold n={n} at k={k}, block={block}")
+        _remember(key)
     W, m = values.shape
-    _check("idx", idx, torch.int32, (W, m), values.device)
-    nb = m // k
-    if W == 0 or nb * k != m or not 0 < n <= nb * block:
-        raise ValueError(f"wire of {m} pairs does not hold n={n} at k={k}, block={block}")
     out = torch.empty((W, n), dtype=torch.float32, device=values.device)
     _launch("topk_decode", values.device, values.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), W, n, block, k, nb)
+            out.data_ptr(), W, n, block, k, m // k)
     return out

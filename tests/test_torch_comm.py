@@ -9,6 +9,8 @@ Inputs are made with numpy from a seed and handed to both packages."""
 import functools
 
 import pytest
+from _torch_codec_cases import (ORDER_COL, corrupted_topk_wire, finite_lanes,
+                                q8_nonfinite_rows)
 
 torch = pytest.importorskip("torch")
 # the suite runs several pytest-xdist workers on a few cores: one intra-op
@@ -108,6 +110,27 @@ def test_q8_plain_version_is_bit_equal_to_reference(W, n, block):
     assert float((td - torch.from_numpy(buf)).abs().max()) <= float(ts.max()) + 1e-6
 
 
+@pytest.mark.parametrize("block", [128, 512])
+def test_q8_scales_on_nan_and_inf_blocks_are_bit_equal_to_reference(block):
+    """jnp.max and torch.amax propagate NaN: a block holding a NaN gets scale
+    1 (NaN > 0 is false), one holding an inf scale inf, an all -0.0 block
+    scale 1. Scales bit-equal to the oracle and the Pallas kernel; int8
+    values equal at every finite element (NaN -> int8 is defined by
+    neither side)."""
+    x = q8_nonfinite_rows(block)
+    W, n = x.shape
+    seeds = np.array(jcomm.codec_seeds(3, jnp.arange(W)))
+    tv, ts = tops.q8_encode(torch.from_numpy(x), torch.from_numpy(seeds), block=block)
+    jb, js = jnp.asarray(x), jnp.asarray(seeds)
+    ok = finite_lanes(x, block)
+    for v, s in (jref.q8_encode(jb, js, block=block),
+                 jops.q8_encode(jb, js, block=block, use_kernel=True, interpret=True)):
+        assert _bits_equal(ts.numpy(), s)
+        np.testing.assert_array_equal(tv.numpy()[ok], np.asarray(v)[ok])
+    assert ts[0, :5].tolist() == [1.0, float("inf"), float("inf"), ts[0, 3].item(), 1.0]
+    assert 0 < ts[0, 3] < 1 and ts[1, 0] == 1.0 and ts[1, 3] == 1.0 and ts[1, -1] == 1.0
+
+
 # ---------------------------------------------------------------------------
 # top-k (B6/B7 plain versions)
 # ---------------------------------------------------------------------------
@@ -165,6 +188,38 @@ def test_topk_plain_version_is_bit_equal_to_reference(case):
         # rows keep 5.0 first, then zeros by index; every zero decodes to +0.0
         assert ti[0].tolist() == [3, 0, 1, 2] and ti[1].tolist() == [3, 0, 1, 2]
         assert np.signbit(tv[1, 1].numpy()) and not np.signbit(td.numpy()).any()
+
+
+@pytest.mark.parametrize("W,nb,k,block,cut", [(2, 3, 8, 128, 131), (3, 4, 26, 512, 0),
+                                              (2, 3, 32, 128, 5), (2, 3, 40, 128, 5),
+                                              (1, 2, 128, 128, 0)])
+def test_topk_decode_on_a_corrupted_wire_is_bit_equal_to_reference(W, nb, k, block, cut):
+    """Duplicate indices sum from +0.0 in pair order, as the Pallas kernel's
+    fori_loop does ((1, 1e8, -1e8) gives 0, any other order 1); indices
+    outside [0, block), -2**31 and 2**31 - 1 among them, are dropped; a lone
+    -0.0 decodes to +0.0. The jnp oracle's one-hot sum runs in pair order on
+    the CPU up to k = 32 only (XLA's reduction), so above that it is held
+    at the columns no two pairs share (ROADMAP.md §C)."""
+    vals, idx = corrupted_topk_wire(W, nb, k, block)
+    n = nb * block - cut
+    td = tops.topk_decode(torch.from_numpy(vals), torch.from_numpy(idx), n, k=k,
+                          block=block).numpy()
+    jv, ji = jnp.asarray(vals), jnp.asarray(idx)
+    assert _bits_equal(td, jops.topk_decode(jv, ji, n, k=k, block=block, use_kernel=True,
+                                            interpret=True))
+    oracle = np.asarray(jref.topk_decode(jv, ji, n, k=k, block=block))
+    if k <= 32:
+        assert _bits_equal(td, oracle)
+    else:
+        i = idx.reshape(W, nb, k).astype(np.int64)
+        hits = np.zeros((W, nb, block + 1), np.int64)
+        np.add.at(hits, (np.arange(W)[:, None, None], np.arange(nb)[None, :, None],
+                         np.where((i >= 0) & (i < block), i, block)), 1)
+        single = (hits[..., :block] <= 1).reshape(W, nb * block)[:, :n]
+        assert _bits_equal(td[single], oracle[single]) and (~single).any()
+    assert td[0, ORDER_COL] == 0.0 and not np.signbit(td[td == 0]).any()
+    if nb > 1 and n > block + 3:
+        assert td[0, block + 3] == 0.0 and not np.signbit(td[0, block + 3])
 
 
 def test_non_cpu_tensors_never_reach_the_codec_plain_versions(monkeypatch):

@@ -10,7 +10,10 @@ They skip without a card; on one, run
 
 This file imports neither jax nor the reference package, so it runs where
 only the port is installed."""
+import numpy as np
 import pytest
+from _torch_codec_cases import (ORDER_COL, corrupted_topk_wire, finite_lanes,
+                                q8_nonfinite_rows)
 
 torch = pytest.importorskip("torch")
 
@@ -176,6 +179,137 @@ def test_topk_encode_radix_select_edges_byte_equal(cuda, case):
     torch.cuda.synchronize()
     for got, want in ((vals, pv), (idx, pi), (res, pr)):
         assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 512, 4096])
+def test_q8_encode_on_nan_and_inf_blocks_matches_plain_version(cuda, block):
+    """B4 takes its amax over |x|'s bit patterns, which order NaN above inf:
+    a NaN block gets scale 1 and an inf block scale inf, as the plain
+    version's torch.amax gives. Scales byte-equal, int8 values equal at
+    every finite element (NaN -> int8 is defined by neither side)."""
+    x = torch.from_numpy(q8_nonfinite_rows(block)).to(cuda)
+    seeds = torch.tensor([7, 0xFFFFFFFF], dtype=torch.int64, device=cuda)
+    v, s = ops.q8_encode(x, seeds, block=block)
+    pv, ps = tref.q8_encode(x, seeds, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(s), _bits(ps))
+    ok = torch.from_numpy(finite_lanes(x.cpu().numpy(), block))
+    assert torch.equal(v.cpu()[ok], pv.cpu()[ok])
+    assert s[0, 0] == 1.0 and s[0, 1] == float("inf") and s[1, 0] == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,nb,k,block,cut", [(2, 3, 8, 128, 131), (3, 4, 26, 512, 0),
+                                              (2, 3, 40, 128, 5), (1, 2, 128, 128, 0),
+                                              (9, 700, 26, 512, 3), (2, 3, 205, 4096, 1)])
+def test_topk_decode_on_a_corrupted_wire_matches_the_cpu_plain_version(cuda, W, nb, k, block,
+                                                                        cut):
+    """Duplicate indices summed in pair order and out-of-block indices
+    dropped, byte for byte against the plain version on the CPU (on the card
+    scatter_add_ promises no order among duplicates)."""
+    vals, idx = (torch.from_numpy(a) for a in corrupted_topk_wire(W, nb, k, block))
+    n = nb * block - cut
+    before = tcodec.LAUNCHES["topk_decode"]
+    d = ops.topk_decode(vals.to(cuda), idx.to(cuda), n, k=k, block=block)
+    torch.cuda.synchronize()
+    assert tcodec.LAUNCHES["topk_decode"] == before + 1
+    want = tref.topk_decode(vals, idx, n, k=k, block=block)
+    assert torch.equal(_bits(d), _bits(want))
+    assert d[0, ORDER_COL] == 0.0
+
+
+def _codec_matches_plain(x, r, seeds, k, block):
+    """All four codec kernels against their plain versions, byte for byte;
+    each decode reads the plain encode's wire, and B7 is held against the
+    plain version on the CPU."""
+    n = x.shape[1]
+    v, s = ops.q8_encode(x, seeds, block=block)
+    pv, ps = tref.q8_encode(x, seeds, block=block)
+    d = ops.q8_decode(pv, ps, n, block=block)
+    pd = tref.q8_decode(pv, ps, n, block=block)
+    tv, ti, tr = ops.topk_encode(x, r, k=k, block=block)
+    qv, qi, qr = tref.topk_encode(x, r, k=k, block=block)
+    td = ops.topk_decode(qv, qi, n, k=k, block=block)
+    qd = tref.topk_decode(qv.cpu(), qi.cpu(), n, k=k, block=block)
+    torch.cuda.synchronize()
+    for got, want in ((v, pv), (s, ps), (d, pd), (tv, qv), (ti, qi), (tr, qr), (td, qd)):
+        assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256, 512, 1024, 4096])
+@pytest.mark.parametrize("tail", ["n % 4 != 0", "n % 4 == 0, partial block", "unaligned rows"])
+def test_codec_kernels_at_every_block_size_and_row_tail(cuda, block, tail):
+    """Blocks in B4's registers (block / 128 <= 8) and past them (4096, two
+    passes), rows whose length is not a multiple of 4 (the scalar paths),
+    a multiple of 4 with a partial last block (the 16-byte paths), and rows
+    that are not 16-byte aligned (a contiguous view one float into its
+    storage: B4's scalar path)."""
+    n = 3 * block + (37 if tail == "n % 4 != 0" else 64)
+    W = 3
+    g = torch.Generator(device=cuda).manual_seed(block + n)
+    if tail == "unaligned rows":
+        x = torch.randn(W * n + 1, generator=g, device=cuda)[1:].view(W, n)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    else:
+        x = torch.randn(W, n, generator=g, device=cuda)
+    x[0, block:2 * block] = 0.0                          # an all-zero block: scale 1
+    r = 0.1 * torch.randn(W, n, generator=g, device=cuda)
+    seeds = torch.tensor([0, 0xFFFFFFFF, 12345], dtype=torch.int64, device=cuda)
+    _codec_matches_plain(x, r, seeds, max(1, round(0.05 * block)), block)
+
+
+@pytest.mark.cuda
+def test_codec_kernels_over_many_rows(cuda):
+    """W * nb codec blocks over thousands of thread blocks: W = 40 rows of
+    ragged length at block 256 for all four kernels, and B4 and B7 at
+    70,000 rows (more than a 2-d grid's 65,535)."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    x = torch.randn(40, 20011, generator=g, device=cuda)
+    r = 0.1 * torch.randn(40, 20011, generator=g, device=cuda)
+    seeds = torch.arange(40, dtype=torch.int64, device=cuda) * 2654435761 % 2**32
+    _codec_matches_plain(x, r, seeds, 13, 256)
+    W, n, k = 70000, 200, 7
+    x = torch.randn(W, n, generator=g, device=cuda)
+    seeds = torch.arange(W, dtype=torch.int64, device=cuda)
+    v, s = ops.q8_encode(x, seeds, block=128)
+    pv, ps = tref.q8_encode(x, seeds, block=128)
+    vals = torch.randn(W, 2 * k, generator=g, device=cuda)
+    idx = torch.randint(-3, 131, (W, 2 * k), generator=g, device=cuda, dtype=torch.int32)
+    d = ops.topk_decode(vals, idx, n, k=k, block=128)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(v), _bits(pv)) and torch.equal(_bits(s), _bits(ps))
+    assert torch.equal(_bits(d), _bits(tref.topk_decode(vals.cpu(), idx.cpu(), n, k=k,
+                                                        block=128)))
+
+
+@pytest.mark.cuda
+def test_codec_wrappers_check_once_per_signature_and_still_refuse(cuda):
+    """A signature that passed its checks skips them on the next call; a
+    call that differs in shape, strides, dtype or a static argument is
+    checked again and refused as before."""
+    x = torch.randn(2, 256, device=cuda)
+    seeds = torch.zeros(2, dtype=torch.int64, device=cuda)
+    tcodec._CHECKED.clear()
+    tcodec.q8_encode(x, seeds, block=128)
+    tcodec.q8_encode(x, seeds, block=128)
+    assert len(tcodec._CHECKED) == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        tcodec.q8_encode(torch.randn(256, 2, device=cuda).T, seeds, block=128)
+    with pytest.raises(ValueError, match="seeds has shape"):
+        tcodec.q8_encode(x, torch.zeros(3, dtype=torch.int64, device=cuda), block=128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tcodec.q8_encode(x, seeds, block=100)
+    vals, idx, _ = tcodec.topk_encode(x, x, k=4, block=128)
+    tcodec.topk_decode(vals, idx, 256, k=4, block=128)
+    with pytest.raises(ValueError, match="does not hold"):
+        tcodec.topk_decode(vals, idx, 257, k=4, block=128)
+    with pytest.raises(ValueError, match="idx must be"):
+        tcodec.topk_decode(vals, idx.long(), 256, k=4, block=128)
+    # a converted input (bf16 bucket, python seeds) is checked every call
+    tcodec.q8_encode(x.bfloat16(), [1, 2], block=128)
+    assert len(tcodec._CHECKED) == 3
 
 
 @pytest.mark.cuda
