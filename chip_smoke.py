@@ -86,7 +86,12 @@ prints no result line):
              within rtol 1e-4 / atol 1e-5. Logged: rank 0's median
              synchronised step for firing and non-firing steps, the exchange
              split into device-to-host copy, gloo and host-to-device copy,
-             and the fleet-mean loss all-reduce.
+             and the fleet-mean loss all-reduce. Last, a checkpoint: the
+             10-step W=8 run saves at step 5 (rank 0 writes the whole
+             [8, total] plane after a gather), fresh trainers on every rank
+             load their rows and take steps 5-9; the loaded state and the
+             end state must equal the uninterrupted run's bit for bit on
+             every rank, with B1 / B2 on the resumed firing / other steps.
 6. serve   — B9 (flash attention) held against its plain version in f32
              (2e-5) and bf16 (3e-2): causal prefill at G in {1, 4, 8} and
              hd in {64, 128, 256}, at Sq 77 and 513, MQA at G 48 and hd
@@ -116,11 +121,36 @@ prints no result line):
              prefill and 8 decode steps in f32 through B9 and through the
              plain version (patched into the op), logits within 1e-3 of the
              largest logit.
+7. paper   — the paper's CIFAR CNN at full width (``init_cnn`` width 32,
+             307,306 parameters, NHWC, "SAME" padding) on the CIFAR
+             stand-in: GossipTrainer(engine="sim", method="elastic_gossip"),
+             NAG lr 0.01 / momentum 0.9, W=4, batch 32 a worker, p 0.125,
+             alpha 0.5, 50 steps; B1 once a step and nothing else, the loss
+             finite and falling, comm_units equal to the gates. Then 5 steps
+             (batch 8) on the card and on the CPU, each from the card's
+             state, on the same draws, with TF32 ALLOWED in the process:
+             per element at rtol 1e-4 / atol 1e-6, at least 90% of the
+             gradient and 99.9% of theta after the step (a ReLU input
+             within rounding of 0 may take the kink on either side; the
+             engine steps under ``common.precision.full_f32``; the same
+             gradient under TF32 must leave more than 10% outside), after
+             the f32 and TF32 gradients' distance from an f64 one at
+             batch 32. The CNN step under
+             ``profile_sim --model cnn`` (kernels a step, device busy share,
+             the convolutions' share). Checkpoints of the MLP main path
+             (W=8, batch 16, full width), uncompressed and with top-k: 10
+             steps, save_checkpoint, load into a state from init_state(1),
+             10 more steps on both; every entry (theta, velocity, residual,
+             counters, the generator) bit-equal after the load and at the
+             end; save and load ms and the file's MB. Last,
+             ``paper_tables.main("4.3")`` at 20 steps a row, its CSV printed.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is switched off for matmuls and
-cuDNN, so the model and the mixing matmul run in full f32.
+cuDNN, so the model and the mixing matmul run in full f32 (phase 7's
+card-vs-CPU check turns it back on for its own span). Checkpoint files go
+to ``build/chip_smoke_ckpt/`` and are removed after their check.
 """
 import json
 import os
@@ -1002,7 +1032,7 @@ def zero_fault_anchor(torch, train, dev, W=8, batch=16, steps=10):
 # phase 5: the dist engine, one process per gossip worker
 # ---------------------------------------------------------------------------
 
-DIST_W, DIST_BATCH, DIST_STEPS, DIST_SEED, LOCK_STEPS = 8, 16, 50, 0, 10
+DIST_W, DIST_BATCH, DIST_STEPS, DIST_SEED, LOCK_STEPS, RESUME_AT = 8, 16, 50, 0, 10, 5
 DIST_EG = dict(method="elastic_gossip", comm_probability=0.125, moving_rate=0.5,
                topology="uniform")
 DIST_OPT = dict(name="nag", learning_rate=1e-3, momentum=0.99)
@@ -1160,6 +1190,11 @@ def run_dist_phase(torch, train, dev):
     runs = [dict(kind="train", tag=tag, protocol=pkw, codec=codec, optimizer=DIST_OPT,
                  steps=steps, seed=DIST_SEED, gather=gather)
             for tag, pkw, codec, steps, gather in DIST_RUNS]
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    ckpt = os.path.join(CKPT_DIR, "dist.npz")
+    runs.append(dict(kind="resume", tag="resume", protocol=DIST_EG, codec=None,
+                     optimizer=DIST_OPT, steps=LOCK_STEPS, seed=DIST_SEED, at=RESUME_AT,
+                     path=ckpt))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = dist_run.run_fleet(dist_mesh(), dev, dict(params=params, x=x, y=y, runs=runs),
@@ -1173,7 +1208,44 @@ def run_dist_phase(torch, train, dev):
             launches[kname] += n
     dist_vs_sim(torch, next(r for r in ranks[0]["runs"] if r["tag"] == "lockstep"), params,
                 x, y, dev)
+    for kname, n in check_dist_resume(ranks).items():
+        launches[kname] += n
+    os.remove(ckpt)
     return launches, summary
+
+
+def check_dist_resume(ranks):
+    """The W=8 process run saved at step RESUME_AT (rank 0 writes the whole
+    plane after a gather) and resumed on every rank from its own row: the
+    loaded state equals the saved one and, after the remaining steps, the
+    uninterrupted run's, bit for bit on every rank, metrics included; B1
+    launches on the resumed firing steps and B2 on the others, as the
+    host's replay of the schedule says. Returns {kernel: launches over the
+    ranks' resumed steps}."""
+    sched = host_schedule(DIST_EG, LOCK_STEPS)[RESUME_AT:]
+    nfire = sum(bool(f) for f, _, _, _ in sched)
+    want = dict.fromkeys(KERNELS, 0)
+    want[B1], want[B2] = nfire, len(sched) - nfire
+    total = dict.fromkeys(KERNELS, 0)
+    runs = [next(r for r in rk["runs"] if r["tag"] == "resume") for rk in ranks]
+    for rank, r in enumerate(runs):
+        if r["loaded_diff"] or r["final_diff"] or not r["metrics_equal"]:
+            raise AssertionError(f"[dist] resume rank {rank}: differ after the load "
+                                 f"{r['loaded_diff']}, at the end {r['final_diff']}, metrics "
+                                 f"equal {r['metrics_equal']}")
+        got = {k: r["launches"][k] for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"[dist] resume rank {rank}: launches {got}, expected {want}")
+        for k in KERNELS:
+            total[k] += got[k]
+    r0 = runs[0]
+    log(f"[dist] save at step {RESUME_AT} of {LOCK_STEPS} (W={DIST_W} processes, rank 0 writes "
+        f"the gathered plane, {r0['file_mb']:.1f} MB, entries {sorted(r0['entries'])}), "
+        f"resume on every rank: loaded state and the state after {len(sched)} more steps "
+        f"bit-equal to the uninterrupted run on all {len(runs)} ranks, metrics equal; "
+        f"rank 0 save {r0['save_ms']:.1f} ms, load {r0['load_ms']:.1f} ms; resumed launches "
+        f"per rank {want}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1578,6 +1650,338 @@ def run_serve_phase(torch, ops, fa, dev, bw, peak):
     return n_flow + n_bat, entry
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's CIFAR CNN, its table runner, and checkpoints
+# ---------------------------------------------------------------------------
+
+CNN_W, CNN_BATCH, CNN_P = 4, 32, 0.125
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+
+
+def make_cnn_trainer(torch, W, dev):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(prm, x, y):
+        return simple.xent_loss(simple.cnn_logits(prm, x), y)
+
+    return GossipTrainer(
+        engine="sim",
+        protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
+                                comm_probability=CNN_P, topology="uniform"),
+        optimizer=OptimizerConfig(name="nag", learning_rate=0.01, momentum=0.9),
+        loss_fn=loss_fn, num_workers=W, device=dev,
+        init_fn=lambda gen: simple.init_cnn(gen)[0])
+
+
+def run_cnn_path(torch, train, dev):
+    """The CNN at full width (init_cnn width 32, 307,306 parameters) on the
+    CIFAR stand-in, W=4, batch 32 a worker, 50 steps. Counts set to 0 just
+    before, read just after: B1 once a step, nothing else. Returns
+    ({kernel: launches}, median step ms)."""
+    from repro_torch.kernels import ops
+    trainer = make_cnn_trainer(torch, CNN_W, dev)
+    state = trainer.init_state(0)
+    n = sum(s.size for s in state.spec.slots)
+    if n != 307306:
+        raise AssertionError(f"[paper] CNN has {n} parameters, expected 307,306")
+    batches = staged_batches(torch, train, CNN_W, CNN_BATCH, STEPS, dev)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    losses, active, step_s = [], [], []
+    for xb, yb in batches:
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, (xb, yb))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        active.append(m["comm_active"])
+    launches = ops.launch_counts()
+    losses = [float(x) for x in losses]
+    gates = sum(int(a) for a in active)
+    units = int(state.proto.comm_units)
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"[paper] CNN: non-finite loss {losses}")
+    head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    if not tail < head:
+        raise AssertionError(f"[paper] CNN: loss not falling: first 10 {head}, last 10 {tail}")
+    want = {k: (STEPS if k == B1 else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"[paper] CNN: launches {launches}, expected {want}")
+    if units != gates:
+        raise AssertionError(f"[paper] CNN: comm_units {units} != gates drawn {gates}")
+    step_ms = statistics.median(step_s) * 1e3
+    log(f"[paper] CNN W={CNN_W} batch={CNN_BATCH}/worker, {n} parameters, {STEPS} steps: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first-10 mean {head:.4f}, last-10 mean "
+        f"{tail:.4f}), median step {step_ms:.3f} ms (synchronised), launches {launches}, "
+        f"comm_units {units} = gates {gates}")
+    return launches, step_ms
+
+
+def outside(torch, a, b, rtol=1e-4, atol=1e-6):
+    """Fraction of the elements of ``a`` outside rtol / atol of ``b``."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((~torch.isclose(a, b, rtol=rtol, atol=atol)).double().mean())
+
+
+def rel_l2(torch, a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+# the card's CNN gradient against the CPU's f64 one at the main path's
+# batch: the share of elements outside rtol 1e-4 / atol 1e-6, and each
+# parameter leaf's relative L2
+CNN_OUTSIDE, CNN_LEAF_L2 = 0.1, 1e-2
+
+
+def cnn_against_f64(torch, card, cpu, batches, tf32_grads):
+    """The main path's batch (32 a worker), 5 steps of the card's engine;
+    at each, its gradient against the CPU's f64 gradient at the card's
+    parameters. At most CNN_OUTSIDE of the elements outside rtol 1e-4 /
+    atol 1e-6, a share the same gradient under TF32 must exceed; and every
+    leaf within CNN_LEAF_L2 relative L2, so a wrong gradient in any leaf,
+    however small, fails. A step where a ReLU input lies within f32
+    rounding of 0 moves a few per cent of the elements, the most in the
+    smallest leaf (the stem's 864): there the relative L2 of a sound f32
+    gradient reaches ~1e-3 (the CPU's own too) and TF32's stays below it,
+    so the leaf bound cannot tell TF32 and the share does. The CPU's own
+    f32 gradient is printed beside the card's at the first step."""
+    from repro_torch.checkpoint import io
+    s_card = card.init_state(1)
+    s64 = cpu.init_state(1, params={k: v[0].double().cpu() for k, v in s_card.params.items()})
+    if s64.theta["float64"].shape != s_card.theta["float32"].shape:
+        raise AssertionError("[paper] the f64 plane's layout differs from the card's")
+    slots = io.flat_spec_manifest(s_card.spec)["slots"]
+
+    def leaves(g, g64):
+        return {s["path"]: rel_l2(torch, g[:, s["offset"]:s["offset"] + s["size"]],
+                                  g64[:, s["offset"]:s["offset"] + s["size"]]) for s in slots}
+
+    def show(g, g64):
+        per = leaves(g, g64)
+        return (f"{outside(torch, g, g64):.2e} of elements outside, rel L2 "
+                f"{rel_l2(torch, g, g64):.3e}, per leaf {{"
+                + ", ".join(f"{k}: {v:.2e}" for k, v in per.items()) + "}")
+
+    worst, worst_leaf = 0.0, 0.0
+    for i, (xb, yb) in enumerate(batches):
+        s64.theta["float64"].copy_(s_card.theta["float32"].double().cpu())
+        g64 = cpu.sim._grads(s64, xb.cpu().double(), yb.cpu())[1]["float64"]
+        g = card.sim._grads(s_card, xb, yb)[1]["float32"]
+        out, per = outside(torch, g, g64), leaves(g, g64)
+        log(f"[paper] CNN gradient at batch {CNN_BATCH} against the CPU's f64, step {i}: card "
+            f"{show(g, g64)}")
+        if i == 0:
+            s32 = cpu.init_state(1, params={k: v[0].cpu() for k, v in s_card.params.items()})
+            gt = tf32_grads(s_card, xb, yb)
+            tf32 = outside(torch, gt, g64)
+            log(f"[paper] the same at step 0, CPU f32: "
+                f"{show(cpu.sim._grads(s32, xb.cpu(), yb.cpu())[1]['float32'], g64)}; "
+                f"card TF32 backward: {show(gt, g64)}")
+            if tf32 <= CNN_OUTSIDE:
+                raise AssertionError(f"[paper] the TF32 gradient passes the check: {tf32!r} of "
+                                     f"its elements outside (<= {CNN_OUTSIDE})")
+        bad = {k: v for k, v in per.items() if not v <= CNN_LEAF_L2}
+        if out > CNN_OUTSIDE or bad:
+            raise AssertionError(f"[paper] CNN gradient against f64 step {i}: {out!r} of the "
+                                 f"elements outside (<= {CNN_OUTSIDE}); leaves over "
+                                 f"{CNN_LEAF_L2} relative L2: {bad}")
+        worst, worst_leaf = max(worst, out), max(worst_leaf, max(per.values()))
+        s_card, _ = card.step(s_card, (xb, yb))
+    return worst, worst_leaf, tf32
+
+
+def cnn_card_vs_cpu(torch, train, dev, steps=5, batch=8):
+    """The card's CNN gradients, with TF32 ALLOWED in the process for this
+    check (the engine turns it off around its step). First against the
+    CPU's f64 gradient at the main path's batch (cnn_against_f64). Then 5
+    steps (batch 8) on the card and on the CPU, each from the card's
+    parameters and velocity, on the same injected draws, per element at
+    rtol 1e-4 / atol 1e-6: at least 90% of the gradient's elements and
+    99.9% of theta's after the step; the same first gradient computed under
+    TF32 (without the engine's context) must leave more than 10% outside,
+    or the check could not tell. Not every element: at full width a ReLU
+    input within rounding of 0 takes the kink on one side in one f32
+    computation and on the other in the other, and moves ~1% of the
+    gradient's elements by up to ~4e-4; each leaf's relative L2 against
+    f64 holds those."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.core import topology
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        card, cpu = make_cnn_trainer(torch, CNN_W, dev), make_cnn_trainer(torch, CNN_W, "cpu")
+
+        def tf32_grads(state, xb, yb):
+            row = state.spec.with_lead(())
+            return vmap(grad_and_value(lambda b, x, y: card.sim.loss_fn(
+                row.views(b), x, y)))(state.theta, xb, yb)[0]["float32"].cpu()
+
+        t0 = time.perf_counter()
+        f64_out, f64_leaf, f64_tf32 = cnn_against_f64(
+            torch, card, cpu, staged_batches(torch, train, CNN_W, CNN_BATCH, steps, dev),
+            tf32_grads)
+        s_card = card.init_state(1)
+        params = {k: v[0].cpu() for k, v in s_card.params.items()}
+        s_cpu = cpu.init_state(1, params=params)
+
+        def off(a, b):
+            return (f"{outside(torch, a, b):.2e} of elements outside rtol 1e-4 / atol 1e-6, "
+                    f"rel L2 {rel_l2(torch, a, b):.3e}, "
+                    f"max abs {float((a.double().cpu() - b.double().cpu()).abs().max()):.3e}")
+
+        gen = torch.Generator().manual_seed(11)
+        worst_g = worst_t = 0.0
+        for i, (xb, yb) in enumerate(staged_batches(torch, train, CNN_W, batch, steps, dev)):
+            draws = (topology.participation(gen, CNN_W, 0.5),
+                     topology.sample_uniform_peers(gen, CNN_W))
+            s_cpu.theta["float32"].copy_(s_card.theta["float32"].cpu())
+            s_cpu.opt.mu["float32"].copy_(s_card.opt.mu["float32"].cpu())
+            _, g_card = card.sim._grads(s_card, xb, yb)
+            _, g_cpu = cpu.sim._grads(s_cpu, xb.cpu(), yb.cpu())
+            og = outside(torch, g_card["float32"], g_cpu["float32"])
+            line = f"step {i}: gradients {off(g_card['float32'], g_cpu['float32'])}"
+            if i == 0:
+                tf32_out = outside(torch, tf32_grads(s_card, xb, yb), g_cpu["float32"])
+                line += f"; the same gradient under TF32: {tf32_out:.2e} outside"
+                if tf32_out <= 0.1:
+                    raise AssertionError(f"[paper] the TF32 gradient passes the check: "
+                                         f"{tf32_out!r} of its elements outside (<= 0.1)")
+            s_card, _ = card.step(s_card, (xb, yb), draws=(draws[0].to(dev), draws[1].to(dev)))
+            s_cpu, _ = cpu.step(s_cpu, (xb.cpu(), yb.cpu()), draws=draws)
+            ot = outside(torch, s_card.theta["float32"], s_cpu.theta["float32"])
+            log(f"[paper] CNN card vs CPU {line}; theta "
+                f"{off(s_card.theta['float32'], s_cpu.theta['float32'])}")
+            if og > 0.1 or ot > 1e-3:
+                raise AssertionError(f"[paper] CNN card vs CPU step {i}: {og!r} of the gradient's "
+                                     f"elements (<= 0.1) and {ot!r} of theta's (<= 1e-3) outside "
+                                     "rtol 1e-4 / atol 1e-6")
+            worst_g, worst_t = max(worst_g, og), max(worst_t, ot)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"[paper] CNN card vs CPU with TF32 allowed in the process: at batch {CNN_BATCH} "
+        f"against f64, at most {f64_out:.2e} of the elements outside (<= {CNN_OUTSIDE:g}; "
+        f"TF32 {f64_tf32:.2e}), each leaf's relative L2 at most {f64_leaf:.3e} "
+        f"(<= {CNN_LEAF_L2:g}); {steps} steps at batch "
+        f"{batch} against the CPU's f32: at most {worst_g:.2e} of the gradient's elements "
+        f"(<= 0.1) and {worst_t:.2e} of theta's (<= 1e-3) outside rtol 1e-4 / atol 1e-6, "
+        f"the first gradient under TF32 {tf32_out:.2e} outside; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def profile_cnn(torch, dev):
+    """Where the CNN step's time goes (repro_torch.launch.profile_sim)."""
+    from repro_torch.launch import profile_sim
+    r = profile_sim.profile(W=CNN_W, batch=CNN_BATCH, steps=10, device=dev, model="cnn")
+    conv = r["phase_ms_per_step"].get("convolutions (cuDNN)", 0.0)
+    summed = sum(r["phase_ms_per_step"].values())
+    # kernels overlap in time, so their summed durations exceed the busy
+    # time (the union of their intervals); the share is of the sum
+    log(f"[paper] CNN profile (profile_sim --model cnn --workers {CNN_W} --batch {CNN_BATCH} "
+        f"--steps 10): median step {r['step_ms_median']:.3f} ms under the profiler, "
+        f"{r['kernel_launches_per_step']:.1f} kernels/step, device busy "
+        f"{r['device_busy_ms_per_step']:.3f} ms/step (share {r['device_busy_share']!r}), "
+        f"kernel durations summed {summed:.3f} ms/step, of which convolutions {conv:.3f} "
+        f"({conv / summed:.3f}); phases {r['phase_ms_per_step']}")
+    log("[paper] CNN top kernels: " + "; ".join(
+        f"{k['ms_per_step']:.4f} ms x{k['calls_per_step']:.1f} {k['name'][:70]}"
+        for k in r["top_kernels"][:8]))
+    return r
+
+
+def mlp_resume(torch, train, dev, codec=None, W=8, batch=16, steps=10):
+    """The main path at full width: 10 steps, save_checkpoint, load into a
+    trainer state built from init_state(1), 10 more steps on both. Every
+    entry bit-equal after the load and after the steps (theta, velocity,
+    residual, counters, the generator's state: the gate and peer draws).
+    Returns ({kernel: launches of the resumed steps}, summary)."""
+    from repro_torch.checkpoint import io
+    from repro_torch.kernels import ops
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, f"mlp_{codec or 'raw'}.npz")
+    batches = staged_batches(torch, train, W, batch, 2 * steps, dev)
+    tr = make_trainer(torch, W, dev, codec=codec)
+    st = tr.init_state(0)
+    for xb, yb in batches[:steps]:
+        st, _ = tr.step(st, (xb, yb))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_checkpoint(path, st, meta={"step": steps})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mb = os.path.getsize(path) / 1e6
+    saved = io.entries(st.state_dict())
+    for xb, yb in batches[steps:]:
+        st, _ = tr.step(st, (xb, yb))
+    tr2 = make_trainer(torch, W, dev, codec=codec)
+    like = tr2.init_state(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st2, _ = tr2.load_checkpoint(path, like)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    loaded = io.entries(st2.state_dict())
+    ops.zero_launch_counts()
+    for xb, yb in batches[steps:]:
+        st2, _ = tr2.step(st2, (xb, yb))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    a, b = io.entries(st.state_dict()), io.entries(st2.state_dict())
+    tag = f"MLP W={W} codec={codec}"
+    for name, x, y in (("after the load", saved, loaded), (f"after {steps} more steps", a, b)):
+        if set(x) != set(y):
+            raise AssertionError(f"[ckpt] {tag}: entries {sorted(x)} != {sorted(y)}")
+        bad = sorted(k for k in x if x[k].tobytes() != y[k].tobytes())
+        if bad:
+            raise AssertionError(f"[ckpt] {tag}: {bad} differ {name}")
+    want = {k: (steps if k == B1 or k in CODEC_KERNELS.get(codec, ()) else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"[ckpt] {tag}: resumed launches {launches}, expected {want}")
+    os.remove(path)
+    log(f"[ckpt] {tag}: save {save_ms:.1f} ms, load {load_ms:.1f} ms, file {mb:.1f} MB "
+        f"({len(saved)} entries: {sorted(saved)}); every entry bit-equal after the load and "
+        f"after {steps} more steps on both; resumed launches {launches}")
+    return launches, dict(save_ms=save_ms, load_ms=load_ms, file_mb=mb)
+
+
+def run_paper_phase(torch, dev):
+    """Phase 7. Returns ({kernel: launches}, summary)."""
+    from repro_torch.data.synthetic import load_cifar_like, load_mnist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import paper_tables
+    cifar, _ = load_cifar_like(num_train=12800, num_test=10)
+    launches, summary = run_cnn_path(torch, cifar, dev)
+    summary = dict(cnn_step_ms=summary)
+    cnn_card_vs_cpu(torch, cifar, dev)
+    prof = profile_cnn(torch, dev)
+    summary["cnn_profile"] = {k: prof[k] for k in ("step_ms_median", "kernel_launches_per_step",
+                                                   "device_busy_ms_per_step",
+                                                   "device_busy_share", "phase_ms_per_step")}
+    mnist, _ = load_mnist(num_train=25600, num_test=10)
+    for codec in (None, "topk"):
+        got, summary[f"resume_{codec or 'raw'}"] = mlp_resume(torch, mnist, dev, codec)
+        for k, n in got.items():
+            launches[k] += n
+    ops.zero_launch_counts()
+    t0 = time.perf_counter()
+    rows = paper_tables.main("4.3", steps=20, device=dev)
+    got = ops.launch_counts()
+    pairwise = sum(1 for r in rows if r.method != "allreduce")
+    want = {k: (20 * pairwise if k == B1 else 0) for k in got}
+    if got != want:
+        raise AssertionError(f"[paper] table 4.3 launches {got}, expected {want}")
+    for r in rows:
+        if not all(x == x and abs(x) != float("inf") for x in (r.final_loss, r.rank0_acc,
+                                                              r.aggregate_acc, r.comm_mb)):
+            raise AssertionError(f"[paper] table 4.3 row {r.label}: non-finite {r}")
+    for k, n in got.items():
+        launches[k] += n
+    log(f"[paper] table 4.3 at 20 steps a row: {len(rows)} rows in "
+        f"{time.perf_counter() - t0:.1f} s, launches {got}")
+    return launches, summary
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -1687,6 +2091,11 @@ def main():
     n_serve, times[B9] = run_serve_phase(torch, ops, fa, dev, bw, peak_bf16)
     launches[B9] += n_serve
     err[B9] = times[B9].pop("max_abs_err")
+
+    paper_launches, paper = run_paper_phase(torch, dev)
+    for kname, n in paper_launches.items():
+        launches[kname] += n
+    log(f"[paper] summary: {json.dumps(paper)}")
 
     kernels = []
     for kname, (kid, source, replaces) in KERNELS.items():

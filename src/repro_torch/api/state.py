@@ -9,12 +9,20 @@ updates ``theta`` and ``opt.mu`` IN PLACE and returns a new FlatState that
 holds the same buffers. Callers that need the pre-step values clone them.
 ``key`` holds the run's ``torch.Generator`` (the gate and peer draws),
 which the step advances in place too.
+
+Checkpoints (:meth:`FlatState.state_dict`, the v2 payload of
+:mod:`repro_torch.checkpoint.io`) carry the reference's entries. A
+generator cannot become a threefry key, so ``key`` is written as what
+``jax.random.PRNGKey(seed)`` gives for the generator's initial seed (a
+uint32 ``[2]`` the reference's restore accepts), and the generator's own
+state goes under ``torch_key::<device type>``, which only the port reads.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.flat import FlatSpec
@@ -50,3 +58,75 @@ class FlatState:
 
     def replace(self, **kw) -> "FlatState":
         return dataclasses.replace(self, **kw)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Named nested dict of the state's tensors: the checkpoint v2
+        payload, the reference's paths (``spec`` is absent: it is the
+        manifest). The generator, if any, becomes ``key`` (uint32 ``[2]``,
+        ``[0, initial seed]``) and ``torch_key`` (``{device type: its
+        get_state() bytes}``)."""
+        opt, proto = self.opt, self.proto
+        d = {
+            "theta": self.theta,
+            "opt": {"step": opt.step, "mu": opt.mu, "nu": opt.nu},
+            "center": self.center,
+            "proto": (None if proto is None else {
+                "center": proto.center,
+                "comm_rounds": proto.comm_rounds,
+                "comm_units": proto.comm_units,
+                "comm_bytes": proto.comm_bytes,
+                # fault-plane counters: None (absent) without a FaultConfig
+                "wire_dropped": proto.wire_dropped,
+                "wire_corrupt": proto.wire_corrupt,
+            }),
+            "comm": {"residual": getattr(self.comm, "residual", None)},
+            "key": None,
+            "step": self.step,
+        }
+        gen = self.key
+        if gen is not None:
+            d["key"] = np.array([0, gen.initial_seed() & 0xFFFFFFFF], dtype=np.uint32)
+            d["torch_key"] = {gen.device.type: gen.get_state().numpy()}
+        return d
+
+    def from_state_dict(self, d: Dict[str, Any]) -> "FlatState":
+        """Rebuild a FlatState from :meth:`state_dict`'s form, reusing this
+        state's spec and container types. The generator: the saved
+        ``torch_key`` of this state's device type if there is one (a resume
+        on the same kind of device draws exactly what the uninterrupted run
+        draws), else a fresh generator seeded from ``key`` and the step (a
+        reference file, or a file from another device type)."""
+        opt = type(self.opt)(d["opt"]["step"], d["opt"]["mu"], d["opt"]["nu"])
+        proto = self.proto
+        if proto is not None:
+            p = d["proto"]
+            proto = proto._replace(center=p["center"], comm_rounds=p["comm_rounds"],
+                                   comm_units=p["comm_units"], comm_bytes=p["comm_bytes"],
+                                   wire_dropped=p.get("wire_dropped"),
+                                   wire_corrupt=p.get("wire_corrupt"))
+        comm = self.comm
+        if comm is not None:
+            comm = type(comm)(d["comm"]["residual"])
+        key = self.key
+        if key is not None:
+            saved = (d.get("torch_key") or {}).get(key.device.type)
+            if saved is not None:
+                key = torch.Generator(device=key.device)
+                key.set_state(torch.from_numpy(np.array(saved, dtype=np.uint8)))
+            elif d.get("key") is not None:
+                key = generator_from_key(d["key"], int(d["step"]), key.device)
+        return FlatState(spec=self.spec, theta=d["theta"], opt=opt,
+                         center=d["center"], proto=proto, comm=comm,
+                         key=key, step=d["step"])
+
+
+def generator_from_key(key, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from a saved uint32 ``[2]`` key and
+    the step it was saved at: the step is mixed in so that a resume from a
+    file whose key does not advance (the port writes its initial seed)
+    does not replay the run's first draws."""
+    hi, lo = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(-1)[:2])
+    seed = ((hi << 32) | lo) ^ ((int(step) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen

@@ -31,8 +31,14 @@ Engines:
 Both engines expose the shared matching schedule (:meth:`matching_partners`,
 :attr:`num_gossip_rounds`) and one communication round as the parity
 surface :meth:`gossip_exchange` (the mixing-matrix oracle on the sim
-engine, the real exchange on the dist engine). Checkpoints and the async
-engine come in later slices.
+engine, the real exchange on the dist engine).
+
+Checkpoints (:meth:`save_checkpoint` / :meth:`load_checkpoint`) are the
+reference's v2 files (:mod:`repro_torch.checkpoint.io`): either package
+loads the other's. The dist engine writes the whole ``[W, total]`` plane
+from rank 0 after a gather, with the schedule and ``comm_bytes`` in the
+metadata, and every rank reads its own row back. The async engine comes in
+a later slice.
 """
 from __future__ import annotations
 
@@ -63,6 +69,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _validate_shard_meta(meta) -> None:
+    """Refuse, before any array is touched, a checkpoint written under a
+    sharded plane: ``shard=`` is not ported, so the trainer is un-sharded
+    (the reference's message)."""
+    if "shard" in (meta or {}):
+        raise ValueError(
+            "checkpoint was written under a sharded plane "
+            f"({meta['shard']!r}) but this trainer is un-sharded — the "
+            "resident buffer widths and codec streams depend on the "
+            "layout; pass the same ShardConfig (shard=...) to resume")
+
+
 def _init_params(facade, seed, params):
     """``params``, or ``init_fn`` called with a generator on the facade's
     device seeded by ``seed``."""
@@ -75,10 +93,15 @@ def _init_params(facade, seed, params):
     return facade.init_fn(gen)
 
 
-class _MatchingScheduleMixin:
-    """The host-side matching schedule (hypercube or random matchings),
-    shared by both engines through the protocol's ONE overridable
-    :meth:`~repro_torch.api.protocols.Protocol.schedule_partners` hook."""
+class _Backend:
+    """What the engines share: the host-side matching schedule (hypercube or
+    random matchings), through the protocol's ONE overridable
+    :meth:`~repro_torch.api.protocols.Protocol.schedule_partners` hook; and
+    the checkpoint hooks as the sim engine needs them, whose gate and peer
+    draws live in ``FlatState.key`` and ``comm_bytes`` in ``ProtocolState``,
+    both saved with the state. An engine with a host schedule sets
+    ``sched``."""
+    sched = None
 
     def matching_partners(self, round_idx: int) -> np.ndarray:
         mcfg = self._sched_mesh_cfg()
@@ -90,8 +113,32 @@ class _MatchingScheduleMixin:
         mcfg = self._sched_mesh_cfg()
         return self.facade.impl.schedule_rounds(mcfg.num_workers, mesh_cfg=mcfg)
 
+    def schedule_state(self) -> dict:
+        return {} if self.sched is None else self.sched.state()
 
-class _SimBackend(_MatchingScheduleMixin):
+    def restore_schedule(self, sched_state: dict) -> None:
+        if self.sched is not None:
+            self.sched.restore(sched_state)
+
+    def checkpoint_extra(self) -> dict:
+        return {}
+
+    def validate_checkpoint_meta(self, meta) -> None:
+        _validate_shard_meta(meta)
+
+    def save_state(self, path, state, meta) -> None:
+        from repro_torch.checkpoint import io
+        io.save_state(path, state, meta=meta, schedule=self.sched)
+
+    def restore_state(self, path, state_like, meta):
+        from repro_torch.checkpoint import io
+        return io.restore_state(path, state_like, meta=meta)
+
+    def on_checkpoint_loaded(self, state, meta) -> None:
+        pass
+
+
+class _SimBackend(_Backend):
     def __init__(self, facade, kw: dict):
         from repro_torch.core.gossip_sim import SimTrainer
         if kw["loss_fn"] is None or kw["num_workers"] is None:
@@ -154,7 +201,7 @@ class _SimBackend(_MatchingScheduleMixin):
         return self.sim.rank0_params(state)
 
 
-class _DistBackend(_MatchingScheduleMixin):
+class _DistBackend(_Backend):
     def __init__(self, facade, kw: dict):
         from repro_torch.core.scheduler import GossipSchedule
         from repro_torch.train.step import DistTrainer
@@ -247,6 +294,36 @@ class _DistBackend(_MatchingScheduleMixin):
         """Worker 0's replica, broadcast to every rank (a gather)."""
         return state.spec.with_lead(()).unflatten(
             {k: b[0] for k, b in self.trainer.gather_theta(state).items()})
+
+    # ----------------------------------------------------------- checkpoints
+    def checkpoint_extra(self) -> dict:
+        # host-side accounting: a resumed run keeps the cumulative egress
+        return {"comm_bytes": float(self.comm_bytes)}
+
+    def validate_checkpoint_meta(self, meta) -> None:
+        super().validate_checkpoint_meta(meta)
+        lead = ((meta or {}).get("flat_spec") or {}).get("lead_shape")
+        if lead is not None and lead != [self.num_workers]:
+            raise ValueError(f"checkpoint holds {lead} worker rows, this fleet has "
+                             f"{self.num_workers} workers")
+
+    def save_state(self, path, state, meta) -> None:
+        """Every rank joins the gathers of the whole plane; rank 0 writes
+        the file and the others wait for it at a barrier."""
+        from repro_torch.checkpoint import io
+        whole = self.trainer.gather_state(state)
+        if self.group.rank == 0:
+            io.save_state(path, whole, meta=meta, schedule=self.sched)
+        self.group.barrier()
+
+    def restore_state(self, path, state_like, meta):
+        from repro_torch.checkpoint import io
+        return io.restore_state(path, state_like, meta=meta, row=self.group.rank)
+
+    def on_checkpoint_loaded(self, state, meta) -> None:
+        self._host_step = int(state.step)   # one sync, at load time only
+        if meta and "comm_bytes" in meta:
+            self.comm_bytes = float(meta["comm_bytes"])
 
 
 ENGINES = {"sim": _SimBackend, "dist": _DistBackend}
@@ -364,6 +441,41 @@ class GossipTrainer:
         return consensus_params(state)
 
     aggregate_params = consensus_params
+
+    # ------------------------------------------------------------ scheduling
+    def schedule_state(self) -> dict:
+        """Serializable communication-schedule state ({} for engine="sim",
+        whose draws come from the state's generator)."""
+        return self._backend.schedule_state()
+
+    def restore_schedule(self, sched_state: dict) -> None:
+        self._backend.restore_schedule(sched_state)
+
+    # ---------------------------------------------------------- checkpointing
+    def save_checkpoint(self, path: str, state, meta: Optional[dict] = None) -> None:
+        """The state in checkpoint format v2 (the resident flat buffers plus
+        the FlatSpec manifest), atomically, with the protocol config, the
+        schedule and the host accounting in the metadata. On the dist
+        engine every rank calls it; rank 0 writes the whole plane."""
+        meta = dict(meta or {})
+        meta.setdefault("protocol", dataclasses.asdict(self.protocol))
+        meta.update(self._backend.checkpoint_extra())
+        self._backend.save_state(path, state, meta)
+
+    def load_checkpoint(self, path: str, state_like):
+        """Restore a checkpoint (v2, or a v1 per-leaf file, converted
+        bit-exactly) into the structure of ``state_like``, on its device,
+        and rewind the schedule and host accounting to the saved position.
+        On the dist engine every rank reads its own row. Returns
+        (state, meta)."""
+        from repro_torch.checkpoint import io
+        meta = io.load_meta(path)
+        self._backend.validate_checkpoint_meta(meta)
+        state = self._backend.restore_state(path, state_like, meta)
+        if self._backend.sched is not None:
+            io.restore_schedule(path, self._backend.sched)
+        self._backend.on_checkpoint_loaded(state, meta)
+        return state, meta
 
     # ------------------------------------------------------------ accounting
     def comm_cost(self, param_bytes: Optional[int] = None) -> CommCost:

@@ -109,9 +109,9 @@ class FaultConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the reference's ``TrainConfig`` that the dist engine
-    reads (the steps, dtypes, checkpoint and logging fields come with the
-    launcher)."""
+    """The fields of the reference's ``TrainConfig`` that the engines read,
+    with its defaults. The run fields (steps, seed, dtypes, checkpoint and
+    logging cadence, data skew) come with the launcher that reads them."""
     protocol: ProtocolConfig = ProtocolConfig(comm_probability=0.03125)
     optimizer: OptimizerConfig = OptimizerConfig()
     # fused flat-plane update (kernels B1/B2): pairwise protocols only

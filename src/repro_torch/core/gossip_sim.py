@@ -47,6 +47,7 @@ from repro_torch.api import registry
 from repro_torch.api.state import FlatState
 from repro_torch.common import flat as flat_plane
 from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+from repro_torch.common.precision import full_f32
 from repro_torch.common.pytree import tree_take_leading
 from repro_torch.core import protocols
 from repro_torch.kernels import ops
@@ -277,7 +278,8 @@ class SimTrainer:
         def one_loss(bufs, xi, yi):
             return self.loss_fn(row_spec.views(bufs), xi, yi)
 
-        grads, losses = vmap(grad_and_value(one_loss))(state.theta, x, y)
+        with full_f32():   # forward and backward: no TF32 in between
+            grads, losses = vmap(grad_and_value(one_loss))(state.theta, x, y)
         return losses, {k: g.contiguous() for k, g in grads.items()}
 
     def step(self, state: FlatState, x, y,
@@ -296,7 +298,8 @@ class SimTrainer:
 
         # gradient-related component (Alg. 5 line 2), per worker
         losses, grads = self._grads(state, x, y)
-        with torch.no_grad():
+        # the mixing matmul in f32 too, whatever the process allows
+        with torch.no_grad(), full_f32():
             grads = protocols.gradient_transform(cfg, grads)
             if draws is None:
                 active = protocols.comm_gate(cfg, state.key, state.step, W)
@@ -351,10 +354,15 @@ class SimTrainer:
                 theta_grad, opt_new = self.optimizer.update(grads, state.opt, state.theta)
             for k in state.theta:
                 _store(state.theta, k, theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype))
-            if opt_new.mu:
-                for k in state.opt.mu:
-                    _store(state.opt.mu, k, opt_new.mu[k])
-                opt_new = opt_new._replace(mu=state.opt.mu)
+            # the moments stay resident: velocity / first moment in opt.mu,
+            # adamw's second moment in opt.nu
+            for field in ("mu", "nu"):
+                new = getattr(opt_new, field)
+                if new:
+                    old = getattr(state.opt, field)
+                    for k in old:
+                        _store(old, k, new[k])
+                    opt_new = opt_new._replace(**{field: old})
 
         metrics = {
             "loss_mean": torch.mean(losses),

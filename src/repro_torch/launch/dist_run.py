@@ -14,9 +14,10 @@ that spawns the fleet.
   batches; rank r trains on row r;
 - ``runs``: a list of runs, each ``{"kind": "train", "tag", "protocol":
   ProtocolConfig kwargs, "optimizer": OptimizerConfig kwargs, "codec",
-  "fused_update", "steps", "seed", "gather"}`` or ``{"kind": "exchange",
+  "fused_update", "steps", "seed", "gather"}``, ``{"kind": "exchange",
   "tag", "protocol", "codec", "params_stack": {name: [W, ...] numpy array or
-  tensor}, "active": [W], "rounds": [...]}``.
+  tensor}, "active": [W], "rounds": [...]}`` or ``{"kind": "resume", "tag",
+  "protocol", "optimizer", "codec", "steps", "seed", "at", "path"}``.
 
 Each rank runs the runs in order through ``GossipTrainer(engine="dist")``
 and returns, per run: the per-step metrics, the launches of every kernel
@@ -27,10 +28,17 @@ copy, gloo and host-to-device copy, the same collectives timed once more
 after a barrier (``probe``: without the wait for the slowest rank), and,
 with ``gather``, the whole
 ``[W, total]`` theta and velocity (rank 0 only). Exchange runs return the
-exchanged stack of every round (rank 0 only).
+exchanged stack of every round (rank 0 only). A resume run trains
+``steps`` steps and saves a checkpoint to ``path`` at step ``at``; a fresh
+trainer then loads it and takes the remaining steps. It returns, on every
+rank, the entries that differ from the saved state after the load and from
+the uninterrupted run at the end (both empty when the resume is exact),
+whether every step's metrics equal, the save and load times, the kernel
+launches of the resumed steps, and (rank 0) the file's entries.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List
 
@@ -156,9 +164,67 @@ def _exchange(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]
             "partners": [tr.matching_partners(r) for r in run["rounds"]]}
 
 
+def _differing(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> List[str]:
+    """Entry names whose bytes differ (or that only one side has)."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes())
+
+
+def _resume(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
+    from repro_torch.checkpoint import io
+    from repro_torch.kernels import ops
+    from repro_torch.models.simple import params_from_jax
+    dev = group.device
+    steps, at, path = run["steps"], run["at"], run["path"]
+    seed = run.get("seed", 0)
+    xs = torch.as_tensor(np.ascontiguousarray(job["x"][:steps, group.rank]), device=dev)
+    ys = torch.as_tensor(np.ascontiguousarray(job["y"][:steps, group.rank]), device=dev)
+    keys = ("loss", "fired", "comm_round", "comm_active", "comm_bytes")
+
+    tr = _trainer(group, run)
+    state = tr.init_state(seed, params=params_from_jax(job["params"], dev))
+    straight, saved, save_ms = [], None, None
+    for i in range(steps):
+        if i == at:
+            saved = io.entries(state.state_dict())
+            group.barrier()
+            t0 = time.perf_counter()
+            tr.save_checkpoint(path, state, meta={"step": at})
+            save_ms = (time.perf_counter() - t0) * 1e3
+        state, m = tr.step(state, (xs[i], ys[i]))
+        if i >= at:
+            straight.append([m[k] for k in keys])
+
+    tr2 = _trainer(group, run)
+    like = tr2.init_state(seed + 1, params=params_from_jax(job["params"], dev))
+    _sync(dev)
+    group.barrier()
+    t0 = time.perf_counter()
+    resumed, _ = tr2.load_checkpoint(path, like)
+    _sync(dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    loaded_diff = _differing(saved, io.entries(resumed.state_dict()))
+    ops.zero_launch_counts()
+    again = []
+    for i in range(at, steps):
+        resumed, m = tr2.step(resumed, (xs[i], ys[i]))
+        again.append([m[k] for k in keys])
+    final_diff = _differing(io.entries(state.state_dict()), io.entries(resumed.state_dict()))
+    out = {"tag": run["tag"], "launches": ops.launch_counts(), "loaded_diff": loaded_diff,
+           "final_diff": final_diff, "metrics_equal": straight == again,
+           "save_ms": save_ms, "load_ms": load_ms}
+    if group.rank == 0:
+        out["entries"] = {k: (list(v.shape), v.dtype.str)
+                          for k, v in io.load_payload(path).items()}
+        out["meta"] = io.load_meta(path)
+        out["file_mb"] = os.path.getsize(path) / 1e6
+    return out
+
+
 def run_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
     """The body of one rank: every run of ``job`` in order."""
-    kinds = {"train": _train, "exchange": _exchange}
+    kinds = {"train": _train, "exchange": _exchange, "resume": _resume}
     return {"rank": group.rank, "device": str(group.device),
             "runs": [kinds[run["kind"]](group, job, run) for run in job["runs"]]}
 

@@ -1,9 +1,12 @@
 """Where one sim step's time goes on the card: the main path
 (GossipTrainer(engine="sim", method="elastic_gossip"), NAG, the §4.1 MLP at
 full width) under ``torch.profiler``, or the same run with another
-protocol, a codec or a fault plane.
+protocol, a codec or a fault plane, or the paper's CIFAR CNN at full width
+(``--model cnn``: width 32, the CIFAR stand-in, lr 0.01 / momentum 0.9;
+use ``--workers 4 --batch 32``, the paper's effective batch 128).
 
-    python -m repro_torch.launch.profile_sim [--workers 8] [--batch 16] [--steps 10]
+    python -m repro_torch.launch.profile_sim [--model mlp|cnn]
+                                             [--workers 8] [--batch 16] [--steps 10]
                                              [--codec none|q8|topk]
                                              [--method clipped_gossip] [--p 0.5]
                                              [--fault-model drop_byzantine]
@@ -18,9 +21,10 @@ Prints the synchronised step time, the device-busy share of the profiled
 window (the union of kernel intervals over the span from the first kernel's
 start to the last one's end), and the kernels by total device time, then one
 JSON line with the same numbers. Kernel names are grouped into the step's
-phases: the model's gradients (vmapped matmuls, softmax and reductions), the
-mixing matmul, kernel B1, the codec kernels B4-B7 (with ``--codec``),
-kernel B8 (with a robust ``--method``) and the rest.
+phases: the model's gradients (vmapped matmuls or the CNN's convolutions,
+softmax and reductions), the mixing matmul, kernel B1, the codec kernels
+B4-B7 (with ``--codec``), kernel B8 (with a robust ``--method``) and the
+rest.
 """
 from __future__ import annotations
 
@@ -46,20 +50,26 @@ def _ensure_drop_byzantine() -> None:
 
 
 def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip",
-             p: float = 0.125, faults=None):
+             p: float = 0.125, faults=None, model: str = "mlp"):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
 
+    if model == "cnn":
+        apply, opt = simple.cnn_logits, OptimizerConfig(learning_rate=0.01, momentum=0.9)
+        init = lambda gen: simple.init_cnn(gen)[0]                       # noqa: E731
+    else:
+        apply, opt = simple.mlp_logits, OptimizerConfig(learning_rate=1e-3, momentum=0.99)
+        init = lambda gen: simple.init_mlp(gen, **FULL)[0]               # noqa: E731
+
     def loss_fn(prm, x, y):
-        return simple.xent_loss(simple.mlp_logits(prm, x), y)
+        return simple.xent_loss(apply(prm, x), y)
 
     return GossipTrainer(
         protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
                                 topology="uniform"),
-        optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
-        loss_fn=loss_fn, num_workers=W, device=device, codec=codec, faults=faults,
-        init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
+        optimizer=opt, loss_fn=loss_fn, num_workers=W, device=device, codec=codec,
+        faults=faults, init_fn=init)
 
 
 def _busy_us(intervals):
@@ -80,10 +90,10 @@ def _busy_us(intervals):
 def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             codec: str = "none", method: str = "elastic_gossip", p: float = 0.125,
             fault_model: str = "none", fault_rate: float = 0.0,
-            fault_frac: float = 0.0) -> dict:
+            fault_frac: float = 0.0, model: str = "mlp") -> dict:
     from repro_torch.common.config import FaultConfig
     from repro_torch.data.partition import batches_for_step, partition_iid
-    from repro_torch.data.synthetic import load_mnist
+    from repro_torch.data.synthetic import load_cifar_like, load_mnist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -93,10 +103,11 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             _ensure_drop_byzantine()
         faults = FaultConfig(fault_model=fault_model, fault_rate=fault_rate,
                              fault_frac=fault_frac)
-    trainer = _trainer(W, device, codec, method, p, faults)
+    trainer = _trainer(W, device, codec, method, p, faults, model)
     dev = trainer.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    train, _ = load_mnist(num_train=25600, num_test=10)
+    train, _ = (load_cifar_like(num_train=12800, num_test=10) if model == "cnn"
+                else load_mnist(num_train=25600, num_test=10))
     shards = partition_iid(train, W, 0)
     batches = [tuple(torch.as_tensor(a, device=dev)
                      for a in batches_for_step(shards, i, batch))
@@ -130,7 +141,7 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
-        "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
+        "model": model, "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
         "method": method, "p": p, "fault_model": fault_model, "fault_rate": fault_rate,
         "fault_frac": fault_frac,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -152,6 +163,9 @@ def _phase(kernel_name: str) -> str:
         return "B8 robust apply"
     if any(k in n for k in ("q8_encode", "q8_decode", "topk_encode", "topk_decode")):
         return "B4-B7 codec"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                            "cudnn")):
+        return "convolutions (cuDNN)"
     if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n or "matmul" in n:
         return "matmuls (model grads + mixing)"
     if "softmax" in n or "reduce" in n or "sum" in n or "max" in n:
@@ -163,6 +177,7 @@ def _phase(kernel_name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="mlp", choices=("mlp", "cnn"))
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=10)
@@ -178,8 +193,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fault-frac", type=float, default=0.0)
     a = ap.parse_args(argv)
     r = profile(a.workers, a.batch, a.steps, a.device, a.codec, a.method, a.p,
-                a.fault_model, a.fault_rate, a.fault_frac)
-    print(f"W={r['workers']} batch={r['batch_per_worker']} codec={r['codec']} "
+                a.fault_model, a.fault_rate, a.fault_frac, a.model)
+    print(f"{r['model']} W={r['workers']} batch={r['batch_per_worker']} codec={r['codec']} "
           f"method={r['method']} p={r['p']} faults={r['fault_model']}: median step "
           f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
           f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "

@@ -1,5 +1,5 @@
 """Optimizers as functions over buffer dicts / pytrees (port of
-``repro.optim.optimizers``, ``sgd`` and ``nag``).
+``repro.optim.optimizers``: ``sgd``, ``nag`` and ``adamw``).
 
 ``nag`` is the velocity form of the paper's Algorithm 5:
 
@@ -27,8 +27,8 @@ PyTree = Any
 
 class OptState(NamedTuple):
     step: torch.Tensor    # int32 0-d
-    mu: PyTree            # velocity (sgd/nag)
-    nu: PyTree            # unused by sgd/nag: empty dict
+    mu: PyTree            # velocity (nag) / first moment (adamw)
+    nu: PyTree            # second moment (adamw); empty dict otherwise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +89,31 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
                            params, grads, v_new)
             return new, OptState(state.step + 1, v_new, {})
 
+    elif cfg.name == "adamw":
+        def init(params):
+            return OptState(zero_step(params), tree_zeros_like(params),
+                            tree_zeros_like(params))
+
+        def update(grads, state, params):
+            grads = _clip(cfg, grads)
+            eta = lr_at(cfg, state.step)
+            t = state.step + 1
+            b1, b2 = cfg.beta1, cfg.beta2
+            mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(m.dtype), state.mu, grads)
+            nu = tree_map(lambda n, g: b2 * n + (1 - b2) * torch.square(g.to(n.dtype)),
+                          state.nu, grads)
+            c1 = 1 - b1 ** t.float()
+            c2 = 1 - b2 ** t.float()
+
+            def upd(p, m, n):
+                step = (m / c1) / (torch.sqrt(n / c2) + cfg.eps)
+                # decoupled weight decay, scaled by eta with the step
+                return p - _scaled(eta, step.to(p.dtype) + cfg.weight_decay * p)
+
+            return tree_map(upd, params, mu, nu), OptState(t, mu, nu)
+
     else:
-        raise ValueError(f"unknown optimizer {cfg.name!r} (the port has sgd and nag)")
+        raise ValueError(f"unknown optimizer {cfg.name!r}")
 
     return Optimizer(init=init, update=update, cfg=cfg)
 

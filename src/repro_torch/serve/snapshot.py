@@ -15,52 +15,25 @@ two loops.
   snapshot is fully built in the non-head slot, then the head index flips
   in one assignment. A reader holding a snapshot keeps it intact across
   later publishes: the buffers are fresh tensors that nothing writes.
-- The checkpoint-v2 disk form (``Snapshot.save``/``load``) waits for the
-  checkpoint port (ROADMAP.md A.1); the manifest is already the
-  reference's.
+- ``Snapshot.save``/``load`` is the checkpoint-v2 file form
+  (``theta::<bucket>`` planes, the FlatSpec manifest and a ``snapshot``
+  provenance block, :mod:`repro_torch.checkpoint.io`), the reference's
+  file.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.common.flat import FlatSpec, dtype_name
+from repro_torch.checkpoint import io
+from repro_torch.checkpoint.io import flat_spec_manifest
+from repro_torch.common.flat import FlatSpec
 
 PyTree = Any
 Buffers = Dict[str, torch.Tensor]
-SEP = "::"   # the reference's checkpoint path separator
-
-
-def _leaf_keys(spec: FlatSpec) -> List[str]:
-    """Per-slot path keys of the spec's tree in flatten order, joined by
-    ``::`` (the reference's ``checkpoint.io._leaf_keys``)."""
-    def walk(d, prefix):
-        kind = d[0]
-        if kind == "leaf":
-            return [SEP.join(prefix)]
-        if kind == "none":
-            return []
-        names = d[1] if kind == "dict" else [str(i) for i in range(d[1])]
-        return [k for name, sub in zip(names, d[2]) for k in walk(sub, prefix + [str(name)])]
-    return walk(spec.treedef, [])
-
-
-def flat_spec_manifest(spec: FlatSpec) -> dict:
-    """JSON-serializable description of a FlatSpec (a copy of the
-    reference's ``checkpoint.io.flat_spec_manifest``): enough to locate every
-    parameter inside the flat buffers without the producing code."""
-    return {
-        "leading": spec.leading,
-        "lead_shape": list(spec.lead_shape),
-        "align": spec.align,
-        "totals": {k: int(n) for k, n in spec.totals.items()},
-        "slots": [{"path": key, "bucket": s.bucket, "offset": s.offset,
-                   "size": s.size, "shape": list(s.shape), "dtype": dtype_name(s.dtype)}
-                  for key, s in zip(_leaf_keys(spec), spec.slots)],
-    }
 
 
 def snapshot_valid(bufs: Buffers, spec0: FlatSpec) -> Tuple[bool, str]:
@@ -104,13 +77,31 @@ class Snapshot:
         return self.spec.unflatten(self.bufs)
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "Snapshot.save waits for the checkpoint-v2 port (ROADMAP.md A.1)")
+        """Persist atomically in checkpoint format v2 (``theta::<bucket>``
+        planes, the FlatSpec manifest, ``snapshot`` provenance)."""
+        io.save(path, {"theta": self.bufs},
+                meta={"format": io.FLAT_FORMAT, "flat_spec": self.manifest,
+                      "snapshot": {"seq": self.seq, "train_step": self.train_step}})
 
     @staticmethod
-    def load(path: str, spec: FlatSpec) -> "Snapshot":
-        raise NotImplementedError(
-            "Snapshot.load waits for the checkpoint-v2 port (ROADMAP.md A.1)")
+    def load(path: str, spec: FlatSpec, device="cuda") -> "Snapshot":
+        """Read a saved snapshot back against ``spec`` (any lead shape: the
+        lead-() layout is what is checked and loaded) onto ``device``. A
+        manifest that differs from the spec's refuses, as
+        ``restore_state`` does."""
+        spec0 = spec.with_lead(())
+        meta = io.load_meta(path) or {}
+        io.check_manifest(meta, spec0, path)
+        prefix = "theta" + io.SEP
+        bufs = {k[len(prefix):]: io.to_tensor(v, device)
+                for k, v in io.load_payload(path).items() if k.startswith(prefix)}
+        if set(bufs) != set(spec0.totals):
+            raise ValueError(f"snapshot payload buckets {sorted(bufs)} do not match the "
+                             f"spec's {sorted(spec0.totals)}: {path}")
+        prov = meta.get("snapshot", {})
+        return Snapshot(seq=int(prov.get("seq", 0)),
+                        train_step=int(prov.get("train_step", 0)),
+                        bufs=bufs, manifest=flat_spec_manifest(spec0), spec=spec0)
 
 
 class SnapshotBus:

@@ -37,6 +37,7 @@ from repro_torch.api import registry
 from repro_torch.api.state import FlatState
 from repro_torch.common import flat as flat_plane
 from repro_torch.common.config import MeshConfig, TrainConfig
+from repro_torch.common.precision import full_f32
 from repro_torch.common.pytree import tree_map
 from repro_torch.core import gossip_dist
 from repro_torch.core.gossip_sim import _store
@@ -108,7 +109,8 @@ class DistTrainer:
         dev = self.group.device
         x = torch.as_tensor(x, device=dev)[None]
         y = torch.as_tensor(y, device=dev)[None]
-        grads, loss = vmap(grad_and_value(one_loss))(state.theta, x, y)
+        with full_f32():   # forward and backward: no TF32 in between
+            grads, loss = vmap(grad_and_value(one_loss))(state.theta, x, y)
         return loss, {k: g.contiguous() for k, g in grads.items()}
 
     def _nag(self, theta: Buffers, velocity: Buffers, grads: Buffers, step):
@@ -239,4 +241,15 @@ class DistTrainer:
     def gather_theta(self, state: FlatState) -> Buffers:
         """The whole ``[W, total]`` plane, the reference's global view."""
         return self.gather_bufs(state.theta)
+
+    def gather_state(self, state: FlatState) -> FlatState:
+        """The fleet's whole state as the reference's dist engine holds it:
+        theta, the velocity and any codec residual as ``[W, total]``
+        planes; the counters and the EASGD center (equal on every rank) as
+        this rank's. Every rank must call it (one all-gather per plane)."""
+        res = state.comm.residual
+        return state.replace(
+            spec=state.spec.with_lead((self.W,)), theta=self.gather_bufs(state.theta),
+            opt=state.opt._replace(mu=self.gather_bufs(state.opt.mu)),
+            comm=comm.CommState(None if res is None else self.gather_bufs(res)))
 

@@ -2,8 +2,10 @@
 plain versions on the card, the sim engine launching them (B1 once per
 step; with a codec, its encode and decode kernels once per step; with a
 robust protocol, B8 once per step), a 2-rank dist engine on the card
-(B1 on the firing steps, B2 on the others), and the serving path (B9 once
-per layer in prefill and in every decode step).
+(B1 on the firing steps, B2 on the others), the serving path (B9 once
+per layer in prefill and in every decode step), the CIFAR CNN's step
+against the CPU's with TF32 allowed in the process, and checkpoint
+resumes on the card.
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -824,3 +826,142 @@ def _plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
                      kv_len=None, kv_start=None):
     return tref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap,
                           q_offset=q_offset, kv_len=kv_len, kv_start=kv_start)
+
+
+# ---------------------------------------------------------------------------
+# the CIFAR CNN and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+def _cnn_trainer(dev, method="elastic_gossip", width=8, W=4):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss(p, x, y):
+        return simple.xent_loss(simple.cnn_logits(p, x), y)
+
+    return GossipTrainer(protocol=ProtocolConfig(method=method, comm_probability=0.5,
+                                                 topology="uniform"),
+                         optimizer=OptimizerConfig(name="nag", learning_rate=0.01, momentum=0.9),
+                         loss_fn=loss, num_workers=W, device=dev,
+                         init_fn=lambda g: simple.init_cnn(g, width=width)[0])
+
+
+def _cnn_batches(dev, W=4, B=8, steps=5, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(W, B, 32, 32, 3, generator=g).to(dev),
+             torch.randint(0, 10, (W, B), generator=g).to(dev)) for _ in range(steps)]
+
+
+@pytest.mark.cuda
+def test_cnn_step_on_the_card_matches_the_cpu_with_tf32_allowed(cuda):
+    """The process allows TF32 (cuDNN's default, and matmuls too), but the
+    engine's step runs under full_f32: five CNN steps on the card and on
+    the CPU, each from the card's params and velocity, on the same draws,
+    gradients within rtol 1e-4 / atol 1e-6 and params within rtol 1e-5 /
+    atol 1e-6 at every step. The same
+    gradient computed without the context, under TF32, falls outside (so
+    the check can see TF32). B1 launches once a step."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.core import topology
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        card, cpu = _cnn_trainer(cuda), _cnn_trainer("cpu")
+        s_card = card.init_state(0)
+        s_cpu = cpu.init_state(0, params={k: v[0].cpu() for k, v in s_card.params.items()})
+        gen = torch.Generator().manual_seed(3)
+        ops.zero_launch_counts()
+        for i, (x, y) in enumerate(_cnn_batches(cuda)):
+            draws = (topology.participation(gen, 4, 0.5), topology.sample_uniform_peers(gen, 4))
+            # every step from the card's state: a state an ulp away may
+            # cross a ReLU boundary the other does not
+            s_cpu.theta["float32"].copy_(s_card.theta["float32"].cpu())
+            s_cpu.opt.mu["float32"].copy_(s_card.opt.mu["float32"].cpu())
+            _, g_card = card.sim._grads(s_card, x, y)
+            _, g_cpu = cpu.sim._grads(s_cpu, x.cpu(), y.cpu())
+            torch.testing.assert_close(g_card["float32"].cpu(), g_cpu["float32"],
+                                       rtol=1e-4, atol=1e-6)
+            if i == 0:
+                row = s_card.spec.with_lead(())
+                raw, _ = vmap(grad_and_value(lambda b, xi, yi: card.sim.loss_fn(
+                    row.views(b), xi, yi)))(s_card.theta, x, y)
+                with pytest.raises(AssertionError):
+                    torch.testing.assert_close(raw["float32"].cpu(), g_cpu["float32"],
+                                               rtol=1e-4, atol=1e-6)
+            s_card, _ = card.step(s_card, (x, y), draws=(draws[0].to(cuda), draws[1].to(cuda)))
+            s_cpu, _ = cpu.step(s_cpu, (x.cpu(), y.cpu()), draws=draws)
+            torch.testing.assert_close(s_card.theta["float32"].cpu(), s_cpu.theta["float32"],
+                                       rtol=1e-5, atol=1e-6)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_flat_elastic_nag_update"] == 5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _mlp_ckpt_trainer(dev, codec):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.models import simple
+    return GossipTrainer(protocol=ProtocolConfig(comm_probability=0.5, topology="uniform"),
+                         optimizer=OptimizerConfig(learning_rate=1e-2, momentum=0.9),
+                         loss_fn=lambda p, x, y: simple.xent_loss(simple.mlp_logits(p, x), y),
+                         num_workers=4, device=dev, codec=codec,
+                         init_fn=lambda g: simple.init_mlp(g, 784, 64, 2, 10)[0])
+
+
+def _resume_is_exact(tr, make, batches, tmp_path):
+    """Steps, save, more steps; a fresh trainer loads and repeats the second
+    half: the loaded and the final entries must equal bit for bit."""
+    from repro_torch.checkpoint import io
+    half = len(batches) // 2
+    st = tr.init_state(0)
+    for xy in batches[:half]:
+        st, _ = tr.step(st, xy)
+    path = str(tmp_path / "ck.npz")
+    tr.save_checkpoint(path, st)
+    saved = io.entries(st.state_dict())
+    for xy in batches[half:]:
+        st, _ = tr.step(st, xy)
+    tr2 = make()
+    st2, _ = tr2.load_checkpoint(path, tr2.init_state(1))
+    loaded = io.entries(st2.state_dict())
+    for xy in batches[half:]:
+        st2, _ = tr2.step(st2, xy)
+    a, b = io.entries(st.state_dict()), io.entries(st2.state_dict())
+    for k in saved:
+        assert loaded[k].tobytes() == saved[k].tobytes(), k
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), k
+    assert "torch_key::cuda" in saved
+    return path, st2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "topk"])
+def test_checkpoint_resume_on_the_card_is_bit_exact(cuda, codec, tmp_path):
+    """MLP on the card (B1, with top-k also B6 and B7): a resume continues
+    the uninterrupted run bit for bit, the generator's CUDA state included.
+    The same file loaded on the CPU reseeds its generator from key and step."""
+    from repro_torch.api.state import generator_from_key
+    from repro_torch.checkpoint import io
+    g = torch.Generator().manual_seed(0)
+    batches = [(torch.randn(4, 16, 784, generator=g).to(cuda),
+                torch.randint(0, 10, (4, 16), generator=g).to(cuda)) for _ in range(8)]
+    path, _ = _resume_is_exact(_mlp_ckpt_trainer(cuda, codec),
+                               lambda: _mlp_ckpt_trainer(cuda, codec), batches, tmp_path)
+    cpu = _mlp_ckpt_trainer("cpu", codec)
+    on_cpu, _ = cpu.load_checkpoint(path, cpu.init_state(1))
+    payload = io.load_payload(path)
+    want = generator_from_key(payload["key"], int(payload["step"]), "cpu")
+    assert torch.equal(on_cpu.key.get_state(), want.get_state())
+    assert on_cpu.theta["float32"].device.type == "cpu"
+    assert np.array_equal(on_cpu.theta["float32"].numpy(), payload["theta::float32"])
+
+
+@pytest.mark.cuda
+def test_cnn_resume_on_the_card_is_bit_exact(cuda, tmp_path):
+    """cuDNN runs deterministic algorithms inside the engine's gradient, so
+    a CNN resume repeats the uninterrupted run bit for bit."""
+    _resume_is_exact(_cnn_trainer(cuda), lambda: _cnn_trainer(cuda),
+                     _cnn_batches(cuda, steps=6), tmp_path)

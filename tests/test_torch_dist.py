@@ -9,6 +9,7 @@ bit, one gossip round against the reference's dist engine and the port's
 sim oracle, 20-step trajectories of every protocol within rtol 1e-4 /
 atol 1e-5 with the counters bit-equal, the count of sends and receives,
 and a failing or hanging rank failing the group."""
+import json
 import os
 import subprocess
 import sys
@@ -63,6 +64,10 @@ EXCH = {f"{m}_{f}": (f, dict(method=m, comm_probability=0.5, moving_rate=0.37), 
         for m in ("elastic_gossip", "gossiping_pull", "gossiping_push") for f in FLEETS}
 EXCH["elastic_gossip_q8_w8"] = ("w8", dict(EXCH["elastic_gossip_w8"][1]), "q8")
 SEED = 3
+# the reference's dist facade writes a checkpoint at the end of this case;
+# the port's w8 group saves and resumes the same protocol (dist_run's
+# "resume" run) and the two files' entries are compared
+CKPT_CASE = "elastic_fused"
 # cases also run in lockstep: every step starts from the reference's state
 LOCKSTEP = ("elastic_q8",)
 
@@ -134,6 +139,8 @@ for case, (fleet, pkw, codec, fused) in spec["traj"].items():
         out[f"traj/{case}/{k}"] = np.asarray(v)
     out[f"traj/{case}/theta"] = np.asarray(st.theta["float32"])
     out[f"traj/{case}/velocity"] = np.asarray(st.opt.mu["float32"])
+    if case == spec["ckpt_case"]:
+        tr.save_checkpoint(spec["ckpt"], st, meta={"step": STEPS})
 
 rng = np.random.RandomState(1)
 for fleet, (pods, wpp) in spec["fleets"].items():
@@ -170,10 +177,11 @@ print("REF_OK")
 def ref(tmp_path_factory):
     """Every reference case, computed once in a subprocess with 8 fake
     devices."""
-    path = str(tmp_path_factory.mktemp("ref_dist") / "ref.npz")
+    tmp = tmp_path_factory.mktemp("ref_dist")
+    path = str(tmp / "ref.npz")
     spec = dict(dims=[IN, HID, DEPTH, NCLS, PW, STEPS], fleets=FLEETS, seed=SEED, opt=OPT,
-                traj=TRAJ, exch=EXCH, lockstep=LOCKSTEP)
-    import json
+                traj=TRAJ, exch=EXCH, lockstep=LOCKSTEP, ckpt_case=CKPT_CASE,
+                ckpt=str(tmp / "ckpt.npz"))
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(REF_SCRIPT), path,
@@ -181,7 +189,9 @@ def ref(tmp_path_factory):
                        env=env)
     assert r.returncode == 0 and "REF_OK" in r.stdout, f"{r.stdout}\n{r.stderr}"
     with np.load(path) as z:
-        return {k: z[k] for k in z.files}
+        out = {k: z[k] for k in z.files}
+    out["ckpt_path"] = spec["ckpt"]
+    return out
 
 
 def _fleet_job(ref, fleet):
@@ -232,6 +242,10 @@ def port(ref, tmp_path_factory):
                     np.save(paths[k], ref[f"traj/{case}/steps_{k}"])
                 run = next(r for r in job["runs"] if r["tag"] == case)
                 lock[case] = (run, paths)
+        if fleet == TRAJ[CKPT_CASE][0]:
+            job["runs"].append(dict(kind="resume", tag="resume", protocol=TRAJ[CKPT_CASE][1],
+                                    codec="none", optimizer=OPT, steps=6, seed=SEED, at=3,
+                                    path=str(tmp / "port_ckpt.npz")))
         out[fleet] = tmesh.spawn_workers(helpers.fleet_and_lockstep, _mesh(TMesh, fleet),
                                          "cpu", args=(job, lock), timeout_s=60,
                                          join_timeout_s=300, rendezvous_dir=str(tmp))
@@ -473,6 +487,30 @@ def test_lockstep_step_matches_reference_dist_engine(ref, port, case):
 # ---------------------------------------------------------------------------
 # the process group
 # ---------------------------------------------------------------------------
+
+def test_dist_checkpoint_is_the_reference_s_file_and_resumes_bit_exactly(ref, port):
+    """The port's dist checkpoint (rank 0 writes the whole [8, total] plane
+    after a gather) has the reference dist facade's entries, dtypes and
+    shapes, the same FlatSpec manifest and the same metadata keys (plus the
+    caller's); loaded back, every rank's row and the next 3 steps equal the
+    uninterrupted run's bit for bit, metrics included."""
+    fleet = TRAJ[CKPT_CASE][0]
+    with np.load(ref["ckpt_path"]) as z:
+        want = {k: (list(z[k].shape), z[k].dtype.str) for k in z.files}
+    with open(ref["ckpt_path"] + ".meta.json") as f:
+        jmeta = json.load(f)
+    runs = [next(r for r in rk["runs"] if r["tag"] == "resume") for rk in port[fleet]]
+    assert runs[0]["entries"] == want
+    assert set(want) == {"theta::float32", "opt::mu::float32", "opt::step", "step"}
+    tmeta = runs[0]["meta"]
+    assert tmeta["flat_spec"] == jmeta["flat_spec"]
+    assert set(tmeta) == set(jmeta) == {"protocol", "format", "flat_spec", "schedule",
+                                        "comm_bytes", "step"}
+    assert set(tmeta["schedule"]) == set(jmeta["schedule"])
+    for rank, r in enumerate(runs):
+        assert r["loaded_diff"] == [] and r["final_diff"] == [], (rank, r)
+        assert r["metrics_equal"], rank
+
 
 def test_group_coordinates_and_consensus(tmp_path):
     """Ranks are row-major over (pod, worker); the consensus diagnostics

@@ -28,6 +28,7 @@ from repro.serve import ContinuousBatcher as JBatcher  # noqa: E402
 from repro.serve import LiveServer as JServer  # noqa: E402
 from repro.serve import SnapshotBus as JBus  # noqa: E402
 from repro.serve import TrafficGen as JTraffic  # noqa: E402
+from repro.serve.snapshot import Snapshot as JSnapshot  # noqa: E402
 from repro.serving.engine import make_serve_program as jmake  # noqa: E402
 from repro_torch.api import GossipTrainer, make_serve_program  # noqa: E402
 from repro_torch.common.config import OptimizerConfig, ProtocolConfig  # noqa: E402
@@ -260,9 +261,12 @@ def test_bus_double_buffer_holds_old_snapshot():
     assert not any(torch.equal(s3.bufs[k], state.theta[k].mean(0)) for k in ref)
 
 
-def test_bus_and_server_refuse_bad_snapshots(serve_setup):
+def test_bus_and_server_refuse_bad_snapshots(serve_setup, tmp_path):
     """A non-finite or mis-shaped publish is refused and never flips the
-    head; a bad snapshot that reaches the server pins the last good one."""
+    head; a bad snapshot that reaches the server pins the last good one.
+    The last good snapshot round-trips through its checkpoint-v2 file bit
+    for bit (the reference's ``Snapshot.load`` reads the same file), and a
+    spec with another layout refuses it."""
     cfg, prog, params = serve_setup
     bus, server = _server(prog, params)
     spec0 = FlatSpec.build(params, leading=0)
@@ -284,8 +288,22 @@ def test_bus_and_server_refuse_bad_snapshots(serve_setup):
         assert not server.maybe_swap()
     assert server.rejected_swaps == 1 and server.seq == 1 and server.params is served
     assert not server.maybe_swap() and server.rejected_swaps == 1   # memo: not re-checked
-    with pytest.raises(NotImplementedError, match="A.1"):
-        bus.latest().save("unused.npz")
+    good, path = bus._slots[0], str(tmp_path / "snap.npz")
+    assert good.seq == 1
+    good.save(path)
+    back = Snapshot.load(path, FlatSpec.build(tree_map(lambda v: v[None], params), leading=1),
+                         device="cpu")
+    assert (back.seq, back.train_step, back.manifest) == (good.seq, good.train_step,
+                                                           good.manifest)
+    assert set(back.bufs) == set(good.bufs)
+    assert all(torch.equal(back.bufs[k], good.bufs[k]) for k in good.bufs)
+    jback = JSnapshot.load(path, JFlatSpec.build(_jparams(0), leading=0))
+    assert jback.seq == good.seq
+    for k, v in jback.bufs.items():
+        assert np.array_equal(np.asarray(v), good.bufs[k].numpy())
+    other = FlatSpec.build(dict(params, extra=torch.zeros(3)), leading=0)
+    with pytest.raises(ValueError, match="manifest does not match"):
+        Snapshot.load(path, other, device="cpu")
 
 
 def test_swap_casts_views_of_the_snapshot_without_copying_f32(serve_setup):
