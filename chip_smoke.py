@@ -32,11 +32,17 @@ prints no result line):
              ragged [4, 1000], eta/mu as device scalars, its outputs
              aliasing its inputs; B3 (the per-array update) byte for byte at
              [1024, 1000] f32 and bf16 with a scalar coef_gate, its inputs
-             unwritten; then every kernel and its plain version timed with
-             CUDA events (median of 60 launches) beside its bound (B4-B7
-             and B9 also by their device time under torch.profiler), and the
-             fault plane's checksummed wire round trip timed at the main
-             path's plane;
+             unwritten; B1 on a row list (one row, unsorted, every row
+             against the whole-plane launch, an empty list launching
+             nothing, bf16, ragged N) and B8 on the column chunks of P = 4,
+             7, 8 (offsets off multiples of four included, written in place
+             into an output plane) byte for byte; then every kernel and its
+             plain version timed with CUDA events (median of 60 launches)
+             beside its bound (B4-B7, B9, B1's row list at 1, 4, 8 of 8 rows
+             and B8 in 4 and 8 chunks, the latter against a contiguous copy
+             per chunk, also by their device time under torch.profiler),
+             and the fault plane's checksummed wire round trip timed at the
+             main path's plane;
 3. main    — GossipTrainer(engine="sim", method="elastic_gossip") with NAG on
              the §4.1 MLP at full width (784 -> 3x1024 -> 10, random weights
              from a seed) over the synthetic MNIST stand-in, 50 steps each,
@@ -144,6 +150,28 @@ prints no result line):
              counters, the generator) bit-equal after the load and at the
              end; save and load ms and the file's MB. Last,
              ``paper_tables.main("4.3")`` at 20 steps a row, its CSV printed.
+8. async   — GossipTrainer(engine="async") on the MLP at full width, p 0.125,
+             alpha 0.5: (a) HeteroConfig(constant) at W=8, batch 16, 50
+             windows, bit-equal to the sim run (theta, velocity, counters,
+             the generator); (b) lognormal sigma 0.6 at W=8 until 400
+             worker-steps, loss falling; (c) slow_node x4 at W=4, batch 32,
+             p 0.25, 100 windows; half windows at W=8 (a ``two_groups``
+             time model registered here); B1 once a window on the window's
+             rows (rows outside a window keep their bits), comm_units equal
+             to the host's count of in-window gates; (d) message mode:
+             clipped_gossip at p 0.5, lognormal delay 0.5, timeout 1.0 with
+             2 retries, drops 0.1, 150 windows: B8 once per applied
+             exchange, every counter equal to the host's replay of the
+             queue; (e) the sim engine at W=8 with partition=4, raw, q8 and
+             clipped_gossip, 50 steps each at p 0.5: chunk_units equal to
+             the host's count, comm_bytes the plan's exact bytes, B8 once
+             per chunk per step; (f) the host plane at W=256 (5.97 GB of
+             pinned theta and velocity), lognormal, partition 8,
+             randomized_token_account, 50 windows, B1 once a window on the
+             padded rows, the first 20 against the device plane (theta
+             within 2e-5, counters, tokens and generator equal), a timed
+             split of the window, and ``validate_fleet_memory`` for both
+             planes at W=256 and W=1024. Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -297,6 +325,77 @@ def time_b1(torch, fu, ref, dev, W, bw, peak):
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
     del t, p, v, g
     return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def check_b1_rows(torch, fu, ref, dev):
+    """B1 on a row list (the async engine's partial windows) byte for byte
+    against its plain version: one row, unsorted rows, every row (also
+    against the whole-plane launch), an empty list (no launch), bf16 and a
+    ragged N; the rows not listed keep their bits. Returns the max abs
+    error (0.0 when exact)."""
+    eta = torch.full((), 1e-3, device=dev)
+    worst = 0.0
+    cases = [(8, N_FULL, torch.float32, torch.float32, [3]),
+             (8, N_FULL, torch.float32, torch.float32, [6, 1, 3, 0]),
+             (8, N_FULL, torch.float32, torch.float32, list(range(8))),
+             (8, N_FULL, torch.float32, torch.float32, []),
+             (8, N_FULL, torch.bfloat16, torch.float32, [5, 2]),
+             (8, 1000, torch.bfloat16, torch.bfloat16, [7]),
+             (4, 1000, torch.float32, torch.float32, [1, 3])]
+    for i, (W, n, tdt, vdt, rows) in enumerate(cases):
+        t, p, v, g, coef = b1_inputs(torch, W, n, tdt, vdt, 70 + i, dev)
+        r = torch.tensor(rows, dtype=torch.int32, device=dev)
+        want_t, want_v = ref.fused_flat_elastic_nag_update(t, p, v, g, coef, eta, 0.99, rows=r)
+        kt, kv = t.clone(), v.clone()
+        before = fu.LAUNCHES
+        fu.fused_flat_elastic_nag_update(kt, p, kv, g, coef, eta, 0.99, rows=r)
+        torch.cuda.synchronize()
+        if fu.LAUNCHES != before + (1 if rows else 0):
+            raise AssertionError(f"B1 row list {rows}: {fu.LAUNCHES - before} launches")
+        for got, want in ((kt, want_t), (kv, want_v)):
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            if not bits_equal(torch, got, want):
+                raise AssertionError(f"B1 row list disagrees with its plain version: W={W} "
+                                     f"N={n} {tdt}/{vdt} rows {rows}")
+        if len(rows) == W:
+            wt, wv = t.clone(), v.clone()
+            fu.fused_flat_elastic_nag_update(wt, p, wv, g, coef, eta, 0.99)
+            if not (bits_equal(torch, wt, kt) and bits_equal(torch, wv, kv)):
+                raise AssertionError("B1 on every row listed != the whole-plane launch")
+        del t, p, v, g, kt, kv, want_t, want_v
+    log(f"[kernels] B1 row list vs plain version: {len(cases)} cases (one row, unsorted, all "
+        f"rows = the whole-plane launch, empty = no launch, bf16, ragged N), byte-equal, "
+        f"unlisted rows unwritten; max abs err {worst!r}")
+    return worst
+
+
+def time_b1_rows(torch, fu, ref, dev, bw, peak):
+    """B1 on the first k of 8 rows of the [8, 2913408] f32 plane, k = 1, 4,
+    8 (CUDA events, and the kernel's device time alone under the profiler:
+    at one row the wrapper's host time shows in the events), and its plain
+    version, beside the bound for k rows (k/8 of the plane's bytes).
+    Returns {k: (ms, device ms, plain_ms, bound_ms)}."""
+    t, p, v, g, _ = b1_inputs(torch, 8, N_FULL, torch.float32, torch.float32, 108, dev)
+    ones = torch.ones(8, device=dev)
+    eta = torch.full((), 1e-3, device=dev)
+    out = {}
+    for k in (1, 4, 8):
+        r = torch.arange(k, dtype=torch.int32, device=dev)
+        ms = time_launches(torch, lambda: fu.fused_flat_elastic_nag_update(
+            t, p, v, g, ones, eta, 0.99, rows=r))
+        plain_ms = time_launches(torch, lambda: ref.fused_flat_elastic_nag_update(
+            t, p, v, g, ones, eta, 0.99, rows=r))
+        dev_ms = device_ms(torch, lambda: fu.fused_flat_elastic_nag_update(
+            t, p, v, g, ones, eta, 0.99, rows=r), match="fused_flat_elastic_nag_kernel")
+        bytes_ms = b1_bytes(k, N_FULL, 4, 4) / bw * 1e3
+        bound_ms = max(bytes_ms, FLOPS_PER_ELEMENT * k * N_FULL / peak * 1e3)
+        out[k] = (ms, dev_ms, plain_ms, bound_ms)
+        log(f"[kernels] B1 row list, {k} of 8 rows of [8, {N_FULL}] f32: kernel {ms:.4f} ms "
+            f"(device alone {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({b1_bytes(k, N_FULL, 4, 4) / (dev_ms * 1e-3) / 1e12:.3f} TB/s achieved on "
+            f"the device)")
+    del t, p, v, g
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +809,82 @@ def time_b8(torch, rb, ref, dev, bw, peak):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def check_b8_strided(torch, rb, ref, dev):
+    """B8 on the column chunks ``x[:, lo:hi]`` of a [8, 2913408] plane (the
+    partitioned mixing's calls, ``chunk_bounds`` for P = 4, 7 and 8: P = 7
+    puts chunk offsets off multiples of four, so the scalar kernel runs),
+    written into the same chunk of an output plane, byte for byte against
+    its plain version; bf16 theta at P = 7. Returns the max abs error."""
+    from repro_torch.fleet.partition import chunk_bounds
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(8, N_FULL, generator=g, device=dev)
+    scale = torch.rand(8, generator=g, device=dev)
+    thr = 0.5 + 1.5 * torch.rand(8, generator=g, device=dev)
+    worst, n_cases, odd = 0.0, 0, 0
+    for P, dt in ((4, torch.float32), (8, torch.float32), (7, torch.float32),
+                  (7, torch.bfloat16)):
+        xt = x.to(dt)
+        out = torch.zeros_like(xt)
+        for c, (lo, hi) in enumerate(chunk_bounds(N_FULL, P)):
+            d = 3 * torch.randn(8, hi - lo, generator=g, device=dev)
+            rb.robust_flat_apply(xt[:, lo:hi], d, scale, thr, out=out[:, lo:hi])
+            want = ref.robust_flat_apply(xt[:, lo:hi], d, scale, thr)
+            torch.cuda.synchronize()
+            got = out[:, lo:hi]
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+            if not bits_equal(torch, got.contiguous(), want):
+                raise AssertionError(f"B8 on chunk {c} [{lo}, {hi}) of P={P} {dt} disagrees "
+                                     f"with its plain version")
+            n_cases += 1
+            odd += lo % 4 != 0
+        if bool((out == 0).all(dim=0).any()):
+            raise AssertionError(f"B8 chunks of P={P} left a column unwritten")
+        del xt, out
+    log(f"[kernels] B8 on column chunks vs plain version: {n_cases} chunks (P = 4, 8, 7 f32, "
+        f"7 bf16; {odd} at offsets off multiples of 4), byte-equal, written in place into "
+        f"the output plane; max abs err {worst!r}")
+    return worst
+
+
+def time_b8_strided(torch, rb, dev, bw, peak):
+    """The partitioned robust apply over a whole [8, 2913408] f32 plane in P
+    chunks, P = 4 and 8: B8 on each chunk's column slice written in place
+    (what the engine runs), against one contiguous copy per chunk, B8 on
+    the copy and a copy of its result into the plane; CUDA events, and the
+    device time alone (every kernel of the call, copies included). Returns
+    {P: (strided ms, its device ms, copy ms, its device ms, bound ms)} per
+    whole plane."""
+    from repro_torch.fleet.partition import chunk_bounds
+    g = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(8, N_FULL, generator=g, device=dev)
+    scale, thr = torch.ones(8, device=dev), 0.5 + torch.rand(8, generator=g, device=dev)
+    out = torch.empty_like(x)
+    res = {}
+    for P in (4, 8):
+        chunks = chunk_bounds(N_FULL, P)
+        ds = [3 * torch.randn(8, hi - lo, generator=g, device=dev) for lo, hi in chunks]
+
+        def strided():
+            for (lo, hi), d in zip(chunks, ds):
+                rb.robust_flat_apply(x[:, lo:hi], d, scale, thr, out=out[:, lo:hi])
+
+        def copied():
+            for (lo, hi), d in zip(chunks, ds):
+                out[:, lo:hi].copy_(rb.robust_flat_apply(x[:, lo:hi].contiguous(), d, scale, thr))
+        ms, copy_ms = time_launches(torch, strided), time_launches(torch, copied)
+        dev_ms, copy_dev_ms = device_ms(torch, strided), device_ms(torch, copied)
+        nbytes = 8 * N_FULL * 12 + P * 8 * 8
+        bound_ms = max(nbytes / bw * 1e3, B8_FLOPS_PER_ELEMENT * 8 * N_FULL / peak * 1e3)
+        res[P] = (ms, dev_ms, copy_ms, copy_dev_ms, bound_ms)
+        log(f"[kernels] B8 over [8, {N_FULL}] f32 in {P} column chunks: strided in place "
+            f"{ms:.4f} ms (device alone {dev_ms:.4f}), contiguous copy + B8 + copy back "
+            f"{copy_ms:.4f} ms (device {copy_dev_ms:.4f}), bound {bound_ms:.4f} ms "
+            f"({nbytes / (dev_ms * 1e-3) / 1e12:.3f} TB/s achieved strided on the device)")
+        del ds
+    del x, out
+    return res
+
+
 def time_wire(torch, dev):
     """The fault plane's checksummed raw wire at the main path's plane
     ([8, 2913408] f32, 11,653,636 B per row with the tail): the checksum of
@@ -739,7 +914,7 @@ def time_wire(torch, dev):
 # ---------------------------------------------------------------------------
 
 def make_trainer(torch, W, dev, fused=True, codec=None, method="elastic_gossip",
-                 p=0.125, faults=None):
+                 p=0.125, faults=None, engine="sim", hetero=None, fleet=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -748,7 +923,7 @@ def make_trainer(torch, W, dev, fused=True, codec=None, method="elastic_gossip",
         return simple.xent_loss(simple.mlp_logits(prm, x), y)
 
     return GossipTrainer(
-        engine="sim",
+        engine=engine, hetero=hetero, fleet=fleet,
         protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
                                 topology="uniform", robust_clip=0.1),
         optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
@@ -1982,6 +2157,402 @@ def run_paper_phase(torch, dev):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the async engine and the fleet plane
+# ---------------------------------------------------------------------------
+
+ASYNC_LOGNORMAL = dict(time_model="lognormal", sigma=0.6, seed=3)
+
+
+def register_two_groups():
+    """A compute-time model whose every event window holds half the fleet:
+    workers W/2.. start half a step late, so the two halves alternate.
+    Registered through the public decorator, as user code would."""
+    from repro_torch.hetero import available_time_models, get_time_model, register_time_model
+    if "two_groups" in available_time_models():
+        return
+
+    @register_time_model("two_groups")
+    class TwoGroups(get_time_model("constant")):
+        def step_duration(self, worker, step):
+            import numpy as np
+            w = np.broadcast_arrays(np.asarray(worker), np.asarray(step))[0]
+            dur = super().step_duration(worker, step)
+            late = (w >= w.size // 2) & (np.asarray(step) == 0)
+            return np.where(late, dur * 1.5, dur)
+
+
+def window_launches(tag, got, want):
+    """Every kernel's launches in a run must be ``want``'s (0 if absent)."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"[async] {tag}: launches {got}, expected {full}")
+
+
+def run_windows(torch, trainer, state, batches, n=None, worker_steps=None):
+    """Step ``trainer`` window by window (each synchronised) until ``n``
+    windows or ``worker_steps`` worker-steps. Returns (state, records): per
+    window its size, ms, loss, the gate and peers it drew (before the window
+    mask) and its mask."""
+    recs, done, i = [], 0, 0
+    while (n is not None and i < n) or (worker_steps is not None and done < worker_steps):
+        _, mask, _ = trainer.sim.next_window()
+        xb, yb = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, (xb, yb))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gate, peers = (a.cpu().numpy() for a in trainer.sim.last_draws)
+        recs.append(dict(size=int(m["window_size"]), ms=ms, loss=float(m["loss"]), gate=gate,
+                         peers=peers, mask=mask, t=float(m["virtual_time"]), step=i,
+                         steps_done=trainer.sim.steps_done.copy()))
+        done += recs[-1]["size"]
+        i += 1
+    return state, recs
+
+
+def median_ms(recs, size=None):
+    sel = [r["ms"] for r in recs[1:] if size is None or r["size"] == size]
+    return statistics.median(sel) if sel else float("nan")
+
+
+def check_falling(tag, recs, k=50):
+    losses = [r["loss"] for r in recs]
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"[async] {tag}: non-finite loss")
+    head, tail = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+    if not tail < head:
+        raise AssertionError(f"[async] {tag}: loss not falling: first {k} {head}, last {k} {tail}")
+    return head, tail
+
+
+def async_constant_vs_sim(torch, train, dev):
+    """(a) The constant fleet at W=8, batch 16, p 0.125, alpha 0.5: 50
+    windows against 50 sim steps from the same seed, bit for bit (theta,
+    velocity, counters, the generator); B1 once a window."""
+    from repro_torch.common.config import HeteroConfig
+    from repro_torch.kernels import ops
+    batches = staged_batches(torch, train, 8, 16, STEPS, dev)
+    sim = make_trainer(torch, 8, dev)
+    s1 = sim.init_state(0)
+    for xb, yb in batches:
+        s1, _ = sim.step(s1, (xb, yb))
+    asn = make_trainer(torch, 8, dev, engine="async", hetero=HeteroConfig())
+    s2 = asn.init_state(0)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    s2, recs = run_windows(torch, asn, s2, batches, n=STEPS)
+    launches = ops.launch_counts()
+    window_launches("constant", launches, {B1: STEPS})
+    pairs = [("theta", s1.theta["float32"], s2.theta["float32"]),
+             ("velocity", s1.opt.mu["float32"], s2.opt.mu["float32"]),
+             ("generator", s1.key.get_state(), s2.key.get_state())]
+    pairs += [(f, getattr(s1.proto, f), getattr(s2.proto, f))
+              for f in ("comm_rounds", "comm_units", "comm_bytes")]
+    for name, a, b in pairs:
+        if not bits_equal(torch, a, b):
+            raise AssertionError(f"[async] constant fleet: {name} differs from the sim run")
+    if asn.schedule_state()["hetero_clock"]["clocks"] != [float(STEPS)] * 8:
+        raise AssertionError(f"[async] constant fleet clocks {asn.schedule_state()}")
+    log(f"[async] (a) constant fleet W=8, {STEPS} windows: theta, velocity, comm_rounds/"
+        f"units/bytes and the generator bit-equal to the sim run (comm_units "
+        f"{int(s2.proto.comm_units)}); launches {launches}; median full window "
+        f"{median_ms(recs):.3f} ms (synchronised)")
+    return launches, dict(full_ms=median_ms(recs))
+
+
+def async_stragglers(torch, train, dev, tag, W, batch, p, hetero, worker_steps=None, n=None):
+    """(b), (c) and the half-window timing: windows under a straggler model.
+    B1 once a window on the window's rows (checked: rows outside a window
+    keep their bits, on the windows where some row is outside), comm_units
+    equal to the host's count of in-window gates, the loss finite and (with
+    ``worker_steps``) falling."""
+    from repro_torch.kernels import ops
+    trainer = make_trainer(torch, W, dev, engine="async", hetero=hetero, p=p)
+    state = trainer.init_state(0)
+    batches = staged_batches(torch, train, W, batch, 60, dev)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    # one partial window checked row by row (the check reads the plane back)
+    _, mask, _ = trainer.sim.next_window()
+    before = state.theta["float32"].clone()
+    state, recs = run_windows(torch, trainer, state, batches, n=1)
+    out = torch.from_numpy(~mask).to(dev)
+    if not mask.all() and not bits_equal(torch, state.theta["float32"][out], before[out]):
+        raise AssertionError(f"[async] {tag}: a row outside the window changed")
+    del before
+    state, more = run_windows(torch, trainer, state, batches, n=None if n is None else n - 1,
+                              worker_steps=None if worker_steps is None
+                              else worker_steps - recs[0]["size"])
+    recs += more
+    launches = ops.launch_counts()
+    window_launches(tag, launches, {B1: len(recs)})
+    units = int(state.proto.comm_units)
+    host = int(sum((r["gate"] & r["mask"]).sum() for r in recs))
+    if units != host:
+        raise AssertionError(f"[async] {tag}: comm_units {units} != host count {host}")
+    sizes = [r["size"] for r in recs]
+    if worker_steps is not None:
+        head, tail = check_falling(tag, recs)
+    else:
+        if not all(r["loss"] == r["loss"] and abs(r["loss"]) != float("inf") for r in recs):
+            raise AssertionError(f"[async] {tag}: non-finite loss")
+        head = tail = float("nan")
+    log(f"[async] {tag}: {len(recs)} windows, {sum(sizes)} worker-steps, window sizes "
+        f"{ {k: sizes.count(k) for k in sorted(set(sizes))} }, loss first-50 mean {head:.4f} -> "
+        f"last-50 {tail:.4f}, comm_units {units} = host count, stale_events "
+        f"{int(state.proto.stale_events)}, stale_time {float(state.proto.stale_time):.3f}, "
+        f"virtual time {recs[-1]['t']:.3f}; launches {launches}; median window "
+        f"{median_ms(recs):.3f} ms (singleton {median_ms(recs, 1):.3f}, half "
+        f"{median_ms(recs, W // 2):.3f}, full {median_ms(recs, W):.3f}; synchronised)")
+    return launches, dict(window_ms=median_ms(recs), singleton_ms=median_ms(recs, 1),
+                          half_ms=median_ms(recs, W // 2), windows=len(recs))
+
+
+def replay_queue(recs, fcfg, dm, fm):
+    """Host recomputation of message mode from the recorded windows: the
+    dispatch of every in-window initiation (drops and corrupt wires die
+    there), delivery at arrival, timeouts with doubling backoff and
+    retries. Returns the counters the engine must show."""
+    import numpy as np
+    pending, c = [], dict(applied=0, timeouts=0, retries=0, gaps=0, dropped=0, corrupt=0)
+    for r in recs:
+        t, mask, keep = r["t"], r["mask"], []
+        for e in pending:
+            if e["arrival"] <= t and (not fcfg.rendezvous or mask[e["k"]]):
+                c["applied"] += 1
+                c["gaps"] += e["gap"]
+            elif fcfg.timeout > 0 and t > e["dispatch"] + fcfg.timeout * 2.0 ** e["attempt"]:
+                c["timeouts"] += 1
+                if e["attempt"] < fcfg.max_retries:
+                    c["retries"] += 1
+                    a = e["attempt"] + 1
+                    d = float(dm.wire_delay(e["i"], e["step"], attempt=a))
+                    keep.append(dict(e, attempt=a, dispatch=t, arrival=t + d))
+            else:
+                keep.append(e)
+        pending = keep
+        for i in np.nonzero(r["gate"] & mask)[0]:
+            k = int(r["peers"][i])
+            if k == i:
+                continue
+            if fm.injects_drop and bool(fm.drop_mask(int(i), r["step"])):
+                c["dropped"] += 1
+                continue
+            if fm.injects_corrupt and bool(fm.corrupt_mask(int(i), r["step"])):
+                c["corrupt"] += 1
+                continue
+            d = float(dm.wire_delay(int(i), r["step"], attempt=0))
+            pending.append(dict(arrival=t + d, dispatch=t, attempt=0, i=int(i), k=k,
+                                step=r["step"],
+                                gap=int(abs(r["steps_done"][i] - r["steps_done"][k]))))
+    return c
+
+
+def async_message_mode(torch, train, dev, W=8, batch=16, windows=150):
+    """(d) Message mode: lognormal compute times (sigma 0.6), lognormal wire
+    delay (mean 0.5), timeout 1.0 with 2 retries, drops at rate 0.1,
+    clipped_gossip, p 0.5. B8 once per applied exchange (both ends in one
+    launch), B1 once a window; every counter equal to the host's replay."""
+    from repro_torch.common.config import FaultConfig, HeteroConfig
+    from repro_torch.kernels import ops
+    fcfg = FaultConfig(fault_model="drop", fault_rate=0.1, delay_model="lognormal", delay=0.5,
+                       delay_sigma=0.5, timeout=1.0, max_retries=2, seed=7)
+    trainer = make_trainer(torch, W, dev, engine="async", method="clipped_gossip", p=0.5,
+                           hetero=HeteroConfig(**ASYNC_LOGNORMAL), faults=fcfg)
+    state = trainer.init_state(0)
+    batches = staged_batches(torch, train, W, batch, 60, dev)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    state, recs = run_windows(torch, trainer, state, batches, n=windows)
+    launches = ops.launch_counts()
+    c = replay_queue(recs, fcfg, trainer.sim.delay_model, trainer.sim.fault_model)
+    window_launches("message mode", launches, {B1: windows, B8: c["applied"]})
+    got = {f: int(getattr(state.proto, f)) for f in ("comm_units", "exch_timeouts",
+                                                    "exch_retries", "wire_dropped",
+                                                    "stale_steps", "stale_events")}
+    want = dict(comm_units=c["applied"], exch_timeouts=c["timeouts"],
+                exch_retries=c["retries"], wire_dropped=c["dropped"], stale_steps=c["gaps"],
+                stale_events=c["applied"])
+    if got != want:
+        raise AssertionError(f"[async] message mode: counters {got} != host replay {want}")
+    if min(c["applied"], c["timeouts"], c["retries"], c["dropped"]) == 0:
+        raise AssertionError(f"[async] message mode: nothing to check in {c}")
+    per_event = trainer.sim._per_event
+    want_bytes = torch.tensor(per_event / W * c["applied"], dtype=torch.float32)
+    if not bits_equal(torch, state.proto.comm_bytes.cpu(), want_bytes):
+        raise AssertionError(f"[async] message mode: comm_bytes {float(state.proto.comm_bytes)}")
+    check_falling("message mode", recs)
+    log(f"[async] (d) message mode W={W}, {windows} windows (clipped_gossip, drop 0.1, "
+        f"lognormal delay 0.5, timeout 1.0, 2 retries): counters {got} = host replay, "
+        f"comm_bytes {float(state.proto.comm_bytes)!r}; launches {launches}; median window "
+        f"{median_ms(recs):.3f} ms (synchronised), {len(trainer.sim._pending)} wires pending")
+    return launches, dict(message_ms=median_ms(recs))
+
+
+def fleet_partitioned(torch, train, dev, W=8, batch=16, P=4):
+    """(e) The sim engine at W=8 with partition=4: raw, q8, then
+    clipped_gossip, 50 steps each at p 0.5. chunk_units and comm_units equal
+    the host's count from the gates and ``partition_ids_np``; comm_bytes the
+    plan's exact bytes (f64, to f32 rounding); B8 once per chunk per step in
+    the clipped run; the raw plan's chunks sum to the full raw wire."""
+    import numpy as np
+    from repro_torch.common.config import FleetConfig
+    from repro_torch.fleet.partition import partition_ids_np
+    from repro_torch.kernels import ops
+    fleet = FleetConfig(partition=P, seed=11)
+    batches = staged_batches(torch, train, W, batch, STEPS, dev)
+    launches_all, ms = {}, {}
+    for tag, method, codec in (("raw", "elastic_gossip", None), ("q8", "elastic_gossip", "q8"),
+                               ("clipped", "clipped_gossip", None)):
+        trainer = make_trainer(torch, W, dev, codec=codec, method=method, p=0.5, fleet=fleet)
+        state = trainer.init_state(0)
+        torch.cuda.synchronize()
+        ops.zero_launch_counts()
+        cu, step_s = np.zeros(P, np.int64), []
+        for i, (xb, yb) in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, (xb, yb))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            gate = trainer.sim.last_draws[0].cpu().numpy()
+            pid = partition_ids_np(fleet.seed, i, W, P)
+            cu += np.bincount(pid[gate], minlength=P)
+        launches = ops.launch_counts()
+        want = {B1: STEPS, **{k: STEPS for k in CODEC_KERNELS.get(codec, ())}}
+        if method == "clipped_gossip":
+            want[B8] = STEPS * P
+        window_launches(f"partition {tag}", launches, want)
+        plan = trainer.sim._fleet_plan(state.spec)
+        if codec is None and sum(plan.wire_bytes) != WIRE[None]:
+            raise AssertionError(f"partition plan bytes {plan.wire_bytes} != {WIRE[None]}")
+        got_cu = state.proto.chunk_units.cpu().numpy()
+        if not np.array_equal(got_cu, cu) or int(state.proto.comm_units) != int(cu.sum()):
+            raise AssertionError(f"[fleet] {tag}: chunk_units {got_cu} != host {cu}")
+        exact = float(np.dot(np.asarray(plan.wire_bytes, np.float64), cu)) / W
+        if abs(float(state.proto.comm_bytes) - exact) > 1e-6 * exact:
+            raise AssertionError(f"[fleet] {tag}: comm_bytes {float(state.proto.comm_bytes)} "
+                                 f"!= plan's exact {exact}")
+        ms[tag] = statistics.median(step_s[1:]) * 1e3
+        for k, n in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + n
+        log(f"[fleet] (e) sim W={W} partition={P} {tag}: chunk_units {got_cu.tolist()} = host "
+            f"count, comm_bytes {float(state.proto.comm_bytes)!r} (plan's exact {exact!r}), "
+            f"plan bytes per chunk {list(plan.wire_bytes)}; launches {launches}; median step "
+            f"{ms[tag]:.3f} ms (synchronised)")
+    return launches_all, ms
+
+
+def fleet_host_plane(torch, train, dev, W=256, batch=16, windows=50, compare=20):
+    """(f) The host plane at W=256 (theta and velocity pinned in host memory,
+    5.97 GB): lognormal, partition=8, randomized_token_account, 50 windows;
+    B1 once a window on the gathered, padded rows. The first 20 windows also
+    run on the device plane from the same seed: theta within atol 2e-5,
+    counters, tokens and the generator exact. Then 10 more windows timed
+    phase by phase, and ``validate_fleet_memory`` for both planes at W=256
+    and W=1024."""
+    import numpy as np
+    from repro_torch.common.config import FleetConfig, HeteroConfig
+    from repro_torch.fleet import memory
+    from repro_torch.kernels import ops
+    fkw = dict(partition=8, flow_control="randomized_token_account", seed=13)
+    replica = WIRE[None]
+    for Wk in (256, 1024):
+        for plane in ("device", "host"):
+            try:
+                need = memory.validate_fleet_memory(Wk, replica, plane, what="the MLP",
+                                                    device=dev)
+                log(f"[fleet] validate_fleet_memory W={Wk} plane={plane}: fits, "
+                    f"~{need / 2 ** 30:.2f} GiB")
+            except ValueError as e:
+                log(f"[fleet] validate_fleet_memory W={Wk} plane={plane}: refuses: {e}")
+    batches = staged_batches(torch, train, W, batch, 8, dev)
+    het = HeteroConfig(**ASYNC_LOGNORMAL)
+    t0 = time.perf_counter()
+    host = make_trainer(torch, W, dev, engine="async", hetero=het,
+                        fleet=FleetConfig(plane="host", **fkw))
+    sh = host.init_state(0)
+    init_s = time.perf_counter() - t0
+    if not sh.theta["float32"].is_pinned():
+        raise AssertionError("[fleet] host plane: theta is not pinned host memory")
+    devp = make_trainer(torch, W, dev, engine="async", hetero=het, fleet=FleetConfig(**fkw))
+    sd = devp.init_state(0)
+    sd, _ = run_windows(torch, devp, sd, batches, n=compare)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    sh, recs = run_windows(torch, host, sh, batches, n=compare)
+    diff = float((sh.theta["float32"] - sd.theta["float32"].cpu()).abs().max())
+    if not diff <= 2e-5:
+        raise AssertionError(f"[fleet] host plane vs device plane: theta max abs diff {diff}")
+    for f in ("comm_units", "worker_steps", "stale_events", "clocks", "tokens", "chunk_units",
+              "flow_skipped"):
+        if not bits_equal(torch, getattr(sh.proto, f), getattr(sd.proto, f)):
+            raise AssertionError(f"[fleet] host plane vs device plane: {f} differs")
+    if not bits_equal(torch, sh.key.get_state(), sd.key.get_state()):
+        raise AssertionError("[fleet] host plane vs device plane: generator differs")
+    del sd, devp
+    torch.cuda.empty_cache()
+    sh, more = run_windows(torch, host, sh, batches, n=windows - compare)
+    recs += more
+    launches = ops.launch_counts()
+    window_launches("host plane", launches, {B1: windows})
+    if not all(r["loss"] == r["loss"] for r in recs):
+        raise AssertionError("[fleet] host plane: non-finite loss")
+    if int(sh.proto.chunk_units.sum()) != int(sh.proto.comm_units):
+        raise AssertionError("[fleet] host plane: chunk_units do not sum to comm_units")
+    hp = host.sim._hostplane
+    hp.timed = True
+    splits = []
+    for i in range(10):
+        sh, _ = host.step(sh, batches[i % len(batches)])
+        splits.append(dict(hp.split_ms))
+    hp.timed = False
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    sizes = [r["size"] for r in recs]
+    log(f"[fleet] (f) host plane W={W} ({2 * W * replica / 1e9:.2f} GB pinned, built in "
+        f"{init_s:.1f} s), lognormal, partition 8, randomized_token_account: {windows} windows, "
+        f"sizes { {k: sizes.count(k) for k in sorted(set(sizes))} }; first {compare} against the "
+        f"device plane: theta max abs diff {diff!r}, counters, tokens and generator equal; "
+        f"comm_units {int(sh.proto.comm_units)}, flow_skipped {int(sh.proto.flow_skipped)}; "
+        f"launches {launches}; median window {median_ms(recs):.3f} ms (synchronised); timed "
+        f"split (median of 10, ms): {json.dumps({k: round(v, 4) for k, v in split.items()})}")
+    return launches, dict(host_window_ms=median_ms(recs), host_split_ms=split)
+
+
+def run_async_phase(torch, dev):
+    """Phase 8. Returns ({kernel: launches}, summary)."""
+    from repro_torch.common.config import HeteroConfig
+    from repro_torch.data.synthetic import load_mnist
+    train, _ = load_mnist(num_train=25600, num_test=10)
+    register_two_groups()
+    launches, summary = {}, {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    got, summary["constant"] = async_constant_vs_sim(torch, train, dev)
+    add(got)
+    got, summary["lognormal"] = async_stragglers(
+        torch, train, dev, "(b) lognormal sigma 0.6 W=8", 8, 16, 0.125,
+        HeteroConfig(**ASYNC_LOGNORMAL), worker_steps=400)
+    add(got)
+    got, summary["slow_node"] = async_stragglers(
+        torch, train, dev, "(c) slow_node x4 W=4 p 0.25", 4, 32, 0.25,
+        HeteroConfig(time_model="slow_node", slow_worker=0, slow_factor=4.0), n=100)
+    add(got)
+    got, summary["half"] = async_stragglers(
+        torch, train, dev, "half windows (two_groups) W=8", 8, 16, 0.125,
+        HeteroConfig(time_model="two_groups"), n=50)
+    add(got)
+    got, summary["message"] = async_message_mode(torch, train, dev)
+    add(got)
+    got, summary["partition_ms"] = fleet_partitioned(torch, train, dev)
+    add(got)
+    got, summary["host_plane"] = fleet_host_plane(torch, train, dev)
+    add(got)
+    return launches, summary
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -2037,15 +2608,20 @@ def main():
         f"flash_attention.cu (B9) in parallel: "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {build.BUILD_SECONDS.get(n, 0.0):.2f} s" for n in sources) + ")")
+    phase_s = {"1 build": time.perf_counter() - t0}
+    t_phase = time.perf_counter()
 
-    err = {B1: check_b1(torch, fu, ref, dev), B2: check_b2(torch, fu, ref, dev),
-           B3: check_b3(torch, fu, ref, dev)}
+    err = {B1: max(check_b1(torch, fu, ref, dev), check_b1_rows(torch, fu, ref, dev)),
+           B2: check_b2(torch, fu, ref, dev), B3: check_b3(torch, fu, ref, dev)}
     err.update(check_codec(torch, ck, ref, codec_seeds, dev))
-    err[B8] = check_b8(torch, rb, ref, dev)
+    err[B8] = max(check_b8(torch, rb, ref, dev), check_b8_strided(torch, rb, ref, dev))
     ms8, plain8, bound8, by8 = time_b1(torch, fu, ref, dev, 8, bw, peak)
     ms4, plain4, bound4, _ = time_b1(torch, fu, ref, dev, 4, bw, peak)
+    rows = time_b1_rows(torch, fu, ref, dev, bw, peak)
     times = {B1: dict(ms=ms8, plain_ms=plain8, library_ms=None, bound_ms=bound8, bound_by=by8,
-                      ms_w4=ms4, plain_ms_w4=plain4, bound_ms_w4=bound4)}
+                      ms_w4=ms4, plain_ms_w4=plain4, bound_ms_w4=bound4,
+                      rows_of_8={k: dict(ms=a, device_ms=d, plain_ms=b, bound_ms=c)
+                                 for k, (a, d, b, c) in rows.items()})}
     t23 = {W: time_b2_b3(torch, fu, ref, dev, W, bw, peak) for W in (8, 4)}
     for kname in (B2, B3):
         times[kname] = dict(t23[8][kname], ms_w4=t23[4][kname]["ms"],
@@ -2053,7 +2629,13 @@ def main():
                             bound_ms_w4=t23[4][kname]["bound_ms"])
     times.update(time_codec(torch, ck, ref, codec_seeds, dev, bw, peak))
     times[B8] = time_b8(torch, rb, ref, dev, bw, peak)
+    times[B8]["chunks"] = {P: dict(strided_ms=a, strided_device_ms=b, copy_ms=c,
+                                   copy_device_ms=d, bound_ms=e)
+                           for P, (a, b, c, d, e) in time_b8_strided(torch, rb, dev, bw,
+                                                                     peak).items()}
     wire_ms = time_wire(torch, dev)
+    phase_s["2 kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     train, test = load_mnist(num_train=25600, num_test=4000)
     launches = dict.fromkeys(KERNELS, 0)
@@ -2067,6 +2649,8 @@ def main():
                     for c in (None, "q8", "topk")))
     fused_vs_unfused(torch, train, dev)
     fused_vs_unfused(torch, train, dev, codec="q8")
+    phase_s["3 main"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     register_drop_byzantine()
     fault_ms = {}
@@ -2078,6 +2662,8 @@ def main():
         + ", ".join(f"{t} {ms:.3f} ms" for t, ms in fault_ms.items())
         + f"; checksummed raw wire round trip {wire_ms['roundtrip_ms']:.4f} ms")
     zero_fault_anchor(torch, train, dev)
+    phase_s["4 faults"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     dist_launches, dist_ms = run_dist_phase(torch, train, dev)
     for kname, n in dist_launches.items():
@@ -2087,15 +2673,29 @@ def main():
         f"firing {e['fire_ms']:.3f} ms / non-firing {e['quiet_ms']:.3f} ms, q8 firing "
         f"{q['fire_ms']:.3f} / non-firing {q['quiet_ms']:.3f} ms, allreduce "
         f"{dist_ms['allreduce']['quiet_ms']:.3f} ms")
+    phase_s["5 dist"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     n_serve, times[B9] = run_serve_phase(torch, ops, fa, dev, bw, peak_bf16)
     launches[B9] += n_serve
     err[B9] = times[B9].pop("max_abs_err")
+    phase_s["6 serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     paper_launches, paper = run_paper_phase(torch, dev)
     for kname, n in paper_launches.items():
         launches[kname] += n
     log(f"[paper] summary: {json.dumps(paper)}")
+    phase_s["7 paper"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    async_launches, async_summary = run_async_phase(torch, dev)
+    for kname, n in async_launches.items():
+        launches[kname] += n
+    log(f"[async] summary: {json.dumps(async_summary)}")
+    phase_s["8 async"] = time.perf_counter() - t_phase
+    log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f"; total {sum(phase_s.values()):.1f}")
 
     kernels = []
     for kname, (kid, source, replaces) in KERNELS.items():

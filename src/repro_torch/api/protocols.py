@@ -44,10 +44,24 @@ class ProtocolState(NamedTuple):
     comm_rounds: torch.Tensor     # int32: gossip rounds executed
     comm_units: torch.Tensor      # int32: cumulative worker participations
     comm_bytes: torch.Tensor      # f32: expected egress bytes/worker (derived)
+    # virtual time of the async engine (None on the synchronous engines):
+    # staleness is accounted per exchange initiation, the gap between the
+    # initiator's (clock, local step count) and its partner's
+    clocks: Optional[torch.Tensor] = None         # f32[W]: per-worker virtual clock
+    worker_steps: Optional[torch.Tensor] = None   # int32[W]: per-worker local steps
+    stale_time: Optional[torch.Tensor] = None     # f32: sum of virtual-time gaps
+    stale_steps: Optional[torch.Tensor] = None    # int32: sum of step-count gaps
+    stale_events: Optional[torch.Tensor] = None   # int32: exchange initiations
     # fault-plane counters: None unless a FaultConfig is given (the engine
     # then seeds them to 0 at init)
     wire_dropped: Optional[torch.Tensor] = None   # int32: wires lost in flight
     wire_corrupt: Optional[torch.Tensor] = None   # int32: wires failing checksum
+    exch_timeouts: Optional[torch.Tensor] = None  # int32: exchanges timed out (async)
+    exch_retries: Optional[torch.Tensor] = None   # int32: wire re-dispatches (async)
+    # fleet plane: None unless a FleetConfig turns the feature on
+    tokens: Optional[torch.Tensor] = None         # f32[W]: flow-control balances
+    flow_skipped: Optional[torch.Tensor] = None   # int32: initiations flow control skipped
+    chunk_units: Optional[torch.Tensor] = None    # int32[P]: applied exchanges per chunk id
 
 
 class WireFaults(NamedTuple):
@@ -112,6 +126,9 @@ class Protocol:
     pairwise: ClassVar[bool] = False       # pairwise gossip (one send/recv per round)
     uses_center: ClassVar[bool] = False    # EASGD-style center variable
     per_worker_gate: ClassVar[bool] = True  # Bernoulli per worker (vs one draw)
+    # runs without a global step barrier (engine="async"); All-reduce SGD
+    # averages gradients across ALL workers every step, so it cannot
+    barrier_free: ClassVar[bool] = True
 
     def __init__(self, cfg: ProtocolConfig):
         self.cfg = cfg
@@ -335,6 +352,7 @@ class NoCommunication(Protocol):
 class AllReduceSGD(Protocol):
     """Alg. 1: gradient averaging every step (ring all-reduce accounting)."""
     communicates = False
+    barrier_free = False   # every-step gradient averaging needs a full barrier
 
     def gradient_transform(self, grads_stack: PyTree, group=None) -> PyTree:
         if group is not None:

@@ -9,7 +9,7 @@
         ...
 
 The engine registry of the reference is the plain dict ``ENGINES`` in
-:mod:`repro_torch.api.trainer` ("sim" and "dist").
+:mod:`repro_torch.api.trainer` ("sim", "dist" and "async").
 """
 from __future__ import annotations
 

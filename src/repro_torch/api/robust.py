@@ -17,10 +17,16 @@ feeding it (the delta, two sums of squares, the coefficients) are plain
 PyTorch, as the reference computes them with jnp outside its kernel. No
 statistic is read back to the host.
 
-The staleness-adaptive rate (``stale_adapt``) needs the async engine's
+The staleness-adaptive rate (``stale_adapt``) scales the displacement by
+``1 / (1 + stale_adapt * |steps_i - steps_peer|)`` from the async engine's
 per-worker step counts; the sim state has none, so :meth:`stale_scale`
-returns None here, as the reference's does on its sync engines. The
-message-mode realization ``robust_pair_apply`` comes with the async engine.
+returns None there, as the reference's does on its sync engines.
+
+The async engine's message mode applies ONE arrived exchange at a time:
+:meth:`RobustGossip.robust_pair_apply` is the reference's per-row hook, and
+:meth:`RobustGossip.robust_rows_apply` the same transform on a stack of
+rows, which the engine uses to move both ends of an exchange with one B8
+launch, the staleness gap of the wire scaling the rate.
 """
 from __future__ import annotations
 
@@ -103,6 +109,32 @@ class RobustGossip(ElasticGossip):
         state = self._count_wire_faults(state, active, wire_faults)
         return theta_new, state._replace(comm_rounds=rounds, comm_units=units,
                                          comm_bytes=bytes_)
+
+    def robust_rows_apply(self, local, recv, coef, gap=None):
+        """Message-mode realization for stacked rows: ``local`` / ``recv``
+        are ``{bucket: [R, n]}`` dicts, row r moving toward ``recv`` row r
+        by the pair moving rate ``coef`` through the robust transform
+        (per-row coefficients); ``gap`` is the wire's |step-count|
+        staleness. Returns the new ``{bucket: [R, n]}`` rows (one B8 launch
+        per bucket on the card)."""
+        delta = {k: coef * (recv[k].to(torch.float32) - local[k].to(torch.float32))
+                 for k in local}
+        theta_sq, row_elems = _row_sumsq(local)
+        delta_sq, _ = _row_sumsq(delta)
+        scale, thr = self.robust_coeffs(theta_sq, delta_sq, row_elems)
+        if self.cfg.stale_adapt > 0.0 and gap is not None:
+            g = torch.abs(torch.as_tensor(gap, dtype=torch.float32, device=scale.device))
+            scale = scale / (1.0 + self.cfg.stale_adapt * g)
+        return self._apply_delta(local, delta, scale, thr)
+
+    def robust_pair_apply(self, local, recv, coef, gap=None):
+        """The reference's hook for ONE applied exchange: ``local`` /
+        ``recv`` are single-row ``{bucket: [n]}`` dicts; returns the
+        robustified new local row (the plane path's transform on a [1, n]
+        view)."""
+        out = self.robust_rows_apply({k: v[None] for k, v in local.items()},
+                                     {k: v[None] for k, v in recv.items()}, coef, gap)
+        return {k: v[0] for k, v in out.items()}
 
     @staticmethod
     def _apply_delta(theta_stack, delta, scale, thr):

@@ -30,6 +30,13 @@ from repro_torch.common.flat import FlatSpec
 PyTree = Any
 Buffers = Dict[str, torch.Tensor]
 
+# ProtocolState fields an engine seeds only when it uses them (the
+# checkpoint's VIRTUAL_TIME_KEYS)
+OPTIONAL_PROTO_FIELDS = ("clocks", "worker_steps", "stale_time", "stale_steps",
+                         "stale_events", "wire_dropped", "wire_corrupt",
+                         "exch_timeouts", "exch_retries", "tokens", "flow_skipped",
+                         "chunk_units")
+
 
 @dataclasses.dataclass(frozen=True)
 class FlatState:
@@ -75,9 +82,9 @@ class FlatState:
                 "comm_rounds": proto.comm_rounds,
                 "comm_units": proto.comm_units,
                 "comm_bytes": proto.comm_bytes,
-                # fault-plane counters: None (absent) without a FaultConfig
-                "wire_dropped": proto.wire_dropped,
-                "wire_corrupt": proto.wire_corrupt,
+                # the async engine's virtual time and the fault and fleet
+                # planes' fields: None (absent) where no engine seeded them
+                **{k: getattr(proto, k) for k in OPTIONAL_PROTO_FIELDS},
             }),
             "comm": {"residual": getattr(self.comm, "residual", None)},
             "key": None,
@@ -102,8 +109,7 @@ class FlatState:
             p = d["proto"]
             proto = proto._replace(center=p["center"], comm_rounds=p["comm_rounds"],
                                    comm_units=p["comm_units"], comm_bytes=p["comm_bytes"],
-                                   wire_dropped=p.get("wire_dropped"),
-                                   wire_corrupt=p.get("wire_corrupt"))
+                                   **{k: p.get(k) for k in OPTIONAL_PROTO_FIELDS})
         comm = self.comm
         if comm is not None:
             comm = type(comm)(d["comm"]["residual"])

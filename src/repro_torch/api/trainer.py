@@ -1,5 +1,5 @@
 """GossipTrainer facade — the port's entry point (port of
-``repro.api.trainer`` for ``engine="sim"`` and ``engine="dist"``).
+``repro.api.trainer`` for ``engine="sim"``, ``"dist"`` and ``"async"``).
 
     from repro_torch.api.trainer import GossipTrainer
 
@@ -28,7 +28,17 @@ Engines:
   equal on every rank); ``comm_bytes`` is a host float64 accumulator and
   ``loss`` the fleet mean (a gloo all-reduce per step).
 
-Both engines expose the shared matching schedule (:meth:`matching_partners`,
+- ``engine="async"``: the virtual-time heterogeneous-fleet engine
+  (:class:`repro_torch.core.gossip_async.AsyncTrainer`, ``hetero=`` a
+  :class:`~repro_torch.common.config.HeteroConfig`): one :meth:`step` is one
+  event window; metrics add ``virtual_time``, ``window_size`` and the
+  staleness sums; a constant fleet reproduces ``engine="sim"`` bit for bit.
+
+``fleet=`` (a :class:`~repro_torch.common.config.FleetConfig`: partitioned
+exchanges, flow control; the host-resident plane on async only) runs on the
+sim and async engines.
+
+The engines expose the shared matching schedule (:meth:`matching_partners`,
 :attr:`num_gossip_rounds`) and one communication round as the parity
 surface :meth:`gossip_exchange` (the mixing-matrix oracle on the sim
 engine, the real exchange on the dist engine).
@@ -37,8 +47,9 @@ Checkpoints (:meth:`save_checkpoint` / :meth:`load_checkpoint`) are the
 reference's v2 files (:mod:`repro_torch.checkpoint.io`): either package
 loads the other's. The dist engine writes the whole ``[W, total]`` plane
 from rank 0 after a gather, with the schedule and ``comm_bytes`` in the
-metadata, and every rank reads its own row back. The async engine comes in
-a later slice.
+metadata, and every rank reads its own row back. The async engine adds its
+host clocks (``hetero_clock``) and the hetero, fault and fleet descriptors,
+and refuses a checkpoint written under another fleet.
 """
 from __future__ import annotations
 
@@ -50,14 +61,13 @@ import torch
 
 from repro_torch.api import registry
 from repro_torch.api.protocols import CommCost
-from repro_torch.common.config import MeshConfig, OptimizerConfig, ProtocolConfig, TrainConfig
+from repro_torch.common.config import (HeteroConfig, MeshConfig, OptimizerConfig,
+                                       ProtocolConfig, TrainConfig)
 from repro_torch.common.pytree import tree_map
 from repro_torch.obs import schema as obs_schema
 from repro_torch.serving.engine import consensus_params
 
 PyTree = Any
-
-PORTED_LATER = {"async": "port slice 4"}
 
 
 def resolve_device(device) -> torch.device:
@@ -79,6 +89,21 @@ def _validate_shard_meta(meta) -> None:
             f"({meta['shard']!r}) but this trainer is un-sharded — the "
             "resident buffer widths and codec streams depend on the "
             "layout; pass the same ShardConfig (shard=...) to resume")
+
+
+def _diff_descriptor(name: str, saved: dict, current: dict) -> None:
+    """Raise a field-by-field ValueError when a persisted fleet descriptor
+    (hetero / fault / fleet plane) differs from the live trainer's."""
+    diffs = sorted(k for k in set(saved) | set(current)
+                   if saved.get(k) != current.get(k))
+    if diffs:
+        detail = ", ".join(
+            f"{k}: saved={saved.get(k)!r} != current={current.get(k)!r}"
+            for k in diffs)
+        raise ValueError(
+            f"checkpoint was written under a different {name} config — "
+            f"{detail}. Restore with the matching config (the virtual-time "
+            "and fault draws are pure functions of it) or start a fresh run")
 
 
 def _init_params(facade, seed, params):
@@ -139,18 +164,25 @@ class _Backend:
 
 
 class _SimBackend(_Backend):
+    engine_name = "sim"
+
     def __init__(self, facade, kw: dict):
-        from repro_torch.core.gossip_sim import SimTrainer
         if kw["loss_fn"] is None or kw["num_workers"] is None:
-            raise ValueError('engine="sim" requires loss_fn and num_workers')
+            raise ValueError(f'engine="{self.engine_name}" requires loss_fn and num_workers')
         self.facade = facade
         self.num_workers = kw["num_workers"]
         self.mesh_cfg = kw["mesh_cfg"]
-        self.sim = SimTrainer(kw["loss_fn"], self.num_workers, facade.protocol,
-                              facade.optimizer, fused_update=facade.fused_update,
-                              faults=kw["faults"], fleet=kw["fleet"], shard=kw["shard"])
+        self.sim = self._build(kw, dict(fused_update=facade.fused_update, faults=kw["faults"],
+                                        fleet=kw["fleet"], shard=kw["shard"]))
         self.codec = self.sim.codec
         self.wire = None
+
+    def _build(self, kw: dict, common: dict):
+        from repro_torch.core.gossip_sim import SimTrainer
+        if kw["hetero"] is not None:
+            raise ValueError('hetero= is the async engine\'s (engine="async")')
+        return SimTrainer(kw["loss_fn"], self.num_workers, self.facade.protocol,
+                          self.facade.optimizer, **common)
 
     def _sched_mesh_cfg(self) -> MeshConfig:
         return self.mesh_cfg or MeshConfig(data=self.num_workers, model=1, pods=1,
@@ -201,6 +233,88 @@ class _SimBackend(_Backend):
         return self.sim.rank0_params(state)
 
 
+class _AsyncBackend(_SimBackend):
+    """The virtual-time async engine behind the sim backend's surface: one
+    facade ``step`` is one event window, metrics add ``virtual_time`` /
+    ``window_size`` / the staleness sums, and the host clock mirrors persist
+    through the checkpoint metadata (``hetero_clock``)."""
+    engine_name = "async"
+
+    def _build(self, kw: dict, common: dict):
+        from repro_torch.core.gossip_async import AsyncTrainer
+        return AsyncTrainer(kw["loss_fn"], self.num_workers, self.facade.protocol,
+                            self.facade.optimizer, hetero=kw["hetero"], **common)
+
+    def schedule_state(self) -> dict:
+        # the sim engine's schedule lives in the state's generator; the async
+        # engine adds its host-side virtual-time position
+        return {"hetero_clock": self.sim.clock_state()}
+
+    def restore_schedule(self, sched_state: dict) -> None:
+        hc = (sched_state or {}).get("hetero_clock")
+        if hc:
+            self.sim.anchor(hc["clocks"], hc["steps_done"])
+
+    def checkpoint_extra(self) -> dict:
+        # float64 clocks round-trip JSON exactly; the descriptors make a
+        # resumed run refuse another fleet (every later draw depends on them)
+        extra = {"hetero_clock": self.sim.clock_state(),
+                 "hetero": dataclasses.asdict(self.sim.hetero)}
+        if self.sim.faults is not None:
+            from repro_torch.faults import fault_descriptor
+            extra["faults"] = fault_descriptor(self.sim.faults)
+        fleet = self.sim.fleet
+        if fleet is not None and fleet.enabled():
+            extra["fleet"] = dataclasses.asdict(fleet)
+        return extra
+
+    def validate_checkpoint_meta(self, meta) -> None:
+        """Refuse to restore under a different virtual fleet: the saved
+        ``hetero`` / ``faults`` / ``fleet`` descriptors must match this
+        trainer's (files written without them restore unvalidated)."""
+        super().validate_checkpoint_meta(meta)
+        from repro_torch.faults import fault_descriptor
+        meta = meta or {}
+        if "hetero" in meta:
+            _diff_descriptor("hetero", meta["hetero"], dataclasses.asdict(self.sim.hetero))
+        faults = self.sim.faults
+        if "faults" in meta:
+            if faults is None:
+                raise ValueError(
+                    "checkpoint was written with a fault plane "
+                    f"({meta['faults']!r}) but this trainer has none — pass "
+                    "the same FaultConfig (faults=...) to resume this run")
+            _diff_descriptor("faults", meta["faults"], fault_descriptor(faults))
+        elif faults is not None:
+            raise ValueError(
+                "checkpoint was written WITHOUT a fault plane but this "
+                "trainer configures one — resuming would inject faults into "
+                "a run that never had them; drop faults= or start fresh")
+        fleet = self.sim.fleet
+        cur_fleet = dataclasses.asdict(fleet) if fleet is not None and fleet.enabled() else None
+        if "fleet" in meta:
+            if cur_fleet is None:
+                raise ValueError(
+                    "checkpoint was written under a fleet plane "
+                    f"({meta['fleet']!r}) but this trainer has none — the "
+                    "partition/flow draws are pure functions of it; pass the "
+                    "same FleetConfig (fleet=...) to resume this run")
+            _diff_descriptor("fleet", meta["fleet"], cur_fleet)
+        elif cur_fleet is not None:
+            raise ValueError(
+                "checkpoint was written WITHOUT a fleet plane but this "
+                "trainer configures one — resuming would change every "
+                "partition/flow draw; drop fleet= or start fresh")
+
+    def on_checkpoint_loaded(self, state, meta) -> None:
+        hc = (meta or {}).get("hetero_clock")
+        if hc:
+            self.sim.anchor(hc["clocks"], hc["steps_done"])
+        elif state.proto is not None and state.proto.clocks is not None:
+            self.sim.anchor(state.proto.clocks.cpu().numpy().astype(np.float64),
+                            state.proto.worker_steps.cpu().numpy().astype(np.int64))
+
+
 class _DistBackend(_Backend):
     def __init__(self, facade, kw: dict):
         from repro_torch.core.scheduler import GossipSchedule
@@ -213,7 +327,9 @@ class _DistBackend(_Backend):
         for name in ("fleet", "shard"):
             if kw[name] is not None:
                 raise NotImplementedError(f'{name}= on engine="dist" is not ported yet '
-                                          "(port slice 4)")
+                                          "(port slice 4b)")
+        if kw["hetero"] is not None:
+            raise ValueError('hetero= is the async engine\'s (engine="async")')
         group = kw["group"]
         if kw["loss_fn"] is None or group is None:
             raise ValueError('engine="dist" requires loss_fn and group (the rank\'s '
@@ -326,20 +442,23 @@ class _DistBackend(_Backend):
             self.comm_bytes = float(meta["comm_bytes"])
 
 
-ENGINES = {"sim": _SimBackend, "dist": _DistBackend}
+ENGINES = {"sim": _SimBackend, "dist": _DistBackend, "async": _AsyncBackend}
 
 
 class GossipTrainer:
-    """Protocol-agnostic trainer facade over the sim and dist engines.
+    """Protocol-agnostic trainer facade over the sim, dist and async engines.
 
-    Arguments: ``engine`` ("sim" or "dist"), ``protocol`` (ProtocolConfig),
+    Arguments: ``engine`` ("sim", "dist" or "async"), ``protocol`` (ProtocolConfig),
     ``optimizer`` (default NAG, as the paper), ``loss_fn(params, x, y)`` for
     one worker, ``num_workers`` (sim; the dist engine takes the mesh's),
     ``init_fn(generator) -> params`` (optional), ``fused_update`` (kernels
     B1/B2 on pairwise + NAG), ``device``, ``codec`` (a registered codec name
     that overrides ``protocol.codec``: "q8" or "topk" compress the gossip
-    wire), ``faults`` (sim only: a
-    :class:`~repro_torch.common.config.FaultConfig`), ``mesh_cfg`` (the
+    wire), ``faults`` (sim and async: a
+    :class:`~repro_torch.common.config.FaultConfig`; a delay model puts the
+    async engine in message mode), ``fleet`` (sim and async: a
+    :class:`~repro_torch.common.config.FleetConfig`), ``hetero`` (async: a
+    :class:`~repro_torch.common.config.HeteroConfig`), ``mesh_cfg`` (the
     matching schedule's pods x workers layout), ``group`` (dist: the rank's
     :class:`~repro_torch.launch.mesh.WorkerGroup`) and ``seed`` (dist: the
     host schedule draws from ``seed + 1``).
@@ -351,12 +470,10 @@ class GossipTrainer:
                  loss_fn: Optional[Callable] = None,
                  num_workers: Optional[int] = None,
                  fused_update: bool = True, device="cuda",
-                 codec: Optional[str] = None, faults=None, fleet=None,
+                 codec: Optional[str] = None, hetero: Optional[HeteroConfig] = None,
+                 faults=None, fleet=None,
                  shard=None, publish_every: Optional[int] = None, obs=None,
                  mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0):
-        if engine in PORTED_LATER:
-            raise NotImplementedError(
-                f'engine="{engine}" is not ported yet ({PORTED_LATER[engine]})')
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
         for name, value, where in (("publish_every", publish_every,
@@ -375,8 +492,8 @@ class GossipTrainer:
         self.device = resolve_device(device)
         self.init_fn = init_fn
         self._backend = ENGINES[engine](self, dict(
-            loss_fn=loss_fn, num_workers=num_workers, faults=faults, fleet=fleet,
-            shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed))
+            loss_fn=loss_fn, num_workers=num_workers, hetero=hetero, faults=faults,
+            fleet=fleet, shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed))
         self.num_workers = self._backend.num_workers
         self.codec = self._backend.codec      # the active Codec, or None
         self._host_steps = 0
@@ -401,10 +518,11 @@ class GossipTrainer:
         return self._backend.init_state(seed, params)
 
     def step(self, state, batch, draws=None):
-        """ONE training step: gradient component + (internally scheduled)
-        communication component. Returns (state', metrics). ``draws`` is the
-        sim engine's parity hook (:meth:`SimTrainer.step`). On the dist
-        engine ``batch`` is this rank's ``(x [pw, ...], y [pw])``."""
+        """ONE training step (on the async engine: one event window):
+        gradient component + (internally scheduled) communication component.
+        Returns (state', metrics). ``draws`` is the sim and async engines'
+        parity hook (:meth:`SimTrainer.step`). On the dist engine ``batch``
+        is this rank's ``(x [pw, ...], y [pw])``."""
         x, y = (batch["x"], batch["y"]) if isinstance(batch, dict) else batch
         state, metrics = self._backend.step(state, x, y, draws=draws)
         metrics = obs_schema.normalize_step_metrics(metrics, step=self._host_steps)
@@ -445,7 +563,8 @@ class GossipTrainer:
     # ------------------------------------------------------------ scheduling
     def schedule_state(self) -> dict:
         """Serializable communication-schedule state ({} for engine="sim",
-        whose draws come from the state's generator)."""
+        whose draws come from the state's generator; the virtual-time
+        position ``hetero_clock`` for engine="async")."""
         return self._backend.schedule_state()
 
     def restore_schedule(self, sched_state: dict) -> None:

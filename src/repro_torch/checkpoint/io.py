@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.api.state import OPTIONAL_PROTO_FIELDS
 from repro_torch.common.flat import dtype_name
 from repro_torch.common.pytree import tree_unflatten
 
@@ -48,12 +49,7 @@ FLAT_FORMAT = 2       # checkpoint format version written by save_state
 # optional FlatState payload keys: proto fields that engines not using them
 # leave out (the async engine's virtual time, the fault and fleet planes);
 # a restore into a template that has them keeps the template's values
-VIRTUAL_TIME_KEYS = tuple(
-    f"proto{SEP}{k}" for k in ("clocks", "worker_steps", "stale_time",
-                               "stale_steps", "stale_events",
-                               "wire_dropped", "wire_corrupt",
-                               "exch_timeouts", "exch_retries",
-                               "tokens", "flow_skipped", "chunk_units"))
+VIRTUAL_TIME_KEYS = tuple(f"proto{SEP}{k}" for k in OPTIONAL_PROTO_FIELDS)
 
 # the reference writes bfloat16 (ml_dtypes) arrays with this descriptor
 _BF16_DESCR, _VOID_DESCR = b"'descr': '<V2'", b"'descr': '|V2'"

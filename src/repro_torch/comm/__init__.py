@@ -9,7 +9,8 @@
   (stochastic-rounding int8, per-block scales; kernels B4/B5) and ``topk``
   (magnitude top-k + error-feedback residual; kernels B6/B7);
 - wire-byte accounting: ``wire_param_bytes`` is what ``comm_bytes`` and
-  ``Protocol.comm_cost`` report when a codec is active.
+  ``Protocol.comm_cost`` report when a codec is active;
+  ``wire_partition_bytes`` the per-chunk wire of the partition plane.
 """
 from repro_torch.comm.registry import (  # noqa: F401
     available_codecs,
@@ -26,4 +27,5 @@ from repro_torch.comm.codecs import (  # noqa: F401
     init_comm_state,
     roundtrip_bufs,
     wire_param_bytes,
+    wire_partition_bytes,
 )

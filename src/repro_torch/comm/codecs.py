@@ -232,13 +232,32 @@ def wire_param_bytes(codec: Codec, spec: FlatSpec) -> int:
                    for b, n in spec.totals.items()))
 
 
+def wire_partition_bytes(codec: Codec, spec: FlatSpec, bounds) -> tuple:
+    """Wire bytes per partition chunk id (:mod:`repro_torch.fleet`).
+    ``bounds`` is ``{bucket: ((lo, hi), ...)}``, one slice of the bucket's
+    [total] dim per chunk id: chunk ``c``'s wire is every bucket's
+    ``[lo_c, hi_c)`` slice through ``codec``."""
+    num_chunks = len(next(iter(bounds.values())))
+    out = []
+    for c in range(num_chunks):
+        total = 0
+        for b in spec.totals:
+            lo, hi = bounds[b][c]
+            if hi > lo:
+                total += codec.wire_bytes(int(hi - lo), getattr(torch, b).itemsize)
+        out.append(int(total))
+    return tuple(out)
+
+
 def roundtrip_bufs(codec: Codec, bufs, seeds, res_bufs=None, gate=None):
     """decode(encode(.)) over a dict of flat-plane buckets.
 
     ``res_bufs``: per-bucket residuals of a stateful codec (None -> zeros).
     ``gate`` (optional, broadcastable against ``[W, N]``): a stateful codec's
     residual advances only for rows whose OWN gate fired, so mass encoded
-    into a wire the receiver discards is carried, not dropped.
+    into a wire the receiver discards is carried, not dropped. ``gate`` may
+    also be a per-bucket dict of ``[W, N]`` masks: the partition plane
+    advances the residual only in the columns of the chunk a worker shipped.
     Returns (hat_bufs, new_res_bufs or None)."""
     res_bufs = res_bufs or {}
     hat, new_res = {}, {}
@@ -248,10 +267,11 @@ def roundtrip_bufs(codec: Codec, bufs, seeds, res_bufs=None, gate=None):
             r = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
         hat[k], r2 = codec.roundtrip(b, seeds, residual=r)
         if codec.stateful:
-            if gate is None:
+            g = gate.get(k) if isinstance(gate, dict) else gate
+            if g is None:
                 new_res[k] = r2
             else:
-                g = torch.as_tensor(gate, device=r2.device).bool()
+                g = torch.as_tensor(g, device=r2.device).bool()
                 new_res[k] = torch.where(g, r2, r)
     return hat, (new_res if codec.stateful else None)
 

@@ -1,7 +1,7 @@
 """Configuration dataclasses read by the port's engines.
 
 Copies of ``MeshConfig``, ``ProtocolConfig``, ``OptimizerConfig``,
-``FaultConfig``, the fields of ``TrainConfig`` that the dist engine reads,
+``HeteroConfig``, ``FaultConfig``, ``FleetConfig``, the fields of ``TrainConfig`` that the dist engine reads,
 and ``ModelConfig`` with the dataclasses it references (the transformer
 architectures of :mod:`repro_torch.configs`), from the reference
 (``repro.common.config``) with the same fields and defaults, so one set of
@@ -79,15 +79,30 @@ class OptimizerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HeteroConfig:
+    """Heterogeneous-fleet virtual-time model (:mod:`repro_torch.hetero`,
+    ``engine="async"``): a registered compute-time model and its knobs.
+    Every duration draw hashes ``(seed, worker, step)``, so a run's virtual
+    timeline is bit-reproducible across restarts."""
+    time_model: str = "constant"     # constant | lognormal | slow_node
+    #                                  | fail_rejoin | any @register_time_model
+    mean_step_time: float = 1.0      # mean virtual seconds per local SGD step
+    sigma: float = 0.25              # lognormal: log-space std (mean-preserving)
+    slow_worker: int = 0             # slow_node / fail_rejoin: affected worker
+    slow_factor: float = 4.0         # slow_node: straggler slowdown multiplier
+    fail_at: float = 0.0             # fail_rejoin: outage start (virtual time)
+    rejoin_at: float = 0.0           # fail_rejoin: outage end; <= fail_at -> off
+    seed: int = 0                    # hash-seed for per-(worker, step) draws
+
+
+@dataclasses.dataclass(frozen=True)
 class FaultConfig:
     """Message-level fault plane (:mod:`repro_torch.faults`).
 
     Selects a registered fault model (what goes wrong with a wire) and a
-    registered delay model (when the wire arrives). All stochastic draws are
-    pure hashes of ``(seed, worker, step)``, so a fault trace is
-    bit-reproducible and independent of any host RNG. The delay, rendezvous,
-    timeout and retry fields are read only by the async engine, which is not
-    ported yet; they are kept so that one config drives both packages.
+    registered delay model (when the wire arrives, async engine only). All
+    stochastic draws are pure hashes of ``(seed, worker, step)``, so a fault
+    trace is bit-reproducible and independent of any host RNG.
     """
     # fault model: none | drop | corrupt | byzantine_scale | byzantine_noise
     # | any @register_fault_model name
@@ -105,6 +120,41 @@ class FaultConfig:
     rendezvous: bool = False         # apply at the partner's next step boundary
     timeout: float = 0.0             # per-exchange timeout (0 = never)
     max_retries: int = 0             # re-dispatches of a timed-out exchange
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Mega-fleet gossip plane (:mod:`repro_torch.fleet`): partitioned
+    exchanges, token-account flow control, and the host-resident plane of
+    the async engine.
+
+    The chunk a worker ships and the randomized token-account draw are pure
+    hashes of ``(seed, worker, step)``. The all-default config is inert:
+    ``partition=1, flow_control="none", plane="device"`` adds no work and
+    reproduces the non-fleet engines bit for bit.
+    """
+    # each exchange ships ONE contiguous chunk (1/partition of every dtype
+    # bucket's [total] dim), chosen by hash; 1 = full-replica exchange
+    partition: int = 1
+    # none | token_account | randomized_token_account | any
+    # @register_flow_control name: gates whether a worker INITIATES an
+    # exchange; skipped initiations never reach comm_units/comm_bytes
+    flow_control: str = "none"
+    token_capacity: float = 20.0     # C: max token balance per worker
+    token_rate: float = 1.0          # tokens credited per completed local step
+    token_threshold: float = 10.0    # A: randomized_token_account initiates
+    #                                  with probability min(1, balance / A)
+    token_init: float = -1.0         # starting balance; < 0 -> token_capacity
+    # async engine: "device" keeps the [W, total] planes on the card, "host"
+    # keeps theta and velocity in pinned host memory and moves only the
+    # event window's rows to the card
+    plane: str = "device"
+    seed: int = 0                    # hash-seed for per-(worker, step) draws
+
+    def enabled(self) -> bool:
+        """True if any fleet feature departs from the inert default."""
+        return (self.partition != 1 or self.flow_control != "none"
+                or self.plane != "device")
 
 
 @dataclasses.dataclass(frozen=True)

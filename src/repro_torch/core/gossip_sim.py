@@ -27,18 +27,28 @@ discards those wires. Every mask is a hash of the device step counter: no
 host sync. The robust protocols (``clipped_gossip``/``trimmed_gossip``)
 run kernel B8 inside their ``comm_update``.
 
+With a fleet plane (``fleet=FleetConfig(...)``, :mod:`repro_torch.fleet`)
+a token-account flow control masks who may initiate, and ``partition=P``
+mixes one hash-scheduled chunk of the plane per exchange
+(:func:`repro_torch.fleet.partition.partitioned_comm_update`; the robust
+protocols run B8 once per chunk on its column slice). The all-default
+config adds no work.
+
 The step updates ``state.theta`` and ``state.opt.mu`` IN PLACE (the
 reference donates the state to its jitted step instead) and advances the
-state's generator.
+state's generator. Its ``worker_mask`` and ``defer_comm`` hooks are the
+async engine's (:mod:`repro_torch.core.gossip_async`): only in-window
+workers initiate and commit (B1 runs on the window's rows only), and in
+message mode the in-step mixing is skipped.
 
-Not ported yet, and refused with NotImplementedError: fleet, shard, the
-async engine's worker mask (slice 4), and obs (slice 6).
+Not ported yet, and refused with NotImplementedError: shard (slice 4b).
 """
 from __future__ import annotations
 
 import inspect
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
@@ -83,11 +93,14 @@ class SimTrainer:
     (``params`` is the single-replica pytree view of the resident plane).
     """
 
+    # the host-resident plane (repro_torch.fleet.hostplane) needs the async
+    # engine's event windows
+    _supports_host_plane = False
+
     def __init__(self, loss_fn: Callable, num_workers: int,
                  protocol: ProtocolConfig, optimizer: OptimizerConfig,
                  fused_update: bool = True, faults=None, fleet=None, shard=None):
-        _refuse("fleet", fleet, "port slice 4")
-        _refuse("shard", shard, "port slice 4")
+        _refuse("shard", shard, "port slice 4b")
         self.loss_fn = loss_fn
         self.num_workers = num_workers
         self.protocol = protocol
@@ -125,6 +138,31 @@ class SimTrainer:
                 f"fault model {fm.name!r} discards wires, but protocol "
                 f"{protocol.method!r} overrides comm_update without a "
                 "wire_faults kwarg — it cannot honor the discard")
+        # fleet plane: partitioned exchanges and token-account flow control
+        # (the all-default FleetConfig is inert)
+        self.fleet = fleet
+        self.flow = None
+        self.partition = 1
+        self._plans: dict = {}
+        self._col_chunks: dict = {}
+        if fleet is not None and fleet.enabled():
+            from repro_torch.fleet import flow as fleet_flow
+            self.flow = fleet_flow.resolve_flow_control(fleet)
+            self.partition = int(fleet.partition)
+            if self.partition < 1:
+                raise ValueError(f"partition must be >= 1, got {fleet.partition}")
+            if self.partition > 1 and not self._impl.pairwise:
+                raise ValueError(
+                    f"partitioned exchanges need a pairwise protocol; "
+                    f"{protocol.method!r} is not pairwise")
+            if fleet.plane == "host" and not self._supports_host_plane:
+                raise ValueError(
+                    "plane='host' (host-resident FlatState) requires the "
+                    "async engine — use GossipTrainer(engine='async')")
+        # the (gate, peers) the last step drew, before any window or flow
+        # mask: the async engine's clock program, dispatcher and host plane
+        # read them, as the reference re-derives them from the pre-step key
+        self.last_draws = None
 
     def _wire_bytes(self, spec: flat_plane.FlatSpec) -> float:
         """Exact per-replica wire bytes: raw, the unpadded slot sizes (the
@@ -133,6 +171,38 @@ class SimTrainer:
         if self.codec is None:
             return float(sum(s.size * s.dtype.itemsize for s in spec.slots))
         return float(comm.wire_param_bytes(self.codec, spec))
+
+    def _fleet_plan(self, spec: flat_plane.FlatSpec):
+        """Static PartitionPlan for ``spec`` (cached per spec)."""
+        plan = self._plans.get(spec)
+        if plan is None:
+            from repro_torch.fleet.partition import build_plan
+            plan = self._plans[spec] = build_plan(spec, self.partition, self.codec)
+        return plan
+
+    def _col_gate(self, state: FlatState, part_ids: torch.Tensor) -> dict:
+        """{bucket: bool[W, N]}: column j of worker w is in the chunk w ships
+        this step (the codec residual advances only there)."""
+        plan = self._fleet_plan(state.spec)
+        out = {}
+        for b, buf in state.theta.items():
+            cols = self._col_chunks.get((state.spec, b))
+            if cols is None or cols.device != buf.device:
+                cols = torch.as_tensor(plan.col_chunks(b, buf.shape[1]), device=buf.device)
+                self._col_chunks[(state.spec, b)] = cols
+            out[b] = part_ids[:, None] == cols[None, :]
+        return out
+
+    def _fleet_proto_seed(self, proto, device):
+        """Seed the fleet-plane ProtocolState fields (the step replaces them)."""
+        if self.flow is not None:
+            proto = proto._replace(
+                tokens=self.flow.init_tokens(self.num_workers, device),
+                flow_skipped=torch.zeros((), dtype=torch.int32, device=device))
+        if self.partition > 1:
+            proto = proto._replace(
+                chunk_units=torch.zeros(self.partition, dtype=torch.int32, device=device))
+        return proto
 
     def init(self, params_stack: PyTree, seed: int = 0) -> FlatState:
         """Flatten ONCE into fresh resident buffers on the params' device;
@@ -149,6 +219,7 @@ class SimTrainer:
             proto = proto._replace(
                 wire_dropped=torch.zeros((), dtype=torch.int32, device=dev),
                 wire_corrupt=torch.zeros((), dtype=torch.int32, device=dev))
+        proto = self._fleet_proto_seed(proto, dev)
         return FlatState(
             spec=spec,
             theta=theta,
@@ -158,7 +229,8 @@ class SimTrainer:
             key=gen,
             step=torch.zeros((), dtype=torch.int32, device=dev))
 
-    def _codec_transmit(self, state: FlatState, active: torch.Tensor, publish=None):
+    def _codec_transmit(self, state: FlatState, active: torch.Tensor, publish=None,
+                        col_gate=None):
         """decode(encode(publish)) on the resident plane: what peers RECEIVE
         this round, plus the advanced error-feedback residual. ``publish``
         is what the workers put on the wire (``state.theta``, or the fault
@@ -171,21 +243,25 @@ class SimTrainer:
         where nobody fires the identity mix has a zero off-diagonal, so
         ``apply_mix_split`` returns theta, and the residual advances only
         for rows whose own gate fired (``roundtrip_bufs(gate=)``), so it is
-        carried unchanged. Returns (transmit, CommState')."""
+        carried unchanged. ``col_gate`` (``{bucket: bool[W, N]}``, the
+        partition plane) restricts the residual advance to the columns of
+        the chunk each worker shipped. Returns (transmit, CommState')."""
         codec = self.codec
         if publish is None:
             publish = state.theta
         seeds = comm.codec_seeds(state.proto.comm_rounds,
                                  torch.arange(self.num_workers, device=active.device))
         res = state.comm.residual if codec.stateful else None
-        hat, new_res = comm.roundtrip_bufs(codec, publish, seeds, res,
-                                           gate=active.reshape(-1, 1))
+        gate = active.reshape(-1, 1)
+        if col_gate is not None:
+            gate = {k: gate & col_gate[k] for k in publish}
+        hat, new_res = comm.roundtrip_bufs(codec, publish, seeds, res, gate=gate)
         # decode reconstructs in f32; the wire mixes in the storage dtype
         hat = {k: v.to(state.theta[k].dtype) for k, v in hat.items()}
         return hat, (comm.CommState(new_res) if codec.stateful else state.comm)
 
     def _codec_transmit_checked(self, state: FlatState, active: torch.Tensor,
-                                publish, corrupt_mask: torch.Tensor):
+                                publish, corrupt_mask: torch.Tensor, col_gate=None):
         """:meth:`_codec_transmit` through the PACKED uint8 wire with a
         checksum tail and in-flight corruption: per bucket (sorted order,
         salt ``SALT_BYTE + i``), encode -> pack -> append checksum ->
@@ -226,11 +302,12 @@ class SimTrainer:
             hat[k] = dec.to(state.theta[k].dtype)
             ok = ok_b if ok is None else ok & ok_b
             if codec.stateful:
-                new_res[k] = torch.where(gate, r2, r)
+                g = gate if col_gate is None else gate & col_gate[k]
+                new_res[k] = torch.where(g, r2, r)
         comm_new = comm.CommState(new_res) if codec.stateful else state.comm
         return hat, comm_new, ok
 
-    def _wire_faults(self, state: FlatState, active: torch.Tensor):
+    def _wire_faults(self, state: FlatState, active: torch.Tensor, col_gate=None):
         """The wire boundary of a step under a fault plane: Byzantine rows
         garble what they publish, corrupted wires cross the checksummed
         uint8 wire, drop and corrupt masks are hashes of the device step
@@ -250,10 +327,10 @@ class SimTrainer:
         if self.codec is not None:
             if corrupt_mask is not None:
                 transmit, comm_new, ok = self._codec_transmit_checked(
-                    state, active, publish, corrupt_mask)
+                    state, active, publish, corrupt_mask, col_gate)
                 detected = ~ok
             else:
-                transmit, comm_new = self._codec_transmit(state, active, publish)
+                transmit, comm_new = self._codec_transmit(state, active, publish, col_gate)
         elif corrupt_mask is not None:
             # uncompressed wire: bitcast -> checksum -> corrupt -> verify
             from repro_torch.faults import wire as fwire
@@ -283,18 +360,34 @@ class SimTrainer:
         return losses, {k: g.contiguous() for k, g in grads.items()}
 
     def step(self, state: FlatState, x, y,
-             draws: Optional[Tuple[Any, Any]] = None, worker_mask=None):
+             draws: Optional[Tuple[Any, Any]] = None, worker_mask=None,
+             defer_comm: bool = False):
         """One step over the stacked workers; returns (state', metrics).
 
         ``draws=(gate, peers)`` replaces this step's own gate and peer draws
         (the parity hook the tests use to inject the reference's draws);
-        without it both come from ``state.key``, gate first."""
-        _refuse("worker_mask", worker_mask, "the async engine, port slice 4")
+        without it both come from ``state.key``, gate first. Either way they
+        are kept in :attr:`last_draws`.
+
+        ``worker_mask`` (bool[W], host or device) is the async engine's
+        event window: only in-window workers may initiate an exchange
+        (``active &= mask``, before the flow gate) and commit their update;
+        out-of-window rows of theta and velocity keep their bits (B1 runs on
+        the window's rows only), ``loss_mean`` is over the window and
+        ``loss_max`` is -inf outside it. ``defer_comm`` (message mode) skips
+        the in-step mixing: exchanges ride the async engine's wire queue.
+        With neither, this is the synchronous step."""
         cfg = self.protocol
         W = self.num_workers
         dev = state.step.device
         x = torch.as_tensor(x, device=dev)
         y = torch.as_tensor(y, device=dev)
+        mask = rows = None
+        if worker_mask is not None:
+            m = worker_mask.cpu() if isinstance(worker_mask, torch.Tensor) else worker_mask
+            m = np.asarray(m, bool).reshape(W)
+            mask = torch.as_tensor(m, device=dev)
+            rows = torch.as_tensor(np.flatnonzero(m).astype(np.int32), device=dev)
 
         # gradient-related component (Alg. 5 line 2), per worker
         losses, grads = self._grads(state, x, y)
@@ -308,6 +401,37 @@ class SimTrainer:
             else:
                 active = torch.as_tensor(draws[0], device=dev).bool()
                 peers = torch.as_tensor(draws[1], device=dev)
+            self.last_draws = (active, peers)
+            if mask is not None:
+                # only in-window workers INITIATE; out-of-window workers
+                # still respond passively with their last published row
+                active = active & mask
+
+            # token-account flow control: a worker whose gate fired but
+            # whose account cannot cover the spend skips the initiation
+            proto0 = state.proto
+            if self.flow is not None:
+                allowed = self.flow.allow(state.step, proto0.tokens)
+                skipped = torch.sum((active & ~allowed).to(torch.int32)).to(torch.int32)
+                active = active & allowed
+                stepped = mask if mask is not None else torch.ones(W, dtype=torch.bool,
+                                                                   device=dev)
+                proto0 = proto0._replace(
+                    tokens=self.flow.update(proto0.tokens, stepped, active),
+                    flow_skipped=proto0.flow_skipped + skipped)
+            if defer_comm:
+                # message mode: the step keeps its draws and the local
+                # update, and mixes nothing
+                return self._step_epilogue(state, state.theta, proto0, state.comm,
+                                           grads, losses, active, mask, rows)
+
+            # partition plane: the hash-scheduled chunk of each initiator
+            part_ids = col_gate = None
+            if self.partition > 1:
+                from repro_torch.fleet.partition import partition_ids
+                part_ids = partition_ids(self.fleet.seed, state.step, W, self.partition)
+                if self.codec is not None:
+                    col_gate = self._col_gate(state, part_ids)
 
             # communication-related component (lines 4-8), one mixing matmul
             # per dtype bucket on the resident buffers; peers read the
@@ -315,19 +439,27 @@ class SimTrainer:
             # fault plane garbles, corrupts or drops wires at this boundary
             transmit, comm_new, wire_faults = None, state.comm, None
             if self.fault_model is not None:
-                transmit, comm_new, wire_faults = self._wire_faults(state, active)
+                transmit, comm_new, wire_faults = self._wire_faults(state, active, col_gate)
             elif self.codec is not None:
-                transmit, comm_new = self._codec_transmit(state, active)
-            theta_comm, proto_new = protocols.comm_update(
-                cfg, state.key, active, state.theta, state.proto, step=state.step,
-                transmit=transmit, wire_bytes=self._wire_bytes(state.spec),
-                peers=peers, wire_faults=wire_faults)
+                transmit, comm_new = self._codec_transmit(state, active, col_gate=col_gate)
+            if part_ids is not None:
+                from repro_torch.fleet.partition import partitioned_comm_update
+                theta_comm, proto_new = partitioned_comm_update(
+                    self._impl, active, state.theta, proto0, peers=peers, step=state.step,
+                    transmit=transmit, wire_faults=wire_faults, part_ids=part_ids,
+                    plan=self._fleet_plan(state.spec))
+            else:
+                theta_comm, proto_new = protocols.comm_update(
+                    cfg, state.key, active, state.theta, proto0, step=state.step,
+                    transmit=transmit, wire_bytes=self._wire_bytes(state.spec),
+                    peers=peers, wire_faults=wire_faults)
             return self._step_epilogue(state, theta_comm, proto_new, comm_new,
-                                       grads, losses, active)
+                                       grads, losses, active, mask, rows)
 
     def _step_epilogue(self, state, theta_comm, proto_new, comm_new, grads,
-                       losses, active):
-        """Optimizer update + metrics; writes state.theta / state.opt.mu."""
+                       losses, active, mask=None, rows=None):
+        """Optimizer update + metrics; writes state.theta / state.opt.mu (on
+        a window, only the rows in ``mask`` / ``rows``)."""
         ocfg = self.optimizer_cfg
         if self.fused_update:
             # lines 3, 7 and 9 in ONE in-place pass per dtype bucket. peer :=
@@ -339,7 +471,7 @@ class SimTrainer:
                 state.theta, theta_comm, state.opt.mu, grads_c,
                 torch.ones(self.num_workers, dtype=torch.float32,
                            device=state.step.device),
-                eta, ocfg.momentum)
+                eta, ocfg.momentum, rows=rows)
             opt_new = OptState(state.opt.step + 1, state.opt.mu, {})
         else:
             # per-bucket reference path (the fused path's parity target)
@@ -352,8 +484,12 @@ class SimTrainer:
                                           _clip(ocfg, grads), v_new)
             else:
                 theta_grad, opt_new = self.optimizer.update(grads, state.opt, state.theta)
+            keep = None if mask is None else mask.reshape(-1, 1)
             for k in state.theta:
-                _store(state.theta, k, theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype))
+                new = theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype)
+                if keep is not None:
+                    new = torch.where(keep, new, state.theta[k])
+                _store(state.theta, k, new)
             # the moments stay resident: velocity / first moment in opt.mu,
             # adamw's second moment in opt.nu
             for field in ("mu", "nu"):
@@ -361,12 +497,19 @@ class SimTrainer:
                 if new:
                     old = getattr(state.opt, field)
                     for k in old:
-                        _store(old, k, new[k])
+                        _store(old, k, new[k] if keep is None
+                               else torch.where(keep, new[k], old[k]))
                     opt_new = opt_new._replace(**{field: old})
 
+        if mask is None:
+            loss_mean, loss_max = torch.mean(losses), torch.max(losses)
+        else:
+            wm = mask.to(torch.float32)
+            loss_mean = torch.sum(losses * wm) / torch.clamp(torch.sum(wm), min=1.0)
+            loss_max = torch.max(torch.where(mask, losses, float("-inf")))
         metrics = {
-            "loss_mean": torch.mean(losses),
-            "loss_max": torch.max(losses),
+            "loss_mean": loss_mean,
+            "loss_max": loss_max,
             "comm_active": torch.sum(active.to(torch.int32), dtype=torch.int32),
         }
         return state.replace(opt=opt_new, proto=proto_new, comm=comm_new,

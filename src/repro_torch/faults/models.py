@@ -1,5 +1,4 @@
-"""Message-level fault models (port of ``repro.faults.models``, the fault
-half).
+"""Message-level fault and delay models (port of ``repro.faults.models``).
 
 A fault model answers, deterministically: *what goes wrong with the wire
 worker w publishes at step k?* ``drop`` loses it outright, ``corrupt`` flips
@@ -22,7 +21,10 @@ reproduce. Here the noise is Box-Muller over a counter-based integer hash of
 (seed, step, worker, bucket, element): pure in (seed, step, worker) as the
 reference demands, with other values.
 
-The delay models (async message mode) come with the async engine.
+The delay models answer *when does the wire arrive?* for the async
+engine's message mode (:mod:`repro_torch.core.gossip_async`): ``none``,
+``constant``, ``uniform`` (U(0, 2 delay)) and ``lognormal``, pure numpy
+hashes of (seed, worker, step, attempt), bit-equal to the reference's.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import FaultConfig
-from repro_torch.hetero.models import hetero_hash
+from repro_torch.hetero.models import hetero_hash, hetero_normal, hetero_uniform
 from repro_torch.kernels.ref import as_u32, mul_u32
 
 # Hash salts: one per independent draw family (the reference's values).
@@ -132,6 +134,7 @@ def hash_normal(seed: int, workers: torch.Tensor, step, n: int, salt: int) -> to
 # ---------------------------------------------------------------------------
 
 _FAULTS: Dict[str, type] = {}
+_DELAYS: Dict[str, type] = {}
 
 
 def register_fault_model(name: str) -> Callable[[type], type]:
@@ -146,8 +149,24 @@ def register_fault_model(name: str) -> Callable[[type], type]:
     return deco
 
 
+def register_delay_model(name: str) -> Callable[[type], type]:
+    """Class decorator: register a DelayModel subclass under ``name``."""
+    def deco(cls: type) -> type:
+        if name in _DELAYS and _DELAYS[name] is not cls:
+            raise ValueError(f"delay model {name!r} already registered "
+                             f"({_DELAYS[name].__qualname__})")
+        cls.name = name
+        _DELAYS[name] = cls
+        return cls
+    return deco
+
+
 def available_fault_models() -> Tuple[str, ...]:
     return tuple(sorted(_FAULTS))
+
+
+def available_delay_models() -> Tuple[str, ...]:
+    return tuple(sorted(_DELAYS))
 
 
 def get_fault_model(name: str) -> type:
@@ -158,12 +177,28 @@ def get_fault_model(name: str) -> type:
                          f"registered: {sorted(_FAULTS)}") from None
 
 
+def get_delay_model(name: str) -> type:
+    try:
+        return _DELAYS[name]
+    except KeyError:
+        raise ValueError(f"unknown delay model {name!r}; "
+                         f"registered: {sorted(_DELAYS)}") from None
+
+
 def unregister_fault_model(name: str) -> None:
     _FAULTS.pop(name, None)
 
 
+def unregister_delay_model(name: str) -> None:
+    _DELAYS.pop(name, None)
+
+
 def resolve_fault_model(cfg: FaultConfig) -> "FaultModel":
     return get_fault_model(cfg.fault_model)(cfg)
+
+
+def resolve_delay_model(cfg: FaultConfig) -> "DelayModel":
+    return get_delay_model(cfg.delay_model)(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +252,12 @@ class FaultModel:
         ``[W, N]`` dict): identity unless ``injects_byzantine``. Never writes
         into ``bufs``."""
         return bufs
+
+    def garble_row(self, row_bufs: dict, worker: int, step, num_workers: int) -> dict:
+        """What worker ``worker`` publishes for ONE captured wire (a
+        ``{bucket: [n]}`` single-row dict), the message mode's realization of
+        :meth:`garble_bufs`: the same row the plane path would publish."""
+        return row_bufs
 
 
 @register_fault_model("none")
@@ -284,6 +325,12 @@ class ByzantineScale(_Byzantine):
             out[name] = buf * s
         return out
 
+    def garble_row(self, row_bufs, worker, step, num_workers):
+        if worker >= self.num_byzantine(num_workers):
+            return row_bufs
+        return {k: v * torch.full((), self.cfg.scale, dtype=v.dtype, device=v.device)
+                for k, v in row_bufs.items()}
+
 
 @register_fault_model("byzantine_noise")
 class ByzantineNoise(_Byzantine):
@@ -304,6 +351,70 @@ class ByzantineNoise(_Byzantine):
             out[name] = torch.cat([noise.to(buf.dtype), buf[k:]], dim=0)
         return out
 
+    def garble_row(self, row_bufs, worker, step, num_workers):
+        if worker >= self.num_byzantine(num_workers):
+            return row_bufs
+        out = {}
+        for i, (name, buf) in enumerate(sorted(row_bufs.items())):
+            rows = torch.full((1,), worker, dtype=torch.int64, device=buf.device)
+            noise = self.cfg.noise_std * hash_normal(self.cfg.seed, rows, step,
+                                                     buf.shape[0], SALT_NOISE + 2 * i)
+            out[name] = noise[0].to(buf.dtype)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# delay models (async engine)
+# ---------------------------------------------------------------------------
+
+class DelayModel:
+    """Base class: wire latency. ``wire_delay(worker, step, attempt)`` is the
+    virtual-seconds delay of the wire worker ``worker`` dispatches at step
+    ``step``; retries salt the draw with the attempt index, so each
+    re-dispatch sees a fresh (reproducible) latency."""
+
+    name = ""            # set by @register_delay_model
+
+    def __init__(self, cfg: FaultConfig):
+        self.cfg = cfg
+
+    def wire_delay(self, worker, step, attempt: int = 0) -> np.ndarray:
+        raise NotImplementedError
+
+
+@register_delay_model("none")
+class NoDelay(DelayModel):
+    """Wires arrive instantly: the async engine keeps its in-window path."""
+
+    def wire_delay(self, worker, step, attempt=0):
+        return np.zeros(np.broadcast(np.asarray(worker), np.asarray(step)).shape)
+
+
+@register_delay_model("constant")
+class ConstantDelay(DelayModel):
+    def wire_delay(self, worker, step, attempt=0):
+        return np.full(np.broadcast(np.asarray(worker), np.asarray(step)).shape,
+                       self.cfg.delay, np.float64)
+
+
+@register_delay_model("uniform")
+class UniformDelay(DelayModel):
+    """delay ~ U(0, 2 * cfg.delay): mean-preserving jitter."""
+
+    def wire_delay(self, worker, step, attempt=0):
+        u = hetero_uniform(self.cfg.seed, worker, step, SALT_DELAY + attempt)
+        return 2.0 * self.cfg.delay * u
+
+
+@register_delay_model("lognormal")
+class LognormalDelay(DelayModel):
+    """delay ~ cfg.delay * LogNormal(-sigma^2/2, sigma), mean-preserving."""
+
+    def wire_delay(self, worker, step, attempt=0):
+        z = hetero_normal(self.cfg.seed, worker, step, SALT_DELAY + attempt)
+        s = self.cfg.delay_sigma
+        return self.cfg.delay * np.exp(s * z - 0.5 * s * s)
+
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -313,3 +424,9 @@ def fault_descriptor(cfg: FaultConfig) -> dict:
     """JSON-able descriptor of the fault plane (checkpoint meta)."""
     import dataclasses
     return dataclasses.asdict(cfg)
+
+
+def delays_active(cfg: FaultConfig) -> bool:
+    """Does this config route exchanges through the async pending-wire queue
+    (message mode) instead of the in-window path?"""
+    return cfg.delay_model != "none" or cfg.rendezvous or cfg.timeout > 0.0

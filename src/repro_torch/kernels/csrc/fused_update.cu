@@ -12,6 +12,11 @@
 // Every element's inputs are read before the same thread writes its outputs,
 // so peer may alias theta.
 //
+// The row-list form runs B1 on the rows listed in an int32 device array only
+// (the async engine's partial event windows): blockIdx.y indexes the list,
+// and a row not listed is neither read nor written. It is the same kernel
+// body instantiated with ROWS = true; ROWS = false is the whole-plane kernel.
+//
 // B2 replaces src/repro/kernels/fused_update.py::_flat_nag_kernel (wrapper
 // fused_flat_nag_update): B1 without the peer stream, the non-firing step of
 // the dist engine,
@@ -50,15 +55,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float x) {
   p[i] = __float2bfloat16_rn(x);
 }
 
-template <typename T, typename V>
+template <typename T, typename V, bool ROWS>
 __global__ void fused_flat_elastic_nag_kernel(T* theta,
                                               const T* peer,
                                               V* __restrict__ v,
                                               const T* __restrict__ g,
                                               const float* __restrict__ sc,
-                                              int64_t n) {
+                                              const int32_t* __restrict__ rows,
+                                              int64_t w, int64_t n) {
   // theta and peer are not __restrict__: peer may be theta itself
-  const int64_t row = blockIdx.y;
+  int64_t row = blockIdx.y;
+  if (ROWS) {
+    row = rows[blockIdx.y];
+    if (row < 0 || row >= w) return;   // a bad index writes nothing
+  }
   const float coef = sc[row * 3 + 0];
   const float eta = sc[row * 3 + 1];
   const float mu = sc[row * 3 + 2];
@@ -126,33 +136,47 @@ cudaError_t launch_nag(void* theta, void* v, const void* g, const float* sc, int
   return cudaGetLastError();
 }
 
+// rows == nullptr: every one of the w rows; else the nrows rows listed
 template <typename T, typename V>
 cudaError_t launch(void* theta, const void* peer, void* v, const void* g,
-                   const float* sc, int64_t w, int64_t n, cudaStream_t stream) {
-  if (w <= 0 || n <= 0) return cudaSuccess;
-  if (w > 65535) return cudaErrorInvalidValue;
+                   const float* sc, const int32_t* rows, int64_t nrows, int64_t w,
+                   int64_t n, cudaStream_t stream) {
+  const int64_t grid_rows = rows ? nrows : w;
+  if (grid_rows <= 0 || n <= 0) return cudaSuccess;
+  if (grid_rows > 65535) return cudaErrorInvalidValue;
   const int threads = 256;
-  fused_flat_elastic_nag_kernel<T, V><<<row_grid(n, w, threads), threads, 0, stream>>>(
-      static_cast<T*>(theta), static_cast<const T*>(peer), static_cast<V*>(v),
-      static_cast<const T*>(g), sc, n);
+  const dim3 grid = row_grid(n, grid_rows, threads);
+  if (rows) {
+    fused_flat_elastic_nag_kernel<T, V, true><<<grid, threads, 0, stream>>>(
+        static_cast<T*>(theta), static_cast<const T*>(peer), static_cast<V*>(v),
+        static_cast<const T*>(g), sc, rows, w, n);
+  } else {
+    fused_flat_elastic_nag_kernel<T, V, false><<<grid, threads, 0, stream>>>(
+        static_cast<T*>(theta), static_cast<const T*>(peer), static_cast<V*>(v),
+        static_cast<const T*>(g), sc, nullptr, w, n);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype codes: 0 = float32, 1 = bfloat16. rows: nullptr for the whole [w, n]
+// plane, else an int32 device array of nrows distinct row indices (a row
+// outside [0, w) is skipped). Returns a cudaError_t (0 = success).
 extern "C" int repro_fused_flat_elastic_nag(int t_dtype, int v_dtype, void* theta,
                                             const void* peer, void* v, const void* g,
-                                            const void* sc, int64_t w, int64_t n,
+                                            const void* sc, const void* rows,
+                                            int64_t nrows, int64_t w, int64_t n,
                                             void* stream) {
   const float* s = static_cast<const float*>(sc);
+  const int32_t* r = static_cast<const int32_t*>(rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t_dtype == 0 && v_dtype == 0)
-    return (int)launch<float, float>(theta, peer, v, g, s, w, n, st);
+    return (int)launch<float, float>(theta, peer, v, g, s, r, nrows, w, n, st);
   if (t_dtype == 1 && v_dtype == 1)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(theta, peer, v, g, s, w, n, st);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(theta, peer, v, g, s, r, nrows, w, n, st);
   if (t_dtype == 1 && v_dtype == 0)
-    return (int)launch<__nv_bfloat16, float>(theta, peer, v, g, s, w, n, st);
+    return (int)launch<__nv_bfloat16, float>(theta, peer, v, g, s, r, nrows, w, n, st);
   return (int)cudaErrorInvalidValue;
 }
 

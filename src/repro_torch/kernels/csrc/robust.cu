@@ -13,14 +13,19 @@
 // adds +0.0 (so theta = -0.0 becomes +0.0), as the reference computes.
 // theta is float32 or bfloat16 (the output has its type, bf16 rounded to
 // nearest even); delta is always float32. The output is a separate buffer:
-// the caller still needs theta for the optimizer update that follows.
+// the caller still needs theta for the optimizer update that follows. Each
+// of out, theta and delta has its own leading dimension (elements between
+// rows), so the partitioned mixing can pass the column slices x[:, lo:hi] of
+// a [W, total] plane and write into the same slice of its output, no copy.
 //
 // Bound: memory bandwidth. Three streams (read theta and delta, write
 // theta') against 4 flops per element, about 0.33 flop/byte in f32. The
 // design only streams: one row per blockIdx.y (the row's two scalars are
 // read once per thread), a grid-stride loop over the row, and 16-byte
-// accesses (four elements per thread per iteration) when every row starts
-// 16-byte aligned, which the wrapper checks; otherwise scalar accesses. The
+// accesses (four elements per thread per iteration) when every row of every
+// operand starts 16-byte aligned (pointers and leading dimensions), which
+// the wrapper checks; otherwise scalar accesses. A chunk whose column offset
+// is not a multiple of four takes the scalar kernel. The
 // arithmetic uses the _rn intrinsics, which the compiler does not contract
 // into FMAs, so the result equals the plain PyTorch version bit for bit.
 //
@@ -74,50 +79,58 @@ __device__ __forceinline__ float robust_one(float t, float d, float scale, float
   return __fadd_rn(t, __fmul_rn(scale, __fmul_rn(d, keep)));
 }
 
+// ld_o, ld_t, ld_d: the leading dimensions of out, theta and delta
 template <typename T>
 __global__ void robust_flat_apply_kernel(T* __restrict__ out,
                                          const T* __restrict__ theta,
                                          const float* __restrict__ delta,
                                          const float* __restrict__ sc,
-                                         int64_t n) {
+                                         int64_t n, int64_t ld_o, int64_t ld_t,
+                                         int64_t ld_d) {
   const int64_t row = blockIdx.y;
   const float scale = sc[row * 2 + 0];
   const float thr = sc[row * 2 + 1];
-  const int64_t base = row * n;
+  T* o_row = out + row * ld_o;
+  const T* t_row = theta + row * ld_t;
+  const float* d_row = delta + row * ld_d;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += stride) {
-    const int64_t i = base + j;
-    store(out, i, robust_one(load_f32(theta, i), delta[i], scale, thr));
+    store(o_row, j, robust_one(load_f32(t_row, j), d_row[j], scale, thr));
   }
 }
 
-// n % 4 == 0 and every row 16-byte aligned (8-byte for bf16 theta/out)
+// n % 4 == 0 and every row of every operand 16-byte aligned (8-byte for bf16
+// theta/out)
 template <typename T>
 __global__ void robust_flat_apply_vec4_kernel(T* __restrict__ out,
                                               const T* __restrict__ theta,
                                               const float* __restrict__ delta,
                                               const float* __restrict__ sc,
-                                              int64_t n) {
+                                              int64_t n, int64_t ld_o, int64_t ld_t,
+                                              int64_t ld_d) {
   const int64_t row = blockIdx.y;
   const float scale = sc[row * 2 + 0];
   const float thr = sc[row * 2 + 1];
-  const int64_t base = row * n;
+  T* o_row = out + row * ld_o;
+  const T* t_row = theta + row * ld_t;
+  const float* d_row = delta + row * ld_d;
   const int64_t n4 = n / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n4; j += stride) {
-    const int64_t i = base + 4 * j;
+    const int64_t i = 4 * j;
     float t[4], d[4], o[4];
-    load4(theta, i, t);
-    load4(delta, i, d);
+    load4(t_row, i, t);
+    load4(d_row, i, d);
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[e] = robust_one(t[e], d[e], scale, thr);
-    store4(out, i, o);
+    store4(o_row, i, o);
   }
 }
 
 template <typename T>
 cudaError_t launch(void* out, const void* theta, const float* delta, const float* sc,
-                   int64_t w, int64_t n, int vec4, cudaStream_t stream) {
+                   int64_t w, int64_t n, int64_t ld_o, int64_t ld_t, int64_t ld_d,
+                   int vec4, cudaStream_t stream) {
   if (w <= 0 || n <= 0) return cudaSuccess;
   if (w > 65535) return cudaErrorInvalidValue;
   const int threads = 256;
@@ -130,10 +143,10 @@ cudaError_t launch(void* out, const void* theta, const float* delta, const float
   dim3 grid((unsigned)blocks, (unsigned)w);
   if (vec4) {
     robust_flat_apply_vec4_kernel<T><<<grid, threads, 0, stream>>>(
-        static_cast<T*>(out), static_cast<const T*>(theta), delta, sc, n);
+        static_cast<T*>(out), static_cast<const T*>(theta), delta, sc, n, ld_o, ld_t, ld_d);
   } else {
     robust_flat_apply_kernel<T><<<grid, threads, 0, stream>>>(
-        static_cast<T*>(out), static_cast<const T*>(theta), delta, sc, n);
+        static_cast<T*>(out), static_cast<const T*>(theta), delta, sc, n, ld_o, ld_t, ld_d);
   }
   return cudaGetLastError();
 }
@@ -141,15 +154,19 @@ cudaError_t launch(void* out, const void* theta, const float* delta, const float
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (theta and out); delta and sc are
-// float32. vec4 != 0 selects the 16-byte path (the caller checked n % 4 and
-// the alignment). Returns a cudaError_t (0 = success).
+// float32. ld_o / ld_t / ld_d: elements between consecutive rows of out,
+// theta and delta (n for contiguous [w, n] rows). vec4 != 0 selects the
+// 16-byte path (the caller checked n % 4, the pointers and the leading
+// dimensions). Returns a cudaError_t (0 = success).
 extern "C" int repro_robust_flat_apply(int t_dtype, void* out, const void* theta,
                                        const void* delta, const void* sc, int64_t w,
-                                       int64_t n, int vec4, void* stream) {
+                                       int64_t n, int64_t ld_o, int64_t ld_t, int64_t ld_d,
+                                       int vec4, void* stream) {
   const float* d = static_cast<const float*>(delta);
   const float* s = static_cast<const float*>(sc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (t_dtype == 0) return (int)launch<float>(out, theta, d, s, w, n, vec4, st);
-  if (t_dtype == 1) return (int)launch<__nv_bfloat16>(out, theta, d, s, w, n, vec4, st);
+  if (t_dtype == 0) return (int)launch<float>(out, theta, d, s, w, n, ld_o, ld_t, ld_d, vec4, st);
+  if (t_dtype == 1)
+    return (int)launch<__nv_bfloat16>(out, theta, d, s, w, n, ld_o, ld_t, ld_d, vec4, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,9 @@
   update, in place. One streaming pass reads theta/peer/v/g once and writes
   theta/v once — six streams against ~9 flops per element, so the card's
   memory bandwidth bounds it and fusing the three sweeps of Alg. 5 (lines
-  3, 7, 9) is the whole gain.
+  3, 7, 9) is the whole gain. With ``rows=`` (an int32 device list) it
+  updates the listed rows only and neither reads nor writes the others:
+  the async engine's partial event windows.
 - B2 (:func:`fused_flat_nag_update`) replaces ``_flat_nag_kernel``: B1
   without the peer stream (five streams), the dist engine's non-firing step.
 - B3 (:func:`fused_elastic_nag_update`) replaces ``_kernel``: B1's math on
@@ -39,8 +41,8 @@ def _fn():
     if _FN is None:
         from repro_torch.kernels import build
         f = build.load("fused_update").repro_fused_flat_elastic_nag
-        f.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        f.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _FN = f
     return _FN
@@ -82,8 +84,21 @@ def _check_plane(theta, v, others) -> None:
         raise ValueError(f"v must be {theta.dtype} or float32, got {v.dtype}")
 
 
-def _launch_elastic(theta, peer, v, g, coef, eta, mu) -> None:
-    """B1's kernel on checked buffers; raises on a failed launch."""
+def _check_rows(rows, theta) -> None:
+    """A row list: a 1-d contiguous int32 CUDA tensor on theta's device (its
+    values, distinct rows in [0, W), are the caller's promise: checking them
+    would read the device back)."""
+    if not isinstance(rows, torch.Tensor) or rows.device != theta.device:
+        raise ValueError(f"rows must be a tensor on {theta.device}, got "
+                         f"{getattr(rows, 'device', type(rows))}")
+    if rows.dtype != torch.int32 or rows.dim() != 1 or not rows.is_contiguous():
+        raise ValueError(f"rows must be a contiguous 1-d int32 tensor, got "
+                         f"{rows.dtype} of shape {tuple(rows.shape)}")
+
+
+def _launch_elastic(theta, peer, v, g, coef, eta, mu, rows=None) -> None:
+    """B1's kernel on checked buffers (all rows, or the listed ones); raises
+    on a failed launch."""
     W, n = theta.shape
     dev = theta.device
     sc = torch.stack([_scalar_col(coef, W, dev), _scalar_col(eta, W, dev),
@@ -93,7 +108,8 @@ def _launch_elastic(theta, peer, v, g, coef, eta, mu) -> None:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPE_CODE[theta.dtype], _DTYPE_CODE[v.dtype], theta.data_ptr(),
                  peer.data_ptr(), v.data_ptr(), g.data_ptr(), sc.data_ptr(),
-                 W, n, stream)
+                 None if rows is None else rows.data_ptr(),
+                 0 if rows is None else rows.numel(), W, n, stream)
     if err != 0:
         raise RuntimeError(f"fused_flat_elastic_nag kernel launch failed: "
                            f"cudaError {err}")
@@ -109,7 +125,7 @@ def _scalar_col(c, W: int, device) -> torch.Tensor:
     return torch.full((W,), float(c), dtype=torch.float32, device=device)
 
 
-def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
+def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu, rows=None):
     """In place on CUDA ``[W, N]`` buffers:
 
         v     <- mu * v - eta * g
@@ -117,11 +133,17 @@ def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
 
     theta/peer/g share one storage type T (float32 or bfloat16); v is T or
     float32; coef is a scalar or [W], eta and mu scalars (0-d tensors on the
-    same device, or python numbers). ``peer`` may be ``theta``. Returns
-    (theta, v), the same tensors, updated."""
+    same device, or python numbers). ``peer`` may be ``theta``. ``rows``
+    (optional): an int32 device tensor of distinct row indices; only those
+    rows are updated, the others are neither read nor written, and an empty
+    list launches nothing. Returns (theta, v), the same tensors, updated."""
     global LAUNCHES
     _check_plane(theta, v, {"peer": peer, "g": g})
-    _launch_elastic(theta, peer, v, g, coef, eta, mu)
+    if rows is not None:
+        _check_rows(rows, theta)
+        if rows.numel() == 0:
+            return theta, v
+    _launch_elastic(theta, peer, v, g, coef, eta, mu, rows)
     LAUNCHES += 1
     return theta, v
 

@@ -39,24 +39,27 @@ def zero_launch_counts() -> None:
         _codec.LAUNCHES[name] = 0
 
 
-def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
+def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu, rows=None):
     """[W, N] flat-buffer fused update, IN PLACE on theta and v; per-replica
-    coef, scalar eta/mu. Returns (theta, v)."""
+    coef, scalar eta/mu; ``rows`` (an int32 tensor on theta's device)
+    restricts it to the listed rows. Returns (theta, v)."""
     if theta.device.type == "cpu":
-        t_new, v_new = ref.fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu)
+        t_new, v_new = ref.fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu,
+                                                         rows=rows)
         theta.copy_(t_new)
         v.copy_(v_new)
         return theta, v
-    return _fu.fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu)
+    return _fu.fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu, rows=rows)
 
 
-def fused_bufs_elastic_nag(theta_bufs, peer_bufs, v_bufs, g_bufs, coef, eta, mu):
+def fused_bufs_elastic_nag(theta_bufs, peer_bufs, v_bufs, g_bufs, coef, eta, mu,
+                           rows=None):
     """Per-dtype-bucket dispatch of the fused update over flat-buffer dicts —
-    the sim engine's hot path. Updates theta and v in place; returns
-    (theta_bufs, v_bufs)."""
+    the sim engine's hot path (``rows``: the async engine's window).
+    Updates theta and v in place; returns (theta_bufs, v_bufs)."""
     for k in theta_bufs:
         fused_flat_elastic_nag_update(theta_bufs[k], peer_bufs[k], v_bufs[k],
-                                      g_bufs[k], coef, eta, mu)
+                                      g_bufs[k], coef, eta, mu, rows=rows)
     return theta_bufs, v_bufs
 
 
@@ -88,13 +91,16 @@ def fused_elastic_nag_update(theta, peer, v, g, coef_gate, *, eta, mu):
     return _fu.fused_elastic_nag_update(theta, peer, v, g, coef_gate, eta=eta, mu=mu)
 
 
-def robust_flat_apply(theta, delta, scale, thr):
+def robust_flat_apply(theta, delta, scale, thr, out=None):
     """[W, N] robust displacement apply ``theta + scale * trim(delta, thr)``
-    into a NEW tensor in theta's dtype (theta is never written); ``delta``
-    f32, ``scale``/``thr`` scalars or [W]."""
+    in theta's dtype (theta is never written); ``delta`` f32,
+    ``scale``/``thr`` scalars or [W]. Operands may be column slices of a
+    wider plane; the result goes into ``out`` when given (such a slice too),
+    else into a new tensor. Returns it."""
     if theta.device.type == "cpu":
-        return ref.robust_flat_apply(theta, delta, scale, thr)
-    return _robust.robust_flat_apply(theta, delta, scale, thr)
+        res = ref.robust_flat_apply(theta, delta, scale, thr)
+        return res if out is None else out.copy_(res)
+    return _robust.robust_flat_apply(theta, delta, scale, thr, out=out)
 
 
 def robust_bufs_apply(theta_bufs, delta_bufs, scale, thr):

@@ -13,7 +13,7 @@ def _per_replica(c, W: int, device) -> torch.Tensor:
     return c.to(device=device, dtype=torch.float32).reshape(-1).expand(W)[:, None]
 
 
-def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
+def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu, rows=None):
     """Flat-plane fused update (paper Alg. 5 lines 3/7/9, simultaneous) on
     ``[W, N]`` buffers, per-replica ``coef`` (scalar or [W]), scalar
     ``eta``/``mu`` (python numbers or 0-d tensors), computed in f32:
@@ -21,7 +21,18 @@ def fused_flat_elastic_nag_update(theta, peer, v, g, coef, eta, mu):
         v'     = mu * v - eta * g
         theta' = theta - coef * (theta - peer) - eta * g + mu * v'
 
+    ``rows`` (optional, int tensor of distinct row indices): only those rows
+    are updated; the others come back with theta's and v's values.
     Returns (theta', v') in theta's / v's dtypes."""
+    if rows is not None:
+        rows = rows.to(device=theta.device, dtype=torch.int64)
+        c = coef
+        if isinstance(c, torch.Tensor) and c.numel() > 1:
+            c = c.reshape(-1)[rows]
+        t_r, v_r = fused_flat_elastic_nag_update(theta[rows], peer[rows], v[rows], g[rows],
+                                                 c, eta, mu)
+        return (theta.clone().index_copy_(0, rows, t_r),
+                v.clone().index_copy_(0, rows, v_r))
     W, dev = theta.shape[0], theta.device
     c = _per_replica(coef, W, dev)
     e = _per_replica(eta, W, dev)

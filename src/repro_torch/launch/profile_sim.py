@@ -3,7 +3,11 @@
 full width) under ``torch.profiler``, or the same run with another
 protocol, a codec or a fault plane, or the paper's CIFAR CNN at full width
 (``--model cnn``: width 32, the CIFAR stand-in, lr 0.01 / momentum 0.9;
-use ``--workers 4 --batch 32``, the paper's effective batch 128).
+use ``--workers 4 --batch 32``, the paper's effective batch 128). With
+``--engine async`` a "step" is one event window of the async engine
+(``--time-model``, ``--sigma``), optionally over the fleet plane
+(``--partition``, ``--flow-control``, ``--plane host``): kernels per
+window and the device-busy share of the windows.
 
     python -m repro_torch.launch.profile_sim [--model mlp|cnn]
                                              [--workers 8] [--batch 16] [--steps 10]
@@ -11,6 +15,11 @@ use ``--workers 4 --batch 32``, the paper's effective batch 128).
                                              [--method clipped_gossip] [--p 0.5]
                                              [--fault-model drop_byzantine]
                                              [--fault-rate 0.2] [--fault-frac 0.125]
+                                             [--engine sim|async]
+                                             [--time-model lognormal] [--sigma 0.6]
+                                             [--partition 8]
+                                             [--flow-control randomized_token_account]
+                                             [--plane device|host]
 
 ``--method``, ``--p`` and the ``--fault-*`` flags mirror the reference's
 ``launch.train``; a FaultConfig is built only when ``--fault-model`` is not
@@ -23,8 +32,8 @@ start to the last one's end), and the kernels by total device time, then one
 JSON line with the same numbers. Kernel names are grouped into the step's
 phases: the model's gradients (vmapped matmuls or the CNN's convolutions,
 softmax and reductions), the mixing matmul, kernel B1, the codec kernels
-B4-B7 (with ``--codec``), kernel B8 (with a robust ``--method``) and the
-rest.
+B4-B7 (with ``--codec``), kernel B8 (with a robust ``--method``), the
+copies between host and device (the host plane's) and the rest.
 """
 from __future__ import annotations
 
@@ -50,7 +59,8 @@ def _ensure_drop_byzantine() -> None:
 
 
 def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip",
-             p: float = 0.125, faults=None, model: str = "mlp"):
+             p: float = 0.125, faults=None, model: str = "mlp", engine: str = "sim",
+             hetero=None, fleet=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -66,10 +76,11 @@ def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip"
         return simple.xent_loss(apply(prm, x), y)
 
     return GossipTrainer(
+        engine=engine,
         protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
                                 topology="uniform"),
         optimizer=opt, loss_fn=loss_fn, num_workers=W, device=device, codec=codec,
-        faults=faults, init_fn=init)
+        hetero=hetero, faults=faults, fleet=fleet, init_fn=init)
 
 
 def _busy_us(intervals):
@@ -90,8 +101,10 @@ def _busy_us(intervals):
 def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             codec: str = "none", method: str = "elastic_gossip", p: float = 0.125,
             fault_model: str = "none", fault_rate: float = 0.0,
-            fault_frac: float = 0.0, model: str = "mlp") -> dict:
-    from repro_torch.common.config import FaultConfig
+            fault_frac: float = 0.0, model: str = "mlp", engine: str = "sim",
+            time_model: str = "lognormal", sigma: float = 0.6, partition: int = 1,
+            flow_control: str = "none", plane: str = "device") -> dict:
+    from repro_torch.common.config import FaultConfig, FleetConfig, HeteroConfig
     from repro_torch.data.partition import batches_for_step, partition_iid
     from repro_torch.data.synthetic import load_cifar_like, load_mnist
 
@@ -103,7 +116,10 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             _ensure_drop_byzantine()
         faults = FaultConfig(fault_model=fault_model, fault_rate=fault_rate,
                              fault_frac=fault_frac)
-    trainer = _trainer(W, device, codec, method, p, faults, model)
+    hetero = HeteroConfig(time_model=time_model, sigma=sigma) if engine == "async" else None
+    fleet = FleetConfig(partition=partition, flow_control=flow_control, plane=plane)
+    trainer = _trainer(W, device, codec, method, p, faults, model, engine, hetero,
+                       fleet if fleet.enabled() else None)
     dev = trainer.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     train, _ = (load_cifar_like(num_train=12800, num_test=10) if model == "cnn"
@@ -141,7 +157,11 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
-        "model": model, "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
+        "model": model, "engine": engine,
+        "time_model": time_model if engine == "async" else None,
+        "sigma": sigma if engine == "async" else None, "partition": partition,
+        "flow_control": flow_control, "plane": plane,
+        "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
         "method": method, "p": p, "fault_model": fault_model, "fault_rate": fault_rate,
         "fault_frac": fault_frac,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -157,6 +177,8 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
 
 def _phase(kernel_name: str) -> str:
     n = kernel_name.lower()
+    if "memcpy" in n:
+        return "host <-> device copies"
     if "fused_flat_elastic_nag" in n:
         return "B1 fused update"
     if "robust_flat_apply" in n:
@@ -191,11 +213,24 @@ def main(argv=None) -> int:
                          "drop_byzantine")
     ap.add_argument("--fault-rate", type=float, default=0.0)
     ap.add_argument("--fault-frac", type=float, default=0.0)
+    ap.add_argument("--engine", default="sim", choices=("sim", "async"),
+                    help="async: a step is one event window")
+    ap.add_argument("--time-model", default="lognormal",
+                    help="async: constant, lognormal, slow_node or fail_rejoin")
+    ap.add_argument("--sigma", type=float, default=0.6, help="async lognormal: log-space std")
+    ap.add_argument("--partition", type=int, default=1, help="fleet: chunks per exchange")
+    ap.add_argument("--flow-control", default="none",
+                    help="fleet: none, token_account or randomized_token_account")
+    ap.add_argument("--plane", default="device", choices=("device", "host"),
+                    help="async: host keeps theta and velocity in pinned host memory")
     a = ap.parse_args(argv)
     r = profile(a.workers, a.batch, a.steps, a.device, a.codec, a.method, a.p,
-                a.fault_model, a.fault_rate, a.fault_frac, a.model)
-    print(f"{r['model']} W={r['workers']} batch={r['batch_per_worker']} codec={r['codec']} "
-          f"method={r['method']} p={r['p']} faults={r['fault_model']}: median step "
+                a.fault_model, a.fault_rate, a.fault_frac, a.model, a.engine, a.time_model,
+                a.sigma, a.partition, a.flow_control, a.plane)
+    unit = "window" if a.engine == "async" else "step"
+    print(f"{r['model']} {r['engine']} W={r['workers']} batch={r['batch_per_worker']} "
+          f"codec={r['codec']} method={r['method']} p={r['p']} faults={r['fault_model']} "
+          f"partition={r['partition']} flow={r['flow_control']} plane={r['plane']}: median {unit} "
           f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
           f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "
           f"{r['device_busy_share']}")

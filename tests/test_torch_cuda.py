@@ -1,7 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: kernels B1-B9 against their
-plain versions on the card, the sim engine launching them (B1 once per
-step; with a codec, its encode and decode kernels once per step; with a
-robust protocol, B8 once per step), a 2-rank dist engine on the card
+plain versions on the card (B1 also on a row list, B8 also on column
+chunks), the sim engine launching them (B1 once per step; with a codec,
+its encode and decode kernels once per step; with a robust protocol, B8
+once per step), the async engine (B1 once per event window on the
+window's rows; B8 once per chunk on the partition plane) and the host
+plane against the device plane, a 2-rank dist engine on the card
 (B1 on the firing steps, B2 on the others), the serving path (B9 once
 per layer in prefill and in every decode step), the CIFAR CNN's step
 against the CPU's with TF32 allowed in the process, and checkpoint
@@ -405,8 +408,13 @@ def test_b8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     t = torch.zeros((2, 256), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         trobust.robust_flat_apply(t.T.contiguous().T, t, 1.0, 1.0)
+    # a row-strided column slice has contiguous rows: taken since slice 4a
+    # (the partitioned mixing's chunks), and byte-equal to the plain version
+    wide = torch.randn((2, 512), device=cuda)
+    got = trobust.robust_flat_apply(wide[:, :256], t, 1.0, 1.0)
+    assert torch.equal(_bits(got), _bits(tref.robust_flat_apply(wide[:, :256], t, 1.0, 1.0)))
     with pytest.raises(ValueError, match="contiguous"):
-        trobust.robust_flat_apply(torch.zeros((2, 512), device=cuda)[:, :256], t, 1.0, 1.0)
+        trobust.robust_flat_apply(t, t, 1.0, 1.0, out=torch.zeros((256, 2), device=cuda).T)
     with pytest.raises(ValueError, match="delta must be float32"):
         trobust.robust_flat_apply(t, t.bfloat16(), 1.0, 1.0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -965,3 +973,143 @@ def test_cnn_resume_on_the_card_is_bit_exact(cuda, tmp_path):
     a CNN resume repeats the uninterrupted run bit for bit."""
     _resume_is_exact(_cnn_trainer(cuda), lambda: _cnn_trainer(cuda),
                      _cnn_batches(cuda, steps=6), tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# slice 4a: B1 on a row list, B8 on column chunks, the async engine
+# ---------------------------------------------------------------------------
+
+B1_ROWS = {"empty": [], "one": [5], "all": list(range(8)), "unsorted": [6, 1, 3, 0]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", sorted(B1_ROWS))
+@pytest.mark.parametrize("dkind", sorted(DTYPES))
+@pytest.mark.parametrize("n", [1000, 35968 * 3 + 5])
+def test_b1_row_list_is_byte_equal_to_plain_version(cuda, rows, dkind, n):
+    """B1 on a row list: the listed rows byte-equal to the plain version,
+    every other row of theta and v left with its bits, one launch (none for
+    an empty list); all rows listed equals the whole-plane launch."""
+    tdt, vdt = DTYPES[dkind]
+    t, p, v, g, coef = _inputs(8, n, tdt, vdt, cuda, seed=len(rows))
+    eta = torch.full((), 0.01, device=cuda)
+    r = torch.tensor(B1_ROWS[rows], dtype=torch.int32, device=cuda)
+    want_t, want_v = tref.fused_flat_elastic_nag_update(t, p, v, g, coef, eta, 0.9, rows=r)
+    kt, kv = t.clone(), v.clone()
+    launches = tfu.LAUNCHES
+    out = tfu.fused_flat_elastic_nag_update(kt, p, kv, g, coef, eta, 0.9, rows=r)
+    torch.cuda.synchronize()
+    assert out[0] is kt and out[1] is kv
+    assert tfu.LAUNCHES == launches + (1 if B1_ROWS[rows] else 0)
+    assert torch.equal(_bits(kt), _bits(want_t)) and torch.equal(_bits(kv), _bits(want_v))
+    if rows == "all":
+        wt, wv = t.clone(), v.clone()
+        tfu.fused_flat_elastic_nag_update(wt, p, wv, g, coef, eta, 0.9)
+        assert torch.equal(_bits(wt), _bits(kt)) and torch.equal(_bits(wv), _bits(kv))
+    with pytest.raises(ValueError, match="int32"):
+        tfu.fused_flat_elastic_nag_update(kt, p, kv, g, coef, eta, 0.9, rows=r.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(0, 364176), (364176, 728352), (364177, 728353),
+                                   (1, 1001), (2913404, 2913408)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_b8_on_column_chunks_is_byte_equal_to_plain_version(cuda, lo, hi, tdt):
+    """B8 on the column chunk ``x[:, lo:hi]`` of a [8, 2913408] plane (row
+    stride 2913408), written into the same chunk of an output plane: byte-
+    equal to the plain version, at offsets that are (16-byte loads) and are
+    not (scalar loads) multiples of four; the other columns are untouched."""
+    g = torch.Generator(device=cuda).manual_seed(lo)
+    x = torch.randn(8, 2913408, generator=g, device=cuda).to(tdt)
+    d = 3 * torch.randn(8, hi - lo, generator=g, device=cuda)
+    scale = torch.rand(8, generator=g, device=cuda)
+    thr = 0.5 + torch.rand(8, generator=g, device=cuda)
+    out = torch.zeros(8, 2913408, device=cuda, dtype=tdt)
+    launches = trobust.LAUNCHES
+    got = ops.robust_flat_apply(x[:, lo:hi], d, scale, thr, out=out[:, lo:hi])
+    torch.cuda.synchronize()
+    assert trobust.LAUNCHES == launches + 1 and got.data_ptr() == out[:, lo:hi].data_ptr()
+    want = tref.robust_flat_apply(x[:, lo:hi], d, scale, thr)
+    assert torch.equal(_bits(out[:, lo:hi]), _bits(want))
+    assert not bool(out[:, :lo].any()) and not bool(out[:, hi:].any())
+
+
+def _async_trainer(cuda, W=4, **kw):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import HeteroConfig, ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(p, x, y):
+        return simple.xent_loss(simple.mlp_logits(p, x), y)
+    proto = kw.pop("proto", {})
+    return GossipTrainer(engine=kw.pop("engine", "async"),
+                         protocol=ProtocolConfig(**dict(dict(comm_probability=0.5,
+                                                             topology="uniform"), **proto)),
+                         loss_fn=loss_fn, num_workers=W, device=cuda,
+                         hetero=kw.pop("hetero", HeteroConfig(time_model="lognormal", sigma=0.6)),
+                         init_fn=lambda g: simple.init_mlp(g, 784, 64, 2, 10)[0], **kw)
+
+
+def _batch(cuda, W):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    return (torch.randn(W, 16, 784, generator=gen, device=cuda),
+            torch.randint(0, 10, (W, 16), generator=gen, device=cuda))
+
+
+@pytest.mark.cuda
+def test_async_windows_launch_b1_once_each_on_the_window_rows(cuda):
+    """Lognormal windows at W=4: B1 once a window, partial windows among
+    them; rows outside a window keep their bits."""
+    tr = _async_trainer(cuda)
+    st = tr.init_state(0)
+    xb = _batch(cuda, 4)
+    launches, partial = tfu.LAUNCHES, 0
+    for _ in range(12):
+        before = st.theta["float32"].clone()
+        _, mask, _ = tr.sim.next_window()
+        st, m = tr.step(st, xb)
+        out = torch.from_numpy(~mask).to(cuda)
+        assert torch.equal(st.theta["float32"][out], before[out])
+        partial += int(not mask.all())
+    assert tfu.LAUNCHES == launches + 12 and partial > 0
+    assert torch.isfinite(torch.as_tensor(m["loss"]))
+
+
+@pytest.mark.cuda
+def test_partitioned_clipped_step_launches_b8_once_per_chunk(cuda):
+    from repro_torch.common.config import FleetConfig
+    tr = _async_trainer(cuda, engine="sim", hetero=None, proto=dict(method="clipped_gossip"),
+                        fleet=FleetConfig(partition=4))
+    st = tr.init_state(0)
+    xb = _batch(cuda, 4)
+    launches = trobust.LAUNCHES
+    for _ in range(3):
+        st, _ = tr.step(st, xb)
+    assert trobust.LAUNCHES == launches + 3 * 4
+    assert int(st.proto.chunk_units.sum()) == int(st.proto.comm_units)
+
+
+@pytest.mark.cuda
+def test_host_plane_matches_device_plane_on_the_card(cuda):
+    """20 lognormal windows, partition 4 and randomized token account: the
+    host plane (pinned host theta and velocity) against the device plane,
+    theta within atol 2e-5, counters and the generator exact, B1 once a
+    window on both."""
+    from repro_torch.common.config import FleetConfig
+    fkw = dict(partition=4, flow_control="randomized_token_account", token_capacity=4.0,
+               token_threshold=3.0)
+    host = _async_trainer(cuda, fleet=FleetConfig(plane="host", **fkw))
+    dev = _async_trainer(cuda, fleet=FleetConfig(**fkw))
+    sh, sd = host.init_state(0), dev.init_state(0)
+    assert sh.theta["float32"].is_pinned()
+    xb = _batch(cuda, 4)
+    launches = tfu.LAUNCHES
+    for _ in range(20):
+        sh, _ = host.step(sh, xb)
+        sd, _ = dev.step(sd, xb)
+    assert tfu.LAUNCHES == launches + 40
+    torch.testing.assert_close(sh.theta["float32"], sd.theta["float32"].cpu(), rtol=0, atol=2e-5)
+    for f in ("comm_units", "worker_steps", "stale_events", "clocks", "tokens", "chunk_units",
+              "flow_skipped"):
+        assert torch.equal(getattr(sh.proto, f), getattr(sd.proto, f)), f
+    assert torch.equal(sh.key.get_state(), sd.key.get_state())

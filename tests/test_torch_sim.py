@@ -268,17 +268,23 @@ def test_unported_features_refuse():
                   faults=TFault(fault_model="drop", fault_rate=0.2))
     assert tr.sim.fault_model.name == "drop" and tr.sim.faults.fault_rate == 0.2
     # the dist engine is ported (slice 5): it builds on a rank's group and
-    # asks for one without it; the async engine is slice 4
+    # asks for one without it
     with pytest.raises(ValueError, match="requires loss_fn and group"):
         TTrainer(engine="dist", protocol=TProto(comm_probability=0.5),
                  loss_fn=_tloss, num_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TTrainer(engine="async", protocol=TProto(comm_probability=0.5),
-                 loss_fn=_tloss, num_workers=2, device="cpu")
-    for name in ("fleet", "shard"):
+    # the async engine and the fleet plane are ported (slice 4a): they build
+    from repro_torch.common.config import FleetConfig as TFleet
+    tr = TTrainer(engine="async", protocol=TProto(comm_probability=0.5),
+                  loss_fn=_tloss, num_workers=2, device="cpu")
+    assert tr.sim.time_model.name == "constant"
+    tr = TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss, num_workers=2,
+                  device="cpu", fleet=TFleet(partition=2))
+    assert tr.sim.partition == 2
+    # the sharded plane is slice 4b
+    for engine in ("sim", "async"):
         with pytest.raises(NotImplementedError, match="slice 4"):
-            TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss,
-                     num_workers=2, device="cpu", **{name: object()})
+            TTrainer(engine=engine, protocol=TProto(comm_probability=0.5), loss_fn=_tloss,
+                     num_workers=2, device="cpu", shard=object())
 
 
 def test_cuda_request_without_a_card_raises():
