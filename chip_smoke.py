@@ -171,7 +171,28 @@ prints no result line):
              padded rows, the first 20 against the device plane (theta
              within 2e-5, counters, tokens and generator equal), a timed
              split of the window, and ``validate_fleet_memory`` for both
-             planes at W=256 and W=1024. Every phase's seconds are printed.
+             planes at W=256 and W=1024.
+9. shard+obs — the sharded plane (ShardConfig(n_shards=4)) and the
+             telemetry plane (ObsConfig) at full width: B4-B7 byte-equal to
+             their plain versions on the [32, 728576] shard rows of the padded
+             plane (seeds w*4+s), B1 on the padded [8, 2914304] plane, B2 on a
+             padded dist row, B8 on the padded raw plane, B4-B7 timed on the
+             shard rows; (a) the sim engine at W=8, batch 16, p 0.5 with S=4:
+             ShardConfig() bit-equal to the plain run, raw, q8 and top-k for
+             50 steps and clipped_gossip for 20 (B1 once a step, the codec
+             pair once a step, B8 once a step in the clipped run), wire per
+             device 2,913,290 / 734,268 / 295,984 B and comm_bytes its f32
+             derivation, the padding columns never written; (b) partition 4
+             with S=4 (chunk_units = the host's count); (c) the async engine,
+             lognormal, S=4 q8, 50 windows; (d) the dist engine with 4
+             processes, fsdp = S = 2, q8, 20 steps (launches, sends = recvs =
+             firing steps, comm_bytes the host's recomputation, every rank's
+             decoded peer wire byte-equal to the sim engine's shard rows); (e)
+             recording runs on the sim, async (faults, flow control) and dist
+             engines bit-equal to the plain runs, traces valid, the report's
+             totals equal to the accumulators, the sim step's recording
+             overhead; (f) validate_fleet_memory at S in {1, 4} against the
+             card's free memory. Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -2553,6 +2574,532 @@ def run_async_phase(torch, dev):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded plane and the telemetry plane
+# ---------------------------------------------------------------------------
+
+SHARD_S, SHARD_STEPS = 4, 50
+# per-exchange, per-device wire at S = 4 on the full-width plane
+# (repro_torch.shard.wire_per_device): raw 11,653,160 / 4; q8 1,423 blocks of
+# 512 + 4 B; top-k 1,423 blocks x 26 pairs x 8 B
+WIRE_S4 = {None: 2913290, "q8": 734268, "topk": 295984}
+PADDED_S4 = {None: 2913792, "q8": 2914304, "topk": 2914304}
+
+
+def shard_layout_of(torch, codec, S=SHARD_S):
+    """(ShardLayout, spec) of the full-width MLP plane under S shards."""
+    from repro_torch import comm, shard as shard_plane
+    from repro_torch.common.config import ProtocolConfig, ShardConfig
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.models import simple
+    gen = torch.Generator().manual_seed(0)
+    params = simple.init_mlp(gen, **FULL)[0]
+    spec = FlatSpec.build({k: v[None] for k, v in params.items()}, leading=1)
+    cd = comm.active_codec(ProtocolConfig(codec=codec or "none"))
+    return shard_plane.build_layout(spec, ShardConfig(n_shards=S), cd), spec, cd
+
+
+def check_shard_kernels(torch, ck, ref, fu, rb, codec_seeds, dev, bw, peak):
+    """B4-B7 on the [8 * 4, 728576] shard rows of the padded q8 / top-k
+    plane, seeds codec_seeds(round, arange(32)), byte-equal to their plain
+    versions; B1 on the padded [8, 2914304] plane, B2 on one padded dist
+    row [1, 2914304] and B8 on the padded raw plane [8, 2913792], byte-equal
+    too. Then B4-B7 timed on the shard rows beside their whole-row times of
+    phase 2. Returns ({kernel: max abs err}, {kernel: timing})."""
+    W, S, block, k = 8, SHARD_S, BLOCK, TOPK
+    layout, _, _ = shard_layout_of(torch, "q8")
+    n_pad = layout.totals["float32"]
+    size = layout.shard_sizes["float32"]
+    g = torch.Generator(device=dev).manual_seed(91)
+    x = torch.randn(W, n_pad, generator=g, device=dev)
+    x[:, N_FULL:] = 0.0                                     # the padding columns
+    r = 0.1 * torch.randn(W, n_pad, generator=g, device=dev)
+    rows, res = layout.shard_rows({"float32": x})["float32"], \
+        layout.shard_rows({"float32": r})["float32"]
+    if rows.data_ptr() != x.data_ptr() or tuple(rows.shape) != (W * S, size):
+        raise AssertionError(f"shard rows are not a [{W * S}, {size}] view of the plane")
+    seeds = codec_seeds(3, torch.arange(W * S, device=dev))
+    got = codec_outputs(torch, ck, rows, res, seeds, block, k)
+    want = codec_outputs(torch, ref, rows, res, seeds, block, k)
+    err = {}
+    for kname in got:
+        for a, b in zip(got[kname], want[kname]):
+            if not bits_equal(torch, a, b):
+                raise AssertionError(f"[shard] {kname} on [{W * S}, {size}] shard rows differs "
+                                     f"from its plain version")
+        err[kname] = 0.0
+    # B1 on the padded plane, B2 on a padded dist row, B8 on the padded raw plane
+    t, p, v, gr, _ = b1_inputs(torch, W, n_pad, torch.float32, torch.float32, 92, dev)
+    ones, eta = torch.ones(W, device=dev), torch.full((), 1e-3, device=dev)
+    want_t, want_v = ref.fused_flat_elastic_nag_update(t, p, v, gr, ones, eta, 0.99)
+    fu.fused_flat_elastic_nag_update(t, p, v, gr, ones, eta, 0.99)
+    if not (bits_equal(torch, t, want_t) and bits_equal(torch, v, want_v)):
+        raise AssertionError(f"[shard] B1 on the padded [{W}, {n_pad}] plane differs")
+    t1, v1, g1 = t[:1].clone(), v[:1].clone(), gr[:1].clone()
+    want_t, want_v = ref.fused_flat_nag_update(t1, v1, g1, eta, 0.99)
+    fu.fused_flat_nag_update(t1, v1, g1, eta, 0.99)
+    if not (bits_equal(torch, t1, want_t) and bits_equal(torch, v1, want_v)):
+        raise AssertionError(f"[shard] B2 on a padded [1, {n_pad}] dist row differs")
+    n_raw = PADDED_S4[None]
+    t8 = t[:, :n_raw].contiguous()
+    d = 3 * torch.randn(W, n_raw, generator=g, device=dev)
+    scale = torch.rand(W, generator=g, device=dev)
+    thr = torch.full((W,), float("inf"), device=dev)
+    if not bits_equal(torch, rb.robust_flat_apply(t8, d, scale, thr),
+                      ref.robust_flat_apply(t8, d, scale, thr)):
+        raise AssertionError(f"[shard] B8 on the padded [{W}, {n_raw}] raw plane differs")
+    del t, p, v, gr, t1, v1, g1, t8, d, want_t, want_v
+    # B4-B7 timed (CUDA events) on the shard rows and, beside them, on the
+    # same memory viewed as the whole [8, n_pad] rows. No device time here:
+    # this late in the script torch.profiler has seen 6-20 of 20 launches
+    # and durations below the bound; `profile_sim --shard` gives it.
+    shapes = {"rows": (rows, res, seeds, size),
+              "whole": (x, r, codec_seeds(3, torch.arange(W, device=dev)), n_pad)}
+    times = {}
+    for form, (xx, rr, ss, nn) in shapes.items():
+        v8, sc = ck.q8_encode(xx, ss, block=block)
+        vals, idx, _ = ck.topk_encode(xx, rr, k=k, block=block)
+        calls = {"q8_encode": lambda: ck.q8_encode(xx, ss, block=block),
+                 "q8_decode": lambda: ck.q8_decode(v8, sc, nn, block=block),
+                 "topk_encode": lambda: ck.topk_encode(xx, rr, k=k, block=block),
+                 "topk_decode": lambda: ck.topk_decode(vals, idx, nn, k=k, block=block)}
+        for kname, fn in calls.items():
+            times.setdefault(kname, {})[form] = dict(ms=time_launches(torch, fn))
+        del v8, sc, vals, idx
+    log(f"[shard] B4-B7 on the [{W * S}, {size}] shard rows (seeds w*S+s, padding columns "
+        f"zero) byte-equal to their plain versions; B1 on the padded [{W}, {n_pad}] plane, B2 "
+        f"on a padded [1, {n_pad}] dist row and B8 on the padded [{W}, {n_raw}] raw plane "
+        f"byte-equal; CUDA-event ms, shard rows [{W * S}, {size}] | the same memory as "
+        f"[{W}, {n_pad}]: "
+        + ", ".join(f"{kn} {t['rows']['ms']:.4f} | {t['whole']['ms']:.4f}"
+                    for kn, t in times.items()))
+    del x, r, rows, res
+    return err, times
+
+
+def make_shard_trainer(torch, W, dev, codec=None, method="elastic_gossip", p=0.5, shard=None,
+                       obs=None, engine="sim", hetero=None, fleet=None, faults=None):
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.models import simple
+
+    def loss_fn(prm, x, y):
+        return simple.xent_loss(simple.mlp_logits(prm, x), y)
+
+    return GossipTrainer(
+        engine=engine, hetero=hetero, fleet=fleet, faults=faults, shard=shard, obs=obs,
+        protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
+                                topology="uniform", robust_clip=0.1),
+        optimizer=OptimizerConfig(name="nag", learning_rate=1e-3, momentum=0.99),
+        loss_fn=loss_fn, num_workers=W, device=dev, codec=codec,
+        init_fn=lambda gen: simple.init_mlp(gen, **FULL)[0])
+
+
+def run_steps(torch, trainer, state, batches, n):
+    """n synchronised steps; returns (state, [ms], [gate drawn (numpy)])."""
+    ms, gates = [], []
+    for i in range(n):
+        xb, yb = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        state, _ = trainer.step(state, (xb, yb))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gates.append(trainer.sim.last_draws[0].cpu().numpy())
+    return state, ms, gates
+
+
+def states_bit_equal(torch, a, b, fields=("comm_rounds", "comm_units", "comm_bytes")):
+    pairs = [("theta", a.theta["float32"], b.theta["float32"]),
+             ("velocity", a.opt.mu["float32"], b.opt.mu["float32"]),
+             ("generator", a.key.get_state(), b.key.get_state())]
+    pairs += [(f, getattr(a.proto, f), getattr(b.proto, f)) for f in fields
+              if getattr(a.proto, f) is not None]
+    return [name for name, x, y in pairs if not bits_equal(torch, x, y)]
+
+
+def shard_sim_runs(torch, train, dev, W=8, batch=16):
+    """(a) The sim engine at W=8, batch 16, p 0.5 on the sharded plane, S=4:
+    raw, q8 and top-k for 50 steps, clipped_gossip raw for 20; ShardConfig()
+    bit-equal to the plain run; comm_bytes = f32(wire per device / W) *
+    f32(comm_units), comm_units = the gates drawn; B1 once a step on the
+    padded plane, B4/B5 or B6/B7 once a step on the [32, 728576] shard rows,
+    B8 once a step in the clipped run. Returns ({kernel: launches},
+    {tag: median step ms})."""
+    import numpy as np
+    from repro_torch.common.config import ShardConfig
+    from repro_torch.kernels import ops
+    batches = staged_batches(torch, train, W, batch, SHARD_STEPS, dev)
+    plain = make_shard_trainer(torch, W, dev)
+    inert = make_shard_trainer(torch, W, dev, shard=ShardConfig())
+    s0, s1 = plain.init_state(0), inert.init_state(0)
+    s0, ms_plain, _ = run_steps(torch, plain, s0, batches, SHARD_STEPS)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    s1, ms_inert, _ = run_steps(torch, inert, s1, batches, SHARD_STEPS)
+    launches = ops.launch_counts()
+    window_launches("shard ShardConfig()", launches, {B1: SHARD_STEPS})
+    bad = states_bit_equal(torch, s0, s1)
+    if bad or inert.sim.shard_layout is not None:
+        raise AssertionError(f"[shard] ShardConfig(): {bad} differ from the plain run")
+    del s0, s1
+    total, ms = dict(launches), {"plain": statistics.median(ms_plain[1:])}
+    for tag, method, codec, steps in (("raw", "elastic_gossip", None, SHARD_STEPS),
+                                      ("q8", "elastic_gossip", "q8", SHARD_STEPS),
+                                      ("topk", "elastic_gossip", "topk", SHARD_STEPS),
+                                      ("clipped", "clipped_gossip", None, 20)):
+        tr = make_shard_trainer(torch, W, dev, codec=codec, method=method,
+                                shard=ShardConfig(n_shards=SHARD_S))
+        st = tr.init_state(0)
+        torch.cuda.synchronize()
+        ops.zero_launch_counts()
+        st, step_ms, gates = run_steps(torch, tr, st, batches, steps)
+        got = ops.launch_counts()
+        want = {B1: steps, **{k: steps for k in CODEC_KERNELS.get(codec, ())}}
+        if method == "clipped_gossip":
+            want[B8] = steps
+        window_launches(f"shard {tag}", got, want)
+        layout = tr.sim.shard_layout
+        if layout.totals["float32"] != PADDED_S4[codec] or \
+                st.theta["float32"].shape[1] != PADDED_S4[codec]:
+            raise AssertionError(f"[shard] {tag}: padded total {layout.totals}")
+        wire = tr._backend.wire_bytes()
+        if wire != WIRE_S4[codec]:
+            raise AssertionError(f"[shard] {tag}: wire per device {wire}, expected "
+                                 f"{WIRE_S4[codec]}")
+        units, gates_n = int(st.proto.comm_units), int(np.sum(gates))
+        if units != gates_n:
+            raise AssertionError(f"[shard] {tag}: comm_units {units} != gates {gates_n}")
+        want_bytes = (torch.tensor(tr.sim._wire_bytes(st.spec) / W, dtype=torch.float32)
+                      * torch.tensor(float(units), dtype=torch.float32))
+        if not bits_equal(torch, st.proto.comm_bytes.cpu(), want_bytes):
+            raise AssertionError(f"[shard] {tag}: comm_bytes {float(st.proto.comm_bytes)!r} != "
+                                 f"{float(want_bytes)!r}")
+        if not bool(torch.isfinite(st.theta["float32"]).all()) or \
+                not bool((st.theta["float32"][:, N_FULL:] == 0).all()):
+            raise AssertionError(f"[shard] {tag}: non-finite theta or a written padding column")
+        ms[tag] = statistics.median(step_ms[1:])
+        for kname, n in got.items():
+            total[kname] = total.get(kname, 0) + n
+        log(f"[shard] (a) sim W={W} S={SHARD_S} {tag}, {steps} steps at p 0.5: padded total "
+            f"{layout.totals['float32']} ({layout.shard_sizes['float32']} a shard), wire "
+            f"{wire} B per exchange and device, comm_units {units} = gates, comm_bytes "
+            f"{float(st.proto.comm_bytes)!r} = f32(wire/W) * f32(units); launches {got}; median "
+            f"step {ms[tag]:.3f} ms (synchronised; plain run {ms['plain']:.3f} ms, "
+            f"ShardConfig() bit-equal to it)")
+        del st, tr
+    return total, ms
+
+
+def shard_partition(torch, train, dev, W=8, batch=16, P=4, steps=20):
+    """(b) partition=4 with S=4, q8, 20 steps: chunk_units equal the host's
+    count from the gates and partition_ids_np; comm_bytes the plan's chunk
+    wires over S."""
+    import numpy as np
+    from repro_torch.common.config import FleetConfig, ShardConfig
+    from repro_torch.fleet.partition import partition_ids_np
+    from repro_torch.kernels import ops
+    fleet = FleetConfig(partition=P, seed=11)
+    tr = make_shard_trainer(torch, W, dev, codec="q8", fleet=fleet,
+                            shard=ShardConfig(n_shards=SHARD_S))
+    st = tr.init_state(0)
+    batches = staged_batches(torch, train, W, batch, steps, dev)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    st, step_ms, gates = run_steps(torch, tr, st, batches, steps)
+    got = ops.launch_counts()
+    window_launches("shard partition", got, {B1: steps, "q8_encode": steps, "q8_decode": steps})
+    cu = np.zeros(P, np.int64)
+    for i, gate in enumerate(gates):
+        cu += np.bincount(partition_ids_np(fleet.seed, i, W, P)[gate], minlength=P)
+    have = st.proto.chunk_units.cpu().numpy()
+    if not np.array_equal(have, cu):
+        raise AssertionError(f"[shard] partition: chunk_units {have} != host {cu}")
+    plan = tr.sim._fleet_plan(st.spec)
+    exact = float(np.dot(np.asarray(plan.wire_bytes, np.float64), cu)) / W
+    if abs(float(st.proto.comm_bytes) - exact) > 1e-6 * exact:
+        raise AssertionError(f"[shard] partition: comm_bytes {float(st.proto.comm_bytes)} != "
+                             f"{exact}")
+    log(f"[shard] (b) sim W={W} partition={P} S={SHARD_S} q8, {steps} steps: chunk_units "
+        f"{have.tolist()} = host count, chunk wires per device {list(plan.wire_bytes)}, "
+        f"comm_bytes {float(st.proto.comm_bytes)!r} (plan's exact {exact!r}); launches {got}; "
+        f"median step {statistics.median(step_ms[1:]):.3f} ms")
+    return got
+
+
+def shard_async(torch, train, dev, W=8, batch=16, windows=50):
+    """(c) The async engine, lognormal sigma 0.6, W=8, S=4, q8: 50 windows,
+    B1 once a window, B4/B5 once a window on the shard rows, comm_units
+    equal to the host's count of in-window gates."""
+    from repro_torch.common.config import HeteroConfig, ShardConfig
+    from repro_torch.kernels import ops
+    tr = make_shard_trainer(torch, W, dev, codec="q8", p=0.125, engine="async",
+                            hetero=HeteroConfig(**ASYNC_LOGNORMAL),
+                            shard=ShardConfig(n_shards=SHARD_S))
+    st = tr.init_state(0)
+    batches = staged_batches(torch, train, W, batch, 20, dev)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    st, recs = run_windows(torch, tr, st, batches, n=windows)
+    got = ops.launch_counts()
+    window_launches("shard async", got, {B1: windows, "q8_encode": windows,
+                                         "q8_decode": windows})
+    units = int(st.proto.comm_units)
+    host = int(sum((r["gate"] & r["mask"]).sum() for r in recs))
+    if units != host:
+        raise AssertionError(f"[shard] async: comm_units {units} != host count {host}")
+    sizes = [r["size"] for r in recs]
+    log(f"[shard] (c) async lognormal W={W} S={SHARD_S} q8, {windows} windows, sizes "
+        f"{ {k: sizes.count(k) for k in sorted(set(sizes))} }: comm_units {units} = host count, "
+        f"comm_bytes {float(st.proto.comm_bytes)!r}; launches {got}; median window "
+        f"{median_ms(recs):.3f} ms (synchronised)")
+    return got, median_ms(recs)
+
+
+SHARD_DIST_W, SHARD_DIST_S, SHARD_DIST_STEPS = 4, 2, 20
+
+
+def shard_dist(torch, train, dev, trace_dir):
+    """(d) and the dist half of (e): 4 processes on this card, fsdp = S = 2,
+    p 0.125, batch 16, 20 steps: q8 on the sharded plane (B1 on the firing
+    steps, B2 on the others, B4/B5 once per firing step on the rank's [2,
+    shard_size] rows; sends = recvs = the firing steps; comm_bytes the
+    host's float64 recomputation from the per-device wire), a plain and a
+    recording run (rank 0 records the fleet's events; bit-equal to the plain
+    run), and one peer round on a noisy stack: each rank's decoded peer wire
+    byte-equal to the sim engine's decode of the partner's shard rows,
+    seeded (round, worker * S + shard). Returns ({kernel: launches},
+    summary)."""
+    import numpy as np
+    from repro_torch import comm, shard as shard_plane
+    from repro_torch.common.config import MeshConfig, ProtocolConfig, ShardConfig
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.core.scheduler import GossipSchedule
+    from repro_torch.data.partition import batches_for_step, partition_iid
+    from repro_torch.launch import dist_run
+    from repro_torch.models import simple
+    W, S, steps = SHARD_DIST_W, SHARD_DIST_S, SHARD_DIST_STEPS
+    mesh = MeshConfig(data=W, model=1, pods=1, workers_per_pod=W)
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    params = {k: v.cpu().numpy() for k, v in simple.init_mlp(gen, **FULL)[0].items()}
+    shards = partition_iid(train, W, 0)
+    xs, ys = zip(*(batches_for_step(shards, i, DIST_BATCH) for i in range(steps)))
+    x, y = np.stack(xs).astype(np.float32), np.stack(ys)
+    rng = np.random.RandomState(5)
+    stack = {k: (v[None] + 0.01 * rng.randn(W, *v.shape)).astype(np.float32)
+             for k, v in params.items()}
+    active = np.ones(W, np.float32)
+    base = dict(kind="train", protocol=DIST_EG, optimizer=DIST_OPT, steps=steps, seed=DIST_SEED,
+                gather=True)
+    runs = [dict(base, tag="shard q8", codec="q8", shard=S),
+            dict(base, tag="plain", codec=None),
+            dict(base, tag="recording", codec=None, obs=dict(trace=True, metrics=True)),
+            dict(kind="peer", tag="peer", protocol=DIST_EG, codec="q8", shard=S,
+                 params_stack=stack, active=active, rounds=[0, 1])]
+    t0 = time.perf_counter()
+    ranks = dist_run.run_fleet(mesh, dev, dict(params=params, x=x, y=y, runs=runs),
+                               timeout_s=180, join_timeout_s=400)
+    spawn_s = time.perf_counter() - t0
+    run_of = lambda rk, tag: next(r for r in rk["runs"] if r["tag"] == tag)   # noqa: E731
+    sched = GossipSchedule(ProtocolConfig(**DIST_EG), W, seed=DIST_SEED + 1,
+                           mesh_cfg=MeshConfig(data=W * S, model=1, pods=1, workers_per_pod=W))
+    polls = [sched.poll(i) for i in range(steps)]
+    fires = [bool(f) for f, _, _ in polls]
+    nfire = sum(fires)
+    total, want_bytes = 0.0, []
+    for f, act, _ in polls:
+        if f:
+            total += float(WIRE_SHARD2_Q8) * float(np.sum(act) / len(act))
+        want_bytes.append(total)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({B1: nfire, B2: steps - nfire, "q8_encode": nfire, "q8_decode": nfire})
+    launches = {}
+    for rank, rk in enumerate(ranks):
+        r = run_of(rk, "shard q8")
+        got = {k: r["launches"][k] for k in KERNELS}
+        if got != want or r["fired"] != fires:
+            raise AssertionError(f"[shard] dist rank {rank}: launches {got} / fired "
+                                 f"{r['fired']}, expected {want} / {fires}")
+        if r["sends"] != nfire or r["recvs"] != nfire:
+            raise AssertionError(f"[shard] dist rank {rank}: {r['sends']} sends / "
+                                 f"{r['recvs']} recvs, expected {nfire}")
+        if r["wire"] != WIRE_SHARD2_Q8 or r["comm_bytes"] != want_bytes:
+            raise AssertionError(f"[shard] dist rank {rank}: wire {r['wire']}, comm_bytes "
+                                 f"{r['comm_bytes'][-1]!r} != host {want_bytes[-1]!r}")
+        a, b = run_of(rk, "plain"), run_of(rk, "recording")
+        for k in ("loss", "fired", "comm_round", "comm_active", "comm_bytes"):
+            if a[k] != b[k]:
+                raise AssertionError(f"[obs] dist rank {rank}: recording changed {k}")
+        if ("events" in b) != (rank == 0):
+            raise AssertionError(f"[obs] dist: rank {rank} recorded: {'events' in b}")
+        for tag in ("shard q8", "plain", "recording"):
+            for k, n in run_of(rk, tag)["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    r0 = run_of(ranks[0], "shard q8")
+    if not all(np.isfinite(r0["loss"])):
+        raise AssertionError("[shard] dist: non-finite loss")
+    a, b = run_of(ranks[0], "plain"), run_of(ranks[0], "recording")
+    for k in ("theta", "velocity"):
+        if a[k]["float32"].tobytes() != b[k]["float32"].tobytes():
+            raise AssertionError(f"[obs] dist: the recording run's {k} differs")
+    # the peer round: each rank's decoded wire against the sim engine's
+    spec = FlatSpec.build({k: torch.as_tensor(v) for k, v in stack.items()}, leading=1)
+    cd = comm.active_codec(ProtocolConfig(codec="q8"))
+    layout = shard_plane.build_layout(spec, ShardConfig(n_shards=S), cd)
+    bufs = shard_plane.pad_bufs({k: v.to(dev) for k, v in spec.flatten(
+        {k: torch.as_tensor(v) for k, v in stack.items()}).items()}, layout)
+    for i, rnd in enumerate((0, 1)):
+        hat, _ = comm.roundtrip_bufs(cd, layout.shard_rows(bufs),
+                                     comm.codec_seeds(rnd, torch.arange(W * S, device=dev)))
+        hat = layout.unshard_rows(hat)["float32"].cpu().numpy()
+        partners = sched.partners(rnd)
+        for rank, rk in enumerate(ranks):
+            peer = run_of(rk, "peer")["rounds"][i]["float32"]
+            if peer.tobytes() != hat[partners[rank]:partners[rank] + 1].tobytes():
+                raise AssertionError(f"[shard] dist rank {rank} round {rnd}: the decoded peer "
+                                     f"wire differs from the sim engine's")
+    rec = run_of(ranks[0], "recording")
+    from repro_torch.obs import TraceRecorder, report, schema
+    tr = TraceRecorder()
+    tr.events = rec["events"]
+    errs = schema.validate_trace(tr.perfetto(num_workers=W))
+    ex = [e for e in rec["events"] if e["ev"] == "exchange"]
+    if errs or len(ex) != sum(rec["comm_active"]) or \
+            report.totals(rec["rows"])["comm_bytes"] != rec["comm_bytes"][-1]:
+        raise AssertionError(f"[obs] dist: trace {errs[:3]}, {len(ex)} exchange events for "
+                             f"{sum(rec['comm_active'])} initiations, totals "
+                             f"{report.totals(rec['rows'])}")
+    path = os.path.join(trace_dir, "dist_trace.json")
+    with open(path, "w") as fh:
+        json.dump(tr.perfetto(num_workers=W), fh)
+    fire_ms = [ms for ms, f in zip(r0["step_ms"], fires) if f]
+    quiet_ms = [ms for ms, f in zip(r0["step_ms"], fires) if not f]
+    med = (lambda xs: statistics.median(xs) if xs else float("nan"))   # noqa: E731
+    plain_fire = med([ms for ms, f in zip(a["step_ms"], fires) if f])
+    log(f"[shard] (d) dist W={W} processes on one card, fsdp = S = {S}, q8, {steps} steps "
+        f"(spawned and joined in {spawn_s:.1f} s): {nfire} firing steps = host schedule, "
+        f"launches per rank {want}, sends = recvs = {nfire}, wire {WIRE_SHARD2_Q8} B per "
+        f"device, comm_bytes {r0['comm_bytes'][-1]!r} = host recomputation; every rank's "
+        f"decoded peer wire byte-equal to the sim engine's shard rows (2 rounds); rank 0 "
+        f"median synchronised step: firing {med(fire_ms):.3f} ms, non-firing "
+        f"{med(quiet_ms):.3f} ms (plain raw run firing {plain_fire:.3f} ms)")
+    log(f"[obs] (e) dist W={W} recording: bit-equal to the plain run on every rank, rank 0 "
+        f"alone records: {len(rec['events'])} events ({len(ex)} exchanges = initiations), "
+        f"trace valid, report comm_bytes {report.totals(rec['rows'])['comm_bytes']!r} = host "
+        f"account; trace at {path}")
+    return launches, dict(fire_ms=med(fire_ms), quiet_ms=med(quiet_ms), plain_fire_ms=plain_fire)
+
+
+# S = 2 of the 4-worker dist run: 2,914,304 / 2 = 1,457,152 columns = 2,846
+# blocks of 512 + 4 B
+WIRE_SHARD2_Q8 = 2846 * 516
+
+
+def obs_runs(torch, train, dev, trace_dir, W=8, batch=16):
+    """(e) Recording runs (ObsConfig with trace and metrics paths) on the sim
+    engine (50 steps) and the async engine (lognormal, drop 0.2, token
+    account; 50 windows), each against the same run without recording:
+    theta, velocity, counters and the generator bit-equal; the trace valid;
+    the report's totals equal to the accumulators. The sim step's recording
+    overhead: median of the same 50 steps with and without, run in turns."""
+    from repro_torch.common.config import FaultConfig, FleetConfig, HeteroConfig, ObsConfig
+    from repro_torch.obs import report, schema
+    batches = staged_batches(torch, train, W, batch, SHARD_STEPS, dev)
+    out = {}
+    for tag, kw in (("sim", {}),
+                    ("async", dict(engine="async", p=0.5, hetero=HeteroConfig(**ASYNC_LOGNORMAL),
+                                   method="clipped_gossip",
+                                   faults=FaultConfig(fault_model="drop", fault_rate=0.2, seed=5),
+                                   fleet=FleetConfig(flow_control="token_account",
+                                                     token_capacity=2.0, token_rate=0.5)))):
+        paths = {k: os.path.join(trace_dir, f"{tag}.{k}") for k in ("json", "jsonl")}
+        plain = make_shard_trainer(torch, W, dev, **kw)
+        rec = make_shard_trainer(torch, W, dev, obs=ObsConfig(trace_path=paths["json"],
+                                                              metrics_path=paths["jsonl"]), **kw)
+        trainers = (plain, rec)
+        states = [tr.init_state(0) for tr in trainers]
+        ms0, ms1 = [], []
+        for i in range(SHARD_STEPS):             # in turns: plain, recording
+            for j, (tr, st_ms) in enumerate(zip(trainers, (ms0, ms1))):
+                t0 = time.perf_counter()
+                states[j], _ = tr.step(states[j], batches[i])
+                torch.cuda.synchronize()
+                st_ms.append((time.perf_counter() - t0) * 1e3)
+        s0, s1 = states
+        fields = ("comm_rounds", "comm_units", "comm_bytes", "stale_time", "wire_dropped",
+                  "flow_skipped", "tokens")
+        bad = states_bit_equal(torch, s0, s1, fields)
+        if bad:
+            raise AssertionError(f"[obs] {tag}: the recording run's {bad} differ")
+        written = rec.export_obs()
+        with open(paths["json"]) as fh:
+            doc = json.load(fh)
+        errs = schema.validate_trace(doc)
+        tot = report.totals(report.load_jsonl(paths["jsonl"]))
+        want = {f: float(getattr(s1.proto, f)) for f in fields[:-1]
+                if getattr(s1.proto, f) is not None}
+        if errs or any(tot.get(f) != v for f, v in want.items()):
+            raise AssertionError(f"[obs] {tag}: trace {errs[:3]}, totals {tot} != {want}")
+        kinds = {}
+        for e in doc["reproEvents"]:
+            kinds[e["ev"]] = kinds.get(e["ev"], 0) + 1
+        m0, m1 = statistics.median(ms0[1:]), statistics.median(ms1[1:])
+        out[tag] = dict(plain_ms=m0, recording_ms=m1, overhead=m1 / m0 - 1.0)
+        log(f"[obs] (e) {tag} W={W} recording, {SHARD_STEPS} "
+            f"{'windows' if tag == 'async' else 'steps'}: bit-equal to the plain run "
+            f"(theta, velocity, counters, generator), trace valid ({kinds}), report totals = "
+            f"accumulators {want}; median step plain {m0:.3f} ms, recording {m1:.3f} ms "
+            f"(overhead {m1 / m0 - 1.0:+.1%}, same steps in turns); wrote {sorted(written)}")
+        del s0, s1, states, plain, rec, trainers
+    return out
+
+
+def shard_memory(torch, dev):
+    """(f) validate_fleet_memory at S in {1, 4} for the device plane at W=8,
+    1024 and 4096 against the card's free memory: the whole plane is held
+    on the one card, the per-device figure printed beside it."""
+    from repro_torch.fleet import memory
+    free = torch.cuda.mem_get_info(dev)[0]
+    lines = []
+    for Wk in (8, 1024, 4096):
+        for S in (1, SHARD_S):
+            per = memory.plane_bytes(Wk, WIRE[None], "device", S)
+            try:
+                need = memory.validate_fleet_memory(Wk, WIRE[None], "device", what="the MLP",
+                                                    device=dev, n_shards=S)
+                verdict = f"fits, holds {need / 2 ** 30:.2f} GiB"
+            except ValueError as e:
+                verdict = f"refuses ({str(e).split('; ')[-1][:60]}...)"
+            lines.append(f"W={Wk} S={S}: per device {per / 2 ** 30:.2f} GiB, {verdict}")
+    log(f"[shard] (f) validate_fleet_memory, device plane, card free "
+        f"{free / 2 ** 30:.2f} GiB: " + "; ".join(lines))
+
+
+def run_shard_phase(torch, ck, ref, fu, rb, codec_seeds, dev, bw, peak):
+    """Phase 9. Returns ({kernel: launches}, {kernel: max abs err},
+    summary)."""
+    from repro_torch.data.synthetic import load_mnist
+    train, _ = load_mnist(num_train=25600, num_test=10)
+    trace_dir = os.path.join(HERE, "build", "chip_smoke_obs")
+    os.makedirs(trace_dir, exist_ok=True)
+    err, times = check_shard_kernels(torch, ck, ref, fu, rb, codec_seeds, dev, bw, peak)
+    launches = {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    got, sim_ms = shard_sim_runs(torch, train, dev)
+    add(got)
+    add(shard_partition(torch, train, dev))
+    got, async_ms = shard_async(torch, train, dev)
+    add(got)
+    got, dist_ms = shard_dist(torch, train, dev, trace_dir)
+    add(got)
+    obs = obs_runs(torch, train, dev, trace_dir)
+    shard_memory(torch, dev)
+    return launches, err, dict(shard_row_ms=times, sim_ms=sim_ms, async_ms=async_ms,
+                               dist=dist_ms, obs=obs)
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -2694,6 +3241,19 @@ def main():
         launches[kname] += n
     log(f"[async] summary: {json.dumps(async_summary)}")
     phase_s["8 async"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    shard_launches, shard_err, shard_summary = run_shard_phase(torch, ck, ref, fu, rb,
+                                                               codec_seeds, dev, bw, peak)
+    for kname, n in shard_launches.items():
+        launches[kname] += n
+    for kname, e in shard_err.items():
+        err[kname] = max(err[kname], e)
+    for kname, t in shard_summary["shard_row_ms"].items():
+        times[kname]["shard_rows_of_32"] = t
+    log(f"[shard] launches in phase 9: {shard_launches}; summary ({smi}): "
+        f"{json.dumps(shard_summary)}")
+    phase_s["9 shard+obs"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

@@ -36,7 +36,19 @@ Engines:
 
 ``fleet=`` (a :class:`~repro_torch.common.config.FleetConfig`: partitioned
 exchanges, flow control; the host-resident plane on async only) runs on the
-sim and async engines.
+sim and async engines; the dist engine refuses it.
+
+``shard=`` (a :class:`~repro_torch.common.config.ShardConfig`,
+:mod:`repro_torch.shard`) pads the flat plane to S equal column shards on
+all three engines: the codec encodes per shard (seeds ``worker * S +
+shard``) and ``comm_bytes`` counts the per-device wire. On the dist engine
+each rank holds its row as S shard rows and the mesh's ``fsdp`` must be S.
+
+``obs=`` (an :class:`~repro_torch.common.config.ObsConfig`,
+:mod:`repro_torch.obs`) records typed trace events and per-step metrics;
+:meth:`GossipTrainer.export_obs` writes them. On the dist engine rank 0
+records the fleet's events from the host schedule. The all-default
+``ShardConfig()`` and ``ObsConfig()`` change nothing.
 
 The engines expose the shared matching schedule (:meth:`matching_partners`,
 :attr:`num_gossip_rounds`) and one communication round as the parity
@@ -49,7 +61,9 @@ loads the other's. The dist engine writes the whole ``[W, total]`` plane
 from rank 0 after a gather, with the schedule and ``comm_bytes`` in the
 metadata, and every rank reads its own row back. The async engine adds its
 host clocks (``hetero_clock``) and the hetero, fault and fleet descriptors,
-and refuses a checkpoint written under another fleet.
+and refuses a checkpoint written under another fleet. A sharded trainer
+writes its ``shard`` descriptor; a restore across shard layouts is refused
+before any array is read.
 """
 from __future__ import annotations
 
@@ -79,21 +93,38 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _validate_shard_meta(meta) -> None:
-    """Refuse, before any array is touched, a checkpoint written under a
-    sharded plane: ``shard=`` is not ported, so the trainer is un-sharded
-    (the reference's message)."""
-    if "shard" in (meta or {}):
+def _sharded(shard) -> bool:
+    return shard is not None and shard.enabled()
+
+
+def _validate_shard_meta(facade, meta) -> None:
+    """Refuse to restore across shard layouts, BEFORE any array is touched:
+    the saved shard descriptor (n_shards / axes / quantum) must match the
+    trainer's, field by field, since the resident widths and the codec
+    streams are functions of it. The bucket totals are then held by the
+    FlatSpec manifest check of the restore."""
+    from repro_torch.shard import shard_descriptor
+    meta = meta or {}
+    cur = shard_descriptor(facade.shard, facade.codec) if _sharded(facade.shard) else None
+    if "shard" in meta:
+        if cur is None:
+            raise ValueError(
+                "checkpoint was written under a sharded plane "
+                f"({meta['shard']!r}) but this trainer is un-sharded — the "
+                "resident buffer widths and codec streams depend on the "
+                "layout; pass the same ShardConfig (shard=...) to resume")
+        _diff_descriptor("shard", meta["shard"], cur)
+    elif cur is not None:
         raise ValueError(
-            "checkpoint was written under a sharded plane "
-            f"({meta['shard']!r}) but this trainer is un-sharded — the "
-            "resident buffer widths and codec streams depend on the "
-            "layout; pass the same ShardConfig (shard=...) to resume")
+            "checkpoint was written WITHOUT a sharded plane but this "
+            "trainer configures one — restoring would reinterpret the "
+            "un-padded buffers under the sharded layout; drop shard= or "
+            "start a fresh run")
 
 
 def _diff_descriptor(name: str, saved: dict, current: dict) -> None:
-    """Raise a field-by-field ValueError when a persisted fleet descriptor
-    (hetero / fault / fleet plane) differs from the live trainer's."""
+    """Raise a field-by-field ValueError when a persisted descriptor
+    (hetero / fault / fleet / shard plane) differs from the live trainer's."""
     diffs = sorted(k for k in set(saved) | set(current)
                    if saved.get(k) != current.get(k))
     if diffs:
@@ -145,11 +176,18 @@ class _Backend:
         if self.sched is not None:
             self.sched.restore(sched_state)
 
+    def wire_bytes(self) -> int:
+        """Wire bytes per exchange and worker (per device on a sharded
+        plane), as ``comm_bytes`` counts them; known after init_state."""
+        if self.wire is None:
+            raise ValueError("wire size unknown before init_state; pass param_bytes")
+        return self.wire
+
     def checkpoint_extra(self) -> dict:
         return {}
 
     def validate_checkpoint_meta(self, meta) -> None:
-        _validate_shard_meta(meta)
+        _validate_shard_meta(self.facade, meta)
 
     def save_state(self, path, state, meta) -> None:
         from repro_torch.checkpoint import io
@@ -194,7 +232,11 @@ class _SimBackend(_Backend):
         stacked = tree_map(lambda x: x.to(self.facade.device)[None].expand(
             (W,) + tuple(x.shape)), params)
         self.wire = int(self.facade.impl.wire_stack_bytes(stacked))
-        return self.sim.init(stacked, int(seed))
+        state = self.sim.init(stacked, int(seed))
+        if self.sim.shard_layout is not None:
+            # the per-device wire, the engine's own account
+            self.wire = int(self.sim._wire_bytes(state.spec))
+        return state
 
     def step(self, state, x, y, draws=None):
         state, m = self.sim.step(state, x, y, draws=draws)
@@ -210,8 +252,10 @@ class _SimBackend(_Backend):
         Alg. 3/4/6 restricted to the round's perfect matching, on the flat
         plane. With a codec, off-diagonal contributions read the
         decode(encode(theta)) reconstruction, seeded by (round, worker) as
-        the dist engine's wire."""
+        the dist engine's wire; under a sharded plane, per shard row, seeded
+        by (round, worker * S + shard) as a sharded dist rank's."""
         from repro_torch import comm
+        from repro_torch import shard as shard_plane
         from repro_torch.common.flat import FlatSpec
         from repro_torch.core import topology
         spec = FlatSpec.build(params_stack, leading=1)
@@ -224,13 +268,25 @@ class _SimBackend(_Backend):
         if codec is None:
             return spec.unflatten(topology.apply_mix(mix, bufs))
         W = spec.lead_shape[0]
-        hat, _ = comm.roundtrip_bufs(codec, bufs,
-                                     comm.codec_seeds(round_idx, torch.arange(W, device=dev)))
+        if _sharded(self.facade.shard):
+            # the parity surface may run before init_state: the layout of
+            # the stack's own spec (the same spec gives the same layout)
+            layout = shard_plane.build_layout(spec, self.facade.shard, codec)
+            rows = layout.shard_rows(shard_plane.pad_bufs(bufs, layout))
+            seeds = comm.codec_seeds(round_idx, torch.arange(W * layout.n_shards, device=dev))
+            hat, _ = comm.roundtrip_bufs(codec, rows, seeds)
+            hat = shard_plane.slice_bufs(layout.unshard_rows(hat), spec.totals)
+        else:
+            hat, _ = comm.roundtrip_bufs(codec, bufs,
+                                         comm.codec_seeds(round_idx, torch.arange(W, device=dev)))
         hat = {k: v.to(bufs[k].dtype) for k, v in hat.items()}
         return spec.unflatten(topology.apply_mix_split(mix, bufs, hat))
 
     def rank0_params(self, state):
         return self.sim.rank0_params(state)
+
+    def attach_observer(self, observer) -> None:
+        self.sim.obs = observer
 
 
 class _AsyncBackend(_SimBackend):
@@ -324,10 +380,11 @@ class _DistBackend(_Backend):
                 'engine="dist" does not support fault injection: the fault '
                 'plane rides the single-controller wire boundary (use '
                 'engine="sim" or engine="async")')
-        for name in ("fleet", "shard"):
-            if kw[name] is not None:
-                raise NotImplementedError(f'{name}= on engine="dist" is not ported yet '
-                                          "(port slice 4b)")
+        if kw["fleet"] is not None:
+            raise ValueError(
+                'fleet= is the sim and async engines\' plane (partitioned '
+                'exchanges, flow control, the host plane); engine="dist" has '
+                'no fleet plane')
         if kw["hetero"] is not None:
             raise ValueError('hetero= is the async engine\'s (engine="async")')
         group = kw["group"]
@@ -349,7 +406,7 @@ class _DistBackend(_Backend):
         self.num_workers = mesh_cfg.num_workers
         tcfg = TrainConfig(protocol=facade.protocol, optimizer=facade.optimizer,
                            fused_update=facade.fused_update)
-        self.trainer = DistTrainer(group, mesh_cfg, tcfg, kw["loss_fn"])
+        self.trainer = DistTrainer(group, mesh_cfg, tcfg, kw["loss_fn"], shard=kw["shard"])
         self.codec = self.trainer._codec
         self.sched = GossipSchedule(facade.protocol, self.num_workers,
                                     seed=int(kw["seed"]) + 1, mesh_cfg=mesh_cfg)
@@ -360,6 +417,10 @@ class _DistBackend(_Backend):
         # host mirror of state.step: the schedule is polled with it, so the
         # step never reads the device counter back
         self._host_step = 0
+        self._obs = None
+
+    def attach_observer(self, observer) -> None:
+        self._obs = observer
 
     def _sched_mesh_cfg(self) -> MeshConfig:
         return self.mesh_cfg
@@ -370,15 +431,24 @@ class _DistBackend(_Backend):
         self.comm_bytes = 0.0
         self.wire = int(self.facade.impl.wire_stack_bytes(
             tree_map(lambda x: x[None], params)))
+        state = self.trainer.init_state(params)
+        if self.trainer.shard_layout is not None:
+            # the per-device wire: each shard ships only its own columns
+            from repro_torch.shard import wire_per_device
+            self.wire = int(wire_per_device(self.trainer.shard_layout, state.spec,
+                                            self.codec))
         self._cost = self.facade.impl.comm_cost(self.wire, self.num_workers)
-        return self.trainer.init_state(params)
+        return state
 
     def step(self, state, x, y, draws=None):
         if draws is not None:
             raise ValueError('engine="dist" draws from its host schedule; draws= is '
                              'the sim engine\'s parity hook')
         impl = self.facade.impl
-        fire, active, rnd = self.sched.poll(self._host_step)
+        obs = self._obs
+        t_start = obs.now() if obs is not None else 0.0
+        step_idx = self._host_step
+        fire, active, rnd = self.sched.poll(step_idx)
         self._host_step += 1
         # the two programs of the reference: gradient only, or gradient and
         # one gossip round
@@ -401,6 +471,8 @@ class _DistBackend(_Backend):
         metrics["comm_active"] = int(np.sum(active)) if fire and active is not None else 0
         metrics["comm_round"] = rnd
         metrics["comm_bytes"] = self.comm_bytes
+        if obs is not None:
+            obs.on_dist_step(self, t_start, step_idx, fire, active, rnd)
         return state, metrics
 
     def gossip_exchange(self, params_stack, active, round_idx: int):
@@ -457,7 +529,10 @@ class GossipTrainer:
     wire), ``faults`` (sim and async: a
     :class:`~repro_torch.common.config.FaultConfig`; a delay model puts the
     async engine in message mode), ``fleet`` (sim and async: a
-    :class:`~repro_torch.common.config.FleetConfig`), ``hetero`` (async: a
+    :class:`~repro_torch.common.config.FleetConfig`), ``shard`` (every
+    engine: a :class:`~repro_torch.common.config.ShardConfig`), ``obs``
+    (every engine: an :class:`~repro_torch.common.config.ObsConfig`),
+    ``hetero`` (async: a
     :class:`~repro_torch.common.config.HeteroConfig`), ``mesh_cfg`` (the
     matching schedule's pods x workers layout), ``group`` (dist: the rank's
     :class:`~repro_torch.launch.mesh.WorkerGroup`) and ``seed`` (dist: the
@@ -476,11 +551,9 @@ class GossipTrainer:
                  mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
-        for name, value, where in (("publish_every", publish_every,
-                                    "port slice 7b, train-while-serve"),
-                                   ("obs", obs, "port slice 6")):
-            if value is not None:
-                raise NotImplementedError(f"{name}= is not ported yet ({where})")
+        if publish_every is not None:
+            raise NotImplementedError("publish_every= is not ported yet (port slice 7b, "
+                                      "train-while-serve)")
         self.engine = engine
         # an explicit codec= overrides the protocol config's codec
         if codec is not None:
@@ -491,12 +564,22 @@ class GossipTrainer:
         self.fused_update = fused_update
         self.device = resolve_device(device)
         self.init_fn = init_fn
+        self.shard = shard
         self._backend = ENGINES[engine](self, dict(
             loss_fn=loss_fn, num_workers=num_workers, hetero=hetero, faults=faults,
             fleet=fleet, shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed))
         self.num_workers = self._backend.num_workers
         self.codec = self._backend.codec      # the active Codec, or None
         self._host_steps = 0
+        # telemetry plane: an ObsConfig that records builds the observer and
+        # attaches it to the engine; None or the all-default config builds
+        # nothing. On the dist engine rank 0 records the fleet's events.
+        self.obs = obs
+        self.observer = None
+        if obs is not None and obs.enabled() and (engine != "dist" or group.rank == 0):
+            from repro_torch.obs import Observer
+            self.observer = Observer(obs, engine=engine, num_workers=self.num_workers)
+            self._backend.attach_observer(self.observer)
 
     @property
     def sim(self):
@@ -524,10 +607,22 @@ class GossipTrainer:
         parity hook (:meth:`SimTrainer.step`). On the dist engine ``batch``
         is this rank's ``(x [pw, ...], y [pw])``."""
         x, y = (batch["x"], batch["y"]) if isinstance(batch, dict) else batch
+        step_idx = self._host_steps
         state, metrics = self._backend.step(state, x, y, draws=draws)
-        metrics = obs_schema.normalize_step_metrics(metrics, step=self._host_steps)
+        metrics = obs_schema.normalize_step_metrics(metrics, step=step_idx)
         self._host_steps += 1
+        if self.observer is not None:
+            self.observer.on_step(step_idx, metrics, state)
         return state, metrics
+
+    def export_obs(self, trace_path: Optional[str] = None,
+                   metrics_path: Optional[str] = None) -> dict:
+        """Write the recorded telemetry: the Perfetto/Chrome trace JSON and
+        the metrics JSONL (paths default to the ObsConfig's). Returns {kind:
+        path} of what was written; {} when nothing records."""
+        if self.observer is None:
+            return {}
+        return self.observer.export(trace_path, metrics_path)
 
     # ------------------------------------------------------- parity surface
     def matching_partners(self, round_idx: int) -> np.ndarray:
@@ -578,6 +673,9 @@ class GossipTrainer:
         engine every rank calls it; rank 0 writes the whole plane."""
         meta = dict(meta or {})
         meta.setdefault("protocol", dataclasses.asdict(self.protocol))
+        if _sharded(self.shard):
+            from repro_torch.shard import shard_descriptor
+            meta.setdefault("shard", shard_descriptor(self.shard, self.codec))
         meta.update(self._backend.checkpoint_extra())
         self._backend.save_state(path, state, meta)
 
@@ -602,7 +700,5 @@ class GossipTrainer:
         defaults to the live wire size per event (known after init_state):
         the codec's wire when a codec is active, else the raw params."""
         if param_bytes is None:
-            param_bytes = self._backend.wire
-            if param_bytes is None:
-                raise ValueError("wire size unknown before init_state; pass param_bytes")
+            param_bytes = self._backend.wire_bytes()
         return self.impl.comm_cost(param_bytes, self.num_workers)

@@ -1,7 +1,8 @@
 """Configuration dataclasses read by the port's engines.
 
 Copies of ``MeshConfig``, ``ProtocolConfig``, ``OptimizerConfig``,
-``HeteroConfig``, ``FaultConfig``, ``FleetConfig``, the fields of ``TrainConfig`` that the dist engine reads,
+``HeteroConfig``, ``FaultConfig``, ``FleetConfig``, ``ShardConfig``,
+``ObsConfig``, the fields of ``TrainConfig`` that the dist engine reads,
 and ``ModelConfig`` with the dataclasses it references (the transformer
 architectures of :mod:`repro_torch.configs`), from the reference
 (``repro.common.config``) with the same fields and defaults, so one set of
@@ -17,8 +18,9 @@ from typing import Optional, Tuple
 class MeshConfig:
     """The reference's production mesh: ``pods`` x ``data`` x ``model``
     chips, the data axis factored into (worker, fsdp). The dist engine runs
-    one process per gossip worker (``pods * workers_per_pod``); ``fsdp`` and
-    ``model`` must be 1 there (see :mod:`repro_torch.launch.mesh`)."""
+    one process per gossip worker (``pods * workers_per_pod``); ``model``
+    must be 1 there and ``fsdp`` the sharded plane's ``n_shards`` (see
+    :mod:`repro_torch.launch.mesh`)."""
     data: int = 16
     model: int = 16
     pods: int = 1
@@ -155,6 +157,67 @@ class FleetConfig:
         """True if any fleet feature departs from the inert default."""
         return (self.partition != 1 or self.flow_control != "none"
                 or self.plane != "device")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """Sharded flat plane (:mod:`repro_torch.shard`): each dtype bucket's
+    ``total`` dim split into ``n_shards`` equal column shards, the replica
+    dim as before.
+
+    The sim and async engines realize the layout on one device: the codec
+    encodes per shard row (seeds ``worker * n_shards + shard``) and
+    ``comm_bytes`` counts the per-device wire. The dist engine holds each
+    rank's padded row as ``n_shards`` shard rows and needs the mesh's
+    ``fsdp`` (the ``axes``' product, ``model`` being 1) to equal
+    ``n_shards``. The all-default config is inert: ``n_shards=1`` builds no
+    layout and reproduces the un-sharded engines bit for bit.
+    """
+    # number of equal column shards of every dtype bucket; each bucket total
+    # is padded up to a multiple of n_shards * quantum (quantum = the codec
+    # block when a codec rides the wire, else the lane width), so shard
+    # boundaries fall on codec-block boundaries
+    n_shards: int = 1
+    # mesh axes the plane dim shards over (dist engine), outermost first
+    axes: Tuple[str, ...] = ("fsdp", "model")
+
+    def enabled(self) -> bool:
+        """True if the plane is actually sharded (inert at n_shards=1)."""
+        return self.n_shards != 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Telemetry plane (:mod:`repro_torch.obs`): typed event tracing and a
+    step-metrics registry over every engine, behind
+    ``GossipTrainer(obs=...)``.
+
+    Observation is host-side only: the observer reads the draws a step
+    consumed and replays the ``(seed, worker, step)`` hashes, so a
+    recording run's trajectory is bit-identical to a non-recording one. The
+    all-default config is inert: no observer is built.
+    """
+    trace: bool = False              # record typed events (TraceRecorder)
+    metrics: bool = False            # record per-step metrics (MetricsSink)
+    trace_path: str = ""             # non-empty: export a Perfetto/Chrome
+    #                                  trace JSON here (implies trace=True)
+    metrics_path: str = ""           # non-empty: stream metrics JSONL here
+    #                                  (implies metrics=True)
+    sample_every: int = 1            # record every k-th facade step (trace
+    #                                  step/exchange events + metrics rows);
+    #                                  message-mode wire events always record
+    max_events: int = 1_000_000      # trace ring bound; overflow counts into
+    #                                  TraceRecorder.dropped instead of OOM
+
+    def trace_enabled(self) -> bool:
+        return self.trace or bool(self.trace_path)
+
+    def metrics_enabled(self) -> bool:
+        return self.metrics or bool(self.metrics_path)
+
+    def enabled(self) -> bool:
+        """True if anything records (the all-default config is inert)."""
+        return self.trace_enabled() or self.metrics_enabled()
 
 
 @dataclasses.dataclass(frozen=True)

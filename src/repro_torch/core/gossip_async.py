@@ -40,7 +40,14 @@ place), rides a host queue, and is applied at its virtual arrival time
 (message mode), with timeouts, doubling backoff and retries; drops and
 corrupt wires die at dispatch. With ``FleetConfig(plane="host")`` the plane
 lives in pinned host memory and only the window's rows visit the card
-(:mod:`repro_torch.fleet.hostplane`).
+(:mod:`repro_torch.fleet.hostplane`). ``shard=`` (a
+:class:`~repro_torch.common.config.ShardConfig`) is the sim engine's
+sharded plane, passed through; the host plane refuses it.
+
+An observer (:mod:`repro_torch.obs`) records each window's compute spans
+in virtual time, its exchanges from the draws the window consumed and, in
+message mode, the queue's dispatch / apply / timeout / retry / drop /
+corrupt events as they happen.
 
 Draws of virtual time hash ``(seed, worker, step)``, so a run is
 bit-reproducible across restarts; the host clock mirrors persist through
@@ -212,17 +219,21 @@ class AsyncTrainer(SimTrainer):
             return self._hostplane.window_step(state, x, y, t, mask, nxt, draws=draws)
         step0 = state.step             # the step returns a new counter
         tokens0 = state.proto.tokens   # and new balances: these stay pre-step
+        # the pre-window clocks, for the observer's compute spans
+        clocks0 = self.clocks.copy() if self.obs is not None else None
         if self._message_mode:
-            return self._message_step(state, x, y, t, mask, nxt, draws)
+            return self._message_step(state, x, y, t, mask, nxt, draws, clocks0)
         if mask.all():
             # full-fleet window: the synchronous step, verbatim
-            state, m = super().step(state, x, y, draws=draws)
+            state, m = self._step(state, x, y, draws=draws)
         else:
-            state, m = super().step(state, x, y, draws=draws, worker_mask=mask)
+            state, m = self._step(state, x, y, draws=draws, worker_mask=mask)
         proto = self._advance_clocks(state.proto, step0, nxt, mask, tokens0)
         state = state.replace(proto=proto)
         self.clocks = np.where(mask, nxt, self.clocks)
         self.steps_done = self.steps_done + mask
+        if self.obs is not None:
+            self.obs.on_async_window(self, t, mask, nxt, clocks0, step0, tokens0)
         m = dict(m, virtual_time=t, window_size=int(mask.sum()),
                  stale_time=proto.stale_time, stale_steps=proto.stale_steps,
                  stale_events=proto.stale_events)
@@ -232,6 +243,8 @@ class AsyncTrainer(SimTrainer):
         """Empty event window: the whole fleet is dark until ``t_end``. The
         clocks advance (host mirrors and the f32 view); no step runs."""
         W = self.num_workers
+        if self.obs is not None:
+            self.obs.event("outage", float(self.clocks.min()), int(state.step), until=t_end)
         self.clocks = np.full((W,), t_end, np.float64)
         proto = state.proto._replace(clocks=torch.as_tensor(
             self.clocks, dtype=torch.float32, device=state.step.device))
@@ -273,21 +286,23 @@ class AsyncTrainer(SimTrainer):
                               stale_steps=stale_steps, stale_events=stale_events)
 
     # ------------------------------------------------ message mode (delays)
-    def _message_step(self, state, x, y, t, mask, nxt, draws=None):
+    def _message_step(self, state, x, y, t, mask, nxt, draws=None, clocks0=None):
         """One event window in message mode: deliver every pending wire due
         at or before ``t`` (timing out and retrying stragglers), run the
         local step with the mixing deferred, then dispatch this window's new
         exchanges into the queue."""
         state = self._process_queue(state, t, mask)
         step0 = state.step
-        state, m = SimTrainer.step(self, state, x, y, draws=draws,
-                                   worker_mask=None if mask.all() else mask,
-                                   defer_comm=True)
+        state, m = self._step(state, x, y, draws=draws,
+                              worker_mask=None if mask.all() else mask, defer_comm=True)
         proto = self._advance_clocks(state.proto, step0, nxt, mask, count_stale=False)
         state = state.replace(proto=proto)
         self.clocks = np.where(mask, nxt, self.clocks)
         self.steps_done = self.steps_done + mask
         state = self._dispatch(state, step0, t, mask)
+        if self.obs is not None:
+            # compute spans only: the queue emits the wire events itself
+            self.obs.on_async_window(self, t, mask, nxt, clocks0, step0, None)
         proto = state.proto
         m = dict(m, virtual_time=t, window_size=int(mask.sum()),
                  pending_wires=len(self._pending),
@@ -307,6 +322,7 @@ class AsyncTrainer(SimTrainer):
             return state
         peers = peers.cpu().numpy()
         fm = self.fault_model
+        obs = self.obs
         step_host = int(step0)
         coef = float(self._impl.alpha_at(step0))
         drops = corrupts = 0
@@ -317,9 +333,13 @@ class AsyncTrainer(SimTrainer):
                 continue
             if fm is not None and fm.injects_drop and bool(fm.drop_mask(i, step_host)):
                 drops += 1
+                if obs is not None:
+                    obs.event("drop", t, step_host, worker=i)
                 continue
             if fm is not None and fm.injects_corrupt and bool(fm.corrupt_mask(i, step_host)):
                 corrupts += 1
+                if obs is not None:
+                    obs.event("corrupt", t, step_host, worker=i)
                 continue
             wire_i = {b: state.theta[b][i].clone() for b in state.theta}
             wire_k = {b: state.theta[b][k].clone() for b in state.theta}
@@ -331,6 +351,8 @@ class AsyncTrainer(SimTrainer):
                 arrival=t + d, dispatch=t, attempt=0, i=i, k=k,
                 wire_i=wire_i, wire_k=wire_k, step=step_host, coef=coef,
                 gap=int(abs(self.steps_done[i] - self.steps_done[k]))))
+            if obs is not None:
+                obs.event("dispatch", t, step_host, worker=i, peer=k, arrival=t + d)
         if drops or corrupts:
             proto = state.proto
             upd = {}
@@ -352,6 +374,7 @@ class AsyncTrainer(SimTrainer):
         if not self._pending:
             return state
         cfg = self.faults
+        obs = self.obs
         applied = timeouts = retries = gaps = 0
         ages = 0.0
         keep = []
@@ -363,14 +386,23 @@ class AsyncTrainer(SimTrainer):
                 applied += 1
                 ages += t - e["dispatch"]
                 gaps += e["gap"]
+                if obs is not None:
+                    obs.event("apply", t, e["step"], worker=e["i"], peer=e["k"],
+                              age=t - e["dispatch"], gap=e["gap"])
             elif (cfg.timeout > 0.0
                     and t > e["dispatch"] + cfg.timeout * (2.0 ** e["attempt"])):
                 timeouts += 1
+                if obs is not None:
+                    obs.event("timeout", t, e["step"], worker=e["i"], peer=e["k"],
+                              attempt=e["attempt"])
                 if e["attempt"] < cfg.max_retries:
                     retries += 1
                     a = e["attempt"] + 1
                     d = float(self.delay_model.wire_delay(e["i"], e["step"], attempt=a))
                     keep.append(dict(e, attempt=a, dispatch=t, arrival=t + d))
+                    if obs is not None:
+                        obs.event("retry", t, e["step"], worker=e["i"], peer=e["k"],
+                                  attempt=a)
                 # else: abandoned
             else:
                 keep.append(e)

@@ -24,6 +24,14 @@ buffer with the gate in the tail byte: the rank encodes its plane (rounding
 seeded by ``codec_seeds(round, worker)``, the stream the sim engine uses),
 exchanges the packed bytes and decodes the peer's. A stateful codec's
 residual advances only where the rank's own gate fired.
+
+With a sharded plane (a :class:`~repro_torch.shard.ShardLayout`) the rank's
+padded row is S shard rows ``[S, shard_size]``, the S devices of its
+replica in the reference's mesh: the codec encodes them with seeds
+``codec_seeds(round, rank * S + s)`` (the reference's ``worker * n_shards +
+shard`` coordinate, so the wire equals the sim engine's shard rows), and
+the S shard wires of a bucket cross as one message, so a round still sends
+one message per bucket.
 """
 from __future__ import annotations
 
@@ -79,7 +87,8 @@ def partner_of(schedule, round_idx: int, worker: int, mesh_cfg: MeshConfig) -> i
 
 
 def make_gossip_step(group, mesh_cfg: MeshConfig, cfg: ProtocolConfig,
-                     schedule_kind: str = "hypercube", mode: str = "apply", codec=None):
+                     schedule_kind: str = "hypercube", mode: str = "apply", codec=None,
+                     layout=None):
     """Build this rank's gossip step over its local flat buffers
     (``{bucket: [1, total]}``). ``active`` is the host's ``[W]``
     participation mask (every rank passes the same), ``round_idx`` a python
@@ -96,7 +105,9 @@ def make_gossip_step(group, mesh_cfg: MeshConfig, cfg: ProtocolConfig,
 
     ``codec``: the active codec (default: ``cfg.codec``'s). A stateful one
     adds a ``residual`` buffer dict after the params (after the grads in
-    fused mode) and a residual output at the end.
+    fused mode) and a residual output at the end. ``layout``: the sharded
+    plane's :class:`~repro_torch.shard.ShardLayout` (the buffers are then
+    its padded widths), or None.
     """
     assert mode in ("apply", "peer", "fused"), mode
     schedule = build_schedule(mesh_cfg, schedule_kind)
@@ -126,18 +137,29 @@ def make_gossip_step(group, mesh_cfg: MeshConfig, cfg: ProtocolConfig,
         if codec is None:
             peer, peer_act = switch_exchange(bufs, act, round_idx)
             return peer, peer_act, None
-        seeds = comm.codec_seeds(round_idx, torch.full((1,), rank, dtype=torch.int64,
-                                                       device=dev))
+        rows, res = bufs, residual
+        if layout is None:
+            seeds = comm.codec_seeds(round_idx, torch.full((1,), rank, dtype=torch.int64,
+                                                           device=dev))
+        else:
+            S = layout.n_shards
+            rows = layout.shard_rows(bufs)
+            res = layout.shard_rows(residual) if stateful else None
+            seeds = comm.codec_seeds(round_idx, rank * S + torch.arange(S, device=dev))
         wires, new_res = {}, {}
-        for k, b in bufs.items():
-            r = residual[k] if stateful else None
+        for k, b in rows.items():
+            r = res[k] if stateful else None
             wire, r2 = codec.encode(b, seeds, r)
-            wires[k] = codec.pack(wire)
+            # a bucket's shard wires, one message
+            wires[k] = codec.pack(wire).reshape(1, -1)
             if stateful:
                 new_res[k] = torch.where(act > 0, r2, r)
         peer_wires, peer_act = switch_exchange(wires, act, round_idx)
-        peer = {k: codec.decode_wire(peer_wires[k], b.shape[1]).to(b.dtype)
-                for k, b in bufs.items()}
+        peer = {k: codec.decode_wire(peer_wires[k].view(b.shape[0], -1), b.shape[1]).to(b.dtype)
+                for k, b in rows.items()}
+        if layout is not None:
+            peer = layout.unshard_rows(peer)
+            new_res = layout.unshard_rows(new_res) if stateful else new_res
         return peer, peer_act, (new_res if stateful else None)
 
     def gate_coef(act, peer_act) -> torch.Tensor:

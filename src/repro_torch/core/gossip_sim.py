@@ -34,6 +34,14 @@ mixes one hash-scheduled chunk of the plane per exchange
 protocols run B8 once per chunk on its column slice). The all-default
 config adds no work.
 
+With a sharded plane (``shard=ShardConfig(n_shards=S)``,
+:mod:`repro_torch.shard`) every bucket is padded at its tail to S equal
+codec-block-aligned shards; the codec encodes the ``[W * S, shard_size]``
+shard rows (a view of the plane), row ``w * S + s`` seeded by
+``w * S + s`` as a sharded dist rank does, and ``comm_bytes`` counts the
+per-device wire (the whole wire over S). The all-default config adds no
+work.
+
 The step updates ``state.theta`` and ``state.opt.mu`` IN PLACE (the
 reference donates the state to its jitted step instead) and advances the
 state's generator. Its ``worker_mask`` and ``defer_comm`` hooks are the
@@ -41,7 +49,10 @@ async engine's (:mod:`repro_torch.core.gossip_async`): only in-window
 workers initiate and commit (B1 runs on the window's rows only), and in
 message mode the in-step mixing is skipped.
 
-Not ported yet, and refused with NotImplementedError: shard (slice 4b).
+An observer (:mod:`repro_torch.obs`, ``self.obs``, attached by the facade)
+records each step from host values: the draws the step consumed
+(:attr:`SimTrainer.last_draws`) and the pre-step flow balances. Without
+one the step does no host work for it.
 """
 from __future__ import annotations
 
@@ -67,11 +78,6 @@ from repro_torch.optim.schedule import lr_at
 from repro_torch.serving.engine import consensus_params
 
 PyTree = Any
-
-
-def _refuse(name: str, value, where: str) -> None:
-    if value is not None:
-        raise NotImplementedError(f"{name}= is not ported yet ({where})")
 
 
 def _store(bufs: dict, k: str, new: torch.Tensor) -> None:
@@ -100,7 +106,6 @@ class SimTrainer:
     def __init__(self, loss_fn: Callable, num_workers: int,
                  protocol: ProtocolConfig, optimizer: OptimizerConfig,
                  fused_update: bool = True, faults=None, fleet=None, shard=None):
-        _refuse("shard", shard, "port slice 4b")
         self.loss_fn = loss_fn
         self.num_workers = num_workers
         self.protocol = protocol
@@ -159,25 +164,58 @@ class SimTrainer:
                 raise ValueError(
                     "plane='host' (host-resident FlatState) requires the "
                     "async engine — use GossipTrainer(engine='async')")
+        # sharded plane: bucket totals split into equal column shards; the
+        # all-default ShardConfig builds no layout and adds no work
+        self.shard = shard
+        self.shard_layout = None
+        if shard is not None and shard.enabled():
+            if not self._impl.pairwise:
+                raise ValueError(
+                    f"sharded plane (repro.shard) needs a pairwise protocol; "
+                    f"{protocol.method!r} is not pairwise")
+            if faults is not None:
+                raise ValueError(
+                    "the fault plane (repro.faults) garbles/checksums whole "
+                    "replica wires; it does not compose with the sharded "
+                    "plane (repro.shard) yet")
+            if fleet is not None and fleet.enabled() and fleet.plane == "host":
+                raise ValueError(
+                    "plane='host' streams whole host rows; it does not "
+                    "compose with the sharded plane (repro.shard) yet")
         # the (gate, peers) the last step drew, before any window or flow
         # mask: the async engine's clock program, dispatcher and host plane
         # read them, as the reference re-derives them from the pre-step key
         self.last_draws = None
+        # telemetry plane: attached by the facade; None does no host work
+        self.obs = None
 
     def _wire_bytes(self, spec: flat_plane.FlatSpec) -> float:
         """Exact per-replica wire bytes: raw, the unpadded slot sizes (the
         resident buffers carry lane padding, which never ships); with a
-        codec, its wire of the padded plane (what actually ships)."""
+        codec, its wire of the padded plane (what actually ships). Under a
+        sharded plane, the per-device wire: the whole wire over S (equal
+        quantum-aligned shards; raw shards sum exactly to the whole)."""
         if self.codec is None:
-            return float(sum(s.size * s.dtype.itemsize for s in spec.slots))
-        return float(comm.wire_param_bytes(self.codec, spec))
+            wire = float(sum(s.size * s.dtype.itemsize for s in spec.slots))
+        else:
+            wire = float(comm.wire_param_bytes(self.codec, spec))
+        if self.shard_layout is not None:
+            wire /= self.shard_layout.n_shards
+        return wire
 
     def _fleet_plan(self, spec: flat_plane.FlatSpec):
-        """Static PartitionPlan for ``spec`` (cached per spec)."""
+        """Static PartitionPlan for ``spec`` (cached per spec). Chunks lie
+        on the whole (shard-padded) totals; under a sharded plane each
+        device ships its 1/S of the chunk, so the chunk wires scale by 1/S."""
         plan = self._plans.get(spec)
         if plan is None:
+            import dataclasses
             from repro_torch.fleet.partition import build_plan
-            plan = self._plans[spec] = build_plan(spec, self.partition, self.codec)
+            plan = build_plan(spec, self.partition, self.codec)
+            if self.shard_layout is not None:
+                S = self.shard_layout.n_shards
+                plan = dataclasses.replace(plan, wire_bytes=tuple(w / S for w in plan.wire_bytes))
+            self._plans[spec] = plan
         return plan
 
     def _col_gate(self, state: FlatState, part_ids: torch.Tensor) -> dict:
@@ -209,6 +247,14 @@ class SimTrainer:
         the generator for the gate and peer draws is seeded with ``seed``."""
         spec = flat_plane.FlatSpec.build(params_stack, leading=1)
         theta = spec.flatten(params_stack)
+        if self.shard is not None and self.shard.enabled():
+            # pad every bucket's tail to S equal quantum-aligned shards and
+            # bind the spec to the padded totals: the optimizer, protocol
+            # and residual buffers follow the padded widths
+            from repro_torch import shard as shard_plane
+            self.shard_layout = shard_plane.build_layout(spec, self.shard, self.codec)
+            spec = shard_plane.padded_spec(spec, self.shard_layout)
+            theta = shard_plane.pad_bufs(theta, self.shard_layout)
         dev = next(iter(theta.values())).device
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -245,17 +291,35 @@ class SimTrainer:
         for rows whose own gate fired (``roundtrip_bufs(gate=)``), so it is
         carried unchanged. ``col_gate`` (``{bucket: bool[W, N]}``, the
         partition plane) restricts the residual advance to the columns of
-        the chunk each worker shipped. Returns (transmit, CommState')."""
+        the chunk each worker shipped. Returns (transmit, CommState').
+
+        Under a sharded plane the codec runs per SHARD: the buffers are
+        viewed as ``[W * S, shard_size]`` rows (block-aligned, so the block
+        layout is that of the whole-plane encode), row ``w * S + s`` seeded
+        by ``w * S + s``, the stream a sharded dist rank uses."""
         codec = self.codec
+        layout = self.shard_layout
         if publish is None:
             publish = state.theta
-        seeds = comm.codec_seeds(state.proto.comm_rounds,
-                                 torch.arange(self.num_workers, device=active.device))
+        rows = self.num_workers
         res = state.comm.residual if codec.stateful else None
-        gate = active.reshape(-1, 1)
+        gate = active
+        if layout is not None:
+            rows *= layout.n_shards
+            publish = layout.shard_rows(publish)
+            res = layout.shard_rows(res) if res is not None else None
+            gate = torch.repeat_interleave(active, layout.n_shards)
+            if col_gate is not None:
+                col_gate = layout.shard_rows(col_gate)
+        seeds = comm.codec_seeds(state.proto.comm_rounds,
+                                 torch.arange(rows, device=active.device))
+        gate = gate.reshape(-1, 1)
         if col_gate is not None:
             gate = {k: gate & col_gate[k] for k in publish}
         hat, new_res = comm.roundtrip_bufs(codec, publish, seeds, res, gate=gate)
+        if layout is not None:
+            hat = layout.unshard_rows(hat)
+            new_res = layout.unshard_rows(new_res) if new_res is not None else None
         # decode reconstructs in f32; the wire mixes in the storage dtype
         hat = {k: v.to(state.theta[k].dtype) for k, v in hat.items()}
         return hat, (comm.CommState(new_res) if codec.stateful else state.comm)
@@ -359,9 +423,23 @@ class SimTrainer:
             grads, losses = vmap(grad_and_value(one_loss))(state.theta, x, y)
         return losses, {k: g.contiguous() for k, g in grads.items()}
 
-    def step(self, state: FlatState, x, y,
-             draws: Optional[Tuple[Any, Any]] = None, worker_mask=None,
-             defer_comm: bool = False):
+    def step(self, state: FlatState, x, y, draws: Optional[Tuple[Any, Any]] = None):
+        """One synchronous step over the stacked workers; returns (state',
+        metrics). See :meth:`_step`. With an observer attached, it records
+        the step from what the step consumed (the draws, the pre-step step
+        counter and flow balances; the step replaces both, never writes
+        them), without a host sync."""
+        if self.obs is None:
+            return self._step(state, x, y, draws=draws)
+        t_start = self.obs.now()
+        step0, tokens0 = state.step, state.proto.tokens
+        state, m = self._step(state, x, y, draws=draws)
+        self.obs.on_sim_step(self, t_start, step0, tokens0)
+        return state, m
+
+    def _step(self, state: FlatState, x, y,
+              draws: Optional[Tuple[Any, Any]] = None, worker_mask=None,
+              defer_comm: bool = False):
         """One step over the stacked workers; returns (state', metrics).
 
         ``draws=(gate, peers)`` replaces this step's own gate and peer draws

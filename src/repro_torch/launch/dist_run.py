@@ -16,8 +16,12 @@ that spawns the fleet.
   ProtocolConfig kwargs, "optimizer": OptimizerConfig kwargs, "codec",
   "fused_update", "steps", "seed", "gather"}``, ``{"kind": "exchange",
   "tag", "protocol", "codec", "params_stack": {name: [W, ...] numpy array or
-  tensor}, "active": [W], "rounds": [...]}`` or ``{"kind": "resume", "tag",
-  "protocol", "optimizer", "codec", "steps", "seed", "at", "path"}``.
+  tensor}, "active": [W], "rounds": [...]}``, ``{"kind": "peer", ...}`` (the
+  exchange run's keys) or ``{"kind": "resume", "tag",
+  "protocol", "optimizer", "codec", "steps", "seed", "at", "path"}``. Any
+  run may add ``"shard": S`` (a ``ShardConfig(n_shards=S)``, on the fleet's
+  mesh with ``fsdp = S``) and a train run ``"obs": ObsConfig kwargs``
+  (recorded in memory; rank 0 returns the events and the metrics rows).
 
 Each rank runs the runs in order through ``GossipTrainer(engine="dist")``
 and returns, per run: the per-step metrics, the launches of every kernel
@@ -28,7 +32,10 @@ copy, gloo and host-to-device copy, the same collectives timed once more
 after a barrier (``probe``: without the wait for the slowest rank), and,
 with ``gather``, the whole
 ``[W, total]`` theta and velocity (rank 0 only). Exchange runs return the
-exchanged stack of every round (rank 0 only). A resume run trains
+exchanged stack of every round (rank 0 only). A peer run returns, on every
+rank and for every round, what ``make_gossip_step(mode="peer")`` gives on
+the rank's row of the stack: the peer's decoded wire (bit for bit what
+crossed it) and gate*coef. A resume run trains
 ``steps`` steps and saves a checkpoint to ``path`` at step ``at``; a fresh
 trainer then loads it and takes the remaining steps. It returns, on every
 rank, the entries that differ from the saved state after the load and from
@@ -38,6 +45,7 @@ launches of the resumed steps, and (rank 0) the file's entries.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any, Dict, List
@@ -45,7 +53,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.common.config import MeshConfig, OptimizerConfig, ProtocolConfig
+from repro_torch.common.config import (MeshConfig, ObsConfig, OptimizerConfig,
+                                       ProtocolConfig, ShardConfig)
 from repro_torch.launch.mesh import spawn_workers
 
 
@@ -69,11 +78,19 @@ def _numpy_tree(tree):
 
 def _trainer(group, run: Dict[str, Any]):
     from repro_torch.api import GossipTrainer
+    shard = mesh_cfg = obs = None
+    if "shard" in run:
+        shard = ShardConfig(n_shards=run["shard"])
+        mesh_cfg = dataclasses.replace(
+            group.mesh_cfg, data=group.mesh_cfg.workers_per_pod * run["shard"])
+    if "obs" in run:
+        obs = ObsConfig(**run["obs"])
     return GossipTrainer(
         engine="dist", protocol=ProtocolConfig(**run["protocol"]),
         optimizer=OptimizerConfig(**run.get("optimizer", {})), loss_fn=_loss_fn,
         fused_update=run.get("fused_update", True), device=group.device,
-        codec=run.get("codec"), group=group, seed=run.get("seed", 0))
+        codec=run.get("codec"), group=group, seed=run.get("seed", 0), shard=shard,
+        mesh_cfg=mesh_cfg, obs=obs)
 
 
 def _train(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
@@ -102,7 +119,12 @@ def _train(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
             rec[k].append(m[k])
     out = {"tag": run["tag"], "launches": ops.launch_counts(), "sends": group.sends,
            "recvs": group.recvs, "exchanges": group.exchange_times(),
-           "wire_bytes": tr.comm_cost().bytes_per_event, **rec}
+           "wire_bytes": tr.comm_cost().bytes_per_event, "wire": tr._backend.wire_bytes(),
+           "keys": sorted(m), **rec}
+    if tr.observer is not None:
+        tr.observer.flush()
+        out["events"] = list(tr.observer.trace.events) if tr.observer.tracing else []
+        out["rows"] = list(tr.observer.sink.records) if tr.observer.sink else []
     out["probe"] = _probe(group, tr, state)
     if run.get("gather"):
         theta = tr.dist.gather_theta(state)
@@ -162,6 +184,31 @@ def _exchange(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]
     return {"tag": run["tag"], "rounds": outs, "sends": group.sends, "recvs": group.recvs,
             "num_gossip_rounds": tr.num_gossip_rounds,
             "partners": [tr.matching_partners(r) for r in run["rounds"]]}
+
+
+def _peer(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
+    from repro_torch import shard as shard_plane
+    from repro_torch.common.flat import FlatSpec
+    tr = _trainer(group, run)
+    stack = {k: torch.as_tensor(v) for k, v in run["params_stack"].items()}
+    spec = FlatSpec.build(stack, leading=1)
+    bufs = {k: b[group.rank:group.rank + 1].contiguous().to(group.device)
+            for k, b in spec.flatten(stack).items()}
+    layout = None
+    if tr.shard is not None and tr.shard.enabled():
+        layout = shard_plane.build_layout(spec, tr.shard, tr.codec)
+        bufs = shard_plane.pad_bufs(bufs, layout)
+    step = tr.dist._program("peer", layout)
+    zeros = {k: torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+             for k, b in bufs.items()}
+    out = []
+    with torch.no_grad():
+        for r in run["rounds"]:
+            args = (bufs, zeros) if tr.dist._codec_stateful else (bufs,)
+            got = step(*args, run["active"], r)
+            peer, gc = got[0], got[1]
+            out.append({**_numpy_tree(peer), "gc": gc.cpu().numpy()})
+    return {"tag": run["tag"], "rounds": out}
 
 
 def _differing(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> List[str]:
@@ -224,7 +271,7 @@ def _resume(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
 
 def run_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
     """The body of one rank: every run of ``job`` in order."""
-    kinds = {"train": _train, "exchange": _exchange, "resume": _resume}
+    kinds = {"train": _train, "exchange": _exchange, "peer": _peer, "resume": _resume}
     return {"rank": group.rank, "device": str(group.device),
             "runs": [kinds[run["kind"]](group, job, run) for run in job["runs"]]}
 

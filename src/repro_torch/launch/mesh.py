@@ -21,8 +21,12 @@ of every exchange.
 
 runs ``fn(group, *args)`` in 8 processes and returns their results by rank;
 a rank that raises fails the whole call, and a group that outlives its
-``join_timeout_s`` is killed. A sharded plane (``fsdp > 1``) and tensor
-parallelism (``model > 1``) are not ported: they raise NotImplementedError.
+``join_timeout_s`` is killed. Tensor parallelism (``model > 1``) is not
+ported (port slice 7b, with the transformer stack) and raises
+NotImplementedError. The data axis' ``fsdp`` factor is the sharded plane's:
+a rank holds its replica's S shards as S rows (one card, so no fsdp
+processes inside a worker), and the dist trainer needs ``fsdp`` to equal
+``ShardConfig.n_shards`` (:func:`check_shard_mesh`).
 """
 from __future__ import annotations
 
@@ -44,19 +48,39 @@ DEFAULT_JOIN_TIMEOUT_S = 600.0  # the whole group, spawn to exit
 
 
 def check_mesh(mesh_cfg: MeshConfig) -> None:
-    """The dist engine runs one process per gossip worker and nothing else:
-    a sharded plane or tensor parallelism inside a worker is refused."""
-    if mesh_cfg.model != 1 or mesh_cfg.data != mesh_cfg.workers_per_pod:
+    """The dist engine runs one process per gossip worker: tensor
+    parallelism inside a worker (``model > 1``) is refused; ``data`` must
+    split into whole workers."""
+    if mesh_cfg.model != 1:
         raise NotImplementedError(
-            f"MeshConfig(data={mesh_cfg.data}, model={mesh_cfg.model}, "
-            f"workers_per_pod={mesh_cfg.workers_per_pod}) needs fsdp = "
-            f"{mesh_cfg.data // max(mesh_cfg.workers_per_pod, 1)} and model = "
-            f"{mesh_cfg.model}; the port's dist engine takes fsdp = model = 1 "
-            "(a sharded plane is port slice 4, tensor parallelism comes with "
-            "the transformer in port slice 7)")
+            f"MeshConfig(model={mesh_cfg.model}) asks for tensor parallelism; the "
+            "port's dist engine takes model = 1 (tensor parallelism comes with "
+            "the transformer stack, port slice 7b)")
+    if mesh_cfg.workers_per_pod < 1 or mesh_cfg.data % mesh_cfg.workers_per_pod:
+        raise ValueError(f"MeshConfig(data={mesh_cfg.data}) does not split into "
+                         f"workers_per_pod={mesh_cfg.workers_per_pod} workers")
     if mesh_cfg.num_workers < 2:
         raise ValueError(f"a gossip fleet needs at least 2 workers, got "
                          f"{mesh_cfg.num_workers}")
+
+
+def check_shard_mesh(mesh_cfg: MeshConfig, shard=None) -> None:
+    """The mesh's product over the shard axes (``fsdp`` x ``model``, with
+    ``model`` 1) must equal ``shard.n_shards``, or 1 without a sharded
+    plane, as the reference's DistTrainer requires."""
+    sizes = {"pod": mesh_cfg.pods, "worker": mesh_cfg.workers_per_pod,
+             "fsdp": mesh_cfg.fsdp, "model": mesh_cfg.model}
+    axes = tuple(shard.axes) if shard is not None else ("fsdp", "model")
+    n = int(shard.n_shards) if shard is not None else 1
+    got = 1
+    for ax in axes:
+        if ax not in sizes:
+            raise ValueError(f"shard axis {ax!r} not in mesh axes {tuple(sizes)}")
+        got *= sizes[ax]
+    if got != n:
+        raise ValueError(
+            f"ShardConfig(n_shards={n}) needs the mesh product over axes {axes} to "
+            f"match, got {got} (mesh shape {sizes})")
 
 
 class WorkerGroup:

@@ -7,7 +7,11 @@ use ``--workers 4 --batch 32``, the paper's effective batch 128). With
 ``--engine async`` a "step" is one event window of the async engine
 (``--time-model``, ``--sigma``), optionally over the fleet plane
 (``--partition``, ``--flow-control``, ``--plane host``): kernels per
-window and the device-busy share of the windows.
+window and the device-busy share of the windows. ``--shard N`` pads the
+plane to N column shards (the codec then encodes ``[W * N, shard_size]``
+rows); ``--trace run.json`` / ``--metrics run.jsonl`` record the run through
+the telemetry plane (``repro_torch.obs``) and write both files at the end,
+so the profile shows what recording costs a step.
 
     python -m repro_torch.launch.profile_sim [--model mlp|cnn]
                                              [--workers 8] [--batch 16] [--steps 10]
@@ -20,6 +24,8 @@ window and the device-busy share of the windows.
                                              [--partition 8]
                                              [--flow-control randomized_token_account]
                                              [--plane device|host]
+                                             [--shard 4]
+                                             [--trace run.json] [--metrics run.jsonl]
 
 ``--method``, ``--p`` and the ``--fault-*`` flags mirror the reference's
 ``launch.train``; a FaultConfig is built only when ``--fault-model`` is not
@@ -60,7 +66,7 @@ def _ensure_drop_byzantine() -> None:
 
 def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip",
              p: float = 0.125, faults=None, model: str = "mlp", engine: str = "sim",
-             hetero=None, fleet=None):
+             hetero=None, fleet=None, shard=None, obs=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
@@ -80,7 +86,7 @@ def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip"
         protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p,
                                 topology="uniform"),
         optimizer=opt, loss_fn=loss_fn, num_workers=W, device=device, codec=codec,
-        hetero=hetero, faults=faults, fleet=fleet, init_fn=init)
+        hetero=hetero, faults=faults, fleet=fleet, shard=shard, obs=obs, init_fn=init)
 
 
 def _busy_us(intervals):
@@ -103,8 +109,10 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             fault_model: str = "none", fault_rate: float = 0.0,
             fault_frac: float = 0.0, model: str = "mlp", engine: str = "sim",
             time_model: str = "lognormal", sigma: float = 0.6, partition: int = 1,
-            flow_control: str = "none", plane: str = "device") -> dict:
-    from repro_torch.common.config import FaultConfig, FleetConfig, HeteroConfig
+            flow_control: str = "none", plane: str = "device", shard: int = 1,
+            trace: str = "", metrics: str = "") -> dict:
+    from repro_torch.common.config import (FaultConfig, FleetConfig, HeteroConfig, ObsConfig,
+                                           ShardConfig)
     from repro_torch.data.partition import batches_for_step, partition_iid
     from repro_torch.data.synthetic import load_cifar_like, load_mnist
 
@@ -118,8 +126,11 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
                              fault_frac=fault_frac)
     hetero = HeteroConfig(time_model=time_model, sigma=sigma) if engine == "async" else None
     fleet = FleetConfig(partition=partition, flow_control=flow_control, plane=plane)
+    obs = ObsConfig(trace_path=trace, metrics_path=metrics)
     trainer = _trainer(W, device, codec, method, p, faults, model, engine, hetero,
-                       fleet if fleet.enabled() else None)
+                       fleet if fleet.enabled() else None,
+                       ShardConfig(n_shards=shard) if shard != 1 else None,
+                       obs if obs.enabled() else None)
     dev = trainer.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     train, _ = (load_cifar_like(num_train=12800, num_test=10) if model == "cnn"
@@ -142,6 +153,7 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             state, _ = trainer.step(state, (xb, yb))
             sync()
             step_s.append(time.perf_counter() - t0)
+    written = trainer.export_obs()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = defaultdict(lambda: [0.0, 0])
@@ -160,7 +172,8 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
         "model": model, "engine": engine,
         "time_model": time_model if engine == "async" else None,
         "sigma": sigma if engine == "async" else None, "partition": partition,
-        "flow_control": flow_control, "plane": plane,
+        "flow_control": flow_control, "plane": plane, "shard": shard,
+        "wire_bytes": trainer._backend.wire_bytes(), "obs_written": written,
         "workers": W, "batch_per_worker": batch, "steps": steps, "codec": codec,
         "method": method, "p": p, "fault_model": fault_model, "fault_rate": fault_rate,
         "fault_frac": fault_frac,
@@ -223,14 +236,19 @@ def main(argv=None) -> int:
                     help="fleet: none, token_account or randomized_token_account")
     ap.add_argument("--plane", default="device", choices=("device", "host"),
                     help="async: host keeps theta and velocity in pinned host memory")
+    ap.add_argument("--shard", type=int, default=1,
+                    help="sharded plane: column shards per replica (repro_torch.shard)")
+    ap.add_argument("--trace", default="", help="record and write a Perfetto trace here")
+    ap.add_argument("--metrics", default="", help="record and write metrics JSONL here")
     a = ap.parse_args(argv)
     r = profile(a.workers, a.batch, a.steps, a.device, a.codec, a.method, a.p,
                 a.fault_model, a.fault_rate, a.fault_frac, a.model, a.engine, a.time_model,
-                a.sigma, a.partition, a.flow_control, a.plane)
+                a.sigma, a.partition, a.flow_control, a.plane, a.shard, a.trace, a.metrics)
     unit = "window" if a.engine == "async" else "step"
     print(f"{r['model']} {r['engine']} W={r['workers']} batch={r['batch_per_worker']} "
           f"codec={r['codec']} method={r['method']} p={r['p']} faults={r['fault_model']} "
-          f"partition={r['partition']} flow={r['flow_control']} plane={r['plane']}: median {unit} "
+          f"partition={r['partition']} flow={r['flow_control']} plane={r['plane']} "
+          f"shard={r['shard']} (wire {r['wire_bytes']:.0f} B/event): median {unit} "
           f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
           f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "
           f"{r['device_busy_share']}")
@@ -238,6 +256,8 @@ def main(argv=None) -> int:
         print(f"  {k:34s} {v:.4f} ms/step")
     for k in r["top_kernels"]:
         print(f"  {k['ms_per_step']:.4f} ms/step x{k['calls_per_step']:.1f}  {k['name']}")
+    for kind, path in r["obs_written"].items():
+        print(f"wrote {kind} {path}")
     print(json.dumps(r))
     return 0
 

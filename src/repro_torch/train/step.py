@@ -18,6 +18,11 @@ methods, selected per step by the facade from the host schedule:
   of :mod:`repro_torch.core.gossip_dist` and, fused, the whole update as
   kernel B1.
 
+With a sharded plane (``shard=``, a
+:class:`~repro_torch.common.config.ShardConfig`) the rank's row is padded
+to the layout's totals and exchanged as S shard rows
+(:mod:`repro_torch.core.gossip_dist`); the mesh's ``fsdp`` must equal S.
+
 Every collective is gloo through the rank's
 :class:`~repro_torch.launch.mesh.WorkerGroup`. The loss metric is the fleet
 mean: the rank's loss, all-reduced (a host sync each step). As the sim
@@ -42,6 +47,7 @@ from repro_torch.common.pytree import tree_map
 from repro_torch.core import gossip_dist
 from repro_torch.core.gossip_sim import _store
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import check_shard_mesh
 from repro_torch.optim.optimizers import OptState, _scaled
 from repro_torch.optim.schedule import lr_at
 
@@ -54,7 +60,7 @@ class DistTrainer:
     for ONE worker's replica and batch (the sim engine's signature)."""
 
     def __init__(self, group, mesh_cfg: MeshConfig, train_cfg: TrainConfig,
-                 loss_fn: Callable):
+                 loss_fn: Callable, shard=None):
         if mesh_cfg.num_workers != group.world:
             raise ValueError(f"mesh has {mesh_cfg.num_workers} workers, the group "
                              f"{group.world} ranks")
@@ -75,7 +81,17 @@ class DistTrainer:
                              f"got optimizer {self.opt.name!r}")
         # fused flat-plane update (kernels B1/B2): pairwise protocols only
         self.fused_update = bool(train_cfg.fused_update) and self._impl.pairwise
-        self._programs: Dict[str, Callable] = {}
+        # sharded plane: the layout is built from the params at init_state;
+        # the mesh's fsdp must equal n_shards (check_shard_mesh)
+        self.shard = shard
+        self.shard_layout = None
+        sharded = shard is not None and shard.enabled()
+        if sharded and not self._impl.pairwise:
+            raise ValueError(
+                f"sharded plane (repro.shard) needs a pairwise protocol; "
+                f"{self.protocol.method!r} is not pairwise")
+        check_shard_mesh(mesh_cfg, shard if sharded else None)
+        self._programs: Dict[tuple, Callable] = {}
         # host seconds of the last step's fleet-mean loss all-reduce
         self.last_loss_reduce_s = 0.0
 
@@ -87,6 +103,11 @@ class DistTrainer:
         row = tree_map(lambda x: x.to(dev)[None], params)
         spec = flat_plane.FlatSpec.build(row, leading=1)
         theta = spec.flatten(row)
+        if self.shard is not None and self.shard.enabled():
+            from repro_torch import shard as shard_plane
+            self.shard_layout = shard_plane.build_layout(spec, self.shard, self._codec)
+            spec = shard_plane.padded_spec(spec, self.shard_layout)
+            theta = shard_plane.pad_bufs(theta, self.shard_layout)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         center = ({k: b[0].clone() for k, b in theta.items()}
                   if self._impl.uses_center else None)
@@ -190,24 +211,25 @@ class DistTrainer:
                     _store(state.opt.mu, k, v_new[k])
         return self._finish(state, loss, comm=comm_new)
 
-    def _program(self, mode: str):
-        if mode not in self._programs:
-            self._programs[mode] = gossip_dist.make_gossip_step(
+    def _program(self, mode: str, layout=None):
+        key = (mode, layout)
+        if key not in self._programs:
+            self._programs[key] = gossip_dist.make_gossip_step(
                 self.group, self.mesh_cfg, self.protocol,
                 schedule_kind="hypercube" if self.protocol.topology == "matching" else "random",
-                mode=mode, codec=self._codec)
-        return self._programs[mode]
+                mode=mode, codec=self._codec, layout=layout)
+        return self._programs[key]
 
     @property
     def apply_gossip(self):
         """The mode="apply" exchange over the rank's buffers; with a stateful
         codec (bufs, residual, active, round) -> (exchanged, residual')."""
-        return self._program("apply")
+        return self._program("apply", self.shard_layout)
 
     @property
     def fused_gossip(self):
         """The mode="fused" exchange + kernel B1, in place."""
-        return self._program("fused")
+        return self._program("fused", self.shard_layout)
 
     @staticmethod
     def fused_nag(theta: Buffers, velocity: Buffers, grads: Buffers, eta, mu):
@@ -219,17 +241,26 @@ class DistTrainer:
         the facade's parity surface: every rank passes the same stack, sends
         its own row, and gets the exchanged stack back (all-gathered), as
         the reference's global view. Stateful codecs run against a zero
-        residual here."""
+        residual here. Under a sharded plane the rows are padded to the
+        layout's totals on entry and sliced back after."""
         spec = flat_plane.FlatSpec.build(params_stack, leading=1)
         bufs = {k: b[self.group.rank:self.group.rank + 1].to(self.group.device)
                 for k, b in spec.flatten(params_stack).items()}
+        layout = None
+        if self.shard is not None and self.shard.enabled():
+            from repro_torch import shard as shard_plane
+            layout = shard_plane.build_layout(spec, self.shard, self._codec)
+            bufs = shard_plane.pad_bufs(bufs, layout)
+        step = self._program("apply", layout)
         with torch.no_grad():
             if self._codec_stateful:
                 zeros = {k: torch.zeros(b.shape, dtype=torch.float32, device=b.device)
                          for k, b in bufs.items()}
-                out, _ = self.apply_gossip(bufs, zeros, active, round_idx)
+                out, _ = step(bufs, zeros, active, round_idx)
             else:
-                out = self.apply_gossip(bufs, active, round_idx)
+                out = step(bufs, active, round_idx)
+        if layout is not None:
+            out = shard_plane.slice_bufs(out, spec.totals)
         return spec.unflatten(self.gather_bufs(out))
 
     # -------------------------------------------------------- global views

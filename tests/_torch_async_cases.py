@@ -58,7 +58,7 @@ def _cfg(mod, name, kw):
 
 
 def trainers(engine, W, proto, hetero=None, faults=None, fleet=None, fused=True, codec=None,
-             opt=None):
+             opt=None, shard=None, obs=None):
     """(reference facade, port facade) built from the same keyword dicts."""
     out = []
     for mod, Tr, loss, extra in ((jcfg, JTrainer, _jloss, {}),
@@ -69,7 +69,9 @@ def trainers(engine, W, proto, hetero=None, faults=None, fleet=None, fused=True,
                       fused_update=fused, codec=codec,
                       hetero=_cfg(mod, "HeteroConfig", hetero),
                       faults=_cfg(mod, "FaultConfig", faults),
-                      fleet=_cfg(mod, "FleetConfig", fleet), **extra))
+                      fleet=_cfg(mod, "FleetConfig", fleet),
+                      shard=_cfg(mod, "ShardConfig", shard),
+                      obs=_cfg(mod, "ObsConfig", obs), **extra))
     return out
 
 

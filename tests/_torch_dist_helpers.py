@@ -41,41 +41,19 @@ def fleet_and_lockstep(group, job, lockstep):
     velocity."""
     from repro_torch.launch import dist_run
     out = dist_run.run_rank(group, job)
-    out["peer"] = {run["tag"]: _peer_rounds(group, run) for run in job["peer"]}
+    out["peer"] = {run["tag"]: dist_run._peer(group, job, run)["rounds"] for run in job["peer"]}
     out["lockstep"] = {case: _lockstep(group, job, run, paths)
                        for case, (run, paths) in lockstep.items()}
-    return out
-
-
-def _peer_rounds(group, run):
-    """This rank's ``(peer buffers, gate*coef)`` of every round, as numpy."""
-    import torch
-    from repro_torch.common.config import ProtocolConfig
-    from repro_torch.common.flat import FlatSpec
-    from repro_torch.core import gossip_dist
-    cfg = ProtocolConfig(codec=run["codec"], **run["protocol"])
-    step = gossip_dist.make_gossip_step(group, group.mesh_cfg, cfg, mode="peer")
-    stack = {k: torch.as_tensor(v) for k, v in run["params_stack"].items()}
-    bufs = {k: b[group.rank:group.rank + 1].contiguous()
-            for k, b in FlatSpec.build(stack, leading=1).flatten(stack).items()}
-    out = []
-    for r in run["rounds"]:
-        peer, gc = step(bufs, run["active"], r)
-        out.append({**{k: b.numpy() for k, b in peer.items()}, "gc": gc.numpy()})
     return out
 
 
 def _lockstep(group, job, run, paths):
     import numpy as np
     import torch
-    from repro_torch.api import GossipTrainer
-    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
-    from repro_torch.launch.dist_run import _loss_fn
+    from repro_torch.launch.dist_run import _trainer
     from repro_torch.models.simple import params_from_jax
     want = {k: np.load(p, mmap_mode="r") for k, p in paths.items()}
-    tr = GossipTrainer(engine="dist", protocol=ProtocolConfig(**run["protocol"]),
-                       optimizer=OptimizerConfig(**run["optimizer"]), loss_fn=_loss_fn,
-                       codec=run["codec"], device="cpu", group=group, seed=run["seed"])
+    tr = _trainer(group, run)
     state = tr.init_state(0, params=params_from_jax(job["params"], "cpu"))
     r = group.rank
     bufs = {"theta": state.theta["float32"], "velocity": state.opt.mu["float32"]}

@@ -1113,3 +1113,104 @@ def test_host_plane_matches_device_plane_on_the_card(cuda):
               "flow_skipped"):
         assert torch.equal(getattr(sh.proto, f), getattr(sd.proto, f)), f
     assert torch.equal(sh.key.get_state(), sd.key.get_state())
+
+
+# ---------------------------------------------------------------------------
+# the sharded plane: the kernels on shard rows and on the padded plane
+# ---------------------------------------------------------------------------
+
+def _shard_rows(cuda, codec, S, W=8, n=35968 * 3 + 5):
+    """(padded [W, total'] plane, its [W * S, shard_size] shard rows, the
+    residual's rows, seeds w * S + s) for a one-bucket plane of n columns."""
+    from repro_torch import comm, shard as shard_plane
+    from repro_torch.common.config import ProtocolConfig, ShardConfig
+    from repro_torch.common.flat import FlatSpec
+    spec = FlatSpec.build({"w": torch.zeros(1, n)}, leading=1)
+    cd = comm.active_codec(ProtocolConfig(codec=codec))
+    layout = shard_plane.build_layout(spec, ShardConfig(n_shards=S), cd)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    x = torch.randn(W, n, generator=g, device=cuda)
+    padded = shard_plane.pad_bufs({"float32": x}, layout)["float32"]
+    r = 0.1 * torch.randn(padded.shape, generator=g, device=cuda)
+    rows = layout.shard_rows({"float32": padded})["float32"]
+    assert rows.data_ptr() == padded.data_ptr()
+    res = layout.shard_rows({"float32": r})["float32"]
+    return padded, rows, res, comm.codec_seeds(5, torch.arange(W * S, device=cuda)), cd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("codec", ["q8", "topk"])
+def test_codec_kernels_on_shard_rows_match_plain_versions(cuda, codec, S):
+    """B4/B5 or B6/B7 on the [W * S, shard_size] shard rows of a padded
+    plane, seeds w * S + s: the wire, the decode and the residual byte-equal
+    to the plain versions, one launch each."""
+    _, rows, res, seeds, cd = _shard_rows(cuda, codec, S)
+    n = rows.shape[1]
+    before = dict(tcodec.LAUNCHES)
+    if codec == "q8":
+        got = tcodec.q8_encode(rows, seeds, block=cd.block)
+        want = tref.q8_encode(rows, seeds, block=cd.block)
+        dec = tcodec.q8_decode(*want, n, block=cd.block)
+        want_dec = tref.q8_decode(*want, n, block=cd.block)
+    else:
+        got = tcodec.topk_encode(rows, res, k=cd.k, block=cd.block)
+        want = tref.topk_encode(rows, res, k=cd.k, block=cd.block)
+        dec = tcodec.topk_decode(want[0], want[1], n, k=cd.k, block=cd.block)
+        want_dec = tref.topk_decode(want[0], want[1], n, k=cd.k, block=cd.block)
+    torch.cuda.synchronize()
+    for a, b in zip(tuple(got) + (dec,), tuple(want) + (want_dec,)):
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    names = ("q8_encode", "q8_decode") if codec == "q8" else ("topk_encode", "topk_decode")
+    assert all(tcodec.LAUNCHES[k] == before[k] + 1 for k in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "q8"])
+def test_b1_on_the_padded_plane_matches_plain_version(cuda, codec):
+    """B1 on the shard-padded [8, total'] plane (padding columns zero) is
+    byte-equal to its plain version and leaves the padding at zero."""
+    padded, _, _, _, _ = _shard_rows(cuda, codec or "none", 4)
+    W, n = padded.shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p, v, gr = (torch.randn(W, n, generator=g, device=cuda) for _ in range(3))
+    for b in (p, v, gr):
+        b[:, 35968 * 3 + 5:] = 0.0
+    eta = torch.full((), 0.01, device=cuda)
+    ones = torch.ones(W, device=cuda)
+    want_t, want_v = tref.fused_flat_elastic_nag_update(padded, p, v, gr, ones, eta, 0.9)
+    kt, kv = padded.clone(), v.clone()
+    tfu.fused_flat_elastic_nag_update(kt, p, kv, gr, ones, eta, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(kt.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(kv.view(torch.int32), want_v.view(torch.int32))
+    assert bool((kt[:, 35968 * 3 + 5:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "q8", "topk"])
+def test_sharded_sim_step_launches_each_kernel_once(cuda, codec):
+    """The sim engine with ShardConfig(n_shards=4): B1 once a step on the
+    padded plane, the codec pair once a step on the shard rows; the
+    per-device wire is the whole wire over 4; a recording observer changes
+    nothing."""
+    from repro_torch.common.config import ObsConfig, ShardConfig
+    kw = dict(engine="sim", hetero=None, codec=codec)
+    plain = _async_trainer(cuda, shard=ShardConfig(n_shards=4), **kw)
+    rec = _async_trainer(cuda, shard=ShardConfig(n_shards=4), obs=ObsConfig(metrics=True,
+                                                                           trace=True), **kw)
+    s0, s1 = plain.init_state(0), rec.init_state(0)
+    xb = _batch(cuda, 4)
+    b1, cl = tfu.LAUNCHES, dict(tcodec.LAUNCHES)
+    for _ in range(3):
+        s0, _ = plain.step(s0, xb)
+    assert tfu.LAUNCHES == b1 + 3
+    for k, n in tcodec.LAUNCHES.items():
+        assert n == cl[k] + (3 if codec and k.startswith(codec) else 0), k
+    for _ in range(3):
+        s1, _ = rec.step(s1, xb)
+    rec.observer.flush()
+    assert torch.equal(s0.theta["float32"], s1.theta["float32"])
+    assert torch.equal(s0.proto.comm_bytes, s1.proto.comm_bytes)
+    assert [r["step"] for r in rec.observer.sink.records] == [0, 1, 2]
+    assert s0.theta["float32"].shape[1] % (4 * (512 if codec else 128)) == 0

@@ -6,9 +6,14 @@ as real gloo process groups on the CPU, one process per worker, spawned
 once per mesh shape (8 ranks as 2 pods x 4 workers, 4 ranks as 1 pod x 4
 workers). Checked: the static schedules and the host scheduler bit for
 bit, one gossip round against the reference's dist engine and the port's
-sim oracle, 20-step trajectories of every protocol within rtol 1e-4 /
-atol 1e-5 with the counters bit-equal, the count of sends and receives,
-and a failing or hanging rank failing the group."""
+sim oracle, 20-step trajectories of every protocol (clipped and trimmed
+gossip included) within rtol 1e-4 / atol 1e-5 with the counters
+bit-equal, the count of sends and receives, and a failing or hanging rank
+failing the group. The sharded plane (slice 4b) on the 4-worker fleet
+(fsdp = S = 2, the reference's mesh): a q8 trajectory, stepped from the
+reference's state too, and q8 / top-k exchange rounds; ShardConfig() and a
+recording ObsConfig bit-exact against the plain run, rank 0's trace and
+metrics checked (slice 6)."""
 import json
 import os
 import subprocess
@@ -32,6 +37,7 @@ from repro_torch.api import GossipTrainer as TTrainer  # noqa: E402
 from repro_torch.api import registry as tregistry  # noqa: E402
 from repro_torch.common.config import MeshConfig as TMesh  # noqa: E402
 from repro_torch.common.config import ProtocolConfig as TProto  # noqa: E402
+from repro_torch.common.config import ShardConfig as TShard  # noqa: E402
 from repro_torch.core import gossip_dist as tgd  # noqa: E402
 from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.core.scheduler import GossipSchedule as TSchedule  # noqa: E402
@@ -58,18 +64,40 @@ TRAJ = {
     "easgd": ("w8", dict(method="easgd", comm_probability=0.5, moving_rate=0.1), "none", True),
     "elastic_q8": ("w8", EG, "q8", True),
     "elastic_uniform_w4": ("w4", dict(EG, topology="uniform"), "none", True),
+    # the robust protocols inherit ElasticGossip.pair_gate_coef: on the dist
+    # engine they mix as plain elastic gossip, in both packages
+    "clipped": ("w8", dict(EG, method="clipped_gossip", robust_clip=0.1), "none", True),
+    "trimmed": ("w8", dict(EG, method="trimmed_gossip", robust_trim=1.5), "none", True),
+    "elastic_shard2_w4": ("w4", dict(EG, topology="uniform"), "none", True),
+    "elastic_q8_shard2_w4": ("w4", dict(EG, topology="uniform"), "q8", True),
 }
+# case -> n_shards (the reference's 4-worker mesh has fsdp = 2)
+SHARD = {"elastic_shard2_w4": 2, "elastic_q8_shard2_w4": 2, "elastic_gossip_q8_shard2_w4": 2,
+         "elastic_gossip_topk_shard2_w4": 2}
+# cases whose free run leaves the tolerance from one q8 flip: its values are
+# held by the lockstep test (every step from the reference's state), the
+# free run by its counters. At batch 4 the one flip both packages' runs of
+# this config see at step 4 (as the un-sharded w4 run does) reaches a ReLU
+# boundary at step 13 and moves ~20,000 elements on a step where nothing
+# fires, as the CNN's free runs do (ROADMAP C, "Deliberate differences").
+FREE_RUN_COUNTERS_ONLY = ("elastic_q8_shard2_w4",)
 # exchange case -> (fleet, protocol kwargs, codec)
 EXCH = {f"{m}_{f}": (f, dict(method=m, comm_probability=0.5, moving_rate=0.37), "none")
         for m in ("elastic_gossip", "gossiping_pull", "gossiping_push") for f in FLEETS}
 EXCH["elastic_gossip_q8_w8"] = ("w8", dict(EXCH["elastic_gossip_w8"][1]), "q8")
+for _c in ("q8", "topk"):
+    EXCH[f"elastic_gossip_{_c}_shard2_w4"] = ("w4", dict(EXCH["elastic_gossip_w4"][1]), _c)
 SEED = 3
 # the reference's dist facade writes a checkpoint at the end of this case;
 # the port's w8 group saves and resumes the same protocol (dist_run's
 # "resume" run) and the two files' entries are compared
 CKPT_CASE = "elastic_fused"
 # cases also run in lockstep: every step starts from the reference's state
-LOCKSTEP = ("elastic_q8",)
+LOCKSTEP = ("elastic_q8", "elastic_q8_shard2_w4")
+# port-only runs of the uniform w4 case, held bit-exact against its plain
+# run: the inert ShardConfig() and a recording ObsConfig (rank 0 records)
+ANCHORS = {"anchor_shard1": dict(shard=1), "anchor_obs_default": dict(obs={}),
+           "anchor_obs": dict(obs=dict(trace=True, metrics=True))}
 
 
 def _mesh(cls, fleet, data=None):
@@ -82,7 +110,7 @@ import json, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.api import GossipTrainer
-from repro.common.config import MeshConfig, OptimizerConfig, ProtocolConfig
+from repro.common.config import MeshConfig, OptimizerConfig, ProtocolConfig, ShardConfig
 from repro.common.flat import FlatSpec
 from repro.configs import get_reduced
 from repro.data import partition as jpart, synthetic as jsyn
@@ -111,15 +139,17 @@ for fleet, (pods, wpp) in spec["fleets"].items():
     xs, ys = zip(*(jpart.batches_for_step(shards, i, PW) for i in range(STEPS)))
     out[fleet + "/x"], out[fleet + "/y"] = np.stack(xs), np.stack(ys).astype(np.int32)
 
-def trainer(fleet, proto, **kw):
+def trainer(fleet, proto, case=None, **kw):
     mcfg, mesh = meshes[fleet]
+    if case in spec["shard"]:
+        kw["shard"] = ShardConfig(n_shards=spec["shard"][case])
     return GossipTrainer(engine="dist", protocol=proto, mesh=mesh, mesh_cfg=mcfg,
                          model_cfg=model_cfg, init_fn=lambda key: params, params_axes=axes,
                          global_batch=mcfg.num_workers * PW, seq_len=IN, loss_fn=loss_fn,
                          seed=spec["seed"], **kw)
 
 for case, (fleet, pkw, codec, fused) in spec["traj"].items():
-    tr = trainer(fleet, ProtocolConfig(codec=codec, **pkw),
+    tr = trainer(fleet, ProtocolConfig(codec=codec, **pkw), case,
                  optimizer=OptimizerConfig(**spec["opt"]), fused_update=fused)
     st = tr.init_state(0)
     rec = {k: [] for k in ("loss", "fired", "comm_round", "comm_bytes")}
@@ -138,6 +168,7 @@ for case, (fleet, pkw, codec, fused) in spec["traj"].items():
     for k, v in rec.items():
         out[f"traj/{case}/{k}"] = np.asarray(v)
     out[f"traj/{case}/theta"] = np.asarray(st.theta["float32"])
+    out[f"traj/{case}/wire"] = np.asarray(tr._backend.wire_bytes())
     out[f"traj/{case}/velocity"] = np.asarray(st.opt.mu["float32"])
     if case == spec["ckpt_case"]:
         tr.save_checkpoint(spec["ckpt"], st, meta={"step": STEPS})
@@ -155,8 +186,9 @@ for case, (fleet, pkw, codec) in spec["exch"].items():
     stack = {k: jax.device_put(jnp.asarray(out[f"{fleet}/stack/{k}"]),
                                NamedSharding(mesh, P(("pod", "worker"))))
              for k in ("w", "b")}
-    tr = trainer(fleet, ProtocolConfig(codec=codec, **pkw))
+    tr = trainer(fleet, ProtocolConfig(codec=codec, **pkw), case)
     out[f"exch/{case}/rounds"] = np.asarray(tr.num_gossip_rounds)
+
     # mode="peer" over the flat plane: the peer's buffers and gate*coef
     peer_step = tr._backend.trainer._make_gossip("peer")
     bufs = FlatSpec.build(stack, leading=1).flatten(stack)
@@ -165,6 +197,8 @@ for case, (fleet, pkw, codec) in spec["exch"].items():
         out[f"exch/{case}/partners/{r}"] = np.asarray(tr.matching_partners(r))
         for k in ("w", "b"):
             out[f"exch/{case}/{r}/{k}"] = np.asarray(got[k])
+        if case in spec["shard"]:
+            continue
         peer, gc = peer_step(bufs, jnp.asarray(out[fleet + "/active"]), jnp.int32(r))
         out[f"peer/{case}/{r}/float32"] = np.asarray(peer["float32"])
         out[f"peer/{case}/{r}/gc"] = np.asarray(gc)
@@ -181,7 +215,7 @@ def ref(tmp_path_factory):
     path = str(tmp / "ref.npz")
     spec = dict(dims=[IN, HID, DEPTH, NCLS, PW, STEPS], fleets=FLEETS, seed=SEED, opt=OPT,
                 traj=TRAJ, exch=EXCH, lockstep=LOCKSTEP, ckpt_case=CKPT_CASE,
-                ckpt=str(tmp / "ckpt.npz"))
+                ckpt=str(tmp / "ckpt.npz"), shard=SHARD)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(REF_SCRIPT), path,
@@ -201,23 +235,38 @@ def _fleet_job(ref, fleet):
         if f == fleet:
             runs.append(dict(kind="train", tag=case, protocol=pkw, codec=codec,
                              fused_update=fused, optimizer=OPT, steps=STEPS, seed=SEED,
-                             gather=True))
+                             gather=True, **_shard(case)))
+    if fleet == TRAJ[ANCHOR_OF][0]:
+        _, pkw, codec, fused = TRAJ[ANCHOR_OF]
+        for tag, extra in ANCHORS.items():
+            runs.append(dict(kind="train", tag=tag, protocol=pkw, codec=codec,
+                             fused_update=fused, optimizer=OPT, steps=STEPS, seed=SEED,
+                             gather=True, **extra))
     stack = {k: ref[f"{fleet}/stack/{k}"] for k in ("w", "b")}
     for case, (f, pkw, codec) in EXCH.items():
         if f == fleet:
             runs.append(dict(kind="exchange", tag=case, protocol=pkw, codec=codec,
                              params_stack=stack, active=ref[f"{fleet}/active"],
-                             rounds=list(range(int(ref[f"exch/{case}/rounds"])))))
+                             rounds=list(range(int(ref[f"exch/{case}/rounds"]))),
+                             **_shard(case)))
     peer = [dict(tag=case, protocol=pkw, codec=codec, params_stack=stack,
                  active=ref[f"{fleet}/active"],
                  rounds=list(range(int(ref[f"exch/{case}/rounds"]))))
-            for case, (f, pkw, codec) in EXCH.items() if f == fleet]
+            for case, (f, pkw, codec) in EXCH.items() if f == fleet and case not in SHARD]
     # one send and one recv per BUCKET: a stack with an f32 and a bf16 bucket
     runs.append(dict(kind="exchange", tag="two_buckets", protocol=EG, codec="none",
                      params_stack=_two_buckets(ref, fleet), active=ref[f"{fleet}/active"],
                      rounds=[0, 1]))
     return dict(params=params, x=ref[f"{fleet}/x"], y=ref[f"{fleet}/y"], runs=runs,
                 peer=peer)
+
+
+# the case the ANCHORS runs repeat
+ANCHOR_OF = "elastic_uniform_w4"
+
+
+def _shard(case):
+    return {"shard": SHARD[case]} if case in SHARD else {}
 
 
 def _two_buckets(ref, fleet):
@@ -352,9 +401,11 @@ def test_gossip_exchange_matches_reference_and_sim_oracle(ref, port, case):
     rounds = int(ref[f"exch/{case}/rounds"])
     assert got["num_gossip_rounds"] == rounds == len(got["rounds"])
     tm = _mesh(TMesh, fleet)
+    shard = TShard(n_shards=SHARD[case]) if case in SHARD else None
     sim = TTrainer(engine="sim", protocol=TProto(codec=codec, **pkw), loss_fn=_dummy_loss,
-                   num_workers=tm.num_workers, mesh_cfg=tm, device="cpu")
+                   num_workers=tm.num_workers, mesh_cfg=tm, device="cpu", shard=shard)
     assert sim.num_gossip_rounds == rounds
+
     stack = {k: torch.from_numpy(ref[f"{fleet}/stack/{k}"]) for k in ("w", "b")}
     tol = dict(rtol=1e-6, atol=1e-6)
     for r in range(rounds):
@@ -372,7 +423,7 @@ def test_gossip_exchange_matches_reference_and_sim_oracle(ref, port, case):
         assert run["sends"] == run["recvs"] == rounds
 
 
-@pytest.mark.parametrize("case", sorted(EXCH))
+@pytest.mark.parametrize("case", sorted(c for c in EXCH if c not in SHARD))
 def test_peer_mode_matches_reference(ref, port, case):
     """make_gossip_step(mode="peer") on every rank and round: the peer's
     buffers (the wire decoded, bit for bit: the same bytes crossed it) and
@@ -427,7 +478,9 @@ def test_trajectory_matches_reference_dist_engine(ref, port, case):
     fleet, pkw, codec, fused = TRAJ[case]
     got = _run(port, fleet, case)
     tol = dict(rtol=1e-4, atol=1e-5)
-    for k in ("theta", "velocity"):
+    values = case not in FREE_RUN_COUNTERS_ONLY
+    assert values or case in LOCKSTEP
+    for k in ("theta", "velocity") if values else ():
         a, b = got[k]["float32"], ref[f"traj/{case}/{k}"]
         if codec != "q8":
             np.testing.assert_allclose(a, b, **tol, err_msg=k)
@@ -452,9 +505,54 @@ def test_trajectory_matches_reference_dist_engine(ref, port, case):
         pairwise = tregistry.resolve(TProto(**pkw)).pairwise
         assert run["sends"] == run["recvs"] == (sum(fired) if pairwise else 0)
         assert all(v == 0 for v in run["launches"].values())    # CPU: plain versions
-    np.testing.assert_allclose(got["loss"], ref[f"traj/{case}/loss"], rtol=1e-4)
-    if case.startswith("elastic"):
+    if values:
+        np.testing.assert_allclose(got["loss"], ref[f"traj/{case}/loss"], rtol=1e-4)
+    # the wire per exchange and worker (per device on a sharded plane)
+    assert got["wire"] == int(ref[f"traj/{case}/wire"])
+    if case.startswith("elastic") or case in ("clipped", "trimmed"):
         assert 0 < sum(fired) < STEPS
+    if case in SHARD:
+        assert got["theta"]["float32"].shape[1] % (SHARD[case] * 512) == 0
+
+
+@pytest.mark.parametrize("tag", sorted(ANCHORS))
+def test_inert_shard_and_recording_runs_are_bit_exact(ref, port, tag):
+    """ShardConfig(), ObsConfig() and a recording ObsConfig on the dist
+    engine: theta, velocity and every per-step metric bit-equal to the
+    plain run's on every rank. The recording: rank 0 alone records, its
+    rows hold exactly
+    the core step keys, its trace validates in both packages' schema with
+    one exchange event per active initiator of the host schedule, each
+    carrying the static wire, and the report's comm_bytes total is the host
+    account."""
+    from repro.obs import schema as jschema
+    from repro_torch.obs import report, schema
+    fleet = TRAJ[ANCHOR_OF][0]
+    want, got = _run(port, fleet, ANCHOR_OF), _run(port, fleet, tag)
+    for k in ("theta", "velocity"):
+        assert got[k]["float32"].tobytes() == want[k]["float32"].tobytes(), k
+    for rank in port[fleet]:
+        a = next(x for x in rank["runs"] if x["tag"] == ANCHOR_OF)
+        b = next(x for x in rank["runs"] if x["tag"] == tag)
+        for k in ("loss", "fired", "comm_round", "comm_active", "comm_bytes"):
+            assert a[k] == b[k], (rank["rank"], k)
+        assert set(b["keys"]) == schema.CORE_STEP_KEYS
+        assert ("events" in b) == (tag == "anchor_obs" and rank["rank"] == 0)
+    if tag != "anchor_obs":
+        return
+    events, rows = got["events"], got["rows"]
+    from repro_torch.obs import TraceRecorder
+    rec = TraceRecorder()
+    rec.events = events
+    doc = rec.perfetto(num_workers=4)
+    assert schema.validate_trace(doc) == [] and jschema.validate_trace(doc) == []
+    ex = [e for e in events if e["ev"] == "exchange"]
+    assert ex and all(e["wire_bytes"] == float(got["wire"]) and e["peer"] != e["worker"]
+                      for e in ex)
+    assert len(ex) == sum(got["comm_active"])
+    assert [e["step"] for e in events if e["ev"] == "compute"] == list(range(STEPS))
+    assert [r["step"] for r in rows] == list(range(STEPS))
+    assert report.totals(rows)["comm_bytes"] == got["comm_bytes"][-1]
 
 
 def _q8_step(steps_theta, block=512):
@@ -559,12 +657,24 @@ def test_a_hanging_group_is_killed_at_its_timeout(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_sharded_or_tensor_parallel_mesh_refuses():
-    for mcfg in (TMesh(data=8, model=1, pods=1, workers_per_pod=4),
-                 TMesh(data=4, model=2, pods=1, workers_per_pod=4)):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tmesh.check_mesh(mcfg)
-        with pytest.raises(NotImplementedError):
-            tmesh.WorkerGroup(0, mcfg, "cpu")
+    """Tensor parallelism (model > 1) is refused for any group (slice 7b).
+    The fsdp factor is the sharded plane's: a group takes it, and the mesh
+    must give fsdp = n_shards, 1 without a ShardConfig, as the reference's
+    DistTrainer requires."""
+    tp = TMesh(data=4, model=2, pods=1, workers_per_pod=4)
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        tmesh.check_mesh(tp)
+    with pytest.raises(NotImplementedError):
+        tmesh.WorkerGroup(0, tp, "cpu")
+    fsdp2 = TMesh(data=8, model=1, pods=1, workers_per_pod=4)
+    assert tmesh.WorkerGroup(0, fsdp2, "cpu").world == 4
+    tmesh.check_shard_mesh(fsdp2, TShard(n_shards=2))
+    tmesh.check_shard_mesh(TMesh(data=4, model=1, pods=1, workers_per_pod=4))
+    for shard, n in ((None, 1), (TShard(n_shards=4), 4)):
+        with pytest.raises(ValueError, match=f"n_shards={n}.*mesh"):
+            tmesh.check_shard_mesh(fsdp2, shard)
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        tmesh.check_shard_mesh(fsdp2, TShard(n_shards=2, axes=("tensor",)))
 
 
 def test_dist_facade_refusals():
@@ -576,8 +686,14 @@ def test_dist_facade_refusals():
               device="cpu")
     with pytest.raises(ValueError, match="does not support fault injection"):
         TTrainer(**kw, group=group, faults=FaultConfig(fault_model="drop", fault_rate=0.1))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TTrainer(**kw, group=group, shard=object())
+    from repro_torch.common.config import FleetConfig
+    with pytest.raises(ValueError, match="no fleet plane"):
+        TTrainer(**kw, group=group, fleet=FleetConfig())
+    with pytest.raises(ValueError, match="n_shards=2.*mesh"):
+        TTrainer(**kw, group=group, shard=TShard(n_shards=2))
+    with pytest.raises(ValueError, match="pairwise"):
+        TTrainer(**dict(kw, protocol=TProto(method="allreduce")), group=group,
+                 shard=TShard(n_shards=2))
     with pytest.raises(ValueError, match="requires loss_fn and group"):
         TTrainer(**kw)
     with pytest.raises(ValueError, match="NAG"):

@@ -168,7 +168,9 @@ def test_import_repro_torch_loads_neither_jax_nor_repro():
         "        'repro_torch.configs.gemma2_9b',\n"
         "        'repro_torch.launch.serve_decode', 'repro_torch.checkpoint.io',\n"
         "        'repro_torch.launch.paper_tables', 'repro_torch.models.simple',\n"
-        "        'repro_torch.common.precision'} <= set(sys.modules)\n"
+        "        'repro_torch.common.precision', 'repro_torch.shard.layout',\n"
+        "        'repro_torch.obs.observer', 'repro_torch.obs.trace',\n"
+        "        'repro_torch.obs.report', 'repro_torch.obs.schema'} <= set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

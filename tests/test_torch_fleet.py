@@ -111,7 +111,8 @@ def test_flow_control_balances_and_draws_match_reference(name, kw):
 def test_fleet_refusals_and_the_inert_config():
     """The all-default FleetConfig is inert on the sim engine (bit-exact);
     partitions need a pairwise protocol, the host plane the async engine,
-    and fleet= on the dist engine is slice 4b."""
+    and fleet= on the dist engine is refused (the fleet plane is the sim and
+    async engines')."""
     x, y = (torch.from_numpy(a) for a in cases.problem(W))
     _, a = cases.trainers("sim", W, UNIFORM)
     _, b = cases.trainers("sim", W, UNIFORM, fleet={})
@@ -129,7 +130,7 @@ def test_fleet_refusals_and_the_inert_config():
         with pytest.raises(ValueError, match=msg):
             cases.trainers("async", W, UNIFORM, fleet=dict(plane="host"), **bad)
     from repro_torch.api import GossipTrainer
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    with pytest.raises(ValueError, match="no fleet plane"):
         GossipTrainer(engine="dist", protocol=tcfg.ProtocolConfig(comm_probability=0.5),
                       loss_fn=lambda p, x, y: 0, device="cpu", fleet=tcfg.FleetConfig())
 
@@ -243,7 +244,8 @@ def test_host_plane_windows_match_reference_host_plane(fleet):
 def test_validate_fleet_memory_matches_reference():
     """plane_bytes with the reference's factors; the host plane's refusal is
     the reference's message word for word, the device plane's up to the
-    hint (the port has no sharded plane yet)."""
+    hint (the port's points at the host plane; the sharded figures are
+    tests/test_torch_shard.py's)."""
     rb = 11_653_160
     for plane in ("host", "device"):
         for Wk in (8, 256, 1024):

@@ -280,11 +280,18 @@ def test_unported_features_refuse():
     tr = TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss, num_workers=2,
                   device="cpu", fleet=TFleet(partition=2))
     assert tr.sim.partition == 2
-    # the sharded plane is slice 4b
+    # the sharded plane (slice 4b) and the telemetry plane (slice 6) build
+    from repro_torch.common.config import ObsConfig as TObs
+    from repro_torch.common.config import ShardConfig as TShard
     for engine in ("sim", "async"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            TTrainer(engine=engine, protocol=TProto(comm_probability=0.5), loss_fn=_tloss,
-                     num_workers=2, device="cpu", shard=object())
+        tr = TTrainer(engine=engine, protocol=TProto(comm_probability=0.5), loss_fn=_tloss,
+                      num_workers=2, device="cpu", shard=TShard(n_shards=2),
+                      obs=TObs(trace=True))
+        assert tr.sim.shard.n_shards == 2 and tr.sim.obs is tr.observer
+    # publish_every is slice 7b
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss, num_workers=2,
+                 device="cpu", publish_every=3)
 
 
 def test_cuda_request_without_a_card_raises():
