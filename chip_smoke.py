@@ -192,7 +192,30 @@ prints no result line):
              engines bit-equal to the plain runs, traces valid, the report's
              totals equal to the accumulators, the sim step's recording
              overhead; (f) validate_fleet_memory at S in {1, 4} against the
-             card's free memory. Every phase's seconds are printed.
+             card's free memory.
+10. lm     — training TinyLlama-1.1B through the reference's CLI
+             (``repro_torch.launch.train.run``): validate_fleet_memory on
+             abstract_lm's bytes admits W=2 and refuses W=4 at full width
+             before anything is allocated; the longest sequence of
+             {256, 128, 64} whose planes and estimated activations fit is
+             taken; 10 sim steps at full width (22 layers, d 2048, f32,
+             random weights from seed 0), W=2, global batch 8, p 0.5, NAG
+             lr 1e-2: the loss finite and falling, B1 launched 10 times and
+             B9 never (training attention is the differentiable online
+             softmax), comm_units equal to the gates and comm_bytes its f32
+             derivation, the step times and max_memory_allocated; one more
+             step with B1's inputs copied to the host, the step's theta and
+             velocity byte-equal to the plain version in 16 column chunks,
+             and B1 timed at [2, 1100048384] beside its bound; the trained
+             consensus served in f32 (a prefill and 4 decode steps: B9 22
+             times in the simt form and 88 in the split form); the
+             full-width LM gradient at 2 layers in f32 against f64 on the
+             card (at most 10% of the elements outside rtol 1e-4 / atol
+             1e-6, each leaf within 1e-2 rel L2); then through the CLI at
+             --reduced: dist with 4 processes (B1 / B2 per rank, sends and
+             receives, comm_bytes against the host's replay of the
+             schedule), async lognormal (B1 once a window) and q8 on sim.
+             Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
 launches on the main path, error, times and bounds; the last line is
@@ -3100,6 +3123,453 @@ def run_shard_phase(torch, ck, ref, fu, rb, codec_seeds, dev, bw, peak):
                                dist=dist_ms, obs=obs)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training TinyLlama-1.1B through the reference's CLI
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_W, LM_BATCH, LM_STEPS, LM_LR, LM_P = "tinyllama_1_1b", 2, 8, 10, 1e-2, 0.5
+LM_SEQS = (256, 128, 64)             # the longest that fits the card is taken
+LM_PARAMS = 1_100_048_384            # f32 elements of one TinyLlama-1.1B replica
+LM_GRAD_LAYERS = 2                   # the f64 gradient check's depth cut
+LM_GRAD_OUT, LM_GRAD_REL = 0.10, 1e-2   # share outside rtol 1e-4 / atol 1e-6; per-leaf rel L2
+LM_SERVE_STEPS = 4
+LM_REDUCED_STEPS = 10
+
+
+def lm_run_kw(**kw):
+    """launch.train.run's arguments for phase 10 (the CLI's defaults, as
+    ``--arch tinyllama_1_1b --engine sim --workers 2 --p 0.5``)."""
+    base = dict(reduced=False, steps=LM_STEPS, method="elastic_gossip", p=LM_P, tau=0,
+                alpha=0.5, workers=LM_W, global_batch=LM_BATCH, seq=64, lr=LM_LR,
+                engine="sim", log_every=1, device="cuda")
+    base.update(kw)
+    return base
+
+
+def lm_memory(torch, cfg, dev):
+    """validate_fleet_memory on abstract_lm's bytes: W=2 admitted, W=4
+    refused, nothing allocated by either. Then the longest sequence whose
+    planes and activations fit the card. Returns (seq, summary)."""
+    from repro_torch.fleet import memory
+    from repro_torch.launch.train import activation_bytes, replica_bytes
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    rb = replica_bytes(cfg)
+    if rb != 4 * LM_PARAMS:
+        raise AssertionError(f"abstract_lm: {rb} B a replica, expected {4 * LM_PARAMS}")
+    free = torch.cuda.mem_get_info(dev)[0]
+    need2 = memory.validate_fleet_memory(LM_W, rb, "device", what=f"arch {LM_ARCH!r}",
+                                         device=dev)
+    try:
+        memory.validate_fleet_memory(4, rb, "device", what=f"arch {LM_ARCH!r}", device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None:
+        raise AssertionError("validate_fleet_memory admitted W=4 at full width")
+    if torch.cuda.memory_allocated(dev) != alloc0:
+        raise AssertionError("the memory check allocated on the card")
+    gib = 2 ** 30
+    # theta, velocity, the gradients' leaf stack and their plane: 4 planes
+    planes = 4 * LM_W * rb
+    fits = {s: planes + activation_bytes(cfg, LM_BATCH * s, s) for s in LM_SEQS}
+    seq = next((s for s in LM_SEQS if fits[s] <= 0.9 * free), None)
+    if seq is None:
+        raise AssertionError(f"no sequence in {LM_SEQS} fits: {fits}, free {free}")
+    log(f"[lm] validate_fleet_memory, {cfg.name} f32 ({rb / 1e9:.3f} GB a replica from "
+        f"abstract_lm, nothing allocated): card free {free / gib:.2f} GiB; W={LM_W} admitted, "
+        f"needs {need2 / gib:.2f} GiB; W=4 refused: {refused.split('; ')[0]}")
+    log(f"[lm] sequence: planes {planes / gib:.2f} GiB + activations (estimate) "
+        + ", ".join(f"seq {s}: {(fits[s] - planes) / gib:.2f} GiB" for s in LM_SEQS)
+        + f"; taken: seq {seq} (cut: "
+        + ("none" if seq == LM_SEQS[0] else f"{LM_SEQS[0]} does not fit") + ")")
+    return seq, dict(replica_bytes=rb, free=free, need_w2=need2, seq=seq,
+                     activations_estimate=fits[seq] - planes)
+
+
+def lm_full_width(torch, ops, fa, cfg, seq, dev):
+    """10 sim steps of TinyLlama-1.1B at full width through
+    launch.train.run. Every count is set to 0 just before the run and read
+    just after. Returns (launches, trainer, state, summary)."""
+    from repro_torch.launch import train as cli
+    rec = {"gates": [], "step_s": [], "trainer": None}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = [time.perf_counter()]
+
+    def on_step(i, trainer, state, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["step_s"].append(now - t[0])
+        rec["gates"].append(trainer.sim.last_draws[0].cpu())
+        rec["trainer"] = trainer
+        t[0] = time.perf_counter()
+
+    ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
+    state, hist = cli.run(LM_ARCH, **lm_run_kw(seq=seq, on_step=on_step))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    trainer = rec["trainer"]
+    want = dict.fromkeys(KERNELS, 0)
+    want[B1] = LM_STEPS
+    got = {k: launches[k] for k in KERNELS}
+    if got != want or dict(fa.FORM_LAUNCHES) != forms0:
+        raise AssertionError(f"[lm] launches {got} (B9 forms {dict(fa.FORM_LAUNCHES)}), "
+                             f"expected {want} and no B9 form")
+    losses = [r["loss"] for r in hist]
+    if len(losses) != LM_STEPS or not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"[lm] losses {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"[lm] loss not falling: {losses}")
+    gates = int(sum(int(g.sum()) for g in rec["gates"]))
+    units = int(state.proto.comm_units)
+    wire = trainer.sim._wire_bytes(state.spec)
+    if wire != 4 * LM_PARAMS:          # the raw wire carries no lane padding
+        raise AssertionError(f"[lm] wire {wire} B per event")
+    want_bytes = (torch.tensor(wire / LM_W, dtype=torch.float32)
+                  * torch.tensor(float(units), dtype=torch.float32))
+    if units != gates or not bits_equal(torch, state.proto.comm_bytes.cpu(), want_bytes):
+        raise AssertionError(f"[lm] comm_units {units} / gates {gates}, comm_bytes "
+                             f"{float(state.proto.comm_bytes)!r} != {float(want_bytes)!r}")
+    step_ms = [s * 1e3 for s in rec["step_s"]]
+    med = statistics.median(step_ms[1:])
+    tokens = LM_BATCH * seq
+    log(f"[lm] {cfg.name} full width (22 layers, d 2048, f32), sim W={LM_W}, global batch "
+        f"{LM_BATCH}, seq {seq}, NAG lr {LM_LR}, p {LM_P}: loss " + " ".join(
+            f"{x:.4f}" for x in losses) + f"; step ms (synchronised, first with warm-up) "
+        + " ".join(f"{x:.1f}" for x in step_ms) + f"; median after the first {med:.3f} ms "
+        f"({tokens / med * 1e3:.0f} tokens/s); max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+        f"launches {got}; comm_units {units} = gates {gates}, comm_bytes "
+        f"{float(state.proto.comm_bytes)!r} = f32(wire/W) * f32(units), wire {wire} B/event")
+    return got, trainer, state, dict(losses=losses, step_ms=step_ms, step_ms_median=med,
+                                     max_memory_allocated=peak, tokens_per_step=tokens)
+
+
+def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak):
+    """B1 on one more step's own inputs: theta, peer, v and g copied to the
+    host as B1 is called (the activations are freed by then), the step's
+    theta and v afterwards held byte for byte against the plain version,
+    column chunk by column chunk on the card. Then B1 timed at [2, N] with
+    CUDA events beside its bound, in place on the state's planes (the state
+    is not used after). Returns (max abs err, timing)."""
+    from unittest import mock
+    from repro_torch.launch.train import lm_batches
+    captured = {}
+    real = ops.fused_flat_elastic_nag_update
+
+    def capture(theta, peer, v, g, coef, eta, mu, rows=None):
+        captured.update(theta=theta.cpu(), peer=peer.cpu(), v=v.cpu(), g=g.cpu(),
+                        coef=coef.clone(), eta=eta, mu=mu)
+        return real(theta, peer, v, g, coef, eta, mu, rows=rows)
+
+    b = next(lm_batches(cfg, LM_W, LM_BATCH // LM_W, seq, seed=1, device=dev))
+    with mock.patch.object(ops, "fused_flat_elastic_nag_update", capture):
+        state, _ = trainer.step(state, (b["tokens"], b["labels"]))
+    torch.cuda.synchronize()
+    theta, v = state.theta["float32"], state.opt.mu["float32"]
+    W, N = theta.shape
+    eta = captured["eta"]
+    chunks = 16
+    err = 0.0
+    for c in range(chunks):
+        lo, hi = c * N // chunks, (c + 1) * N // chunks
+        col = {k: captured[k][:, lo:hi].to(dev) for k in ("theta", "peer", "v", "g")}
+        t_new, v_new = ref.fused_flat_elastic_nag_update(
+            col["theta"], col["peer"], col["v"], col["g"], captured["coef"], eta,
+            captured["mu"])
+        if not (bits_equal(torch, theta[:, lo:hi].contiguous(), t_new)
+                and bits_equal(torch, v[:, lo:hi].contiguous(), v_new)):
+            raise AssertionError(f"[lm] B1 at [{W}, {N}] differs from its plain version in "
+                                 f"columns {lo}:{hi}")
+        err = max(err, float((theta[:, lo:hi] - t_new).abs().max()))
+        del col, t_new, v_new
+    del captured
+    peer = torch.randn_like(theta)
+    g = torch.randn_like(theta)
+    ones = torch.ones(W, device=dev)
+    eta_t = torch.full((), 1e-3, device=dev)
+    ms = time_launches(torch, lambda: fu.fused_flat_elastic_nag_update(
+        theta, peer, v, g, ones, eta_t, 0.9), reps=20, warmup=3)
+    del peer, g
+    nbytes = b1_bytes(W, N, 4, 4)
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = FLOPS_PER_ELEMENT * W * N / peak * 1e3
+    bound = max(bytes_ms, ops_ms)
+    log(f"[lm] B1 on one step's own inputs at [{W}, {N}] f32 (2^31 < {W * N} elements): "
+        f"byte-equal to the plain version ({chunks} column chunks); kernel {ms:.4f} ms "
+        f"(CUDA events, median of 20), bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB at "
+        f"{bw / 1e12:.2f} TB/s), {bound / ms:.1%} of the bound")
+    return err, dict(ms=ms, bound_ms=bound, shape=[W, N])
+
+
+def lm_grad_vs_f64(torch, cfg, seq, dev):
+    """At full width cut to LM_GRAD_LAYERS layers: the card's f32 loss and
+    flat gradient (the engine's path: vmap(grad_and_value) over the views)
+    against the same function in f64 on the card."""
+    import dataclasses
+    from torch.func import grad_and_value, vmap
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.common.precision import full_f32
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import transformer as tr
+    from repro_torch.common.pytree import tree_map
+    c2 = dataclasses.replace(cfg, num_layers=LM_GRAD_LAYERS)
+    params = tr.init_lm(torch.Generator(device=dev).manual_seed(3), c2)[0]
+    b = next(lm_batches(c2, 1, LM_BATCH // LM_W, seq, seed=2, device=dev))
+
+    def grads(params):
+        # the views cast to their spec's dtypes: an f64 run needs an f64 spec
+        spec = FlatSpec.build(params)
+        row = spec.with_lead(())
+
+        def one(bb, x, y):
+            return tr.lm_loss(row.views(bb), c2, x, y)[0]
+        with full_f32():
+            g, l = vmap(grad_and_value(one))({k: v[None] for k, v in
+                                              spec.flatten(params).items()},
+                                             b["tokens"], b["labels"])
+        (_, g), = g.items()
+        return spec, g[0], float(l[0])
+
+    spec, a, l32 = grads(params)
+    _, w, l64 = grads(tree_map(lambda t: t.double(), params))
+    del params
+    if a.dtype != torch.float32 or w.dtype != torch.float64:
+        raise AssertionError(f"[lm] gradient dtypes {a.dtype} / {w.dtype}")
+    out = float((~torch.isclose(a.double(), w, rtol=1e-4, atol=1e-6)).double().mean())
+    leaves = {}
+    for path, s in zip(_leaf_names(spec), spec.slots):
+        x, y = a[s.offset:s.offset + s.size].double(), w[s.offset:s.offset + s.size]
+        leaves[path] = float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+    worst = max(leaves, key=leaves.get)
+    log(f"[lm] gradient at full width, {LM_GRAD_LAYERS} layers ({a.numel()} elements), "
+        f"{LM_BATCH // LM_W} x {seq} tokens: f32 loss {l32:.7f} vs f64 {l64:.7f}; "
+        f"{out:.4%} of the elements outside rtol 1e-4 / atol 1e-6 of f64 (limit "
+        f"{LM_GRAD_OUT:.0%}); worst leaf rel L2 {leaves[worst]:.3e} ({worst}, limit "
+        f"{LM_GRAD_REL})")
+    if not (out <= LM_GRAD_OUT and leaves[worst] <= LM_GRAD_REL
+            and abs(l32 - l64) <= 1e-4 * abs(l64)):
+        raise AssertionError("[lm] the f32 gradient is not the f64 one within the limits")
+    return dict(outside=out, worst_leaf_rel_l2=leaves[worst], loss_f32=l32, loss_f64=l64)
+
+
+def _leaf_names(spec):
+    """The spec's leaf paths ("segments/seg0_attn/attn/wq"), in slot order."""
+    from repro_torch.common.pytree import tree_unflatten
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}" if path else k)
+        else:
+            out.append((t, path))
+
+    walk(tree_unflatten(spec.treedef, list(range(len(spec.slots)))), "")
+    return [p for _, p in sorted(out)]
+
+
+def lm_serve(torch, ops, fa, ref, cfg, trainer, state, seq, dev):
+    """The trained consensus (f32) through serving.engine: a prefill and
+    LM_SERVE_STEPS decode steps; B9 once per layer in each (the simt form
+    in the f32 prefill, split in decode). The same prefill and decode steps
+    through B9's plain version (patched into the op), on the same consensus
+    and tokens, give the logits the kernel run is held to (PARITY_TOL of
+    the largest |logit|). Then B9 itself against its plain version at the
+    prefill and decode shapes this run gave it (these launches are not
+    counted). Returns (B9 launches, max abs err)."""
+    from unittest import mock
+    from repro_torch.serving.engine import make_serve_program
+    params = trainer.consensus_params(state)
+    B = LM_BATCH // LM_W
+    prog = make_serve_program(cfg, batch=B, max_len=seq + LM_SERVE_STEPS,
+                              param_dtype=torch.float32, cache_dtype=torch.float32,
+                              with_prefill=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (B, seq), generator=g, device=dev,
+                           dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, (B, LM_SERVE_STEPS), generator=g, device=dev,
+                          dtype=torch.int32)
+
+    def run():
+        logits, cache = prog.prefill_fn(params, prompt)
+        out = [logits]
+        for t in range(LM_SERVE_STEPS):
+            logits, cache = prog.decode_fn(params, cache, steps[:, t:t + 1])
+            out.append(logits)
+        return torch.stack(out).float()
+
+    ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
+    got = run()
+    torch.cuda.synchronize()
+    n = ops.launch_counts()[B9]
+    forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
+    L = cfg.num_layers
+    if n != L * (1 + LM_SERVE_STEPS) or forms.get("simt") != L or \
+            forms.get("split") != L * LM_SERVE_STEPS:
+        raise AssertionError(f"[lm] serving the consensus: B9 {n} by form {forms}")
+    with mock.patch.object(ops, "attention", plain_attention):
+        want = run()
+    torch.cuda.synchronize()
+    del params, prog
+    gap = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not (bool(torch.isfinite(got).all()) and gap <= PARITY_TOL):
+        raise AssertionError(f"[lm] the trained consensus through B9 vs plain: logits "
+                             f"relative gap {gap} > {PARITY_TOL}")
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    r = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=r, device=dev)
+
+    q, k, v = rnd(B, seq, H, hd), rnd(B, seq, Hkv, hd), rnd(B, seq, Hkv, hd)
+    err = b9_err(f"prefill [{B}, {seq}, {H}, {hd}]", ops.attention(q, k, v, causal=True),
+                 plain_attention(q, k, v, causal=True))
+    last = seq + LM_SERVE_STEPS - 1
+    qd, ck, cv = rnd(B, 1, H, hd), rnd(B, last + 1, Hkv, hd), rnd(B, last + 1, Hkv, hd)
+    pos = torch.tensor(last, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=pos, kv_len=pos + 1)
+    err = max(err, b9_err(f"decode [{B}, 1, {H}, {hd}] over {last + 1} rows",
+                          ops.attention(qd, ck, cv, **kw), plain_attention(qd, ck, cv, **kw)))
+    log(f"[lm] the trained consensus served (f32, batch {B}, prompt {seq}): B9 launches {n} = "
+        f"{L} prefill (simt) + {L * LM_SERVE_STEPS} decode (split), by form {forms}; logits "
+        f"vs the plain version on the same consensus and tokens: max |diff| / max |logit| = "
+        f"{gap:.3e} (tolerance {PARITY_TOL}), greedy tokens agree {agree:.4f}; B9 at this "
+        f"run's prefill and decode shapes vs plain: max abs err {err!r} (tolerance "
+        f"{B9_TOL['float32']})")
+    return n, err
+
+
+def lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, block, dev):
+    """B1 and B2 at [1, N] (a dist rank's plane at --reduced) and B4 / B5 at
+    [4, N] (the q8 run's plane) against their plain versions, byte for byte.
+    Returns {kernel: max abs err}."""
+    f32 = torch.float32
+    eta, mu = torch.full((), 3e-3, device=dev), torch.full((), 0.9, device=dev)
+    t, p, v, g, coef = b1_inputs(torch, 1, N, f32, f32, 60, dev)
+    want = (ref.fused_flat_elastic_nag_update(t, p, v, g, coef, eta, mu),
+            ref.fused_flat_nag_update(t, v, g, eta, mu))
+    kt, kv = t.clone(), v.clone()
+    fu.fused_flat_elastic_nag_update(kt, p, kv, g, coef, eta, mu)
+    got = [(kt, kv)]
+    kt, kv = t.clone(), v.clone()
+    fu.fused_flat_nag_update(kt, kv, g, eta, mu)
+    got.append((kt, kv))
+    torch.cuda.synchronize()
+    err = {}
+    for kname, a, b in ((B1, got[0], want[0]), (B2, got[1], want[1])):
+        err[kname] = max(float((u - w).abs().max()) for u, w in zip(a, b))
+        if not all(bits_equal(torch, u, w) for u, w in zip(a, b)):
+            raise AssertionError(f"[lm] {kname} at [1, {N}] differs from its plain version: "
+                                 f"max abs err {err[kname]!r}")
+    del t, p, v, g, kt, kv, got, want
+    gen = torch.Generator(device=dev).manual_seed(61)
+    x = torch.randn(4, N, generator=gen, device=dev)
+    seeds = codec_seeds(3, torch.arange(4, device=dev))
+    enc = (ck.q8_encode(x, seeds, block=block), ref.q8_encode(x, seeds, block=block))
+    dec = (ck.q8_decode(*enc[1], N, block=block), ref.q8_decode(*enc[1], N, block=block))
+    torch.cuda.synchronize()
+    for kname, a, b in (("q8_encode", enc[0], enc[1]), ("q8_decode", (dec[0],), (dec[1],))):
+        err[kname] = max(float((u.double() - w.double()).abs().max()) for u, w in zip(a, b))
+        if not all(bits_equal(torch, u, w) for u, w in zip(a, b)):
+            raise AssertionError(f"[lm] {kname} at [4, {N}] block {block} differs from its "
+                                 f"plain version: max abs err {err[kname]!r}")
+    log(f"[lm] B1 and B2 at [1, {N}] and B4 / B5 at [4, {N}] block {block} (the reduced "
+        f"runs' planes) vs plain versions: byte-equal; max abs err {err}")
+    return err
+
+
+def lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev):
+    """The other engines through the CLI at --reduced: dist with 4
+    processes (launches, sends and receives, comm_bytes against the host's
+    replay of the schedule), async lognormal, and q8 on sim; then their
+    kernels at those planes against the plain versions
+    (:func:`lm_reduced_kernels`). Returns ({kernel: launches},
+    {kernel: max abs err})."""
+    from repro_torch.common.config import MeshConfig, ProtocolConfig
+    from repro_torch.core.scheduler import GossipSchedule
+    from repro_torch.launch import train as cli
+    total = dict.fromkeys(KERNELS, 0)
+    W, steps = 4, LM_REDUCED_STEPS
+    kw = lm_run_kw(reduced=True, steps=steps, workers=W, lr=3e-3)
+    # p 0.125 on dist, so that both programs run (B1 firing, B2 otherwise)
+    ranks, hist = cli.run(LM_ARCH, **dict(kw, engine="dist", p=0.125))
+    sched = GossipSchedule(ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
+                                          comm_probability=0.125), W, seed=1,
+                           mesh_cfg=MeshConfig(data=W, model=1, pods=1, workers_per_pod=W))
+    polls = [sched.poll(i) for i in range(steps)]
+    nfire = sum(bool(f) for f, _, _ in polls)
+    for r in ranks:
+        want = dict.fromkeys(KERNELS, 0)
+        want[B1], want[B2] = nfire, steps - nfire
+        got = {k: r["launches"][k] for k in KERNELS}
+        cb = 0.0
+        for f, active, _ in polls:
+            if f:
+                cb += float(r["wire"]) * float(sum(active) / len(active))
+        if got != want or r["sends"] != nfire or r["recvs"] != nfire or r["comm_bytes"] != cb:
+            raise AssertionError(f"[lm] dist rank {r['rank']}: launches {got} (want {want}), "
+                                 f"sends {r['sends']} recvs {r['recvs']} (want {nfire}), "
+                                 f"comm_bytes {r['comm_bytes']!r} (want {cb!r})")
+        for k in KERNELS:
+            total[k] += got[k]
+    log(f"[lm] dist --reduced, {W} processes on one card, {steps} steps: {nfire} firing "
+        f"steps = host schedule; on every rank B1 {nfire}, B2 {steps - nfire}, sends = recvs "
+        f"= {nfire}, comm_bytes = host recomputation; loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}")
+    for tag, extra, want_k in (
+            ("async lognormal", dict(engine="async", time_model="lognormal", sigma=0.6),
+             {B1: steps}),
+            ("sim q8", dict(codec="q8"), {B1: steps, "q8_encode": steps, "q8_decode": steps})):
+        ops.zero_launch_counts()
+        state, hist = cli.run(LM_ARCH, **dict(kw, **extra))
+        torch.cuda.synchronize()
+        got = {k: ops.launch_counts()[k] for k in KERNELS}
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(want_k)
+        losses = [r["loss"] for r in hist]
+        if got != want or not all(x == x and abs(x) != float("inf") for x in losses):
+            raise AssertionError(f"[lm] {tag}: launches {got} (want {want}), losses {losses}")
+        for k in KERNELS:
+            total[k] += got[k]
+        extra_log = (f", virtual time {hist[-1]['virtual_time']}" if "virtual_time" in hist[-1]
+                     else "")
+        log(f"[lm] {tag} --reduced W={W}, {steps} steps: launches {got}; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}{extra_log}")
+    N = state.theta["float32"].shape[1]
+    del state
+    err = lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, ProtocolConfig().codec_block,
+                             dev)
+    return total, err
+
+
+def run_lm_phase(torch, ops, fu, ck, ref, fa, codec_seeds, dev, bw, peak):
+    """Phase 10. Returns ({kernel: launches}, {kernel: max abs err},
+    {kernel: timing}, summary)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    seq, mem = lm_memory(torch, cfg, dev)
+    launches, trainer, state, run_summary = lm_full_width(torch, ops, fa, cfg, seq, dev)
+    # serve the trained state first: B1's timing below overwrites its planes
+    n9, err9 = lm_serve(torch, ops, fa, ref, cfg, trainer, state, seq, dev)
+    err, b1 = lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak)
+    del trainer, state
+    torch.cuda.empty_cache()
+    grad = lm_grad_vs_f64(torch, cfg, seq, dev)
+    torch.cuda.empty_cache()
+    reduced, errs = lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev)
+    for k, n in reduced.items():
+        launches[k] += n
+    launches[B9] += n9
+    errs[B1] = max(errs[B1], err)
+    errs[B9] = err9
+    return launches, errs, {B1: b1}, dict(memory=mem, run=run_summary, grad=grad)
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -3254,6 +3724,18 @@ def main():
     log(f"[shard] launches in phase 9: {shard_launches}; summary ({smi}): "
         f"{json.dumps(shard_summary)}")
     phase_s["9 shard+obs"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    lm_launches, lm_err, lm_times, lm_summary = run_lm_phase(torch, ops, fu, ck, ref, fa,
+                                                             codec_seeds, dev, bw, peak)
+    for kname, n in lm_launches.items():
+        launches[kname] += n
+    for kname, e in lm_err.items():
+        err[kname] = max(err[kname], e)
+    times[B1]["tinyllama_plane"] = lm_times[B1]
+    log(f"[lm] launches in phase 10: {lm_launches}; summary ({smi}): "
+        f"{json.dumps(lm_summary)}")
+    phase_s["10 lm"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

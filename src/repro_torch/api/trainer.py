@@ -388,9 +388,10 @@ class _DistBackend(_Backend):
         if kw["hetero"] is not None:
             raise ValueError('hetero= is the async engine\'s (engine="async")')
         group = kw["group"]
-        if kw["loss_fn"] is None or group is None:
+        if (kw["loss_fn"] is None and kw["model_cfg"] is None) or group is None:
             raise ValueError('engine="dist" requires loss_fn and group (the rank\'s '
-                             'WorkerGroup, see repro_torch.launch.mesh)')
+                             'WorkerGroup, see repro_torch.launch.mesh); model_cfg= '
+                             'stands in for loss_fn with the LM loss')
         mesh_cfg = kw["mesh_cfg"] or group.mesh_cfg
         if kw["num_workers"] not in (None, mesh_cfg.num_workers):
             raise ValueError(f"num_workers={kw['num_workers']} but the mesh has "
@@ -406,7 +407,8 @@ class _DistBackend(_Backend):
         self.num_workers = mesh_cfg.num_workers
         tcfg = TrainConfig(protocol=facade.protocol, optimizer=facade.optimizer,
                            fused_update=facade.fused_update)
-        self.trainer = DistTrainer(group, mesh_cfg, tcfg, kw["loss_fn"], shard=kw["shard"])
+        self.trainer = DistTrainer(group, mesh_cfg, tcfg, kw["loss_fn"], shard=kw["shard"],
+                                   model_cfg=kw["model_cfg"])
         self.codec = self.trainer._codec
         self.sched = GossipSchedule(facade.protocol, self.num_workers,
                                     seed=int(kw["seed"]) + 1, mesh_cfg=mesh_cfg)
@@ -535,8 +537,9 @@ class GossipTrainer:
     ``hetero`` (async: a
     :class:`~repro_torch.common.config.HeteroConfig`), ``mesh_cfg`` (the
     matching schedule's pods x workers layout), ``group`` (dist: the rank's
-    :class:`~repro_torch.launch.mesh.WorkerGroup`) and ``seed`` (dist: the
-    host schedule draws from ``seed + 1``).
+    :class:`~repro_torch.launch.mesh.WorkerGroup`), ``seed`` (dist: the
+    host schedule draws from ``seed + 1``) and ``model_cfg`` (dist: without
+    ``loss_fn``, the LM loss of this model config, as the reference's).
     """
 
     def __init__(self, *, engine: str = "sim", protocol: ProtocolConfig,
@@ -548,7 +551,8 @@ class GossipTrainer:
                  codec: Optional[str] = None, hetero: Optional[HeteroConfig] = None,
                  faults=None, fleet=None,
                  shard=None, publish_every: Optional[int] = None, obs=None,
-                 mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0):
+                 mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0,
+                 model_cfg=None):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
         if publish_every is not None:
@@ -567,7 +571,8 @@ class GossipTrainer:
         self.shard = shard
         self._backend = ENGINES[engine](self, dict(
             loss_fn=loss_fn, num_workers=num_workers, hetero=hetero, faults=faults,
-            fleet=fleet, shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed))
+            fleet=fleet, shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed,
+            model_cfg=model_cfg))
         self.num_workers = self._backend.num_workers
         self.codec = self._backend.codec      # the active Codec, or None
         self._host_steps = 0

@@ -7,9 +7,11 @@ reference's and buffers compare element by element across the two packages.
 
 ``leading`` dims (the stacked replica axis) pass through: a ``[W, ...]``
 stacked tree flattens to ``[W, total]`` buffers. :meth:`FlatSpec.views`
-returns slice + ``view`` aliases of the buffers, so a loss computed through
-them differentiates straight back onto the flat plane (autograd writes the
-lane padding as zeros) — the reference needs a custom scatter VJP for this.
+returns slice + ``view`` aliases of the buffers through a custom backward
+(the reference's scatter VJP): a loss computed through them differentiates
+onto the flat plane as ONE new buffer per bucket, each leaf's cotangent
+written once at its offset and zeros in the lane padding, where plain slice
+views would fill and add a zeroed plane per leaf.
 """
 from __future__ import annotations
 
@@ -122,12 +124,63 @@ class FlatSpec:
         return tree_unflatten(self.treedef, leaves)
 
     def views(self, bufs: Dict[str, torch.Tensor]) -> PyTree:
-        """Slice + view aliases of ``bufs`` — the engines' loss boundary.
-        Gradients of a loss through these land on the flat plane directly,
-        with zeros in the lane padding. A leaf is cast to the spec's dtype
-        where its buffer holds another (a bf16 bucket the unfused path
-        promoted to f32), as the reference's views are; otherwise it is a
-        view, with no copy."""
-        leaves = [bufs[s.bucket][..., s.offset:s.offset + s.size]
-                  .reshape(self.lead_shape + s.shape).to(s.dtype) for s in self.slots]
-        return tree_unflatten(self.treedef, leaves)
+        """Slice + view aliases of ``bufs`` — the engines' loss boundary,
+        with the reference's scatter backward (:class:`_Views`). A leaf is
+        cast to the spec's dtype where its buffer holds another (a bf16
+        bucket the unfused path promoted to f32), as the reference's views
+        are; otherwise it is a view, with no copy. The buffers' leading dims
+        are their own (a row under ``vmap`` has none)."""
+        names = tuple(bufs)
+        index = {k: i for i, k in enumerate(names)}
+        slots = tuple((index[s.bucket], s.offset, s.size, s.shape, s.dtype)
+                      for s in self.slots)
+        leaves = _Views.apply(slots, *(bufs[k] for k in names))
+        return tree_unflatten(self.treedef, list(leaves))
+
+
+class _Views(torch.autograd.Function):
+    """The leaves of flat buffers (``slots``: per leaf its buffer's index,
+    offset, size, shape and dtype) with the reference's scatter VJP
+    (``repro.common.flat._views``): the backward builds each buffer's
+    gradient as ONE ``torch.cat`` of the flattened leaf cotangents in slot
+    order, zeros between slots and after the last, so a step allocates one
+    plane per bucket whatever the number of leaves. ``vmap`` runs it
+    through the generated rule (the engines' ``vmap(grad_and_value(...))``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(slots, *bufs):
+        return tuple(bufs[b][..., off:off + size].reshape(bufs[b].shape[:-1] + shape).to(dt)
+                     for b, off, size, shape, dt in slots)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.slots = inputs[0]
+        ctx.bufs = [(tuple(b.shape), b.dtype, b.device) for b in inputs[1:]]
+
+    @staticmethod
+    def backward(ctx, *cts):
+        parts = [[] for _ in ctx.bufs]
+        ends = [0] * len(ctx.bufs)
+
+        def zeros(b, n):
+            shape, dt, dev = ctx.bufs[b]
+            return torch.zeros(shape[:-1] + (n,), dtype=dt, device=dev)
+
+        for g, (b, off, size, _shape, _dt) in zip(cts, ctx.slots):
+            if size == 0:
+                continue
+            if off > ends[b]:
+                parts[b].append(zeros(b, off - ends[b]))
+            shape, dt, _ = ctx.bufs[b]
+            parts[b].append(g.reshape(shape[:-1] + (size,)).to(dt))
+            ends[b] = off + size
+        grads = []
+        for b, (shape, _dt, _dev) in enumerate(ctx.bufs):
+            if shape[-1] > ends[b]:
+                parts[b].append(zeros(b, shape[-1] - ends[b]))
+            if not parts[b]:
+                parts[b].append(zeros(b, 0))
+            grads.append(parts[b][0] if len(parts[b]) == 1 else torch.cat(parts[b], dim=-1))
+        return (None, *grads)

@@ -11,9 +11,20 @@ window and the device-busy share of the windows. ``--shard N`` pads the
 plane to N column shards (the codec then encodes ``[W * N, shard_size]``
 rows); ``--trace run.json`` / ``--metrics run.jsonl`` record the run through
 the telemetry plane (``repro_torch.obs``) and write both files at the end,
-so the profile shows what recording costs a step.
+so the profile shows what recording costs a step. ``--model lm --arch
+tinyllama_1_1b`` profiles the transformer LM's sim step at full size (f32,
+the reference CLI's ``lm_loss`` over ``launch.train.lm_batches`` at
+``--seq``, ``--batch`` per worker); its kernels are further
+split into the attention (the ops run inside the differentiable online
+softmax and their backward nodes, matched by autograd sequence number),
+the flat views' backward and the rest. For the LM only, as many
+unprofiled steps are first timed by CUDA events, and the kernel list
+leaves out the device-side copy of the attention's ``record_function``
+range (a user annotation, not a kernel); the MLP and CNN profiles are
+taken as before.
 
-    python -m repro_torch.launch.profile_sim [--model mlp|cnn]
+    python -m repro_torch.launch.profile_sim [--model mlp|cnn|lm]
+                                             [--arch tinyllama_1_1b] [--seq 256]
                                              [--workers 8] [--batch 16] [--steps 10]
                                              [--codec none|q8|topk]
                                              [--method clipped_gossip] [--p 0.5]
@@ -32,7 +43,8 @@ so the profile shows what recording costs a step.
 "none". ``drop_byzantine`` is the reference's benchmarks/faults.py
 composite (drop and Byzantine noise at once), registered here on demand.
 
-Prints the synchronised step time, the device-busy share of the profiled
+Prints the synchronised step time (under the profiler; for the LM also by
+CUDA events over as many unprofiled steps first), the device-busy share of the profiled
 window (the union of kernel intervals over the span from the first kernel's
 start to the last one's end), and the kernels by total device time, then one
 JSON line with the same numbers. Kernel names are grouped into the step's
@@ -66,11 +78,21 @@ def _ensure_drop_byzantine() -> None:
 
 def _trainer(W: int, device, codec: str = "none", method: str = "elastic_gossip",
              p: float = 0.125, faults=None, model: str = "mlp", engine: str = "sim",
-             hetero=None, fleet=None, shard=None, obs=None):
+             hetero=None, fleet=None, shard=None, obs=None, lm_cfg=None):
     from repro_torch.api import GossipTrainer
     from repro_torch.common.config import OptimizerConfig, ProtocolConfig
     from repro_torch.models import simple
 
+    if model == "lm":
+        from repro_torch.models import transformer as tr
+        from repro_torch.train.losses import lm_loss_fn
+        return GossipTrainer(
+            engine=engine,
+            protocol=ProtocolConfig(method=method, moving_rate=0.5, comm_probability=p),
+            optimizer=OptimizerConfig(learning_rate=1e-3, momentum=0.9),
+            loss_fn=lm_loss_fn(lm_cfg), num_workers=W, device=device, codec=codec,
+            hetero=hetero, faults=faults, fleet=fleet, shard=shard, obs=obs,
+            init_fn=lambda gen: tr.init_lm(gen, lm_cfg)[0])
     if model == "cnn":
         apply, opt = simple.cnn_logits, OptimizerConfig(learning_rate=0.01, momentum=0.9)
         init = lambda gen: simple.init_cnn(gen)[0]                       # noqa: E731
@@ -110,7 +132,8 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             fault_frac: float = 0.0, model: str = "mlp", engine: str = "sim",
             time_model: str = "lognormal", sigma: float = 0.6, partition: int = 1,
             flow_control: str = "none", plane: str = "device", shard: int = 1,
-            trace: str = "", metrics: str = "") -> dict:
+            trace: str = "", metrics: str = "", arch: str = "tinyllama_1_1b",
+            seq: int = 256) -> dict:
     from repro_torch.common.config import (FaultConfig, FleetConfig, HeteroConfig, ObsConfig,
                                            ShardConfig)
     from repro_torch.data.partition import batches_for_step, partition_iid
@@ -127,43 +150,71 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     hetero = HeteroConfig(time_model=time_model, sigma=sigma) if engine == "async" else None
     fleet = FleetConfig(partition=partition, flow_control=flow_control, plane=plane)
     obs = ObsConfig(trace_path=trace, metrics_path=metrics)
+    lm_cfg = None
+    if model == "lm":
+        from repro_torch.configs import get_config
+        lm_cfg = get_config(arch)
     trainer = _trainer(W, device, codec, method, p, faults, model, engine, hetero,
                        fleet if fleet.enabled() else None,
                        ShardConfig(n_shards=shard) if shard != 1 else None,
-                       obs if obs.enabled() else None)
+                       obs if obs.enabled() else None, lm_cfg)
     dev = trainer.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    train, _ = (load_cifar_like(num_train=12800, num_test=10) if model == "cnn"
-                else load_mnist(num_train=25600, num_test=10))
-    shards = partition_iid(train, W, 0)
-    batches = [tuple(torch.as_tensor(a, device=dev)
-                     for a in batches_for_step(shards, i, batch))
-               for i in range(steps + 5)]
+    warm = 2 if model == "lm" else 5
+    if model == "lm":
+        from repro_torch.launch.train import lm_batches
+        stream = lm_batches(lm_cfg, W, batch, seq, 0, device=dev)
+        batches = [(b["tokens"], b["labels"]) for b in
+                   (next(stream) for _ in range(2 * steps + warm))]
+    else:
+        train, _ = (load_cifar_like(num_train=12800, num_test=10) if model == "cnn"
+                    else load_mnist(num_train=25600, num_test=10))
+        shards = partition_iid(train, W, 0)
+        batches = [tuple(torch.as_tensor(a, device=dev)
+                         for a in batches_for_step(shards, i, batch))
+                   for i in range(steps + warm)]
     state = trainer.init_state(0)
-    for xb, yb in batches[:5]:                 # warm-up: vmap, cuBLAS, the kernel build
+    for xb, yb in batches[:warm]:              # warm-up: vmap, cuBLAS, the kernel build
         state, _ = trainer.step(state, (xb, yb))
     sync()
+    event_ms = []
+    timed = steps if model == "lm" else 0
+    if dev.type == "cuda" and timed:
+        # unprofiled steps, each timed by CUDA events around it
+        torch.cuda.reset_peak_memory_stats(dev)
+        for xb, yb in batches[warm:warm + steps]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, _ = trainer.step(state, (xb, yb))
+            ev[1].record()
+            ev[1].synchronize()
+            event_ms.append(ev[0].elapsed_time(ev[1]))
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     step_s = []
     with torch.profiler.profile(activities=acts) as prof:
-        for xb, yb in batches[5:]:
+        for xb, yb in batches[warm + timed:]:
             t0 = time.perf_counter()
             state, _ = trainer.step(state, (xb, yb))
             sync()
             step_s.append(time.perf_counter() - t0)
     written = trainer.export_obs()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not (model == "lm" and e.is_user_annotation)]
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         d = e.time_range.end - e.time_range.start
         by_name[e.name][0] += d
         by_name[e.name][1] += 1
     phases = defaultdict(float)
-    for name, (us, _) in by_name.items():
-        phases[_phase(name)] += us
+    if model == "lm":
+        for name, us in _lm_split(events).items():
+            phases[name] += us
+    else:
+        for name, (us, _) in by_name.items():
+            phases[_phase(name)] += us
     span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
             if kernels else 0.0)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -179,13 +230,78 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
         "fault_frac": fault_frac,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "step_ms_median": statistics.median(step_s) * 1e3,
+        "step_ms_events_median": statistics.median(event_ms) if event_ms else None,
         "kernel_launches_per_step": len(kernels) / steps,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_busy_share": (busy / span) if span else None,
         "phase_ms_per_step": {k: v / steps / 1e3 for k, v in sorted(phases.items())},
         "top_kernels": [{"name": n[:120], "ms_per_step": us / steps / 1e3,
                          "calls_per_step": c / steps} for n, (us, c) in top],
+        "arch": lm_cfg.name if lm_cfg is not None else None,
+        "seq": seq if model == "lm" else None,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None),
     }
+
+
+ATTENTION_RANGE = "online_softmax_attention"
+
+
+def _lm_split(events) -> dict:
+    """The LM step's device time (us) by part: B1; the attention (kernels
+    launched by ops inside the ``online_softmax_attention`` range, and by
+    backward nodes whose forward op ran there, matched by autograd sequence
+    number); the flat views' backward (the ``_Views`` backward node); the
+    remaining matmuls and the remaining elementwise / reduction kernels. A
+    kernel goes by the op that launched it (the op's ``kernels``); those
+    launched outside any op (the hand-written kernels, through ctypes) go
+    by name."""
+    CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    def by_name(n):
+        n = n.lower()
+        if "fused_flat_elastic_nag" in n:
+            return "B1 fused update"
+        if "gemm" in n or "gemv" in n or "sm90" in n or "cutlass" in n or "matmul" in n:
+            return "matmuls (model + mixing)"
+        if "memcpy" in n:
+            return "host <-> device copies"
+        return "elementwise / reductions / copies"
+
+    ops = [e for e in events if e.device_type == CPU]
+    attn_seq = {e.sequence_nr for e in ops if e.sequence_nr >= 0
+                and any(a.name == ATTENTION_RANGE for a in ancestors(e.cpu_parent))}
+    out = defaultdict(float)
+    unlinked = defaultdict(float)
+    for k in events:
+        if k.device_type == CUDA and not k.is_user_annotation:
+            unlinked[k.name] += k.time_range.end - k.time_range.start
+    for e in ops:
+        if not e.kernels:
+            continue
+        chain = list(ancestors(e))
+        names = [a.name for a in chain]
+        for k in e.kernels:
+            if k.name == ATTENTION_RANGE:
+                continue
+            unlinked[k.name] -= k.duration
+            if any("_Views" in a and "Backward" in a for a in names):
+                part = "views backward"
+            elif ATTENTION_RANGE in names or any(
+                    "evaluate_function" in a.name and a.sequence_nr in attn_seq for a in chain):
+                part = "attention (fwd + bwd)"
+            else:
+                part = by_name(k.name)
+            out[part] += k.duration
+    for name, us in unlinked.items():
+        if us > 0:
+            out[by_name(name)] += us
+    return out
 
 
 def _phase(kernel_name: str) -> str:
@@ -212,7 +328,9 @@ def _phase(kernel_name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="mlp", choices=("mlp", "cnn"))
+    ap.add_argument("--model", default="mlp", choices=("mlp", "cnn", "lm"))
+    ap.add_argument("--arch", default="tinyllama_1_1b", help="--model lm: the architecture")
+    ap.add_argument("--seq", type=int, default=256, help="--model lm: sequence length")
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=10)
@@ -243,13 +361,16 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     r = profile(a.workers, a.batch, a.steps, a.device, a.codec, a.method, a.p,
                 a.fault_model, a.fault_rate, a.fault_frac, a.model, a.engine, a.time_model,
-                a.sigma, a.partition, a.flow_control, a.plane, a.shard, a.trace, a.metrics)
+                a.sigma, a.partition, a.flow_control, a.plane, a.shard, a.trace, a.metrics,
+                a.arch, a.seq)
     unit = "window" if a.engine == "async" else "step"
+    events = ("" if r["step_ms_events_median"] is None else
+              f" (by CUDA events, unprofiled: {r['step_ms_events_median']} ms)")
     print(f"{r['model']} {r['engine']} W={r['workers']} batch={r['batch_per_worker']} "
           f"codec={r['codec']} method={r['method']} p={r['p']} faults={r['fault_model']} "
           f"partition={r['partition']} flow={r['flow_control']} plane={r['plane']} "
           f"shard={r['shard']} (wire {r['wire_bytes']:.0f} B/event): median {unit} "
-          f"{r['step_ms_median']:.3f} ms, {r['kernel_launches_per_step']:.1f} kernels/step, "
+          f"{r['step_ms_median']:.3f} ms{events}, {r['kernel_launches_per_step']:.1f} kernels/step, "
           f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, busy share "
           f"{r['device_busy_share']}")
     for k, v in r["phase_ms_per_step"].items():

@@ -1,0 +1,389 @@
+"""End-to-end training CLI, built on ``repro_torch.api`` (port of
+``repro.launch.train``, the reference's training CLI).
+
+The CLI is protocol- and engine-agnostic: it builds a
+:class:`repro_torch.api.GossipTrainer` for any engine (``--engine
+{sim,dist,async}``) over the transformer LM's loss
+(:func:`repro_torch.models.transformer.lm_loss`) and calls ONE method a
+step, ``trainer.step(state, batch)``, over the flat-resident
+:class:`repro_torch.api.FlatState`. Scheduling, communication-byte
+accounting and checkpoint/schedule persistence live inside the facade;
+protocol, codec, fault, flow-control and time-model names come from the
+port's registries.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+        --reduced --steps 50 --engine sim --workers 4 --p 0.25 --device cpu
+
+    # TinyLlama-1.1B at full width (22 layers, d 2048, f32) on one card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+        --engine sim --workers 2 --p 0.5 --global-batch 8 --seq 256 --steps 10
+
+    # heterogeneous fleet: a 4x straggler under virtual-time async gossip
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+        --reduced --steps 50 --engine async --time-model slow_node \\
+        --slow-factor 4 --workers 4 --p 0.25
+
+    # the dist engine: one process per worker (gloo), all on one card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
+        --reduced --steps 20 --engine dist --workers 4 --p 0.5
+
+The device defaults to ``cuda`` (kernels B1/B2 for the update, B4-B8 on
+the wire); ``--device cpu`` runs their plain versions. Attention in the
+training step is the reference's differentiable online softmax, not kernel
+B9, which is forward-only (``repro_torch.kernels.ops.attention``).
+
+Differences from the reference's CLI: the dist engine is one process
+per worker on this host (``launch.mesh.spawn_workers``; ``--shard S``
+gives each rank's mesh fsdp = S) and needs at least 2 workers; there is
+no tensor parallelism, so ``--production-mesh`` and ``--multi-pod`` raise
+ValueError (ROADMAP.md 7b.5); the model trains without rematerialisation
+(ROADMAP.md §C), and the CLI prints its estimate of the activations.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api import GossipTrainer, available_protocols
+from repro_torch.api.trainer import ENGINES
+from repro_torch.comm import available_codecs
+from repro_torch.common.config import (FaultConfig, FleetConfig, HeteroConfig,
+                                       MeshConfig, ModelConfig, ObsConfig, OptimizerConfig,
+                                       ProtocolConfig, ShardConfig)
+from repro_torch.common.pytree import tree_leaves
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.core.consensus import divergence_metrics
+from repro_torch.faults import available_delay_models, available_fault_models
+from repro_torch.fleet import available_flow_controls
+from repro_torch.hetero import available_time_models
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as tr
+from repro_torch.train.losses import lm_loss_fn
+
+
+def lm_batches(cfg: ModelConfig, num_workers: int, per_worker: int, seq: int, seed: int = 0,
+               device=None):
+    """Worker-partitioned synthetic token stream (each worker gets a disjoint
+    slice, the paper's data-parallel partitioning): the reference's stream,
+    token for token. Yields ``{"tokens", "labels"}`` int32 ``[W, pw, seq]``
+    tensors on ``device``."""
+    from repro_torch.data.synthetic import make_lm_tokens
+    if cfg.audio is not None or cfg.vlm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: audio and vision batches come with their models "
+            "(ROADMAP.md 7b.4)")
+    stream = make_lm_tokens(num_workers * 4_000_000 // max(1, num_workers // 8),
+                            cfg.vocab_size, seed)
+    shard_len = len(stream) // num_workers
+    step = 0
+    while True:
+        xs = []
+        for w in range(num_workers):
+            base = w * shard_len + (step * per_worker * (seq + 1)) % (
+                shard_len - per_worker * (seq + 1))
+            xs.append(stream[base: base + per_worker * (seq + 1)].reshape(per_worker, seq + 1))
+        arr = torch.from_numpy(np.stack(xs))
+        yield {"tokens": arr[..., :-1].to(device), "labels": arr[..., 1:].to(device)}
+        step += 1
+
+
+def replica_bytes(cfg: ModelConfig, dtype=torch.float32) -> int:
+    """Bytes of one replica, from ``abstract_lm`` (nothing allocated)."""
+    abstract, _ = tr.abstract_lm(cfg, dtype)
+    return sum(x.numel() * x.element_size() for x in tree_leaves(abstract))
+
+
+def activation_bytes(cfg: ModelConfig, tokens: int, seq: int, dtype_bytes: int = 4,
+                     chunk: int = 1024) -> int:
+    """The port's estimate of the activations autograd keeps for one
+    training step over ``tokens`` tokens of sequences of ``seq`` (every
+    worker's), with no rematerialisation: per token and layer about ten
+    model-width vectors (norms, projections, residuals, RoPE halves),
+    the K/V heads, three score rows of the attention's key chunks (scores,
+    masked scores, probabilities) and five FFN-width vectors; per token
+    three vocabulary-width rows of the loss's f32 logits."""
+    hd = cfg.resolved_head_dim
+    keys = max(1, (seq + chunk - 1) // min(chunk, seq)) * min(chunk, seq)
+    per_layer = (10 * cfg.d_model + 4 * cfg.num_kv_heads * hd
+                 + 3 * cfg.num_heads * keys + 5 * cfg.d_ff)
+    per_token = cfg.num_layers * per_layer * dtype_bytes + 3 * cfg.vocab_size * 4
+    return int(tokens * per_token)
+
+
+def _record(i, m, div) -> dict:
+    rec = {"step": i, "loss": float(m["loss"]),
+           "consensus_rel": float(div["consensus_rel"]),
+           "fired": bool(m["fired"]),
+           "comm_mb": round(float(m["comm_bytes"]) / 1e6, 3)}
+    if "virtual_time" in m:
+        rec["virtual_time"] = round(float(m["virtual_time"]), 3)
+        rec["window_size"] = int(m["window_size"])
+    return rec
+
+
+def _train_loop(trainer, state, batches, as_batch, *, steps, log_every, checkpoint_dir,
+                arch, group=None, on_step=None, echo=True):
+    history = []
+    for i in range(steps):
+        state, m = trainer.step(state, as_batch(next(batches)))
+        if on_step is not None:
+            on_step(i, trainer, state, m)
+        if i % log_every == 0 or i == steps - 1:
+            # diagnostics read the resident flat plane directly
+            div = divergence_metrics(state.theta, group=group)
+            rec = _record(i, m, div)
+            history.append(rec)
+            if echo:
+                print(json.dumps(rec), flush=True)
+        if checkpoint_dir and (i + 1) % 50 == 0:
+            trainer.save_checkpoint(f"{checkpoint_dir}/step_{i+1}.npz", state,
+                                    meta={"arch": arch, "step": i + 1})
+    return state, history
+
+
+def _dist_rank(group, job):
+    """One rank of a dist run (module level, so ``spawn`` can import it):
+    the CLI's loop on the rank's row of the batches. Rank 0 prints the
+    records. Returns the rank's history, kernel launches (counts set to 0
+    just before the loop), sends / receives, comm_bytes, the wire per event
+    and what rank 0 exported."""
+    cfg = job["cfg"]
+    W = group.world
+    params = job["params"]
+    if params is not None:
+        params = tr.params_from_jax(params, group.device)
+    trainer = GossipTrainer(
+        engine="dist", protocol=job["proto"], optimizer=job["opt"], model_cfg=cfg,
+        init_fn=lambda gen: tr.init_lm(gen, cfg)[0], device=group.device, group=group,
+        mesh_cfg=group.mesh_cfg, seed=job["seed"], shard=job["shard"], obs=job["obs"])
+    state = trainer.init_state(job["seed"], params=params)
+    batches = lm_batches(cfg, W, job["global_batch"] // W, job["seq"], job["seed"])
+    rank = group.rank
+
+    def as_batch(b):
+        return b["tokens"][rank].to(group.device), b["labels"][rank].to(group.device)
+
+    ops.zero_launch_counts()
+    sends0, recvs0 = group.sends, group.recvs
+    state, history = _train_loop(trainer, state, batches, as_batch, steps=job["steps"],
+                                 log_every=job["log_every"],
+                                 checkpoint_dir=job["checkpoint_dir"], arch=job["arch"],
+                                 group=group, echo=rank == 0)
+    launches = ops.launch_counts()
+    return {"rank": rank, "history": history, "launches": launches,
+            "sends": group.sends - sends0, "recvs": group.recvs - recvs0,
+            "comm_bytes": float(trainer._backend.comm_bytes),
+            "wire": int(trainer._backend.wire),
+            "exported": trainer.export_obs()}
+
+
+def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int,
+        alpha: float, workers: int, global_batch: int, seq: int, lr: float,
+        seed: int = 0, checkpoint_dir: str = "", log_every: int = 10,
+        production_mesh: bool = False, multi_pod: bool = False,
+        codec: str = "none", engine: str = "dist",
+        time_model: str = "constant", mean_step_time: float = 1.0,
+        sigma: float = 0.25, slow_worker: int = 0, slow_factor: float = 4.0,
+        fault_model: str = "none", fault_rate: float = 0.0,
+        fault_frac: float = 0.0, delay_model: str = "none",
+        delay: float = 0.0, timeout: float = 0.0,
+        partition: int = 1, flow_control: str = "none",
+        plane: str = "device", token_capacity: float = 20.0,
+        token_rate: float = 1.0, token_threshold: float = 10.0,
+        shard: int = 1, trace: str = "", metrics: str = "",
+        sample_every: int = 1, device="cuda", params=None,
+        on_step: Optional[Callable] = None):
+    """The reference's ``run`` with its parameters, plus ``device``
+    ("cuda", or "cpu" for tests), ``params`` (single-replica initial
+    parameters as numpy arrays, e.g. the reference's ``init_lm``, in place
+    of ``init_lm`` from ``seed``) and ``on_step(i, trainer, state, metrics)``
+    (sim and async: called after every step). Returns ``(state, history)``;
+    on the dist engine the state stays in the ranks and ``state`` is the
+    list of the ranks' summaries (:func:`_dist_rank`)."""
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    proto = ProtocolConfig(method=method, moving_rate=alpha,
+                           comm_probability=p if not tau else 0.0,
+                           comm_period=tau, codec=codec)
+    opt = OptimizerConfig(name="nag", learning_rate=lr, momentum=0.9)
+    # each plane is built only when something in it is enabled, so the
+    # default path keeps the plain engines bit for bit
+    faults = None
+    if fault_model != "none" or delay_model != "none" or timeout > 0:
+        faults = FaultConfig(fault_model=fault_model, fault_rate=fault_rate,
+                             fault_frac=fault_frac, delay_model=delay_model,
+                             delay=delay, timeout=timeout, seed=seed)
+    fleet = None
+    if partition != 1 or flow_control != "none" or plane != "device":
+        fleet = FleetConfig(partition=partition, flow_control=flow_control,
+                            plane=plane, token_capacity=token_capacity,
+                            token_rate=token_rate,
+                            token_threshold=token_threshold, seed=seed)
+        if engine == "dist":
+            raise ValueError(
+                'engine="dist" does not take the fleet plane '
+                "(--partition/--flow-control/--plane); use --engine sim or "
+                "--engine async")
+    shard_cfg = ShardConfig(n_shards=shard) if shard != 1 else None
+    obs_cfg = None
+    if trace or metrics:
+        obs_cfg = ObsConfig(trace_path=trace, metrics_path=metrics,
+                            sample_every=sample_every)
+    tokens = global_batch * seq
+    print(f"activations (estimate, no rematerialisation): "
+          f"{activation_bytes(cfg, tokens, seq) / 2**30:.2f} GiB for {tokens} tokens "
+          f"of {cfg.name}", flush=True)
+
+    t0 = time.time()
+    if engine == "dist":
+        if faults is not None:
+            raise ValueError(
+                'engine="dist" does not support fault injection; use '
+                '--engine sim or --engine async for --fault-model/'
+                '--delay-model runs')
+        if production_mesh or multi_pod:
+            raise ValueError(
+                "--production-mesh / --multi-pod ask for tensor parallelism over a "
+                "16 x 16 chip mesh; the port runs one process per worker on one card "
+                "and has no tensor parallelism yet (ROADMAP.md 7b.5)")
+        from repro_torch.launch.mesh import spawn_workers
+        mesh_cfg = MeshConfig(data=workers * shard, model=1, pods=1, workers_per_pod=workers)
+        job = dict(cfg=cfg, arch=arch, proto=proto, opt=opt, seed=seed, shard=shard_cfg,
+                   obs=obs_cfg, params=params, global_batch=global_batch, seq=seq,
+                   steps=steps, log_every=log_every, checkpoint_dir=checkpoint_dir)
+        ranks = spawn_workers(_dist_rank, mesh_cfg, device, args=(job,),
+                              join_timeout_s=3600.0)
+        state, history, exported = ranks, ranks[0]["history"], ranks[0]["exported"]
+    else:
+        from repro_torch.fleet import validate_fleet_memory
+        validate_fleet_memory(workers, replica_bytes(cfg), plane,
+                              what=f"arch {arch!r}", n_shards=shard, device=device)
+        hetero = HeteroConfig(time_model=time_model, mean_step_time=mean_step_time,
+                              sigma=sigma, slow_worker=slow_worker,
+                              slow_factor=slow_factor, seed=seed)
+        trainer = GossipTrainer(
+            engine=engine, protocol=proto, optimizer=opt, loss_fn=lm_loss_fn(cfg),
+            num_workers=workers, init_fn=lambda gen: tr.init_lm(gen, cfg)[0], seed=seed,
+            hetero=hetero if engine == "async" else None, faults=faults,
+            fleet=fleet, shard=shard_cfg, obs=obs_cfg, device=device)
+        if params is not None:
+            params = tr.params_from_jax(params, trainer.device)
+        state = trainer.init_state(seed, params=params)
+        batches = lm_batches(cfg, workers, global_batch // workers, seq, seed,
+                             device=trainer.device)
+        state, history = _train_loop(
+            trainer, state, batches, lambda b: (b["tokens"], b["labels"]), steps=steps,
+            log_every=log_every, checkpoint_dir=checkpoint_dir, arch=arch,
+            on_step=on_step)
+        exported = trainer.export_obs()
+    print(f"trained {steps} steps in {time.time()-t0:.1f}s; "
+          f"final loss {history[-1]['loss']:.4f}")
+    for kind, path in exported.items():
+        print(f"wrote {kind} -> {path}")
+    if "metrics" in exported:
+        hint = f"python -m repro_torch.obs.report {exported['metrics']}"
+        if "trace" in exported:
+            hint += f" --trace {exported['trace']}"
+        print(f"summarize: {hint}")
+    elif "trace" in exported:
+        print(f"view: load {exported['trace']} at https://ui.perfetto.dev")
+    return state, history
+
+
+def parser() -> argparse.ArgumentParser:
+    """The reference's flags, names and defaults, with choices from the
+    port's registries, plus ``--device``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--method", default="elastic_gossip",
+                    choices=available_protocols())
+    ap.add_argument("--engine", default="dist", choices=tuple(sorted(ENGINES)),
+                    help="training engine")
+    ap.add_argument("--codec", default="none", choices=available_codecs(),
+                    help="gossip-compression codec on the wire (repro_torch.comm)")
+    ap.add_argument("--time-model", default="constant",
+                    choices=available_time_models(),
+                    help="compute-time model for --engine async (repro_torch.hetero)")
+    ap.add_argument("--mean-step-time", type=float, default=1.0)
+    ap.add_argument("--sigma", type=float, default=0.25,
+                    help="lognormal straggler log-space std")
+    ap.add_argument("--slow-worker", type=int, default=0)
+    ap.add_argument("--slow-factor", type=float, default=4.0)
+    ap.add_argument("--fault-model", default="none",
+                    choices=available_fault_models(),
+                    help="message-level fault model on the gossip wire")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="per-(worker,step) drop/corrupt probability")
+    ap.add_argument("--fault-frac", type=float, default=0.0,
+                    help="fraction of Byzantine workers (byzantine_* models)")
+    ap.add_argument("--delay-model", default="none",
+                    choices=available_delay_models(),
+                    help="network-delay model for --engine async")
+    ap.add_argument("--delay", type=float, default=0.0,
+                    help="delay-model scale (mean / constant, virtual time)")
+    ap.add_argument("--timeout", type=float, default=0.0,
+                    help="per-exchange timeout before skip-and-retry (0 = wait forever)")
+    ap.add_argument("--partition", type=int, default=1,
+                    help="split each exchange into 1/P of the flat plane")
+    ap.add_argument("--flow-control", default="none",
+                    choices=available_flow_controls(),
+                    help="token-account initiation throttling")
+    ap.add_argument("--plane", default="device", choices=["device", "host"],
+                    help='FlatState residency: "host" keeps the [W, total] plane in '
+                         "host memory (async engine only)")
+    ap.add_argument("--shard", type=int, default=1,
+                    help="split the flat plane into N shards (repro_torch.shard); "
+                         "engine='dist' gives each rank's mesh fsdp = N")
+    ap.add_argument("--trace", default="",
+                    help="write a Perfetto/Chrome-trace JSON timeline here")
+    ap.add_argument("--metrics", default="",
+                    help="stream per-step metrics JSONL here (summarize with "
+                         "python -m repro_torch.obs.report)")
+    ap.add_argument("--sample-every", type=int, default=1,
+                    help="record trace events / metrics rows every k-th step")
+    ap.add_argument("--token-capacity", type=float, default=20.0)
+    ap.add_argument("--token-rate", type=float, default=1.0)
+    ap.add_argument("--token-threshold", type=float, default=10.0,
+                    help="randomized_token_account aggressiveness threshold")
+    ap.add_argument("--p", type=float, default=0.25)
+    ap.add_argument("--tau", type=int, default=0)
+    ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--workers", type=int, default=1)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help='"cuda" (the kernels) or "cpu" (their plain versions)')
+    return ap
+
+
+def main(argv=None) -> None:
+    a = parser().parse_args(argv)
+    run(a.arch, reduced=a.reduced, steps=a.steps, method=a.method, p=a.p, tau=a.tau,
+        alpha=a.alpha, workers=a.workers, global_batch=a.global_batch, seq=a.seq,
+        lr=a.lr, checkpoint_dir=a.checkpoint_dir,
+        production_mesh=a.production_mesh, multi_pod=a.multi_pod, codec=a.codec,
+        engine=a.engine, time_model=a.time_model,
+        mean_step_time=a.mean_step_time, sigma=a.sigma,
+        slow_worker=a.slow_worker, slow_factor=a.slow_factor,
+        fault_model=a.fault_model, fault_rate=a.fault_rate,
+        fault_frac=a.fault_frac, delay_model=a.delay_model,
+        delay=a.delay, timeout=a.timeout,
+        partition=a.partition, flow_control=a.flow_control, plane=a.plane,
+        token_capacity=a.token_capacity, token_rate=a.token_rate,
+        token_threshold=a.token_threshold, shard=a.shard,
+        trace=a.trace, metrics=a.metrics, sample_every=a.sample_every,
+        device=a.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -48,16 +48,26 @@ def split_tree(pairs: dict) -> Tuple[dict, dict]:
 # Norms
 # ---------------------------------------------------------------------------
 
+def upcast_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32, where the reference computes in f32; f64 stays f64, so a whole
+    model can run in f64 as a reference."""
+    return dtype if dtype == torch.float64 else torch.float32
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    return x.to(upcast_dtype(x.dtype))
+
+
 def init_rmsnorm(d: int, dtype=torch.float32, device=None):
     return ones_init((d,), ("act_embed",), dtype, device)
 
 
 def rmsnorm(w, x, eps: float = 1e-5, plus_one: bool = False):
-    """RMS norm in f32, cast back to ``x``'s dtype."""
-    xf = x.float()
+    """RMS norm in f32 (f64 stays f64), cast back to ``x``'s dtype."""
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    scale = (1.0 + w.float()) if plus_one else w.float()
+    scale = (1.0 + upcast(w)) if plus_one else upcast(w)
     return (y * scale).to(x.dtype)
 
 
@@ -78,7 +88,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     ang = positions[..., :, None].float() * freqs              # [..., S, hd/2]
     cos = torch.cos(ang)[..., :, None, :]                      # broadcast over heads
     sin = torch.sin(ang)[..., :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(upcast(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

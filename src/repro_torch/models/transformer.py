@@ -7,8 +7,12 @@ models raise NotImplementedError until the rest of slice 7 (ROADMAP.md).
 The parameter tree is the reference's, layers stacked on a leading
 ``[count]`` axis per segment, so ``FlatSpec`` offsets equal the
 reference's and a snapshot flattens to the same buffers. The reference's
-``lax.scan`` over layers is a python loop over ``p[i]`` views here, and
-decode writes the KV cache in place.
+``lax.scan`` over layers is a python loop over the layers' views (one
+``unbind`` per stacked leaf, whose backward is one ``stack``), and decode
+writes the KV cache in place. Training (:func:`lm_loss`) keeps every
+layer's activations: the reference's ``cfg.remat`` (``jax.checkpoint``)
+has no counterpart under the engines' ``torch.func`` transforms, which
+refuse saved-tensor hooks (ROADMAP.md §C).
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import blocks
-from repro_torch.models.common import dense_init, init_rmsnorm, rmsnorm, softcap
+from repro_torch.models.common import (dense_init, init_rmsnorm, rmsnorm, softcap, upcast,
+                                       upcast_dtype)
 
 PyTree = Any
 
@@ -64,8 +69,13 @@ def _layer_windows(seg: Segment, default: int) -> List[int]:
     return list(seg.windows) if seg.windows is not None else [default] * seg.count
 
 
-def _layer(seg_params, i: int):
-    return tree_map(lambda t: t[i], seg_params)
+def _layers(seg_params, count: int) -> List[PyTree]:
+    """The ``count`` layers of a stacked segment as views, one ``unbind``
+    per leaf: the backward stacks the layers' gradients once per leaf,
+    where indexing ``t[i]`` would fill and add a zeroed leaf per layer."""
+    leaves, treedef = tree_flatten(seg_params)
+    cols = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(count)]
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +105,22 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tupl
             gen, (1, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab"), dtype,
             fan_in=cfg.d_model)
     return params, axes
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``: ``init_lm`` through it
+    gives shapes and dtypes and allocates nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_lm(cfg: ModelConfig, dtype=torch.float32):
+    """(params on the ``meta`` device, axes) without allocating anything:
+    the reference's ``abstract_lm`` (shapes and dtypes, e.g. for
+    ``validate_fleet_memory`` before a run allocates)."""
+    return init_lm(_MetaGenerator(), cfg, dtype)
 
 
 def _lead_axes(a):
@@ -132,7 +158,7 @@ def lm_logits(params, cfg: ModelConfig, x):
     head = params["embed"][0].t() if cfg.tie_embeddings else params["lm_head"][0]
     logits = x @ head.to(x.dtype)
     if cfg.final_logit_softcap:
-        logits = softcap(logits.float(), cfg.final_logit_softcap).to(logits.dtype)
+        logits = softcap(upcast(logits), cfg.final_logit_softcap).to(logits.dtype)
     return logits
 
 
@@ -146,12 +172,48 @@ def forward(params, cfg: ModelConfig, tokens, cond=None):
     x = embed_tokens(params, cfg, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in plan.segments:
-        sp = params["segments"][seg.name]
-        for i, w in enumerate(_layer_windows(seg, 0)):
-            x, aux = blocks.block_forward(seg.kind, _layer(sp, i), x, cfg,
+        layers = _layers(params["segments"][seg.name], seg.count)
+        for p, w in zip(layers, _layer_windows(seg, 0)):
+            x, aux = blocks.block_forward(seg.kind, p, x, cfg,
                                           use_moe=seg.use_moe, window=w, cond=cond)
             aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
+
+
+def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels, chunk: int = 256):
+    """Cross-entropy without materialising [B, S, V]: a loop over sequence
+    chunks, each chunk's logits in f32 (the reference's scan).
+
+    hidden: [B, S, d]; labels: [B, S]. Positions with label < 0 are
+    masked; the mean is over the unmasked ones."""
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    heads = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
+    labels_k = labels if labels.dim() == 3 else labels[:, None]       # [B, K, S]
+    acc = upcast_dtype(hidden.dtype)
+    tot = torch.zeros((), dtype=acc, device=hidden.device)
+    cnt = torch.zeros((), dtype=acc, device=hidden.device)
+    for i in range(S // chunk):
+        h = hidden[:, i * chunk:(i + 1) * chunk]                      # [B, c, d]
+        lab = labels_k[..., i * chunk:(i + 1) * chunk]                # [B, K, c]
+        logits = upcast(torch.einsum("bcd,kdv->bkcv", h, heads.to(h.dtype)))
+        if cfg.final_logit_softcap:
+            logits = softcap(logits, cfg.final_logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.clamp_min(0).long()[..., None])[..., 0]
+        mask = (lab >= 0).to(acc)
+        tot = tot + torch.sum((lse - gold) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, labels, cond=None, aux_coef: float = 0.01):
+    """(loss, {"ce", "aux"}): the training forward's chunked cross-entropy
+    plus ``aux_coef`` times its auxiliary loss (0 for the dense kinds)."""
+    hidden, aux = forward(params, cfg, tokens, cond)
+    ce = chunked_ce_loss(params, cfg, hidden, labels)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -187,11 +249,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: i
     x = embed_tokens(params, cfg, tokens)
     new_cache = {"segments": {}, "pos": pos + 1}
     for seg in plan.segments:
-        sp, sc = params["segments"][seg.name], cache["segments"][seg.name]
-        for i, w in enumerate(_layer_windows(seg, window)):
+        sc = cache["segments"][seg.name]
+        layers = zip(_layers(params["segments"][seg.name], seg.count),
+                     _layers(sc, seg.count), _layer_windows(seg, window))
+        for p, c, w in layers:
             # `window` (python int) selects the ring-buffer mode; the
             # per-layer `w` masks gemma2's local layers in full-cache mode
-            x, _ = blocks.block_decode(seg.kind, _layer(sp, i), x, _layer(sc, i), pos, cfg,
+            x, _ = blocks.block_decode(seg.kind, p, x, c, pos, cfg,
                                        use_moe=seg.use_moe, window=window, window_mask=w,
                                        cond=cond, kv_start=kv_start)
         new_cache["segments"][seg.name] = sc
@@ -209,10 +273,10 @@ def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float
     S = x.shape[1]
     cache = {"segments": {}, "pos": torch.full((), S, dtype=torch.int32, device=x.device)}
     for seg in plan.segments:
-        sp = params["segments"][seg.name]
         layers = []
-        for i, w in enumerate(_layer_windows(seg, 0)):
-            x, c = blocks.block_prefill(seg.kind, _layer(sp, i), x, cfg, use_moe=seg.use_moe,
+        for p, w in zip(_layers(params["segments"][seg.name], seg.count),
+                        _layer_windows(seg, 0)):
+            x, c = blocks.block_prefill(seg.kind, p, x, cfg, use_moe=seg.use_moe,
                                         window=w, cond=cond, cache_dtype=cache_dtype,
                                         max_len=max_len)
             layers.append(c)

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -41,7 +41,7 @@ from repro_torch import comm
 from repro_torch.api import registry
 from repro_torch.api.state import FlatState
 from repro_torch.common import flat as flat_plane
-from repro_torch.common.config import MeshConfig, TrainConfig
+from repro_torch.common.config import MeshConfig, ModelConfig, TrainConfig
 from repro_torch.common.precision import full_f32
 from repro_torch.common.pytree import tree_map
 from repro_torch.core import gossip_dist
@@ -50,6 +50,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import check_shard_mesh
 from repro_torch.optim.optimizers import OptState, _scaled
 from repro_torch.optim.schedule import lr_at
+from repro_torch.train import losses
 
 PyTree = Any
 Buffers = Dict[str, torch.Tensor]
@@ -57,17 +58,23 @@ Buffers = Dict[str, torch.Tensor]
 
 class DistTrainer:
     """One rank of the dist engine. ``loss_fn(params, x, y)`` -> scalar loss
-    for ONE worker's replica and batch (the sim engine's signature)."""
+    for ONE worker's replica and batch (the sim engine's signature); without
+    one, the LM loss of ``model_cfg`` (:func:`repro_torch.train.losses.lm_loss_fn`,
+    x the tokens and y the labels), as the reference's default."""
 
     def __init__(self, group, mesh_cfg: MeshConfig, train_cfg: TrainConfig,
-                 loss_fn: Callable, shard=None):
+                 loss_fn: Optional[Callable] = None, shard=None,
+                 model_cfg: Optional[ModelConfig] = None):
         if mesh_cfg.num_workers != group.world:
             raise ValueError(f"mesh has {mesh_cfg.num_workers} workers, the group "
                              f"{group.world} ranks")
+        if loss_fn is None and model_cfg is None:
+            raise ValueError("DistTrainer needs loss_fn or model_cfg (the LM loss)")
         self.group = group
         self.mesh_cfg = mesh_cfg
+        self.model_cfg = model_cfg
         self.train_cfg = train_cfg
-        self.loss_fn = loss_fn
+        self.loss_fn = loss_fn or losses.lm_loss_fn(model_cfg)
         self.W = mesh_cfg.num_workers
         self.opt = train_cfg.optimizer
         # TrainConfig.codec overrides the protocol's codec for this run

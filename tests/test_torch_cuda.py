@@ -1214,3 +1214,146 @@ def test_sharded_sim_step_launches_each_kernel_once(cuda, codec):
     assert torch.equal(s0.proto.comm_bytes, s1.proto.comm_bytes)
     assert [r["step"] for r in rec.observer.sink.records] == [0, 1, 2]
     assert s0.theta["float32"].shape[1] % (4 * (512 if codec else 128)) == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM training path (slice 7b): the differentiable attention, the views'
+# scatter backward, and the LM gradient on the card
+# ---------------------------------------------------------------------------
+
+def _lm_setup(dev):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tr
+    cfg = get_reduced("tinyllama_1_1b")
+    params = tr.init_lm(torch.Generator().manual_seed(0), cfg)[0]
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2, 16)).astype(np.int32))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 2, 16)).astype(np.int32))
+    return cfg, params, toks, labels
+
+
+@pytest.mark.cuda
+def test_attention_under_grad_takes_the_online_softmax_and_launches_no_b9(cuda):
+    """Under torch.func.grad (and vmap) on the card, the model's attention
+    runs the differentiable online softmax: B9's launch count does not
+    move, and the gradient equals the CPU's."""
+    from torch.func import grad, vmap
+
+    from repro_torch.models import attention as tattn
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 24, 8, 16).astype(np.float32))
+               for _ in range(3))
+    k, v = k[:, :, :, :2], v[:, :, :, :2]
+
+    def f(qq, kk, vv):
+        return (tattn.chunked_attention(qq, kk, vv, window=7) ** 2).sum()
+
+    n = ops.launch_counts()["flash_attention"]
+    forms = dict(tfa.FORM_LAUNCHES)
+    g_card = vmap(grad(f, argnums=(0, 1, 2)))(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n and dict(tfa.FORM_LAUNCHES) == forms
+    g_cpu = vmap(grad(f, argnums=(0, 1, 2)))(q, k, v)
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attention_under_no_grad_launches_b9(cuda):
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.randn(2, 24, 8, 64).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.randn(2, 24, 2, 64).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    n = ops.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        out = ops.attention(q.requires_grad_(True), k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n + 1
+    want = tref.attention(q.detach().cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(out.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_lm_gradient_on_the_card_equals_the_cpu_s(cuda):
+    """tinyllama --reduced, the sim engine's gradient path (vmap of
+    grad_and_value over the views) at W=2, on the card and on the CPU:
+    rtol 1e-4 / atol 1e-5 (the CPU parity tests' tolerance), losses rtol
+    1e-5; no B9 launch."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.common.precision import full_f32
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import transformer as tr
+    cfg, params, toks, labels = _lm_setup(cuda)
+    stack = tree_map(lambda t: torch.stack([t, t * 1.01]), params)
+    spec = FlatSpec.build(stack, leading=1)
+    row = spec.with_lead(())
+
+    def grads(dev):
+        bufs = {k: b.to(dev) for k, b in spec.flatten(stack).items()}
+        with full_f32():
+            return vmap(grad_and_value(lambda b, x, y: tr.lm_loss(row.views(b), cfg, x, y)[0]))(
+                bufs, toks.to(dev), labels.to(dev))
+
+    n = ops.launch_counts()["flash_attention"]
+    g_card, l_card = grads(cuda)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n
+    g_cpu, l_cpu = grads("cpu")
+    gap = (g_card["float32"].cpu() - g_cpu["float32"]).abs()
+    print(f"LM gradient card vs CPU: max abs diff {float(gap.max()):.3e}, losses "
+          f"{l_card.tolist()} / {l_cpu.tolist()}")
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_card["float32"].cpu(), g_cpu["float32"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_views_backward_on_the_card_equals_slice_views_and_makes_one_plane(cuda):
+    """On the card: the scatter backward's gradient is bit-equal to plain
+    slice views', and the backward allocates one plane-sized block per
+    bucket (the cat), where slice views fill one per leaf."""
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.common.pytree import tree_unflatten
+    from repro_torch.models import transformer as tr
+    cfg, params, toks, labels = _lm_setup(cuda)
+    spec = FlatSpec.build(params)
+    n = spec.totals["float32"]
+
+    def slice_views(sp, bufs):
+        return tree_unflatten(sp.treedef, [bufs[s.bucket][..., s.offset:s.offset + s.size]
+                                           .reshape(s.shape) for s in sp.slots])
+
+    def backward(views):
+        buf = spec.flatten(tree_map_to(params, cuda))["float32"].requires_grad_(True)
+        out = tr.lm_loss(views(spec, {"float32": buf}), cfg, toks[0].to(cuda),
+                         labels[0].to(cuda))[0]
+        with _PlaneAllocs(n) as mode:
+            out.backward()
+        return buf.grad, mode.hits
+
+    g_new, new = backward(lambda sp, b: sp.views(b))
+    g_old, old = backward(slice_views)
+    assert torch.equal(g_new.view(torch.int32), g_old.view(torch.int32))
+    assert len(new) == 1 and "cat" in new[0], new
+    assert len(old) >= len(spec.slots), old
+
+
+def tree_map_to(params, dev):
+    from repro_torch.common.pytree import tree_map
+    return tree_map(lambda t: t.to(dev), params)
+
+
+class _PlaneAllocs(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ops (views aside) whose output has ``numel`` elements."""
+
+    def __init__(self, numel):
+        super().__init__()
+        self.numel, self.hits = numel, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and t.numel() == self.numel:
+                    self.hits.append(str(func))
+        return out
