@@ -215,6 +215,22 @@ prints no result line):
              --reduced: dist with 4 processes (B1 / B2 per rank, sends and
              receives, comm_bytes against the host's replay of the
              schedule), async lognormal (B1 once a window) and q8 on sim.
+11. serve-live — training TinyLlama-1.1B while serving it, through the
+             reference's train-while-serve CLI (``repro_torch.launch.serve``,
+             ``build`` then ``run``): W=4 refused by its memory plan before
+             anything is allocated; at full width (f32, random weights from
+             seed 0), sim W=2, seq 32 x 2 a worker, p 0.25, alpha 0.5, NAG
+             lr 0.01, publish every 5 steps, 4 slots, max_len 256, a poisson
+             stream (rate 0.3, 24 requests), 120 decode boundaries of one
+             training step each: B1 once a step and B9 never in one, B9 22
+             times a boundary in the split form (prompts stream through
+             decode), bus_seq = steps // 5, swaps >= 1 and none refused,
+             staleness <= 5 steps, the largest swap pause below the mean
+             decode boundary (both synchronised), the batcher's invariants;
+             then one decode step on the last served snapshot through B9
+             and through the plain version on copies of the live cache
+             (logits within 1e-3 of the largest, greedy tokens equal), peak
+             memory, the boundary interval, tokens/s and the seconds.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -3570,6 +3586,175 @@ def run_lm_phase(torch, ops, fu, ck, ref, fa, codec_seeds, dev, bw, peak):
     return launches, errs, {B1: b1}, dict(memory=mem, run=run_summary, grad=grad)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training TinyLlama-1.1B while serving it (launch/serve.py)
+# ---------------------------------------------------------------------------
+
+# launch.serve.run's arguments: the reference CLI's defaults at full width,
+# W = 2 (W = 4's planes alone need 4 x 4 x 4.10 GiB, and
+# validate_fleet_memory refuses it)
+TS_W, TS_EVERY, TS_BOUNDARIES = 2, 5, 120
+TS_KW = dict(reduced=False, engine="sim", workers=TS_W, method="elastic_gossip", p=0.25,
+             alpha=0.5, lr=0.01, seq=32, per_worker_batch=2, slots=4, max_len=256, rate=0.3,
+             num_requests=24, publish_every=TS_EVERY, train_per_boundary=1,
+             traffic_mode="poisson", seed=0, device="cuda")
+
+
+def ts_decode_parity(torch, ops, ts, dev):
+    """One decode step on the last served snapshot over copies of the live
+    cache and slots, through B9 and through its plain version (patched into
+    the op): the f32 logits within PARITY_TOL of the largest logit, every
+    greedy token equal. Then B9 alone against its plain version at that
+    decode shape with the slots' kv_start. Returns (gap, max abs err)."""
+    from unittest import mock
+    b, server = ts.batcher, ts.server
+    tokens = torch.as_tensor(b.next_tok, device=dev)[:, None]
+    kv_start = torch.as_tensor(b.kv_start, device=dev)
+
+    def decode():
+        cache = {"segments": {s: {k: a.clone() for k, a in seg.items()}
+                              for s, seg in b.cache["segments"].items()},
+                 "pos": b.cache["pos"].clone()}
+        return server.decode(cache, tokens, None, kv_start)[0].float()
+
+    got = decode()
+    with mock.patch.object(ops, "attention", plain_attention):
+        want = decode()
+    torch.cuda.synchronize()
+    gap = float((got - want).abs().max() / want.abs().max())
+    equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if not (bool(torch.isfinite(got).all()) and gap <= PARITY_TOL and equal):
+        raise AssertionError(f"[serve-live] the served snapshot's decode through B9 vs plain: "
+                             f"gap {gap} (tolerance {PARITY_TOL}), greedy tokens equal {equal}")
+    cfg = ts.cfg
+    B, H, Hkv, hd, pos = b.B, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, b.pos
+    r = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, 1, H, hd, generator=r, device=dev)
+    k, v = (torch.randn(B, b.max_len, Hkv, hd, generator=r, device=dev) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=p, kv_len=p + 1, kv_start=kv_start)
+    err = b9_err(f"decode [{B}, 1, {H}, {hd}] over [{B}, {b.max_len}, {Hkv}, {hd}] at pos {pos}",
+                 ops.attention(q, k, v, **kw), plain_attention(q, k, v, **kw))
+    return gap, err
+
+
+def run_train_serve_phase(torch, ops, fa, dev, smi):
+    """Phase 11: launch.serve at full width, W = 2, through the entry points
+    (``build`` then ``run``, which is what ``launch.serve.run`` does). Every
+    count is set to 0 just before the loop and read just after. Returns
+    ({kernel: launches}, {kernel: max abs err}, summary)."""
+    import gc
+    from unittest import mock
+    from repro_torch.api import GossipTrainer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    alloc0 = torch.cuda.memory_allocated(dev)
+    try:
+        cli.plan_memory(cfg, workers=4, tokens=4 * 2 * 32, seq=32, slots=4, max_len=256,
+                        device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or torch.cuda.memory_allocated(dev) != alloc0:
+        raise AssertionError("[serve-live] plan_memory admitted W=4 at full width or allocated")
+    log(f"[serve-live] W=4 refused before anything is allocated: {refused.split('; ')[0]}")
+    ts = cli.build(LM_ARCH, **TS_KW)
+    built_s = time.perf_counter() - t_phase
+    steps = []
+    real = GossipTrainer.step
+
+    def timed_step(self, state, batch, draws=None):
+        torch.cuda.synchronize()
+        n0, f0 = ops.launch_counts(), dict(fa.FORM_LAUNCHES)
+        t = time.perf_counter()
+        out = real(self, state, batch, draws=draws)
+        torch.cuda.synchronize()
+        n1 = ops.launch_counts()
+        steps.append(dict(s=time.perf_counter() - t, b1=n1[B1] - n0[B1], b9=n1[B9] - n0[B9],
+                          forms=sum(fa.FORM_LAUNCHES[f] - f0[f] for f in f0)))
+        return out
+
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
+    t_loop = time.perf_counter()
+    with mock.patch.object(GossipTrainer, "step", timed_step):
+        summary = ts.run(TS_BOUNDARIES)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    launches = {k: ops.launch_counts()[k] for k in KERNELS}
+    forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
+    peak = torch.cuda.max_memory_allocated(dev)
+    L, nb, nsteps = ts.cfg.num_layers, summary["boundaries"], ts.trainer._host_steps
+    want = dict.fromkeys(KERNELS, 0)
+    want[B1], want[B9] = nsteps, L * nb
+    # (a) B1 once a training step and no B9 in one; (b) B9 22 times a decode
+    # boundary, all split (prompts stream through decode: no prefill launch)
+    if (launches != want or nsteps != nb or len(steps) != nsteps
+            or any(s["b1"] != 1 or s["b9"] != 0 or s["forms"] != 0 for s in steps)
+            or forms != {**dict.fromkeys(forms0, 0), "split": L * nb}):
+        raise AssertionError(f"[serve-live] launches {launches} (want {want}), B9 forms {forms}, "
+                             f"{nsteps} steps / {nb} boundaries, per step "
+                             f"{[(s['b1'], s['b9']) for s in steps]}")
+    if nb != TS_BOUNDARIES and ts.batcher.pos < ts.batcher.max_len:
+        raise AssertionError(f"[serve-live] {nb} boundaries of {TS_BOUNDARIES}")
+    # (c) the bus and the swaps; (d) staleness; (e) the swap pause against
+    # the decode boundary, both synchronised
+    st = summary
+    if not (st["bus_seq"] == nsteps // TS_EVERY and st["swaps"] >= 1
+            and st["rejected_swaps"] == 0):
+        raise AssertionError(f"[serve-live] bus_seq {st['bus_seq']} (want {nsteps // TS_EVERY}), "
+                             f"swaps {st['swaps']}, rejected {st['rejected_swaps']}")
+    if not 0 <= st["staleness_max_steps"] <= TS_EVERY:
+        raise AssertionError(f"[serve-live] staleness {st['staleness_max_steps']} > {TS_EVERY}")
+    if not st["swap_pause_max_s"] < st["boundary_interval_mean_s"]:
+        raise AssertionError(f"[serve-live] max swap pause {st['swap_pause_max_s']} s is not "
+                             f"below the mean decode boundary {st['boundary_interval_mean_s']} s")
+    # (f) the batcher's invariants (ts.run checked them) and its completions
+    if not (st["completed"] > 0 and st["admitted"] == st["completed"] + st["in_flight"]):
+        raise AssertionError(f"[serve-live] batcher {st}")
+    # (g) the last served snapshot through B9 and through the plain version
+    gap, err = ts_decode_parity(torch, ops, ts, dev)
+    step_ms = sorted(s["s"] * 1e3 for s in steps)
+    decode_s = sum(ts.loop.boundary_times)
+    toks = st["generated_tokens"]
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(summary, max_memory_allocated=peak, built_s=built_s, loop_s=loop_s,
+               train_step_ms_median=statistics.median(step_ms), train_step_ms_max=step_ms[-1],
+               tokens_per_decode_s=toks / decode_s, tokens_per_loop_s=toks / loop_s,
+               logits_gap=gap, b9_err=err, phase_s=time.perf_counter() - t_phase)
+    log(f"[serve-live] {cfg.name} full width (22 layers, d 2048, vocab 32000, f32), sim W={TS_W}, "
+        f"seq 32 x 2 a worker, publish every {TS_EVERY}, 4 slots, max_len 256, poisson rate 0.3, "
+        f"24 requests, seed 0: {nb} boundaries, {nsteps} training steps in {loop_s:.2f} s "
+        f"(built in {built_s:.2f} s); launches {launches} (B1 once a step, B9 never in a step; "
+        f"B9 {L * nb} = {L} x {nb} boundaries, by form {forms})")
+    log(f"[serve-live] bus_seq {st['bus_seq']} = {nsteps} // {TS_EVERY}, swaps {st['swaps']}, "
+        f"rejected {st['rejected_swaps']}; staleness mean {st['staleness_mean_steps']:.3f} max "
+        f"{st['staleness_max_steps']} steps (<= {TS_EVERY}); swap pause mean "
+        f"{st['swap_pause_mean_s'] * 1e3:.4f} ms max {st['swap_pause_max_s'] * 1e3:.4f} ms < "
+        f"decode boundary mean {st['boundary_interval_mean_s'] * 1e3:.3f} ms (p50 "
+        f"{st['boundary_interval_p50_s'] * 1e3:.3f} ms), both synchronised; training step "
+        f"median {out['train_step_ms_median']:.3f} ms (synchronised)")
+    log(f"[serve-live] batcher: {st['completed']} completed, {st['admitted']} admitted, "
+        f"{st['in_flight']} in flight, {st['pending']} pending, invariants held; "
+        f"{toks} tokens generated: {out['tokens_per_decode_s']:.1f} tokens/s of decode time, "
+        f"{out['tokens_per_loop_s']:.1f} tokens/s of loop time; ttft p50 "
+        f"{st['ttft_p50_boundaries']} / latency p50 {st['latency_p50_boundaries']} boundaries")
+    log(f"[serve-live] the last served snapshot (seq {st['bus_seq']}), one decode step through B9 "
+        f"vs plain on copies of the live cache: max |diff| / max |logit| = {gap:.3e} (tolerance "
+        f"{PARITY_TOL}), greedy tokens equal; B9 at that decode shape vs plain: max abs err "
+        f"{err!r}; max_memory_allocated {peak / 2 ** 30:.2f} GiB; phase {out['phase_s']:.1f} s "
+        f"({smi})")
+    return launches, {B9: err}, out
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -3736,6 +3921,16 @@ def main():
     log(f"[lm] launches in phase 10: {lm_launches}; summary ({smi}): "
         f"{json.dumps(lm_summary)}")
     phase_s["10 lm"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    ts_launches, ts_err, ts_summary = run_train_serve_phase(torch, ops, fa, dev, smi)
+    for kname, n in ts_launches.items():
+        launches[kname] += n
+    for kname, e in ts_err.items():
+        err[kname] = max(err[kname], e)
+    log(f"[serve-live] launches in phase 11: {ts_launches}; summary ({smi}): "
+        f"{json.dumps(ts_summary)}")
+    phase_s["11 serve-live"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

@@ -200,6 +200,11 @@ class _Backend:
     def on_checkpoint_loaded(self, state, meta) -> None:
         pass
 
+    def publish(self, bus, state, train_step: int):
+        """Publish the consensus of ``state`` onto ``bus``. Returns (whether
+        this process publishes, the snapshot or None if refused)."""
+        return True, bus.publish_state(state, train_step=train_step)
+
 
 class _SimBackend(_Backend):
     engine_name = "sim"
@@ -510,6 +515,19 @@ class _DistBackend(_Backend):
         from repro_torch.checkpoint import io
         return io.restore_state(path, state_like, meta=meta, row=self.group.rank)
 
+    def publish(self, bus, state, train_step: int):
+        """The reference's consensus of the ``[W, total]`` plane is one mean;
+        here each rank holds its own row, so every rank joins one sum of its
+        theta buckets over the group, and rank 0 publishes the mean onto its
+        bus. The other ranks publish nothing."""
+        from repro_torch.core.consensus import worker_sum
+        W = self.num_workers
+        bufs = {k: (worker_sum(v.float(), self.group) / W).to(v.dtype)
+                for k, v in state.theta.items()}
+        if self.group.rank != 0:
+            return False, None
+        return True, bus.publish_bufs(bufs, state.spec.with_lead(()), train_step)
+
     def on_checkpoint_loaded(self, state, meta) -> None:
         self._host_step = int(state.step)   # one sync, at load time only
         if meta and "comm_bytes" in meta:
@@ -538,8 +556,11 @@ class GossipTrainer:
     :class:`~repro_torch.common.config.HeteroConfig`), ``mesh_cfg`` (the
     matching schedule's pods x workers layout), ``group`` (dist: the rank's
     :class:`~repro_torch.launch.mesh.WorkerGroup`), ``seed`` (dist: the
-    host schedule draws from ``seed + 1``) and ``model_cfg`` (dist: without
-    ``loss_fn``, the LM loss of this model config, as the reference's).
+    host schedule draws from ``seed + 1``), ``model_cfg`` (dist: without
+    ``loss_fn``, the LM loss of this model config, as the reference's), and
+    ``publish_every`` / ``snapshot_bus`` (every engine: publish the
+    consensus every k steps onto a :class:`~repro_torch.serve.SnapshotBus`,
+    created when only the cadence is given; see :meth:`step`).
     """
 
     def __init__(self, *, engine: str = "sim", protocol: ProtocolConfig,
@@ -550,14 +571,22 @@ class GossipTrainer:
                  fused_update: bool = True, device="cuda",
                  codec: Optional[str] = None, hetero: Optional[HeteroConfig] = None,
                  faults=None, fleet=None,
-                 shard=None, publish_every: Optional[int] = None, obs=None,
-                 mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0,
+                 shard=None, publish_every: Optional[int] = None, snapshot_bus=None,
+                 obs=None, mesh_cfg: Optional[MeshConfig] = None, group=None, seed: int = 0,
                  model_cfg=None):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
-        if publish_every is not None:
-            raise NotImplementedError("publish_every= is not ported yet (port slice 7b, "
-                                      "train-while-serve)")
+        # train-while-serve hook (repro_torch.serve): every ``publish_every``
+        # facade steps, :meth:`step` publishes the consensus of the resident
+        # flat buffers onto ``snapshot_bus`` (auto-created when only the
+        # cadence is given)
+        if publish_every is not None and publish_every <= 0:
+            raise ValueError("publish_every must be a positive step count")
+        self.publish_every = publish_every
+        if snapshot_bus is None and publish_every is not None:
+            from repro_torch.serve import SnapshotBus
+            snapshot_bus = SnapshotBus()
+        self.snapshot_bus = snapshot_bus
         self.engine = engine
         # an explicit codec= overrides the protocol config's codec
         if codec is not None:
@@ -610,12 +639,34 @@ class GossipTrainer:
         gradient component + (internally scheduled) communication component.
         Returns (state', metrics). ``draws`` is the sim and async engines'
         parity hook (:meth:`SimTrainer.step`). On the dist engine ``batch``
-        is this rank's ``(x [pw, ...], y [pw])``."""
+        is this rank's ``(x [pw, ...], y [pw])``.
+
+        With ``publish_every=k``, every k-th step also publishes the
+        consensus of the new state onto :attr:`snapshot_bus` and reports its
+        sequence number as ``metrics["published_seq"]``, or
+        ``metrics["publish_rejected"] = True`` when the bus's validation
+        refuses it. On the dist engine every rank joins the consensus sum and
+        rank 0 publishes."""
         x, y = (batch["x"], batch["y"]) if isinstance(batch, dict) else batch
         step_idx = self._host_steps
         state, metrics = self._backend.step(state, x, y, draws=draws)
-        metrics = obs_schema.normalize_step_metrics(metrics, step=step_idx)
         self._host_steps += 1
+        bus = self.snapshot_bus
+        if (bus is not None and self.publish_every is not None
+                and self._host_steps % self.publish_every == 0):
+            here, snap = self._backend.publish(bus, state, self._host_steps)
+            if snap is not None:
+                metrics["published_seq"] = snap.seq
+                if self.observer is not None:
+                    self.observer.event("publish", self.observer.now(), step_idx,
+                                        seq=snap.seq)
+            elif here:
+                # validation refused the snapshot (non-finite, bad manifest):
+                # serving keeps the last good one
+                metrics["publish_rejected"] = True
+                if self.observer is not None:
+                    self.observer.event("publish_rejected", self.observer.now(), step_idx)
+        metrics = obs_schema.normalize_step_metrics(metrics, step=step_idx)
         if self.observer is not None:
             self.observer.on_step(step_idx, metrics, state)
         return state, metrics

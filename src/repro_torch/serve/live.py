@@ -6,8 +6,10 @@
   exists, builds the served parameter tree as ``FlatSpec`` views of the
   snapshot cast to the serving dtype on the serving device (a leaf already
   in that dtype stays a view; nothing writes the served params in place).
-  The host time of each swap is recorded in the server's
-  :class:`repro_torch.obs.MetricsSink` (``swap_pause_s``).
+  The time of each swap is recorded in the server's
+  :class:`repro_torch.obs.MetricsSink` (``swap_pause_s``); on a CUDA device
+  the span is synchronised at both ends, so it holds the casts' device
+  time.
 - **provenance**: :attr:`seq` / :attr:`train_step` of the weights being
   served.
 - **decode routing**: :meth:`decode` runs the program's plain decode when no
@@ -21,6 +23,7 @@ import warnings
 from typing import Any, List, Optional
 
 from repro_torch.obs import MetricsSink
+from repro_torch.serve.loop import device_sync
 from repro_torch.serve.snapshot import snapshot_valid
 
 PyTree = Any
@@ -38,6 +41,7 @@ class LiveServer:
         self.train_step: int = -1    # train-step provenance (-1: initial params)
         self.metrics = metrics if metrics is not None else MetricsSink()
         self._bad_seq: int = 0       # last refused seq (skip re-checking it)
+        self._sync = device_sync(getattr(program, "device", None))
 
     @property
     def swap_pauses(self) -> List[float]:
@@ -67,8 +71,12 @@ class LiveServer:
                 f"LiveServer refused snapshot seq={snap.seq}: {why} — "
                 f"pinned to seq={self.seq}", RuntimeWarning, stacklevel=2)
             return False
+        # on a CUDA device the span is synchronised at both ends, so the
+        # pause holds the casts' device time and nothing queued before it
+        self._sync()
         t0 = time.perf_counter()
-        self.params = self.program.place_params(snap.spec.unflatten(snap.bufs))  # dispatched
+        self.params = self.program.place_params(snap.spec.unflatten(snap.bufs))
+        self._sync()
         self.metrics.observe("swap_pause_s", time.perf_counter() - t0)
         self.metrics.counter_add("swaps", 1)
         self.metrics.gauge_set("served_seq", snap.seq)

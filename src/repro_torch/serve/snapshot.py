@@ -148,6 +148,13 @@ class SnapshotBus:
         return self._publish(consensus_bufs(state.theta),
                              state.spec.with_lead(()), train_step)
 
+    def publish_bufs(self, bufs: Buffers, spec, train_step: int = 0) -> Optional[Snapshot]:
+        """Publish single-replica consensus buffers ``{bucket: [total]}``
+        already reduced by the caller (the dist engine's sum over its ranks)
+        under ``spec`` (lead shape ``()``). The buffers are taken as they
+        are: nothing may write them afterwards."""
+        return self._publish(bufs, spec, train_step)
+
     def publish_params(self, params: PyTree, train_step: int = 0) -> Optional[Snapshot]:
         """Publish a single-replica parameter tree directly (no trainer in
         the loop: the serve_decode entry point, or restored weights). The

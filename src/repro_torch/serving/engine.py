@@ -96,8 +96,9 @@ def make_serve_program(cfg: ModelConfig, *, batch: int, max_len: int, window: in
 
 def consensus_bufs(theta) -> dict:
     """Mean over the ``W`` replica rows of ``{bucket: [W, total]}`` buffers:
-    sum in f32, divided by W, cast back to the storage dtype."""
-    return {k: (torch.sum(v.float(), dim=0) / v.shape[0]).to(v.dtype)
+    sum in f32, divided by W in place (one replica-sized temporary a
+    bucket, not two), cast back to the storage dtype."""
+    return {k: torch.sum(v.float(), dim=0).div_(v.shape[0]).to(v.dtype)
             for k, v in theta.items()}
 
 

@@ -58,11 +58,12 @@ def _cfg(mod, name, kw):
 
 
 def trainers(engine, W, proto, hetero=None, faults=None, fleet=None, fused=True, codec=None,
-             opt=None, shard=None, obs=None):
-    """(reference facade, port facade) built from the same keyword dicts."""
+             opt=None, shard=None, obs=None, publish_every=None, buses=(None, None)):
+    """(reference facade, port facade) built from the same keyword dicts;
+    ``buses`` is the (reference, port) pair of snapshot buses."""
     out = []
-    for mod, Tr, loss, extra in ((jcfg, JTrainer, _jloss, {}),
-                                 (tcfg, TTrainer, _tloss, {"device": "cpu"})):
+    for mod, Tr, loss, extra, bus in ((jcfg, JTrainer, _jloss, {}, buses[0]),
+                                      (tcfg, TTrainer, _tloss, {"device": "cpu"}, buses[1])):
         out.append(Tr(engine=engine, protocol=mod.ProtocolConfig(**proto),
                       optimizer=mod.OptimizerConfig(**(opt or OPT)), loss_fn=loss,
                       num_workers=W,
@@ -71,7 +72,8 @@ def trainers(engine, W, proto, hetero=None, faults=None, fleet=None, fused=True,
                       faults=_cfg(mod, "FaultConfig", faults),
                       fleet=_cfg(mod, "FleetConfig", fleet),
                       shard=_cfg(mod, "ShardConfig", shard),
-                      obs=_cfg(mod, "ObsConfig", obs), **extra))
+                      obs=_cfg(mod, "ObsConfig", obs), publish_every=publish_every,
+                      snapshot_bus=bus, **extra))
     return out
 
 

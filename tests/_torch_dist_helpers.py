@@ -70,3 +70,37 @@ def _lockstep(group, job, run, paths):
                       float(np.abs(got - ref).max()))
         steps.append(row)
     return steps
+
+
+def publish_rows(group, steps, every):
+    """A dist trainer on the MLP (the same seeded init on every rank) with
+    ``publish_every=every``: ``steps`` steps, each on this rank's own
+    batch. Returns the metrics' ``published_seq`` per step, this rank's
+    theta row at each publishing step, what the rank's bus holds and, on
+    rank 0, each published snapshot's buffers."""
+    import torch
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.models import simple
+    tr = GossipTrainer(engine="dist", group=group, device="cpu", publish_every=every,
+                       protocol=ProtocolConfig(method="elastic_gossip", comm_probability=0.5,
+                                               moving_rate=0.5),
+                       optimizer=OptimizerConfig(name="nag", learning_rate=0.05, momentum=0.9),
+                       loss_fn=lambda p, x, y: simple.xent_loss(simple.mlp_logits(p, x), y),
+                       init_fn=lambda g: simple.init_mlp(g, in_dim=10, hidden=16, depth=2,
+                                                         num_classes=3)[0])
+    state = tr.init_state(0)
+    gen = torch.Generator().manual_seed(100 + group.rank)
+    seqs, rows, snaps, rejected = [], [], [], False
+    for _ in range(steps):
+        x, y = torch.randn(8, 10, generator=gen), torch.randint(0, 3, (8,), generator=gen)
+        state, m = tr.step(state, (x, y))
+        seqs.append(m.get("published_seq"))
+        rejected |= "publish_rejected" in m
+        if tr._host_steps % every == 0:
+            rows.append(state.theta["float32"][0].clone().numpy())
+            snap = tr.snapshot_bus.latest()
+            snaps.append(None if snap is None else
+                         (snap.seq, snap.train_step, snap.bufs["float32"].numpy()))
+    return {"rank": group.rank, "seqs": seqs, "rows": rows, "snaps": snaps,
+            "bus_seq": tr.snapshot_bus.seq, "rejected": rejected}

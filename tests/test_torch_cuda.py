@@ -1357,3 +1357,70 @@ class _PlaneAllocs(torch.utils._python_dispatch.TorchDispatchMode):
                 if isinstance(t, torch.Tensor) and t.numel() == self.numel:
                     self.hits.append(str(func))
         return out
+
+
+# ---------------------------------------------------------------------------
+# train-while-serve on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_train_serve_loop_on_the_card_launches_b1_per_step_and_b9_per_layer(cuda):
+    """launch.serve at --reduced on the card, 12 boundaries of one step:
+    B1 once a training step, B9 (split) once a layer in every decode
+    boundary and nothing else; bus seq = steps // 3; staleness within the
+    cadence."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve as cli
+    ts = cli.build("tinyllama_1_1b", workers=2, publish_every=3, rate=1.0, device=cuda)
+    ops.zero_launch_counts()
+    out = ts.run(12)
+    torch.cuda.synchronize()
+    L = get_reduced("tinyllama_1_1b").num_layers
+    n = ops.launch_counts()
+    assert n.pop("fused_flat_elastic_nag_update") == 12
+    assert n.pop("flash_attention") == L * 12 and tfa.FORM_LAUNCHES["split"] == L * 12
+    assert not any(n.values()), n
+    assert out["bus_seq"] == 4 and out["swaps"] >= 1 and out["rejected_swaps"] == 0
+    assert out["staleness_max_steps"] <= 3
+
+
+@pytest.mark.cuda
+def test_full_width_decode_on_a_served_snapshot_through_b9_equals_plain(cuda):
+    """TinyLlama-1.1B at full width (f32, random weights) published onto a
+    bus and swapped into a LiveServer: a decode step over a cache filled by
+    8 earlier steps, with per-slot kv_start, through B9 and through the
+    plain version: logits within 1e-3 of the largest, greedy tokens
+    equal."""
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.serve import LiveServer, SnapshotBus
+    from repro_torch.serving.engine import make_serve_program
+    from repro_torch.models import transformer as tr
+    cfg = get_config("tinyllama_1_1b")
+    bus = SnapshotBus()
+    bus.publish_params(tr.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)[0],
+                       train_step=5)
+    prog = make_serve_program(cfg, batch=4, max_len=16, param_dtype=torch.float32,
+                              cache_dtype=torch.float32, device=cuda)
+    server = LiveServer(prog, bus)
+    assert server.maybe_swap() and server.train_step == 5
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 9), generator=g, device=cuda,
+                         dtype=torch.int32)
+    kv_start = torch.tensor([0, 2, 5, 8], dtype=torch.int32, device=cuda)
+    cache = prog.init_cache()
+    for t in range(8):
+        _, cache = server.decode(cache, toks[:, t:t + 1], None, kv_start)
+
+    def step():
+        c = {"segments": {s: {k: a.clone() for k, a in seg.items()}
+                          for s, seg in cache["segments"].items()}, "pos": cache["pos"].clone()}
+        return server.decode(c, toks[:, 8:], None, kv_start)[0]
+
+    n = ops.launch_counts()["flash_attention"]
+    got = step()
+    assert ops.launch_counts()["flash_attention"] == n + cfg.num_layers
+    with mock.patch.object(ops, "attention", _plain_attention):
+        want = step()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -170,7 +170,10 @@ def test_import_repro_torch_loads_neither_jax_nor_repro():
         "        'repro_torch.launch.paper_tables', 'repro_torch.models.simple',\n"
         "        'repro_torch.common.precision', 'repro_torch.shard.layout',\n"
         "        'repro_torch.obs.observer', 'repro_torch.obs.trace',\n"
-        "        'repro_torch.obs.report', 'repro_torch.obs.schema'} <= set(sys.modules)\n"
+        "        'repro_torch.obs.report', 'repro_torch.obs.schema',\n"
+        "        'repro_torch.serve.loop', 'repro_torch.launch.serve',\n"
+        "        'repro_torch.launch.quickstart',\n"
+        "        'repro_torch.launch.skewed_partitions'} <= set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

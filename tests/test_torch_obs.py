@@ -162,7 +162,26 @@ def _events(observer, wall):
                                       e.get("peer", -2), e.get("attempt", -1)))
 
 
-# case -> (engine, hetero, faults, fleet, event kinds that must appear)
+def _poisoning_buses(at):
+    """(reference, port) snapshot buses that poison the consensus published
+    at the train steps ``at`` with NaN, so their validation refuses it
+    (the facade's ``publish_rejected``)."""
+    from repro.serve import SnapshotBus as JBus
+    from repro_torch.serve import SnapshotBus as TBus
+    buses = []
+    for Bus in (JBus, TBus):
+        class Poisoning(Bus):
+            def publish_state(self, state, train_step=0):
+                if train_step in at:
+                    state = state.replace(theta={k: v * float("nan")
+                                                 for k, v in state.theta.items()})
+                return super().publish_state(state, train_step=train_step)
+        buses.append(Poisoning())
+    return tuple(buses)
+
+
+# case -> (engine, hetero, faults, fleet, event kinds that must appear[,
+# publish cadence and the train steps whose snapshot is poisoned])
 EVENT_CASES = {
     "sim": ("sim", None, None, None, {"compute", "exchange"}),
     "sim partition flow": ("sim", None, None,
@@ -177,6 +196,7 @@ EVENT_CASES = {
                       dict(fault_model="drop", fault_rate=0.1, delay_model="lognormal",
                            delay=1.0, delay_sigma=0.8, timeout=0.6, max_retries=1, seed=7),
                       None, {"dispatch", "apply", "timeout", "retry"}),
+    "sim publish": ("sim", None, None, None, {"publish", "publish_rejected"}, (4, (8,))),
 }
 
 
@@ -185,12 +205,17 @@ def test_trace_events_equal_the_reference(case):
     """16 steps (async: windows) from the reference's state with its draws,
     both packages recording: the same typed events, with equal fields
     (virtual times included; the sim engine's wall-clock ``t`` / ``dur``
-    aside)."""
-    engine, het, faults, fleet, kinds = EVENT_CASES[case]
+    aside). The publish case publishes every 4 steps, the second snapshot
+    poisoned with NaN: ``publish`` and ``publish_rejected`` events."""
+    engine, het, faults, fleet, kinds, *publish = EVENT_CASES[case]
     method = "clipped_gossip" if faults else "elastic_gossip"
     proto = dict(UNIFORM, method=method, comm_probability=0.7)
+    extra = {}
+    if publish:
+        every, poisoned = publish[0]
+        extra = dict(publish_every=every, buses=_poisoning_buses(poisoned))
     jtr, ttr = cases.trainers(engine, W, proto, hetero=het, faults=faults, fleet=fleet,
-                              obs=RECORDING)
+                              obs=RECORDING, **extra)
     cases.lockstep(jtr, ttr, W, 16, TOL)
     wall = engine == "sim"
     got, want = _events(ttr.observer, wall), _events(jtr.observer, wall)

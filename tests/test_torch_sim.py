@@ -288,10 +288,16 @@ def test_unported_features_refuse():
                       num_workers=2, device="cpu", shard=TShard(n_shards=2),
                       obs=TObs(trace=True))
         assert tr.sim.shard.n_shards == 2 and tr.sim.obs is tr.observer
-    # publish_every is slice 7b
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss, num_workers=2,
-                 device="cpu", publish_every=3)
+    # publish_every is ported (slice 7b.3): a publishing trainer builds its
+    # bus and publishes the consensus at its first cadence step
+    tr = TTrainer(protocol=TProto(comm_probability=0.5), loss_fn=_tloss, num_workers=2,
+                  device="cpu", publish_every=1)
+    state = tr.init_state(0, params=tsimple.init_mlp(torch.Generator().manual_seed(0),
+                                                     in_dim=6, hidden=8, depth=1,
+                                                     num_classes=3)[0])
+    state, m = tr.step(state, (torch.randn(2, 4, 6), torch.randint(0, 3, (2, 4))))
+    assert m["published_seq"] == 1 and tr.snapshot_bus.seq == 1
+    assert tr.snapshot_bus.latest().train_step == 1
 
 
 def test_cuda_request_without_a_card_raises():
