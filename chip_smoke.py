@@ -231,6 +231,24 @@ prints no result line):
              and through the plain version on copies of the live cache
              (logits within 1e-3 of the largest, greedy tokens equal), peak
              memory, the boundary interval, tokens/s and the seconds.
+12. mla    — DeepSeek-V2-Lite-16B served at its published widths and full
+             depth (27 layers, d 2048, 16 heads, MLA 512 + 64, 64 experts
+             top-6 + 2 shared at 1408, vocab 102400, bf16, random weights
+             from seed 0): B9 at MLA's shapes (576-wide keys, 512-wide
+             latent values, as the keys' prefix view and as a tensor of
+             their own; decode at 0, 511, 1023 and with a kv_start, prefill
+             8 x 512 and 77 rows, and the other new instantiations) against
+             its plain version in f32 and bf16, its time beside the bound,
+             the plain version and SDPA; serve_decode at 8 slots, prompt
+             512, max_len 1024, 64 greedy steps, bf16 weights and no
+             mid-stream swap by its memory plan (B9 27 times in the prefill,
+             simt, and 27 a step, split), with the prefill and step times,
+             tokens/s and peak memory; a ContinuousBatcher drain of 16
+             requests (every one completed, the invariants); and at 2 layers
+             (1 dense + 1 MoE, full widths: depth is cut, widths are not)
+             the f32 gate (a prefill and 8 decode steps through B9 and the
+             plain version, logits within 1e-3 of the largest, greedy
+             tokens equal) and one hot swap.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -3755,6 +3773,340 @@ def run_train_serve_phase(torch, ops, fa, dev, smi):
     return launches, {B9: err}, out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: DeepSeek-V2-Lite-16B served at full width: MoE and MLA, B9 at
+# MLA's 576-wide keys and 512-wide latent values
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek_v2_lite_16b"
+MLA_HD, MLA_DV, MLA_H = 576, 512, 16       # kv_lora_rank + qk_rope_head_dim, kv_lora_rank
+MLA_TRAFFIC = dict(rate=0.5, num_requests=16, prompt_len=(8, 64), max_new=(16, 64))
+MLA_GATE_LAYERS = 2                        # the f32 gate's depth cut: 1 dense + 1 MoE layer
+MLA_SWAP_TOKENS = 16
+
+
+def b9_mla_cases(torch, dev, dt):
+    """(tag, q, k, v, kwargs) at MLA's shapes: decode q [8, 1, 16, 576] over
+    the keys [8, 1024, 1, 576] at positions 0, 511 and 1023 and with a
+    kv_start, the values the view k[..., :512] (the model's; the split form
+    reads them from its key tiles) and once a tensor of their own; prefill
+    q [8, 512, 16, 576], causal (the simt form, instantiation <16 columns, 2
+    warps> with the values in the keys, <16, 1> with their own), and 77 rows
+    off the 32-key tile; keys and values of 576 (<18, 2> and <18, 1>), and a
+    576 / 256 pair whose tiles take one warp (<16, 1> for 8 columns)."""
+    g = torch.Generator(device=dev).manual_seed(51)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    B, H, hd, dv = SERVE_BATCH, MLA_H, MLA_HD, MLA_DV
+    kk, qd = rnd(B, SERVE_MAX_LEN, 1, hd), rnd(B, 1, H, hd)
+    cases = [(f"decode pos {p}", qd, kk, kk[..., :dv],
+              dict(causal=True, q_offset=i32(p), kv_len=i32(p + 1))) for p in (0, 511, 1023)]
+    start = i32([0, 100, 512, 700, 3, 699, 250, 1])
+    cases.append(("decode kv_start", qd, kk, kk[..., :dv],
+                  dict(causal=True, q_offset=i32(700), kv_len=i32(701), kv_start=start)))
+    cases.append(("decode own values", qd, kk, rnd(B, SERVE_MAX_LEN, 1, dv),
+                  dict(causal=True, q_offset=i32(600), kv_len=i32(601))))
+    kp, qp = rnd(B, SERVE_PROMPT, 1, hd), rnd(B, SERVE_PROMPT, H, hd)
+    cases.append(("prefill 8 x 512", qp, kp, kp[..., :dv], dict(causal=True)))
+    cases.append(("prefill own values", qp, kp, rnd(B, SERVE_PROMPT, 1, dv), dict(causal=True)))
+    cases.append(("prefill 77 rows", qp[:2, :77], kp[:2, :77], kp[:2, :77, :, :dv],
+                  dict(causal=True)))
+    k576 = rnd(2, 100, 1, hd)
+    cases.append(("hd = dv = 576", rnd(2, 100, 4, hd), k576, k576, dict(causal=True)))
+    cases.append(("hd = dv = 576 own values", rnd(2, 100, 4, hd), k576, rnd(2, 100, 1, hd),
+                  dict(causal=True)))
+    cases.append(("hd 576 dv 256 own values", rnd(2, 100, 4, hd), k576, rnd(2, 100, 1, 256),
+                  dict(causal=True)))
+    return cases
+
+
+def check_b9_mla(torch, ops, fa, dev):
+    """B9 at MLA's shapes against its plain version, f32 and bf16, to the
+    tolerances of phase 6; both the split and the simt form must run in
+    each dtype. Returns the max abs err by dtype."""
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        before = dict(fa.FORM_LAUNCHES)
+        worst[name] = 0.0
+        cases = b9_mla_cases(torch, dev, dt)
+        for tag, q, k, v, kw in cases:
+            n = fa.LAUNCHES
+            got = ops.attention(q, k, v, **kw)
+            want = plain_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES != n + 1 or got.shape != want.shape:
+                raise RuntimeError(f"B9 MLA {tag}: no launch, or shape {tuple(got.shape)}")
+            worst[name] = max(worst[name], b9_err(f"MLA {tag}", got, want))
+        ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
+        if not (ran["split"] and ran["simt"]):
+            raise RuntimeError(f"B9 MLA checks, {name}: forms {ran}")
+        log(f"[mla] B9 vs plain version at MLA's shapes, {name}: {len(cases)} cases, max abs "
+            f"err {worst[name]:.3e} (tolerance {B9_TOL[name]}"
+            + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
+            + f"); forms {ran}")
+    return worst
+
+
+def b9_mla_bound(B, Sq, visible_pairs, visible_keys, v_own, bw, peak):
+    """(bound ms, by): q, the visible key rows (and value rows when the
+    values are a tensor of their own; as the keys' prefix they are read
+    with them) and out moved once, against 2 (hd + dv) flops per (query row,
+    visible key) at the bf16 tensor-core peak."""
+    H, hd, dv = MLA_H, MLA_HD, MLA_DV
+    nbytes = 2 * (B * Sq * H * hd + B * visible_keys * (hd + (dv if v_own else 0))
+                  + B * Sq * H * dv)
+    flops = 2 * (hd + dv) * H * B * visible_pairs
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def time_b9_mla(torch, ops, fa, dev, bw, peak):
+    """B9, its plain version and SDPA (``Ev != E``, GQA) at the serve path's
+    MLA shapes in bf16, by CUDA events: the prefill [8, 512, 16, 576] over
+    [8, 512, 1, 576] keys and their 512-wide prefix as values, causal (the
+    simt form), and the decode [8, 1, 16, 576] over the [8, 1024, 1, 576]
+    keys at position 512 (the split form; SDPA gets the live rows)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(52)
+    dt, B, S = torch.bfloat16, SERVE_BATCH, SERVE_PROMPT
+    q = torch.randn(B, S, MLA_H, MLA_HD, generator=g, device=dev).to(dt)
+    k = torch.randn(B, S, 1, MLA_HD, generator=g, device=dev).to(dt)
+    v = k[..., :MLA_DV]
+    qt, kt, vt = q.transpose(1, 2).contiguous(), k.transpose(1, 2), v.transpose(1, 2)
+    out = {}
+    ms, form = timed_form(torch, fa, lambda: ops.attention(q, k, v, causal=True))
+    pre = dict(ms=ms, form=form, shape=[B, S, MLA_H, MLA_HD], values=[B, S, 1, MLA_DV],
+               plain_ms=time_launches(torch, lambda: plain_attention(q, k, v, causal=True),
+                                      reps=20, warmup=3),
+               library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, warmup=3))
+    pre["bound_ms"], pre["bound_by"] = b9_mla_bound(B, S, S * (S + 1) // 2, S, False, bw, peak)
+    out["prefill"] = pre
+    pos = SERVE_PROMPT
+    kk = torch.randn(B, SERVE_MAX_LEN, 1, MLA_HD, generator=g, device=dev).to(dt)
+    qd = torch.randn(B, 1, MLA_H, MLA_HD, generator=g, device=dev).to(dt)
+    p_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n_t = p_t + 1
+    qdt = qd.transpose(1, 2).contiguous()
+    kl = kk[:, :pos + 1].transpose(1, 2).contiguous()
+    vl = kl[..., :MLA_DV]
+
+    def dec():
+        return ops.attention(qd, kk, kk[..., :MLA_DV], causal=True, q_offset=p_t, kv_len=n_t)
+
+    ms, form = timed_form(torch, fa, dec)
+    d = dict(ms=ms, form=form, shape=[B, 1, MLA_H, MLA_HD], cache=[B, SERVE_MAX_LEN, 1, MLA_HD],
+             pos=pos,
+             plain_ms=time_launches(torch, lambda: plain_attention(
+                 qd, kk, kk[..., :MLA_DV], causal=True, q_offset=p_t, kv_len=n_t)),
+             library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                 qdt, kl, vl, enable_gqa=True)))
+    d["bound_ms"], d["bound_by"] = b9_mla_bound(B, 1, pos + 1, pos + 1, False, bw, peak)
+    out["decode"] = d
+    for tag, r in out.items():
+        log(f"[mla] B9 {tag} bf16 at MLA's shapes ({r['form']} form): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events")
+    return out
+
+
+def mla_serve_flow(torch, ops, fa, cfg, dev):
+    """The serve_decode entry point at full width and depth in bf16: 512-token
+    prompts, 64 greedy steps. Its memory plan publishes bf16 weights and
+    turns the mid-stream swap off (a second replica does not fit beside the
+    first). B9 must launch 27 times in the prefill (simt) and 27 a step
+    (split), and nowhere else."""
+    from repro_torch.launch.serve_decode import serve_decode
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.zero_launch_counts()
+    r = serve_decode(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, tokens=SERVE_TOKENS,
+                     max_len=SERVE_MAX_LEN, device=dev, seed=0,
+                     log=lambda m: log(f"[mla] {m}"))
+    counts = ops.launch_counts()
+    forms = dict(fa.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {k: counts[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want[B9] = L * (1 + SERVE_TOKENS)
+    if (r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts != want
+            or forms != {"mma": 0, "split": L * SERVE_TOKENS, "simt": L}):
+        raise RuntimeError(f"[mla] launches: prefill {r['prefill_launches']}, per step "
+                           f"{sorted(set(r['step_launches']))}, {counts}, by form {forms}; "
+                           f"want {L}, {L}, {want}")
+    plan = r["plan"]
+    if (plan["init_dtype"] != torch.bfloat16 or plan["swap"] or r["swaps"] != 1
+            or not r["final_logits_finite"] or r["cache_pos"] != SERVE_PROMPT + SERVE_TOKENS
+            or tuple(r["stream"].shape) != (SERVE_BATCH, SERVE_TOKENS)):
+        raise RuntimeError(f"[mla] serve_decode: plan {plan['init_dtype']} swap {plan['swap']}, "
+                           f"swaps {r['swaps']}, finite {r['final_logits_finite']}, pos "
+                           f"{r['cache_pos']}, stream {tuple(r['stream'].shape)}")
+    step = statistics.median(r["step_ms"])
+    log(f"[mla] {cfg.name} full width and depth (27 layers, d 2048, MLA 512 + 64, 64 experts "
+        f"top-6 + 2 shared at 1408, vocab 102400), bf16, random weights from seed 0, batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, max_len {SERVE_MAX_LEN}: prefill "
+        f"{r['prefill_ms']:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / r['prefill_ms'] * 1e3:.1f} "
+        f"prompt tokens/s), median decode step {step:.3f} ms ({SERVE_BATCH / step * 1e3:.1f} "
+        f"tokens/s), max_memory_allocated {peak / 2 ** 30:.2f} GiB; B9 launches {counts[B9]} = "
+        f"{L} x (1 + {SERVE_TOKENS}), by form {forms}")
+    return counts[B9], dict(prefill_ms=r["prefill_ms"], step_ms=step,
+                            tokens_per_s=SERVE_BATCH / step * 1e3,
+                            max_memory_allocated=peak,
+                            plan={k: v for k, v in plan.items() if k != "init_dtype"})
+
+
+def mla_batcher(torch, ops, fa, cfg, dev):
+    """A ContinuousBatcher over a 16-request TrafficGen stream (prompts 8-64,
+    budgets 16-64) at full width and depth in bf16 until it drains: every
+    admitted request completes with its budget, the batcher's invariants
+    hold, B9 launches 27 times a boundary."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve import ContinuousBatcher, LiveServer, SnapshotBus, TrafficGen
+    from repro_torch.serving.engine import make_serve_program
+    prog = make_serve_program(cfg, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, device=dev)
+    bus = SnapshotBus()
+    with torch.no_grad():
+        bus.publish_params(tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      torch.bfloat16)[0])
+    server = LiveServer(prog, bus)
+    server.maybe_swap()
+    reqs = TrafficGen(TRAFFIC_SEED, vocab=cfg.vocab_size, **MLA_TRAFFIC).requests()
+    bat = ContinuousBatcher(server, reqs)
+    ops.zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = 0
+    while t < TRAFFIC_BOUNDARIES and (bat.pending or bat.in_flight):
+        bat.step(t)
+        t += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()[B9]
+    bat.check_invariants()
+    lat = bat.latency_summary()
+    by_rid = {r.rid: r for r in reqs}
+    if lat["completed"] != len(reqs) or bat.pending or any(
+            len(rec["tokens"]) != by_rid[rec["rid"]].max_new for rec in bat.completed):
+        raise RuntimeError(f"[mla] batcher did not complete every request: {lat}")
+    if launches != cfg.num_layers * t:
+        raise RuntimeError(f"[mla] B9 launches {launches} != {cfg.num_layers} x {t} boundaries")
+    tps = lat["generated_tokens"] / wall
+    log(f"[mla] continuous batching: {t} boundaries in {wall:.3f} s ({wall / t * 1e3:.3f} ms a "
+        f"boundary), {lat['completed']} of {len(reqs)} requests completed, invariants held, "
+        f"{lat['generated_tokens']} tokens, {tps:.1f} tokens/s; ttft p50 "
+        f"{lat['ttft_p50_boundaries']} / latency p99 {lat['latency_p99_boundaries']} "
+        f"boundaries; B9 launches {launches} = {cfg.num_layers} x {t}")
+    return launches, dict(tokens_per_s=tps, boundary_ms=wall / t * 1e3, boundaries=t,
+                          completed=lat["completed"])
+
+
+def mla_gate(torch, ops, cfg, dev):
+    """f32 at full widths and 2 layers (1 dense + 1 MoE): a prefill and 8
+    decode steps through B9 and through its plain version (patched into the
+    op), on the same weights and tokens: logits within PARITY_TOL of the
+    largest, greedy tokens equal."""
+    from unittest import mock
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import make_serve_program
+    params = tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)[0]
+    prog = make_serve_program(cfg, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                              param_dtype=torch.float32, cache_dtype=torch.float32,
+                              with_prefill=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                           device=dev, dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PARITY_STEPS), generator=g,
+                          device=dev, dtype=torch.int32)
+
+    def run():
+        logits, cache = prog.prefill_fn(params, prompt)
+        out = [logits]
+        for t in range(PARITY_STEPS):
+            logits, cache = prog.decode_fn(params, cache, steps[:, t:t + 1])
+            out.append(logits)
+        return torch.stack(out).float()
+
+    n = ops.launch_counts()[B9]
+    before = dict(fa.FORM_LAUNCHES)
+    got = run()
+    forms = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
+    with mock.patch.object(ops, "attention", plain_attention):
+        want = run()
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()[B9] - n
+    if launched != cfg.num_layers * (1 + PARITY_STEPS):
+        raise RuntimeError(f"[mla] the f32 gate launched B9 {launched} times")
+    gap = float((got - want).abs().max() / want.abs().max())
+    equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if not (torch.isfinite(got).all() and gap <= PARITY_TOL and equal):
+        raise RuntimeError(f"[mla] f32 logits through B9 vs plain: relative gap {gap} "
+                           f"(tolerance {PARITY_TOL}), greedy tokens equal {equal}")
+    log(f"[mla] f32 gate at full widths, {cfg.num_layers} layers (1 dense + 1 MoE): prefill + "
+        f"{PARITY_STEPS} decode steps, B9 vs plain version: logits max |diff| / max |logit| = "
+        f"{gap:.3e} (tolerance {PARITY_TOL}), greedy tokens equal; B9 forms {forms}")
+    return launched, gap
+
+
+def mla_swap(torch, ops, cfg, dev):
+    """serve_decode at full widths and 2 layers with its mid-stream hot swap
+    (the plan publishes f32 and admits the swap at this depth)."""
+    from repro_torch.launch.serve_decode import serve_decode
+    n = ops.launch_counts()[B9]
+    r = serve_decode(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, tokens=MLA_SWAP_TOKENS,
+                     max_len=SERVE_MAX_LEN, device=dev, seed=0,
+                     log=lambda m: log(f"[mla] {m}"))
+    launched = ops.launch_counts()[B9] - n
+    if (r["swaps"] != 2 or not r["plan"]["swap"] or not r["final_logits_finite"]
+            or launched != cfg.num_layers * (1 + MLA_SWAP_TOKENS)):
+        raise RuntimeError(f"[mla] reduced-depth swap: swaps {r['swaps']}, plan swap "
+                           f"{r['plan']['swap']}, finite {r['final_logits_finite']}, B9 "
+                           f"{launched}")
+    log(f"[mla] hot swap at {cfg.num_layers} layers, full widths: swap pause "
+        f"{r['swap_pause_s'] * 1e3:.3f} ms (published in "
+        f"{str(r['plan']['init_dtype']).split('.')[-1]})")
+    return launched, r["swap_pause_s"] * 1e3
+
+
+def run_mla_phase(torch, ops, fa, dev, bw, peak, smi):
+    """Phase 12. Returns (B9 launches, B9's max abs err, the numbers for
+    the kernels line)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    err = check_b9_mla(torch, ops, fa, dev)
+    times = time_b9_mla(torch, ops, fa, dev, bw, peak)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MLA_ARCH)
+    n_flow, flow = mla_serve_flow(torch, ops, fa, cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_bat, bat = mla_batcher(torch, ops, fa, cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=MLA_GATE_LAYERS)
+    n_gate, gap = mla_gate(torch, ops, cut, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_swap, swap_ms = mla_swap(torch, ops, cut, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(serve=flow, batcher=bat, f32_gate_gap=gap, swap_ms_at_2_layers=swap_ms,
+                   b9=times, card=smi)
+    log(f"[mla] summary: {json.dumps(summary, default=str)}")
+    return n_flow + n_bat + n_gate + n_swap, max(err.values()), dict(
+        max_abs_err_f32=err["float32"], max_abs_err_bf16=err["bfloat16"],
+        launches_serve_decode=n_flow, launches_batcher=n_bat, **times)
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -3931,6 +4283,12 @@ def main():
     log(f"[serve-live] launches in phase 11: {ts_launches}; summary ({smi}): "
         f"{json.dumps(ts_summary)}")
     phase_s["11 serve-live"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    n_mla, mla_err, times[B9]["mla"] = run_mla_phase(torch, ops, fa, dev, bw, peak_bf16, smi)
+    launches[B9] += n_mla
+    err[B9] = max(err[B9], mla_err)
+    phase_s["12 mla"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

@@ -24,7 +24,11 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# -split-compile=0: the optimiser's passes on as many threads as there are
+# cores (B9's source, two dozen kernel instantiations, 24 s on one thread and
+# 10 s split on the card's 8-core host)
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-split-compile=0", "-shared", "-Xcompiler",
+                           "-fPIC"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

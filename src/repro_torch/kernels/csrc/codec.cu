@@ -46,7 +46,8 @@
 //     duplicate indices (a corrupted wire) sum in pair order too.
 //
 // Built by src/repro_torch/kernels/build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -split-compile=0 -shared
+//     -Xcompiler -fPIC
 // and called through ctypes (plain C entry points at the end). Every entry
 // point returns a cudaError_t (0 = success).
 

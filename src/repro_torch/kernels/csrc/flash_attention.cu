@@ -17,10 +17,15 @@
 // cache's position counter), as the TPU kernel reads kv_len from SMEM, so a
 // decode step never waits on the host.
 //
-// Layout: q [B, Sq, H, hd], k and v [B, Skv, Hkv, hd], out [B, Sq, H, hd],
-// each read through its own (b, s, h) strides in elements with the head dim
-// contiguous: the model's BSHD tensors, the [B, max_len, Hkv, hd] cache and
-// the op's BHSD views all go in without a copy. H = G * Hkv (GQA).
+// Layout: q [B, Sq, H, hd], k [B, Skv, Hkv, hd], v [B, Skv, Hkv, dv], out
+// [B, Sq, H, dv], each read through its own (b, s, h) strides in elements
+// with the head dim contiguous: the model's BSHD tensors, the [B, max_len,
+// Hkv, hd] cache and the op's BHSD views all go in without a copy. H = G *
+// Hkv (GQA). The values may be narrower than the keys (dv <= hd <= 576, both
+// multiples of 8): MLA attends with 576-wide keys (the 512-wide latent c_kv
+// and the 64-wide roped key) over the latent alone. Where v is the prefix of
+// k (the same pointer and strides: MLA's values as the view kk[..., :dv]),
+// the SIMT and SPLIT forms read the values from the K tile they already hold.
 //
 // Three forms compute this function. The wrapper picks one from host-known
 // shapes alone (kernels/flash_attention.py::_form; never from kv_len, which
@@ -28,8 +33,8 @@
 //
 //   rows = (H / Hkv) * Sq, the query rows that share one kv head
 //   rows <= 16                          -> SPLIT (decode; f32 and bf16, any hd)
-//   bf16 and hd in {64, 128, 256}       -> MMA   (prefill on the tensor cores)
-//   otherwise                           -> SIMT  (f32 prefill, other hd)
+//   bf16, hd in {64, 128, 256}, dv = hd -> MMA   (prefill on the tensor cores)
+//   otherwise                           -> SIMT  (f32 prefill, other hd, MLA)
 //
 // Every form visits only the keys in [lo, hi): lo the largest of
 // kv_start[b] and the window's lower edge for the block's first query, hi
@@ -79,13 +84,15 @@
 // to f32), and keeps its own running max m, sum l and accumulator acc for
 // the RW rows; at the end the warps merge (m, l, acc) through shared
 // memory. Inside a tile lane j owns key j for the scores (its K row against
-// the RW rows of Q held in shared memory, float4 broadcast reads) and head
+// the RW rows of Q held in shared memory, float4 broadcast reads) and value
 // dims j, j + 32, ... for P.V. Shared memory: Q [RW][hd], P [NW][RW][32],
-// K [NW][32][hd + 4], V [NW][32][hd]; about 72 KB at hd 64 and 139 KB at hd
-// 256 (NW = 2 there), opted in with cudaFuncSetAttribute.
+// K [NW][32][hd + 4], V [NW][32][dv] (none when v is k's prefix); about 72
+// KB at hd 64 and 139 KB at hd 256 (NW = 2 there), 169 KB for MLA's hd 576 /
+// dv 512 with v in k (NW = 2), opted in with cudaFuncSetAttribute. NW is the
+// most warps (4, or 2 past dv 128) whose tiles fit in 227 KB, else 1.
 //
 // Bound on this card: the larger of the bytes (q, the visible K/V rows and
-// out, each moved once) and the operations (4 * hd flops per row and
+// out, each moved once) and the operations (2 * (hd + dv) flops per row and
 // visible key) at the bf16 tensor-core peak; at the serve path's shapes the
 // bytes, for prefill and decode alike. MMA keeps the K/V traffic at one read
 // per 64 or 128 query rows and the math on the tensor cores; SPLIT spreads
@@ -93,7 +100,8 @@
 // head) would.
 //
 // Built by src/repro_torch/kernels/build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -split-compile=0 -shared
+//     -Xcompiler -fPIC
 // and called through ctypes (plain C entry point below).
 
 #include <cuda_runtime.h>
@@ -111,6 +119,8 @@ constexpr int SPLIT_KEYS = 32;   // keys per split (SPLIT): a key per lane
 constexpr int SPLIT_ROWS = 16;   // most query rows per kv head (SPLIT)
 constexpr int SPLIT_THREADS = 128;
 constexpr int MMA_THREADS = 128;
+constexpr int MAX_HD = 576;              // MLA's 512 + 64
+constexpr size_t MAX_SMEM = 232448;      // the dynamic shared memory a block may opt in to
 enum Form { SIMT = 0, MMA = 1, SPLIT = 2 };
 
 struct Args {
@@ -119,7 +129,8 @@ struct Args {
   const void* v;
   void* o;
   int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;   // element strides
-  int B, Sq, Skv, H, Hkv, hd;
+  int B, Sq, Skv, H, Hkv, hd, dv;
+  int v_in_k;                    // v is k's prefix: the same pointer and strides
   int causal, window;
   float softcap, scale;
   int q_offset, kv_len;          // used when the pointer beside it is null
@@ -230,12 +241,13 @@ flash_attention_kernel(Args a) {
   constexpr int VN = VecN<T>::N;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int hd = a.hd;
+  const int hd = a.hd, dv = a.dv;
   const int kstride = hd + 4;
+  const int vstride = a.v_in_k ? kstride : dv;
   float* Qs = smem;                        // [RW][hd]
   float* Ps = Qs + RW * hd;                // [NW][RW][BK]
   float* Ks = Ps + NW * RW * BK;           // [NW][BK][kstride]
-  float* Vs = Ks + NW * BK * kstride;      // [NW][BK][hd]
+  float* Vs = Ks + NW * BK * kstride;      // [NW][BK][dv], unless v_in_k
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -278,7 +290,7 @@ flash_attention_kernel(Args a) {
   }
 
   float* Kw = Ks + warp * BK * kstride;
-  float* Vw = Vs + warp * BK * hd;
+  float* Vw = a.v_in_k ? Kw : Vs + warp * BK * dv;
   float* Pw = Ps + warp * RW * BK;
   const T* kp = static_cast<const T*>(a.k) + b * a.kb + hk * a.kh;
   const T* vp = static_cast<const T*>(a.v) + b * a.vb + hk * a.vh;
@@ -288,16 +300,28 @@ flash_attention_kernel(Args a) {
     __syncwarp();
     for (int e = lane; e < BK * nchunk; e += 32) {
       const int j = e / nchunk, c = e - (e / nchunk) * nchunk;
-      float kb[VN], vb[VN];
+      float kb[VN];
       if (j < nk) {
         load16(kp + (int64_t)(t0 + j) * a.ks + c * VN, kb);
-        load16(vp + (int64_t)(t0 + j) * a.vs + c * VN, vb);
       } else {
 #pragma unroll
-        for (int i = 0; i < VN; ++i) kb[i] = vb[i] = 0.f;
+        for (int i = 0; i < VN; ++i) kb[i] = 0.f;
       }
       put<VN>(Kw + j * kstride + c * VN, kb);
-      put<VN>(Vw + j * hd + c * VN, vb);
+    }
+    if (!a.v_in_k) {
+      const int nvchunk = dv / VN;
+      for (int e = lane; e < BK * nvchunk; e += 32) {
+        const int j = e / nvchunk, c = e - (e / nvchunk) * nvchunk;
+        float vb[VN];
+        if (j < nk) {
+          load16(vp + (int64_t)(t0 + j) * a.vs + c * VN, vb);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VN; ++i) vb[i] = 0.f;
+        }
+        put<VN>(Vw + j * dv + c * VN, vb);
+      }
     }
     __syncwarp();
 
@@ -355,7 +379,7 @@ flash_attention_kernel(Args a) {
 #pragma unroll
         for (int i = 0; i < HDC; ++i) {
           const int d = lane + 32 * i;
-          const float vv = d < hd ? Vw[(j + jj) * hd + d] : 0.f;
+          const float vv = d < dv ? Vw[(j + jj) * vstride + d] : 0.f;
 #pragma unroll
           for (int r = 0; r < RW; ++r) {
             const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
@@ -374,7 +398,7 @@ flash_attention_kernel(Args a) {
   __syncthreads();                         // every warp is done with its tiles
   float* Mw = Ks;                          // [NW][RW]
   float* Lw = Mw + NW * RW;                // [NW][RW]
-  float* Aw = Lw + NW * RW;                // [NW][RW][hd]
+  float* Aw = Lw + NW * RW;                // [NW][RW][dv]
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
@@ -387,14 +411,14 @@ flash_attention_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < HDC; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) Aw[(warp * RW + r) * hd + d] = acc[r][i];
+      if (d < dv) Aw[(warp * RW + r) * dv + d] = acc[r][i];
     }
   }
   __syncthreads();
 
   T* o = static_cast<T*>(a.o);
-  for (int e = threadIdx.x; e < nrows * hd; e += NW * 32) {
-    const int r = e / hd, d = e - (e / hd) * hd;
+  for (int e = threadIdx.x; e < nrows * dv; e += NW * 32) {
+    const int r = e / dv, d = e - (e / dv) * dv;
     float M = NEG;
 #pragma unroll
     for (int w = 0; w < NW; ++w) M = fmaxf(M, Mw[w * RW + r]);
@@ -403,7 +427,7 @@ flash_attention_kernel(Args a) {
     for (int w = 0; w < NW; ++w) {
       const float c = expf(Mw[w * RW + r] - M);
       L += Lw[w * RW + r] * c;
-      A += Aw[(w * RW + r) * hd + d] * c;
+      A += Aw[(w * RW + r) * dv + d] * c;
     }
     const int rr = r0 + r;
     const int sq = rr / G, h = hk * G + rr % G;
@@ -411,10 +435,16 @@ flash_attention_kernel(Args a) {
   }
 }
 
+// SIMT's shared memory with NW warps
+size_t simt_smem(const Args& a, int NW) {
+  return sizeof(float) * ((size_t)RW * a.hd + (size_t)NW * RW * BK +
+                          (size_t)NW * BK * (a.hd + 4) +
+                          (a.v_in_k ? 0 : (size_t)NW * BK * a.dv));
+}
+
 template <typename T, int HDC, int NW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)RW * a.hd + (size_t)NW * RW * BK +
-                                       (size_t)NW * BK * (a.hd + 4) + (size_t)NW * BK * a.hd);
+  const size_t smem = simt_smem(a, NW);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HDC, NW>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -427,12 +457,29 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// HDC = ceil(dv / 32) accumulator columns a lane, rounded up to an
+// instantiated count; NW the most warps (4, or 2 past dv 128, for the
+// registers) whose tiles fit in shared memory. Where even 2 do not (hd past
+// about 400 with values of their own), one warp with 16 (or 18) columns,
+// the extra ones idle: fewer instantiations to compile
+template <typename T, int HDC>
+cudaError_t launch_nw(const Args& a, cudaStream_t stream) {
+  if constexpr (HDC <= 4) {
+    if (simt_smem(a, 4) <= MAX_SMEM) return launch<T, HDC, 4>(a, stream);
+  }
+  if (simt_smem(a, 2) <= MAX_SMEM) return launch<T, HDC, 2>(a, stream);
+  if constexpr (HDC < 16) return launch<T, 16, 1>(a, stream);
+  else return launch<T, HDC, 1>(a, stream);
+}
+
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  if (a.hd <= 32) return launch<T, 1, 4>(a, stream);
-  if (a.hd <= 64) return launch<T, 2, 4>(a, stream);
-  if (a.hd <= 128) return launch<T, 4, 4>(a, stream);
-  return launch<T, 8, 2>(a, stream);
+  if (a.dv <= 32) return launch_nw<T, 1>(a, stream);
+  if (a.dv <= 64) return launch_nw<T, 2>(a, stream);
+  if (a.dv <= 128) return launch_nw<T, 4>(a, stream);
+  if (a.dv <= 256) return launch_nw<T, 8>(a, stream);
+  if (a.dv <= 512) return launch_nw<T, 16>(a, stream);
+  return launch_nw<T, 18>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -762,7 +809,7 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // the partial states: m [B][Hkv][nsplit][16], then l of the same shape, then
-// acc [B][Hkv][nsplit][16][hd]
+// acc [B][Hkv][nsplit][16][dv]
 struct Parts {
   float *m, *l, *acc;
 };
@@ -777,12 +824,13 @@ flash_attention_split_kernel(Args a) {
   constexpr int VN = VecN<T>::N;
   constexpr int NWARP = SPLIT_THREADS / 32;
   extern __shared__ float4 smem4[];
-  const int hd = a.hd;
+  const int hd = a.hd, dv = a.dv;
   const int ldk = hd + VN;                                     // +16 bytes a row
+  const int ldv = a.v_in_k ? ldk : dv + VN;
   float* Qs = reinterpret_cast<float*>(smem4);                 // [16][hd]
   float* Ps = Qs + SPLIT_ROWS * hd;                            // [16][32]
   T* Ks = reinterpret_cast<T*>(Ps + SPLIT_ROWS * SPLIT_KEYS);  // [32][ldk]
-  T* Vs = Ks + SPLIT_KEYS * ldk;                               // [32][ldk]
+  T* Vs = a.v_in_k ? Ks : Ks + SPLIT_KEYS * ldk;               // [32][ldv]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -795,7 +843,7 @@ flash_attention_split_kernel(Args a) {
   const size_t pid = ((size_t)b * a.Hkv + hk) * a.nsplit + split;
   float* pm = P.m + pid * SPLIT_ROWS;
   float* pl = P.l + pid * SPLIT_ROWS;
-  float* pacc = P.acc + pid * SPLIT_ROWS * hd;
+  float* pacc = P.acc + pid * SPLIT_ROWS * dv;
   if (c0 >= c1) {
     if (tid < rows) {
       pm[tid] = NEG;
@@ -812,7 +860,15 @@ flash_attention_split_kernel(Args a) {
     const bool ok = j < nk;
     const int64_t row = ok ? c0 + j : c0;
     cp_async16(Ks + j * ldk + c * VN, kp + row * a.ks + c * VN, ok);
-    cp_async16(Vs + j * ldk + c * VN, vp + row * a.vs + c * VN, ok);
+  }
+  if (!a.v_in_k) {
+    const int nvch = dv / VN;
+    for (int e = tid; e < SPLIT_KEYS * nvch; e += SPLIT_THREADS) {
+      const int j = e / nvch, c = e - (e / nvch) * nvch;
+      const bool ok = j < nk;
+      const int64_t row = ok ? c0 + j : c0;
+      cp_async16(Vs + j * ldv + c * VN, vp + row * a.vs + c * VN, ok);
+    }
   }
   cp_async_commit();
   const T* q = static_cast<const T*>(a.q);
@@ -892,7 +948,7 @@ flash_attention_split_kernel(Args a) {
   __syncthreads();
 
   // acc[r][d .. d + 3] = sum_j p[r][j] v[j][d .. d + 3]: four chains a thread
-  const int nd4 = hd / 4;
+  const int nd4 = dv / 4;
   for (int e = tid; e < rows * nd4; e += SPLIT_THREADS) {
     const int r = e / nd4, d = (e - (e / nd4) * nd4) * 4;
     const float* pr = Ps + r * SPLIT_KEYS;
@@ -900,12 +956,12 @@ flash_attention_split_kernel(Args a) {
 #pragma unroll 4
     for (int j = 0; j < nk; ++j) {
       float vv[4];
-      load4(Vs + j * ldk + d, vv);
+      load4(Vs + j * ldv + d, vv);
       const float pj = pr[j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[i] += pj * vv[i];
     }
-    *reinterpret_cast<float4*>(pacc + r * hd + d) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(pacc + r * dv + d) = make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
 }
 
@@ -921,7 +977,7 @@ flash_attention_merge_kernel(Args a) {
   __shared__ int nlive;
   int* live = reinterpret_cast<int*>(wsm + a.nsplit);
   const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int G = a.H / a.Hkv, hd = a.hd, nsplit = a.nsplit;
+  const int G = a.H / a.Hkv, dv = a.dv, nsplit = a.nsplit;
   const Parts P = parts_of(a);
   const size_t p0 = ((size_t)b * a.Hkv + hk) * nsplit;
   if (tid < 32) {
@@ -961,11 +1017,11 @@ flash_attention_merge_kernel(Args a) {
   const int n = nlive;
   T* o = static_cast<T*>(a.o);
   const int sq = r / G, h = hk * G + r % G;
-  const float* acc = P.acc + (p0 * SPLIT_ROWS + r) * hd;
-  for (int d = tid; d < hd; d += SPLIT_THREADS) {
+  const float* acc = P.acc + (p0 * SPLIT_ROWS + r) * dv;
+  for (int d = tid; d < dv; d += SPLIT_THREADS) {
     float A = 0.f;
 #pragma unroll 8
-    for (int t = 0; t < n; ++t) A += wsm[t] * acc[(size_t)live[t] * SPLIT_ROWS * hd + d];
+    for (int t = 0; t < n; ++t) A += wsm[t] * acc[(size_t)live[t] * SPLIT_ROWS * dv + d];
     store(o + b * a.ob + sq * a.os + h * a.oh + d, A * inv);
   }
 }
@@ -973,7 +1029,8 @@ flash_attention_merge_kernel(Args a) {
 template <typename T>
 cudaError_t launch_split(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)SPLIT_ROWS * (a.hd + SPLIT_KEYS) +
-                      sizeof(T) * 2 * (size_t)SPLIT_KEYS * (a.hd + VecN<T>::N);
+                      sizeof(T) * (size_t)SPLIT_KEYS *
+                          ((a.hd + VecN<T>::N) + (a.v_in_k ? 0 : a.dv + VecN<T>::N));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(flash_attention_split_kernel<T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1001,14 +1058,14 @@ cudaError_t launch_split(const Args& a, cudaStream_t stream) {
 // What every call with one signature of q, k and v passes (built once per
 // signature by the wrapper, kernels/flash_attention.py::_plan).
 struct Plan {
-  int32_t form;     // 0 SIMT, 1 MMA (bf16, hd 64 / 128 / 256), 2 SPLIT ((H / Hkv) * Sq <= 16)
+  int32_t form;     // 0 SIMT, 1 MMA (bf16, hd = dv in 64 / 128 / 256), 2 SPLIT ((H / Hkv) * Sq <= 16)
   int32_t dtype;    // 0 float32, 1 bfloat16 (q, k, v and out share it)
-  int64_t B, Sq, Skv, H, Hkv, hd;
+  int64_t B, Sq, Skv, H, Hkv, hd, dv;   // k is [B, Skv, Hkv, hd], v [B, Skv, Hkv, dv]
   int64_t nsplit;   // SPLIT: max(1, ceil(Skv / 32)); else 0
   int64_t strides[12];   // q, k, v, out: each batch, seq, head, in elements
 };
 
-// part: SPLIT's f32 scratch of B * Hkv * nsplit * 16 * (hd + 2) floats, else
+// part: SPLIT's f32 scratch of B * Hkv * nsplit * 16 * (dv + 2) floats, else
 // null. q_offset_ptr / kv_len_ptr: int32 device scalars or null (then the
 // int beside them is used); kv_start: int32 [B] or null. The head dim is
 // contiguous. Returns a cudaError_t (0 = success).
@@ -1017,18 +1074,20 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
                                      float softcap, int q_offset, const void* q_offset_ptr,
                                      int kv_len, const void* kv_len_ptr, const void* kv_start,
                                      void* part, void* stream) {
-  const int64_t B = p->B, Sq = p->Sq, Skv = p->Skv, H = p->H, Hkv = p->Hkv, hd = p->hd;
+  const int64_t B = p->B, Sq = p->Sq, Skv = p->Skv, H = p->H, Hkv = p->Hkv, hd = p->hd,
+                dv = p->dv;
   const int form = p->form, dtype = p->dtype;
   const int64_t nsplit = p->nsplit;
   if (B <= 0 || Sq <= 0 || H <= 0) return (int)cudaSuccess;
-  if (Hkv <= 0 || H % Hkv != 0 || hd < 8 || hd > 256 || hd % 8 != 0 || B > 65535 ||
+  if (Hkv <= 0 || H % Hkv != 0 || hd < 8 || hd > MAX_HD || hd % 8 != 0 || dv < 8 ||
+      dv > hd || dv % 8 != 0 || B > 65535 ||
       Hkv > 65535 || (H / Hkv) * Sq > (int64_t)1 << 30 || Skv < 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const int64_t rows = (H / Hkv) * Sq;
   if (form == SPLIT && (rows > SPLIT_ROWS || part == nullptr ||
                         nsplit != (Skv > SPLIT_KEYS ? (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS : 1)))
     return (int)cudaErrorInvalidValue;
-  if (form == MMA && (dtype != 1 || (hd != 64 && hd != 128 && hd != 256)))
+  if (form == MMA && (dtype != 1 || dv != hd || (hd != 64 && hd != 128 && hd != 256)))
     return (int)cudaErrorInvalidValue;
   if (form != SIMT && form != MMA && form != SPLIT) return (int)cudaErrorInvalidValue;
   const int64_t* strides = p->strides;
@@ -1038,8 +1097,10 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
   a.kb = strides[3]; a.ks = strides[4]; a.kh = strides[5];
   a.vb = strides[6]; a.vs = strides[7]; a.vh = strides[8];
   a.ob = strides[9]; a.os = strides[10]; a.oh = strides[11];
+  a.v_in_k = v == k && a.vb == a.kb && a.vs == a.ks && a.vh == a.kh;
   a.B = (int)B; a.Sq = (int)Sq; a.Skv = (int)Skv; a.H = (int)H; a.Hkv = (int)Hkv;
   a.hd = (int)hd;
+  a.dv = (int)dv;
   a.causal = causal; a.window = window;
   a.softcap = softcap;
   a.scale = (float)(1.0 / sqrt((double)hd));   // f32 of hd^-0.5, as the reference rounds it

@@ -37,7 +37,8 @@
 // Tuning the vector width and the grid is later work.
 //
 // Built by src/repro_torch/kernels/build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -split-compile=0 -shared
+//     -Xcompiler -fPIC
 // and called through ctypes (plain C entry points below).
 
 #include <cuda_runtime.h>

@@ -30,7 +30,8 @@
 // into FMAs, so the result equals the plain PyTorch version bit for bit.
 //
 // Built by src/repro_torch/kernels/build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -split-compile=0 -shared
+//     -Xcompiler -fPIC
 // and called through ctypes (plain C entry point below).
 
 #include <cuda_runtime.h>

@@ -3,11 +3,13 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_kernel``
 (wrapper ``flash_attention``): causal, ``q_offset``, sliding window, logit
 softcap, GQA, a ``kv_len`` and the per-row ``kv_start`` bound of continuous
-batching. The CUDA C++ source is ``csrc/flash_attention.cu``, in three forms
-that :func:`_form` picks from host-known shapes: ``"mma"`` (bf16 prefill on
-the tensor cores, FA2's structure on ``mma.sync``), ``"split"`` (decode as
-split-KV in two launches, a split per 32 cache rows, then a merge) and
-``"simt"`` (f32 on the CUDA cores: f32 prefill, other head dims).
+batching, and values narrower than the keys (MLA's 576-wide keys over its
+512-wide latent values). The CUDA C++ source is ``csrc/flash_attention.cu``,
+in three forms that :func:`_form` picks from host-known shapes: ``"mma"``
+(bf16 prefill on the tensor cores, FA2's structure on ``mma.sync``),
+``"split"`` (decode as split-KV in two launches, a split per 32 cache rows,
+then a merge) and ``"simt"`` (f32 on the CUDA cores: f32 prefill, other head
+dims, MLA's prefill).
 
 This wrapper takes CUDA tensors only and raises on anything else; callers
 reach it through :mod:`repro_torch.kernels.ops`, which sends CPU tensors to
@@ -18,6 +20,7 @@ form), and ``FORM_LAUNCHES[form]`` the same calls by form.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,18 +32,21 @@ _FORM_CODE = {"simt": 0, "mma": 1, "split": 2}
 SPLIT_ROWS = 16                  # most query rows per kv head in the split form
 SPLIT_KEYS = 32                  # cache rows per split
 MMA_HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = 576               # MLA: kv_lora_rank 512 + qk_rope_head_dim 64
 _FN = None
 
 
-def _form(dtype, B: int, Sq: int, H: int, Hkv: int, hd: int, Skv: int) -> str:
+def _form(dtype, B: int, Sq: int, H: int, Hkv: int, hd: int, Skv: int,
+          dv: Optional[int] = None) -> str:
     """The kernel form for these shapes, from what the host knows (never
     from ``kv_len``, a device scalar): ``"split"`` when at most 16 query
     rows share a kv head (decode), else ``"mma"`` for bf16 at a head dim of
-    64, 128 or 256, else ``"simt"``. ``B`` and ``Skv`` do not change the
-    choice; ``Skv`` sets the split form's number of splits."""
+    64, 128 or 256 with values as wide (``dv`` None or ``hd``), else
+    ``"simt"``. ``B`` and ``Skv`` do not change the choice; ``Skv`` sets the
+    split form's number of splits."""
     if H // Hkv * Sq <= SPLIT_ROWS:
         return "split"
-    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS and dv in (None, hd):
         return "mma"
     return "simt"
 
@@ -51,7 +57,8 @@ class _Plan(ctypes.Structure):
     _fields_ = [("form", ctypes.c_int32), ("dtype", ctypes.c_int32),
                 ("B", ctypes.c_int64), ("Sq", ctypes.c_int64), ("Skv", ctypes.c_int64),
                 ("H", ctypes.c_int64), ("Hkv", ctypes.c_int64), ("hd", ctypes.c_int64),
-                ("nsplit", ctypes.c_int64), ("strides", ctypes.c_int64 * 12)]
+                ("dv", ctypes.c_int64), ("nsplit", ctypes.c_int64),
+                ("strides", ctypes.c_int64 * 12)]
 
 
 def _fn():
@@ -102,38 +109,39 @@ def _plan(q, k, v):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"q, k, v must be float32 or bfloat16, got {q.dtype}")
     B, Sq, H, hd = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if v.shape[-1] != hd:
-        raise ValueError(f"values of width {v.shape[-1]} != head dim {hd} (MLA's "
-                         "latent values are not supported by B9)")
-    if k.shape != (B, Skv, Hkv, hd) or v.shape != k.shape:
+    Skv, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, Skv, Hkv, hd) or v.shape != (B, Skv, Hkv, dv):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
-                         f"[B, Skv, Hkv, hd] with B={B}, hd={hd}")
+                         f"[B, Skv, Hkv, hd] and [B, Skv, Hkv, dv] with B={B}, hd={hd}")
     if Hkv == 0 or H % Hkv != 0:
         raise ValueError(f"heads {H} must be a multiple of kv heads {Hkv}")
-    if hd % 8 != 0 or not 8 <= hd <= 256:
-        raise ValueError(f"head dim must be a multiple of 8 in [8, 256], got {hd}")
+    if hd % 8 != 0 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim must be a multiple of 8 in [8, {MAX_HEAD_DIM}], got {hd}")
+    if dv % 8 != 0 or not 8 <= dv <= hd:
+        raise ValueError(f"value width must be a multiple of 8 in [8, hd={hd}], got {dv}")
     size = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any((t.stride(i) * size) % 16 for i in range(3)):
             raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned "
                              f"rows, got strides {t.stride()}")
-    form = _form(q.dtype, B, Sq, H, Hkv, hd, Skv)
+    form = _form(q.dtype, B, Sq, H, Hkv, hd, Skv, dv)
     nsplit = max(1, -(-Skv // SPLIT_KEYS)) if form == "split" else 0
-    out_strides = (Sq * H * hd, H * hd, hd)   # of the new contiguous output
+    out_strides = (Sq * H * dv, H * dv, dv)   # of the new contiguous output
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v) for i in range(3)),
                                     *out_strides)
     c_plan = ctypes.pointer(_Plan(_FORM_CODE[form], _DTYPE_CODE[q.dtype], B, Sq, Skv, H, Hkv,
-                                  hd, nsplit, strides))
-    part = B * Hkv * nsplit * SPLIT_ROWS * (hd + 2)   # the split form's (m, l, acc)
-    return form, c_plan, (B, Sq, Skv, H, hd), part
+                                  hd, dv, nsplit, strides))
+    part = B * Hkv * nsplit * SPLIT_ROWS * (dv + 2)   # the split form's (m, l, acc)
+    return form, c_plan, (B, Sq, Skv, H, dv), part
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset=0, kv_len=None, kv_start=None):
-    """Attention of CUDA ``q [B, Sq, H, hd]`` over ``k, v [B, Skv, Hkv, hd]``
-    (BSHD, any strides with the head dim contiguous and 16-byte aligned
-    rows); returns a new BSHD tensor in q's dtype.
+    """Attention of CUDA ``q [B, Sq, H, hd]`` over ``k [B, Skv, Hkv, hd]``
+    and ``v [B, Skv, Hkv, dv]``, ``dv <= hd`` (BSHD, any strides with the
+    head dim contiguous and 16-byte aligned rows; ``v`` may be a prefix view
+    of ``k``, whose values the kernel then reads from its K tiles); returns
+    a new ``[B, Sq, H, dv]`` tensor in q's dtype.
 
     ``q_offset`` and ``kv_len`` are python ints or one-element integer
     tensors on the card (read there by the kernel: no host sync);
@@ -151,7 +159,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if len(_PLANS) >= _MAX_PLANS:
             _PLANS.clear()
         _PLANS[key] = plan
-    form, c_plan, (B, Sq, Skv, H, hd), part_size = plan
+    form, c_plan, (B, Sq, Skv, H, dv), part_size = plan
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("q, k and v need 16-byte aligned rows")
     if not isinstance(window, int) or window < 0:
@@ -166,7 +174,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"kv_start must be an integer [B={B}] tensor on {dev}")
         ks_t = kv_start if kv_start.dtype == torch.int32 and kv_start.is_contiguous() \
             else kv_start.reshape(B).to(torch.int32).contiguous()
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=dev)
     part = torch.empty(part_size, dtype=torch.float32, device=dev) if part_size else None
     ptr = (lambda t: None if t is None else t.data_ptr())
     args = (c_plan, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -149,10 +149,11 @@ def topk_decode(values, idx, n: int, *, k: int, block: int):
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
               q_offset=0, kv_len=None, kv_start=None):
-    """BSHD attention, the model's entry: q [B, Sq, H, hd]; k, v
-    [B, Skv, Hkv, hd] (any strides with a contiguous head dim: the cache
-    goes in without a copy). ``q_offset``/``kv_len`` are ints or device
-    scalars, ``kv_start`` None or [B]. Returns [B, Sq, H, hd] in q's dtype."""
+    """BSHD attention, the model's entry: q [B, Sq, H, hd]; k [B, Skv, Hkv,
+    hd]; v [B, Skv, Hkv, dv], dv <= hd (MLA's latent values; any strides
+    with a contiguous head dim: the cache goes in without a copy).
+    ``q_offset``/``kv_len`` are ints or device scalars, ``kv_start`` None or
+    [B]. Returns [B, Sq, H, dv] in q's dtype."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap,
                              q_offset=q_offset, kv_len=kv_len, kv_start=kv_start)

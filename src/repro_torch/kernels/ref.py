@@ -210,7 +210,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Full-softmax attention (B9's plain version; port of the reference's
     oracle ``repro.kernels.ref.attention``).
 
-    q: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd] (BSHD), H % Hkv == 0.
+    q: [B, Sq, H, hd]; k: [B, Skv, Hkv, hd]; v: [B, Skv, Hkv, dv] (BSHD),
+    H % Hkv == 0; the values may be narrower than the keys (MLA).
     Scores in f32, ``softcap * tanh(s / softcap)`` when set, then the masks
     (the finite -1e30), softmax over keys, output in q's dtype.
     ``q_offset`` (absolute position of q[:, 0]) and ``kv_len`` (count of

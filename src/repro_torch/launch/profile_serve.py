@@ -1,18 +1,22 @@
-"""Where the serve path's time goes on the card: TinyLlama-1.1B at full
-width through ``make_serve_program`` (bf16, 8 slots, 512-token prompts,
+"""Where the serve path's time goes on the card: a model at full width
+through ``make_serve_program`` (bf16, 8 slots, 512-token prompts,
 ``max_len`` 1024), one prefill and 10 decode steps under ``torch.profiler``.
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve                      # TinyLlama-1.1B
+    python -m repro_torch.launch.profile_serve --arch deepseek_v2_lite_16b
 
 Random weights from seed 0. For the prefill and for the decode window it
 prints the synchronised host time, the kernels launched, the device-busy
 share (the union of kernel intervals over the span from the first kernel's
 start to the last one's end) and the device time by phase: attention (kernel
 B9), the matmuls, elementwise kernels (norms, RoPE, residuals, casts),
-reductions, the KV-cache writes and the rest; then one JSON line.
+reductions, the KV-cache writes and the rest; for an MoE model also the
+device time under each of the dispatch's spans (routing, sort + scatter,
+the expert matmuls, gather + combine); then one JSON line.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import time
@@ -23,6 +27,8 @@ import torch
 from repro_torch.launch.profile_sim import _busy_us
 
 ARCH, BATCH, PROMPT_LEN, MAX_LEN, STEPS = "tinyllama_1_1b", 8, 512, 1024, 10
+# models/moe.py's record_function spans
+MOE_SPANS = ("moe route", "moe sort + scatter", "moe expert matmuls", "moe gather + combine")
 
 
 def _phase(kernel_name: str) -> str:
@@ -41,7 +47,10 @@ def _phase(kernel_name: str) -> str:
 
 
 def _summary(prof_events, n: int, host_s) -> dict:
-    kernels = [e for e in prof_events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the model's record_function spans (the MoE dispatch's) show on the
+    # device too, as user annotations: they are not kernels
+    kernels = [e for e in prof_events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.end - e.time_range.start
@@ -53,16 +62,21 @@ def _summary(prof_events, n: int, host_s) -> dict:
             if kernels else 0.0)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    spans = defaultdict(float)        # device time of the kernels each span launched
+    for e in prof_events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in MOE_SPANS:
+            spans[e.name] += e.device_time_total
     return {"host_ms_median": statistics.median(host_s) * 1e3,
             "kernel_launches": len(kernels) / n,
             "device_busy_ms": busy / n / 1e3,
             "device_busy_share": (busy / span) if span else None,
             "phase_ms": {k: v / n / 1e3 for k, v in sorted(phases.items())},
+            "moe_span_ms": {k: spans[k] / n / 1e3 for k in MOE_SPANS if k in spans},
             "top_kernels": [{"name": nm[:100], "ms": us / n / 1e3, "calls": c / n}
                             for nm, (us, c) in top]}
 
 
-def profile() -> dict:
+def profile(arch: str = ARCH) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import make_serve_program
@@ -70,7 +84,7 @@ def profile() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     prog = make_serve_program(cfg, batch=BATCH, max_len=MAX_LEN, with_prefill=True, device=dev)
     with torch.no_grad():
         params = prog.place_params(tr.init_lm(torch.Generator(device=dev).manual_seed(0),
@@ -97,13 +111,15 @@ def profile() -> dict:
             sync()
             step_s.append(time.perf_counter() - t0)
     decode = _summary(prof.events(), STEPS, step_s)
-    return {"arch": ARCH, "batch": BATCH, "prompt_len": PROMPT_LEN, "max_len": MAX_LEN,
+    return {"arch": arch, "batch": BATCH, "prompt_len": PROMPT_LEN, "max_len": MAX_LEN,
             "dtype": "bfloat16", "layers": cfg.num_layers,
             "device": torch.cuda.get_device_name(dev), "prefill": prefill, "decode_step": decode}
 
 
-def main() -> int:
-    r = profile()
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=ARCH, help="a full config's name (tinyllama_1_1b)")
+    r = profile(ap.parse_args(argv).arch)
     for tag in ("prefill", "decode_step"):
         s = r[tag]
         print(f"{tag}: {s['host_ms_median']:.3f} ms synchronised, "
@@ -111,6 +127,8 @@ def main() -> int:
               f"(share {s['device_busy_share'] or 0:.3f})")
         for ph, ms in sorted(s["phase_ms"].items(), key=lambda kv: -kv[1]):
             print(f"  {ph:<12} {ms:.3f} ms")
+        for ph, ms in s["moe_span_ms"].items():
+            print(f"  within {ph:<22} {ms:.3f} ms")
         for k in s["top_kernels"][:6]:
             print(f"    {k['ms']:.4f} ms x{k['calls']:.0f}  {k['name']}")
     print(json.dumps(r))

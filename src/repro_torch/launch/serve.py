@@ -34,7 +34,7 @@ from repro_torch.api.trainer import ENGINES, resolve_device
 from repro_torch.common.config import ModelConfig, OptimizerConfig, ProtocolConfig
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.fleet import memory
-from repro_torch.launch.train import activation_bytes, lm_batches, replica_bytes
+from repro_torch.launch.train import activation_bytes, lm_batches, replica_bytes, require_trainable
 from repro_torch.models import transformer as tr
 from repro_torch.serve import ContinuousBatcher, LiveServer, TrafficGen, TrainServeLoop
 from repro_torch.serving.engine import make_serve_program
@@ -114,6 +114,7 @@ def build(arch: str, *, reduced: bool = True, engine: str = "sim", workers: int 
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {sorted(ENGINES)}")
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    require_trainable(cfg)
     assert cfg.audio is None and cfg.vlm is None, (
         "the traffic harness serves plain-LM archs")
     dev = resolve_device(device)

@@ -5,11 +5,18 @@ LiveServer, and hot-swap to a newly published snapshot mid-stream.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch tinyllama_1_1b --full \\
         --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch deepseek_v2_lite_16b \\
+        --full --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --reduced --device cpu
 
 Attention runs through kernel B9 on the card (the plain version on the
-CPU). Prints what the reference's example prints, plus the prefill time,
-the median decode step and the kernel's launches per phase.
+CPU). Before anything is allocated it prints a memory plan and refuses a
+run that does not fit: the published weights are f32 (as a trainer would
+publish them) where that fits, else bf16, and the mid-stream swap, which
+holds a second published replica and its flat copy beside the served one,
+runs only where it fits (not for DeepSeek-V2-Lite-16B at full width on one
+80 GB card). Prints what the reference's example prints, plus the prefill
+time, the median decode step and the kernel's launches per phase.
 """
 from __future__ import annotations
 
@@ -21,35 +28,119 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.fleet import memory
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.models import transformer as tr
 from repro_torch.serve import LiveServer, SnapshotBus
 from repro_torch.serving.engine import make_serve_program
 
+GiB = 2 ** 30
+
+
 def _b9() -> int:
     return ops.launch_counts()["flash_attention"]
+
+
+def _bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int) -> int:
+    """An estimate of the largest layer's prefill temporaries over
+    ``tokens`` tokens: the FFN (an MoE layer's dispatch buffer, its copy, the
+    up / gate / hidden products and the expert output at capacity C, and
+    the k gathered rows a token twice; a dense layer's three d_ff rows) and
+    the attention's queries, keys and output (MLA: [H, r + rope] a token)."""
+    d = cfg.d_model
+    ffn = 3 * tokens * cfg.d_ff
+    if cfg.moe is not None:
+        m = cfg.moe
+        E, f, C = m.num_experts, m.d_ff_expert or cfg.d_ff, moe.capacity(cfg, tokens)
+        ffn = max(ffn, 3 * E * C * d + 3 * E * C * f + 2 * tokens * m.top_k * d)
+    if cfg.mla is not None:
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        att = tokens * (2 * cfg.num_heads * width + width)
+    else:
+        att = tokens * cfg.resolved_head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    return (ffn + att) * dtype_bytes
+
+
+def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
+                param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16, device="cuda",
+                log=print) -> dict:
+    """The run's memory before anything is allocated, from ``abstract_lm``
+    and ``init_cache`` on the meta device: the published replica in
+    ``init_dtype`` and the bus's flat copy of it (both live while it is
+    published), the served cast (none where ``param_dtype`` is
+    ``init_dtype``: the server then serves views of the snapshot), the KV
+    cache (MLA: c_kv and k_rope) and the prefill's temporaries (an
+    estimate); a mid-stream swap adds a second published replica, its flat
+    copy and its served cast. The published replica is f32 where that run
+    fits, else bf16, and the swap runs where it fits. Prints the plan;
+    raises ValueError when even the run without a swap does not fit the
+    free memory (the card's; the host's on the CPU). Returns the plan: byte
+    counts, ``init_dtype`` and ``swap``."""
+    avail = memory.available_bytes("device", device)
+    psize = torch.empty((), dtype=param_dtype).element_size()
+    cache = _bytes(tr.init_cache(cfg, batch, max_len, dtype=cache_dtype, device="meta")[0])
+    transient = prefill_transient_bytes(cfg, batch * prompt_len, psize)
+
+    def plan(dt):
+        rep_b = _bytes(tr.abstract_lm(cfg, dt)[0])
+        served = 0 if dt == param_dtype else _bytes(tr.abstract_lm(cfg, param_dtype)[0])
+        steady = rep_b + served + cache + transient
+        peak = max(2 * rep_b, steady)
+        return dict(init_dtype=dt, replica=rep_b, flat=rep_b, served=served, cache=cache,
+                    transient=transient, peak=peak, swap_peak=steady + 2 * rep_b + served)
+
+    def fits(n):
+        return avail is None or n <= avail
+
+    p = plan(torch.float32)
+    if not fits(p["peak"]):
+        p = plan(torch.bfloat16)
+    p["swap"] = fits(p["swap_peak"])
+    p["avail"] = avail
+    log(f"memory plan ({cfg.name}): published replica {p['replica'] / GiB:.2f} GiB "
+        f"({str(p['init_dtype']).split('.')[-1]}) + the bus's flat copy "
+        f"{p['flat'] / GiB:.2f} GiB + served cast {p['served'] / GiB:.2f} GiB + KV cache "
+        f"{cache / GiB:.3f} GiB + prefill temporaries (estimate) {transient / GiB:.3f} GiB: "
+        f"peak {p['peak'] / GiB:.2f} GiB, with a mid-stream swap {p['swap_peak'] / GiB:.2f} "
+        f"GiB" + ("" if avail is None else f", of {avail / GiB:.2f} GiB free")
+        + f"; mid-stream swap {'on' if p['swap'] else 'off'}")
+    if not fits(p["peak"]):
+        raise ValueError(f"serving {cfg.name} needs ~{p['peak'] / GiB:.1f} GiB but only "
+                         f"{avail / GiB:.1f} GiB is free")
+    return p
 
 
 def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, max_len: int,
                  param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16, device="cuda",
                  seed: int = 0, swap_at: Optional[int] = None,
                  log: Callable[[str], None] = print) -> dict:
-    """Publish ``init_lm(seed)`` (f32, as a trainer would), prefill random
-    prompts [batch, prompt_len], decode ``tokens`` greedy steps, publish
-    ``init_lm(seed + 42)`` and hot-swap before step ``swap_at`` (default
-    tokens // 2). Each phase ends in a synchronise; returns its timings, the
-    token stream, the mid-stream swap's pause (the first swap loads seq 1)
-    and B9's launches per phase."""
+    """Plan the memory (:func:`plan_memory`, which picks the published
+    dtype and whether to swap), publish ``init_lm(seed)`` in that dtype
+    (f32 as a trainer would, where it fits), prefill random
+    prompts [batch, prompt_len], decode ``tokens`` greedy steps and, where
+    the plan swaps, publish ``init_lm(seed + 42)`` and hot-swap before step
+    ``swap_at`` (default tokens // 2). Each phase ends in a synchronise;
+    returns its timings, the token stream, the last swap's pause (the first
+    swap loads seq 1), B9's launches per phase and the plan."""
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    swap_at = tokens // 2 if swap_at is None else swap_at
     prog = make_serve_program(cfg, batch=batch, max_len=max_len, param_dtype=param_dtype,
                               cache_dtype=cache_dtype, with_prefill=True, device=dev)
+    plan = plan_memory(cfg, batch=batch, prompt_len=prompt_len, max_len=max_len,
+                       param_dtype=param_dtype, cache_dtype=cache_dtype, device=dev, log=log)
+    init_dtype = plan["init_dtype"]
+    swap_at = (tokens // 2 if swap_at is None else swap_at) if plan["swap"] else None
     bus = SnapshotBus()
     with torch.no_grad():
-        bus.publish_params(tr.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)[0],
-                           train_step=0)
+        bus.publish_params(tr.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                      init_dtype)[0], train_step=0)
     server = LiveServer(prog, bus)
     server.maybe_swap()
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -71,8 +162,8 @@ def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, 
             # unaffected: the hot-swap determinism contract)
             with torch.no_grad():
                 bus.publish_params(
-                    tr.init_lm(torch.Generator(device=dev).manual_seed(seed + 42), cfg)[0],
-                    train_step=100)
+                    tr.init_lm(torch.Generator(device=dev).manual_seed(seed + 42), cfg,
+                               init_dtype)[0], train_step=100)
             if server.maybe_swap():
                 log(f"  hot-swapped to snapshot seq={server.seq} at token {t} "
                     f"({server.swap_pauses[-1] * 1e3:.1f} ms pause)")
@@ -95,7 +186,7 @@ def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, 
             "swap_pause_s": server.swap_pauses[-1],
             "swaps": server.swap_stats()["swaps"], "prefill_launches": prefill_launches,
             "step_launches": step_launches, "final_logits_finite": finite,
-            "cache_pos": int(cache["pos"])}
+            "cache_pos": int(cache["pos"]), "plan": plan}
 
 
 def main(argv=None) -> int:

@@ -182,6 +182,17 @@ def _dist_rank(group, job):
             "exported": trainer.export_obs()}
 
 
+def require_trainable(cfg) -> None:
+    """Training runs the dense models only: MoE FFNs and MLA attention
+    train through the engines with ROADMAP.md 7b.4b (the online softmax
+    with values narrower than the keys under a gradient, the dispatch under
+    ``vmap(grad)``); until then they are served, not trained."""
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE / MLA models through the engines waits for "
+            "slice 7b.4b (ROADMAP.md); they are served only (launch.serve_decode)")
+
+
 def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int,
         alpha: float, workers: int, global_batch: int, seq: int, lr: float,
         seed: int = 0, checkpoint_dir: str = "", log_every: int = 10,
@@ -206,6 +217,7 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
     on the dist engine the state stays in the ranks and ``state`` is the
     list of the ranks' summaries (:func:`_dist_rank`)."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    require_trainable(cfg)
     proto = ProtocolConfig(method=method, moving_rate=alpha,
                            comm_probability=p if not tau else 0.0,
                            comm_period=tau, codec=codec)

@@ -1,6 +1,6 @@
-"""Attention: GQA with sliding window and logit softcap (port of
-``repro.models.attention``; cross-attention and MLA come with a later
-slice, see ROADMAP.md).
+"""Attention: GQA with sliding window and logit softcap, and MLA (port of
+``repro.models.attention``; cross-attention comes with a later slice, see
+ROADMAP.md).
 
 The core is :func:`chunked_attention`, the reference's signature over the
 port's attention op: a call that needs a gradient runs
@@ -16,9 +16,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init, split_tree, upcast
+from repro_torch.models.common import apply_rope, dense_init, rmsnorm, split_tree, upcast
 
 PyTree = Any
 
@@ -106,7 +106,9 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=0, logit_softcap: 
                       kv_start: Optional[torch.Tensor] = None, chunk: int = 1024):
     """Online-softmax attention.
 
-    q: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd] with H % Hkv == 0.
+    q: [B, Sq, H, hd]; k: [B, Skv, Hkv, hd]; v: [B, Skv, Hkv, dv] with
+    H % Hkv == 0 and dv <= hd (MLA's latent values are narrower than its
+    keys; the output is [B, Sq, H, dv]).
     window: 0 = full; >0 = attend to keys with q_pos - k_pos in [0, window)
             (a python int: the port's layer loop is python).
     kv_len: optional count of valid cache entries (int or device scalar).
@@ -122,10 +124,6 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=0, logit_softcap: 
     :func:`repro_torch.kernels.ops.attention`: B9 on a CUDA tensor, its
     plain version on a CPU tensor.
     """
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            "values wider or narrower than the head dim (MLA) wait for the MLA "
-            "port (ROADMAP.md, slice 7)")
     if wants_grad(q, k, v):
         return online_softmax_attention(q, k, v, causal=causal, window=int(window),
                                         logit_softcap=logit_softcap, q_offset=q_offset,
@@ -192,3 +190,85 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *, window=0,
                           logit_softcap=cfg.attn_logit_softcap,
                           q_offset=pos, kv_len=pos + 1, kv_start=kv_start, chunk=chunk)
     return out_proj(o, p["wo"]), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA: Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return split_tree({
+        "wq": dense_init(gen, (d, H, qk_dim), ("embed", "heads", None), dtype),
+        "kv_down": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None),
+                              dtype),
+        "k_up": dense_init(gen, (m.kv_lora_rank, H, m.qk_nope_head_dim), (None, "heads", None),
+                           dtype, fan_in=m.kv_lora_rank),
+        "v_up": dense_init(gen, (m.kv_lora_rank, H, m.v_head_dim), (None, "heads", None), dtype,
+                           fan_in=m.kv_lora_rank),
+        "wo": dense_init(gen, (H, m.v_head_dim, d), ("heads", None, "embed"), dtype,
+                         fan_in=H * m.v_head_dim),
+        "kv_norm": (torch.ones((m.kv_lora_rank,), dtype=dtype, device=gen.device),
+                    ("act_embed",)),
+    })
+
+
+def _mla_qc(p, x, cfg: ModelConfig, positions):
+    """Shared projections: q (nope + rope), the latent cache entries (c_kv,
+    k_rope)."""
+    m = cfg.mla
+    q = in_proj(x, p["wq"])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    down = x @ p["kv_down"].to(x.dtype)
+    c_kv, k_rope = down[..., :m.kv_lora_rank], down[..., m.kv_lora_rank:]
+    c_kv = rmsnorm(p["kv_norm"], c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, q_nope, q_rope, kk, cfg: ModelConfig, **kw):
+    """The absorbed attention, in the reference's order: ``q_lat`` absorbs
+    ``k_up``, ``qq * scale_fix``, attention with head dim ``r + rope`` over
+    the keys ``kk = [c_kv ; k_rope]`` ([B, S, 1, r + rope]) and the values
+    ``c_kv`` as the view ``kk[..., :r]`` (B9 then reads them from its key
+    tiles), then ``v_up`` and ``wo``."""
+    m = cfg.mla
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["k_up"].to(q_nope.dtype))
+    qq = torch.cat([q_lat, q_rope], dim=-1)
+    scale_fix = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5 / (qq.shape[-1] ** -0.5)
+    o_lat = chunked_attention(qq * scale_fix, kk, kk[..., :m.kv_lora_rank], causal=True,
+                              **kw)                                         # [B, S, H, r]
+    o = torch.einsum("bshr,rhv->bshv", o_lat, p["v_up"].to(o_lat.dtype))
+    return out_proj(o, p["wo"])
+
+
+def mla_forward(p, x, cfg: ModelConfig, *, positions=None, chunk: int = 1024):
+    """Training / prefill with the ABSORBED formulation: scores and values
+    are computed against the compact latent c_kv, so no [B, S, H, hd] K/V
+    are ever materialised. Returns (out, (c_kv, k_rope))."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device) if positions is None else positions
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x, cfg, positions)
+    kk = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]                   # Hkv = 1
+    out = _mla_attend(p, q_nope, q_rope, kk, cfg, chunk=min(chunk, S))
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(p, x, cache_c, cache_kr, pos, cfg: ModelConfig, *, kv_start=None,
+               chunk: int = 2048):
+    """x: [B, 1, d]; cache_c: [B, Smax, r]; cache_kr: [B, Smax, rope_dim];
+    pos: int32 device scalar, the next index. Writes c_kv and k_rope at row
+    ``pos`` of the caches in place, builds the keys ``[c_kv ; k_rope]`` once
+    and returns (out, cache_c, cache_kr)."""
+    positions = pos.reshape(1)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x, cfg, positions)
+    idx = positions.long()
+    cache_c.index_copy_(1, idx, c_kv.to(cache_c.dtype))
+    cache_kr.index_copy_(1, idx, k_rope.to(cache_kr.dtype))
+    kk = torch.cat([cache_c, cache_kr], dim=-1)[:, :, None, :].to(x.dtype)
+    out = _mla_attend(p, q_nope, q_rope, kk, cfg, q_offset=pos, kv_len=pos + 1,
+                      kv_start=kv_start, chunk=chunk)
+    return out, cache_c, cache_kr

@@ -1,10 +1,10 @@
 """Block assembly (port of ``repro.models.blocks``): the kind ``"attn"``,
-self-attention (GQA) with a dense FFN, with the reference's
-init / forward / prefill / decode / cache interface.
+self-attention (GQA or MLA) with an FFN (dense or MoE), with the
+reference's init / forward / prefill / decode / cache interface.
 
 The reference's other kinds (``attn_cross``, ``mamba``, ``mlstm``,
-``slstm``, ``cross_blk``), MoE FFNs and MLA attention raise
-NotImplementedError: they wait for the rest of slice 7 (ROADMAP.md).
+``slstm``, ``cross_blk``) raise NotImplementedError: they wait for ROADMAP.md
+items 7b.4c (SSM / hybrid) and 7b.4d (cross-attention).
 """
 from __future__ import annotations
 
@@ -14,20 +14,18 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import init_rmsnorm, rmsnorm, split_tree
 from repro_torch.models.mlp import ffn_forward, init_ffn_cfg
 
 PyTree = Any
 
 
-def _require_dense_attn(kind: str, cfg: ModelConfig, use_moe: bool = False) -> None:
+def _require_attn(kind: str) -> None:
     if kind != "attn":
         raise NotImplementedError(
-            f"block kind {kind!r} waits for the rest of slice 7 (ROADMAP.md: "
-            "SSM/xLSTM blocks, cross-attention)")
-    if use_moe or cfg.mla is not None:
-        raise NotImplementedError(
-            "MoE FFNs and MLA attention wait for the rest of slice 7 (ROADMAP.md)")
+            f"block kind {kind!r} waits for ROADMAP.md 7b.4c (SSM / xLSTM blocks) or "
+            "7b.4d (cross-attention)")
 
 
 # ---------------------------------------------------------------------------
@@ -36,13 +34,15 @@ def _require_dense_attn(kind: str, cfg: ModelConfig, use_moe: bool = False) -> N
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bool = False,
                dtype=torch.float32) -> Tuple[PyTree, PyTree]:
-    _require_dense_attn(kind, cfg, use_moe)
+    _require_attn(kind)
     dev = gen.device
+    attn_init = attn.init_mla if cfg.mla is not None else attn.init_gqa
     tree = {
         "ln1": init_rmsnorm(cfg.d_model, dtype, dev),
-        "attn": attn.init_gqa(gen, cfg, dtype),
+        "attn": attn_init(gen, cfg, dtype),
         "ln2": init_rmsnorm(cfg.d_model, dtype, dev),
-        "ffn": init_ffn_cfg(gen, cfg, dtype),
+        "ffn": (moe_mod.init_moe(gen, cfg, dtype) if use_moe
+                else init_ffn_cfg(gen, cfg, dtype)),
     }
     if cfg.post_norms:
         tree["post_ln1"] = init_rmsnorm(cfg.d_model, dtype, dev)
@@ -54,12 +54,21 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bo
 # forward (training, full sequence, no cache)
 # ---------------------------------------------------------------------------
 
-def _ffn_half(p, x, cfg: ModelConfig):
-    """The block's second residual half: x + post_ln2(ffn(ln2(x)))."""
-    y = ffn_forward(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.activation)
+def _ffn_apply(p_ffn, x, cfg: ModelConfig, use_moe: bool):
+    """(y, aux): the MoE FFN and its load-balance loss, or the dense FFN and
+    an f32 zero."""
+    if use_moe:
+        return moe_mod.moe_forward(p_ffn, x, cfg)
+    return (ffn_forward(p_ffn, x, cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _ffn_half(p, x, cfg: ModelConfig, use_moe: bool):
+    """The block's second residual half: (x + post_ln2(ffn(ln2(x))), aux)."""
+    y, aux = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, use_moe)
     if cfg.post_norms:
         y = rmsnorm(p["post_ln2"], y, cfg.norm_eps)
-    return x + y
+    return x + y, aux
 
 
 def _attn_residual(p, x, y, cfg: ModelConfig):
@@ -71,10 +80,14 @@ def _attn_residual(p, x, y, cfg: ModelConfig):
 def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
                   window=0, cond=None):
     """Returns (x, aux_loss)."""
-    _require_dense_attn(kind, cfg, use_moe)
-    y, _ = attn.gqa_forward(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, window=window)
+    _require_attn(kind)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla is not None:
+        y, _ = attn.mla_forward(p["attn"], h, cfg)
+    else:
+        y, _ = attn.gqa_forward(p["attn"], h, cfg, window=window)
     x = _attn_residual(p, x, y, cfg)
-    return _ffn_half(p, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn_half(p, x, cfg, use_moe)
 
 
 # ---------------------------------------------------------------------------
@@ -83,9 +96,18 @@ def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      *, dtype=torch.float32, window: int = 0, device=None):
-    """Returns (cache, axes). window > 0 -> bounded ring buffer (sw decode)."""
-    _require_dense_attn(kind, cfg)
+    """Returns (cache, axes). window > 0 -> bounded ring buffer (sw decode).
+    MLA caches the latent ``c_kv [B, size, r]`` and ``k_rope [B, size,
+    rope_dim]``; GQA ``k``, ``v [B, size, Hkv, hd]``."""
+    _require_attn(kind)
     size = min(window, max_len) if window else max_len
+    if cfg.mla is not None:
+        m = cfg.mla
+        cache = {"c_kv": torch.zeros((batch, size, m.kv_lora_rank), dtype=dtype, device=device),
+                 "k_rope": torch.zeros((batch, size, m.qk_rope_head_dim), dtype=dtype,
+                                       device=device)}
+        axes = {"c_kv": ("batch", "seq_kv", None), "k_rope": ("batch", "seq_kv", None)}
+        return cache, axes
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     cache = {"k": torch.zeros((batch, size, hkv, hd), dtype=dtype, device=device),
              "v": torch.zeros((batch, size, hkv, hd), dtype=dtype, device=device)}
@@ -105,7 +127,16 @@ def _attn_decode(p_attn, h, cache, pos, cfg: ModelConfig, window: int, window_ma
     is within the window by construction). window_mask (python int): extra
     local-attention mask in full-cache mode (gemma2 local layers). kv_start
     (optional [B]): per-slot first valid cache row, full-cache mode only.
-    Both modes write the new K/V row in place and attend through B9."""
+    Both modes write the new K/V row in place and attend through B9. MLA
+    (full-cache mode only) writes its latent row and attends over
+    [c_kv ; k_rope]."""
+    if cfg.mla is not None:
+        if window:
+            raise ValueError("MLA decodes over the full cache: ring-buffer window mode "
+                             "has no MLA form")
+        y, cc, ckr = attn.mla_decode(p_attn, h, cache["c_kv"], cache["k_rope"], pos, cfg,
+                                     kv_start=kv_start)
+        return y, {"c_kv": cc, "k_rope": ckr}
     if window:
         if kv_start is not None:
             raise ValueError(
@@ -132,12 +163,12 @@ def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool
     """x: [B, 1, d]. Returns (x, cache) with the cache written in place.
     kv_start (optional [B]): per-slot first valid cache row, threaded into
     the attention mask (continuous batching)."""
-    _require_dense_attn(kind, cfg, use_moe)
+    _require_attn(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, new_cache = _attn_decode(p["attn"], h, cache, pos, cfg, window, window_mask,
                                 kv_start=kv_start)
     x = _attn_residual(p, x, y, cfg)
-    return _ffn_half(p, x, cfg), new_cache
+    return _ffn_half(p, x, cfg, use_moe)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -147,16 +178,22 @@ def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool
 def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
                   window=0, cond=None, cache_dtype=torch.float32, max_len: int = 0):
     """Returns (x, cache) covering positions [0, S), zero-padded to max_len
-    rows; K/V are cast to ``cache_dtype`` as the reference's are."""
-    _require_dense_attn(kind, cfg, use_moe)
-    y, (k, v) = attn.gqa_forward(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                                 window=window)
+    rows; the cache entries (K/V, or MLA's c_kv / k_rope) are cast to
+    ``cache_dtype`` as the reference's are."""
+    _require_attn(kind)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla is not None:
+        y, (c_kv, k_rope) = attn.mla_forward(p["attn"], h, cfg)
+        entries = (("c_kv", c_kv), ("k_rope", k_rope))
+    else:
+        y, (k, v) = attn.gqa_forward(p["attn"], h, cfg, window=window)
+        entries = (("k", k), ("v", v))
     B, S = x.shape[:2]
     rows = max(max_len, S)
     cache = {}
-    for name, t in (("k", k), ("v", v)):
+    for name, t in entries:
         buf = torch.zeros((B, rows) + tuple(t.shape[2:]), dtype=cache_dtype, device=x.device)
         buf[:, :S] = t
         cache[name] = buf
     x = _attn_residual(p, x, y, cfg)
-    return _ffn_half(p, x, cfg), cache
+    return _ffn_half(p, x, cfg, use_moe)[0], cache

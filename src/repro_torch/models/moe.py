@@ -1,0 +1,173 @@
+"""Mixture-of-Experts with capacity-based sort/scatter dispatch (port of
+``repro.models.moe``).
+
+Expert weights are stacked ``[E, d, f]``. Dispatch is the reference's
+capacity scheme: tokens are routed top-k, sorted by expert, placed into an
+``[E, C, d]`` buffer (overflow dropped), processed with batched matmuls and
+combined back with the router weights. DeepSeek-style shared experts are a
+plain always-on FFN added to the routed output; the load-balance auxiliary
+loss is the reference's (Switch eq. 4).
+
+Every integer the reference computes is computed the same way here, so the
+routing ids, the capacity ``C``, ``dest`` and ``keep`` are bit-equal:
+
+- ``jax.lax.top_k`` breaks ties toward the lower index; ``torch.topk``
+  promises no order, so the top k is a stable descending sort, sliced.
+- ``C`` is python arithmetic on host ints, as in the reference; at decode
+  (8 tokens, DeepSeek's 64 experts top-6) it is 1 and tokens are dropped.
+- The overflow row ``E * C`` takes every dropped token's write and is thrown
+  away (``index_copy`` tolerates the duplicate index).
+- ``dispatch_shards = n > 1`` routes in n independent shards of C / n (a
+  loop for the reference's ``vmap``); its ``dispatch_axes`` pin the shards
+  to a mesh, which one card does not have.
+
+The combine's ``.at[s_tok].add`` is ``index_add_``: on the card it sums a
+token's k rows in no fixed order, a float difference only (ROADMAP.md §C).
+The expert products stay ``torch.matmul``, as the reference leaves them to
+XLA outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.common.config import ModelConfig, MoEConfig
+from repro_torch.models.common import activation_fn, dense_init, split_tree
+from repro_torch.models.mlp import ffn_forward, init_ffn
+
+PyTree = Any
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tuple[PyTree, PyTree]:
+    m: MoEConfig = cfg.moe
+    d = cfg.d_model
+    dff = m.d_ff_expert or cfg.d_ff
+    gated = cfg.activation in ("swiglu", "geglu")
+    # drawn in the order of the reference's keys: router, w_gate, w_up,
+    # w_down, shared
+    tree = {"router": dense_init(gen, (d, m.num_experts), ("embed", "expert"), dtype)}
+    if gated:
+        tree["w_gate"] = dense_init(gen, (m.num_experts, d, dff), ("expert", "embed", "ffn"),
+                                    dtype, fan_in=d)
+    tree["w_up"] = dense_init(gen, (m.num_experts, d, dff), ("expert", "embed", "ffn"), dtype,
+                              fan_in=d)
+    tree["w_down"] = dense_init(gen, (m.num_experts, dff, d), ("expert", "ffn", "embed"), dtype,
+                                fan_in=dff)
+    if m.num_shared_experts:
+        tree["shared"] = init_ffn(gen, d, m.num_shared_experts * dff, cfg.activation, dtype)
+    return split_tree(tree)
+
+
+def _route(logits, top_k: int):
+    """softmax -> top-k -> renormalise (DeepSeek / Mixtral convention), in
+    f32 whatever the logits' dtype, as the reference routes. The top k is a
+    stable descending sort, so ties go to the lower expert id as
+    ``jax.lax.top_k`` gives them."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[..., :top_k], ids[..., :top_k]
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    return probs, weights, ids
+
+
+def _build_buffer(xt, ids, weights, E: int, k: int, C: int):
+    """Route one token shard into its [E, C, d] buffer. Returns
+    (buffer, dest, s_tok, s_w, keep); the combine happens after the expert
+    compute."""
+    T, d = xt.shape
+    dev = xt.device
+    flat_ids = ids.reshape(-1)                                        # [T*k]
+    flat_tok = torch.arange(T, device=dev).repeat_interleave(k)       # source token of each slot
+    flat_w = weights.reshape(-1)
+    order = torch.argsort(flat_ids, stable=True)                      # group by expert
+    s_ids, s_tok, s_w = flat_ids[order], flat_tok[order], flat_w[order]
+    # rank within expert = position - first position of that expert
+    counts = torch.bincount(flat_ids, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * k, device=dev) - starts[s_ids]
+    keep = rank < C                                                   # capacity drop
+    dest = torch.where(keep, s_ids * C + rank, torch.full_like(rank, E * C))   # overflow row
+    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=dev).index_copy_(0, dest, xt[s_tok])
+    return buf[:-1].reshape(E, C, d), dest, s_tok, s_w, keep
+
+
+def _expert_ffn(h, p, cfg: ModelConfig):
+    """h: [ds, E, C, d] -> [ds, E, C, d]: the reference's
+    ``secd,edf->secf`` products as one batched matmul per expert weight,
+    the shards folded into the rows."""
+    ds, E, C, d = h.shape
+    act = activation_fn(cfg.activation)
+    he = h.transpose(0, 1).reshape(E, ds * C, d)                      # [E, ds*C, d]
+    with torch.profiler.record_function("moe expert matmuls"):
+        up = torch.bmm(he, p["w_up"].to(h.dtype))
+        if "w_gate" in p:
+            hidden = act(torch.bmm(he, p["w_gate"].to(h.dtype))) * up
+        else:
+            hidden = act(up)
+        out = torch.bmm(hidden, p["w_down"].to(h.dtype))              # [E, ds*C, d]
+    return out.reshape(E, ds, C, d).transpose(0, 1)
+
+
+def _combine_one(out, dest, s_tok, s_w, keep, T: int):
+    E, C, d = out.shape
+    out_flat = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))], dim=0)
+    gathered = out_flat[dest] * (s_w * keep).to(out.dtype)[:, None]   # [T*k, d]
+    return out.new_zeros((T, d)).index_add_(0, s_tok, gathered)
+
+
+def capacity(cfg: ModelConfig, T: int, capacity_factor: float = 0.0) -> int:
+    """The reference's expert capacity for T tokens: python arithmetic on
+    host ints, ``max(int(T * k / (E * ds) * cf), 1)``."""
+    m = cfg.moe
+    cf = capacity_factor or m.capacity_factor
+    ds = max(1, m.dispatch_shards)
+    return max(int(T * m.top_k / (m.num_experts * ds) * cf), 1)
+
+
+def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float = 0.0):
+    """x: [B, S, d] -> (y, aux_loss).
+
+    With ``moe.dispatch_shards = n > 1`` tokens are routed independently in
+    n shards, each with capacity C / n (the reference's local dispatch).
+    """
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = m.num_experts, m.top_k
+    ds = max(1, m.dispatch_shards)
+    assert T % ds == 0, (T, ds)
+    C = capacity(cfg, T, capacity_factor)
+
+    xt = x.reshape(T, d)
+    with torch.profiler.record_function("moe route"):
+        probs, weights, ids = _route(xt @ p["router"].to(x.dtype), k)   # [T,E],[T,k],[T,k]
+    Tl = T // ds
+    xs, ids_s, w_s = xt.reshape(ds, Tl, d), ids.reshape(ds, Tl, k), weights.reshape(ds, Tl, k)
+    with torch.profiler.record_function("moe sort + scatter"):
+        shards = [_build_buffer(xs[i], ids_s[i], w_s[i], E, k, C) for i in range(ds)]
+    h = torch.stack([s[0] for s in shards])                          # [ds, E, C, d]
+    out = _expert_ffn(h, p, cfg)
+    with torch.profiler.record_function("moe gather + combine"):
+        y = torch.cat([_combine_one(out[i], *shards[i][1:], Tl) for i in range(ds)])
+    y = y.to(x.dtype)
+
+    if m.num_shared_experts:
+        y = y + ffn_forward(p["shared"], xt, cfg.activation)
+
+    # ---- load-balance aux (Switch eq. 4) ---------------------------------
+    frac_tokens = torch.bincount(ids[:, 0], minlength=E).to(probs.dtype) / T
+    frac_probs = torch.mean(probs, dim=0)
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    return y.reshape(B, S, d), aux
+
+
+def router_stats(p, x, cfg: ModelConfig):
+    """Router diagnostics (consensus metrics measure how far gossiping
+    replicas' routers have drifted apart)."""
+    m = cfg.moe
+    logits = x.reshape(-1, x.shape[-1]) @ p["router"].to(x.dtype)
+    probs, _, ids = _route(logits, m.top_k)
+    load = torch.bincount(ids.reshape(-1), minlength=m.num_experts) / ids.numel()
+    return {"expert_load": load,
+            "router_entropy": -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))}

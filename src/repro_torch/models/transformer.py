@@ -1,11 +1,12 @@
 """Transformer LM (port of ``repro.models.transformer``): segment-planned,
 with train / prefill / decode entry points.
 
-The dense architectures only (one ``"attn"`` segment; gemma2's per-layer
-local/global windows included): MoE, MLA, SSM/hybrid, audio and vision
-models raise NotImplementedError until the rest of slice 7 (ROADMAP.md).
-The parameter tree is the reference's, layers stacked on a leading
-``[count]`` axis per segment, so ``FlatSpec`` offsets equal the
+The dense and MoE architectures (``"attn"`` segments with GQA or MLA
+attention and dense or MoE FFNs, cut at ``moe.first_dense_layers``;
+gemma2's per-layer local/global windows included). SSM / hybrid models
+raise NotImplementedError until ROADMAP.md 7b.4c, audio and vision models
+until 7b.4d. The parameter tree is the reference's, layers stacked on a
+leading ``[count]`` axis per segment, so ``FlatSpec`` offsets equal the
 reference's and a snapshot flattens to the same buffers. The reference's
 ``lax.scan`` over layers is a python loop over the layers' views (one
 ``unbind`` per stacked leaf, whose backward is one ``stack``), and decode
@@ -50,19 +51,34 @@ class Plan:
 
 
 def make_plan(cfg: ModelConfig) -> Plan:
-    """The reference's plan for a dense model: one ``attn`` segment over all
-    layers, gemma2's even layers local (``local_window``), odd ones global."""
-    if cfg.arch_type != "dense" or cfg.moe is not None or cfg.mla is not None \
-            or cfg.vlm is not None or cfg.audio is not None:
+    """The reference's plan for a dense or MoE model: ``attn`` segments cut
+    at ``moe.first_dense_layers`` (DeepSeek: ``seg0_attn`` of 1 layer, then
+    ``seg1_attn_moe``; Grok: one ``seg0_attn_moe``), gemma2's even layers
+    local (``local_window``), odd ones global."""
+    if cfg.arch_type in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} (MoE, MLA, SSM, hybrid, audio, "
-            "vision) waits for the rest of slice 7 (ROADMAP.md); the port serves "
-            "dense models")
-    windows = None
-    if cfg.local_window:
-        windows = tuple(cfg.local_window if j % 2 == 0 else 0 for j in range(cfg.num_layers))
-    seg = Segment("seg0_attn", "attn", cfg.num_layers, False, windows)
-    return Plan((("seg", seg.name),), (seg,))
+            f"{cfg.name}: arch_type {cfg.arch_type!r} waits for slice 7b.4c (SSM / "
+            "hybrid, ROADMAP.md); the port serves dense and MoE models")
+    if cfg.arch_type not in ("dense", "moe") or cfg.vlm is not None or cfg.audio is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: arch_type {cfg.arch_type!r} waits for slice 7b.4d "
+            "(cross-attention, ROADMAP.md); the port serves dense and MoE models")
+    segments: List[Segment] = []
+    first_dense = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    cuts = [c for c in sorted({first_dense, cfg.num_layers}) if 0 < c <= cfg.num_layers]
+    start = 0
+    for c in cuts:
+        count = c - start
+        if count > 0:
+            use_moe = cfg.moe is not None and start >= first_dense
+            windows = None
+            if cfg.local_window:
+                windows = tuple(cfg.local_window if (start + j) % 2 == 0 else 0
+                                for j in range(count))
+            name = f"seg{len(segments)}_attn" + ("_moe" if use_moe else "")
+            segments.append(Segment(name, "attn", count, use_moe, windows))
+        start = c
+    return Plan(tuple(("seg", s.name) for s in segments), tuple(segments))
 
 
 def _layer_windows(seg: Segment, default: int) -> List[int]:
@@ -85,7 +101,10 @@ def _layers(seg_params, count: int) -> List[PyTree]:
 def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tuple[PyTree, PyTree]:
     """(params, axes) on ``gen``'s device, in the reference's tree:
     ``embed [1, V, d]``, ``segments/<seg>/...`` stacked ``[count, ...]``,
-    ``final_norm [d]`` and ``lm_head [1, d, V]`` (unless tied)."""
+    ``final_norm [d]`` and ``lm_head [1, d, V]`` (unless tied). Each
+    segment's ``[count, ...]`` leaves are allocated once and filled layer by
+    layer in the draw order (a layer's leaves drawn in f32 and cast to
+    ``dtype``), so the peak is the model plus one layer."""
     plan = make_plan(cfg)
     params: dict = {}
     axes: dict = {}
@@ -94,10 +113,15 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tupl
         fan_in=cfg.d_model, scale=0.5)
     segs_p, segs_a = {}, {}
     for seg in plan.segments:
-        layers = [blocks.init_block(gen, seg.kind, cfg, use_moe=seg.use_moe, dtype=dtype)
-                  for _ in range(seg.count)]
-        segs_p[seg.name] = tree_map(lambda *xs: torch.stack(xs), *[p for p, _ in layers])
-        segs_a[seg.name] = _lead_axes(layers[0][1])
+        stacked = None
+        for i in range(seg.count):
+            p, a = blocks.init_block(gen, seg.kind, cfg, use_moe=seg.use_moe, dtype=dtype)
+            if stacked is None:
+                stacked = tree_map(lambda t: torch.empty((seg.count,) + tuple(t.shape),
+                                                         dtype=t.dtype, device=t.device), p)
+                segs_a[seg.name] = _lead_axes(a)
+            tree_map(lambda dst, src: dst[i].copy_(src), stacked, p)
+        segs_p[seg.name] = stacked
     params["segments"], axes["segments"] = segs_p, segs_a
     params["final_norm"], axes["final_norm"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
     if not cfg.tie_embeddings:
@@ -223,7 +247,9 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, cond=None, aux_coef: float
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32,
                window: int = 0, device=None) -> Tuple[PyTree, PyTree]:
     """({"segments": {seg: {"k", "v": [count, B, size, Hkv, hd]}}, "pos":
-    int32 0-d}, axes); size = max_len, or ``window`` for the ring buffer."""
+    int32 0-d}, axes) (MLA: ``"c_kv" [count, B, size, r]`` and ``"k_rope"
+    [count, B, size, rope_dim]``); size = max_len, or ``window`` for the
+    ring buffer."""
     plan = make_plan(cfg)
     cache = {"segments": {}, "pos": torch.zeros((), dtype=torch.int32, device=device)}
     axes = {"segments": {}, "pos": ()}

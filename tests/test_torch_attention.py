@@ -153,10 +153,36 @@ def test_plain_kv_start_hides_previous_rows_exactly():
     assert torch.equal(c, d)
 
 
-def test_chunked_attention_refuses_mla_values():
-    q = torch.zeros(1, 2, 2, 16)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tattn.chunked_attention(q, q[:, :, :1], torch.zeros(1, 2, 1, 8))
+@pytest.mark.parametrize("case", ["prefill", "decode", "kv_start", "prefix view"])
+def test_chunked_attention_with_narrower_values_matches_reference(case):
+    """Values narrower than the keys (MLA: one kv head, keys [c_kv ; k_rope],
+    values c_kv) through the model's adapter and the plain version, against
+    the reference's chunked_attention, which takes dv != hd."""
+    B, H, hd, dv = 2, 4, 24, 16
+    Sq, Skv = (1, 40) if case in ("decode", "kv_start") else (40, 40)
+    rng = np.random.RandomState(13)
+    q, k, v = (rng.randn(*s).astype(np.float32) for s in
+               ((B, Sq, H, hd), (B, Skv, 1, hd), (B, Skv, 1, dv)))
+    if case == "prefix view":
+        v = k[..., :dv]
+    kw = dict(causal=True)
+    jkw, tkw = dict(kw), dict(kw)
+    if case in ("decode", "kv_start"):
+        jkw.update(q_offset=30, kv_len=31)
+        tkw.update(q_offset=torch.tensor(30, dtype=torch.int32),
+                   kv_len=torch.tensor(31, dtype=torch.int32))
+    if case == "kv_start":
+        start = np.array([0, 17], np.int32)
+        jkw["kv_start"], tkw["kv_start"] = jnp.asarray(start), torch.from_numpy(start)
+    want = jattn.chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), chunk=16,
+                                   **jkw)
+    tk = torch.from_numpy(k)
+    tv = tk[..., :dv] if case == "prefix view" else torch.from_numpy(v)
+    port = tattn.chunked_attention(torch.from_numpy(q), tk, tv, chunk=16, **tkw)
+    assert port.shape == (B, Sq, H, dv)
+    _close(port, want)
+    plain = tref.attention(torch.from_numpy(q), tk, tv, **tkw)
+    _close(plain, want)
 
 
 # kernel B9's form by shape (kernels/flash_attention.py::_form): host-known
@@ -175,6 +201,11 @@ def test_chunked_attention_refuses_mla_values():
     ("G 48 decode", torch.bfloat16, (2, 1, 48, 1, 128, 1024), "mma"),
     ("16 rows", torch.bfloat16, (1, 2, 8, 1, 64, 256), "split"),
     ("17 rows", torch.bfloat16, (1, 17, 1, 1, 64, 256), "mma"),
+    ("MLA prefill", torch.bfloat16, (8, 512, 16, 1, 576, 512, 512), "simt"),
+    ("MLA f32 prefill", torch.float32, (8, 512, 16, 1, 576, 512, 512), "simt"),
+    ("MLA decode", torch.bfloat16, (8, 1, 16, 1, 576, 1024, 512), "split"),
+    ("values narrower at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 64), "simt"),
+    ("values as wide at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 128), "mma"),
 ])
 def test_b9_form_follows_the_host_known_shapes(name, dtype, shape, form):
     from repro_torch.kernels import flash_attention as tfa

@@ -786,13 +786,81 @@ def test_b9_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(1, 4, 4, 2, 1, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q.cpu(), k, v)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_attention(q, k, v[..., :8].contiguous())
+    with pytest.raises(ValueError, match="value width"):
+        tfa.flash_attention(q, k, torch.cat([v, v], dim=-1))
     with pytest.raises(ValueError, match="contiguous head dim"):
         tfa.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), v)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         tfa.flash_attention(q[:, :, :1].expand(1, 4, 3, 16).contiguous(),
                             k.expand(1, 4, 2, 16).contiguous(), v.expand(1, 4, 2, 16).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode 0", "decode 511", "decode 1023", "decode kv_start",
+                                  "prefill", "prefill 77"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_kind", ["prefix view of k", "own tensor"])
+def test_b9_at_mla_shapes_matches_plain_version(cuda, case, dt, v_kind):
+    """DeepSeek-V2-Lite's absorbed MLA: 16 query heads of 576 over one kv
+    head of 576-wide keys and 512-wide values, the values either the view
+    kk[..., :512] (the kernel reads them from its key tiles) or a tensor of
+    their own; decode over an [8, 1024] cache (the split form), prefill 8 x
+    512 and 77 rows (the simt form)."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=cuda))
+    Skv = 1024 if case.startswith("decode") else (77 if case == "prefill 77" else 512)
+    B = 2 if case == "prefill 77" else 8
+    kk = torch.randn(B, Skv, 1, 576, generator=g, device=cuda).to(dt)
+    v = kk[..., :512] if v_kind == "prefix view of k" else \
+        torch.randn(B, Skv, 1, 512, generator=g, device=cuda).to(dt)
+    if case.startswith("decode"):
+        q = torch.randn(B, 1, 16, 576, generator=g, device=cuda).to(dt)
+        pos = 700 if case == "decode kv_start" else int(case.split()[1])
+        kw = dict(causal=True, q_offset=i32(pos), kv_len=i32(pos + 1))
+        if case == "decode kv_start":
+            kw["kv_start"] = i32([0, 5, 100, 700, 3, 600, 32, 64])
+        form = "split"
+    else:
+        q = torch.randn(B, Skv, 16, 576, generator=g, device=cuda).to(dt)
+        kw, form = dict(causal=True), "simt"
+    got = _check_b9(q, kk, v, form=form, **kw)
+    assert got.shape == (B, q.shape[1], 16, 512)
+
+
+@pytest.mark.cuda
+def test_reduced_deepseek_through_the_batcher_launches_b9_once_per_layer(cuda):
+    """Reduced DeepSeek (MLA + MoE) on the card through the continuous
+    batcher: B9 once per layer and boundary, the batcher's invariants, and
+    the completed streams equal to a run through B9's plain version."""
+    from unittest import mock
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tr
+    from repro_torch.serve import ContinuousBatcher, LiveServer, SnapshotBus, TrafficGen
+    from repro_torch.serving.engine import make_serve_program
+    cfg = get_reduced("deepseek_v2_lite_16b")
+    prog = make_serve_program(cfg, batch=4, max_len=48, param_dtype=torch.float32,
+                              cache_dtype=torch.float32, device=cuda)
+    bus = SnapshotBus()
+    bus.publish_params(tr.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)[0])
+    kw = dict(rate=0.8, num_requests=10, vocab=cfg.vocab_size, prompt_len=(1, 3),
+              max_new=(2, 5))
+
+    def run():
+        server = LiveServer(prog, bus)
+        assert server.maybe_swap()
+        bat = ContinuousBatcher(server, TrafficGen(11, **kw).requests())
+        bat.run(46)
+        bat.check_invariants()
+        return bat
+
+    ops.zero_launch_counts()
+    bat = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers * bat.boundaries_run
+    assert bat.latency_summary()["completed"] == bat.admitted > prog.batch
+    with mock.patch.object(ops, "attention", _plain_attention):
+        want = run()
+    assert bat.completed == want.completed
 
 
 @pytest.mark.cuda
