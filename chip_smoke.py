@@ -249,6 +249,37 @@ prints no result line):
              the f32 gate (a prefill and 8 decode steps through B9 and the
              plain version, logits within 1e-3 of the largest, greedy
              tokens equal) and one hot swap.
+13. moe    — training DeepSeek-V2-Lite-16B (MLA + MoE) at its published
+             widths, depth cut to 2 layers (1 dense + 1 MoE: 1,085,287,424
+             f32 parameters), through ``launch.train.run`` with phase 10's
+             arguments (W=2, global batch 8, seq 256, 10 steps): the step's
+             memory plan beside max_memory_allocated, B1 10 times and B9
+             never, the loss finite and falling, comm_units = gates, the
+             dispatch's capacity (C = 120) with tokens dropped, B1 on one
+             more step's own inputs byte for byte in 16 column chunks and
+             timed; the card's f32 gradient against the CPU's f64 one at the
+             card's parameters (1 x 64 tokens; the f64 run takes the card's
+             top-k sets and the tokens whose f64 sets differ are counted);
+             then train-while-serve through ``launch.serve`` at the same
+             depth with phase 11's arguments for 48 boundaries (B1 once a
+             step, B9 2 a boundary in the split form, the bus, staleness,
+             swap pauses, the batcher's invariants, the last snapshot's
+             decode and a [4, 256] prefill (simt, hd 576) through B9 within
+             1e-3 of the plain version, greedy tokens equal); then the
+             reduced DeepSeek and Grok-1 through the CLI on dist (2 gloo
+             processes on the card), async lognormal and q8 on sim.
+14. ssm    — serving xLSTM-125M (12 layers, 10 mLSTM + 2 sLSTM) and
+             Zamba2-2.7B (54 Mamba2 layers, 8 shared attention sites of 32
+             heads of 80) at their published widths and full depth in bf16,
+             random weights from seed 0: B9 at head dim 80 against its plain
+             version in f32 and bf16 (decode, split; prefill, simt), its
+             time beside the bound, the plain version and SDPA; per model
+             serve_decode at 8 slots, prompt 512, max_len 1024, 64 greedy
+             steps and a hot swap (B9 once per shared site in the prefill
+             and in every step: 8 for Zamba2, none for xLSTM), a 16-request
+             batcher drain, and the f32 gate through B9 and the plain
+             version (xLSTM at its 12 layers, Zamba2 cut to 13 layers: two
+             shared sites).
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -3281,7 +3312,7 @@ def lm_full_width(torch, ops, fa, cfg, seq, dev):
                                      max_memory_allocated=peak, tokens_per_step=tokens)
 
 
-def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak):
+def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak, tag="lm"):
     """B1 on one more step's own inputs: theta, peer, v and g copied to the
     host as B1 is called (the activations are freed by then), the step's
     theta and v afterwards held byte for byte against the plain version,
@@ -3315,7 +3346,7 @@ def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak):
             captured["mu"])
         if not (bits_equal(torch, theta[:, lo:hi].contiguous(), t_new)
                 and bits_equal(torch, v[:, lo:hi].contiguous(), v_new)):
-            raise AssertionError(f"[lm] B1 at [{W}, {N}] differs from its plain version in "
+            raise AssertionError(f"[{tag}] B1 at [{W}, {N}] differs from its plain version in "
                                  f"columns {lo}:{hi}")
         err = max(err, float((theta[:, lo:hi] - t_new).abs().max()))
         del col, t_new, v_new
@@ -3331,7 +3362,7 @@ def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak):
     bytes_ms = nbytes / bw * 1e3
     ops_ms = FLOPS_PER_ELEMENT * W * N / peak * 1e3
     bound = max(bytes_ms, ops_ms)
-    log(f"[lm] B1 on one step's own inputs at [{W}, {N}] f32 (2^31 < {W * N} elements): "
+    log(f"[{tag}] B1 on one step's own inputs at [{W}, {N}] f32 (2^31 < {W * N} elements): "
         f"byte-equal to the plain version ({chunks} column chunks); kernel {ms:.4f} ms "
         f"(CUDA events, median of 20), bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB at "
         f"{bw / 1e12:.2f} TB/s), {bound / ms:.1%} of the bound")
@@ -3478,7 +3509,7 @@ def lm_serve(torch, ops, fa, ref, cfg, trainer, state, seq, dev):
     return n, err
 
 
-def lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, block, dev):
+def lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, block, dev, tag="lm"):
     """B1 and B2 at [1, N] (a dist rank's plane at --reduced) and B4 / B5 at
     [4, N] (the q8 run's plane) against their plain versions, byte for byte.
     Returns {kernel: max abs err}."""
@@ -3498,7 +3529,7 @@ def lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, block, dev):
     for kname, a, b in ((B1, got[0], want[0]), (B2, got[1], want[1])):
         err[kname] = max(float((u - w).abs().max()) for u, w in zip(a, b))
         if not all(bits_equal(torch, u, w) for u, w in zip(a, b)):
-            raise AssertionError(f"[lm] {kname} at [1, {N}] differs from its plain version: "
+            raise AssertionError(f"[{tag}] {kname} at [1, {N}] differs from its plain version: "
                                  f"max abs err {err[kname]!r}")
     del t, p, v, g, kt, kv, got, want
     gen = torch.Generator(device=dev).manual_seed(61)
@@ -3510,15 +3541,15 @@ def lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, block, dev):
     for kname, a, b in (("q8_encode", enc[0], enc[1]), ("q8_decode", (dec[0],), (dec[1],))):
         err[kname] = max(float((u.double() - w.double()).abs().max()) for u, w in zip(a, b))
         if not all(bits_equal(torch, u, w) for u, w in zip(a, b)):
-            raise AssertionError(f"[lm] {kname} at [4, {N}] block {block} differs from its "
+            raise AssertionError(f"[{tag}] {kname} at [4, {N}] block {block} differs from its "
                                  f"plain version: max abs err {err[kname]!r}")
-    log(f"[lm] B1 and B2 at [1, {N}] and B4 / B5 at [4, {N}] block {block} (the reduced "
+    log(f"[{tag}] B1 and B2 at [1, {N}] and B4 / B5 at [4, {N}] block {block} (the reduced "
         f"runs' planes) vs plain versions: byte-equal; max abs err {err}")
     return err
 
 
-def lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev):
-    """The other engines through the CLI at --reduced: dist with 4
+def lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev, arch=LM_ARCH, W=4, tag="lm"):
+    """The other engines through the CLI at --reduced: dist with W (4)
     processes (launches, sends and receives, comm_bytes against the host's
     replay of the schedule), async lognormal, and q8 on sim; then their
     kernels at those planes against the plain versions
@@ -3528,10 +3559,10 @@ def lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev):
     from repro_torch.core.scheduler import GossipSchedule
     from repro_torch.launch import train as cli
     total = dict.fromkeys(KERNELS, 0)
-    W, steps = 4, LM_REDUCED_STEPS
+    steps = LM_REDUCED_STEPS
     kw = lm_run_kw(reduced=True, steps=steps, workers=W, lr=3e-3)
     # p 0.125 on dist, so that both programs run (B1 firing, B2 otherwise)
-    ranks, hist = cli.run(LM_ARCH, **dict(kw, engine="dist", p=0.125))
+    ranks, hist = cli.run(arch, **dict(kw, engine="dist", p=0.125))
     sched = GossipSchedule(ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
                                           comm_probability=0.125), W, seed=1,
                            mesh_cfg=MeshConfig(data=W, model=1, pods=1, workers_per_pod=W))
@@ -3546,38 +3577,38 @@ def lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev):
             if f:
                 cb += float(r["wire"]) * float(sum(active) / len(active))
         if got != want or r["sends"] != nfire or r["recvs"] != nfire or r["comm_bytes"] != cb:
-            raise AssertionError(f"[lm] dist rank {r['rank']}: launches {got} (want {want}), "
+            raise AssertionError(f"[{tag}] dist rank {r['rank']}: launches {got} (want {want}), "
                                  f"sends {r['sends']} recvs {r['recvs']} (want {nfire}), "
                                  f"comm_bytes {r['comm_bytes']!r} (want {cb!r})")
         for k in KERNELS:
             total[k] += got[k]
-    log(f"[lm] dist --reduced, {W} processes on one card, {steps} steps: {nfire} firing "
+    log(f"[{tag}] dist --reduced, {W} processes on one card, {steps} steps: {nfire} firing "
         f"steps = host schedule; on every rank B1 {nfire}, B2 {steps - nfire}, sends = recvs "
         f"= {nfire}, comm_bytes = host recomputation; loss {hist[0]['loss']:.4f} -> "
         f"{hist[-1]['loss']:.4f}")
-    for tag, extra, want_k in (
+    for run_tag, extra, want_k in (
             ("async lognormal", dict(engine="async", time_model="lognormal", sigma=0.6),
              {B1: steps}),
             ("sim q8", dict(codec="q8"), {B1: steps, "q8_encode": steps, "q8_decode": steps})):
         ops.zero_launch_counts()
-        state, hist = cli.run(LM_ARCH, **dict(kw, **extra))
+        state, hist = cli.run(arch, **dict(kw, **extra))
         torch.cuda.synchronize()
         got = {k: ops.launch_counts()[k] for k in KERNELS}
         want = dict.fromkeys(KERNELS, 0)
         want.update(want_k)
         losses = [r["loss"] for r in hist]
         if got != want or not all(x == x and abs(x) != float("inf") for x in losses):
-            raise AssertionError(f"[lm] {tag}: launches {got} (want {want}), losses {losses}")
+            raise AssertionError(f"[{tag}] {run_tag}: launches {got} (want {want}), losses {losses}")
         for k in KERNELS:
             total[k] += got[k]
         extra_log = (f", virtual time {hist[-1]['virtual_time']}" if "virtual_time" in hist[-1]
                      else "")
-        log(f"[lm] {tag} --reduced W={W}, {steps} steps: launches {got}; loss "
+        log(f"[{tag}] {run_tag} --reduced W={W}, {steps} steps: launches {got}; loss "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}{extra_log}")
     N = state.theta["float32"].shape[1]
     del state
     err = lm_reduced_kernels(torch, fu, ck, ref, codec_seeds, N, ProtocolConfig().codec_block,
-                             dev)
+                             dev, tag)
     return total, err
 
 
@@ -3618,7 +3649,18 @@ TS_KW = dict(reduced=False, engine="sim", workers=TS_W, method="elastic_gossip",
              traffic_mode="poisson", seed=0, device="cuda")
 
 
-def ts_decode_parity(torch, ops, ts, dev):
+def attn_shape(cfg):
+    """(H, Hkv, hd, dv) of B9's inputs for ``cfg``: GQA's heads, or MLA's
+    absorbed form (H heads of r + rope over one key head, values its first
+    r columns)."""
+    if cfg.mla is not None:
+        r = cfg.mla.kv_lora_rank
+        return cfg.num_heads, 1, r + cfg.mla.qk_rope_head_dim, r
+    hd = cfg.resolved_head_dim
+    return cfg.num_heads, cfg.num_kv_heads, hd, hd
+
+
+def ts_decode_parity(torch, ops, ts, dev, tag="serve-live"):
     """One decode step on the last served snapshot over copies of the live
     cache and slots, through B9 and through its plain version (patched into
     the op): the f32 logits within PARITY_TOL of the largest logit, every
@@ -3633,6 +3675,8 @@ def ts_decode_parity(torch, ops, ts, dev):
         cache = {"segments": {s: {k: a.clone() for k, a in seg.items()}
                               for s, seg in b.cache["segments"].items()},
                  "pos": b.cache["pos"].clone()}
+        if "shared_sites" in b.cache:
+            cache["shared_sites"] = {k: a.clone() for k, a in b.cache["shared_sites"].items()}
         return server.decode(cache, tokens, None, kv_start)[0].float()
 
     got = decode()
@@ -3642,13 +3686,15 @@ def ts_decode_parity(torch, ops, ts, dev):
     gap = float((got - want).abs().max() / want.abs().max())
     equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
     if not (bool(torch.isfinite(got).all()) and gap <= PARITY_TOL and equal):
-        raise AssertionError(f"[serve-live] the served snapshot's decode through B9 vs plain: "
+        raise AssertionError(f"[{tag}] the served snapshot's decode through B9 vs plain: "
                              f"gap {gap} (tolerance {PARITY_TOL}), greedy tokens equal {equal}")
     cfg = ts.cfg
-    B, H, Hkv, hd, pos = b.B, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, b.pos
+    (H, Hkv, hd, dv), B, pos = attn_shape(cfg), b.B, b.pos
     r = torch.Generator(device=dev).manual_seed(7)
     q = torch.randn(B, 1, H, hd, generator=r, device=dev)
-    k, v = (torch.randn(B, b.max_len, Hkv, hd, generator=r, device=dev) for _ in range(2))
+    k = torch.randn(B, b.max_len, Hkv, hd, generator=r, device=dev)
+    v = k[..., :dv] if cfg.mla is not None else torch.randn(B, b.max_len, Hkv, dv,
+                                                            generator=r, device=dev)
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
     kw = dict(causal=True, q_offset=p, kv_len=p + 1, kv_start=kv_start)
     err = b9_err(f"decode [{B}, 1, {H}, {hd}] over [{B}, {b.max_len}, {Hkv}, {hd}] at pos {pos}",
@@ -3662,8 +3708,6 @@ def run_train_serve_phase(torch, ops, fa, dev, smi):
     count is set to 0 just before the loop and read just after. Returns
     ({kernel: launches}, {kernel: max abs err}, summary)."""
     import gc
-    from unittest import mock
-    from repro_torch.api import GossipTrainer
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as cli
     gc.collect()
@@ -3681,7 +3725,25 @@ def run_train_serve_phase(torch, ops, fa, dev, smi):
     if refused is None or torch.cuda.memory_allocated(dev) != alloc0:
         raise AssertionError("[serve-live] plan_memory admitted W=4 at full width or allocated")
     log(f"[serve-live] W=4 refused before anything is allocated: {refused.split('; ')[0]}")
-    ts = cli.build(LM_ARCH, **TS_KW)
+    return train_serve(torch, ops, fa, dev, smi, LM_ARCH, TS_KW, TS_BOUNDARIES, TS_EVERY,
+                       "serve-live", "22 layers, d 2048, vocab 32000, f32", t_phase)
+
+
+def train_serve(torch, ops, fa, dev, smi, arch, kw, boundaries, every, tag, desc, t_phase,
+                after=None):
+    """launch.serve's ``build`` then ``run`` of ``arch`` with ``kw``, for
+    ``boundaries`` decode boundaries publishing every ``every`` steps. Every
+    count is set to 0 just before the loop and read just after: B1 once a
+    training step and no B9 in one, B9 once per attention layer a decode
+    boundary (split); the bus, staleness, swap pauses and the batcher's
+    invariants; the last served snapshot's decode through B9 against the
+    plain version; then ``after(ts)``, whose result the summary keeps under
+    "after". Returns ({kernel: launches}, {kernel: max abs err}, summary)."""
+    import gc
+    from unittest import mock
+    from repro_torch.api import GossipTrainer
+    from repro_torch.launch import serve as cli
+    ts = cli.build(arch, **kw)
     built_s = time.perf_counter() - t_phase
     steps = []
     real = GossipTrainer.step
@@ -3702,70 +3764,75 @@ def run_train_serve_phase(torch, ops, fa, dev, smi):
     forms0 = dict(fa.FORM_LAUNCHES)
     t_loop = time.perf_counter()
     with mock.patch.object(GossipTrainer, "step", timed_step):
-        summary = ts.run(TS_BOUNDARIES)
+        summary = ts.run(boundaries)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t_loop
     launches = {k: ops.launch_counts()[k] for k in KERNELS}
     forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
     peak = torch.cuda.max_memory_allocated(dev)
-    L, nb, nsteps = ts.cfg.num_layers, summary["boundaries"], ts.trainer._host_steps
+    cfg = ts.cfg
+    L, nb, nsteps = attn_passes(cfg), summary["boundaries"], ts.trainer._host_steps
     want = dict.fromkeys(KERNELS, 0)
     want[B1], want[B9] = nsteps, L * nb
-    # (a) B1 once a training step and no B9 in one; (b) B9 22 times a decode
-    # boundary, all split (prompts stream through decode: no prefill launch)
+    # (a) B1 once a training step and no B9 in one; (b) B9 once per attention
+    # layer a decode boundary, all split (prompts stream through decode: no prefill launch)
     if (launches != want or nsteps != nb or len(steps) != nsteps
             or any(s["b1"] != 1 or s["b9"] != 0 or s["forms"] != 0 for s in steps)
             or forms != {**dict.fromkeys(forms0, 0), "split": L * nb}):
-        raise AssertionError(f"[serve-live] launches {launches} (want {want}), B9 forms {forms}, "
+        raise AssertionError(f"[{tag}] launches {launches} (want {want}), B9 forms {forms}, "
                              f"{nsteps} steps / {nb} boundaries, per step "
                              f"{[(s['b1'], s['b9']) for s in steps]}")
-    if nb != TS_BOUNDARIES and ts.batcher.pos < ts.batcher.max_len:
-        raise AssertionError(f"[serve-live] {nb} boundaries of {TS_BOUNDARIES}")
+    if nb != boundaries and ts.batcher.pos < ts.batcher.max_len:
+        raise AssertionError(f"[{tag}] {nb} boundaries of {boundaries}")
     # (c) the bus and the swaps; (d) staleness; (e) the swap pause against
     # the decode boundary, both synchronised
     st = summary
-    if not (st["bus_seq"] == nsteps // TS_EVERY and st["swaps"] >= 1
+    if not (st["bus_seq"] == nsteps // every and st["swaps"] >= 1
             and st["rejected_swaps"] == 0):
-        raise AssertionError(f"[serve-live] bus_seq {st['bus_seq']} (want {nsteps // TS_EVERY}), "
+        raise AssertionError(f"[{tag}] bus_seq {st['bus_seq']} (want {nsteps // every}), "
                              f"swaps {st['swaps']}, rejected {st['rejected_swaps']}")
-    if not 0 <= st["staleness_max_steps"] <= TS_EVERY:
-        raise AssertionError(f"[serve-live] staleness {st['staleness_max_steps']} > {TS_EVERY}")
+    if not 0 <= st["staleness_max_steps"] <= every:
+        raise AssertionError(f"[{tag}] staleness {st['staleness_max_steps']} > {every}")
     if not st["swap_pause_max_s"] < st["boundary_interval_mean_s"]:
-        raise AssertionError(f"[serve-live] max swap pause {st['swap_pause_max_s']} s is not "
+        raise AssertionError(f"[{tag}] max swap pause {st['swap_pause_max_s']} s is not "
                              f"below the mean decode boundary {st['boundary_interval_mean_s']} s")
     # (f) the batcher's invariants (ts.run checked them) and its completions
     if not (st["completed"] > 0 and st["admitted"] == st["completed"] + st["in_flight"]):
-        raise AssertionError(f"[serve-live] batcher {st}")
+        raise AssertionError(f"[{tag}] batcher {st}")
     # (g) the last served snapshot through B9 and through the plain version
-    gap, err = ts_decode_parity(torch, ops, ts, dev)
+    gap, err = ts_decode_parity(torch, ops, ts, dev, tag)
     step_ms = sorted(s["s"] * 1e3 for s in steps)
     decode_s = sum(ts.loop.boundary_times)
     toks = st["generated_tokens"]
+    extra = None if after is None else after(ts)
     del ts
     gc.collect()
     torch.cuda.empty_cache()
     out = dict(summary, max_memory_allocated=peak, built_s=built_s, loop_s=loop_s,
                train_step_ms_median=statistics.median(step_ms), train_step_ms_max=step_ms[-1],
                tokens_per_decode_s=toks / decode_s, tokens_per_loop_s=toks / loop_s,
-               logits_gap=gap, b9_err=err, phase_s=time.perf_counter() - t_phase)
-    log(f"[serve-live] {cfg.name} full width (22 layers, d 2048, vocab 32000, f32), sim W={TS_W}, "
-        f"seq 32 x 2 a worker, publish every {TS_EVERY}, 4 slots, max_len 256, poisson rate 0.3, "
-        f"24 requests, seed 0: {nb} boundaries, {nsteps} training steps in {loop_s:.2f} s "
+               logits_gap=gap, b9_err=err, after=extra,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[{tag}] {cfg.name} full width ({desc}), sim W={kw['workers']}, "
+        f"seq {kw['seq']} x {kw['per_worker_batch']} a worker, publish every {every}, "
+        f"{kw['slots']} slots, max_len {kw['max_len']}, poisson rate {kw['rate']}, "
+        f"{kw['num_requests']} requests, seed {kw['seed']}: {nb} boundaries, {nsteps} training "
+        f"steps in {loop_s:.2f} s "
         f"(built in {built_s:.2f} s); launches {launches} (B1 once a step, B9 never in a step; "
         f"B9 {L * nb} = {L} x {nb} boundaries, by form {forms})")
-    log(f"[serve-live] bus_seq {st['bus_seq']} = {nsteps} // {TS_EVERY}, swaps {st['swaps']}, "
+    log(f"[{tag}] bus_seq {st['bus_seq']} = {nsteps} // {every}, swaps {st['swaps']}, "
         f"rejected {st['rejected_swaps']}; staleness mean {st['staleness_mean_steps']:.3f} max "
-        f"{st['staleness_max_steps']} steps (<= {TS_EVERY}); swap pause mean "
+        f"{st['staleness_max_steps']} steps (<= {every}); swap pause mean "
         f"{st['swap_pause_mean_s'] * 1e3:.4f} ms max {st['swap_pause_max_s'] * 1e3:.4f} ms < "
         f"decode boundary mean {st['boundary_interval_mean_s'] * 1e3:.3f} ms (p50 "
         f"{st['boundary_interval_p50_s'] * 1e3:.3f} ms), both synchronised; training step "
         f"median {out['train_step_ms_median']:.3f} ms (synchronised)")
-    log(f"[serve-live] batcher: {st['completed']} completed, {st['admitted']} admitted, "
+    log(f"[{tag}] batcher: {st['completed']} completed, {st['admitted']} admitted, "
         f"{st['in_flight']} in flight, {st['pending']} pending, invariants held; "
         f"{toks} tokens generated: {out['tokens_per_decode_s']:.1f} tokens/s of decode time, "
         f"{out['tokens_per_loop_s']:.1f} tokens/s of loop time; ttft p50 "
         f"{st['ttft_p50_boundaries']} / latency p50 {st['latency_p50_boundaries']} boundaries")
-    log(f"[serve-live] the last served snapshot (seq {st['bus_seq']}), one decode step through B9 "
+    log(f"[{tag}] the last served snapshot (seq {st['bus_seq']}), one decode step through B9 "
         f"vs plain on copies of the live cache: max |diff| / max |logit| = {gap:.3e} (tolerance "
         f"{PARITY_TOL}), greedy tokens equal; B9 at that decode shape vs plain: max abs err "
         f"{err!r}; max_memory_allocated {peak / 2 ** 30:.2f} GiB; phase {out['phase_s']:.1f} s "
@@ -3917,56 +3984,73 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
     return out
 
 
-def mla_serve_flow(torch, ops, fa, cfg, dev):
+def attn_passes(cfg):
+    """B9 launches per prefill or decode step of ``cfg``: one per attention
+    layer (every layer of a dense or MoE model, a hybrid's shared sites, none
+    in an SSM)."""
+    from repro_torch.models import transformer as tr
+    plan = tr.make_plan(cfg)
+    return sum(s.count for s in plan.segments if s.kind == "attn") + plan.num_shared_sites
+
+
+def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None):
     """The serve_decode entry point at full width and depth in bf16: 512-token
-    prompts, 64 greedy steps. Its memory plan publishes bf16 weights and
-    turns the mid-stream swap off (a second replica does not fit beside the
-    first). B9 must launch 27 times in the prefill (simt) and 27 a step
-    (split), and nowhere else."""
+    prompts, 64 greedy steps. For DeepSeek its memory plan publishes bf16
+    weights and turns the mid-stream swap off (a second replica does not
+    fit beside the first). B9 must launch once per attention layer (27
+    for DeepSeek) in the prefill (simt) and as many times a step (split),
+    and nowhere else."""
     from repro_torch.launch.serve_decode import serve_decode
-    L = cfg.num_layers
+    L = attn_passes(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
     r = serve_decode(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, tokens=SERVE_TOKENS,
                      max_len=SERVE_MAX_LEN, device=dev, seed=0,
-                     log=lambda m: log(f"[mla] {m}"))
+                     log=lambda m: log(f"[{tag}] {m}"))
     counts = ops.launch_counts()
-    forms = dict(fa.FORM_LAUNCHES)
+    forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
     peak = torch.cuda.max_memory_allocated(dev)
     counts = {k: counts[k] for k in KERNELS}
     want = dict.fromkeys(KERNELS, 0)
     want[B9] = L * (1 + SERVE_TOKENS)
     if (r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts != want
             or forms != {"mma": 0, "split": L * SERVE_TOKENS, "simt": L}):
-        raise RuntimeError(f"[mla] launches: prefill {r['prefill_launches']}, per step "
+        raise RuntimeError(f"[{tag}] launches: prefill {r['prefill_launches']}, per step "
                            f"{sorted(set(r['step_launches']))}, {counts}, by form {forms}; "
                            f"want {L}, {L}, {want}")
     plan = r["plan"]
-    if (plan["init_dtype"] != torch.bfloat16 or plan["swap"] or r["swaps"] != 1
-            or not r["final_logits_finite"] or r["cache_pos"] != SERVE_PROMPT + SERVE_TOKENS
-            or tuple(r["stream"].shape) != (SERVE_BATCH, SERVE_TOKENS)):
-        raise RuntimeError(f"[mla] serve_decode: plan {plan['init_dtype']} swap {plan['swap']}, "
-                           f"swaps {r['swaps']}, finite {r['final_logits_finite']}, pos "
-                           f"{r['cache_pos']}, stream {tuple(r['stream'].shape)}")
+    swaps = 2 if plan["swap"] else 1
+    if (r["swaps"] != swaps or not r["final_logits_finite"]
+            or r["cache_pos"] != SERVE_PROMPT + SERVE_TOKENS
+            or tuple(r["stream"].shape) != (SERVE_BATCH, SERVE_TOKENS)
+            or (cfg.name.startswith("deepseek") and (plan["init_dtype"] != torch.bfloat16
+                                                     or plan["swap"]))):
+        raise RuntimeError(f"[{tag}] serve_decode: plan {plan['init_dtype']} swap "
+                           f"{plan['swap']}, swaps {r['swaps']}, finite "
+                           f"{r['final_logits_finite']}, pos {r['cache_pos']}, stream "
+                           f"{tuple(r['stream'].shape)}")
     step = statistics.median(r["step_ms"])
-    log(f"[mla] {cfg.name} full width and depth (27 layers, d 2048, MLA 512 + 64, 64 experts "
-        f"top-6 + 2 shared at 1408, vocab 102400), bf16, random weights from seed 0, batch "
-        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, max_len {SERVE_MAX_LEN}: prefill "
+    desc = desc or ("27 layers, d 2048, MLA 512 + 64, 64 experts top-6 + 2 shared at 1408, "
+                    "vocab 102400")
+    log(f"[{tag}] {cfg.name} full width and depth ({desc}), bf16, random weights from seed 0, "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, max_len {SERVE_MAX_LEN}: prefill "
         f"{r['prefill_ms']:.3f} ms ({SERVE_BATCH * SERVE_PROMPT / r['prefill_ms'] * 1e3:.1f} "
         f"prompt tokens/s), median decode step {step:.3f} ms ({SERVE_BATCH / step * 1e3:.1f} "
         f"tokens/s), max_memory_allocated {peak / 2 ** 30:.2f} GiB; B9 launches {counts[B9]} = "
         f"{L} x (1 + {SERVE_TOKENS}), by form {forms}")
     return counts[B9], dict(prefill_ms=r["prefill_ms"], step_ms=step,
                             tokens_per_s=SERVE_BATCH / step * 1e3,
-                            max_memory_allocated=peak,
+                            max_memory_allocated=peak, swap_pause_ms=r["swap_pause_s"] * 1e3,
                             plan={k: v for k, v in plan.items() if k != "init_dtype"})
 
 
-def mla_batcher(torch, ops, fa, cfg, dev):
+def mla_batcher(torch, ops, fa, cfg, dev, tag="mla"):
     """A ContinuousBatcher over a 16-request TrafficGen stream (prompts 8-64,
     budgets 16-64) at full width and depth in bf16 until it drains: every
     admitted request completes with its budget, the batcher's invariants
-    hold, B9 launches 27 times a boundary."""
+    hold, B9 launches once per attention layer a boundary (27 for
+    DeepSeek)."""
     from repro_torch.models import transformer as tr
     from repro_torch.serve import ContinuousBatcher, LiveServer, SnapshotBus, TrafficGen
     from repro_torch.serving.engine import make_serve_program
@@ -3994,24 +4078,25 @@ def mla_batcher(torch, ops, fa, cfg, dev):
     by_rid = {r.rid: r for r in reqs}
     if lat["completed"] != len(reqs) or bat.pending or any(
             len(rec["tokens"]) != by_rid[rec["rid"]].max_new for rec in bat.completed):
-        raise RuntimeError(f"[mla] batcher did not complete every request: {lat}")
-    if launches != cfg.num_layers * t:
-        raise RuntimeError(f"[mla] B9 launches {launches} != {cfg.num_layers} x {t} boundaries")
+        raise RuntimeError(f"[{tag}] batcher did not complete every request: {lat}")
+    L = attn_passes(cfg)
+    if launches != L * t:
+        raise RuntimeError(f"[{tag}] B9 launches {launches} != {L} x {t} boundaries")
     tps = lat["generated_tokens"] / wall
-    log(f"[mla] continuous batching: {t} boundaries in {wall:.3f} s ({wall / t * 1e3:.3f} ms a "
+    log(f"[{tag}] continuous batching: {t} boundaries in {wall:.3f} s ({wall / t * 1e3:.3f} ms a "
         f"boundary), {lat['completed']} of {len(reqs)} requests completed, invariants held, "
         f"{lat['generated_tokens']} tokens, {tps:.1f} tokens/s; ttft p50 "
         f"{lat['ttft_p50_boundaries']} / latency p99 {lat['latency_p99_boundaries']} "
-        f"boundaries; B9 launches {launches} = {cfg.num_layers} x {t}")
+        f"boundaries; B9 launches {launches} = {L} x {t}")
     return launches, dict(tokens_per_s=tps, boundary_ms=wall / t * 1e3, boundaries=t,
                           completed=lat["completed"])
 
 
-def mla_gate(torch, ops, cfg, dev):
-    """f32 at full widths and 2 layers (1 dense + 1 MoE): a prefill and 8
-    decode steps through B9 and through its plain version (patched into the
-    op), on the same weights and tokens: logits within PARITY_TOL of the
-    largest, greedy tokens equal."""
+def mla_gate(torch, ops, cfg, dev, tag="mla", what="2 layers (1 dense + 1 MoE)"):
+    """f32 at full widths and cut depth (DeepSeek: 2 layers, 1 dense + 1
+    MoE): a prefill and 8 decode steps through B9 and through its plain
+    version (patched into the op), on the same weights and tokens: logits
+    within PARITY_TOL of the largest, greedy tokens equal."""
     from unittest import mock
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tr
@@ -4042,14 +4127,14 @@ def mla_gate(torch, ops, cfg, dev):
         want = run()
     torch.cuda.synchronize()
     launched = ops.launch_counts()[B9] - n
-    if launched != cfg.num_layers * (1 + PARITY_STEPS):
-        raise RuntimeError(f"[mla] the f32 gate launched B9 {launched} times")
+    if launched != attn_passes(cfg) * (1 + PARITY_STEPS):
+        raise RuntimeError(f"[{tag}] the f32 gate launched B9 {launched} times")
     gap = float((got - want).abs().max() / want.abs().max())
     equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
     if not (torch.isfinite(got).all() and gap <= PARITY_TOL and equal):
-        raise RuntimeError(f"[mla] f32 logits through B9 vs plain: relative gap {gap} "
+        raise RuntimeError(f"[{tag}] f32 logits through B9 vs plain: relative gap {gap} "
                            f"(tolerance {PARITY_TOL}), greedy tokens equal {equal}")
-    log(f"[mla] f32 gate at full widths, {cfg.num_layers} layers (1 dense + 1 MoE): prefill + "
+    log(f"[{tag}] f32 gate at full widths, {what}: prefill + "
         f"{PARITY_STEPS} decode steps, B9 vs plain version: logits max |diff| / max |logit| = "
         f"{gap:.3e} (tolerance {PARITY_TOL}), greedy tokens equal; B9 forms {forms}")
     return launched, gap
@@ -4105,6 +4190,420 @@ def run_mla_phase(torch, ops, fa, dev, bw, peak, smi):
     return n_flow + n_bat + n_gate + n_swap, max(err.values()), dict(
         max_abs_err_f32=err["float32"], max_abs_err_bf16=err["bfloat16"],
         launches_serve_decode=n_flow, launches_batcher=n_bat, **times)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training DeepSeek-V2-Lite-16B (MLA + MoE) at its published widths
+# through the reference's CLI, and training it while serving it
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 2                       # the depth cut: the dense first layer + one MoE layer
+MOE_SEQ = 256
+MOE_CAPACITY = 120                   # 4 x 256 tokens a worker x top-6 / 64 experts x 1.25
+MOE_GRAD_TOKENS = 64                 # the f64 gradient check's one sequence (CPU time)
+MOE_TS_BOUNDARIES = 48
+MOE_TS_KW = dict(TS_KW, layers=MOE_LAYERS)
+MOE_REDUCED_W = 2                    # the reduced dist runs' processes
+
+
+def moe_train(torch, ops, fu, ref, fa, dev, bw, peak):
+    """10 sim steps of DeepSeek-V2-Lite-16B at its published widths, cut to
+    2 layers, through launch.train.run with phase 10's arguments (W = 2,
+    global batch 8, seq 256). Every count is set to 0 just before the run
+    and read just after: B1 once a step, B9 never. The loss finite and
+    falling; comm_units = gates; the step's memory plan beside
+    max_memory_allocated; the MoE layer's capacity and dropped tokens on the
+    run's first batch at the trained parameters of worker 0; then B1 on one
+    more step's own inputs, byte for byte in column chunks, and timed.
+    Returns (launches, B1's max abs err, B1's timing, summary)."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MOE_LAYERS)
+    rb = cli.replica_bytes(cfg)
+    tokens = LM_BATCH * MOE_SEQ
+    free = torch.cuda.mem_get_info(dev)[0]
+    plan = cli.step_memory(cfg, LM_W, tokens, MOE_SEQ, dev)
+    act = cli.activation_bytes(cfg, tokens, MOE_SEQ)
+    gib = 2 ** 30
+    rec = {"gates": [], "step_s": [], "trainer": None}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = [time.perf_counter()]
+
+    def on_step(i, trainer, state, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["step_s"].append(now - t[0])
+        rec["gates"].append(trainer.sim.last_draws[0].cpu())
+        rec["trainer"] = trainer
+        t[0] = time.perf_counter()
+
+    ops.zero_launch_counts()
+    state, hist = cli.run(MLA_ARCH, **lm_run_kw(seq=MOE_SEQ, layers=MOE_LAYERS, on_step=on_step))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_mem = torch.cuda.max_memory_allocated(dev)
+    trainer = rec["trainer"]
+    want = dict.fromkeys(KERNELS, 0)
+    want[B1] = LM_STEPS
+    got = {k: launches[k] for k in KERNELS}
+    if got != want or any(fa.FORM_LAUNCHES.values()):
+        raise AssertionError(f"[moe] launches {got} (B9 forms {dict(fa.FORM_LAUNCHES)}), "
+                             f"expected {want} and no B9 form")
+    losses = [r["loss"] for r in hist]
+    if len(losses) != LM_STEPS or not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"[moe] losses {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"[moe] loss not falling: {losses}")
+    gates = int(sum(int(g.sum()) for g in rec["gates"]))
+    units = int(state.proto.comm_units)
+    wire = trainer.sim._wire_bytes(state.spec)
+    want_bytes = (torch.tensor(wire / LM_W, dtype=torch.float32)
+                  * torch.tensor(float(units), dtype=torch.float32))
+    if wire != rb or units != gates or not bits_equal(torch, state.proto.comm_bytes.cpu(),
+                                                      want_bytes):
+        raise AssertionError(f"[moe] wire {wire} (replica {rb}), comm_units {units} / gates "
+                             f"{gates}, comm_bytes {float(state.proto.comm_bytes)!r}")
+    # the MoE layer's dispatch on the run's first batch of worker 0, at worker
+    # 0's trained parameters (outside the engines' vmap, where it can be read)
+    seen = []
+    real = moe._build_buffer
+
+    def spy(xt, ids, weights, E, k, C):
+        out = real(xt, ids, weights, E, k, C)
+        seen.append((xt.shape[0], C, int((~out[4]).sum())))
+        return out
+
+    b0 = next(cli.lm_batches(cfg, LM_W, LM_BATCH // LM_W, MOE_SEQ, 0, device=dev))
+    row0 = state.spec.with_lead(()).unflatten({k: v[0] for k, v in state.theta.items()})
+    with torch.no_grad(), mock.patch.object(moe, "_build_buffer", spy):
+        tr.forward(row0, cfg, b0["tokens"][0])
+    del row0
+    if len(seen) != 1 or seen[0][1] != MOE_CAPACITY or not seen[0][2] > 0:
+        raise AssertionError(f"[moe] dispatch (tokens, C, dropped) {seen}, want C "
+                             f"{MOE_CAPACITY} with tokens dropped")
+    step_ms = [x * 1e3 for x in rec["step_s"]]
+    med = statistics.median(step_ms[1:])
+    log(f"[moe] {cfg.name} at its published widths (d 2048, 16 heads, MLA 512 + 64, 64 experts "
+        f"top-6 + 2 shared at 1408, vocab 102400), depth cut to {MOE_LAYERS} layers (1 dense + 1 "
+        f"MoE, {rb // 4} f32 parameters), sim W={LM_W}, global batch {LM_BATCH}, seq {MOE_SEQ}, "
+        f"NAG lr {LM_LR}, p {LM_P}: loss " + " ".join(f"{x:.4f}" for x in losses)
+        + "; step ms (synchronised, first with warm-up) " + " ".join(f"{x:.1f}" for x in step_ms)
+        + f"; median after the first {med:.3f} ms ({tokens / med * 1e3:.0f} tokens/s); "
+        f"launches {got}; comm_units {units} = gates {gates}")
+    log(f"[moe] memory: step plan (4 planes {4 * LM_W * rb / gib:.2f} GiB + activations "
+        f"estimate {act / gib:.2f} GiB) {plan / gib:.2f} GiB of {free / gib:.2f} GiB free; "
+        f"max_memory_allocated {peak_mem / gib:.2f} GiB ({peak_mem / plan:.3f} of the plan)")
+    log(f"[moe] dispatch on worker 0's first batch at its trained parameters: {seen[0][0]} tokens, "
+        f"capacity C = {seen[0][1]} (= int({seen[0][0]} x 6 / 64 x 1.25)), {seen[0][2]} of "
+        f"{seen[0][0] * 6} routed slots dropped")
+    err, b1 = lm_b1(torch, fu, ref, ops, trainer, state, cfg, MOE_SEQ, dev, bw, peak, tag="moe")
+    del trainer, state
+    return got, err, b1, dict(losses=losses, step_ms=step_ms, step_ms_median=med,
+                              max_memory_allocated=peak_mem, plan_bytes=plan,
+                              activations_estimate=act, capacity=seen[0][1],
+                              dropped_slots=seen[0][2], tokens_per_step=tokens)
+
+
+def moe_grad_vs_f64(torch, dev):
+    """At the published widths cut to 2 layers: the card's f32 loss and flat
+    gradient against the CPU's f64 ones at the card's parameters, on one
+    sequence of 64 tokens. Both sides run plain autograd through the views
+    (the engines' loss on one row), so the card's routing can be read: the
+    f64 run takes the card's top-k sets (its own f64 probabilities at those
+    ids), so the check holds the arithmetic, and the tokens whose f64 top-k
+    set differs are counted. Limits: phase 10's (share of elements outside
+    rtol 1e-4 / atol 1e-6, worst leaf rel L2, the loss to 1e-4); leaves the
+    f64 run gives no gradient (unrouted experts) must get exactly 0."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.common.precision import full_f32
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MOE_LAYERS)
+    params = tr.init_lm(torch.Generator(device=dev).manual_seed(3), cfg)[0]
+    b = next(lm_batches(cfg, 1, 1, MOE_GRAD_TOKENS, seed=2, device=dev))
+    x, y = b["tokens"][0], b["labels"][0]
+    real = moe._route
+    card_ids, differ = [], []
+
+    def spy(logits, top_k):
+        out = real(logits, top_k)
+        card_ids.append(out[2].detach().cpu())
+        return out
+
+    def forced(logits, top_k):
+        probs, _, ids = real(logits, top_k)
+        want = card_ids[len(differ)].to(ids.device)
+        differ.append(int((ids.sort(-1).values != want.sort(-1).values).any(-1).sum()))
+        w = torch.gather(probs, -1, want)
+        return probs, w / torch.sum(w, dim=-1, keepdim=True), want
+
+    def grad(params, dev_, route):
+        spec = FlatSpec.build(params)
+        (name, flat), = spec.flatten(params).items()
+        buf = flat.to(dev_).requires_grad_(True)
+        with full_f32(), mock.patch.object(moe, "_route", route):
+            loss = tr.lm_loss(spec.with_lead(()).views({name: buf}), cfg, x.to(dev_),
+                              y.to(dev_))[0]
+            loss.backward()
+        return spec, buf.grad.detach().cpu(), float(loss.detach())
+
+    spec, a, l32 = grad(params, dev, spy)
+    p64 = tree_map(lambda t: t.detach().cpu().double(), params)
+    del params
+    torch.cuda.empty_cache()
+    _, w, l64 = grad(p64, "cpu", forced)
+    del p64
+    if a.dtype != torch.float32 or w.dtype != torch.float64:
+        raise AssertionError(f"[moe] gradient dtypes {a.dtype} / {w.dtype}")
+    out = float((~torch.isclose(a.double(), w, rtol=1e-4, atol=1e-6)).double().mean())
+    leaves, silent = {}, 0
+    for path, s in zip(_leaf_names(spec), spec.slots):
+        u, v = a[s.offset:s.offset + s.size].double(), w[s.offset:s.offset + s.size]
+        nv = torch.linalg.vector_norm(v)
+        if float(nv) == 0.0:
+            if bool(u.any()):
+                raise AssertionError(f"[moe] {path}: f64 gradient 0, f32 not")
+            silent += 1
+            continue
+        leaves[path] = float(torch.linalg.vector_norm(u - v) / nv)
+    worst = max(leaves, key=leaves.get)
+    secs = time.perf_counter() - t0
+    log(f"[moe] gradient at the published widths, {MOE_LAYERS} layers ({a.numel()} elements), "
+        f"1 x {MOE_GRAD_TOKENS} tokens: f32 (card) loss {l32:.7f} vs f64 (CPU) {l64:.7f}; top-k "
+        f"expert sets differing between f32 and f64: {differ} of {MOE_GRAD_TOKENS} tokens (the "
+        f"f64 run takes the card's); {out:.4%} of the elements outside rtol 1e-4 / atol 1e-6 of "
+        f"f64 (limit {LM_GRAD_OUT:.0%}); worst leaf rel L2 {leaves[worst]:.3e} ({worst}, limit "
+        f"{LM_GRAD_REL}); {silent} leaves without gradient in both; {secs:.1f} s")
+    if not (out <= LM_GRAD_OUT and leaves[worst] <= LM_GRAD_REL
+            and abs(l32 - l64) <= 1e-4 * abs(l64)):
+        raise AssertionError("[moe] the f32 gradient is not the f64 one within the limits")
+    return dict(outside=out, worst_leaf_rel_l2=leaves[worst], loss_f32=l32, loss_f64=l64,
+                topk_sets_differing=differ, seconds=secs)
+
+
+def moe_prefill_parity(torch, ops, fa, ts, dev):
+    """The last served snapshot's prefill of a [4, 256] prompt through B9
+    (MLA's simt form, once per layer) and through its plain version: logits
+    within PARITY_TOL of the largest, greedy tokens equal."""
+    from unittest import mock
+    from repro_torch.serving.engine import make_serve_program
+    cfg, params = ts.cfg, ts.server.params
+    prog = make_serve_program(cfg, batch=4, max_len=MOE_SEQ, param_dtype=torch.float32,
+                              cache_dtype=torch.float32, with_prefill=True, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (4, MOE_SEQ), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(9))
+    n, forms0 = ops.launch_counts()[B9], dict(fa.FORM_LAUNCHES)
+    got = prog.prefill_fn(params, prompt)[0].float()
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()[B9] - n
+    forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
+    with mock.patch.object(ops, "attention", plain_attention):
+        want = prog.prefill_fn(params, prompt)[0].float()
+    gap = float((got - want).abs().max() / want.abs().max())
+    equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if launched != cfg.num_layers or forms["simt"] != cfg.num_layers or not (
+            gap <= PARITY_TOL and equal and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"[moe-serve] prefill through B9: {launched} launches by form "
+                             f"{forms}, gap {gap}, greedy tokens equal {equal}")
+    log(f"[moe-serve] the last served snapshot's prefill [4, {MOE_SEQ}] (f32): B9 {launched} "
+        f"launches by form {forms}; logits vs the plain version: max |diff| / max |logit| = "
+        f"{gap:.3e} (tolerance {PARITY_TOL}), greedy tokens equal")
+    return launched, gap
+
+
+def run_moe_phase(torch, ops, fu, ck, ref, fa, codec_seeds, dev, bw, peak, smi):
+    """Phase 13. Returns ({kernel: launches}, {kernel: max abs err}, B1's
+    timing, summary)."""
+    import gc
+    launches, err1, b1, run = moe_train(torch, ops, fu, ref, fa, dev, bw, peak)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad = moe_grad_vs_f64(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_ts = time.perf_counter()
+    ts_launches, ts_err, ts_summary = train_serve(
+        torch, ops, fa, dev, smi, MLA_ARCH, MOE_TS_KW, MOE_TS_BOUNDARIES, TS_EVERY, "moe-serve",
+        f"published widths, {MOE_LAYERS} layers, f32", t_ts,
+        after=lambda ts: moe_prefill_parity(torch, ops, fa, ts, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in ts_launches.items():
+        launches[k] += n
+    launches[B9] += ts_summary["after"][0]
+    errs = {B1: err1, B9: ts_err[B9]}
+    for arch in (MLA_ARCH, "grok_1_314b"):
+        reduced, e = lm_reduced_runs(torch, ops, fu, ck, ref, codec_seeds, dev, arch=arch,
+                                     W=MOE_REDUCED_W, tag="moe")
+        for k, n in reduced.items():
+            launches[k] += n
+        for k, x in e.items():
+            errs[k] = max(errs.get(k, 0.0), x)
+    return launches, errs, b1, dict(run=run, grad=grad, train_serve=ts_summary)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: serving SSM and hybrid models (xLSTM-125M, Zamba2-2.7B) at full
+# width and depth; B9 at Zamba2's head dim 80
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("xlstm_125m", "zamba2_2_7b")
+SSM_DESC = {"xlstm_125m": "12 layers: 10 mLSTM + 2 sLSTM, d 768, 4 heads, vocab 50304",
+            "zamba2_2_7b": "54 Mamba2 layers, d 2560, state 64, 8 shared attention sites over "
+                           "2 shared blocks, 32 heads of 80, vocab 32000"}
+# the f32 gates' depth: xLSTM whole (its sLSTM layers are 5 and 11); Zamba2
+# 13 layers, its first two shared sites (a site follows every 6 Mamba2 layers)
+SSM_GATE_LAYERS = {"xlstm_125m": 12, "zamba2_2_7b": 13}
+ZAMBA_H, ZAMBA_HD = 32, 80
+
+
+def b9_hd80_cases(torch, dev, dt):
+    """(tag, q, k, v, kwargs) at Zamba2's shared attention (32 heads of 80
+    over 32 kv heads): decode over the [8, 1024] cache at positions 0, 511,
+    1023 and with a kv_start (split form), prefill 8 x 512 and 77 rows
+    (simt form: 80 is not an mma head dim)."""
+    g = torch.Generator(device=dev).manual_seed(53)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    B, H, hd = SERVE_BATCH, ZAMBA_H, ZAMBA_HD
+    ck, cv, qd = rnd(B, SERVE_MAX_LEN, H, hd), rnd(B, SERVE_MAX_LEN, H, hd), rnd(B, 1, H, hd)
+    cases = [(f"decode pos {p}", qd, ck, cv, dict(causal=True, q_offset=i32(p),
+                                                  kv_len=i32(p + 1))) for p in (0, 511, 1023)]
+    cases.append(("decode kv_start", qd, ck, cv,
+                  dict(causal=True, q_offset=i32(700), kv_len=i32(701),
+                       kv_start=i32([0, 100, 512, 700, 3, 699, 250, 1]))))
+    kp, vp, qp = (rnd(B, SERVE_PROMPT, H, hd) for _ in range(3))
+    cases.append(("prefill 8 x 512", qp, kp, vp, dict(causal=True)))
+    cases.append(("prefill 77 rows", qp[:2, :77], kp[:2, :77], vp[:2, :77], dict(causal=True)))
+    return cases
+
+
+def check_b9_hd80(torch, ops, fa, dev):
+    """B9 at head dim 80 against its plain version, f32 and bf16, to phase
+    6's tolerances; the split and the simt form must both run in each dtype
+    and the mma form never. Returns the max abs err by dtype."""
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        before = dict(fa.FORM_LAUNCHES)
+        worst[name] = 0.0
+        cases = b9_hd80_cases(torch, dev, dt)
+        for tag, q, k, v, kw in cases:
+            n = fa.LAUNCHES
+            got = ops.attention(q, k, v, **kw)
+            want = plain_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES != n + 1 or got.shape != want.shape:
+                raise RuntimeError(f"B9 hd 80 {tag}: no launch, or shape {tuple(got.shape)}")
+            worst[name] = max(worst[name], b9_err(f"hd 80 {tag}", got, want))
+        ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
+        if not (ran["split"] and ran["simt"]) or ran["mma"]:
+            raise RuntimeError(f"B9 hd 80 checks, {name}: forms {ran}")
+        log(f"[ssm] B9 vs plain version at Zamba2's head dim 80, {name}: {len(cases)} cases, max "
+            f"abs err {worst[name]:.3e} (tolerance {B9_TOL[name]}"
+            + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
+            + f"); forms {ran}")
+    return worst
+
+
+def time_b9_hd80(torch, ops, fa, dev, bw, peak):
+    """B9, its plain version and SDPA at Zamba2's shared attention in bf16,
+    by CUDA events: the prefill [8, 512, 32, 80] causal (simt form) and the
+    decode [8, 1, 32, 80] over the [8, 1024, 32, 80] cache at position 512
+    (split form; SDPA gets the live rows)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(54)
+    dt, B, S, H, hd = torch.bfloat16, SERVE_BATCH, SERVE_PROMPT, ZAMBA_H, ZAMBA_HD
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev).to(dt) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    out = {}
+    ms, form = timed_form(torch, fa, lambda: ops.attention(q, k, v, causal=True))
+    pre = dict(ms=ms, form=form, shape=[B, S, H, hd],
+               plain_ms=time_launches(torch, lambda: plain_attention(q, k, v, causal=True),
+                                      reps=20, warmup=3),
+               library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True), reps=20, warmup=3))
+    pre["bound_ms"], pre["bound_by"] = b9_bound(B, S, H, H, hd, S, 2, bw, peak)
+    out["prefill"] = pre
+    pos = SERVE_PROMPT
+    ck, cv = (torch.randn(B, SERVE_MAX_LEN, H, hd, generator=g, device=dev).to(dt)
+              for _ in range(2))
+    qd = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
+    p_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n_t = p_t + 1
+    qdt = qd.transpose(1, 2).contiguous()
+    kl, vl = (a[:, :pos + 1].transpose(1, 2).contiguous() for a in (ck, cv))
+    ms, form = timed_form(torch, fa, lambda: ops.attention(qd, ck, cv, causal=True,
+                                                           q_offset=p_t, kv_len=n_t))
+    d = dict(ms=ms, form=form, shape=[B, 1, H, hd], cache=[B, SERVE_MAX_LEN, H, hd], pos=pos,
+             plain_ms=time_launches(torch, lambda: plain_attention(
+                 qd, ck, cv, causal=True, q_offset=p_t, kv_len=n_t)),
+             library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                 qdt, kl, vl)))
+    d["bound_ms"], d["bound_by"] = b9_bound(B, 1, H, H, hd, pos + 1, 2, bw, peak)
+    out["decode"] = d
+    for tag, r in out.items():
+        log(f"[ssm] B9 {tag} bf16 at head dim 80 ({r['form']} form): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events")
+    return out
+
+
+def run_ssm_phase(torch, ops, fa, dev, bw, peak, smi):
+    """Phase 14. Returns (B9 launches, B9's max abs err, the numbers for the
+    kernels line, summary)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    err = check_b9_hd80(torch, ops, fa, dev)
+    times = time_b9_hd80(torch, ops, fa, dev, bw, peak)
+    launches, summary = 0, {}
+    for arch in SSM_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        n_flow, flow = mla_serve_flow(torch, ops, fa, cfg, dev, tag="ssm", desc=SSM_DESC[arch])
+        if arch == "xlstm_125m":
+            log("[ssm] xLSTM-125M launches no kernel: its mLSTM and sLSTM blocks are recurrent "
+                "(the chunked GLA core and the sLSTM loop in torch ops; the reference has no "
+                "Pallas kernel for them either)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_bat, bat = mla_batcher(torch, ops, fa, cfg, dev, tag="ssm")
+        gc.collect()
+        torch.cuda.empty_cache()
+        L = SSM_GATE_LAYERS[arch]
+        cut = dataclasses.replace(cfg, num_layers=L)
+        n_gate, gap = mla_gate(torch, ops, cut, dev, tag="ssm",
+                               what=f"{cfg.name} at {L} of {cfg.num_layers} layers "
+                                    f"({attn_passes(cut)} attention sites)")
+        launches += n_flow + n_bat + n_gate
+        summary[arch] = dict(serve=flow, batcher=bat, f32_gate_gap=gap,
+                             f32_gate_layers=L)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["b9_hd80"] = times
+    log(f"[ssm] summary ({smi}): {json.dumps(summary, default=str)}")
+    return launches, max(err.values()), dict(max_abs_err_f32=err["float32"],
+                                             max_abs_err_bf16=err["bfloat16"], **times), summary
 
 
 # kernel -> (id, source, TPU kernel it replaces)
@@ -4289,6 +4788,24 @@ def main():
     launches[B9] += n_mla
     err[B9] = max(err[B9], mla_err)
     phase_s["12 mla"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    moe_launches, moe_err, times[B1]["deepseek_2_layer_plane"], moe_summary = run_moe_phase(
+        torch, ops, fu, ck, ref, fa, codec_seeds, dev, bw, peak, smi)
+    for kname, n in moe_launches.items():
+        launches[kname] += n
+    for kname, e in moe_err.items():
+        err[kname] = max(err[kname], e)
+    log(f"[moe] launches in phase 13: {moe_launches}; summary ({smi}): "
+        f"{json.dumps(moe_summary, default=str)}")
+    phase_s["13 moe"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    n_ssm, ssm_err, times[B9]["zamba2_hd80"], _ = run_ssm_phase(torch, ops, fa, dev, bw,
+                                                                  peak_bf16, smi)
+    launches[B9] += n_ssm
+    err[B9] = max(err[B9], ssm_err)
+    phase_s["14 ssm"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

@@ -14,10 +14,13 @@ the telemetry plane (``repro_torch.obs``) and write both files at the end,
 so the profile shows what recording costs a step. ``--model lm --arch
 tinyllama_1_1b`` profiles the transformer LM's sim step at full size (f32,
 the reference CLI's ``lm_loss`` over ``launch.train.lm_batches`` at
-``--seq``, ``--batch`` per worker); its kernels are further
-split into the attention (the ops run inside the differentiable online
-softmax and their backward nodes, matched by autograd sequence number),
-the flat views' backward and the rest. For the LM only, as many
+``--seq``, ``--batch`` per worker; ``--layers N`` cuts the depth to N
+layers, widths uncut, e.g. ``--arch deepseek_v2_lite_16b --layers 2``);
+its kernels are further split into the attention (the ops run inside the
+differentiable online softmax and their backward nodes, matched by
+autograd sequence number), an MoE layer's expert ``bmm``s and its dispatch
+(route, sort + scatter, gather + combine; matched the same way), the flat
+views' backward and the rest. For the LM only, as many
 unprofiled steps are first timed by CUDA events, and the kernel list
 leaves out the device-side copy of the attention's ``record_function``
 range (a user annotation, not a kernel); the MLP and CNN profiles are
@@ -25,6 +28,7 @@ taken as before.
 
     python -m repro_torch.launch.profile_sim [--model mlp|cnn|lm]
                                              [--arch tinyllama_1_1b] [--seq 256]
+                                             [--layers N]
                                              [--workers 8] [--batch 16] [--steps 10]
                                              [--codec none|q8|topk]
                                              [--method clipped_gossip] [--p 0.5]
@@ -56,6 +60,7 @@ copies between host and device (the host plane's) and the rest.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import time
@@ -133,7 +138,7 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             time_model: str = "lognormal", sigma: float = 0.6, partition: int = 1,
             flow_control: str = "none", plane: str = "device", shard: int = 1,
             trace: str = "", metrics: str = "", arch: str = "tinyllama_1_1b",
-            seq: int = 256) -> dict:
+            seq: int = 256, layers: int = 0) -> dict:
     from repro_torch.common.config import (FaultConfig, FleetConfig, HeteroConfig, ObsConfig,
                                            ShardConfig)
     from repro_torch.data.partition import batches_for_step, partition_iid
@@ -154,6 +159,8 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     if model == "lm":
         from repro_torch.configs import get_config
         lm_cfg = get_config(arch)
+        if layers:
+            lm_cfg = dataclasses.replace(lm_cfg, num_layers=layers)
     trainer = _trainer(W, device, codec, method, p, faults, model, engine, hetero,
                        fleet if fleet.enabled() else None,
                        ShardConfig(n_shards=shard) if shard != 1 else None,
@@ -239,23 +246,29 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
                          "calls_per_step": c / steps} for n, (us, c) in top],
         "arch": lm_cfg.name if lm_cfg is not None else None,
         "seq": seq if model == "lm" else None,
+        "layers": lm_cfg.num_layers if lm_cfg is not None else None,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None),
     }
 
 
-ATTENTION_RANGE = "online_softmax_attention"
+# record_function ranges of the LM step -> the part their kernels (and
+# their backward nodes' kernels) are counted under
+RANGES = {"online_softmax_attention": "attention (fwd + bwd)",
+          "moe expert matmuls": "MoE expert bmms (fwd + bwd)",
+          "moe route": "MoE dispatch: route (fwd + bwd)",
+          "moe sort + scatter": "MoE dispatch: sort + scatter (fwd + bwd)",
+          "moe gather + combine": "MoE dispatch: gather + combine (fwd + bwd)"}
 
 
 def _lm_split(events) -> dict:
-    """The LM step's device time (us) by part: B1; the attention (kernels
-    launched by ops inside the ``online_softmax_attention`` range, and by
-    backward nodes whose forward op ran there, matched by autograd sequence
-    number); the flat views' backward (the ``_Views`` backward node); the
-    remaining matmuls and the remaining elementwise / reduction kernels. A
-    kernel goes by the op that launched it (the op's ``kernels``); those
-    launched outside any op (the hand-written kernels, through ctypes) go
-    by name."""
+    """The LM step's device time (us) by part: B1; each of :data:`RANGES`
+    (kernels launched by ops inside the range, and by backward nodes whose
+    forward op ran there, matched by autograd sequence number); the flat
+    views' backward (the ``_Views`` backward node); the remaining matmuls
+    and the remaining elementwise / reduction kernels. A kernel goes by
+    the op that launched it (the op's ``kernels``); those launched outside
+    any op (the hand-written kernels, through ctypes) go by name."""
     CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
     def ancestors(e):
@@ -273,31 +286,46 @@ def _lm_split(events) -> dict:
             return "host <-> device copies"
         return "elementwise / reductions / copies"
 
+    def innermost_range(chain):
+        return next((a.name for a in chain if a.name in RANGES), None)
+
     ops = [e for e in events if e.device_type == CPU]
-    attn_seq = {e.sequence_nr for e in ops if e.sequence_nr >= 0
-                and any(a.name == ATTENTION_RANGE for a in ancestors(e.cpu_parent))}
+    seq_range = {}
+    for e in ops:
+        if e.sequence_nr >= 0:
+            r = innermost_range(ancestors(e.cpu_parent))
+            if r is not None:
+                seq_range[e.sequence_nr] = r
     out = defaultdict(float)
     unlinked = defaultdict(float)
     for k in events:
         if k.device_type == CUDA and not k.is_user_annotation:
             unlinked[k.name] += k.time_range.end - k.time_range.start
+    # a kernel listed under more than one op is counted once: no name is
+    # given more time than its kernels took on the device
+    left = dict(unlinked)
     for e in ops:
         if not e.kernels:
             continue
         chain = list(ancestors(e))
         names = [a.name for a in chain]
+        r = innermost_range(chain)
+        if r is None:
+            r = next((seq_range[a.sequence_nr] for a in chain
+                      if "evaluate_function" in a.name and a.sequence_nr in seq_range), None)
         for k in e.kernels:
-            if k.name == ATTENTION_RANGE:
+            if k.name in RANGES:
                 continue
-            unlinked[k.name] -= k.duration
+            us = min(k.duration, max(left.get(k.name, 0.0), 0.0))
+            left[k.name] = left.get(k.name, 0.0) - us
+            unlinked[k.name] -= us
             if any("_Views" in a and "Backward" in a for a in names):
                 part = "views backward"
-            elif ATTENTION_RANGE in names or any(
-                    "evaluate_function" in a.name and a.sequence_nr in attn_seq for a in chain):
-                part = "attention (fwd + bwd)"
+            elif r is not None:
+                part = RANGES[r]
             else:
                 part = by_name(k.name)
-            out[part] += k.duration
+            out[part] += us
     for name, us in unlinked.items():
         if us > 0:
             out[by_name(name)] += us
@@ -331,6 +359,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="mlp", choices=("mlp", "cnn", "lm"))
     ap.add_argument("--arch", default="tinyllama_1_1b", help="--model lm: the architecture")
     ap.add_argument("--seq", type=int, default=256, help="--model lm: sequence length")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="--model lm: cut the depth to this many layers (widths uncut)")
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=10)
@@ -362,7 +392,7 @@ def main(argv=None) -> int:
     r = profile(a.workers, a.batch, a.steps, a.device, a.codec, a.method, a.p,
                 a.fault_model, a.fault_rate, a.fault_frac, a.model, a.engine, a.time_model,
                 a.sigma, a.partition, a.flow_control, a.plane, a.shard, a.trace, a.metrics,
-                a.arch, a.seq)
+                a.arch, a.seq, a.layers)
     unit = "window" if a.engine == "async" else "step"
     events = ("" if r["step_ms_events_median"] is None else
               f" (by CUDA events, unprofiled: {r['step_ms_events_median']} ms)")

@@ -15,10 +15,13 @@ memory it plans for and a final latency / swap / staleness summary.
 
 The reference's ``--reduced`` is a flag that defaults to on, so its CLI
 always runs the reduced config, and so does this one; full width goes
-through ``run(..., reduced=False)``. On the card training runs kernel B1
-once a sim step and serving kernel B9 once a layer in every decode
-boundary; ``--device cpu`` runs their plain versions. Like the
-reference's, ``--engine dist`` is refused: this CLI is one process.
+through ``run(..., reduced=False)``. Dense, MoE and MLA models train and
+serve (``--arch deepseek_v2_lite_16b``, ``grok_1_314b``); SSM and hybrid
+ones are refused (:func:`repro_torch.launch.train.require_trainable`). On
+the card training runs kernel B1 once a sim step and serving kernel B9
+once a layer in every decode boundary; ``--device cpu`` runs their plain
+versions. Like the reference's, ``--engine dist`` is refused: this CLI is
+one process.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 from repro_torch.api import GossipTrainer
 from repro_torch.api.trainer import ENGINES, resolve_device
 from repro_torch.common.config import ModelConfig, OptimizerConfig, ProtocolConfig
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.fleet import memory
 from repro_torch.launch.train import activation_bytes, lm_batches, replica_bytes, require_trainable
@@ -43,41 +47,45 @@ from repro_torch.train.losses import lm_loss_fn
 GiB = 2.0 ** 30
 
 
-def cache_bytes(cfg: ModelConfig, slots: int, max_len: int, dtype_bytes: int = 4) -> int:
-    """The KV cache of ``slots`` rows of ``max_len`` positions: K and V of
-    every layer's kv heads."""
-    return (2 * cfg.num_layers * slots * max_len * cfg.num_kv_heads
-            * cfg.resolved_head_dim * dtype_bytes)
+def cache_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:
+    """The server's f32 cache of ``slots`` rows of ``max_len`` positions,
+    from ``init_cache`` on the meta device (nothing allocated): K and V of
+    every layer's kv heads, MLA's latent c_kv and k_rope."""
+    cache, _ = tr.init_cache(cfg, slots, max_len, device="meta")
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
 
 
 def plan_memory(cfg: ModelConfig, *, workers: int, tokens: int, seq: int, slots: int,
                 max_len: int, device) -> int:
     """What the run needs, checked before anything is allocated: the
     training planes' estimate (:func:`repro_torch.fleet.validate_fleet_memory`,
-    which refuses on its own), and beside it the serving side: the bus's two
-    slots of one f32 replica each, the server's initial consensus copy
-    (held until its first swap) and the KV cache. Prints both and returns
-    their sum in bytes; raises ValueError when the sum exceeds the device's
-    free memory (the host's on the CPU)."""
+    which refuses on its own) and the step's activations
+    (:func:`repro_torch.launch.train.activation_bytes`), and beside them the
+    serving side: the bus's two slots of one f32 replica each, the server's
+    initial consensus copy (held until its first swap) and the cache. Prints
+    them and returns their sum in bytes; raises ValueError when the sum
+    exceeds the device's free memory (the host's on the CPU)."""
     rb = replica_bytes(cfg)
     train = memory.validate_fleet_memory(workers, rb, "device", what=f"{cfg.name}",
                                          device=device)
+    act = activation_bytes(cfg, tokens, seq)
     cache = cache_bytes(cfg, slots, max_len)
     serve = 3 * rb + cache
     avail = memory.available_bytes("device", device)
+    total = train + act + serve
     print(f"memory: training planes (estimate, fleet/memory.py) {train / GiB:.2f} GiB for "
           f"W={workers} x {rb / GiB:.2f} GiB; activations (estimate) "
-          f"{activation_bytes(cfg, tokens, seq) / GiB:.2f} GiB for {tokens} tokens; serving: "
+          f"{act / GiB:.2f} GiB for {tokens} tokens; serving: "
           f"bus 2 x {rb / GiB:.2f} + initial consensus {rb / GiB:.2f} + KV cache "
           f"{cache / GiB:.3f} = {serve / GiB:.2f} GiB; sum "
-          f"{(train + serve) / GiB:.2f} GiB"
+          f"{total / GiB:.2f} GiB"
           + ("" if avail is None else f" of {avail / GiB:.2f} GiB free"), flush=True)
-    if avail is not None and train + serve > avail:
+    if avail is not None and total > avail:
         raise ValueError(
-            f"train-while-serve of {cfg.name} at W={workers} needs ~{(train + serve) / GiB:.1f} "
-            f"GiB (training {train / GiB:.1f} + serving {serve / GiB:.1f}) but only "
+            f"train-while-serve of {cfg.name} at W={workers} needs ~{total / GiB:.1f} "
+            f"GiB (training {(train + act) / GiB:.1f} + serving {serve / GiB:.1f}) but only "
             f"{avail / GiB:.1f} GiB is free; reduce --workers, --slots or --max-len")
-    return train + serve
+    return total
 
 
 @dataclasses.dataclass
@@ -106,14 +114,18 @@ def build(arch: str, *, reduced: bool = True, engine: str = "sim", workers: int 
           lr: float = 0.01, seq: int = 32, per_worker_batch: int = 2, slots: int = 4,
           max_len: int = 256, rate: float = 0.3, num_requests: int = 24,
           publish_every: int = 5, train_per_boundary: int = 1,
-          traffic_mode: str = "poisson", seed: int = 0, device="cuda") -> TrainServe:
-    """The run of :func:`run` before its loop."""
+          traffic_mode: str = "poisson", seed: int = 0, device="cuda",
+          layers: int = 0) -> TrainServe:
+    """The run of :func:`run` before its loop; ``layers`` cuts the depth to
+    that many layers (widths uncut; 0 keeps it)."""
     if engine == "dist":
         raise ValueError('engine="dist" needs one process per worker; train-while-serve '
                          'is one process (use engine="sim" or "async")')
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {sorted(ENGINES)}")
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     require_trainable(cfg)
     assert cfg.audio is None and cfg.vlm is None, (
         "the traffic harness serves plain-LM archs")
@@ -160,15 +172,17 @@ def run(arch: str, *, reduced: bool = True, engine: str = "sim", workers: int = 
         seq: int = 32, per_worker_batch: int = 2, slots: int = 4, max_len: int = 256,
         boundaries: int = 120, rate: float = 0.3, num_requests: int = 24,
         publish_every: int = 5, train_per_boundary: int = 1, traffic_mode: str = "poisson",
-        seed: int = 0, device="cuda") -> dict:
+        seed: int = 0, device="cuda", layers: int = 0) -> dict:
     """The reference's ``run`` with its parameters, plus ``device`` ("cuda",
-    or "cpu" for the plain versions). Returns the reference's summary dict,
-    with the same keys."""
+    or "cpu" for the plain versions) and ``layers`` (a depth cut, as in
+    :func:`build`). Returns the reference's summary dict, with the same
+    keys."""
     return build(arch, reduced=reduced, engine=engine, workers=workers, method=method, p=p,
                  alpha=alpha, lr=lr, seq=seq, per_worker_batch=per_worker_batch, slots=slots,
                  max_len=max_len, rate=rate, num_requests=num_requests,
                  publish_every=publish_every, train_per_boundary=train_per_boundary,
-                 traffic_mode=traffic_mode, seed=seed, device=device).run(boundaries)
+                 traffic_mode=traffic_mode, seed=seed, device=device,
+                 layers=layers).run(boundaries)
 
 
 def parser() -> argparse.ArgumentParser:

@@ -7,11 +7,15 @@ LiveServer, and hot-swap to a newly published snapshot mid-stream.
         --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch deepseek_v2_lite_16b \\
         --full --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch zamba2_2_7b --full \\
+        --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --reduced --device cpu
 
 Attention runs through kernel B9 on the card (the plain version on the
-CPU). Before anything is allocated it prints a memory plan and refuses a
-run that does not fit: the published weights are f32 (as a trainer would
+CPU): every layer of a dense or MoE model, the shared blocks of a hybrid
+(Zamba2), none of an SSM (xLSTM, whose recurrent blocks launch no
+kernel). Before anything is allocated it prints a memory plan and refuses
+a run that does not fit: the published weights are f32 (as a trainer would
 publish them) where that fits, else bf16, and the mid-stream swap, which
 holds a second published replica and its flat copy beside the served one,
 runs only where it fits (not for DeepSeek-V2-Lite-16B at full width on one
@@ -48,24 +52,61 @@ def _bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
-def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int) -> int:
+def _gla_bytes(tokens: int, seq: int, H: int, dk: int, dv: int, chunk: int) -> int:
+    """The chunked GLA core's f32 temporaries over ``tokens`` tokens of
+    sequences of ``seq``: per token the intra-chunk coefficients [H, Q]
+    three times (scores, exponent, masked product), the upcast q and k
+    [H, dk] and v and the two partial outputs [H, dv]; per chunk of Q
+    tokens the chunk states [H, dk, dv]."""
+    Q = min(chunk, seq)
+    return 4 * (tokens * (3 * H * Q + 2 * H * dk + 3 * H * dv) + tokens // Q * H * dk * dv)
+
+
+def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int,
+                            seq: int = 0) -> int:
     """An estimate of the largest layer's prefill temporaries over
-    ``tokens`` tokens: the FFN (an MoE layer's dispatch buffer, its copy, the
-    up / gate / hidden products and the expert output at capacity C, and
-    the k gathered rows a token twice; a dense layer's three d_ff rows) and
-    the attention's queries, keys and output (MLA: [H, r + rope] a token)."""
+    ``tokens`` tokens of sequences of ``seq`` (default ``tokens``). An
+    attention block (the hybrid's shared ones too): the FFN (an MoE layer's
+    dispatch buffer, its copy, the up / gate / hidden products and the
+    expert output at capacity C, and the k gathered rows a token twice; a
+    dense layer's three d_ff rows) and the attention's queries, keys and
+    output (MLA: [H, r + rope] a token). A recurrent block: its input
+    projection and conv output, and the chunked GLA's f32 temporaries
+    (:func:`_gla_bytes`; the sLSTM's four gate rows and its f32 hidden
+    states instead)."""
+    seq = seq or tokens
+    plan = tr.make_plan(cfg)
+    kinds = {s.kind for s in plan.segments} | ({"attn"} if plan.num_shared_blocks else set())
     d = cfg.d_model
-    ffn = 3 * tokens * cfg.d_ff
-    if cfg.moe is not None:
-        m = cfg.moe
-        E, f, C = m.num_experts, m.d_ff_expert or cfg.d_ff, moe.capacity(cfg, tokens)
-        ffn = max(ffn, 3 * E * C * d + 3 * E * C * f + 2 * tokens * m.top_k * d)
-    if cfg.mla is not None:
-        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
-        att = tokens * (2 * cfg.num_heads * width + width)
-    else:
-        att = tokens * cfg.resolved_head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    return (ffn + att) * dtype_bytes
+    out = 0
+    if "attn" in kinds:
+        ffn = 3 * tokens * cfg.d_ff
+        if cfg.moe is not None:
+            m = cfg.moe
+            E, f, C = m.num_experts, m.d_ff_expert or cfg.d_ff, moe.capacity(cfg, tokens)
+            ffn = max(ffn, 3 * E * C * d + 3 * E * C * f + 2 * tokens * m.top_k * d)
+        if cfg.mla is not None:
+            width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+            att = tokens * (2 * cfg.num_heads * width + width)
+        else:
+            att = tokens * cfg.resolved_head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+        out = (ffn + att) * dtype_bytes
+    if "mamba" in kinds:
+        s = cfg.ssm
+        d_inner = s.expand * d
+        nheads = d_inner // s.head_dim
+        conv_ch = d_inner + 2 * s.ngroups * s.state_dim
+        proj = tokens * (2 * d_inner + 2 * s.ngroups * s.state_dim + nheads + conv_ch)
+        out = max(out, proj * dtype_bytes + _gla_bytes(tokens, seq, nheads, s.state_dim,
+                                                        s.head_dim, s.chunk_size))
+    if "mlstm" in kinds or "slstm" in kinds:
+        d_in = int(d * cfg.xlstm.proj_factor)
+        H = cfg.num_heads
+        dh = d_in // H
+        out = max(out, tokens * 4 * d_in * dtype_bytes + _gla_bytes(tokens, seq, H, dh, dh + 1,
+                                                                    256))
+        out = max(out, tokens * (5 * d_in * dtype_bytes + 4 * d_in * 4))
+    return out
 
 
 def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
@@ -75,9 +116,10 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     and ``init_cache`` on the meta device: the published replica in
     ``init_dtype`` and the bus's flat copy of it (both live while it is
     published), the served cast (none where ``param_dtype`` is
-    ``init_dtype``: the server then serves views of the snapshot), the KV
-    cache (MLA: c_kv and k_rope) and the prefill's temporaries (an
-    estimate); a mid-stream swap adds a second published replica, its flat
+    ``init_dtype``: the server then serves views of the snapshot), the
+    cache (KV; MLA: c_kv and k_rope; the recurrent kinds' f32 state and
+    conv buffer; the hybrid's shared sites' KV) and the prefill's
+    temporaries (an estimate); a mid-stream swap adds a second published replica, its flat
     copy and its served cast. The published replica is f32 where that run
     fits, else bf16, and the swap runs where it fits. Prints the plan;
     raises ValueError when even the run without a swap does not fit the
@@ -86,7 +128,7 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     avail = memory.available_bytes("device", device)
     psize = torch.empty((), dtype=param_dtype).element_size()
     cache = _bytes(tr.init_cache(cfg, batch, max_len, dtype=cache_dtype, device="meta")[0])
-    transient = prefill_transient_bytes(cfg, batch * prompt_len, psize)
+    transient = prefill_transient_bytes(cfg, batch * prompt_len, psize, prompt_len)
 
     def plan(dt):
         rep_b = _bytes(tr.abstract_lm(cfg, dt)[0])
@@ -106,7 +148,7 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     p["avail"] = avail
     log(f"memory plan ({cfg.name}): published replica {p['replica'] / GiB:.2f} GiB "
         f"({str(p['init_dtype']).split('.')[-1]}) + the bus's flat copy "
-        f"{p['flat'] / GiB:.2f} GiB + served cast {p['served'] / GiB:.2f} GiB + KV cache "
+        f"{p['flat'] / GiB:.2f} GiB + served cast {p['served'] / GiB:.2f} GiB + cache "
         f"{cache / GiB:.3f} GiB + prefill temporaries (estimate) {transient / GiB:.3f} GiB: "
         f"peak {p['peak'] / GiB:.2f} GiB, with a mid-stream swap {p['swap_peak'] / GiB:.2f} "
         f"GiB" + ("" if avail is None else f", of {avail / GiB:.2f} GiB free")

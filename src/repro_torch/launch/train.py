@@ -18,6 +18,10 @@ port's registries.
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
         --engine sim --workers 2 --p 0.5 --global-batch 8 --seq 256 --steps 10
 
+    # MoE and MLA train as the dense models do (SSM / hybrid ones are refused)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v2_lite_16b \\
+        --reduced --steps 30 --engine sim --workers 4 --p 0.5 --device cpu
+
     # heterogeneous fleet: a 4x straggler under virtual-time async gossip
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
         --reduced --steps 50 --engine async --time-model slow_node \\
@@ -42,6 +46,7 @@ ValueError (ROADMAP.md 7b.5); the model trains without rematerialisation
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Callable, Optional
@@ -98,21 +103,78 @@ def replica_bytes(cfg: ModelConfig, dtype=torch.float32) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(abstract))
 
 
+def _attention_width(cfg: ModelConfig, keys: int) -> int:
+    """Per token and layer, what autograd keeps of the attention: three
+    score rows of the online softmax's key chunks (scores, masked scores,
+    probabilities) for each query head, and the heads: GQA's K / V and
+    their RoPE halves (4 Hkv hd); MLA's query [H, nope + rope], its absorbed
+    queries [H, r + rope] twice (concatenated, scaled), the latent keys
+    [r + rope] twice (concatenated, upcast) and its outputs [H, r] and
+    [H, v_head_dim]."""
+    if cfg.mla is None:
+        heads = 4 * cfg.num_kv_heads * cfg.resolved_head_dim
+    else:
+        m = cfg.mla
+        width = m.kv_lora_rank + m.qk_rope_head_dim
+        heads = (cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim + 2 * width
+                                  + m.kv_lora_rank + m.v_head_dim) + 2 * width)
+    return heads + 3 * cfg.num_heads * keys
+
+
+def _moe_width(cfg: ModelConfig) -> float:
+    """Per token, what autograd keeps of an MoE FFN: the router's three
+    [E] rows (logits, probabilities, sorted), and per routed slot (top_k x
+    capacity_factor of them a token at capacity) the [E, C, d] buffer
+    twice (built, regrouped for the experts' bmm), the experts' hidden
+    four times (gate, up, activation, product) and their output; the
+    top_k gathered rows twice (gathered, weighted) and the shared experts'
+    five hidden rows."""
+    m = cfg.moe
+    d, f = cfg.d_model, m.d_ff_expert or cfg.d_ff
+    slots = m.top_k * m.capacity_factor
+    return (3 * m.num_experts + slots * (3 * d + 4 * f) + 2 * m.top_k * d
+            + 5 * m.num_shared_experts * f)
+
+
 def activation_bytes(cfg: ModelConfig, tokens: int, seq: int, dtype_bytes: int = 4,
                      chunk: int = 1024) -> int:
     """The port's estimate of the activations autograd keeps for one
     training step over ``tokens`` tokens of sequences of ``seq`` (every
     worker's), with no rematerialisation: per token and layer about ten
-    model-width vectors (norms, projections, residuals, RoPE halves),
-    the K/V heads, three score rows of the attention's key chunks (scores,
-    masked scores, probabilities) and five FFN-width vectors; per token
-    three vocabulary-width rows of the loss's f32 logits."""
-    hd = cfg.resolved_head_dim
+    model-width vectors (norms, projections, residuals, RoPE halves), the
+    attention (:func:`_attention_width`) and the FFN: five FFN-width
+    vectors for a dense layer, :func:`_moe_width` for an MoE one (the first
+    ``moe.first_dense_layers`` are dense); per token three vocabulary-width
+    rows of the loss's f32 logits."""
     keys = max(1, (seq + chunk - 1) // min(chunk, seq)) * min(chunk, seq)
-    per_layer = (10 * cfg.d_model + 4 * cfg.num_kv_heads * hd
-                 + 3 * cfg.num_heads * keys + 5 * cfg.d_ff)
-    per_token = cfg.num_layers * per_layer * dtype_bytes + 3 * cfg.vocab_size * 4
+    shared = 10 * cfg.d_model + _attention_width(cfg, keys)
+    dense = cfg.num_layers
+    per_token = 0.0
+    if cfg.moe is not None:
+        dense = min(cfg.moe.first_dense_layers, cfg.num_layers)
+        per_token += (cfg.num_layers - dense) * (shared + _moe_width(cfg)) * dtype_bytes
+    per_token += dense * (shared + 5 * cfg.d_ff) * dtype_bytes + 3 * cfg.vocab_size * 4
     return int(tokens * per_token)
+
+
+def step_memory(cfg: ModelConfig, workers: int, tokens: int, seq: int, device) -> int:
+    """What a device-plane training step holds at its peak, checked before
+    anything is allocated: four ``[W, N]`` f32 planes (theta, velocity, the
+    gradients' leaf stack and their plane) and the activations
+    (:func:`activation_bytes`). Raises ValueError when that exceeds the free
+    memory (the card's; the host's on the CPU); returns it in bytes."""
+    from repro_torch.fleet import memory
+    planes = 4 * workers * replica_bytes(cfg)
+    act = activation_bytes(cfg, tokens, seq)
+    avail = memory.available_bytes("device", device)
+    if avail is not None and planes + act > avail:
+        gib = 2.0 ** 30
+        raise ValueError(
+            f"a training step of {cfg.name} at W={workers} over {tokens} tokens of {seq} needs "
+            f"~{(planes + act) / gib:.1f} GiB (4 planes {planes / gib:.1f} + activations "
+            f"{act / gib:.1f}) but only {avail / gib:.1f} GiB is free; reduce --workers, "
+            "--global-batch or --seq")
+    return planes + act
 
 
 def _record(i, m, div) -> dict:
@@ -183,14 +245,14 @@ def _dist_rank(group, job):
 
 
 def require_trainable(cfg) -> None:
-    """Training runs the dense models only: MoE FFNs and MLA attention
-    train through the engines with ROADMAP.md 7b.4b (the online softmax
-    with values narrower than the keys under a gradient, the dispatch under
-    ``vmap(grad)``); until then they are served, not trained."""
-    if cfg.moe is not None or cfg.mla is not None:
+    """Training runs the dense, MoE and MLA models: SSM and hybrid models
+    are served (launch.serve_decode) and train through the engines with
+    ROADMAP.md 7b.4e (their chunked GLA core and sLSTM loop under
+    ``vmap(grad)``); audio and vision ones wait for 7b.4d."""
+    if cfg.arch_type in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: training MoE / MLA models through the engines waits for "
-            "slice 7b.4b (ROADMAP.md); they are served only (launch.serve_decode)")
+            f"{cfg.name}: training SSM / hybrid models through the engines waits for "
+            "slice 7b.4e (ROADMAP.md); they are served only (launch.serve_decode)")
 
 
 def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int,
@@ -208,15 +270,18 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
         token_rate: float = 1.0, token_threshold: float = 10.0,
         shard: int = 1, trace: str = "", metrics: str = "",
         sample_every: int = 1, device="cuda", params=None,
-        on_step: Optional[Callable] = None):
+        on_step: Optional[Callable] = None, layers: int = 0):
     """The reference's ``run`` with its parameters, plus ``device``
     ("cuda", or "cpu" for tests), ``params`` (single-replica initial
     parameters as numpy arrays, e.g. the reference's ``init_lm``, in place
-    of ``init_lm`` from ``seed``) and ``on_step(i, trainer, state, metrics)``
-    (sim and async: called after every step). Returns ``(state, history)``;
+    of ``init_lm`` from ``seed``), ``on_step(i, trainer, state, metrics)``
+    (sim and async: called after every step) and ``layers`` (cut the depth
+    to that many layers, widths uncut; 0 keeps it). Returns ``(state, history)``;
     on the dist engine the state stays in the ranks and ``state`` is the
     list of the ranks' summaries (:func:`_dist_rank`)."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     require_trainable(cfg)
     proto = ProtocolConfig(method=method, moving_rate=alpha,
                            comm_probability=p if not tau else 0.0,
@@ -274,6 +339,8 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
         from repro_torch.fleet import validate_fleet_memory
         validate_fleet_memory(workers, replica_bytes(cfg), plane,
                               what=f"arch {arch!r}", n_shards=shard, device=device)
+        if plane == "device":
+            step_memory(cfg, workers, tokens, seq, device)
         hetero = HeteroConfig(time_model=time_model, mean_step_time=mean_step_time,
                               sigma=sigma, slow_worker=slow_worker,
                               slow_factor=slow_factor, seed=seed)

@@ -1,10 +1,12 @@
-"""Block assembly (port of ``repro.models.blocks``): the kind ``"attn"``,
-self-attention (GQA or MLA) with an FFN (dense or MoE), with the
-reference's init / forward / prefill / decode / cache interface.
+"""Block assembly (port of ``repro.models.blocks``), with the reference's
+init / forward / prefill / decode / cache interface. Kinds:
 
-The reference's other kinds (``attn_cross``, ``mamba``, ``mlstm``,
-``slstm``, ``cross_blk``) raise NotImplementedError: they wait for ROADMAP.md
-items 7b.4c (SSM / hybrid) and 7b.4d (cross-attention).
+  attn         self-attention (GQA or MLA) + FFN (dense or MoE)
+  mamba        Mamba2 SSD block
+  mlstm/slstm  xLSTM blocks
+
+The reference's cross-attention kinds (``attn_cross``, ``cross_blk``) raise
+NotImplementedError: they wait for ROADMAP.md item 7b.4d.
 """
 from __future__ import annotations
 
@@ -15,17 +17,30 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.common import init_rmsnorm, rmsnorm, split_tree
 from repro_torch.models.mlp import ffn_forward, init_ffn_cfg
 
 PyTree = Any
 
 
-def _require_attn(kind: str) -> None:
-    if kind != "attn":
+RECURRENT = ("mamba", "mlstm", "slstm")
+_INIT = {"mamba": ssm.init_mamba2, "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+_FORWARD = {"mamba": ssm.mamba2_forward, "mlstm": ssm.mlstm_forward,
+            "slstm": ssm.slstm_forward}
+_PREFILL = {"mamba": ssm.mamba2_prefill, "mlstm": ssm.mlstm_prefill,
+            "slstm": ssm.slstm_prefill}
+_DECODE = {"mamba": ssm.mamba2_decode, "mlstm": ssm.mlstm_decode, "slstm": ssm.slstm_decode}
+_CACHE = {"mamba": ssm.mamba2_init_cache, "mlstm": ssm.mlstm_init_cache,
+          "slstm": ssm.slstm_init_cache}
+
+
+def _require_ported(kind: str) -> None:
+    if kind in ("attn_cross", "cross_blk"):
         raise NotImplementedError(
-            f"block kind {kind!r} waits for ROADMAP.md 7b.4c (SSM / xLSTM blocks) or "
-            "7b.4d (cross-attention)")
+            f"block kind {kind!r} waits for ROADMAP.md 7b.4d (cross-attention)")
+    if kind != "attn" and kind not in RECURRENT:
+        raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -34,8 +49,12 @@ def _require_attn(kind: str) -> None:
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bool = False,
                dtype=torch.float32) -> Tuple[PyTree, PyTree]:
-    _require_attn(kind)
+    _require_ported(kind)
     dev = gen.device
+    if kind in RECURRENT:
+        p, a = _INIT[kind](gen, cfg, dtype)
+        n, na = init_rmsnorm(cfg.d_model, dtype, dev)
+        return {"ln": n, "mixer": p}, {"ln": na, "mixer": a}
     attn_init = attn.init_mla if cfg.mla is not None else attn.init_gqa
     tree = {
         "ln1": init_rmsnorm(cfg.d_model, dtype, dev),
@@ -80,7 +99,11 @@ def _attn_residual(p, x, y, cfg: ModelConfig):
 def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
                   window=0, cond=None):
     """Returns (x, aux_loss)."""
-    _require_attn(kind)
+    _require_ported(kind)
+    if kind in RECURRENT:
+        h = rmsnorm(p["ln"], x, cfg.norm_eps)
+        return (x + _FORWARD[kind](p["mixer"], h, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         y, _ = attn.mla_forward(p["attn"], h, cfg)
@@ -98,8 +121,12 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      *, dtype=torch.float32, window: int = 0, device=None):
     """Returns (cache, axes). window > 0 -> bounded ring buffer (sw decode).
     MLA caches the latent ``c_kv [B, size, r]`` and ``k_rope [B, size,
-    rope_dim]``; GQA ``k``, ``v [B, size, Hkv, hd]``."""
-    _require_attn(kind)
+    rope_dim]``; GQA ``k``, ``v [B, size, Hkv, hd]``; the recurrent kinds
+    their state and conv buffer (sLSTM: c, n, h, m), f32 whatever
+    ``dtype``, as the reference's."""
+    _require_ported(kind)
+    if kind in RECURRENT:
+        return _CACHE[kind](cfg, batch, torch.float32, device)
     size = min(window, max_len) if window else max_len
     if cfg.mla is not None:
         m = cfg.mla
@@ -162,8 +189,12 @@ def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool
                  window: int = 0, window_mask=0, cond=None, kv_start=None):
     """x: [B, 1, d]. Returns (x, cache) with the cache written in place.
     kv_start (optional [B]): per-slot first valid cache row, threaded into
-    the attention mask (continuous batching)."""
-    _require_attn(kind)
+    the attention mask (continuous batching); the recurrent caches isolate
+    a slot by their zero reset instead."""
+    _require_ported(kind)
+    if kind in RECURRENT:
+        y, cache = _DECODE[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cache, cfg)
+        return x + y, cache
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, new_cache = _attn_decode(p["attn"], h, cache, pos, cfg, window, window_mask,
                                 kv_start=kv_start)
@@ -179,8 +210,12 @@ def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
                   window=0, cond=None, cache_dtype=torch.float32, max_len: int = 0):
     """Returns (x, cache) covering positions [0, S), zero-padded to max_len
     rows; the cache entries (K/V, or MLA's c_kv / k_rope) are cast to
-    ``cache_dtype`` as the reference's are."""
-    _require_attn(kind)
+    ``cache_dtype`` as the reference's are. The recurrent kinds run their
+    forward and return the terminal state (f32, no position axis)."""
+    _require_ported(kind)
+    if kind in RECURRENT:
+        y, cache = _PREFILL[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+        return x + y, cache
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         y, (c_kv, k_rope) = attn.mla_forward(p["attn"], h, cfg)

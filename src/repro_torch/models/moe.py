@@ -17,11 +17,16 @@ routing ids, the capacity ``C``, ``dest`` and ``keep`` are bit-equal:
   (8 tokens, DeepSeek's 64 experts top-6) it is 1 and tokens are dropped.
 - The overflow row ``E * C`` takes every dropped token's write and is thrown
   away (``index_copy`` tolerates the duplicate index).
+- Every op is out of place and every count a ``scatter_add`` of ones into
+  an ``[E]`` zero vector, so the layer runs under the engines'
+  ``vmap(grad_and_value(...))`` (in-place index ops refuse a batched
+  source there, and ``bincount`` has no batching rule and reads its
+  input's max back to the host).
 - ``dispatch_shards = n > 1`` routes in n independent shards of C / n (a
   loop for the reference's ``vmap``); its ``dispatch_axes`` pin the shards
   to a mesh, which one card does not have.
 
-The combine's ``.at[s_tok].add`` is ``index_add_``: on the card it sums a
+The combine's ``.at[s_tok].add`` is ``index_add``: on the card it sums a
 token's k rows in no fixed order, a float difference only (ROADMAP.md §C).
 The expert products stay ``torch.matmul``, as the reference leaves them to
 XLA outside any Pallas kernel.
@@ -71,6 +76,13 @@ def _route(logits, top_k: int):
     return probs, weights, ids
 
 
+def _counts(ids, E: int):
+    """``bincount(ids, minlength=E)`` for ids in [0, E), as a ``scatter_add``
+    of ones: it batches under ``vmap`` and syncs nothing to the host."""
+    return torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
 def _build_buffer(xt, ids, weights, E: int, k: int, C: int):
     """Route one token shard into its [E, C, d] buffer. Returns
     (buffer, dest, s_tok, s_w, keep); the combine happens after the expert
@@ -83,12 +95,12 @@ def _build_buffer(xt, ids, weights, E: int, k: int, C: int):
     order = torch.argsort(flat_ids, stable=True)                      # group by expert
     s_ids, s_tok, s_w = flat_ids[order], flat_tok[order], flat_w[order]
     # rank within expert = position - first position of that expert
-    counts = torch.bincount(flat_ids, minlength=E)
+    counts = _counts(flat_ids, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * k, device=dev) - starts[s_ids]
     keep = rank < C                                                   # capacity drop
     dest = torch.where(keep, s_ids * C + rank, torch.full_like(rank, E * C))   # overflow row
-    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=dev).index_copy_(0, dest, xt[s_tok])
+    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=dev).index_copy(0, dest, xt[s_tok])
     return buf[:-1].reshape(E, C, d), dest, s_tok, s_w, keep
 
 
@@ -113,7 +125,7 @@ def _combine_one(out, dest, s_tok, s_w, keep, T: int):
     E, C, d = out.shape
     out_flat = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))], dim=0)
     gathered = out_flat[dest] * (s_w * keep).to(out.dtype)[:, None]   # [T*k, d]
-    return out.new_zeros((T, d)).index_add_(0, s_tok, gathered)
+    return out.new_zeros((T, d)).index_add(0, s_tok, gathered)
 
 
 def capacity(cfg: ModelConfig, T: int, capacity_factor: float = 0.0) -> int:
@@ -156,7 +168,7 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float = 0.0):
         y = y + ffn_forward(p["shared"], xt, cfg.activation)
 
     # ---- load-balance aux (Switch eq. 4) ---------------------------------
-    frac_tokens = torch.bincount(ids[:, 0], minlength=E).to(probs.dtype) / T
+    frac_tokens = _counts(ids[:, 0], E).to(probs.dtype) / T
     frac_probs = torch.mean(probs, dim=0)
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y.reshape(B, S, d), aux
@@ -168,6 +180,6 @@ def router_stats(p, x, cfg: ModelConfig):
     m = cfg.moe
     logits = x.reshape(-1, x.shape[-1]) @ p["router"].to(x.dtype)
     probs, _, ids = _route(logits, m.top_k)
-    load = torch.bincount(ids.reshape(-1), minlength=m.num_experts) / ids.numel()
+    load = _counts(ids.reshape(-1), m.num_experts) / ids.numel()
     return {"expert_load": load,
             "router_entropy": -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))}

@@ -1,19 +1,25 @@
 """Transformer LM (port of ``repro.models.transformer``): segment-planned,
 with train / prefill / decode entry points.
 
+A model is a list of *events*:
+  ("seg", name)     a loop over a stacked homogeneous segment of blocks
+  ("shared", site)  one application of a shared block (Zamba2)
+
 The dense and MoE architectures (``"attn"`` segments with GQA or MLA
 attention and dense or MoE FFNs, cut at ``moe.first_dense_layers``;
-gemma2's per-layer local/global windows included). SSM / hybrid models
-raise NotImplementedError until ROADMAP.md 7b.4c, audio and vision models
-until 7b.4d. The parameter tree is the reference's, layers stacked on a
-leading ``[count]`` axis per segment, so ``FlatSpec`` offsets equal the
-reference's and a snapshot flattens to the same buffers. The reference's
-``lax.scan`` over layers is a python loop over the layers' views (one
-``unbind`` per stacked leaf, whose backward is one ``stack``), and decode
-writes the KV cache in place. Training (:func:`lm_loss`) keeps every
-layer's activations: the reference's ``cfg.remat`` (``jax.checkpoint``)
-has no counterpart under the engines' ``torch.func`` transforms, which
-refuse saved-tensor hooks (ROADMAP.md §C).
+gemma2's per-layer local/global windows included), the SSM ones (xLSTM's
+``mlstm`` / ``slstm`` runs, Mamba2) and the hybrid (Zamba2: Mamba2
+segments with shared attention blocks between them). Audio and vision
+models raise NotImplementedError until ROADMAP.md 7b.4d. The parameter
+tree is the reference's, layers stacked on a leading ``[count]`` axis per
+segment (and the shared blocks on ``[num_shared_blocks]``), so ``FlatSpec``
+offsets equal the reference's and a snapshot flattens to the same buffers.
+The reference's ``lax.scan`` over layers is a python loop over the layers'
+views (one ``unbind`` per stacked leaf, whose backward is one ``stack``),
+and decode writes the caches in place. Training (:func:`lm_loss`) keeps
+every layer's activations: the reference's ``cfg.remat``
+(``jax.checkpoint``) has no counterpart under the engines' ``torch.func``
+transforms, which refuse saved-tensor hooks (ROADMAP.md §C).
 """
 from __future__ import annotations
 
@@ -51,34 +57,71 @@ class Plan:
 
 
 def make_plan(cfg: ModelConfig) -> Plan:
-    """The reference's plan for a dense or MoE model: ``attn`` segments cut
-    at ``moe.first_dense_layers`` (DeepSeek: ``seg0_attn`` of 1 layer, then
+    """The reference's plan. Dense and MoE: ``attn`` segments cut at
+    ``moe.first_dense_layers`` (DeepSeek: ``seg0_attn`` of 1 layer, then
     ``seg1_attn_moe``; Grok: one ``seg0_attn_moe``), gemma2's even layers
-    local (``local_window``), odd ones global."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} waits for slice 7b.4c (SSM / "
-            "hybrid, ROADMAP.md); the port serves dense and MoE models")
-    if cfg.arch_type not in ("dense", "moe") or cfg.vlm is not None or cfg.audio is not None:
+    local (``local_window``), odd ones global. xLSTM: runs of ``mlstm`` /
+    ``slstm`` layers, layer i an sLSTM where ``i % slstm_every ==
+    slstm_offset``. Mamba2: one ``mamba`` segment. Hybrid (Zamba2): ``mamba``
+    segments of ``shared_attn_every`` layers with a ``("shared", site)``
+    event after each but the last."""
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or cfg.vlm is not None \
+            or cfg.audio is not None:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} waits for slice 7b.4d "
-            "(cross-attention, ROADMAP.md); the port serves dense and MoE models")
+            "(cross-attention, ROADMAP.md); the port serves dense, MoE, SSM and hybrid models")
+    events: List[Tuple[str, Any]] = []
     segments: List[Segment] = []
-    first_dense = cfg.moe.first_dense_layers if cfg.moe is not None else 0
-    cuts = [c for c in sorted({first_dense, cfg.num_layers}) if 0 < c <= cfg.num_layers]
-    start = 0
-    for c in cuts:
-        count = c - start
-        if count > 0:
-            use_moe = cfg.moe is not None and start >= first_dense
-            windows = None
-            if cfg.local_window:
-                windows = tuple(cfg.local_window if (start + j) % 2 == 0 else 0
-                                for j in range(count))
-            name = f"seg{len(segments)}_attn" + ("_moe" if use_moe else "")
-            segments.append(Segment(name, "attn", count, use_moe, windows))
-        start = c
-    return Plan(tuple(("seg", s.name) for s in segments), tuple(segments))
+
+    def add_seg(kind, count, use_moe=False, windows=None):
+        name = f"seg{len(segments)}_{kind}" + ("_moe" if use_moe else "")
+        segments.append(Segment(name, kind, count, use_moe, windows))
+        events.append(("seg", name))
+
+    if cfg.arch_type in ("dense", "moe"):
+        first_dense = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+        cuts = [c for c in sorted({first_dense, cfg.num_layers}) if 0 < c <= cfg.num_layers]
+        start = 0
+        for c in cuts:
+            count = c - start
+            if count > 0:
+                windows = None
+                if cfg.local_window:
+                    windows = tuple(cfg.local_window if (start + j) % 2 == 0 else 0
+                                    for j in range(count))
+                add_seg("attn", count, cfg.moe is not None and start >= first_dense, windows)
+            start = c
+        return Plan(tuple(events), tuple(segments))
+    if cfg.arch_type == "ssm" and cfg.xlstm is not None:
+        x = cfg.xlstm
+        pattern = ["slstm" if i % x.slstm_every == x.slstm_offset else "mlstm"
+                   for i in range(cfg.num_layers)]
+        i = 0
+        while i < cfg.num_layers:
+            j = i
+            while j < cfg.num_layers and pattern[j] == pattern[i]:
+                j += 1
+            add_seg(pattern[i], j - i)
+            i = j
+        return Plan(tuple(events), tuple(segments))
+    if cfg.arch_type == "ssm":
+        add_seg("mamba", cfg.num_layers)
+        return Plan(tuple(events), tuple(segments))
+    h = cfg.hybrid
+    n_sites, start = 0, 0
+    while start < cfg.num_layers:
+        count = min(h.shared_attn_every, cfg.num_layers - start)
+        add_seg("mamba", count)
+        start += count
+        if start < cfg.num_layers:
+            events.append(("shared", n_sites))
+            n_sites += 1
+    return Plan(tuple(events), tuple(segments), num_shared_blocks=h.num_shared_blocks,
+                num_shared_sites=n_sites)
+
+
+def _segment(plan: Plan, name: str) -> Segment:
+    return next(s for s in plan.segments if s.name == name)
 
 
 def _layer_windows(seg: Segment, default: int) -> List[int]:
@@ -101,6 +144,7 @@ def _layers(seg_params, count: int) -> List[PyTree]:
 def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tuple[PyTree, PyTree]:
     """(params, axes) on ``gen``'s device, in the reference's tree:
     ``embed [1, V, d]``, ``segments/<seg>/...`` stacked ``[count, ...]``,
+    the hybrid's ``shared/...`` stacked ``[num_shared_blocks, ...]``,
     ``final_norm [d]`` and ``lm_head [1, d, V]`` (unless tied). Each
     segment's ``[count, ...]`` leaves are allocated once and filled layer by
     layer in the draw order (a layer's leaves drawn in f32 and cast to
@@ -113,22 +157,32 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tupl
         fan_in=cfg.d_model, scale=0.5)
     segs_p, segs_a = {}, {}
     for seg in plan.segments:
-        stacked = None
-        for i in range(seg.count):
-            p, a = blocks.init_block(gen, seg.kind, cfg, use_moe=seg.use_moe, dtype=dtype)
-            if stacked is None:
-                stacked = tree_map(lambda t: torch.empty((seg.count,) + tuple(t.shape),
-                                                         dtype=t.dtype, device=t.device), p)
-                segs_a[seg.name] = _lead_axes(a)
-            tree_map(lambda dst, src: dst[i].copy_(src), stacked, p)
-        segs_p[seg.name] = stacked
+        segs_p[seg.name], segs_a[seg.name] = _init_stacked(gen, seg.kind, seg.count, cfg,
+                                                           seg.use_moe, dtype)
     params["segments"], axes["segments"] = segs_p, segs_a
+    if plan.num_shared_blocks:
+        params["shared"], axes["shared"] = _init_stacked(gen, "attn", plan.num_shared_blocks,
+                                                         cfg, False, dtype)
     params["final_norm"], axes["final_norm"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"], axes["lm_head"] = dense_init(
             gen, (1, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab"), dtype,
             fan_in=cfg.d_model)
     return params, axes
+
+
+def _init_stacked(gen, kind: str, count: int, cfg: ModelConfig, use_moe: bool, dtype):
+    """``count`` blocks of ``kind`` drawn one after another, stacked on a
+    leading axis allocated once."""
+    stacked = axes = None
+    for i in range(count):
+        p, a = blocks.init_block(gen, kind, cfg, use_moe=use_moe, dtype=dtype)
+        if stacked is None:
+            stacked = tree_map(lambda t: torch.empty((count,) + tuple(t.shape), dtype=t.dtype,
+                                                     device=t.device), p)
+            axes = _lead_axes(a)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, p)
+    return stacked, axes
 
 
 class _MetaGenerator(torch.Generator):
@@ -195,13 +249,26 @@ def forward(params, cfg: ModelConfig, tokens, cond=None):
     plan = make_plan(cfg)
     x = embed_tokens(params, cfg, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for seg in plan.segments:
-        layers = _layers(params["segments"][seg.name], seg.count)
-        for p, w in zip(layers, _layer_windows(seg, 0)):
-            x, aux = blocks.block_forward(seg.kind, p, x, cfg,
-                                          use_moe=seg.use_moe, window=w, cond=cond)
+    shared = _shared_layers(params, plan)
+    for ev, arg in plan.events:
+        if ev == "seg":
+            seg = _segment(plan, arg)
+            layers = _layers(params["segments"][arg], seg.count)
+            for p, w in zip(layers, _layer_windows(seg, 0)):
+                x, aux = blocks.block_forward(seg.kind, p, x, cfg,
+                                              use_moe=seg.use_moe, window=w, cond=cond)
+                aux_total = aux_total + aux
+        else:
+            x, aux = blocks.block_forward("attn", shared[arg % plan.num_shared_blocks], x, cfg)
             aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
+
+
+def _shared_layers(params, plan: Plan) -> List[PyTree]:
+    """The hybrid's shared blocks as views (none for the other kinds)."""
+    if not plan.num_shared_blocks:
+        return []
+    return _layers(params["shared"], plan.num_shared_blocks)
 
 
 def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels, chunk: int = 256):
@@ -244,22 +311,32 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, cond=None, aux_coef: float
 # caches / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _stacked_cache(kind: str, count: int, cfg: ModelConfig, batch: int, max_len: int,
+                   dtype, window: int, device):
+    c, a = blocks.init_block_cache(kind, cfg, batch, max_len, dtype=dtype, window=window,
+                                   device=device)
+    stacked = {k: torch.empty((count,) + tuple(t.shape), dtype=t.dtype, device=device)
+               .copy_(t) for k, t in c.items()}
+    return stacked, _lead_axes(a)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32,
                window: int = 0, device=None) -> Tuple[PyTree, PyTree]:
     """({"segments": {seg: {"k", "v": [count, B, size, Hkv, hd]}}, "pos":
     int32 0-d}, axes) (MLA: ``"c_kv" [count, B, size, r]`` and ``"k_rope"
-    [count, B, size, rope_dim]``); size = max_len, or ``window`` for the
-    ring buffer."""
+    [count, B, size, rope_dim]``; the recurrent kinds their f32 state and
+    conv buffer, sLSTM's ``m`` at -1e30; the hybrid's ``"shared_sites"``
+    the shared blocks' K/V, ``[num_shared_sites, B, size, Hkv, hd]``);
+    size = max_len, or ``window`` for the ring buffer."""
     plan = make_plan(cfg)
     cache = {"segments": {}, "pos": torch.zeros((), dtype=torch.int32, device=device)}
     axes = {"segments": {}, "pos": ()}
     for seg in plan.segments:
-        c, a = blocks.init_block_cache(seg.kind, cfg, batch, max_len, dtype=dtype,
-                                       window=window, device=device)
-        cache["segments"][seg.name] = {k: torch.zeros((seg.count,) + tuple(t.shape),
-                                                      dtype=t.dtype, device=device)
-                                       for k, t in c.items()}
-        axes["segments"][seg.name] = _lead_axes(a)
+        cache["segments"][seg.name], axes["segments"][seg.name] = _stacked_cache(
+            seg.kind, seg.count, cfg, batch, max_len, dtype, window, device)
+    if plan.num_shared_sites:
+        cache["shared_sites"], axes["shared_sites"] = _stacked_cache(
+            "attn", plan.num_shared_sites, cfg, batch, max_len, dtype, window, device)
     return cache, axes
 
 
@@ -267,24 +344,33 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: i
                 kv_start=None):
     """One-token decode. tokens: [B, 1]. kv_start (optional [B]): per-row
     first valid cache position, the continuous-batching slot boundary.
-    The cache's K/V rows at ``pos`` are written IN PLACE; the returned cache
-    holds the same K/V tensors and a new ``pos + 1``.
+    The cache's K/V rows at ``pos`` and the recurrent states are written IN
+    PLACE; the returned cache holds the same tensors and a new ``pos + 1``.
     Returns (logits [B, V], cache)."""
     plan = make_plan(cfg)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
     new_cache = {"segments": {}, "pos": pos + 1}
-    for seg in plan.segments:
-        sc = cache["segments"][seg.name]
-        layers = zip(_layers(params["segments"][seg.name], seg.count),
-                     _layers(sc, seg.count), _layer_windows(seg, window))
-        for p, c, w in layers:
-            # `window` (python int) selects the ring-buffer mode; the
-            # per-layer `w` masks gemma2's local layers in full-cache mode
-            x, _ = blocks.block_decode(seg.kind, p, x, c, pos, cfg,
-                                       use_moe=seg.use_moe, window=window, window_mask=w,
-                                       cond=cond, kv_start=kv_start)
-        new_cache["segments"][seg.name] = sc
+    shared = _shared_layers(params, plan)
+    if plan.num_shared_sites:
+        sites = _layers(cache["shared_sites"], plan.num_shared_sites)
+        new_cache["shared_sites"] = cache["shared_sites"]
+    for ev, arg in plan.events:
+        if ev == "seg":
+            seg = _segment(plan, arg)
+            sc = cache["segments"][arg]
+            layers = zip(_layers(params["segments"][arg], seg.count),
+                         _layers(sc, seg.count), _layer_windows(seg, window))
+            for p, c, w in layers:
+                # `window` (python int) selects the ring-buffer mode; the
+                # per-layer `w` masks gemma2's local layers in full-cache mode
+                x, _ = blocks.block_decode(seg.kind, p, x, c, pos, cfg,
+                                           use_moe=seg.use_moe, window=window, window_mask=w,
+                                           cond=cond, kv_start=kv_start)
+            new_cache["segments"][arg] = sc
+        else:
+            x, _ = blocks.block_decode("attn", shared[arg % plan.num_shared_blocks], x,
+                                       sites[arg], pos, cfg, window=window, kv_start=kv_start)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], new_cache
 
@@ -293,20 +379,33 @@ def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float
             max_len: int = 0):
     """Full-sequence prefill: returns (last-token logits [B, V], cache).
     Attention caches are zero-padded to ``max_len`` rows so decode can
-    continue in place."""
+    continue in place; the recurrent ones hold the terminal state."""
     plan = make_plan(cfg)
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     cache = {"segments": {}, "pos": torch.full((), S, dtype=torch.int32, device=x.device)}
-    for seg in plan.segments:
-        layers = []
-        for p, w in zip(_layers(params["segments"][seg.name], seg.count),
-                        _layer_windows(seg, 0)):
-            x, c = blocks.block_prefill(seg.kind, p, x, cfg, use_moe=seg.use_moe,
-                                        window=w, cond=cond, cache_dtype=cache_dtype,
-                                        max_len=max_len)
-            layers.append(c)
-        cache["segments"][seg.name] = {k: torch.stack([c[k] for c in layers])
-                                       for k in layers[0]}
+    shared = _shared_layers(params, plan)
+    sites = []
+    for ev, arg in plan.events:
+        if ev == "seg":
+            seg = _segment(plan, arg)
+            layers = []
+            for p, w in zip(_layers(params["segments"][arg], seg.count),
+                            _layer_windows(seg, 0)):
+                x, c = blocks.block_prefill(seg.kind, p, x, cfg, use_moe=seg.use_moe,
+                                            window=w, cond=cond, cache_dtype=cache_dtype,
+                                            max_len=max_len)
+                layers.append(c)
+            cache["segments"][arg] = _stack(layers)
+        else:
+            x, c = blocks.block_prefill("attn", shared[arg % plan.num_shared_blocks], x, cfg,
+                                        cache_dtype=cache_dtype, max_len=max_len)
+            sites.append(c)
+    if sites:
+        cache["shared_sites"] = _stack(sites)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+
+
+def _stack(caches: List[dict]) -> dict:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}

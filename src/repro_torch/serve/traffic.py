@@ -129,9 +129,14 @@ class ContinuousBatcher:
 
     def _reset(self, keep: np.ndarray) -> None:
         """Zero the cache rows of every slot whose ``keep`` is False, in
-        place, over the ``[count, B, ...]`` stacks."""
+        place, over the ``[count, B, ...]`` stacks: the segments' and the
+        hybrid's shared sites'. A recurrent state has no position axis for
+        ``kv_start`` to mask, so this reset is what isolates a new request."""
         mask = torch.as_tensor(keep, device=self._dev)
-        for seg in self.cache["segments"].values():
+        stacks = list(self.cache["segments"].values())
+        if "shared_sites" in self.cache:
+            stacks.append(self.cache["shared_sites"])
+        for seg in stacks:
             for a in seg.values():
                 a.mul_(mask.reshape((1, -1) + (1,) * (a.ndim - 2)).to(a.dtype))
 

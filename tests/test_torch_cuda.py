@@ -7,8 +7,9 @@ window's rows; B8 once per chunk on the partition plane) and the host
 plane against the device plane, a 2-rank dist engine on the card
 (B1 on the firing steps, B2 on the others), the serving path (B9 once
 per layer in prefill and in every decode step), the CIFAR CNN's step
-against the CPU's with TF32 allowed in the process, and checkpoint
-resumes on the card.
+against the CPU's with TF32 allowed in the process, checkpoint resumes
+on the card, B9 at Zamba2's head dim 80, the MoE dispatch under ``vmap``
+and the SSM blocks' prefill and decode against the CPU's.
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1492,3 +1493,110 @@ def test_full_width_decode_on_a_served_snapshot_through_b9_equals_plain(cuda):
         want = step()
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode 0", "decode 700", "decode kv_start", "prefill",
+                                  "prefill 77"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_at_zamba2_head_dim_80_matches_plain_version(cuda, case, dt):
+    """Zamba2-2.7B's shared attention: 32 heads of 2560 / 32 = 80 over 32 kv
+    heads, outside the mma form's head dims, so bf16 prefill takes the simt
+    form and decode the split form; decode over an [8, 1024] cache,
+    prefill 8 x 512 and 77 rows."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=cuda))
+    Skv = 1024 if case.startswith("decode") else (77 if case == "prefill 77" else 512)
+    B = 2 if case == "prefill 77" else 8
+    k, v = (torch.randn(B, Skv, 32, 80, generator=g, device=cuda).to(dt) for _ in range(2))
+    if case.startswith("decode"):
+        q = torch.randn(B, 1, 32, 80, generator=g, device=cuda).to(dt)
+        pos = 700 if case == "decode kv_start" else int(case.split()[1])
+        kw = dict(causal=True, q_offset=i32(pos), kv_len=i32(pos + 1))
+        if case == "decode kv_start":
+            kw["kv_start"] = i32([0, 5, 100, 700, 3, 600, 32, 64])
+        form = "split"
+    else:
+        q = torch.randn(B, Skv, 32, 80, generator=g, device=cuda).to(dt)
+        kw, form = dict(causal=True), "simt"
+    assert tfa._form(dt, B, q.shape[1], 32, 32, 80, Skv) == form
+    _check_b9(q, k, v, form=form, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "grok_1_314b"])
+def test_moe_dispatch_under_vmap_on_the_card_equals_the_unbatched_call(cuda, arch):
+    """The reduced MoE layer's routing under vmap over 3 workers on the
+    card: ids, dest, source tokens, keep and the aux counts bit-equal to
+    each worker's unbatched call, and the layer's output and aux loss
+    through ``vmap(grad_and_value)`` finite with the dispatch's integers
+    equal to the CPU's on the same inputs."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe
+    cfg = get_reduced(arch)
+    m = cfg.moe
+    p, _ = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(3, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    C = moe.capacity(cfg, 24)
+
+    def route(pr, xt):
+        _, weights, ids = moe._route(xt @ pr, m.top_k)
+        _, dest, s_tok, _, keep = moe._build_buffer(xt, ids, weights, m.num_experts, m.top_k, C)
+        return ids, dest, s_tok, keep, moe._counts(ids[:, 0], m.num_experts)
+
+    pc = {k: v.to(cuda) for k, v in p.items() if k != "shared"}
+    xc = x.to(cuda)
+    batched = vmap(route, in_dims=(None, 0))(pc["router"], xc)
+    on_cpu = vmap(route, in_dims=(None, 0))(p["router"], x)
+    for w in range(3):
+        one = route(pc["router"], xc[w])
+        for a, b, c in zip(batched, one, on_cpu):
+            assert torch.equal(a[w], b) and torch.equal(a[w].cpu(), c[w])
+
+    def loss(pp, xx):
+        y, aux = moe.moe_forward(pp, xx[None], cfg)
+        return y.square().mean() + aux
+
+    pw = {k: v.to(cuda) for k, v in p.items() if k != "shared"}
+    if "shared" in p:
+        pw["shared"] = {k: v.to(cuda) for k, v in p["shared"].items()}
+    g, val = vmap(grad_and_value(loss), in_dims=(None, 0))(pw, xc)
+    assert torch.isfinite(val).all() and all(torch.isfinite(t).all() for t in
+                                             torch.utils._pytree.tree_leaves(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("xlstm_125m", "mlstm"), ("xlstm_125m", "slstm"),
+                                       ("zamba2_2_7b", "mamba")])
+def test_ssm_block_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch, kind):
+    """One reduced SSM block's prefill over 16 positions and 8 decode steps
+    (the state and conv buffer written in place on the card) against the
+    same on the CPU: outputs and caches within rtol 1e-4 / atol 1e-4 (TF32
+    off), and no kernel launched."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import blocks
+    cfg = get_reduced(arch)
+    p, _ = blocks.init_block(torch.Generator().manual_seed(0), kind, cfg)
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+
+    def run(dev):
+        pd = {"ln": p["ln"].to(dev), "mixer": {k: v.to(dev) for k, v in p["mixer"].items()}}
+        xd = x.to(dev)
+        with torch.no_grad():
+            y, cache = blocks.block_prefill(kind, pd, xd[:, :16], cfg)
+            ys = [y]
+            for t in range(16, 24):
+                y, cache = blocks.block_decode(kind, pd, xd[:, t:t + 1], cache, None, cfg)
+                ys.append(y)
+        return torch.cat(ys, dim=1).cpu(), {k: v.cpu() for k, v in cache.items()}
+
+    ops.zero_launch_counts()
+    got, gc = run(cuda)
+    torch.cuda.synchronize()
+    assert all(n == 0 for n in ops.launch_counts().values())
+    want, wc = run("cpu")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for k in wc:
+        torch.testing.assert_close(gc[k], wc[k], rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(wc[k].abs().max())))

@@ -6,8 +6,10 @@ bit-equal, floats within the stated tolerances; the reduced
 ``deepseek_v2_lite_16b`` (MLA + MoE with a shared expert, first layer
 dense) and ``grok_1_314b`` (GQA + MoE) through the whole model (forward,
 ``lm_loss``, prefill and 12 decode steps) and through the continuous
-batcher; the training entry points refuse both until ROADMAP.md 7b.4b.
-Attention runs B9's plain version (the tensors lie on the CPU)."""
+batcher; the training entry points take both (their training is held in
+tests/test_torch_moe_train.py) and refuse SSM and hybrid models, naming
+ROADMAP.md 7b.4e. Attention runs B9's plain version (the tensors lie on the
+CPU)."""
 import dataclasses
 import functools
 import hashlib
@@ -460,13 +462,14 @@ def test_moe_batcher_streams_equal_reference():
     assert bat.latency_summary() == jbat.latency_summary()
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_training_entry_points_refuse_moe_until_7b4b(arch):
+@pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_2_7b"])
+def test_training_entry_points_refuse_ssm_and_hybrid_until_7b4e(arch):
     """launch.train and launch.serve train through the engines: they refuse
-    MoE / MLA models, naming the ROADMAP item, before building anything."""
-    with pytest.raises(NotImplementedError, match="7b.4b"):
+    SSM and hybrid models, naming the ROADMAP item, before building
+    anything (the models are served: tests/test_torch_ssm.py)."""
+    with pytest.raises(NotImplementedError, match="7b.4e"):
         train_cli.run(arch, reduced=True, steps=1, method="elastic_gossip", p=0.5, tau=0,
                       alpha=0.5, lr=1e-2, workers=2, global_batch=4, seq=8, engine="sim",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="7b.4b"):
+    with pytest.raises(NotImplementedError, match="7b.4e"):
         serve_cli.build(arch, device="cpu")

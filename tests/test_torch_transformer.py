@@ -144,12 +144,12 @@ def test_decode_steps_ring_buffer_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in ARCHS + [
-    "granite_3_8b", "granite_20b", "deepseek_v2_lite_16b", "grok_1_314b"]])
+    "granite_3_8b", "granite_20b", "deepseek_v2_lite_16b", "grok_1_314b", "xlstm_125m",
+    "zamba2_2_7b"]])
 def test_unported_architectures_refuse(arch):
-    """SSM / hybrid and audio / vision wait for their ROADMAP.md items (the
-    MoE archs are served: tests/test_torch_moe.py)."""
-    item = "7b.4c" if get_reduced(arch).arch_type in ("ssm", "hybrid") else "7b.4d"
-    with pytest.raises(NotImplementedError, match=f"slice {item}"):
+    """Audio and vision wait for their ROADMAP.md item (the MoE archs are
+    served: tests/test_torch_moe.py; SSM and hybrid: tests/test_torch_ssm.py)."""
+    with pytest.raises(NotImplementedError, match="slice 7b.4d"):
         tr.make_plan(get_reduced(arch))
 
 
