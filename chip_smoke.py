@@ -280,6 +280,43 @@ prints no result line):
              batcher drain, and the f32 gate through B9 and the plain
              version (xLSTM at its 12 layers, Zamba2 cut to 13 layers: two
              shared sites).
+15. ssm-train — training SSM and hybrid models through ``launch.train.run``
+             with phase 10's arguments but W: xLSTM-125M whole (12 layers,
+             d 768, f32) at the paper's W=4, global batch 16, and Zamba2-2.7B
+             at its widths cut to 18 of 54 layers (3 Mamba2 segments of 6,
+             2 shared sites) at W=2, global batch 8; the sequence phase
+             10's way (the longest of 256, 128, 64 whose step plan fits:
+             256 for xLSTM, 128 for Zamba2), 10 sim steps each: B1 10 times
+             and B9 never, the loss finite and falling, comm_units = gates,
+             max_memory_allocated within 0.9-1.2 of the step's memory plan
+             (planes, activations and the backward's share), the step
+             times and tokens/s, B1 on one more step's own inputs byte for
+             byte over the whole [W, N] plane and timed; the card's f32
+             gradient against the CPU's f64 one at the widths (xLSTM at 2
+             layers and at 6 with its first sLSTM, Zamba2 at 7 with its
+             first shared site; 1 x 64 tokens); then train-while-serve
+             through ``launch.serve`` at the same depth with phase 11's
+             arguments for 48 boundaries (B9 never for xLSTM, twice a
+             boundary for Zamba2's two sites).
+16. cross   — Llama-3.2-Vision-11B (40 layers + 8 cross blocks over 1601
+             image tokens) and MusicGen-large (48 layers, each with a
+             cross-attention to 64 conditioning tokens, 4 codebooks) at
+             full width and depth in bf16, random weights from seed 0 with
+             every cross gate at 0.5 (zero at init) and a random cond: B9 at
+             their self- and cross-attention shapes (prefill 8 x 512,
+             non-causal over 1601 keys with a partial last tile and over
+             64; decode at position 512 and over the cond) against its
+             plain version in f32 and bf16, timed beside the bound, the
+             plain version and SDPA; serve_decode (8 slots, prompt 512,
+             64 greedy steps, per codebook for MusicGen; B9 48 times a step
+             for vision, 96 for MusicGen, mma in the prefill, split in
+             decode); the f32 gate through B9 and the plain version (vision
+             at 4 layers with its first cross block, MusicGen at 2); then
+             MusicGen trained at its widths cut to 15 of 48 layers
+             (1,040,281,615 f32 parameters, TinyLlama's plane) as phase
+             15's runs; vision's training plan at its widths logged (4
+             layers + 1 cross block: step_memory refuses it) and the
+             reduced vision model trained on sim.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -1548,6 +1585,7 @@ SERVE_TOKENS, SERVE_SWAP_AT = 64, 32
 TRAFFIC = dict(rate=0.5, num_requests=32, prompt_len=(8, 64), max_new=(16, 64))
 TRAFFIC_SEED, TRAFFIC_BOUNDARIES = 1, 384
 PARITY_STEPS, PARITY_TOL = 8, 1e-3   # f32 logits: max |kernel - plain| / max |plain|
+CROSS_GATE = 0.5                     # the cross-attention gates, zero at init, opened
 
 
 def plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
@@ -1678,11 +1716,13 @@ def check_b9(torch, ops, fa, dev):
     return worst, forms
 
 
-def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak):
+def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak, causal=True):
     """(bound ms, by): q, the visible K/V rows and out moved once against 4 hd
-    flops per (query row, visible key) at the bf16 tensor-core peak."""
+    flops per (query row, visible key) at the bf16 tensor-core peak (a
+    causal prefill's query i sees i + 1 keys; a non-causal one all)."""
     nbytes = (2 * B * Sq * H * hd + 2 * B * visible * Hkv * hd) * size
-    flops = 4 * hd * H * B * (visible if Sq == 1 else Sq * (Sq + 1) // 2)
+    pairs = visible * Sq if (Sq == 1 or not causal) else Sq * (Sq + 1) // 2
+    flops = 4 * hd * H * B * pairs
     bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
@@ -3216,7 +3256,7 @@ def lm_memory(torch, cfg, dev):
     refused, nothing allocated by either. Then the longest sequence whose
     planes and activations fit the card. Returns (seq, summary)."""
     from repro_torch.fleet import memory
-    from repro_torch.launch.train import activation_bytes, replica_bytes
+    from repro_torch.launch.train import replica_bytes, step_bytes
     torch.cuda.empty_cache()
     alloc0 = torch.cuda.memory_allocated(dev)
     rb = replica_bytes(cfg)
@@ -3235,21 +3275,12 @@ def lm_memory(torch, cfg, dev):
     if torch.cuda.memory_allocated(dev) != alloc0:
         raise AssertionError("the memory check allocated on the card")
     gib = 2 ** 30
-    # theta, velocity, the gradients' leaf stack and their plane: 4 planes
-    planes = 4 * LM_W * rb
-    fits = {s: planes + activation_bytes(cfg, LM_BATCH * s, s) for s in LM_SEQS}
-    seq = next((s for s in LM_SEQS if fits[s] <= 0.9 * free), None)
-    if seq is None:
-        raise AssertionError(f"no sequence in {LM_SEQS} fits: {fits}, free {free}")
     log(f"[lm] validate_fleet_memory, {cfg.name} f32 ({rb / 1e9:.3f} GB a replica from "
         f"abstract_lm, nothing allocated): card free {free / gib:.2f} GiB; W={LM_W} admitted, "
         f"needs {need2 / gib:.2f} GiB; W=4 refused: {refused.split('; ')[0]}")
-    log(f"[lm] sequence: planes {planes / gib:.2f} GiB + activations (estimate) "
-        + ", ".join(f"seq {s}: {(fits[s] - planes) / gib:.2f} GiB" for s in LM_SEQS)
-        + f"; taken: seq {seq} (cut: "
-        + ("none" if seq == LM_SEQS[0] else f"{LM_SEQS[0]} does not fit") + ")")
+    seq = train_seq(torch, cfg, LM_W, LM_BATCH, dev, "lm")
     return seq, dict(replica_bytes=rb, free=free, need_w2=need2, seq=seq,
-                     activations_estimate=fits[seq] - planes)
+                     step_plan=step_bytes(cfg, LM_W, LM_BATCH * seq, seq))
 
 
 def lm_full_width(torch, ops, fa, cfg, seq, dev):
@@ -3312,15 +3343,16 @@ def lm_full_width(torch, ops, fa, cfg, seq, dev):
                                      max_memory_allocated=peak, tokens_per_step=tokens)
 
 
-def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak, tag="lm"):
+def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak, tag="lm", W=LM_W,
+          batch=LM_BATCH):
     """B1 on one more step's own inputs: theta, peer, v and g copied to the
     host as B1 is called (the activations are freed by then), the step's
     theta and v afterwards held byte for byte against the plain version,
-    column chunk by column chunk on the card. Then B1 timed at [2, N] with
+    column chunk by column chunk on the card. Then B1 timed at [W, N] with
     CUDA events beside its bound, in place on the state's planes (the state
     is not used after). Returns (max abs err, timing)."""
     from unittest import mock
-    from repro_torch.launch.train import lm_batches
+    from repro_torch.launch.train import engine_batch, lm_batches
     captured = {}
     real = ops.fused_flat_elastic_nag_update
 
@@ -3329,9 +3361,9 @@ def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak, tag="lm"
                         coef=coef.clone(), eta=eta, mu=mu)
         return real(theta, peer, v, g, coef, eta, mu, rows=rows)
 
-    b = next(lm_batches(cfg, LM_W, LM_BATCH // LM_W, seq, seed=1, device=dev))
+    b = next(lm_batches(cfg, W, batch // W, seq, seed=1, device=dev))
     with mock.patch.object(ops, "fused_flat_elastic_nag_update", capture):
-        state, _ = trainer.step(state, (b["tokens"], b["labels"]))
+        state, _ = trainer.step(state, engine_batch(b))
     torch.cuda.synchronize()
     theta, v = state.theta["float32"], state.opt.mu["float32"]
     W, N = theta.shape
@@ -3986,27 +4018,32 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
 
 def attn_passes(cfg):
     """B9 launches per prefill or decode step of ``cfg``: one per attention
-    layer (every layer of a dense or MoE model, a hybrid's shared sites, none
-    in an SSM)."""
+    (every layer of a dense or MoE model, a hybrid's shared sites, none in an
+    SSM; MusicGen's layers two each, self and cross; a vision model's cross
+    blocks one each)."""
     from repro_torch.models import transformer as tr
     plan = tr.make_plan(cfg)
-    return sum(s.count for s in plan.segments if s.kind == "attn") + plan.num_shared_sites
+    per = {"attn": 1, "attn_cross": 2}
+    return (sum(s.count * per.get(s.kind, 0) for s in plan.segments) + plan.num_shared_sites
+            + plan.num_cross)
 
 
-def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None):
+def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None, prefill_form="simt",
+                   cross_gate=0.0):
     """The serve_decode entry point at full width and depth in bf16: 512-token
-    prompts, 64 greedy steps. For DeepSeek its memory plan publishes bf16
-    weights and turns the mid-stream swap off (a second replica does not
-    fit beside the first). B9 must launch once per attention layer (27
-    for DeepSeek) in the prefill (simt) and as many times a step (split),
-    and nowhere else."""
+    prompts, 64 greedy steps (the audio and vision models with their cross
+    gates at ``cross_gate`` and a random cond). For DeepSeek its memory plan
+    publishes bf16 weights and turns the mid-stream swap off (a second
+    replica does not fit beside the first). B9 must launch once per
+    attention (27 for DeepSeek) in the prefill (``prefill_form``) and as
+    many times a step (split), and nowhere else."""
     from repro_torch.launch.serve_decode import serve_decode
     L = attn_passes(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.zero_launch_counts()
     forms0 = dict(fa.FORM_LAUNCHES)
     r = serve_decode(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, tokens=SERVE_TOKENS,
-                     max_len=SERVE_MAX_LEN, device=dev, seed=0,
+                     max_len=SERVE_MAX_LEN, device=dev, seed=0, cross_gate=cross_gate,
                      log=lambda m: log(f"[{tag}] {m}"))
     counts = ops.launch_counts()
     forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
@@ -4014,8 +4051,11 @@ def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None):
     counts = {k: counts[k] for k in KERNELS}
     want = dict.fromkeys(KERNELS, 0)
     want[B9] = L * (1 + SERVE_TOKENS)
+    want_forms = {"mma": 0, "simt": 0}
+    want_forms[prefill_form] = L
+    want_forms["split"] = L * SERVE_TOKENS
     if (r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts != want
-            or forms != {"mma": 0, "split": L * SERVE_TOKENS, "simt": L}):
+            or forms != want_forms):
         raise RuntimeError(f"[{tag}] launches: prefill {r['prefill_launches']}, per step "
                            f"{sorted(set(r['step_launches']))}, {counts}, by form {forms}; "
                            f"want {L}, {L}, {want}")
@@ -4023,7 +4063,7 @@ def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None):
     swaps = 2 if plan["swap"] else 1
     if (r["swaps"] != swaps or not r["final_logits_finite"]
             or r["cache_pos"] != SERVE_PROMPT + SERVE_TOKENS
-            or tuple(r["stream"].shape) != (SERVE_BATCH, SERVE_TOKENS)
+            or (r["stream"].shape[0], r["stream"].shape[-1]) != (SERVE_BATCH, SERVE_TOKENS)
             or (cfg.name.startswith("deepseek") and (plan["init_dtype"] != torch.bfloat16
                                                      or plan["swap"]))):
         raise RuntimeError(f"[{tag}] serve_decode: plan {plan['init_dtype']} swap "
@@ -4042,7 +4082,8 @@ def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None):
     return counts[B9], dict(prefill_ms=r["prefill_ms"], step_ms=step,
                             tokens_per_s=SERVE_BATCH / step * 1e3,
                             max_memory_allocated=peak, swap_pause_ms=r["swap_pause_s"] * 1e3,
-                            plan={k: v for k, v in plan.items() if k != "init_dtype"})
+                            plan={k: v for k, v in plan.items() if k != "init_dtype"},
+                            init_dtype=str(plan["init_dtype"]).split(".")[-1], forms=forms)
 
 
 def mla_batcher(torch, ops, fa, cfg, dev, tag="mla"):
@@ -4095,27 +4136,33 @@ def mla_batcher(torch, ops, fa, cfg, dev, tag="mla"):
 def mla_gate(torch, ops, cfg, dev, tag="mla", what="2 layers (1 dense + 1 MoE)"):
     """f32 at full widths and cut depth (DeepSeek: 2 layers, 1 dense + 1
     MoE): a prefill and 8 decode steps through B9 and through its plain
-    version (patched into the op), on the same weights and tokens: logits
-    within PARITY_TOL of the largest, greedy tokens equal."""
+    version (patched into the op), on the same weights and tokens (the
+    audio and vision models with their cross gates at CROSS_GATE and a
+    random cond): logits within PARITY_TOL of the largest, greedy tokens
+    equal."""
     from unittest import mock
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve_decode import open_cross_gates
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import make_serve_program
     params = tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)[0]
+    open_cross_gates(params, CROSS_GATE)
     prog = make_serve_program(cfg, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
                               param_dtype=torch.float32, cache_dtype=torch.float32,
                               with_prefill=True, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
-                           device=dev, dtype=torch.int32)
-    steps = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PARITY_STEPS), generator=g,
-                          device=dev, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, prog.token_shapes(SERVE_PROMPT).shape,
+                           generator=g, device=dev, dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, prog.token_shapes(PARITY_STEPS).shape,
+                          generator=g, device=dev, dtype=torch.int32)
+    cond = (None if prog.cond_shapes() is None else
+            torch.randn(prog.cond_shapes().shape, generator=g, device=dev))
 
     def run():
-        logits, cache = prog.prefill_fn(params, prompt)
+        logits, cache = prog.prefill_fn(params, prompt, cond)
         out = [logits]
         for t in range(PARITY_STEPS):
-            logits, cache = prog.decode_fn(params, cache, steps[:, t:t + 1])
+            logits, cache = prog.decode_fn(params, cache, steps[..., t:t + 1], cond)
             out.append(logits)
         return torch.stack(out).float()
 
@@ -4200,34 +4247,55 @@ def run_mla_phase(torch, ops, fa, dev, bw, peak, smi):
 MOE_LAYERS = 2                       # the depth cut: the dense first layer + one MoE layer
 MOE_SEQ = 256
 MOE_CAPACITY = 120                   # 4 x 256 tokens a worker x top-6 / 64 experts x 1.25
-MOE_GRAD_TOKENS = 64                 # the f64 gradient check's one sequence (CPU time)
+F64_TOKENS = 64                      # the f64 gradient checks' one sequence (CPU time)
+PEAK_PLAN = (0.9, 1.2)               # max_memory_allocated / the step's memory plan
 MOE_TS_BOUNDARIES = 48
 MOE_TS_KW = dict(TS_KW, layers=MOE_LAYERS)
 MOE_REDUCED_W = 2                    # the reduced dist runs' processes
 
 
-def moe_train(torch, ops, fu, ref, fa, dev, bw, peak):
-    """10 sim steps of DeepSeek-V2-Lite-16B at its published widths, cut to
-    2 layers, through launch.train.run with phase 10's arguments (W = 2,
-    global batch 8, seq 256). Every count is set to 0 just before the run
-    and read just after: B1 once a step, B9 never. The loss finite and
-    falling; comm_units = gates; the step's memory plan beside
-    max_memory_allocated; the MoE layer's capacity and dropped tokens on the
-    run's first batch at the trained parameters of worker 0; then B1 on one
-    more step's own inputs, byte for byte in column chunks, and timed.
-    Returns (launches, B1's max abs err, B1's timing, summary)."""
+def train_seq(torch, cfg, W, gb, dev, tag):
+    """Phase 10's sequence: the longest of LM_SEQS whose step plan
+    (``launch.train.step_bytes``: planes, activations, the backward) fits
+    in 0.9 of the card's free memory."""
+    from repro_torch.launch.train import step_bytes
+    free = torch.cuda.mem_get_info(dev)[0]
+    fits = {s: step_bytes(cfg, W, gb * s, s) for s in LM_SEQS}
+    seq = next((s for s in LM_SEQS if fits[s] <= 0.9 * free), None)
+    if seq is None:
+        raise AssertionError(f"[{tag}] no sequence in {LM_SEQS} fits: {fits}, free {free}")
+    log(f"[{tag}] {cfg.name}: step plan by sequence " + ", ".join(
+        f"{s}: {fits[s] / 2 ** 30:.2f} GiB" for s in LM_SEQS) + f" of {free / 2 ** 30:.2f} GiB "
+        f"free; taken: seq {seq} (cut: "
+        + ("none" if seq == LM_SEQS[0] else f"{LM_SEQS[0]} does not fit") + ")")
+    return seq
+
+
+def lm_train_run(torch, ops, fu, ref, fa, dev, bw, peak, arch, layers, W, gb, tag, desc,
+                 inspect=None):
+    """10 sim steps of ``arch`` through launch.train.run (depth cut to
+    ``layers``, widths uncut; W workers, global batch ``gb``, the sequence
+    of :func:`train_seq`, NAG lr 1e-2, p 0.5). Every count is set to 0 just
+    before the run and read
+    just after: B1 once a step, B9 never. The loss finite and falling,
+    comm_units = gates and comm_bytes its f32 derivation, max_memory_allocated
+    within 0.9-1.2 of the step's memory plan (made before anything is
+    allocated); ``inspect(trainer, state, cfg, seq)``, whose result the
+    summary keeps; then B1 on one more step's own inputs, byte for byte over
+    the whole [W, N] plane in column chunks, and timed. Returns
+    (launches, B1's max abs err, B1's timing, summary)."""
     import dataclasses
-    from unittest import mock
     from repro_torch.configs import get_config
     from repro_torch.launch import train as cli
-    from repro_torch.models import moe
-    from repro_torch.models import transformer as tr
-    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MOE_LAYERS)
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     rb = cli.replica_bytes(cfg)
-    tokens = LM_BATCH * MOE_SEQ
+    seq = train_seq(torch, cfg, W, gb, dev, tag)
+    tokens = gb * seq
     free = torch.cuda.mem_get_info(dev)[0]
-    plan = cli.step_memory(cfg, LM_W, tokens, MOE_SEQ, dev)
-    act = cli.activation_bytes(cfg, tokens, MOE_SEQ)
+    plan = cli.step_memory(cfg, W, tokens, seq, dev)
+    act = cli.activation_bytes(cfg, tokens, seq)
     gib = 2 ** 30
     rec = {"gates": [], "step_s": [], "trainer": None}
     torch.cuda.synchronize()
@@ -4243,7 +4311,10 @@ def moe_train(torch, ops, fu, ref, fa, dev, bw, peak):
         t[0] = time.perf_counter()
 
     ops.zero_launch_counts()
-    state, hist = cli.run(MLA_ARCH, **lm_run_kw(seq=MOE_SEQ, layers=MOE_LAYERS, on_step=on_step))
+    forms0 = dict(fa.FORM_LAUNCHES)
+    state, hist = cli.run(arch, **lm_run_kw(seq=seq, layers=layers, workers=W,
+                                            global_batch=gb, steps=LM_STEPS,
+                                            on_step=on_step))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak_mem = torch.cuda.max_memory_allocated(dev)
@@ -4251,88 +4322,173 @@ def moe_train(torch, ops, fu, ref, fa, dev, bw, peak):
     want = dict.fromkeys(KERNELS, 0)
     want[B1] = LM_STEPS
     got = {k: launches[k] for k in KERNELS}
-    if got != want or any(fa.FORM_LAUNCHES.values()):
-        raise AssertionError(f"[moe] launches {got} (B9 forms {dict(fa.FORM_LAUNCHES)}), "
+    if got != want or dict(fa.FORM_LAUNCHES) != forms0:
+        raise AssertionError(f"[{tag}] launches {got} (B9 forms {dict(fa.FORM_LAUNCHES)}), "
                              f"expected {want} and no B9 form")
     losses = [r["loss"] for r in hist]
     if len(losses) != LM_STEPS or not all(x == x and abs(x) != float("inf") for x in losses):
-        raise AssertionError(f"[moe] losses {losses}")
+        raise AssertionError(f"[{tag}] losses {losses}")
     if not statistics.mean(losses[-3:]) < losses[0]:
-        raise AssertionError(f"[moe] loss not falling: {losses}")
+        raise AssertionError(f"[{tag}] loss not falling: {losses}")
     gates = int(sum(int(g.sum()) for g in rec["gates"]))
     units = int(state.proto.comm_units)
     wire = trainer.sim._wire_bytes(state.spec)
-    want_bytes = (torch.tensor(wire / LM_W, dtype=torch.float32)
+    want_bytes = (torch.tensor(wire / W, dtype=torch.float32)
                   * torch.tensor(float(units), dtype=torch.float32))
     if wire != rb or units != gates or not bits_equal(torch, state.proto.comm_bytes.cpu(),
                                                       want_bytes):
-        raise AssertionError(f"[moe] wire {wire} (replica {rb}), comm_units {units} / gates "
+        raise AssertionError(f"[{tag}] wire {wire} (replica {rb}), comm_units {units} / gates "
                              f"{gates}, comm_bytes {float(state.proto.comm_bytes)!r}")
-    # the MoE layer's dispatch on the run's first batch of worker 0, at worker
-    # 0's trained parameters (outside the engines' vmap, where it can be read)
-    seen = []
-    real = moe._build_buffer
-
-    def spy(xt, ids, weights, E, k, C):
-        out = real(xt, ids, weights, E, k, C)
-        seen.append((xt.shape[0], C, int((~out[4]).sum())))
-        return out
-
-    b0 = next(cli.lm_batches(cfg, LM_W, LM_BATCH // LM_W, MOE_SEQ, 0, device=dev))
-    row0 = state.spec.with_lead(()).unflatten({k: v[0] for k, v in state.theta.items()})
-    with torch.no_grad(), mock.patch.object(moe, "_build_buffer", spy):
-        tr.forward(row0, cfg, b0["tokens"][0])
-    del row0
-    if len(seen) != 1 or seen[0][1] != MOE_CAPACITY or not seen[0][2] > 0:
-        raise AssertionError(f"[moe] dispatch (tokens, C, dropped) {seen}, want C "
-                             f"{MOE_CAPACITY} with tokens dropped")
+    ratio = peak_mem / plan
+    if not PEAK_PLAN[0] <= ratio <= PEAK_PLAN[1]:
+        raise AssertionError(f"[{tag}] max_memory_allocated {peak_mem} is {ratio:.3f} of the "
+                             f"plan {plan}, outside {PEAK_PLAN}")
     step_ms = [x * 1e3 for x in rec["step_s"]]
     med = statistics.median(step_ms[1:])
-    log(f"[moe] {cfg.name} at its published widths (d 2048, 16 heads, MLA 512 + 64, 64 experts "
-        f"top-6 + 2 shared at 1408, vocab 102400), depth cut to {MOE_LAYERS} layers (1 dense + 1 "
-        f"MoE, {rb // 4} f32 parameters), sim W={LM_W}, global batch {LM_BATCH}, seq {MOE_SEQ}, "
-        f"NAG lr {LM_LR}, p {LM_P}: loss " + " ".join(f"{x:.4f}" for x in losses)
+    log(f"[{tag}] {cfg.name} ({desc}; {rb // 4} f32 parameters), sim W={W}, global batch {gb}, "
+        f"seq {seq}, NAG lr {LM_LR}, p {LM_P}: loss " + " ".join(f"{x:.4f}" for x in losses)
         + "; step ms (synchronised, first with warm-up) " + " ".join(f"{x:.1f}" for x in step_ms)
         + f"; median after the first {med:.3f} ms ({tokens / med * 1e3:.0f} tokens/s); "
         f"launches {got}; comm_units {units} = gates {gates}")
-    log(f"[moe] memory: step plan (4 planes {4 * LM_W * rb / gib:.2f} GiB + activations "
-        f"estimate {act / gib:.2f} GiB) {plan / gib:.2f} GiB of {free / gib:.2f} GiB free; "
-        f"max_memory_allocated {peak_mem / gib:.2f} GiB ({peak_mem / plan:.3f} of the plan)")
-    log(f"[moe] dispatch on worker 0's first batch at its trained parameters: {seen[0][0]} tokens, "
-        f"capacity C = {seen[0][1]} (= int({seen[0][0]} x 6 / 64 x 1.25)), {seen[0][2]} of "
-        f"{seen[0][0] * 6} routed slots dropped")
-    err, b1 = lm_b1(torch, fu, ref, ops, trainer, state, cfg, MOE_SEQ, dev, bw, peak, tag="moe")
+    log(f"[{tag}] memory: step plan (4 planes {4 * W * rb / gib:.2f} GiB + activations "
+        f"estimate {act / gib:.2f} GiB and the backward's share) {plan / gib:.2f} GiB of "
+        f"{free / gib:.2f} GiB free; max_memory_allocated {peak_mem / gib:.2f} GiB ({ratio:.3f} of "
+        f"the plan, limits {PEAK_PLAN})")
+    extra = None if inspect is None else inspect(trainer, state, cfg, seq)
+    err, b1 = lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak, tag=tag,
+                    W=W, batch=gb)
     del trainer, state
-    return got, err, b1, dict(losses=losses, step_ms=step_ms, step_ms_median=med,
-                              max_memory_allocated=peak_mem, plan_bytes=plan,
-                              activations_estimate=act, capacity=seen[0][1],
-                              dropped_slots=seen[0][2], tokens_per_step=tokens)
+    return got, err, b1, dict(params=rb // 4, layers=cfg.num_layers, workers=W, seq=seq,
+                              inspected=extra, losses=losses,
+                              step_ms=step_ms, step_ms_median=med,
+                              tokens_per_s=tokens / med * 1e3, max_memory_allocated=peak_mem,
+                              plan_bytes=plan, peak_over_plan=ratio,
+                              activations_estimate=act, tokens_per_step=tokens)
 
 
-def moe_grad_vs_f64(torch, dev):
-    """At the published widths cut to 2 layers: the card's f32 loss and flat
-    gradient against the CPU's f64 ones at the card's parameters, on one
-    sequence of 64 tokens. Both sides run plain autograd through the views
-    (the engines' loss on one row), so the card's routing can be read: the
-    f64 run takes the card's top-k sets (its own f64 probabilities at those
-    ids), so the check holds the arithmetic, and the tokens whose f64 top-k
-    set differs are counted. Limits: phase 10's (share of elements outside
-    rtol 1e-4 / atol 1e-6, worst leaf rel L2, the loss to 1e-4); leaves the
-    f64 run gives no gradient (unrouted experts) must get exactly 0."""
+def grad_vs_f64(torch, arch, layers, dev, tag, patches=(None, None)):
+    """At the published widths cut to ``layers`` layers: the card's f32 loss
+    and flat gradient against the CPU's f64 ones at the card's parameters,
+    on one sequence of 64 tokens from lm_batches, plain autograd through the
+    views (the engines' loss on one row). Limits: phase 10's (share of
+    elements outside rtol 1e-4 / atol 1e-6, worst leaf rel L2, the loss to
+    1e-4); leaves without gradient in f64 (a hybrid's shared block that no
+    site of the cut reaches, an expert no token reaches) must get exactly 0
+    in f32. ``patches``: a context manager factory for the f32 and the f64
+    side (or None), e.g. to read the card's MoE routing and impose it on
+    the f64 run."""
+    import contextlib
     import dataclasses
-    from unittest import mock
     from repro_torch.common.flat import FlatSpec
     from repro_torch.common.precision import full_f32
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import lm_batches
+    from repro_torch.launch.train import engine_batch, lm_batches
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.losses import lm_loss_fn
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    params = tr.init_lm(torch.Generator(device=dev).manual_seed(3), cfg)[0]
+    x, y = engine_batch(next(lm_batches(cfg, 1, 1, F64_TOKENS, seed=2, device=dev)))
+    x, y = tree_map(lambda t: t[0], x), y[0]
+    loss_fn = lm_loss_fn(cfg)
+
+    def grad(params, dev_, patch):
+        spec = FlatSpec.build(params)
+        (name, flat), = spec.flatten(params).items()
+        buf = flat.to(dev_).requires_grad_(True)
+        with full_f32(), (patch or contextlib.nullcontext)():
+            loss = loss_fn(spec.with_lead(()).views({name: buf}),
+                           tree_map(lambda t: t.to(dev_), x), y.to(dev_))
+            loss.backward()
+        return spec, buf.grad.detach().cpu(), float(loss.detach())
+
+    spec, a, l32 = grad(params, dev, patches[0])
+    p64 = tree_map(lambda t: t.detach().cpu().double(), params)
+    del params
+    torch.cuda.empty_cache()
+    _, w, l64 = grad(p64, "cpu", patches[1])
+    del p64
+    if a.dtype != torch.float32 or w.dtype != torch.float64:
+        raise AssertionError(f"[{tag}] gradient dtypes {a.dtype} / {w.dtype}")
+    far = ~torch.isclose(a.double(), w, rtol=1e-4, atol=1e-6)
+    out = float(far.double().mean())
+    leaves, silent, counts = {}, 0, {}
+    for path, s in zip(_leaf_names(spec), spec.slots):
+        u, v = a[s.offset:s.offset + s.size].double(), w[s.offset:s.offset + s.size]
+        counts[path] = int(far[s.offset:s.offset + s.size].sum())
+        nv = torch.linalg.vector_norm(v)
+        if float(nv) == 0.0:
+            if bool(u.any()):
+                raise AssertionError(f"[{tag}] {path}: f64 gradient 0, f32 not")
+            silent += 1
+            continue
+        leaves[path] = float(torch.linalg.vector_norm(u - v) / nv)
+    worst = max(leaves, key=leaves.get)
+    most = sorted(counts, key=counts.get, reverse=True)[:3]
+    secs = time.perf_counter() - t0
+    log(f"[{tag}] gradient at the published widths, {layers} layers ({a.numel()} elements), "
+        f"1 x {F64_TOKENS} tokens: f32 (card) loss {l32:.7f} vs f64 (CPU) {l64:.7f}; "
+        f"{out:.4%} of the elements outside rtol 1e-4 / atol 1e-6 of f64 (limit "
+        f"{LM_GRAD_OUT:.0%}; most in " + ", ".join(f"{p} {counts[p]}" for p in most)
+        + f"); worst leaf rel L2 {leaves[worst]:.3e} ({worst}, limit "
+        f"{LM_GRAD_REL}); {silent} leaves without gradient in both; {secs:.1f} s")
+    if not (out <= LM_GRAD_OUT and leaves[worst] <= LM_GRAD_REL
+            and abs(l32 - l64) <= 1e-4 * abs(l64)):
+        raise AssertionError(f"[{tag}] the f32 gradient is not the f64 one within the limits")
+    return dict(layers=layers, outside=out, worst_leaf_rel_l2=leaves[worst], loss_f32=l32,
+                loss_f64=l64, silent_leaves=silent, seconds=secs)
+
+
+def moe_train(torch, ops, fu, ref, fa, dev, bw, peak):
+    """10 sim steps of DeepSeek-V2-Lite-16B at its published widths, cut to
+    2 layers, through :func:`lm_train_run` with phase 10's arguments (W = 2,
+    global batch 8, seq 256); then the MoE layer's capacity and dropped
+    tokens on the run's first batch at the trained parameters of worker 0.
+    Returns (launches, B1's max abs err, B1's timing, summary)."""
+    from unittest import mock
+    from repro_torch.launch import train as cli
     from repro_torch.models import moe
     from repro_torch.models import transformer as tr
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=MOE_LAYERS)
-    params = tr.init_lm(torch.Generator(device=dev).manual_seed(3), cfg)[0]
-    b = next(lm_batches(cfg, 1, 1, MOE_GRAD_TOKENS, seed=2, device=dev))
-    x, y = b["tokens"][0], b["labels"][0]
+
+    def dispatch(trainer, state, cfg, seq):
+        # the MoE layer's dispatch on the run's first batch of worker 0, at
+        # worker 0's trained parameters (outside the engines' vmap, where it
+        # can be read)
+        seen = []
+        real = moe._build_buffer
+
+        def spy(xt, ids, weights, E, k, C):
+            out = real(xt, ids, weights, E, k, C)
+            seen.append((xt.shape[0], C, int((~out[4]).sum())))
+            return out
+
+        b0 = next(cli.lm_batches(cfg, LM_W, LM_BATCH // LM_W, seq, 0, device=dev))
+        row0 = state.spec.with_lead(()).unflatten({k: v[0] for k, v in state.theta.items()})
+        with torch.no_grad(), mock.patch.object(moe, "_build_buffer", spy):
+            tr.forward(row0, cfg, b0["tokens"][0])
+        del row0
+        if len(seen) != 1 or seen[0][1] != MOE_CAPACITY or not seen[0][2] > 0:
+            raise AssertionError(f"[moe] dispatch (tokens, C, dropped) {seen}, want C "
+                                 f"{MOE_CAPACITY} with tokens dropped")
+        log(f"[moe] dispatch on worker 0's first batch at its trained parameters: {seen[0][0]} "
+            f"tokens, capacity C = {seen[0][1]} (= int({seen[0][0]} x 6 / 64 x 1.25)), "
+            f"{seen[0][2]} of {seen[0][0] * 6} routed slots dropped")
+        return dict(capacity=seen[0][1], dropped_slots=seen[0][2])
+
+    return lm_train_run(torch, ops, fu, ref, fa, dev, bw, peak, MLA_ARCH, MOE_LAYERS, LM_W,
+                        LM_BATCH, "moe", "published widths: d 2048, 16 heads, MLA 512 + 64, "
+                        "64 experts top-6 + 2 shared at 1408, vocab 102400; depth cut to "
+                        f"{MOE_LAYERS} layers, 1 dense + 1 MoE", inspect=dispatch)
+
+
+def moe_grad_vs_f64(torch, dev):
+    """:func:`grad_vs_f64` of DeepSeek at its widths, 2 layers. The card's
+    routing is read (its top-k sets) and imposed on the CPU's f64 run, which
+    takes its own f64 probabilities at those ids, so the check holds the
+    arithmetic; the tokens whose f64 top-k set differs are counted."""
+    from unittest import mock
+    from repro_torch.models import moe
     real = moe._route
     card_ids, differ = [], []
 
@@ -4348,48 +4504,12 @@ def moe_grad_vs_f64(torch, dev):
         w = torch.gather(probs, -1, want)
         return probs, w / torch.sum(w, dim=-1, keepdim=True), want
 
-    def grad(params, dev_, route):
-        spec = FlatSpec.build(params)
-        (name, flat), = spec.flatten(params).items()
-        buf = flat.to(dev_).requires_grad_(True)
-        with full_f32(), mock.patch.object(moe, "_route", route):
-            loss = tr.lm_loss(spec.with_lead(()).views({name: buf}), cfg, x.to(dev_),
-                              y.to(dev_))[0]
-            loss.backward()
-        return spec, buf.grad.detach().cpu(), float(loss.detach())
-
-    spec, a, l32 = grad(params, dev, spy)
-    p64 = tree_map(lambda t: t.detach().cpu().double(), params)
-    del params
-    torch.cuda.empty_cache()
-    _, w, l64 = grad(p64, "cpu", forced)
-    del p64
-    if a.dtype != torch.float32 or w.dtype != torch.float64:
-        raise AssertionError(f"[moe] gradient dtypes {a.dtype} / {w.dtype}")
-    out = float((~torch.isclose(a.double(), w, rtol=1e-4, atol=1e-6)).double().mean())
-    leaves, silent = {}, 0
-    for path, s in zip(_leaf_names(spec), spec.slots):
-        u, v = a[s.offset:s.offset + s.size].double(), w[s.offset:s.offset + s.size]
-        nv = torch.linalg.vector_norm(v)
-        if float(nv) == 0.0:
-            if bool(u.any()):
-                raise AssertionError(f"[moe] {path}: f64 gradient 0, f32 not")
-            silent += 1
-            continue
-        leaves[path] = float(torch.linalg.vector_norm(u - v) / nv)
-    worst = max(leaves, key=leaves.get)
-    secs = time.perf_counter() - t0
-    log(f"[moe] gradient at the published widths, {MOE_LAYERS} layers ({a.numel()} elements), "
-        f"1 x {MOE_GRAD_TOKENS} tokens: f32 (card) loss {l32:.7f} vs f64 (CPU) {l64:.7f}; top-k "
-        f"expert sets differing between f32 and f64: {differ} of {MOE_GRAD_TOKENS} tokens (the "
-        f"f64 run takes the card's); {out:.4%} of the elements outside rtol 1e-4 / atol 1e-6 of "
-        f"f64 (limit {LM_GRAD_OUT:.0%}); worst leaf rel L2 {leaves[worst]:.3e} ({worst}, limit "
-        f"{LM_GRAD_REL}); {silent} leaves without gradient in both; {secs:.1f} s")
-    if not (out <= LM_GRAD_OUT and leaves[worst] <= LM_GRAD_REL
-            and abs(l32 - l64) <= 1e-4 * abs(l64)):
-        raise AssertionError("[moe] the f32 gradient is not the f64 one within the limits")
-    return dict(outside=out, worst_leaf_rel_l2=leaves[worst], loss_f32=l32, loss_f64=l64,
-                topk_sets_differing=differ, seconds=secs)
+    out = grad_vs_f64(torch, MLA_ARCH, MOE_LAYERS, dev, "moe",
+                      patches=(lambda: mock.patch.object(moe, "_route", spy),
+                               lambda: mock.patch.object(moe, "_route", forced)))
+    log(f"[moe] top-k expert sets differing between f32 and f64: {differ} of {F64_TOKENS} "
+        f"tokens (the f64 run takes the card's)")
+    return dict(out, topk_sets_differing=differ)
 
 
 def moe_prefill_parity(torch, ops, fa, ts, dev):
@@ -4606,6 +4726,264 @@ def run_ssm_phase(torch, ops, fa, dev, bw, peak, smi):
                                              max_abs_err_bf16=err["bfloat16"], **times), summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training SSM and hybrid models (xLSTM-125M whole, Zamba2-2.7B at
+# its widths cut to 18 layers) through the reference's CLI, and training
+# them while serving them
+# ---------------------------------------------------------------------------
+
+# arch -> (depth cut (0: none), W, global batch): xLSTM at the paper's W = 4,
+# Zamba2 with phase 10's arguments; the sequence is phase 10's: the longest
+# of LM_SEQS whose step plan fits
+SSM_TRAIN = {"xlstm_125m": (0, 4, 16), "zamba2_2_7b": (18, LM_W, LM_BATCH)}
+# the f64 gradient check's depth: xLSTM's first 2 layers (mLSTM) and its
+# first 6 (5 mLSTM and its first sLSTM), Zamba2's first 7 (6 Mamba2 layers
+# and the first shared site)
+F64_LAYERS = {"xlstm_125m": (2, 6), "zamba2_2_7b": (7,)}
+TS_CUT_BOUNDARIES = 48
+
+
+def run_ssm_train_phase(torch, ops, fu, ref, fa, dev, bw, peak, smi):
+    """Phase 15. Returns ({kernel: launches}, {kernel: max abs err}, {arch:
+    B1's timing}, summary)."""
+    import gc
+    launches, errs, b1, summary = dict.fromkeys(KERNELS, 0), {B1: 0.0, B9: 0.0}, {}, {}
+    for arch, (layers, W, gb) in SSM_TRAIN.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        desc = SSM_DESC[arch] if not layers else (f"published widths, depth cut to {layers} of "
+                                                  f"54 layers: 3 segments of 6, 2 shared sites")
+        got, err, b1[arch], run = lm_train_run(torch, ops, fu, ref, fa, dev, bw, peak, arch,
+                                               layers, W, gb, "ssm-train", desc)
+        errs[B1] = max(errs[B1], err)
+        for k, n in got.items():
+            launches[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        grad = [grad_vs_f64(torch, arch, n, dev, "ssm-train") for n in F64_LAYERS[arch]]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_ts = time.perf_counter()
+        ts_launches, ts_err, ts_summary = train_serve(
+            torch, ops, fa, dev, smi, arch, dict(TS_KW, layers=layers), TS_CUT_BOUNDARIES,
+            TS_EVERY, "ssm-serve-live", f"{layers or 'all'} layers, f32", t_ts)
+        for k, n in ts_launches.items():
+            launches[k] += n
+        errs[B9] = max(errs[B9], ts_err[B9])
+        summary[arch] = dict(run=run, grad=grad, train_serve=ts_summary)
+    return launches, errs, b1, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 16: cross-attention: Llama-3.2-Vision-11B and MusicGen-large served at
+# full width and depth, B9 at their self- and cross-attention shapes, and
+# MusicGen trained at its widths
+# ---------------------------------------------------------------------------
+
+CROSS_ARCHS = ("llama_3_2_vision_11b", "musicgen_large")
+CROSS_DESC = {"llama_3_2_vision_11b": "40 layers + 8 gated cross-attention blocks over 1601 "
+                                      "image tokens of 4096, d 4096, 32 / 8 heads of 128, "
+                                      "vocab 128256",
+              "musicgen_large": "48 layers, each self- and cross-attention to 64 conditioning "
+                                "tokens, d 2048, 32 heads of 64, 4 codebooks of 2048"}
+# the f32 gates' depth: vision 4 layers and its first cross block, MusicGen 2
+CROSS_GATE_LAYERS = {"llama_3_2_vision_11b": 4, "musicgen_large": 2}
+# (tag, B, Sq, H, Skv, Hkv, hd, causal): B9's shapes in the two models' bf16
+# serving at 8 x 512 prompts; decode at position 512 of the [8, 1024] cache
+CROSS_B9 = (("vision self prefill", 8, 512, 32, 512, 8, 128, True),
+            ("vision cross prefill", 8, 512, 32, 1601, 8, 128, False),
+            ("vision self decode", 8, 1, 32, 1024, 8, 128, True),
+            ("vision cross decode", 8, 1, 32, 1601, 8, 128, False),
+            ("musicgen self prefill", 8, 512, 32, 512, 32, 64, True),
+            ("musicgen cross prefill", 8, 512, 32, 64, 32, 64, False),
+            ("musicgen self decode", 8, 1, 32, 1024, 32, 64, True),
+            ("musicgen cross decode", 8, 1, 32, 64, 32, 64, False))
+# 15 of 48 layers: 1,040,281,615 f32 parameters (a layer's self- and
+# cross-attention and FFN: 67.1 M), TinyLlama's plane; at 20 the replica
+# (5.13 GiB) is refused by validate_fleet_memory at W = 2
+MUSICGEN_TRAIN_LAYERS = 15
+VISION_TRAIN_LAYERS = 4              # the smallest cut with a cross block: not run, planned
+
+
+def b9_cross_case(torch, dev, dt, case, seed):
+    """(q, k, v, kwargs, visible keys) of a CROSS_B9 case in ``dt``."""
+    tag, B, Sq, H, Skv, Hkv, hd, causal = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).to(dt) for _ in range(2))
+    kw, visible = dict(causal=causal), Skv
+    if Sq == 1 and causal:
+        p = torch.tensor(SERVE_PROMPT, dtype=torch.int32, device=dev)
+        kw.update(q_offset=p, kv_len=p + 1)
+        visible = SERVE_PROMPT + 1
+    return q, k, v, kw, visible
+
+
+def check_b9_cross(torch, ops, fa, dev):
+    """B9 at every CROSS_B9 shape against its plain version, f32 and bf16,
+    to phase 6's tolerances: prefill in the mma form (bf16) or simt (f32),
+    decode in the split form, each launch counted. Returns the max abs err
+    by dtype."""
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        worst[name] = 0.0
+        before = dict(fa.FORM_LAUNCHES)
+        for i, case in enumerate(CROSS_B9):
+            q, k, v, kw, _ = b9_cross_case(torch, dev, dt, case, 70 + i)
+            want_form = ("split" if q.shape[1] == 1 else
+                         "mma" if dt == torch.bfloat16 else "simt")
+            n, f0 = fa.LAUNCHES, fa.FORM_LAUNCHES[want_form]
+            got = ops.attention(q, k, v, **kw)
+            want = plain_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES != n + 1 or fa.FORM_LAUNCHES[want_form] != f0 + 1:
+                raise RuntimeError(f"B9 {case[0]} {name}: launches {fa.LAUNCHES - n}, forms "
+                                   f"{dict(fa.FORM_LAUNCHES)} (want {want_form})")
+            worst[name] = max(worst[name], b9_err(case[0], got, want))
+            del q, k, v, got, want
+        ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
+        log(f"[cross] B9 vs plain version at the cross-attention models' shapes, {name}: "
+            f"{len(CROSS_B9)} cases (non-causal over 1601 image tokens, a partial last key "
+            f"tile, and over 64 conditioning tokens; causal self-attention beside), max abs err "
+            f"{worst[name]:.3e} (tolerance {B9_TOL[name]}"
+            + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
+            + f"); forms {ran}")
+    return worst
+
+
+def time_b9_cross(torch, ops, fa, dev, bw, peak):
+    """B9, its plain version and SDPA at every CROSS_B9 shape in bf16, by
+    CUDA events (SDPA gets the live cache rows in a causal decode)."""
+    import torch.nn.functional as F
+    out = {}
+    for i, case in enumerate(CROSS_B9):
+        tag, B, Sq, H, Skv, Hkv, hd, causal = case
+        q, k, v, kw, visible = b9_cross_case(torch, dev, torch.bfloat16, case, 80 + i)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (a[:, :visible].transpose(1, 2).contiguous() for a in (k, v))
+        sdpa_causal = causal and Sq > 1
+        ms, form = timed_form(torch, fa, lambda: ops.attention(q, k, v, **kw))
+        r = dict(ms=ms, form=form, shape=[B, Sq, H, hd], keys=[B, Skv, Hkv, hd],
+                 causal=causal,
+                 plain_ms=time_launches(torch, lambda: plain_attention(q, k, v, **kw),
+                                        reps=20, warmup=3),
+                 library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True), reps=20, warmup=3))
+        r["bound_ms"], r["bound_by"] = b9_bound(B, Sq, H, Hkv, hd, visible, 2, bw, peak,
+                                                causal=causal)
+        out[tag] = r
+        log(f"[cross] B9 {tag} bf16 q {r['shape']} over {r['keys']} ({r['form']} form): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events")
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def vision_train_plan(torch, dev):
+    """Vision at its widths is not trained on the card: the smallest cut with
+    a cross block (4 layers + 1) still holds the 128256-row embedding and
+    head, and four [2, N] f32 planes of it nearly fill the card before any
+    activation. Logs the replica and the step's plan (the CLI's own
+    step_memory, which refuses what does not fit); runs nothing."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+    cfg = dataclasses.replace(get_config("llama_3_2_vision_11b"),
+                              num_layers=VISION_TRAIN_LAYERS)
+    rb = cli.replica_bytes(cfg)
+    seq = LM_SEQS[0]
+    tokens = LM_BATCH * seq
+    act = cli.activation_bytes(cfg, tokens, seq)
+    free = torch.cuda.mem_get_info(dev)[0]
+    gib = 2 ** 30
+    try:
+        need = cli.step_memory(cfg, LM_W, tokens, seq, dev)
+        verdict = (f"step_memory admits {need / gib:.2f} GiB ({need / free:.1%} of the free "
+                   "memory); not run")
+    except ValueError as e:
+        verdict = f"refused by step_memory: {str(e).split(';')[0]}"
+    log(f"[cross] {cfg.name} at its widths cut to {VISION_TRAIN_LAYERS} layers + 1 cross block: "
+        f"{rb // 4} f32 parameters ({rb / gib:.2f} GiB a replica); at W={LM_W} the 4 planes "
+        f"need {4 * LM_W * rb / gib:.2f} GiB and the activations of {tokens} tokens "
+        f"{act / gib:.2f} GiB (estimate, before the backward's share) of {free / gib:.2f} GiB "
+        f"free: {verdict}")
+    return dict(params=rb // 4, planes_bytes=4 * LM_W * rb, activations_estimate=act,
+                free=free, verdict=verdict)
+
+
+def vision_reduced_train(torch, ops, fa, dev):
+    """The reduced vision model trained on the card through launch.train.run
+    (sim, W = 2, 10 steps, its zero cond): B1 once a step, B9 never, the
+    loss finite and falling."""
+    from repro_torch.launch import train as cli
+    ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
+    _, hist = cli.run("llama_3_2_vision_11b", **lm_run_kw(reduced=True, steps=LM_REDUCED_STEPS,
+                                                         lr=3e-3))
+    torch.cuda.synchronize()
+    got = {k: ops.launch_counts()[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want[B1] = LM_REDUCED_STEPS
+    losses = [r["loss"] for r in hist]
+    if got != want or dict(fa.FORM_LAUNCHES) != forms0 or not all(
+            x == x and abs(x) != float("inf") for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[cross] reduced vision: launches {got}, losses {losses}")
+    log(f"[cross] llama-vision-reduced trained on sim W={LM_W}, {LM_REDUCED_STEPS} steps: "
+        f"launches {got}; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return got
+
+
+def run_cross_phase(torch, ops, fu, ref, fa, dev, bw, peak, peak_bf16, smi):
+    """Phase 16. Returns ({kernel: launches}, {kernel: max abs err}, the B9
+    numbers for the kernels line, B1's timing on MusicGen's plane,
+    summary)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    err = check_b9_cross(torch, ops, fa, dev)
+    times = time_b9_cross(torch, ops, fa, dev, bw, peak_bf16)
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {}
+    for arch in CROSS_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        n_flow, flow = mla_serve_flow(torch, ops, fa, cfg, dev, tag="cross",
+                                      desc=CROSS_DESC[arch], prefill_form="mma",
+                                      cross_gate=CROSS_GATE)
+        gc.collect()
+        torch.cuda.empty_cache()
+        L = CROSS_GATE_LAYERS[arch]
+        cut = dataclasses.replace(cfg, num_layers=L)
+        n_gate, gap = mla_gate(torch, ops, cut, dev, tag="cross",
+                               what=f"{cfg.name} at {L} of {cfg.num_layers} layers "
+                                    f"({attn_passes(cut)} attentions a step), gates "
+                                    f"{CROSS_GATE}, random cond")
+        launches[B9] += n_flow + n_gate
+        summary[arch] = dict(serve=flow, f32_gate_gap=gap, f32_gate_layers=L)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, err1, b1, run = lm_train_run(
+        torch, ops, fu, ref, fa, dev, bw, peak, "musicgen_large", MUSICGEN_TRAIN_LAYERS, LM_W,
+        LM_BATCH, "cross-train", f"published widths, depth cut to {MUSICGEN_TRAIN_LAYERS} of 48 "
+        "layers, 4 codebooks, its zero cond")
+    for k, n in got.items():
+        launches[k] += n
+    summary["musicgen_train"] = run
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["vision_train_plan"] = vision_train_plan(torch, dev)
+    for k, n in vision_reduced_train(torch, ops, fa, dev).items():
+        launches[k] += n
+    summary["b9"] = times
+    log(f"[cross] summary ({smi}): {json.dumps(summary, default=str)}")
+    return launches, {B1: err1, B9: max(err.values())}, dict(
+        max_abs_err_f32=err["float32"], max_abs_err_bf16=err["bfloat16"], **times), b1, summary
+
+
 # kernel -> (id, source, TPU kernel it replaces)
 KERNELS = {
     B1: ("B1", "src/repro_torch/kernels/csrc/fused_update.cu",
@@ -4806,6 +5184,29 @@ def main():
     launches[B9] += n_ssm
     err[B9] = max(err[B9], ssm_err)
     phase_s["14 ssm"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    st_launches, st_err, st_b1, st_summary = run_ssm_train_phase(torch, ops, fu, ref, fa, dev,
+                                                                 bw, peak, smi)
+    for kname, n in st_launches.items():
+        launches[kname] += n
+    for kname, e in st_err.items():
+        err[kname] = max(err[kname], e)
+    times[B1]["xlstm_plane"] = st_b1["xlstm_125m"]
+    times[B1]["zamba2_18_layer_plane"] = st_b1["zamba2_2_7b"]
+    log(f"[ssm-train] launches in phase 15: {st_launches}; summary ({smi}): "
+        f"{json.dumps(st_summary, default=str)}")
+    phase_s["15 ssm-train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    cr_launches, cr_err, times[B9]["cross"], times[B1]["musicgen_15_layer_plane"], _ = \
+        run_cross_phase(torch, ops, fu, ref, fa, dev, bw, peak, peak_bf16, smi)
+    for kname, n in cr_launches.items():
+        launches[kname] += n
+    for kname, e in cr_err.items():
+        err[kname] = max(err[kname], e)
+    log(f"[cross] launches in phase 16: {cr_launches}")
+    phase_s["16 cross"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

@@ -69,7 +69,7 @@ from repro_torch.api.state import FlatState
 from repro_torch.common import flat as flat_plane
 from repro_torch.common.config import OptimizerConfig, ProtocolConfig
 from repro_torch.common.precision import full_f32
-from repro_torch.common.pytree import tree_take_leading
+from repro_torch.common.pytree import tree_map, tree_take_leading
 from repro_torch.core import protocols
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import (OptState, _clip, make_optimizer,
@@ -458,7 +458,7 @@ class SimTrainer:
         cfg = self.protocol
         W = self.num_workers
         dev = state.step.device
-        x = torch.as_tensor(x, device=dev)
+        x = tree_map(lambda t: torch.as_tensor(t, device=dev), x)
         y = torch.as_tensor(y, device=dev)
         mask = rows = None
         if worker_mask is not None:

@@ -42,7 +42,7 @@ from repro_torch import comm
 from repro_torch.api.protocols import ProtocolState
 from repro_torch.api.state import FlatState
 from repro_torch.common import flat as flat_plane
-from repro_torch.common.pytree import tree_take_leading
+from repro_torch.common.pytree import tree_map, tree_take_leading
 from repro_torch.fleet.partition import partition_ids_np
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import OptState, _clip
@@ -181,7 +181,7 @@ class HostPlane:
 
         # ---- local step on the gathered rows (the card; asynchronous) -------
         idx_d = idx_h.to(dev)
-        xb = torch.as_tensor(x, device=dev)[idx_d]
+        xb = tree_map(lambda t: torch.as_tensor(t, device=dev)[idx_d], x)
         yb = torch.as_tensor(y, device=dev)[idx_d]
         ocfg = tr.optimizer_cfg
         losses, grads = tr._grads(state.replace(theta=theta_rows), xb, yb)

@@ -4,8 +4,12 @@ through ``make_serve_program`` (bf16, 8 slots, 512-token prompts,
 
     python -m repro_torch.launch.profile_serve                      # TinyLlama-1.1B
     python -m repro_torch.launch.profile_serve --arch deepseek_v2_lite_16b
+    python -m repro_torch.launch.profile_serve --arch llama_3_2_vision_11b
+    python -m repro_torch.launch.profile_serve --arch musicgen_large
 
-Random weights from seed 0. For the prefill and for the decode window it
+Random weights from seed 0 (the cross-attention gates set to 0.5), and
+for the audio and vision models a random ``cond`` from seed 1 (MusicGen's
+prompts are [8, 4, 512]). For the prefill and for the decode window it
 prints the synchronised host time, the kernels launched, the device-busy
 share (the union of kernel intervals over the span from the first kernel's
 start to the last one's end) and the device time by phase: attention (kernel
@@ -78,6 +82,7 @@ def _summary(prof_events, n: int, host_s) -> dict:
 
 def profile(arch: str = ARCH) -> dict:
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve_decode import open_cross_gates
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import make_serve_program
 
@@ -87,19 +92,23 @@ def profile(arch: str = ARCH) -> dict:
     cfg = get_config(arch)
     prog = make_serve_program(cfg, batch=BATCH, max_len=MAX_LEN, with_prefill=True, device=dev)
     with torch.no_grad():
-        params = prog.place_params(tr.init_lm(torch.Generator(device=dev).manual_seed(0),
-                                              cfg, torch.bfloat16)[0])
+        params = tr.init_lm(torch.Generator(device=dev).manual_seed(0), cfg, torch.bfloat16)[0]
+        open_cross_gates(params, 0.5)
+        params = prog.place_params(params)
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen, device=dev,
-                           dtype=torch.int32)
-    logits, cache = prog.prefill_fn(params, prompt)          # warm-up: cuBLAS, the build
+    prompt = torch.randint(0, cfg.vocab_size, prog.token_shapes(PROMPT_LEN).shape,
+                           generator=gen, device=dev, dtype=torch.int32)
+    cond = None
+    if prog.cond_shapes() is not None:
+        cond = torch.randn(prog.cond_shapes().shape, generator=gen, device=dev).to(torch.bfloat16)
+    logits, cache = prog.prefill_fn(params, prompt, cond)    # warm-up: cuBLAS, the build
     for _ in range(3):
-        logits, cache = prog.decode_fn(params, cache, logits.argmax(-1).int()[:, None])
+        logits, cache = prog.decode_fn(params, cache, logits.argmax(-1).int()[..., None], cond)
     sync()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, cache = prog.prefill_fn(params, prompt)
+        logits, cache = prog.prefill_fn(params, prompt, cond)
         sync()
         pre_s = [time.perf_counter() - t0]
     prefill = _summary(prof.events(), 1, pre_s)
@@ -107,7 +116,8 @@ def profile(arch: str = ARCH) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(STEPS):
             t0 = time.perf_counter()
-            logits, cache = prog.decode_fn(params, cache, logits.argmax(-1).int()[:, None])
+            logits, cache = prog.decode_fn(params, cache, logits.argmax(-1).int()[..., None],
+                                           cond)
             sync()
             step_s.append(time.perf_counter() - t0)
     decode = _summary(prof.events(), STEPS, step_s)

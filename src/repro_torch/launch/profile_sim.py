@@ -19,8 +19,10 @@ layers, widths uncut, e.g. ``--arch deepseek_v2_lite_16b --layers 2``);
 its kernels are further split into the attention (the ops run inside the
 differentiable online softmax and their backward nodes, matched by
 autograd sequence number), an MoE layer's expert ``bmm``s and its dispatch
-(route, sort + scatter, gather + combine; matched the same way), the flat
-views' backward and the rest. For the LM only, as many
+(route, sort + scatter, gather + combine; matched the same way), the
+recurrent models' chunked GLA core and sLSTM loop (``--arch xlstm_125m``,
+``--arch zamba2_2_7b --layers 18``), the flat views' backward and the
+rest; the audio and vision models train on their zero ``cond`` stub. For the LM only, as many
 unprofiled steps are first timed by CUDA events, and the kernel list
 leaves out the device-side copy of the attention's ``record_function``
 range (a user annotation, not a kernel); the MLP and CNN profiles are
@@ -169,9 +171,9 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     warm = 2 if model == "lm" else 5
     if model == "lm":
-        from repro_torch.launch.train import lm_batches
+        from repro_torch.launch.train import engine_batch, lm_batches
         stream = lm_batches(lm_cfg, W, batch, seq, 0, device=dev)
-        batches = [(b["tokens"], b["labels"]) for b in
+        batches = [engine_batch(b) for b in
                    (next(stream) for _ in range(2 * steps + warm))]
     else:
         train, _ = (load_cifar_like(num_train=12800, num_test=10) if model == "cnn"
@@ -258,7 +260,9 @@ RANGES = {"online_softmax_attention": "attention (fwd + bwd)",
           "moe expert matmuls": "MoE expert bmms (fwd + bwd)",
           "moe route": "MoE dispatch: route (fwd + bwd)",
           "moe sort + scatter": "MoE dispatch: sort + scatter (fwd + bwd)",
-          "moe gather + combine": "MoE dispatch: gather + combine (fwd + bwd)"}
+          "moe gather + combine": "MoE dispatch: gather + combine (fwd + bwd)",
+          "gla_chunked": "chunked GLA: Mamba2 / mLSTM core (fwd + bwd)",
+          "slstm loop": "sLSTM loop (fwd + bwd)"}
 
 
 def _lm_split(events) -> dict:

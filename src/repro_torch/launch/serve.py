@@ -15,13 +15,15 @@ memory it plans for and a final latency / swap / staleness summary.
 
 The reference's ``--reduced`` is a flag that defaults to on, so its CLI
 always runs the reduced config, and so does this one; full width goes
-through ``run(..., reduced=False)``. Dense, MoE and MLA models train and
-serve (``--arch deepseek_v2_lite_16b``, ``grok_1_314b``); SSM and hybrid
-ones are refused (:func:`repro_torch.launch.train.require_trainable`). On
-the card training runs kernel B1 once a sim step and serving kernel B9
-once a layer in every decode boundary; ``--device cpu`` runs their plain
-versions. Like the reference's, ``--engine dist`` is refused: this CLI is
-one process.
+through ``run(..., reduced=False)``; ``--layers N`` cuts the depth. Dense,
+MoE / MLA, SSM and hybrid models train and serve (``--arch
+deepseek_v2_lite_16b``, ``xlstm_125m``, ``zamba2_2_7b --layers 18``); like
+the reference's, the audio and vision models are refused (the traffic
+harness serves plain token streams). On the card training runs kernel B1
+once a sim step and serving kernel B9 once an attention layer in every
+decode boundary (none for xLSTM, the shared sites for Zamba2);
+``--device cpu`` runs their plain versions. Like the reference's,
+``--engine dist`` is refused: this CLI is one process.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from repro_torch.common.config import ModelConfig, OptimizerConfig, ProtocolConf
 from repro_torch.common.pytree import tree_leaves
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.fleet import memory
-from repro_torch.launch.train import activation_bytes, lm_batches, replica_bytes, require_trainable
+from repro_torch.launch.train import activation_bytes, engine_batch, lm_batches, replica_bytes
 from repro_torch.models import transformer as tr
 from repro_torch.serve import ContinuousBatcher, LiveServer, TrafficGen, TrainServeLoop
 from repro_torch.serving.engine import make_serve_program
@@ -50,7 +52,8 @@ GiB = 2.0 ** 30
 def cache_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:
     """The server's f32 cache of ``slots`` rows of ``max_len`` positions,
     from ``init_cache`` on the meta device (nothing allocated): K and V of
-    every layer's kv heads, MLA's latent c_kv and k_rope."""
+    every layer's kv heads (a hybrid's shared sites'), MLA's latent c_kv
+    and k_rope, the recurrent layers' state and conv buffer."""
     cache, _ = tr.init_cache(cfg, slots, max_len, device="meta")
     return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
 
@@ -126,7 +129,6 @@ def build(arch: str, *, reduced: bool = True, engine: str = "sim", workers: int 
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    require_trainable(cfg)
     assert cfg.audio is None and cfg.vlm is None, (
         "the traffic harness serves plain-LM archs")
     dev = resolve_device(device)
@@ -159,7 +161,7 @@ def build(arch: str, *, reduced: bool = True, engine: str = "sim", workers: int 
     def train_fn(_boundary: int) -> int:
         for _ in range(train_per_boundary):
             b = next(batches)
-            ts.state, _ = trainer.step(ts.state, (b["tokens"], b["labels"]))
+            ts.state, _ = trainer.step(ts.state, engine_batch(b))
         return trainer._host_steps
 
     ts = TrainServe(cfg, trainer, state, server, batcher,
@@ -205,6 +207,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--train-per-boundary", type=int, default=1)
     ap.add_argument("--traffic-mode", default="poisson", choices=["poisson", "staggered"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (widths uncut; 0 keeps it)")
     ap.add_argument("--device", default="cuda",
                     help='"cuda" (the kernels) or "cpu" (their plain versions)')
     return ap
@@ -216,7 +220,7 @@ def main(argv: Optional[list] = None) -> None:
               p=a.p, alpha=a.alpha, lr=a.lr, slots=a.slots, max_len=a.max_len,
               boundaries=a.boundaries, rate=a.rate, num_requests=a.num_requests,
               publish_every=a.publish_every, train_per_boundary=a.train_per_boundary,
-              traffic_mode=a.traffic_mode, seed=a.seed, device=a.device)
+              traffic_mode=a.traffic_mode, seed=a.seed, device=a.device, layers=a.layers)
     print(json.dumps(out, indent=2, sort_keys=True))
 
 

@@ -9,18 +9,30 @@ LiveServer, and hot-swap to a newly published snapshot mid-stream.
         --full --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch zamba2_2_7b --full \\
         --batch 8 --prompt-len 512 --max-len 1024 --tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch llama_3_2_vision_11b \\
+        --full --batch 8 --prompt-len 512 --max-len 1024 --tokens 64 --cross-gate 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --reduced --device cpu
 
 Attention runs through kernel B9 on the card (the plain version on the
 CPU): every layer of a dense or MoE model, the shared blocks of a hybrid
 (Zamba2), none of an SSM (xLSTM, whose recurrent blocks launch no
-kernel). Before anything is allocated it prints a memory plan and refuses
-a run that does not fit: the published weights are f32 (as a trainer would
+kernel), every self- and cross-attention of the audio and vision models
+(MusicGen: two a layer; Llama-3.2-V: one a layer and one a cross block).
+Those two read a seeded random conditioning ``cond`` (the stubbed
+modality embeddings, :meth:`ServeProgram.cond_shapes`); their
+cross-attention gates are zero at init, as the reference's, and
+``--cross-gate g`` sets every gate to ``g`` so that the cross path shows
+in the logits. MusicGen's prompts are ``[B, K, S]`` and its greedy
+tokens the argmax per codebook.
+
+Before anything is allocated it prints a memory plan and refuses a run
+that does not fit: the published weights are f32 (as a trainer would
 publish them) where that fits, else bf16, and the mid-stream swap, which
 holds a second published replica and its flat copy beside the served one,
-runs only where it fits (not for DeepSeek-V2-Lite-16B at full width on one
-80 GB card). Prints what the reference's example prints, plus the prefill
-time, the median decode step and the kernel's launches per phase.
+runs only where it fits (not for DeepSeek-V2-Lite-16B or
+Llama-3.2-Vision-11B at full width on one 80 GB card). Prints what the
+reference's example prints, plus the prefill time, the median decode step
+and the kernel's launches per phase.
 """
 from __future__ import annotations
 
@@ -70,7 +82,9 @@ def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int,
     dispatch buffer, its copy, the up / gate / hidden products and the
     expert output at capacity C, and the k gathered rows a token twice; a
     dense layer's three d_ff rows) and the attention's queries, keys and
-    output (MLA: [H, r + rope] a token). A recurrent block: its input
+    output (MLA: [H, r + rope] a token); with a cross-attention (audio,
+    vision) also its queries and output and, per sequence, the
+    conditioning's keys and values [T, Hkv, hd]. A recurrent block: its input
     projection and conv output, and the chunked GLA's f32 temporaries
     (:func:`_gla_bytes`; the sLSTM's four gate rows and its f32 hidden
     states instead)."""
@@ -79,7 +93,7 @@ def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int,
     kinds = {s.kind for s in plan.segments} | ({"attn"} if plan.num_shared_blocks else set())
     d = cfg.d_model
     out = 0
-    if "attn" in kinds:
+    if kinds & {"attn", "attn_cross"} or plan.num_cross:
         ffn = 3 * tokens * cfg.d_ff
         if cfg.moe is not None:
             m = cfg.moe
@@ -90,6 +104,10 @@ def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int,
             att = tokens * (2 * cfg.num_heads * width + width)
         else:
             att = tokens * cfg.resolved_head_dim * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+        T = _cond_tokens(cfg)
+        if T:
+            att += (2 * tokens * cfg.num_heads * cfg.resolved_head_dim
+                    + 2 * (tokens // seq) * T * cfg.num_kv_heads * cfg.resolved_head_dim)
         out = (ffn + att) * dtype_bytes
     if "mamba" in kinds:
         s = cfg.ssm
@@ -109,6 +127,19 @@ def prefill_transient_bytes(cfg: ModelConfig, tokens: int, dtype_bytes: int,
     return out
 
 
+def _cond_tokens(cfg: ModelConfig) -> int:
+    """T of the conditioning ``[B, T, e]`` (0 where the model reads none)."""
+    if cfg.audio is not None:
+        return cfg.audio.num_cond_tokens
+    return cfg.vlm.num_image_tokens if cfg.vlm is not None else 0
+
+
+def cond_bytes(cfg: ModelConfig, batch: int, dtype_bytes: int) -> int:
+    """The conditioning the audio and vision models read, ``[B, T, e]``."""
+    e = cfg.vlm.image_embed_dim if cfg.vlm is not None else cfg.d_model
+    return batch * _cond_tokens(cfg) * e * dtype_bytes
+
+
 def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
                 param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16, device="cuda",
                 log=print) -> dict:
@@ -118,8 +149,11 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     published), the served cast (none where ``param_dtype`` is
     ``init_dtype``: the server then serves views of the snapshot), the
     cache (KV; MLA: c_kv and k_rope; the recurrent kinds' f32 state and
-    conv buffer; the hybrid's shared sites' KV) and the prefill's
-    temporaries (an estimate); a mid-stream swap adds a second published replica, its flat
+    conv buffer; the hybrid's shared sites' KV), the conditioning of the
+    audio and vision models (:func:`cond_bytes`; their cross blocks' weights
+    are in the replica), the last position's f32 logits (K rows a request
+    for MusicGen) and the prefill's temporaries (an estimate); a mid-stream
+    swap adds a second published replica, its flat
     copy and its served cast. The published replica is f32 where that run
     fits, else bf16, and the swap runs where it fits. Prints the plan;
     raises ValueError when even the run without a swap does not fit the
@@ -129,14 +163,17 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     psize = torch.empty((), dtype=param_dtype).element_size()
     cache = _bytes(tr.init_cache(cfg, batch, max_len, dtype=cache_dtype, device="meta")[0])
     transient = prefill_transient_bytes(cfg, batch * prompt_len, psize, prompt_len)
+    heads = cfg.audio.num_codebooks if cfg.audio is not None else 1
+    io = cond_bytes(cfg, batch, psize) + batch * heads * cfg.vocab_size * 4
 
     def plan(dt):
         rep_b = _bytes(tr.abstract_lm(cfg, dt)[0])
         served = 0 if dt == param_dtype else _bytes(tr.abstract_lm(cfg, param_dtype)[0])
-        steady = rep_b + served + cache + transient
+        steady = rep_b + served + cache + io + transient
         peak = max(2 * rep_b, steady)
         return dict(init_dtype=dt, replica=rep_b, flat=rep_b, served=served, cache=cache,
-                    transient=transient, peak=peak, swap_peak=steady + 2 * rep_b + served)
+                    io=io, transient=transient, peak=peak,
+                    swap_peak=steady + 2 * rep_b + served)
 
     def fits(n):
         return avail is None or n <= avail
@@ -149,7 +186,8 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     log(f"memory plan ({cfg.name}): published replica {p['replica'] / GiB:.2f} GiB "
         f"({str(p['init_dtype']).split('.')[-1]}) + the bus's flat copy "
         f"{p['flat'] / GiB:.2f} GiB + served cast {p['served'] / GiB:.2f} GiB + cache "
-        f"{cache / GiB:.3f} GiB + prefill temporaries (estimate) {transient / GiB:.3f} GiB: "
+        f"{cache / GiB:.3f} GiB + cond and logits {io / GiB:.3f} GiB + prefill temporaries "
+        f"(estimate) {transient / GiB:.3f} GiB: "
         f"peak {p['peak'] / GiB:.2f} GiB, with a mid-stream swap {p['swap_peak'] / GiB:.2f} "
         f"GiB" + ("" if avail is None else f", of {avail / GiB:.2f} GiB free")
         + f"; mid-stream swap {'on' if p['swap'] else 'off'}")
@@ -159,18 +197,36 @@ def plan_memory(cfg: ModelConfig, *, batch: int, prompt_len: int, max_len: int,
     return p
 
 
+def open_cross_gates(params, value: float) -> int:
+    """Set every cross-attention gate of ``params`` (``.../xattn/gate`` and
+    the vision blocks' ``ffn_gate``) to ``value`` in place; returns how many
+    leaves it set. At init they are zero, so the cross path adds nothing."""
+    n = 0
+    for key, sub in params.items():
+        if isinstance(sub, dict):
+            n += open_cross_gates(sub, value)
+        elif key in ("gate", "ffn_gate"):
+            sub.fill_(value)
+            n += 1
+    return n
+
+
 def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, max_len: int,
                  param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16, device="cuda",
-                 seed: int = 0, swap_at: Optional[int] = None,
+                 seed: int = 0, swap_at: Optional[int] = None, cross_gate: float = 0.0,
                  log: Callable[[str], None] = print) -> dict:
     """Plan the memory (:func:`plan_memory`, which picks the published
     dtype and whether to swap), publish ``init_lm(seed)`` in that dtype
-    (f32 as a trainer would, where it fits), prefill random
-    prompts [batch, prompt_len], decode ``tokens`` greedy steps and, where
-    the plan swaps, publish ``init_lm(seed + 42)`` and hot-swap before step
-    ``swap_at`` (default tokens // 2). Each phase ends in a synchronise;
-    returns its timings, the token stream, the last swap's pause (the first
-    swap loads seq 1), B9's launches per phase and the plan."""
+    (f32 as a trainer would, where it fits; its cross gates set to
+    ``cross_gate`` when that is not 0), prefill random prompts [batch,
+    prompt_len] (audio: [batch, K, prompt_len]) with a random ``cond``
+    (audio and vision) from ``seed + 1``, decode ``tokens`` greedy steps
+    (per codebook for audio) and, where the plan swaps, publish
+    ``init_lm(seed + 42)`` (its gates set the same way) and hot-swap before
+    step ``swap_at`` (default tokens // 2). Each phase ends in a
+    synchronise; returns its timings, the token stream ([batch, tokens],
+    audio [batch, K, tokens]), the last swap's pause (the first swap loads
+    seq 1), B9's launches per phase and the plan."""
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     prog = make_serve_program(cfg, batch=batch, max_len=max_len, param_dtype=param_dtype,
@@ -180,18 +236,28 @@ def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, 
     init_dtype = plan["init_dtype"]
     swap_at = (tokens // 2 if swap_at is None else swap_at) if plan["swap"] else None
     bus = SnapshotBus()
+
+    def weights(s):
+        params = tr.init_lm(torch.Generator(device=dev).manual_seed(s), cfg, init_dtype)[0]
+        if cross_gate:
+            open_cross_gates(params, cross_gate)
+        return params
+
     with torch.no_grad():
-        bus.publish_params(tr.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
-                                      init_dtype)[0], train_step=0)
+        bus.publish_params(weights(seed), train_step=0)
     server = LiveServer(prog, bus)
     server.maybe_swap()
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
-                           device=dev, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, prog.token_shapes(prompt_len).shape,
+                           generator=gen, device=dev, dtype=torch.int32)
+    cond = None
+    if prog.cond_shapes() is not None:
+        cond = torch.randn(prog.cond_shapes().shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(param_dtype)
 
     sync()
     n0, t0 = _b9(), time.perf_counter()
-    logits, cache = server.prefill(prompt)
+    logits, cache = server.prefill(prompt, cond)
     sync()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = _b9() - n0
@@ -203,16 +269,14 @@ def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, 
             # up BETWEEN decode batches (tokens before this boundary are
             # unaffected: the hot-swap determinism contract)
             with torch.no_grad():
-                bus.publish_params(
-                    tr.init_lm(torch.Generator(device=dev).manual_seed(seed + 42), cfg,
-                               init_dtype)[0], train_step=100)
+                bus.publish_params(weights(seed + 42), train_step=100)
             if server.maybe_swap():
                 log(f"  hot-swapped to snapshot seq={server.seq} at token {t} "
                     f"({server.swap_pauses[-1] * 1e3:.1f} ms pause)")
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)      # [B] (audio: [B, K])
         sync()
         n0, t0 = _b9(), time.perf_counter()
-        logits, cache = server.decode(cache, nxt[:, None])
+        logits, cache = server.decode(cache, nxt[..., None], cond)
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step_launches.append(_b9() - n0)
@@ -243,6 +307,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--cross-gate", type=float, default=0.0,
+                    help="set every cross-attention gate to this value (audio, vision; "
+                         "0, their init, leaves the cross path silent)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -252,7 +319,8 @@ def main(argv=None) -> int:
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
     serve_decode(cfg, batch=args.batch, prompt_len=args.prompt_len, tokens=args.tokens,
-                 max_len=args.max_len, param_dtype=dt, cache_dtype=dt, device=args.device)
+                 max_len=args.max_len, param_dtype=dt, cache_dtype=dt, device=args.device,
+                 cross_gate=args.cross_gate)
     return 0
 
 

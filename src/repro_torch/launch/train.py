@@ -18,8 +18,12 @@ port's registries.
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \\
         --engine sim --workers 2 --p 0.5 --global-batch 8 --seq 256 --steps 10
 
-    # MoE and MLA train as the dense models do (SSM / hybrid ones are refused)
+    # every arch trains: MoE / MLA, SSM / hybrid, audio / vision alike
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_v2_lite_16b \\
+        --reduced --steps 30 --engine sim --workers 4 --p 0.5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_2_7b \\
+        --reduced --steps 30 --engine sim --workers 4 --p 0.5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen_large \\
         --reduced --steps 30 --engine sim --workers 4 --p 0.5 --device cpu
 
     # heterogeneous fleet: a 4x straggler under virtual-time async gossip
@@ -60,7 +64,7 @@ from repro_torch.comm import available_codecs
 from repro_torch.common.config import (FaultConfig, FleetConfig, HeteroConfig,
                                        MeshConfig, ModelConfig, ObsConfig, OptimizerConfig,
                                        ProtocolConfig, ShardConfig)
-from repro_torch.common.pytree import tree_leaves
+from repro_torch.common.pytree import tree_leaves, tree_map
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.consensus import divergence_metrics
 from repro_torch.faults import available_delay_models, available_fault_models
@@ -76,12 +80,12 @@ def lm_batches(cfg: ModelConfig, num_workers: int, per_worker: int, seq: int, se
     """Worker-partitioned synthetic token stream (each worker gets a disjoint
     slice, the paper's data-parallel partitioning): the reference's stream,
     token for token. Yields ``{"tokens", "labels"}`` int32 ``[W, pw, seq]``
-    tensors on ``device``."""
+    tensors on ``device``; for audio they are repeated over the K codebooks
+    (``[W, pw, K, seq]``) and ``cond`` is f32 zeros ``[W, pw,
+    num_cond_tokens, d_model]``, for vision f32 zeros ``[W, pw,
+    num_image_tokens, image_embed_dim]`` (the reference's stubbed
+    conditioning)."""
     from repro_torch.data.synthetic import make_lm_tokens
-    if cfg.audio is not None or cfg.vlm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: audio and vision batches come with their models "
-            "(ROADMAP.md 7b.4)")
     stream = make_lm_tokens(num_workers * 4_000_000 // max(1, num_workers // 8),
                             cfg.vocab_size, seed)
     shard_len = len(stream) // num_workers
@@ -93,8 +97,28 @@ def lm_batches(cfg: ModelConfig, num_workers: int, per_worker: int, seq: int, se
                 shard_len - per_worker * (seq + 1))
             xs.append(stream[base: base + per_worker * (seq + 1)].reshape(per_worker, seq + 1))
         arr = torch.from_numpy(np.stack(xs))
-        yield {"tokens": arr[..., :-1].to(device), "labels": arr[..., 1:].to(device)}
+        batch = {"tokens": arr[..., :-1].to(device), "labels": arr[..., 1:].to(device)}
+        cond = None
+        if cfg.audio is not None:
+            K = cfg.audio.num_codebooks
+            batch = {k: v[:, :, None].expand(-1, -1, K, -1).contiguous()
+                     for k, v in batch.items()}
+            cond = (cfg.audio.num_cond_tokens, cfg.d_model)
+        elif cfg.vlm is not None:
+            cond = (cfg.vlm.num_image_tokens, cfg.vlm.image_embed_dim)
+        if cond is not None:
+            batch["cond"] = torch.zeros((num_workers, per_worker) + cond, dtype=torch.float32,
+                                        device=device)
+        yield batch
         step += 1
+
+
+def engine_batch(batch):
+    """An ``lm_batches`` batch as the engines' ``(x, y)``: x the tokens, or
+    ``{"tokens", "cond"}`` where the batch carries the conditioning."""
+    if "cond" in batch:
+        return {"tokens": batch["tokens"], "cond": batch["cond"]}, batch["labels"]
+    return batch["tokens"], batch["labels"]
 
 
 def replica_bytes(cfg: ModelConfig, dtype=torch.float32) -> int:
@@ -136,45 +160,130 @@ def _moe_width(cfg: ModelConfig) -> float:
             + 5 * m.num_shared_experts * f)
 
 
+def _padded(n: int, chunk: int) -> int:
+    """The keys an online softmax visits over ``n`` keys: whole chunks of
+    min(chunk, n)."""
+    c = min(chunk, n)
+    return -(-n // c) * c
+
+
+def _ffn_width(cfg: ModelConfig) -> int:
+    """Per token, what autograd keeps of a dense FFN: five FFN-width rows
+    for a gated one (swiglu, geglu), three for a plain one (gelu)."""
+    return (5 if cfg.activation in ("swiglu", "geglu") else 3) * cfg.d_ff
+
+
+def _cross_width(cfg: ModelConfig, kv_dim: int, seq: int, chunk: int) -> float:
+    """Per token, what autograd keeps of a cross-attention: three score
+    rows over the conditioning's T keys (padded to the chunk) for each
+    query head, the queries and outputs [H, hd] and four model-width rows;
+    per sequence the keys and values [T, Hkv, hd] and the conditioning
+    [T, kv_dim], spread over its ``seq`` tokens."""
+    T = cfg.audio.num_cond_tokens if cfg.audio is not None else cfg.vlm.num_image_tokens
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    per_seq = T * (2 * Hkv * hd + kv_dim)
+    return 3 * H * _padded(T, chunk) + 2 * H * hd + 4 * cfg.d_model + per_seq / seq
+
+
+def _recurrent_width(kind: str, cfg: ModelConfig, seq: int) -> float:
+    """Per token, what autograd keeps of a recurrent block. ``mamba``: the
+    in-projection's outputs, the causal conv (its padded input, the sum
+    and the silu), q and k repeated over the heads and their decayed
+    copies [H, N] each, six inner-width rows, the chunked GLA's f32
+    temporaries (the scores, the masked exponent, its exp and the masked
+    product, [H, Q] each, Q = min(chunk_size, seq)) and per chunk three
+    [H, N, hd] states. ``mlstm``: eighteen inner-width rows and the same
+    GLA core at its H heads, Q = min(256, seq), states [H, dh, dh + 1].
+    ``slstm``: twenty-six inner-width rows (the four gate pre-activations
+    and the {c, n, h, m} state kept at every step of the loop, and what
+    each step's gates keep)."""
+    d = cfg.d_model
+    if kind == "mamba":
+        s = cfg.ssm
+        d_inner = s.expand * d
+        H, N = d_inner // s.head_dim, s.state_dim
+        gs = s.ngroups * N
+        Q = min(s.chunk_size, seq)
+        proj = 2 * d_inner + 2 * gs + H
+        conv = 3 * (d_inner + 2 * gs)
+        return proj + conv + 4 * H * N + 6 * d_inner + 4 * H * Q + 3 * H * N * s.head_dim / Q
+    d_in = int(d * cfg.xlstm.proj_factor)
+    if kind == "slstm":
+        return 26 * d_in
+    H = cfg.num_heads
+    dh = d_in // H
+    Q = min(256, seq)
+    return 18 * d_in + 4 * H * Q + 3 * H * dh * (dh + 1) / Q
+
+
 def activation_bytes(cfg: ModelConfig, tokens: int, seq: int, dtype_bytes: int = 4,
                      chunk: int = 1024) -> int:
     """The port's estimate of the activations autograd keeps for one
     training step over ``tokens`` tokens of sequences of ``seq`` (every
-    worker's), with no rematerialisation: per token and layer about ten
-    model-width vectors (norms, projections, residuals, RoPE halves), the
-    attention (:func:`_attention_width`) and the FFN: five FFN-width
-    vectors for a dense layer, :func:`_moe_width` for an MoE one (the first
-    ``moe.first_dense_layers`` are dense); per token three vocabulary-width
-    rows of the loss's f32 logits."""
-    keys = max(1, (seq + chunk - 1) // min(chunk, seq)) * min(chunk, seq)
-    shared = 10 * cfg.d_model + _attention_width(cfg, keys)
-    dense = cfg.num_layers
+    worker's), with no rematerialisation, summed over the plan's layers
+    (``tr.make_plan``). An attention layer (and a hybrid's shared site):
+    per token about ten model-width vectors (norms, projections,
+    residuals, RoPE halves), the attention (:func:`_attention_width`), and
+    the FFN (:func:`_ffn_width`; :func:`_moe_width` for an MoE one); an
+    ``attn_cross`` layer adds its cross-attention (:func:`_cross_width`),
+    and a vision model's cross block is a cross-attention and a dense FFN.
+    A recurrent layer: :func:`_recurrent_width`. Per token three
+    vocabulary-width rows of the loss's f32 logits a head (K heads for
+    audio). Fitted at the published widths to 1.1-1.3 times what autograd
+    keeps there; at the reduced configs it stays above it."""
+    plan = tr.make_plan(cfg)
+    shared = 10 * cfg.d_model + _attention_width(cfg, _padded(seq, chunk))
     per_token = 0.0
-    if cfg.moe is not None:
-        dense = min(cfg.moe.first_dense_layers, cfg.num_layers)
-        per_token += (cfg.num_layers - dense) * (shared + _moe_width(cfg)) * dtype_bytes
-    per_token += dense * (shared + 5 * cfg.d_ff) * dtype_bytes + 3 * cfg.vocab_size * 4
-    return int(tokens * per_token)
+    for seg in plan.segments:
+        if seg.kind in ("attn", "attn_cross"):
+            width = shared + (_moe_width(cfg) if seg.use_moe else _ffn_width(cfg))
+            if seg.kind == "attn_cross":
+                width += _cross_width(cfg, cfg.d_model, seq, chunk)
+        else:
+            width = _recurrent_width(seg.kind, cfg, seq)
+        per_token += seg.count * width
+    per_token += plan.num_shared_sites * (shared + _ffn_width(cfg))
+    if plan.num_cross:
+        per_token += plan.num_cross * (_cross_width(cfg, cfg.vlm.image_embed_dim, seq, chunk)
+                                       + _ffn_width(cfg) + 6 * cfg.d_model)
+    heads = cfg.audio.num_codebooks if cfg.audio is not None else 1
+    return int(tokens * (per_token * dtype_bytes + 3 * heads * cfg.vocab_size * 4))
+
+
+# the backward's working set beside what autograd keeps (the gradients
+# flowing back through the layers, a layer's parameter gradients before
+# they are stacked), as a share of activation_bytes: fitted to the peaks
+# of TinyLlama-1.1B, DeepSeek-V2-Lite-16B at 2 layers, xLSTM-125M and
+# Zamba2-2.7B at 6 layers on an H100 (PERF.md §6)
+BACKWARD_SHARE = 0.75
+
+
+def step_bytes(cfg: ModelConfig, workers: int, tokens: int, seq: int) -> int:
+    """The estimate of a device-plane training step's peak: four ``[W, N]``
+    f32 planes (theta, velocity, the gradients' leaf stack and their
+    plane), the activations (:func:`activation_bytes`) and the backward's
+    working set (``BACKWARD_SHARE`` of them)."""
+    act = activation_bytes(cfg, tokens, seq)
+    return 4 * workers * replica_bytes(cfg) + int((1 + BACKWARD_SHARE) * act)
 
 
 def step_memory(cfg: ModelConfig, workers: int, tokens: int, seq: int, device) -> int:
-    """What a device-plane training step holds at its peak, checked before
-    anything is allocated: four ``[W, N]`` f32 planes (theta, velocity, the
-    gradients' leaf stack and their plane) and the activations
-    (:func:`activation_bytes`). Raises ValueError when that exceeds the free
-    memory (the card's; the host's on the CPU); returns it in bytes."""
+    """What a device-plane training step holds at its peak
+    (:func:`step_bytes`), checked before anything is allocated. Raises
+    ValueError when that exceeds the free memory (the card's; the host's on
+    the CPU); returns it in bytes."""
     from repro_torch.fleet import memory
-    planes = 4 * workers * replica_bytes(cfg)
-    act = activation_bytes(cfg, tokens, seq)
+    need = step_bytes(cfg, workers, tokens, seq)
     avail = memory.available_bytes("device", device)
-    if avail is not None and planes + act > avail:
+    if avail is not None and need > avail:
         gib = 2.0 ** 30
+        planes = 4 * workers * replica_bytes(cfg)
         raise ValueError(
             f"a training step of {cfg.name} at W={workers} over {tokens} tokens of {seq} needs "
-            f"~{(planes + act) / gib:.1f} GiB (4 planes {planes / gib:.1f} + activations "
-            f"{act / gib:.1f}) but only {avail / gib:.1f} GiB is free; reduce --workers, "
-            "--global-batch or --seq")
-    return planes + act
+            f"~{need / gib:.1f} GiB (4 planes {planes / gib:.1f} + activations and the "
+            f"backward {(need - planes) / gib:.1f}) but only {avail / gib:.1f} GiB is free; "
+            "reduce --workers, --global-batch or --seq")
+    return need
 
 
 def _record(i, m, div) -> dict:
@@ -228,7 +337,7 @@ def _dist_rank(group, job):
     rank = group.rank
 
     def as_batch(b):
-        return b["tokens"][rank].to(group.device), b["labels"][rank].to(group.device)
+        return tree_map(lambda t: t[rank].to(group.device), engine_batch(b))
 
     ops.zero_launch_counts()
     sends0, recvs0 = group.sends, group.recvs
@@ -242,17 +351,6 @@ def _dist_rank(group, job):
             "comm_bytes": float(trainer._backend.comm_bytes),
             "wire": int(trainer._backend.wire),
             "exported": trainer.export_obs()}
-
-
-def require_trainable(cfg) -> None:
-    """Training runs the dense, MoE and MLA models: SSM and hybrid models
-    are served (launch.serve_decode) and train through the engines with
-    ROADMAP.md 7b.4e (their chunked GLA core and sLSTM loop under
-    ``vmap(grad)``); audio and vision ones wait for 7b.4d."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training SSM / hybrid models through the engines waits for "
-            "slice 7b.4e (ROADMAP.md); they are served only (launch.serve_decode)")
 
 
 def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int,
@@ -282,7 +380,6 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    require_trainable(cfg)
     proto = ProtocolConfig(method=method, moving_rate=alpha,
                            comm_probability=p if not tau else 0.0,
                            comm_period=tau, codec=codec)
@@ -355,7 +452,7 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
         batches = lm_batches(cfg, workers, global_batch // workers, seq, seed,
                              device=trainer.device)
         state, history = _train_loop(
-            trainer, state, batches, lambda b: (b["tokens"], b["labels"]), steps=steps,
+            trainer, state, batches, engine_batch, steps=steps,
             log_every=log_every, checkpoint_dir=checkpoint_dir, arch=arch,
             on_step=on_step)
         exported = trainer.export_obs()

@@ -1,6 +1,6 @@
-"""Attention: GQA with sliding window and logit softcap, and MLA (port of
-``repro.models.attention``; cross-attention comes with a later slice, see
-ROADMAP.md).
+"""Attention: GQA with sliding window and logit softcap, gated
+cross-attention to a conditioning sequence, and MLA (port of
+``repro.models.attention``).
 
 The core is :func:`chunked_attention`, the reference's signature over the
 port's attention op: a call that needs a gradient runs
@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.common.config import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm, split_tree, upcast
+from repro_torch.models.common import (apply_rope, dense_init, rmsnorm, split_tree, upcast,
+                                       zeros_init)
 
 PyTree = Any
 
@@ -190,6 +191,39 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg: ModelConfig, *, window=0,
                           logit_softcap=cfg.attn_logit_softcap,
                           q_offset=pos, kv_len=pos + 1, kv_start=kv_start, chunk=chunk)
     return out_proj(o, p["wo"]), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM image layers / MusicGen conditioning)
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(gen: torch.Generator, cfg: ModelConfig, kv_dim: int, dtype=torch.float32):
+    """``wq [d, H, hd]``, ``wk`` / ``wv [kv_dim, Hkv, hd]``, ``wo [H, hd, d]``
+    and the residual's ``gate [1]``, zero at init (Llama-3.2-V's tanh gate)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    return split_tree({
+        "wq": dense_init(gen, (d, H, hd), ("embed", "heads", None), dtype),
+        "wk": dense_init(gen, (kv_dim, Hkv, hd), ("embed", "kv_heads", None), dtype),
+        "wv": dense_init(gen, (kv_dim, Hkv, hd), ("embed", "kv_heads", None), dtype),
+        "wo": dense_init(gen, (H, hd, d), ("heads", None, "embed"), dtype, fan_in=H * hd),
+        "gate": zeros_init((1,), (None,), dtype, gen.device),
+    })
+
+
+def cross_attn_forward(p, x, cond, cfg: ModelConfig, chunk: int = 1024):
+    """x: [B, S, d]; cond: [B, T, kv_dim] (the stubbed modality embeddings,
+    cast to x's dtype). ``tanh(gate) * wo(attention(q, k, v))``, non-causal
+    over all T keys, which are recomputed from ``cond`` at every call (at
+    every decode step too, as the reference does: there is no cross-KV
+    cache)."""
+    c = cond.to(x.dtype)
+    q = in_proj(x, p["wq"])
+    k = in_proj(c, p["wk"])
+    v = in_proj(c, p["wv"])
+    o = chunked_attention(q, k, v, causal=False, chunk=min(chunk, cond.shape[1]))
+    y = out_proj(o, p["wo"])
+    return torch.tanh(upcast(p["gate"]))[0].to(y.dtype) * y
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,10 @@
 init / forward / prefill / decode / cache interface. Kinds:
 
   attn         self-attention (GQA or MLA) + FFN (dense or MoE)
+  attn_cross   self-attention + cross-attention (conditioning) + FFN (MusicGen)
   mamba        Mamba2 SSD block
   mlstm/slstm  xLSTM blocks
-
-The reference's cross-attention kinds (``attn_cross``, ``cross_blk``) raise
-NotImplementedError: they wait for ROADMAP.md item 7b.4d.
+  cross_blk    standalone gated cross-attention block (Llama-3.2-V insertions)
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.common import init_rmsnorm, rmsnorm, split_tree
+from repro_torch.models.common import init_rmsnorm, rmsnorm, split_tree, upcast
 from repro_torch.models.mlp import ffn_forward, init_ffn_cfg
 
 PyTree = Any
@@ -35,11 +34,12 @@ _CACHE = {"mamba": ssm.mamba2_init_cache, "mlstm": ssm.mlstm_init_cache,
           "slstm": ssm.slstm_init_cache}
 
 
-def _require_ported(kind: str) -> None:
-    if kind in ("attn_cross", "cross_blk"):
-        raise NotImplementedError(
-            f"block kind {kind!r} waits for ROADMAP.md 7b.4d (cross-attention)")
-    if kind != "attn" and kind not in RECURRENT:
+ATTN = ("attn", "attn_cross")
+KINDS = ATTN + RECURRENT + ("cross_blk",)
+
+
+def _require_kind(kind: str) -> None:
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -49,12 +49,21 @@ def _require_ported(kind: str) -> None:
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bool = False,
                dtype=torch.float32) -> Tuple[PyTree, PyTree]:
-    _require_ported(kind)
+    _require_kind(kind)
     dev = gen.device
     if kind in RECURRENT:
         p, a = _INIT[kind](gen, cfg, dtype)
         n, na = init_rmsnorm(cfg.d_model, dtype, dev)
         return {"ln": n, "mixer": p}, {"ln": na, "mixer": a}
+    if kind == "cross_blk":
+        kv_dim = cfg.vlm.image_embed_dim if cfg.vlm is not None else cfg.d_model
+        return split_tree({
+            "ln1": init_rmsnorm(cfg.d_model, dtype, dev),
+            "xattn": attn.init_cross_attn(gen, cfg, kv_dim, dtype),
+            "ln2": init_rmsnorm(cfg.d_model, dtype, dev),
+            "ffn": init_ffn_cfg(gen, cfg, dtype),
+            "ffn_gate": (torch.zeros((1,), dtype=dtype, device=dev), (None,)),
+        })
     attn_init = attn.init_mla if cfg.mla is not None else attn.init_gqa
     tree = {
         "ln1": init_rmsnorm(cfg.d_model, dtype, dev),
@@ -66,6 +75,9 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bo
     if cfg.post_norms:
         tree["post_ln1"] = init_rmsnorm(cfg.d_model, dtype, dev)
         tree["post_ln2"] = init_rmsnorm(cfg.d_model, dtype, dev)
+    if kind == "attn_cross":
+        tree["ln_x"] = init_rmsnorm(cfg.d_model, dtype, dev)
+        tree["xattn"] = attn.init_cross_attn(gen, cfg, cfg.d_model, dtype)
     return split_tree(tree)
 
 
@@ -90,26 +102,43 @@ def _ffn_half(p, x, cfg: ModelConfig, use_moe: bool):
     return x + y, aux
 
 
-def _attn_residual(p, x, y, cfg: ModelConfig):
+def _attn_residual(kind: str, p, x, y, cfg: ModelConfig, cond):
+    """x + post_ln1(y), then (``attn_cross``) + cross_attn(ln_x(x), cond)."""
     if cfg.post_norms:
         y = rmsnorm(p["post_ln1"], y, cfg.norm_eps)
-    return x + y
+    x = x + y
+    if kind == "attn_cross":
+        x = x + attn.cross_attn_forward(p["xattn"], rmsnorm(p["ln_x"], x, cfg.norm_eps), cond,
+                                        cfg)
+    return x
+
+
+def _cross_block(p, x, cfg: ModelConfig, cond):
+    """The standalone gated block: x + cross_attn(ln1(x), cond), then
+    + tanh(ffn_gate) * ffn(ln2(x))."""
+    x = x + attn.cross_attn_forward(p["xattn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cond, cfg)
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    g = torch.tanh(upcast(p["ffn_gate"]))[0].to(x.dtype)
+    return x + g * ffn_forward(p["ffn"], h, cfg.activation)
 
 
 def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
                   window=0, cond=None):
     """Returns (x, aux_loss)."""
-    _require_ported(kind)
+    _require_kind(kind)
     if kind in RECURRENT:
         h = rmsnorm(p["ln"], x, cfg.norm_eps)
         return (x + _FORWARD[kind](p["mixer"], h, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    if kind == "cross_blk":
+        return (_cross_block(p, x, cfg, cond),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         y, _ = attn.mla_forward(p["attn"], h, cfg)
     else:
         y, _ = attn.gqa_forward(p["attn"], h, cfg, window=window)
-    x = _attn_residual(p, x, y, cfg)
+    x = _attn_residual(kind, p, x, y, cfg, cond)
     return _ffn_half(p, x, cfg, use_moe)
 
 
@@ -123,10 +152,13 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     MLA caches the latent ``c_kv [B, size, r]`` and ``k_rope [B, size,
     rope_dim]``; GQA ``k``, ``v [B, size, Hkv, hd]``; the recurrent kinds
     their state and conv buffer (sLSTM: c, n, h, m), f32 whatever
-    ``dtype``, as the reference's."""
-    _require_ported(kind)
+    ``dtype``, as the reference's; ``cross_blk`` none (its keys come from
+    ``cond`` at every step)."""
+    _require_kind(kind)
     if kind in RECURRENT:
         return _CACHE[kind](cfg, batch, torch.float32, device)
+    if kind == "cross_blk":
+        return {}, {}
     size = min(window, max_len) if window else max_len
     if cfg.mla is not None:
         m = cfg.mla
@@ -191,14 +223,16 @@ def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool
     kv_start (optional [B]): per-slot first valid cache row, threaded into
     the attention mask (continuous batching); the recurrent caches isolate
     a slot by their zero reset instead."""
-    _require_ported(kind)
+    _require_kind(kind)
     if kind in RECURRENT:
         y, cache = _DECODE[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cache, cfg)
         return x + y, cache
+    if kind == "cross_blk":
+        return _cross_block(p, x, cfg, cond), cache
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, new_cache = _attn_decode(p["attn"], h, cache, pos, cfg, window, window_mask,
                                 kv_start=kv_start)
-    x = _attn_residual(p, x, y, cfg)
+    x = _attn_residual(kind, p, x, y, cfg, cond)
     return _ffn_half(p, x, cfg, use_moe)[0], new_cache
 
 
@@ -212,10 +246,12 @@ def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
     rows; the cache entries (K/V, or MLA's c_kv / k_rope) are cast to
     ``cache_dtype`` as the reference's are. The recurrent kinds run their
     forward and return the terminal state (f32, no position axis)."""
-    _require_ported(kind)
+    _require_kind(kind)
     if kind in RECURRENT:
         y, cache = _PREFILL[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
         return x + y, cache
+    if kind == "cross_blk":
+        return _cross_block(p, x, cfg, cond), {}
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla is not None:
         y, (c_kv, k_rope) = attn.mla_forward(p["attn"], h, cfg)
@@ -230,5 +266,5 @@ def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
         buf = torch.zeros((B, rows) + tuple(t.shape[2:]), dtype=cache_dtype, device=x.device)
         buf[:, :S] = t
         cache[name] = buf
-    x = _attn_residual(p, x, y, cfg)
+    x = _attn_residual(kind, p, x, y, cfg, cond)
     return _ffn_half(p, x, cfg, use_moe)[0], cache

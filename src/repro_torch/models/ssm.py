@@ -46,7 +46,12 @@ def gla_chunked(q, k, v, log_g, *, chunk: int = 256, initial_state=None):
     """q, k: [B, S, H, dk]; v: [B, S, H, dv]; log_g: [B, S, H] (<= 0).
 
     Returns (y [B, S, H, dv] in q's dtype, final_state [B, H, dk, dv] in
-    f32)."""
+    f32). Its ops run inside the ``gla_chunked`` profiler range."""
+    with torch.profiler.record_function("gla_chunked"):
+        return _gla_chunked(q, k, v, log_g, chunk, initial_state)
+
+
+def _gla_chunked(q, k, v, log_g, chunk, initial_state):
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     Q = min(chunk, S)
@@ -391,9 +396,10 @@ def _slstm_mix(p, x, cfg: ModelConfig):
     xg = xi @ p["w_gates"].to(x.dtype)                               # [B, S, 4 d_in]
     state = slstm_init_cache(cfg, B, upcast_dtype(x.dtype), x.device)[0]
     hs = []
-    for t in range(S):                                               # the reference's scan
-        state = _slstm_cell(p, xg[:, t], state, H, dh)
-        hs.append(state["h"])
+    with torch.profiler.record_function("slstm loop"):
+        for t in range(S):                                           # the reference's scan
+            state = _slstm_cell(p, xg[:, t], state, H, dh)
+            hs.append(state["h"])
     y = torch.stack(hs, dim=1).to(x.dtype)                           # [B, S, d_in]
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     return y @ p["down"].to(x.dtype), state

@@ -3,17 +3,23 @@ with train / prefill / decode entry points.
 
 A model is a list of *events*:
   ("seg", name)     a loop over a stacked homogeneous segment of blocks
+  ("cross", i)      one standalone cross-attention block (Llama-3.2-V)
   ("shared", site)  one application of a shared block (Zamba2)
 
-The dense and MoE architectures (``"attn"`` segments with GQA or MLA
-attention and dense or MoE FFNs, cut at ``moe.first_dense_layers``;
-gemma2's per-layer local/global windows included), the SSM ones (xLSTM's
-``mlstm`` / ``slstm`` runs, Mamba2) and the hybrid (Zamba2: Mamba2
-segments with shared attention blocks between them). Audio and vision
-models raise NotImplementedError until ROADMAP.md 7b.4d. The parameter
+Every architecture of the reference: the dense and MoE ones (``"attn"``
+segments with GQA or MLA attention and dense or MoE FFNs, cut at
+``moe.first_dense_layers``; gemma2's per-layer local/global windows
+included), the audio one (MusicGen: ``"attn_cross"`` segments, K codebooks
+summed in the embedding and K heads), the vision one (Llama-3.2-V:
+``"attn"`` segments cut after each cross-attention layer, a
+``("cross", i)`` event there), the SSM ones (xLSTM's ``mlstm`` /
+``slstm`` runs, Mamba2) and the hybrid (Zamba2: Mamba2 segments with
+shared attention blocks between them). The cross-attention blocks read
+``cond``, the stubbed modality embeddings ``[B, T, e]``. The parameter
 tree is the reference's, layers stacked on a leading ``[count]`` axis per
-segment (and the shared blocks on ``[num_shared_blocks]``), so ``FlatSpec``
-offsets equal the reference's and a snapshot flattens to the same buffers.
+segment (the cross blocks on ``[num_cross]``, the shared blocks on
+``[num_shared_blocks]``), so ``FlatSpec`` offsets equal the reference's
+and a snapshot flattens to the same buffers.
 The reference's ``lax.scan`` over layers is a python loop over the layers'
 views (one ``unbind`` per stacked leaf, whose backward is one ``stack``),
 and decode writes the caches in place. Training (:func:`lm_loss`) keeps
@@ -57,19 +63,19 @@ class Plan:
 
 
 def make_plan(cfg: ModelConfig) -> Plan:
-    """The reference's plan. Dense and MoE: ``attn`` segments cut at
+    """The reference's plan. Dense, MoE, audio and vision: segments cut at
     ``moe.first_dense_layers`` (DeepSeek: ``seg0_attn`` of 1 layer, then
-    ``seg1_attn_moe``; Grok: one ``seg0_attn_moe``), gemma2's even layers
-    local (``local_window``), odd ones global. xLSTM: runs of ``mlstm`` /
-    ``slstm`` layers, layer i an sLSTM where ``i % slstm_every ==
-    slstm_offset``. Mamba2: one ``mamba`` segment. Hybrid (Zamba2): ``mamba``
-    segments of ``shared_attn_every`` layers with a ``("shared", site)``
-    event after each but the last."""
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid") or cfg.vlm is not None \
-            or cfg.audio is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} waits for slice 7b.4d "
-            "(cross-attention, ROADMAP.md); the port serves dense, MoE, SSM and hybrid models")
+    ``seg1_attn_moe``; Grok: one ``seg0_attn_moe``) and after each of
+    ``vlm.cross_attn_layers``, each cut followed by a ``("cross", i)``
+    event (Llama-3.2-V: 8 segments and 8 cross blocks), of kind
+    ``attn_cross`` for audio (MusicGen) and ``attn`` for the others;
+    gemma2's even layers local (``local_window``), odd ones global. xLSTM:
+    runs of ``mlstm`` / ``slstm`` layers, layer i an sLSTM where ``i %
+    slstm_every == slstm_offset``. Mamba2: one ``mamba`` segment. Hybrid
+    (Zamba2): ``mamba`` segments of ``shared_attn_every`` layers with a
+    ``("shared", site)`` event after each but the last."""
+    if cfg.arch_type not in ("dense", "audio", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(cfg.arch_type)
     events: List[Tuple[str, Any]] = []
     segments: List[Segment] = []
 
@@ -78,20 +84,25 @@ def make_plan(cfg: ModelConfig) -> Plan:
         segments.append(Segment(name, kind, count, use_moe, windows))
         events.append(("seg", name))
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "audio", "vlm", "moe"):
+        kind = "attn_cross" if cfg.arch_type == "audio" else "attn"
+        xlayers = set(cfg.vlm.cross_attn_layers) if cfg.vlm is not None else set()
         first_dense = cfg.moe.first_dense_layers if cfg.moe is not None else 0
-        cuts = [c for c in sorted({first_dense, cfg.num_layers}) if 0 < c <= cfg.num_layers]
-        start = 0
-        for c in cuts:
+        cuts = sorted({first_dense, cfg.num_layers} | {i + 1 for i in xlayers})
+        start, n_cross = 0, 0
+        for c in (c for c in cuts if 0 < c <= cfg.num_layers):
             count = c - start
             if count > 0:
                 windows = None
                 if cfg.local_window:
                     windows = tuple(cfg.local_window if (start + j) % 2 == 0 else 0
                                     for j in range(count))
-                add_seg("attn", count, cfg.moe is not None and start >= first_dense, windows)
+                add_seg(kind, count, cfg.moe is not None and start >= first_dense, windows)
+            if c - 1 in xlayers:
+                events.append(("cross", n_cross))
+                n_cross += 1
             start = c
-        return Plan(tuple(events), tuple(segments))
+        return Plan(tuple(events), tuple(segments), num_cross=n_cross)
     if cfg.arch_type == "ssm" and cfg.xlstm is not None:
         x = cfg.xlstm
         pattern = ["slstm" if i % x.slstm_every == x.slstm_offset else "mlstm"
@@ -143,30 +154,36 @@ def _layers(seg_params, count: int) -> List[PyTree]:
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tuple[PyTree, PyTree]:
     """(params, axes) on ``gen``'s device, in the reference's tree:
-    ``embed [1, V, d]``, ``segments/<seg>/...`` stacked ``[count, ...]``,
-    the hybrid's ``shared/...`` stacked ``[num_shared_blocks, ...]``,
-    ``final_norm [d]`` and ``lm_head [1, d, V]`` (unless tied). Each
+    ``embed [K, V, d]`` (K the audio codebooks, else 1),
+    ``segments/<seg>/...`` stacked ``[count, ...]``, the vision model's
+    ``cross/...`` stacked ``[num_cross, ...]``, the hybrid's ``shared/...``
+    stacked ``[num_shared_blocks, ...]``, ``final_norm [d]`` and ``lm_head
+    [K, d, V]`` (unless tied). Each
     segment's ``[count, ...]`` leaves are allocated once and filled layer by
     layer in the draw order (a layer's leaves drawn in f32 and cast to
     ``dtype``), so the peak is the model plus one layer."""
     plan = make_plan(cfg)
     params: dict = {}
     axes: dict = {}
+    K = cfg.audio.num_codebooks if cfg.audio is not None else 1
     params["embed"], axes["embed"] = dense_init(
-        gen, (1, cfg.vocab_size, cfg.d_model), (None, "vocab", "embed"), dtype,
+        gen, (K, cfg.vocab_size, cfg.d_model), (None, "vocab", "embed"), dtype,
         fan_in=cfg.d_model, scale=0.5)
     segs_p, segs_a = {}, {}
     for seg in plan.segments:
         segs_p[seg.name], segs_a[seg.name] = _init_stacked(gen, seg.kind, seg.count, cfg,
                                                            seg.use_moe, dtype)
     params["segments"], axes["segments"] = segs_p, segs_a
+    if plan.num_cross:
+        params["cross"], axes["cross"] = _init_stacked(gen, "cross_blk", plan.num_cross, cfg,
+                                                       False, dtype)
     if plan.num_shared_blocks:
         params["shared"], axes["shared"] = _init_stacked(gen, "attn", plan.num_shared_blocks,
                                                          cfg, False, dtype)
     params["final_norm"], axes["final_norm"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"], axes["lm_head"] = dense_init(
-            gen, (1, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab"), dtype,
+            gen, (K, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab"), dtype,
             fan_in=cfg.d_model)
     return params, axes
 
@@ -227,17 +244,33 @@ def params_from_jax(tree, device, dtype=None) -> PyTree:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    """tokens: [B, S] -> [B, S, d]."""
-    return params["embed"][0][tokens.long()]
+    """tokens: [B, S] (audio: [B, K, S]) -> [B, S, d]; the audio codebooks'
+    embeddings are summed in codebook order (MusicGen's interleave
+    collapsed), as the reference's ``sum``."""
+    emb = params["embed"]
+    if cfg.audio is not None:
+        tokens = tokens.long()
+        return sum(emb[k][tokens[:, k]] for k in range(cfg.audio.num_codebooks))
+    return emb[0][tokens.long()]
 
 
 def lm_logits(params, cfg: ModelConfig, x):
-    """x: [B, S, d] -> [B, S, V]."""
-    head = params["embed"][0].t() if cfg.tie_embeddings else params["lm_head"][0]
-    logits = x @ head.to(x.dtype)
+    """x: [B, S, d] -> [B, S, V] (audio: [B, K, S, V], a head a codebook)."""
+    if cfg.audio is not None:
+        heads = params["embed"].transpose(1, 2) if cfg.tie_embeddings else params["lm_head"]
+        logits = torch.einsum("bsd,kdv->bksv", x, heads.to(x.dtype))
+    else:
+        head = params["embed"][0].t() if cfg.tie_embeddings else params["lm_head"][0]
+        logits = x @ head.to(x.dtype)
     if cfg.final_logit_softcap:
         logits = softcap(upcast(logits), cfg.final_logit_softcap).to(logits.dtype)
     return logits
+
+
+def _last_logits(params, cfg: ModelConfig, x):
+    """The logits of x's last position: [B, V] (audio: [B, K, V])."""
+    logits = lm_logits(params, cfg, x[:, -1:])
+    return logits[:, :, 0] if cfg.audio is not None else logits[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +278,13 @@ def lm_logits(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens, cond=None):
-    """Training forward. tokens: [B, S]. Returns (hidden [B, S, d], aux)."""
+    """Training forward. tokens: [B, S] (audio: [B, K, S]); cond: the
+    stubbed modality embeddings [B, T, e] of the audio and vision models.
+    Returns (hidden [B, S, d], aux)."""
     plan = make_plan(cfg)
     x = embed_tokens(params, cfg, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    shared = _shared_layers(params, plan)
+    shared, cross = _stacked_layers(params, "shared", plan), _stacked_layers(params, "cross", plan)
     for ev, arg in plan.events:
         if ev == "seg":
             seg = _segment(plan, arg)
@@ -258,25 +293,28 @@ def forward(params, cfg: ModelConfig, tokens, cond=None):
                 x, aux = blocks.block_forward(seg.kind, p, x, cfg,
                                               use_moe=seg.use_moe, window=w, cond=cond)
                 aux_total = aux_total + aux
+        elif ev == "cross":
+            x, _ = blocks.block_forward("cross_blk", cross[arg], x, cfg, cond=cond)
         else:
             x, aux = blocks.block_forward("attn", shared[arg % plan.num_shared_blocks], x, cfg)
             aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
 
 
-def _shared_layers(params, plan: Plan) -> List[PyTree]:
-    """The hybrid's shared blocks as views (none for the other kinds)."""
-    if not plan.num_shared_blocks:
-        return []
-    return _layers(params["shared"], plan.num_shared_blocks)
+def _stacked_layers(params, key: str, plan: Plan) -> List[PyTree]:
+    """The vision model's cross blocks (``key`` "cross") or the hybrid's
+    shared blocks ("shared") as views; none for the other kinds."""
+    count = plan.num_cross if key == "cross" else plan.num_shared_blocks
+    return _layers(params[key], count) if count else []
 
 
 def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels, chunk: int = 256):
     """Cross-entropy without materialising [B, S, V]: a loop over sequence
     chunks, each chunk's logits in f32 (the reference's scan).
 
-    hidden: [B, S, d]; labels: [B, S]. Positions with label < 0 are
-    masked; the mean is over the unmasked ones."""
+    hidden: [B, S, d]; labels: [B, S] (audio: [B, K, S], a head a
+    codebook). Positions with label < 0 are masked; the mean is over the
+    unmasked ones."""
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     assert S % chunk == 0
@@ -342,16 +380,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float3
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: int = 0,
                 kv_start=None):
-    """One-token decode. tokens: [B, 1]. kv_start (optional [B]): per-row
-    first valid cache position, the continuous-batching slot boundary.
-    The cache's K/V rows at ``pos`` and the recurrent states are written IN
-    PLACE; the returned cache holds the same tensors and a new ``pos + 1``.
-    Returns (logits [B, V], cache)."""
+    """One-token decode. tokens: [B, 1] (audio: [B, K, 1]). kv_start
+    (optional [B]): per-row first valid cache position, the
+    continuous-batching slot boundary. The cache's K/V rows at ``pos`` and
+    the recurrent states are written IN PLACE; the returned cache holds the
+    same tensors and a new ``pos + 1``. The cross blocks attend over all of
+    ``cond``. Returns (logits [B, V] (audio: [B, K, V]), cache)."""
     plan = make_plan(cfg)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
     new_cache = {"segments": {}, "pos": pos + 1}
-    shared = _shared_layers(params, plan)
+    shared, cross = _stacked_layers(params, "shared", plan), _stacked_layers(params, "cross", plan)
     if plan.num_shared_sites:
         sites = _layers(cache["shared_sites"], plan.num_shared_sites)
         new_cache["shared_sites"] = cache["shared_sites"]
@@ -368,23 +407,26 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: i
                                            use_moe=seg.use_moe, window=window, window_mask=w,
                                            cond=cond, kv_start=kv_start)
             new_cache["segments"][arg] = sc
+        elif ev == "cross":
+            x, _ = blocks.block_decode("cross_blk", cross[arg], x, {}, pos, cfg, cond=cond)
         else:
             x, _ = blocks.block_decode("attn", shared[arg % plan.num_shared_blocks], x,
                                        sites[arg], pos, cfg, window=window, kv_start=kv_start)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params, cfg, x)[:, 0], new_cache
+    return _last_logits(params, cfg, x), new_cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float32,
             max_len: int = 0):
-    """Full-sequence prefill: returns (last-token logits [B, V], cache).
-    Attention caches are zero-padded to ``max_len`` rows so decode can
-    continue in place; the recurrent ones hold the terminal state."""
+    """Full-sequence prefill: returns (last-token logits [B, V] (audio:
+    [B, K, V]), cache). Attention caches are zero-padded to ``max_len`` rows
+    so decode can continue in place; the recurrent ones hold the terminal
+    state."""
     plan = make_plan(cfg)
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     cache = {"segments": {}, "pos": torch.full((), S, dtype=torch.int32, device=x.device)}
-    shared = _shared_layers(params, plan)
+    shared, cross = _stacked_layers(params, "shared", plan), _stacked_layers(params, "cross", plan)
     sites = []
     for ev, arg in plan.events:
         if ev == "seg":
@@ -397,6 +439,8 @@ def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float
                                             max_len=max_len)
                 layers.append(c)
             cache["segments"][arg] = _stack(layers)
+        elif ev == "cross":
+            x, _ = blocks.block_prefill("cross_blk", cross[arg], x, cfg, cond=cond)
         else:
             x, c = blocks.block_prefill("attn", shared[arg % plan.num_shared_blocks], x, cfg,
                                         cache_dtype=cache_dtype, max_len=max_len)
@@ -404,7 +448,7 @@ def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float
     if sites:
         cache["shared_sites"] = _stack(sites)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params, cfg, x[:, -1:])[:, 0], cache
+    return _last_logits(params, cfg, x), cache
 
 
 def _stack(caches: List[dict]) -> dict:

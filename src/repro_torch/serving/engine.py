@@ -58,7 +58,23 @@ class ServeProgram:
         return cache
 
     def token_shapes(self, seq: int = 1) -> ShapeDtype:
+        """int32 ``[batch, seq]`` (audio: ``[batch, K, seq]``)."""
+        cfg = self.model_cfg
+        if cfg.audio is not None:
+            return ShapeDtype((self.batch, cfg.audio.num_codebooks, seq), torch.int32)
         return ShapeDtype((self.batch, seq), torch.int32)
+
+    def cond_shapes(self) -> Optional[ShapeDtype]:
+        """The stubbed conditioning the audio and vision models read, bf16
+        ``[batch, T, e]``; None for the others."""
+        cfg = self.model_cfg
+        if cfg.audio is not None:
+            return ShapeDtype((self.batch, cfg.audio.num_cond_tokens, cfg.d_model),
+                              torch.bfloat16)
+        if cfg.vlm is not None:
+            return ShapeDtype((self.batch, cfg.vlm.num_image_tokens, cfg.vlm.image_embed_dim),
+                              torch.bfloat16)
+        return None
 
 
 def make_serve_program(cfg: ModelConfig, *, batch: int, max_len: int, window: int = 0,
@@ -66,8 +82,9 @@ def make_serve_program(cfg: ModelConfig, *, batch: int, max_len: int, window: in
                        with_prefill: bool = False, device="cuda") -> ServeProgram:
     """The serving program of ``cfg`` on one device (``cuda`` unless the
     caller asks for the CPU). ``window > 0`` decodes over a ring buffer of
-    that many rows."""
-    tr.make_plan(cfg)            # refuses the architectures the port cannot serve yet
+    that many rows. The audio and vision models take their conditioning
+    (:meth:`ServeProgram.cond_shapes`) in every prefill and decode call."""
+    tr.make_plan(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_serve_program: no CUDA device (pass device='cpu' "

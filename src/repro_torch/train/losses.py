@@ -13,11 +13,14 @@ from repro_torch.models import transformer as tr
 def lm_loss_fn(cfg: ModelConfig):
     """Returns ``loss(params, batch)`` -> scalar, the reference's closure
     (batch keys ``tokens``, ``labels``, optionally ``cond``), which also
-    takes the engines' ``loss(params, tokens, labels)``."""
+    takes the engines' ``loss(params, x, labels)`` with ``x`` the tokens or
+    ``{"tokens", "cond"}`` (the audio and vision models' conditioning rides
+    the engines' batch beside the tokens)."""
 
     def loss(params, batch, labels=None):
         if labels is not None:
-            batch = {"tokens": batch, "labels": labels}
+            batch = dict(batch if isinstance(batch, dict) else {"tokens": batch},
+                         labels=labels)
         total, _ = tr.lm_loss(params, cfg, batch["tokens"], batch["labels"],
                               batch.get("cond"))
         return total

@@ -135,7 +135,7 @@ class DistTrainer:
             return self.loss_fn(row_spec.views(bufs), xi, yi)
 
         dev = self.group.device
-        x = torch.as_tensor(x, device=dev)[None]
+        x = tree_map(lambda t: torch.as_tensor(t, device=dev)[None], x)
         y = torch.as_tensor(y, device=dev)[None]
         with full_f32():   # forward and backward: no TF32 in between
             grads, loss = vmap(grad_and_value(one_loss))(state.theta, x, y)

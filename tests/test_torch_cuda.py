@@ -8,8 +8,11 @@ plane against the device plane, a 2-rank dist engine on the card
 (B1 on the firing steps, B2 on the others), the serving path (B9 once
 per layer in prefill and in every decode step), the CIFAR CNN's step
 against the CPU's with TF32 allowed in the process, checkpoint resumes
-on the card, B9 at Zamba2's head dim 80, the MoE dispatch under ``vmap``
-and the SSM blocks' prefill and decode against the CPU's.
+on the card, B9 at Zamba2's head dim 80, the MoE dispatch under ``vmap``,
+the SSM blocks' prefill and decode against the CPU's, B9 at the
+cross-attention models' non-causal shapes, the SSM / hybrid LM gradient
+under ``vmap`` against the CPU's, and the cross-attention models' prefill
+and decode against the CPU's.
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1600,3 +1603,118 @@ def test_ssm_block_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch, kind
     for k in wc:
         torch.testing.assert_close(gc[k], wc[k], rtol=1e-4,
                                    atol=1e-4 * max(1.0, float(wc[k].abs().max())))
+
+
+# the cross-attention shapes of the audio and vision models at full width:
+# (B, Sq, H, Skv, Hkv, hd); vision self-attends over 8 kv heads and
+# cross-attends over 1601 image tokens (no tile divides it), MusicGen is MHA
+# over 64 conditioning tokens
+CROSS_SHAPES = {"vision prefill": (8, 512, 32, 1601, 8, 128),
+                "vision decode": (8, 1, 32, 1601, 8, 128),
+                "musicgen prefill": (8, 512, 32, 64, 32, 64),
+                "musicgen decode": (8, 1, 32, 64, 32, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CROSS_SHAPES))
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_at_the_cross_attention_shapes_matches_plain_version(cuda, case, dt):
+    """B9 non-causal at the cross-attention shapes, queries attending to
+    every key: a prefill of 512 queries (bf16: the mma form; f32: simt)
+    and a decode of one (the split form), over Llama-3.2-V's 1601 image
+    tokens (a partial last key tile, and 51 splits of 32 rows in decode)
+    and MusicGen's 64 conditioning tokens."""
+    B, Sq, H, Skv, Hkv, hd = CROSS_SHAPES[case]
+    g = torch.Generator(device=cuda).manual_seed(61)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda).to(dt) for _ in range(2))
+    form = tfa._form(dt, B, Sq, H, Hkv, hd, Skv)
+    assert form == ("split" if Sq == 1 else "mma" if dt == torch.bfloat16 else "simt")
+    _check_b9(q, k, v, form=form, causal=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_2_7b"])
+def test_ssm_lm_gradient_under_vmap_on_the_card_equals_the_cpu_s(cuda, arch):
+    """The reduced SSM / hybrid LM through the sim engine's gradient path
+    (vmap of grad_and_value over the views) at W = 2, 2 x 32 tokens a
+    worker, on the card and on the CPU: losses rtol 1e-5, gradients rtol
+    1e-4 / atol 1e-5 (Zamba2's chunked GLA: atol 1e-5 of the largest
+    gradient); no B9 launch (Zamba2's shared sites train through the
+    online softmax)."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.common.precision import full_f32
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tr
+    cfg = get_reduced(arch)
+    params = tr.init_lm(torch.Generator().manual_seed(0), cfg)[0]
+    stack = tree_map(lambda t: torch.stack([t, t * 1.01]), params)
+    spec = FlatSpec.build(stack, leading=1)
+    row = spec.with_lead(())
+    g = torch.Generator().manual_seed(1)
+    toks, labels = (torch.randint(0, cfg.vocab_size, (2, 2, 32), generator=g) for _ in range(2))
+
+    def grads(dev):
+        bufs = {k: b.to(dev) for k, b in spec.flatten(stack).items()}
+        with full_f32():
+            return vmap(grad_and_value(lambda b, x, y: tr.lm_loss(row.views(b), cfg, x, y)[0]))(
+                bufs, toks.to(dev), labels.to(dev))
+
+    n = ops.launch_counts()["flash_attention"]
+    g_card, l_card = grads(cuda)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n
+    g_cpu, l_cpu = grads("cpu")
+    want = g_cpu["float32"]
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_card["float32"].cpu(), want, rtol=1e-4,
+                               atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["musicgen_large", "llama_3_2_vision_11b"])
+def test_cross_attention_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
+    """The reduced audio / vision model (its ``attn_cross`` layers or its
+    ``cross_blk``), every cross gate 0.5 and a random cond, f32: a prefill
+    of 12 positions and 6 greedy decode steps on the card (B9 for every
+    self- and cross-attention) against the same on the CPU (B9's plain
+    version): logits within rtol 1e-4 / atol 1e-4, greedy tokens equal; B9
+    launched once per attention a step."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve_decode import open_cross_gates
+    from repro_torch.models import transformer as tr
+    cfg = get_reduced(arch)
+    params = tr.init_lm(torch.Generator().manual_seed(0), cfg)[0]
+    open_cross_gates(params, 0.5)
+    g = torch.Generator().manual_seed(1)
+    K = (cfg.audio.num_codebooks,) if cfg.audio is not None else ()
+    prompt = torch.randint(0, cfg.vocab_size, (2,) + K + (12,), generator=g)
+    T, e = ((cfg.audio.num_cond_tokens, cfg.d_model) if cfg.audio is not None
+            else (cfg.vlm.num_image_tokens, cfg.vlm.image_embed_dim))
+    cond = torch.randn(2, T, e, generator=g)
+    plan = tr.make_plan(cfg)
+    per_step = sum(s.count * (2 if s.kind == "attn_cross" else 1) for s in plan.segments) \
+        + plan.num_cross
+
+    def run(dev):
+        p = {k: v for k, v in params.items()}
+        p = torch.utils._pytree.tree_map(lambda t: t.to(dev), p)
+        c = cond.to(dev)
+        with torch.no_grad():
+            logits, cache = tr.prefill(p, cfg, prompt.to(dev), c, max_len=24)
+            out = [logits]
+            for _ in range(6):
+                logits, cache = tr.decode_step(p, cfg, cache,
+                                               logits.argmax(-1).int()[..., None], c)
+                out.append(logits)
+        return torch.stack(out).cpu()
+
+    n = ops.launch_counts()["flash_attention"]
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] - n == per_step * 7
+    want = run("cpu")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -464,12 +464,13 @@ def test_moe_batcher_streams_equal_reference():
 
 @pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_2_7b"])
 def test_training_entry_points_refuse_ssm_and_hybrid_until_7b4e(arch):
-    """launch.train and launch.serve train through the engines: they refuse
-    SSM and hybrid models, naming the ROADMAP item, before building
-    anything (the models are served: tests/test_torch_ssm.py)."""
-    with pytest.raises(NotImplementedError, match="7b.4e"):
-        train_cli.run(arch, reduced=True, steps=1, method="elastic_gossip", p=0.5, tau=0,
-                      alpha=0.5, lr=1e-2, workers=2, global_batch=4, seq=8, engine="sim",
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="7b.4e"):
-        serve_cli.build(arch, device="cpu")
+    """launch.train and launch.serve refused SSM and hybrid models until
+    ROADMAP.md 7b.4e, which lifted the refusal: both now build and take a
+    step (one training step; one train-while-serve boundary) with a finite
+    loss. Their parity with the reference: tests/test_torch_ssm_train.py."""
+    _, hist = train_cli.run(arch, reduced=True, steps=1, method="elastic_gossip", p=0.5,
+                            tau=0, alpha=0.5, lr=1e-2, workers=2, global_batch=4, seq=8,
+                            engine="sim", device="cpu")
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+    ts = serve_cli.build(arch, device="cpu", workers=2)
+    assert ts.run(1)["boundaries"] == 1 and ts.trainer._host_steps == 1

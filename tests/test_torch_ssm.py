@@ -269,8 +269,22 @@ def test_block_cache_equals_the_reference_s(kind):
 
 @pytest.mark.parametrize("kind", ["attn_cross", "cross_blk"])
 def test_cross_attention_kinds_refuse_naming_7b4d(kind):
-    with pytest.raises(NotImplementedError, match="7b.4d"):
-        blocks.init_block(torch.Generator(), kind, get_reduced("tinyllama_1_1b"))
+    """The cross-attention kinds refused until ROADMAP.md 7b.4d, which
+    ported them: ``init_block`` now builds the reference's tree (keys and
+    shapes, the gates zero) for a vision config, and the block's cache is
+    the reference's. Their numbers: tests/test_torch_cross.py."""
+    jcfg, cfg = jget_reduced("llama_3_2_vision_11b"), get_reduced("llama_3_2_vision_11b")
+    jp, ja = jblocks.init_block(jax.random.PRNGKey(0), kind, jcfg)
+    tp, ta = blocks.init_block(torch.Generator(), kind, cfg)
+    assert ta == ja
+    assert jax.tree.map(lambda t: tuple(t.shape), jp) == {
+        k: (jax.tree.map(lambda t: tuple(t.shape), v) if isinstance(v, dict)
+            else tuple(v.shape)) for k, v in tp.items()}
+    gate = tp["ffn_gate"] if kind == "cross_blk" else tp["xattn"]["gate"]
+    assert not gate.any()
+    jc, _ = jblocks.init_block_cache(kind, jcfg, 2, 8)
+    tc, _ = blocks.init_block_cache(kind, cfg, 2, 8)
+    assert sorted(tc) == sorted(jc)
 
 
 # ---------------------------------------------------------------------------

@@ -147,10 +147,14 @@ def test_decode_steps_ring_buffer_match_reference(arch):
     "granite_3_8b", "granite_20b", "deepseek_v2_lite_16b", "grok_1_314b", "xlstm_125m",
     "zamba2_2_7b"]])
 def test_unported_architectures_refuse(arch):
-    """Audio and vision wait for their ROADMAP.md item (the MoE archs are
-    served: tests/test_torch_moe.py; SSM and hybrid: tests/test_torch_ssm.py)."""
-    with pytest.raises(NotImplementedError, match="slice 7b.4d"):
-        tr.make_plan(get_reduced(arch))
+    """Audio and vision refused until ROADMAP.md 7b.4d, which ported them:
+    ``make_plan`` now gives the reference's plan for them (the cross
+    models' numbers: tests/test_torch_cross.py; the MoE archs:
+    tests/test_torch_moe.py; SSM and hybrid: tests/test_torch_ssm.py)."""
+    plan, jplan = tr.make_plan(get_reduced(arch)), jtr.make_plan(jget_reduced(arch))
+    assert plan.events == jplan.events and plan.num_cross == jplan.num_cross
+    assert [(s.name, s.kind, s.count) for s in plan.segments] == \
+        [(s.name, s.kind, s.count) for s in jplan.segments]
 
 
 @pytest.mark.parametrize("arch", ["granite_3_8b", "granite_20b"])
