@@ -317,6 +317,26 @@ prints no result line):
              15's runs; vision's training plan at its widths logged (4
              layers + 1 cross block: step_memory refuses it) and the
              reduced vision model trained on sim.
+17. accum+tp — (a) TinyLlama-1.1B whole in f32 on the dist engine at
+             W = 2 ranks: the largest per-worker batch whose step plan
+             fits (seq 256), 3 steps at grad_accum 1 and then 2 in the
+             same ranks, step 1's loss and theta at A = 2 within rtol 1e-4
+             / atol 1e-5 of A = 1 and each rank's peak at A = 2 below A =
+             1's, B1 / B2 once a step; (b) the reduced TinyLlama in the
+             reference's model = 2 test's configuration (data=4, model=2,
+             4 ranks), 24 elastic steps bit-equal to model = 1; (c) B9 at
+             the ranks' local shapes of TinyLlama at M = 2 and 4 against
+             its plain version and timed beside SDPA, then tensor-parallel
+             serving of TinyLlama-1.1B whole in bf16 (8 x 512 prompts, 64
+             greedy steps) at M = 1 (this process), 2 and 4 ranks on the
+             card: prefill and decode-step ms, the collectives' host ms a
+             step, each rank's peak, the logit gap to M = 1 and the share of
+             greedy tokens equal; B9 exactly M x layers x (1 + steps)
+             times and the collectives of every step exact; the gate in
+             f32 at 4 layers (every step's logits within 1e-5 of the
+             largest of M = 1, every greedy token equal); (d) reduced
+             Gemma2 in f32 at M = 4 (kv heads kept whole, softcaps, local
+             windows) against M = 1 within the same gate.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -537,9 +557,8 @@ def time_b1_rows(torch, fu, ref, dev, bw, peak):
         bound_ms = max(bytes_ms, FLOPS_PER_ELEMENT * k * N_FULL / peak * 1e3)
         out[k] = (ms, dev_ms, plain_ms, bound_ms)
         log(f"[kernels] B1 row list, {k} of 8 rows of [8, {N_FULL}] f32: kernel {ms:.4f} ms "
-            f"(device alone {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({b1_bytes(k, N_FULL, 4, 4) / (dev_ms * 1e-3) / 1e12:.3f} TB/s achieved on "
-            f"the device)")
+            f"(device alone {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({tb_s(b1_bytes(k, N_FULL, 4, 4), dev_ms)} TB/s achieved on the device)")
     del t, p, v, g
     return out
 
@@ -862,13 +881,16 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
         out[kname] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library=lib_name,
                           library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bound,
                           bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        share = "not measured" if dev_ms is None else f"{bound / dev_ms:.0%}"
+        ratio = ("not measured" if dev_ms is None or lib_dev_ms is None
+                 else f"{dev_ms / lib_dev_ms:.2f}x")
         log(f"[kernels] {kname} [{W}, {n}] block {block} k {k}: kernel {ms:.4f} ms (device "
-            f"alone {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"alone {fmt_ms(dev_ms)} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({nbytes[kname] / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
-            f"{nbytes[kname] / (dev_ms * 1e-3) / 1e12:.3f} TB/s achieved on the device, "
-            f"{bound / dev_ms:.0%} of the bound)"
-            + (f", {lib_name} {lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms; kernel "
-               f"{dev_ms / lib_dev_ms:.2f}x on the device)" if lib is not None else ""))
+            f"{tb_s(nbytes[kname], dev_ms)} TB/s achieved on the device, "
+            f"{share} of the bound)"
+            + (f", {lib_name} {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)} ms; kernel "
+               f"{ratio} on the device)" if lib is not None else ""))
     out["topk_decode"]["library_note"] = (
         "no single PyTorch call: a zeroed buffer plus scatter_add_, which on the card "
         "promises no order among duplicate indices")
@@ -1023,9 +1045,9 @@ def time_b8_strided(torch, rb, dev, bw, peak):
         bound_ms = max(nbytes / bw * 1e3, B8_FLOPS_PER_ELEMENT * 8 * N_FULL / peak * 1e3)
         res[P] = (ms, dev_ms, copy_ms, copy_dev_ms, bound_ms)
         log(f"[kernels] B8 over [8, {N_FULL}] f32 in {P} column chunks: strided in place "
-            f"{ms:.4f} ms (device alone {dev_ms:.4f}), contiguous copy + B8 + copy back "
-            f"{copy_ms:.4f} ms (device {copy_dev_ms:.4f}), bound {bound_ms:.4f} ms "
-            f"({nbytes / (dev_ms * 1e-3) / 1e12:.3f} TB/s achieved strided on the device)")
+            f"{ms:.4f} ms (device alone {fmt_ms(dev_ms)}), contiguous copy + B8 + copy back "
+            f"{copy_ms:.4f} ms (device {fmt_ms(copy_dev_ms)}), bound {bound_ms:.4f} ms "
+            f"({tb_s(nbytes, dev_ms)} TB/s achieved strided on the device)")
         del ds
     del x, out
     return res
@@ -1727,21 +1749,39 @@ def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak, causal=True):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def device_ms(torch, fn, match="", n=20):
+def device_ms(torch, fn, match="", n=20, sessions=3):
     """Device ms per call of fn: the summed durations of its kernels whose
-    name holds ``match``, under torch.profiler (no host time)."""
+    name holds ``match``, under torch.profiler (no host time). CUPTI at
+    times drops a session's kernel records, all or some of them, so a
+    session counts only where it shows at least one matching kernel per
+    call; after ``sessions`` that did not, the time is not measured (None)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
-    if not us:
-        raise RuntimeError(f"the profiler saw no device time for {match!r}")
-    return us / n / 1e3
+    seen = []
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        if len(us) >= n:
+            return sum(us) / n / 1e3
+        seen.append(len(us))
+    log(f"[profiler] kernels named {match!r}: {seen} records in {sessions} sessions of "
+        f"{n} calls each; device time not measured")
+    return None
+
+
+def fmt_ms(ms):
+    """A measured time as '0.1234', or 'not measured' where it is None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def tb_s(nbytes, ms):
+    """Bytes over a device time in TB/s, or 'not measured'."""
+    return "not measured" if ms is None else f"{nbytes / (ms * 1e-3) / 1e12:.3f}"
 
 
 def timed_form(torch, fa, fn):
@@ -1811,7 +1851,7 @@ def time_b9(torch, ops, fa, dev, bw, peak):
             f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); device time alone (profiler): kernel "
-            f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms")
+            f"{fmt_ms(r['device_ms'])} ms, SDPA {fmt_ms(r['library_device_ms'])} ms")
     return out, err
 
 
@@ -2208,7 +2248,8 @@ def profile_cnn(torch, dev):
         f"{r['kernel_launches_per_step']:.1f} kernels/step, device busy "
         f"{r['device_busy_ms_per_step']:.3f} ms/step (share {r['device_busy_share']!r}), "
         f"kernel durations summed {summed:.3f} ms/step, of which convolutions {conv:.3f} "
-        f"({conv / summed:.3f}); phases {r['phase_ms_per_step']}")
+        f"({f'{conv / summed:.3f}' if summed else 'not measured'}); "
+        f"phases {r['phase_ms_per_step']}")
     log("[paper] CNN top kernels: " + "; ".join(
         f"{k['ms_per_step']:.4f} ms x{k['calls_per_step']:.1f} {k['name'][:70]}"
         for k in r["top_kernels"][:8]))
@@ -3674,7 +3715,7 @@ def run_lm_phase(torch, ops, fu, ck, ref, fa, codec_seeds, dev, bw, peak):
 # launch.serve.run's arguments: the reference CLI's defaults at full width,
 # W = 2 (W = 4's planes alone need 4 x 4 x 4.10 GiB, and
 # validate_fleet_memory refuses it)
-TS_W, TS_EVERY, TS_BOUNDARIES = 2, 5, 120
+TS_W, TS_EVERY, TS_BOUNDARIES = 2, 5, 60
 TS_KW = dict(reduced=False, engine="sim", workers=TS_W, method="elastic_gossip", p=0.25,
              alpha=0.5, lr=0.01, seq=32, per_worker_batch=2, slots=4, max_len=256, rate=0.3,
              num_requests=24, publish_every=TS_EVERY, train_per_boundary=1,
@@ -4370,7 +4411,8 @@ def grad_vs_f64(torch, arch, layers, dev, tag, patches=(None, None)):
     """At the published widths cut to ``layers`` layers: the card's f32 loss
     and flat gradient against the CPU's f64 ones at the card's parameters,
     on one sequence of 64 tokens from lm_batches, plain autograd through the
-    views (the engines' loss on one row). Limits: phase 10's (share of
+    views (the engines' loss on one row); the two gradients are compared
+    leaf by leaf on the card. Limits: phase 10's (share of
     elements outside rtol 1e-4 / atol 1e-6, worst leaf rel L2, the loss to
     1e-4); leaves without gradient in f64 (a hybrid's shared block that no
     site of the cut reaches, an expert no token reaches) must get exactly 0
@@ -4401,7 +4443,7 @@ def grad_vs_f64(torch, arch, layers, dev, tag, patches=(None, None)):
             loss = loss_fn(spec.with_lead(()).views({name: buf}),
                            tree_map(lambda t: t.to(dev_), x), y.to(dev_))
             loss.backward()
-        return spec, buf.grad.detach().cpu(), float(loss.detach())
+        return spec, buf.grad.detach(), float(loss.detach())
 
     spec, a, l32 = grad(params, dev, patches[0])
     p64 = tree_map(lambda t: t.detach().cpu().double(), params)
@@ -4409,14 +4451,13 @@ def grad_vs_f64(torch, arch, layers, dev, tag, patches=(None, None)):
     torch.cuda.empty_cache()
     _, w, l64 = grad(p64, "cpu", patches[1])
     del p64
-    if a.dtype != torch.float32 or w.dtype != torch.float64:
-        raise AssertionError(f"[{tag}] gradient dtypes {a.dtype} / {w.dtype}")
-    far = ~torch.isclose(a.double(), w, rtol=1e-4, atol=1e-6)
-    out = float(far.double().mean())
+    if a.dtype != torch.float32 or w.dtype != torch.float64 or w.device.type != "cpu":
+        raise AssertionError(f"[{tag}] gradients {a.dtype} / {w.dtype} on {w.device}")
+    w = w.to(dev)
     leaves, silent, counts = {}, 0, {}
     for path, s in zip(_leaf_names(spec), spec.slots):
         u, v = a[s.offset:s.offset + s.size].double(), w[s.offset:s.offset + s.size]
-        counts[path] = int(far[s.offset:s.offset + s.size].sum())
+        counts[path] = int((~torch.isclose(u, v, rtol=1e-4, atol=1e-6)).sum())
         nv = torch.linalg.vector_norm(v)
         if float(nv) == 0.0:
             if bool(u.any()):
@@ -4424,10 +4465,14 @@ def grad_vs_f64(torch, arch, layers, dev, tag, patches=(None, None)):
             silent += 1
             continue
         leaves[path] = float(torch.linalg.vector_norm(u - v) / nv)
+    n = a.numel()
+    out = sum(counts.values()) / n
+    del a, w
+    torch.cuda.empty_cache()
     worst = max(leaves, key=leaves.get)
     most = sorted(counts, key=counts.get, reverse=True)[:3]
     secs = time.perf_counter() - t0
-    log(f"[{tag}] gradient at the published widths, {layers} layers ({a.numel()} elements), "
+    log(f"[{tag}] gradient at the published widths, {layers} layers ({n} elements), "
         f"1 x {F64_TOKENS} tokens: f32 (card) loss {l32:.7f} vs f64 (CPU) {l64:.7f}; "
         f"{out:.4%} of the elements outside rtol 1e-4 / atol 1e-6 of f64 (limit "
         f"{LM_GRAD_OUT:.0%}; most in " + ", ".join(f"{p} {counts[p]}" for p in most)
@@ -4740,7 +4785,7 @@ SSM_TRAIN = {"xlstm_125m": (0, 4, 16), "zamba2_2_7b": (18, LM_W, LM_BATCH)}
 # first 6 (5 mLSTM and its first sLSTM), Zamba2's first 7 (6 Mamba2 layers
 # and the first shared site)
 F64_LAYERS = {"xlstm_125m": (2, 6), "zamba2_2_7b": (7,)}
-TS_CUT_BOUNDARIES = 48
+TS_CUT_BOUNDARIES = 32
 
 
 def run_ssm_train_phase(torch, ops, fu, ref, fa, dev, bw, peak, smi):
@@ -4820,17 +4865,21 @@ def b9_cross_case(torch, dev, dt, case, seed):
     return q, k, v, kw, visible
 
 
-def check_b9_cross(torch, ops, fa, dev):
-    """B9 at every CROSS_B9 shape against its plain version, f32 and bf16,
-    to phase 6's tolerances: prefill in the mma form (bf16) or simt (f32),
-    decode in the split form, each launch counted. Returns the max abs err
-    by dtype."""
+CROSS_WHAT = ("non-causal over 1601 image tokens, a partial last key tile, and over 64 "
+              "conditioning tokens; causal self-attention beside")
+
+
+def check_b9_cross(torch, ops, fa, dev, cases=CROSS_B9, tag="cross", what=CROSS_WHAT):
+    """B9 at every shape of ``cases`` (CROSS_B9's form) against its plain
+    version, f32 and bf16, to phase 6's tolerances: prefill in the mma form
+    (bf16) or simt (f32), decode in the split form, each launch counted.
+    Returns the max abs err by dtype."""
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         worst[name] = 0.0
         before = dict(fa.FORM_LAUNCHES)
-        for i, case in enumerate(CROSS_B9):
+        for i, case in enumerate(cases):
             q, k, v, kw, _ = b9_cross_case(torch, dev, dt, case, 70 + i)
             want_form = ("split" if q.shape[1] == 1 else
                          "mma" if dt == torch.bfloat16 else "simt")
@@ -4844,22 +4893,21 @@ def check_b9_cross(torch, ops, fa, dev):
             worst[name] = max(worst[name], b9_err(case[0], got, want))
             del q, k, v, got, want
         ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
-        log(f"[cross] B9 vs plain version at the cross-attention models' shapes, {name}: "
-            f"{len(CROSS_B9)} cases (non-causal over 1601 image tokens, a partial last key "
-            f"tile, and over 64 conditioning tokens; causal self-attention beside), max abs err "
+        log(f"[{tag}] B9 vs plain version at the {tag} shapes, {name}: "
+            f"{len(cases)} cases ({what}), max abs err "
             f"{worst[name]:.3e} (tolerance {B9_TOL[name]}"
             + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
             + f"); forms {ran}")
     return worst
 
 
-def time_b9_cross(torch, ops, fa, dev, bw, peak):
-    """B9, its plain version and SDPA at every CROSS_B9 shape in bf16, by
+def time_b9_cross(torch, ops, fa, dev, bw, peak, cases=CROSS_B9, tag="cross"):
+    """B9, its plain version and SDPA at every shape of ``cases`` in bf16, by
     CUDA events (SDPA gets the live cache rows in a causal decode)."""
     import torch.nn.functional as F
     out = {}
-    for i, case in enumerate(CROSS_B9):
-        tag, B, Sq, H, Skv, Hkv, hd, causal = case
+    for i, case in enumerate(cases):
+        _, B, Sq, H, Skv, Hkv, hd, causal = case
         q, k, v, kw, visible = b9_cross_case(torch, dev, torch.bfloat16, case, 80 + i)
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (a[:, :visible].transpose(1, 2).contiguous() for a in (k, v))
@@ -4873,8 +4921,8 @@ def time_b9_cross(torch, ops, fa, dev, bw, peak):
                      qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True), reps=20, warmup=3))
         r["bound_ms"], r["bound_by"] = b9_bound(B, Sq, H, Hkv, hd, visible, 2, bw, peak,
                                                 causal=causal)
-        out[tag] = r
-        log(f"[cross] B9 {tag} bf16 q {r['shape']} over {r['keys']} ({r['form']} form): kernel "
+        out[case[0]] = r
+        log(f"[{tag}] B9 {case[0]} bf16 q {r['shape']} over {r['keys']} ({r['form']} form): kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events")
@@ -5002,6 +5050,249 @@ KERNELS = {
     B9: ("B9", "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:28"),
 }
+
+
+# ---------------------------------------------------------------------------
+# phase 17: grad_accum and model > 1 on the dist engine (TinyLlama-1.1B at
+# full width, the reduced model in the reference's model = 2 test), and
+# tensor-parallel serving of TinyLlama-1.1B over 2 and 4 ranks on the card
+# ---------------------------------------------------------------------------
+
+GA_W, GA_SEQ, GA_PWS, GA_STEPS = 2, 256, (8, 4, 2), 3   # the largest fitting pw is taken
+GA_LR, GA_P = 1e-2, 0.25          # p 0.25: fewer 4.4 GB exchanges through gloo
+MP_STEPS = 24                        # the reference's protocols test: W 4, pw 2, seq 32
+TP_MODELS = (2, 4)
+TP_BATCH, TP_PROMPT, TP_TOKENS, TP_MAX_LEN = 8, 512, 64, 1024
+TP_GATE = dict(layers=4, prompt=128, tokens=16, max_len=256)   # the f32 gate, TinyLlama widths
+TP_GATE_REL = 1e-5                   # largest |logit diff| / largest |logit|, every step
+TP_B9 = tuple(case for M in TP_MODELS for case in (
+    (f"M={M} prefill", TP_BATCH, TP_PROMPT, 32 // M, TP_PROMPT, 4 // M, 64, True),
+    (f"M={M} decode", TP_BATCH, 1, 32 // M, TP_MAX_LEN, 4 // M, 64, True)))
+
+
+def _lm_opt_proto(lr, p):
+    return (dict(name="nag", learning_rate=lr, momentum=0.9),
+            dict(method="elastic_gossip", comm_probability=p, moving_rate=0.5))
+
+
+def _fired_launches(rec, steps, tag):
+    """B1 once a firing step, B2 once a quiet one, nothing else of the
+    update: the rank's counts against its replay of the schedule."""
+    fired = sum(rec["fired"])
+    got = {B1: rec["launches"][B1], B2: rec["launches"][B2]}
+    if got != {B1: fired, B2: steps - fired}:
+        raise AssertionError(f"[{tag}] launches {got}, want B1 {fired} / B2 {steps - fired}")
+    return got
+
+
+def grad_accum_full(torch, dev):
+    """(a) TinyLlama-1.1B whole, f32, on the dist engine at W = 2 ranks:
+    the largest per-worker batch whose step plan fits at A = 1, then A = 2
+    at that batch, GA_STEPS steps each in one group. Step 1's loss and theta
+    at A = 2 within rtol 1e-4 / atol 1e-5 of A = 1, each rank's peak at A = 2
+    below its peak at A = 1, B1 / B2 once a step. Returns (launches, summary)."""
+    from repro_torch.common.config import MeshConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist_run
+    from repro_torch.launch.train import activation_bytes, step_bytes
+    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    plans = {pw: step_bytes(cfg, GA_W, GA_W * pw * GA_SEQ, GA_SEQ) for pw in GA_PWS}
+    pw = next((p for p in GA_PWS if plans[p] <= 0.9 * free), None)
+    if pw is None:
+        raise AssertionError(f"[accum] no per-worker batch of {GA_PWS} fits: {plans}")
+    act = {A: activation_bytes(cfg, GA_W * pw * GA_SEQ // A, GA_SEQ) for A in (1, 2)}
+    gib = 2 ** 30
+    log(f"[accum] {cfg.name} f32 dist W={GA_W}, seq {GA_SEQ}: step plan by per-worker batch "
+        + ", ".join(f"{p}: {plans[p] / gib:.2f} GiB" for p in GA_PWS) + f" of "
+        f"{free / gib:.2f} GiB free; taken {pw}; activations (estimate, both ranks) A=1 "
+        f"{act[1] / gib:.2f} GiB, A=2 {act[2] / gib:.2f} GiB")
+    opt, proto = _lm_opt_proto(GA_LR, GA_P)
+    base = dict(protocol=proto, optimizer=opt, steps=GA_STEPS, pw=pw, seq=GA_SEQ)
+    job = dict(cfg=cfg, seed=0, runs=[dict(base, tag="A1", grad_accum=1, keep="step1"),
+                                      dict(base, tag="A2", grad_accum=2,
+                                           against=("A1", "step1"))])
+    t0 = time.perf_counter()
+    ranks = dist_run.spawn_workers(dist_run.lm_rank, MeshConfig(data=GA_W, model=1, pods=1,
+                                                                workers_per_pod=GA_W),
+                                   dev, args=(job,), join_timeout_s=900)
+    secs = time.perf_counter() - t0
+    launches = dict.fromkeys(KERNELS, 0)
+    for r, res in enumerate(ranks):
+        a1, a2 = res["A1"], res["A2"]
+        for tag in ("A1", "A2"):
+            for k, n in _fired_launches(res[tag], GA_STEPS, f"accum {tag}").items():
+                launches[k] += n
+        held = a2["against"]
+        l1, l2 = a1["loss"][0], a2["loss"][0]
+        log(f"[accum] rank {r}: step 1 loss A=1 {l1:.7f} A=2 {l2:.7f}; theta after step 1 at "
+            f"A=2 vs A=1: {held['outside']} of {LM_PARAMS} elements outside rtol 1e-4 / atol "
+            f"1e-5, max |diff| {held['max_abs']:.3e}; peak A=1 {a1['peak_bytes'] / gib:.3f} "
+            f"GiB, A=2 {a2['peak_bytes'] / gib:.3f} GiB (plan of both ranks "
+            f"{plans[pw] / gib:.2f} GiB); losses A=1 {[round(x, 5) for x in a1['loss']]} A=2 "
+            f"{[round(x, 5) for x in a2['loss']]}; {a1['seconds']:.1f} / {a2['seconds']:.1f} s")
+        if held["outside"] or abs(l1 - l2) > 1e-4 * abs(l1):
+            raise AssertionError(f"[accum] rank {r}: A=2 is not A=1 within rtol 1e-4 / atol 1e-5")
+        if not a2["peak_bytes"] < a1["peak_bytes"]:
+            raise AssertionError(f"[accum] rank {r}: peak at A=2 {a2['peak_bytes']} is not "
+                                 f"below A=1's {a1['peak_bytes']}")
+    log(f"[accum] launches {dict((k, v) for k, v in launches.items() if v)}; {secs:.1f} s")
+    return launches, dict(pw=pw, plans=plans, seconds=secs,
+                          ranks=[{t: dict(loss=res[t]["loss"], peak_bytes=res[t]["peak_bytes"],
+                                          seconds=res[t]["seconds"],
+                                          against=res[t].get("against"))
+                                  for t in ("A1", "A2")} for res in ranks])
+
+
+def model2_dist(torch, dev):
+    """(b) The reduced TinyLlama in the reference's model = 2 test's
+    configuration (data=4, model=2, 4 workers, pw 2, seq 32, lr 3e-3,
+    elastic p 0.5) for MP_STEPS steps, bit-equal to model = 1 on every rank.
+    Returns (launches, summary)."""
+    from repro_torch.common.config import MeshConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import dist_run
+    opt, proto = _lm_opt_proto(3e-3, 0.5)
+    base = dict(protocol=proto, optimizer=opt, steps=MP_STEPS, pw=2, seq=32)
+    job = dict(cfg=get_reduced(LM_ARCH), seed=0, runs=[
+        dict(base, tag="model1", mesh=dict(data=4, model=1, pods=1, workers_per_pod=4),
+             keep="final"),
+        dict(base, tag="model2", mesh=dict(data=4, model=2, pods=1, workers_per_pod=4),
+             against=("model1", "final"))])
+    t0 = time.perf_counter()
+    ranks = dist_run.spawn_workers(dist_run.lm_rank, MeshConfig(data=4, model=1, pods=1,
+                                                                workers_per_pod=4),
+                                   dev, args=(job,), join_timeout_s=600)
+    launches = dict.fromkeys(KERNELS, 0)
+    for r, res in enumerate(ranks):
+        for tag in ("model1", "model2"):
+            for k, n in _fired_launches(res[tag], MP_STEPS, f"model2 {tag}").items():
+                launches[k] += n
+        same = res["model2"]["against"]["bit_equal"] and res["model2"]["loss"] == \
+            res["model1"]["loss"] and res["model2"]["fired"] == res["model1"]["fired"]
+        if not same:
+            raise AssertionError(f"[model2] rank {r}: model=2 is not bit-equal to model=1")
+    l = ranks[0]["model2"]["loss"]
+    if not l[-1] < l[0]:
+        raise AssertionError(f"[model2] the loss did not fall: {l[0]} -> {l[-1]}")
+    log(f"[model2] reduced {LM_ARCH} dist W=4, MeshConfig(data=4, model=2): {MP_STEPS} elastic "
+        f"steps bit-equal to model=1 on all 4 ranks (theta, loss, fired); loss {l[0]:.4f} -> "
+        f"{l[-1]:.4f}; launches {dict((k, v) for k, v in launches.items() if v)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, dict(loss=l, seconds=time.perf_counter() - t0)
+
+
+def _tp_runs(torch, M):
+    """The tensor-parallel runs of (c) and (d) at M ranks (M = 1: the one-device
+    program): TinyLlama-1.1B whole in bf16, the f32 gate at TP_GATE's depth,
+    and at M in (1, 4) reduced Gemma2 in f32."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = get_config(LM_ARCH)
+    runs = [dict(tag="bf16", cfg=cfg, dtype=torch.bfloat16, batch=TP_BATCH,
+                 prompt_len=TP_PROMPT, tokens=TP_TOKENS, max_len=TP_MAX_LEN, seed=0),
+            dict(tag="gate", cfg=dataclasses.replace(cfg, num_layers=TP_GATE["layers"]),
+                 dtype=torch.float32, batch=TP_BATCH, prompt_len=TP_GATE["prompt"],
+                 tokens=TP_GATE["tokens"], max_len=TP_GATE["max_len"], seed=0, logits=True)]
+    if M in (1, 4):
+        runs.append(dict(tag="gemma2", cfg=get_reduced("gemma2_9b"), dtype=torch.float32,
+                         batch=4, prompt_len=8, tokens=8, max_len=32, seed=0, logits=True))
+    return runs
+
+
+def _logit_gap(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def tp_serving(torch, ops, fa, dev, bw, peak_bf16):
+    """(c) + (d): B9 at the ranks' local shapes against its plain version
+    and timed beside SDPA; then each run of _tp_runs at M = 1 (in this
+    process), 2 and 4 (a spawned ModelGroup each), with B9 at exactly
+    M x layers x (1 + steps) launches, the collectives of every decode step
+    exact, the f32 runs' logits within TP_GATE_REL of M = 1 at every step
+    and every greedy token equal. Returns (launches, errs, b9 timings,
+    summary)."""
+    from repro_torch.common.config import MeshConfig
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.launch.mesh import spawn_model_group
+    worst = check_b9_cross(torch, ops, fa, dev, cases=TP_B9, tag="tp",
+                           what="each rank's heads and kv heads of TinyLlama-1.1B at M = 2 "
+                                "and 4: prefill 8 x 512, decode over the 1024-row cache")
+    times = time_b9_cross(torch, ops, fa, dev, bw, peak_bf16, cases=TP_B9, tag="tp")
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    res = {1: [sd.tp_rank(sd.OneRank(dev), dict(runs=_tp_runs(torch, 1)))]}
+    secs = {1: time.perf_counter() - t0}
+    for M in TP_MODELS:
+        t0 = time.perf_counter()
+        res[M] = spawn_model_group(sd.tp_rank, MeshConfig(data=1, model=M, pods=1,
+                                                          workers_per_pod=1),
+                                   dev, args=(dict(runs=_tp_runs(torch, M)),),
+                                   join_timeout_s=900)
+        secs[M] = time.perf_counter() - t0
+    gib = 2 ** 30
+    summary = {}
+    for M, ranks in res.items():
+        for tag, rec0 in ranks[0].items():
+            run = next(r for r in _tp_runs(torch, M) if r["tag"] == tag)
+            L, steps = run["cfg"].num_layers, run["tokens"]
+            b9 = sum(r[tag]["launches"][B9] for r in ranks)
+            if b9 != M * L * (1 + steps):
+                raise AssertionError(f"[tp] M={M} {tag}: B9 launches {b9}, want "
+                                     f"{M} x {L} x (1 + {steps})")
+            launches[B9] += b9        # each run's counts: set to 0 before it, read after
+            want = rec0["expected_per_step"]
+            for r in ranks:
+                bad = [c for c in r[tag]["step_collectives"]
+                       if {k: c[k] for k in want} != want]
+                if bad:
+                    raise AssertionError(f"[tp] M={M} {tag}: collectives {bad[0]}, want {want}")
+            base = res[1][0][tag]
+            gap = _logit_gap(rec0["prefill_logits"], base["prefill_logits"])
+            same = float((rec0["stream"] == base["stream"]).double().mean())
+            line = (f"[tp] {run['cfg'].name} {tag} ({str(run['dtype']).split('.')[-1]}, "
+                    f"{L} layers, {run['batch']} x {run['prompt_len']} prompts, {steps} steps) "
+                    f"M={M}: prefill {rec0['prefill_ms']:.3f} ms, decode step median "
+                    f"{statistics.median(rec0['step_ms']):.3f} ms, collectives "
+                    f"{ {k: v for k, v in want.items()} } a step, host "
+                    f"{statistics.median(c['host_s'] for c in rec0['step_collectives']) * 1e3:.3f}"
+                    f" ms a step; B9 {b9} = {M} x {L} x (1 + {steps}); peak per rank "
+                    + ", ".join(f"{r[tag]['peak_bytes'] / gib:.3f}" for r in ranks)
+                    + f" GiB; prefill logits gap to M=1 {gap:.3e} of the largest, greedy tokens "
+                    f"equal {same:.4f}")
+            if rec0["logits"] is not None and M > 1:
+                gaps = [_logit_gap(a, b) for a, b in zip(rec0["logits"], base["logits"])]
+                line += f"; gate: every step's gap <= {max(gaps):.3e} (limit {TP_GATE_REL})"
+                if max(gaps) > TP_GATE_REL or same != 1.0:
+                    raise AssertionError(f"[tp] M={M} {tag}: logits gap {max(gaps)} or greedy "
+                                         f"tokens equal {same}")
+            log(line)
+            summary[f"M={M} {tag}"] = dict(
+                prefill_ms=rec0["prefill_ms"], step_ms=statistics.median(rec0["step_ms"]),
+                collective_ms=statistics.median(c["host_s"] for c in
+                                                rec0["step_collectives"]) * 1e3,
+                peak_gib=[r[tag]["peak_bytes"] / gib for r in ranks], b9=b9,
+                prefill_gap=gap, greedy_equal=same)
+    log(f"[tp] seconds by M: {secs}")
+    return launches, worst, times, summary
+
+
+def run_tp_phase(torch, ops, fa, dev, bw, peak_bf16, smi):
+    """Phase 17. Returns ({kernel: launches}, {kernel: max abs err}, B9's
+    timings at the local shapes, summary)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    ga_launches, ga = grad_accum_full(torch, dev)
+    mp_launches, mp = model2_dist(torch, dev)
+    tp_launches, worst, times, tp = tp_serving(torch, ops, fa, dev, bw, peak_bf16)
+    for got in (ga_launches, mp_launches, tp_launches):
+        for k, n in got.items():
+            launches[k] += n
+    errs = {B9: max(worst.values())}
+    log(f"[tp] launches in phase 17: {dict((k, v) for k, v in launches.items() if v)}; "
+        f"summary ({smi}): {json.dumps(dict(accum=ga, model2=mp, tp=tp), default=str)}")
+    return launches, errs, times, dict(accum=ga, model2=mp, tp=tp)
 
 
 def main():
@@ -5207,6 +5498,15 @@ def main():
         err[kname] = max(err[kname], e)
     log(f"[cross] launches in phase 16: {cr_launches}")
     phase_s["16 cross"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    tp_launches, tp_err, times[B9]["tensor_parallel"], _ = run_tp_phase(
+        torch, ops, fa, dev, bw, peak_bf16, smi)
+    for kname, n in tp_launches.items():
+        launches[kname] += n
+    for kname, e in tp_err.items():
+        err[kname] = max(err[kname], e)
+    phase_s["17 accum+tp"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

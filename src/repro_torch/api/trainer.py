@@ -413,7 +413,7 @@ class _DistBackend(_Backend):
         tcfg = TrainConfig(protocol=facade.protocol, optimizer=facade.optimizer,
                            fused_update=facade.fused_update)
         self.trainer = DistTrainer(group, mesh_cfg, tcfg, kw["loss_fn"], shard=kw["shard"],
-                                   model_cfg=kw["model_cfg"])
+                                   model_cfg=kw["model_cfg"], grad_accum=kw["grad_accum"])
         self.codec = self.trainer._codec
         self.sched = GossipSchedule(facade.protocol, self.num_workers,
                                     seed=int(kw["seed"]) + 1, mesh_cfg=mesh_cfg)
@@ -557,7 +557,10 @@ class GossipTrainer:
     matching schedule's pods x workers layout), ``group`` (dist: the rank's
     :class:`~repro_torch.launch.mesh.WorkerGroup`), ``seed`` (dist: the
     host schedule draws from ``seed + 1``), ``model_cfg`` (dist: without
-    ``loss_fn``, the LM loss of this model config, as the reference's), and
+    ``loss_fn``, the LM loss of this model config, as the reference's),
+    ``grad_accum`` (dist: split each rank's batch into that many
+    microbatches and average their gradients; the sim and async engines
+    refuse any other value than 1, where the reference ignores it), and
     ``publish_every`` / ``snapshot_bus`` (every engine: publish the
     consensus every k steps onto a :class:`~repro_torch.serve.SnapshotBus`,
     created when only the cadence is given; see :meth:`step`).
@@ -567,7 +570,7 @@ class GossipTrainer:
                  optimizer: Optional[OptimizerConfig] = None,
                  init_fn: Optional[Callable] = None,
                  loss_fn: Optional[Callable] = None,
-                 num_workers: Optional[int] = None,
+                 num_workers: Optional[int] = None, grad_accum: int = 1,
                  fused_update: bool = True, device="cuda",
                  codec: Optional[str] = None, hetero: Optional[HeteroConfig] = None,
                  faults=None, fleet=None,
@@ -576,6 +579,9 @@ class GossipTrainer:
                  model_cfg=None):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; ported: {sorted(ENGINES)}")
+        if grad_accum != 1 and engine != "dist":
+            raise ValueError(f"grad_accum={grad_accum!r} is the dist engine's; "
+                             f'engine="{engine}" takes 1 (the reference ignores it there)')
         # train-while-serve hook (repro_torch.serve): every ``publish_every``
         # facade steps, :meth:`step` publishes the consensus of the resident
         # flat buffers onto ``snapshot_bus`` (auto-created when only the
@@ -601,7 +607,7 @@ class GossipTrainer:
         self._backend = ENGINES[engine](self, dict(
             loss_fn=loss_fn, num_workers=num_workers, hetero=hetero, faults=faults,
             fleet=fleet, shard=shard, mesh_cfg=mesh_cfg, group=group, seed=seed,
-            model_cfg=model_cfg))
+            model_cfg=model_cfg, grad_accum=grad_accum))
         self.num_workers = self._backend.num_workers
         self.codec = self._backend.codec      # the active Codec, or None
         self._host_steps = 0

@@ -18,9 +18,11 @@ from typing import Optional, Tuple
 class MeshConfig:
     """The reference's production mesh: ``pods`` x ``data`` x ``model``
     chips, the data axis factored into (worker, fsdp). The dist engine runs
-    one process per gossip worker (``pods * workers_per_pod``); ``model``
-    must be 1 there and ``fsdp`` the sharded plane's ``n_shards`` (see
-    :mod:`repro_torch.launch.mesh`)."""
+    one process per gossip worker (``pods * workers_per_pod``) and, as the
+    reference's training step, replicates the plane over ``fsdp`` x
+    ``model`` unless a sharded plane takes them (see
+    :mod:`repro_torch.launch.mesh`); tensor-parallel serving splits its
+    tensors over ``model`` ranks (:mod:`repro_torch.serving.tensor_parallel`)."""
     data: int = 16
     model: int = 16
     pods: int = 1
@@ -169,7 +171,7 @@ class ShardConfig:
     encodes per shard row (seeds ``worker * n_shards + shard``) and
     ``comm_bytes`` counts the per-device wire. The dist engine holds each
     rank's padded row as ``n_shards`` shard rows and needs the mesh's
-    ``fsdp`` (the ``axes``' product, ``model`` being 1) to equal
+    product over ``axes`` (``fsdp`` x ``model`` by default) to equal
     ``n_shards``. The all-default config is inert: ``n_shards=1`` builds no
     layout and reproduces the un-sharded engines bit for bit.
     """

@@ -269,6 +269,89 @@ def _resume(group, job: Dict[str, Any], run: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def lm_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
+    """One rank of LM runs on the dist engine, in order: ``job["cfg"]`` (a
+    ModelConfig) from ``init_lm(job["seed"])`` on the rank's device, on
+    ``lm_batches(cfg, W, pw, seq, seed)`` (rank r trains on row r). A run
+    is ``{"tag", "protocol": ProtocolConfig kwargs, "optimizer":
+    OptimizerConfig kwargs, "steps", "pw", "seq", "grad_accum", "mesh":
+    MeshConfig kwargs (default the group's), "keep": "step1" | "final" |
+    None, "against": (tag, "step1" | "final") | None}``: a run keeps this
+    rank's theta after its first step or its last (on the host), and one
+    run held against a kept theta gives the elements outside rtol 1e-4 /
+    atol 1e-5 of it and the largest difference (step 1), or whether it is
+    bit-equal (final). Returns {tag: the per-step loss and fired, the
+    kernel launches (counts set to 0 before the run), the rank's peak
+    memory (stats reset before the run, which holds nothing of the last
+    one) and the comparison}."""
+    from repro_torch.api import GossipTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import engine_batch, lm_batches
+    from repro_torch.models import transformer as tr
+    dev, cfg, r = group.device, job["cfg"], group.rank
+    cuda = dev.type == "cuda"
+    kept, out = {}, {}
+    for run in job["runs"]:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        mesh = MeshConfig(**run["mesh"]) if run.get("mesh") else group.mesh_cfg
+        trainer = GossipTrainer(
+            engine="dist", protocol=ProtocolConfig(**run["protocol"]),
+            optimizer=OptimizerConfig(**run["optimizer"]), model_cfg=cfg, group=group,
+            mesh_cfg=mesh, device=dev, grad_accum=run.get("grad_accum", 1),
+            init_fn=lambda gen: tr.init_lm(gen, cfg)[0], seed=job["seed"])
+        state = trainer.init_state(job["seed"])
+        batches = lm_batches(cfg, group.world, run["pw"], run["seq"], job["seed"], device=dev)
+        rec = {"loss": [], "fired": []}
+        against = run.get("against")
+        _sync(dev)
+        group.barrier()
+        ops.zero_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(run["steps"]):
+            x, y = engine_batch(next(batches))
+            state, m = trainer.step(state, (_row(x, r), y[r]))
+            rec["loss"].append(float(m["loss"]))
+            rec["fired"].append(bool(m["fired"]))
+            if i == 0 or i == run["steps"] - 1:
+                when = "step1" if i == 0 else "final"
+                theta = state.theta["float32"][0]
+                if run.get("keep") == when:
+                    kept[(run["tag"], when)] = theta.detach().to("cpu", copy=True)
+                if against is not None and against[1] == when:
+                    rec["against"] = _held(theta, kept[tuple(against)], when)
+                del theta
+        _sync(dev)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = ops.launch_counts()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+        out[run["tag"]] = rec
+        del trainer, state, batches
+    return out
+
+
+def _row(x, r: int):
+    """Row ``r`` of an engine batch's ``x`` (the tokens, or a dict)."""
+    if isinstance(x, dict):
+        return {k: v[r] for k, v in x.items()}
+    return x[r]
+
+
+def _held(theta: torch.Tensor, want: torch.Tensor, when: str, chunk: int = 1 << 26):
+    """theta against a kept host copy, a chunk at a time on theta's device:
+    bit-equality for "final", else the elements outside rtol 1e-4 / atol
+    1e-5 and the largest difference."""
+    outside, worst, equal = 0, 0.0, True
+    for a in range(0, theta.numel(), chunk):
+        got = theta[a:a + chunk]
+        ref = want[a:a + chunk].to(theta.device)
+        equal = equal and bool(torch.equal(got, ref))
+        outside += int((~torch.isclose(got, ref, rtol=1e-4, atol=1e-5)).sum())
+        worst = max(worst, float((got - ref).abs().max()))
+    return {"bit_equal": equal} if when == "final" else {"outside": outside, "max_abs": worst}
+
+
 def run_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
     """The body of one rank: every run of ``job`` in order."""
     kinds = {"train": _train, "exchange": _exchange, "peer": _peer, "resume": _resume}

@@ -12,6 +12,8 @@ LiveServer, and hot-swap to a newly published snapshot mid-stream.
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch llama_3_2_vision_11b \\
         --full --batch 8 --prompt-len 512 --max-len 1024 --tokens 64 --cross-gate 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch tinyllama_1_1b --full \
+        --batch 8 --prompt-len 512 --max-len 1024 --tokens 64 --model 4
 
 Attention runs through kernel B9 on the card (the plain version on the
 CPU): every layer of a dense or MoE model, the shared blocks of a hybrid
@@ -33,6 +35,14 @@ runs only where it fits (not for DeepSeek-V2-Lite-16B or
 Llama-3.2-Vision-11B at full width on one 80 GB card). Prints what the
 reference's example prints, plus the prefill time, the median decode step
 and the kernel's launches per phase.
+
+``--model M`` (M > 1; the dense attention models) serves tensor-parallel
+over M processes on the one card (``launch.mesh.spawn_model_group``,
+``serving.tensor_parallel``): every rank builds ``init_lm(seed)`` in the
+serving dtype, keeps its slice and frees the rest, then prefills and
+decodes the same greedy stream, with no snapshot bus and no swap. Rank 0
+prints the summary above, each rank's peak memory, the collectives a
+decode step makes and their host time.
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import MeshConfig, ModelConfig
 from repro_torch.common.pytree import tree_leaves
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.fleet import memory
@@ -295,6 +305,132 @@ def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, 
             "cache_pos": int(cache["pos"]), "plan": plan}
 
 
+def tp_rank(group, job: dict) -> dict:
+    """One rank of tensor-parallel runs (module level, so ``spawn`` can
+    import it). Each of ``job["runs"]`` (``tag``, ``cfg``, ``dtype``,
+    ``batch``, ``prompt_len``, ``tokens``, ``max_len``, ``seed``,
+    ``logits``): ``init_lm(seed)`` in the serving dtype on the rank's
+    device, its slice placed and the full tree freed, a random prompt from
+    ``seed + 1``, prefill and ``tokens`` greedy decode steps, each phase
+    ended by a synchronise. Returns {tag: the timings, B9's launches (counts
+    set to 0 after the weights are placed), the collectives of the prefill
+    and of each decode step with their host seconds, the rank's peak memory
+    (stats reset before the run), the placed bytes, the greedy stream, the
+    prefill's logits and, on rank 0 with ``logits``, every step's logits
+    (float32, on the CPU)}. With :class:`OneRank` for ``group`` it is the
+    one-device program, the same calls on the same inputs."""
+    dev = group.device
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    out = {}
+    for run in job["runs"]:
+        cfg, dt = run["cfg"], run["dtype"]
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        prog = make_serve_program(cfg, batch=run["batch"], max_len=run["max_len"],
+                                  param_dtype=dt, cache_dtype=dt, with_prefill=True,
+                                  device=dev, mesh_cfg=group.mesh_cfg, group=group)
+        with torch.no_grad():
+            full = tr.init_lm(torch.Generator(device=dev).manual_seed(run["seed"]), cfg, dt)[0]
+            params = prog.place_params(full)
+            del full
+        if cuda:
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(run["seed"] + 1)
+        prompt = torch.randint(0, cfg.vocab_size, prog.token_shapes(run["prompt_len"]).shape,
+                               generator=gen, device=dev, dtype=torch.int32)
+        group.barrier()
+        ops.zero_launch_counts()
+        group.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prog.prefill_fn(params, prompt)
+        sync()
+        per_step_want = (prog.collectives_per_decode_step() if group.world > 1
+                         else {"all_reduce": 0, "all_gather": 0})
+        rec = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "prefill_collectives": group.counts(), "prefill_logits": logits.float().cpu(),
+               "expected_per_step": per_step_want, "placed_bytes": _bytes(params)}
+        keep = [rec["prefill_logits"]] if run.get("logits") and group.rank == 0 else None
+        outs, step_ms, per_step = [], [], []
+        for _ in range(run["tokens"]):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            group.reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = prog.decode_fn(params, cache, nxt[..., None])
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(group.counts())
+            outs.append(nxt.cpu())
+            if keep is not None:
+                keep.append(logits.float().cpu())
+        rec.update(step_ms=step_ms, step_collectives=per_step, launches=ops.launch_counts(),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else None,
+                   stream=torch.stack(outs, dim=-1), logits=keep)
+        out[run["tag"]] = rec
+        del params, cache, logits
+    return out
+
+
+class OneRank:
+    """:func:`tp_rank`'s group for ``model = 1``: the one-device program, no
+    collective (its counts stay 0)."""
+
+    def __init__(self, device):
+        self.rank, self.world = 0, 1
+        self.mesh_cfg = MeshConfig(data=1, model=1, pods=1, workers_per_pod=1)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+
+    def barrier(self) -> None:
+        pass
+
+    def reset_counts(self) -> None:
+        pass
+
+    def counts(self) -> dict:
+        return {"all_reduce": 0, "all_gather": 0, "host_s": 0.0}
+
+
+def serve_tp(cfg: ModelConfig, model: int, *, batch: int, prompt_len: int, tokens: int,
+             max_len: int, dtype=torch.bfloat16, device="cuda", seed: int = 0,
+             log: Callable[[str], None] = print) -> list:
+    """Spawn ``model`` ranks of :func:`tp_rank` on ``device`` for one run and
+    print rank 0's summary; returns every rank's result of it."""
+    from repro_torch.launch.mesh import spawn_model_group
+    mesh_cfg = MeshConfig(data=1, model=model, pods=1, workers_per_pod=1)
+    run = dict(tag="serve", cfg=cfg, batch=batch, prompt_len=prompt_len, tokens=tokens,
+               max_len=max_len, dtype=dtype, seed=seed)
+    ranks = [r["serve"] for r in spawn_model_group(tp_rank, mesh_cfg, device,
+                                                   args=(dict(runs=[run]),),
+                                                   join_timeout_s=1800.0)]
+    log("decoded token ids (request 0): " + str(ranks[0]["stream"][0][:16].tolist()))
+    log(tp_summary(ranks, model))
+    return ranks
+
+
+def tp_summary(ranks: list, model: int) -> str:
+    """Rank 0's line of a tensor-parallel run: prefill and median decode step
+    ms, B9's launches, the collectives a decode step makes and their host
+    time, and each rank's placed parameters and peak."""
+    r0 = ranks[0]
+    coll, pre = r0["step_collectives"], r0["prefill_collectives"]
+    return (f"model={model} ranks: prefill {r0['prefill_ms']:.3f} ms, median decode step "
+            f"{statistics.median(r0['step_ms']):.3f} ms, B9 launches per rank "
+            f"{r0['launches']['flash_attention']}; collectives per decode step "
+            f"{ {k: coll[0][k] for k in ('all_reduce', 'all_gather')} } (expected "
+            f"{r0['expected_per_step']}), host time median "
+            f"{statistics.median(c['host_s'] for c in coll) * 1e3:.3f} ms a step; prefill "
+            f"{pre['all_reduce']} all-reduces + {pre['all_gather']} all-gather, "
+            f"{pre['host_s'] * 1e3:.3f} ms; per rank: placed params "
+            + ", ".join(f"{r['placed_bytes'] / GiB:.3f}" for r in ranks) + " GiB, peak "
+            + ", ".join("not measured" if r["peak_bytes"] is None else
+                        f"{r['peak_bytes'] / GiB:.3f}" for r in ranks) + " GiB")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="tinyllama_1_1b", choices=ARCH_IDS)
@@ -311,6 +447,8 @@ def main(argv=None) -> int:
                     help="set every cross-attention gate to this value (audio, vision; "
                          "0, their init, leaves the cross path silent)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", type=int, default=1,
+                    help="serve tensor-parallel over this many ranks (dense attention models)")
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     # params and cache: f32 for the reduced config (as the reference's serve
@@ -318,6 +456,10 @@ def main(argv=None) -> int:
     dt = torch.float32 if args.reduced else torch.bfloat16
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.model > 1:
+        serve_tp(cfg, args.model, batch=args.batch, prompt_len=args.prompt_len,
+                 tokens=args.tokens, max_len=args.max_len, dtype=dt, device=args.device)
+        return 0
     serve_decode(cfg, batch=args.batch, prompt_len=args.prompt_len, tokens=args.tokens,
                  max_len=args.max_len, param_dtype=dt, cache_dtype=dt, device=args.device,
                  cross_gate=args.cross_gate)

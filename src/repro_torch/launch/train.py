@@ -42,9 +42,15 @@ B9, which is forward-only (``repro_torch.kernels.ops.attention``).
 
 Differences from the reference's CLI: the dist engine is one process
 per worker on this host (``launch.mesh.spawn_workers``; ``--shard S``
-gives each rank's mesh fsdp = S) and needs at least 2 workers; there is
-no tensor parallelism, so ``--production-mesh`` and ``--multi-pod`` raise
-ValueError (ROADMAP.md 7b.5); the model trains without rematerialisation
+gives each rank's mesh fsdp = S) and needs at least 2 workers.
+``--production-mesh`` takes the reference's ``MeshConfig(data=16,
+model=16, pods=2 if --multi-pod else 1, workers_per_pod=--workers)``:
+the reference replicates the resident plane over its ``fsdp`` and
+``model`` devices, so each worker is still one process (``--shard N``
+must then equal fsdp x model, as in the reference), and
+``validate_fleet_memory`` refuses a fleet that does not fit the card;
+``--multi-pod`` without ``--production-mesh``, which the reference
+ignores, is refused. The model trains without rematerialisation
 (ROADMAP.md §C), and the CLI prints its estimate of the activations.
 """
 from __future__ import annotations
@@ -419,13 +425,20 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
                 'engine="dist" does not support fault injection; use '
                 '--engine sim or --engine async for --fault-model/'
                 '--delay-model runs')
-        if production_mesh or multi_pod:
-            raise ValueError(
-                "--production-mesh / --multi-pod ask for tensor parallelism over a "
-                "16 x 16 chip mesh; the port runs one process per worker on one card "
-                "and has no tensor parallelism yet (ROADMAP.md 7b.5)")
-        from repro_torch.launch.mesh import spawn_workers
-        mesh_cfg = MeshConfig(data=workers * shard, model=1, pods=1, workers_per_pod=workers)
+        if multi_pod and not production_mesh:
+            raise ValueError("--multi-pod shapes the production mesh; pass "
+                             "--production-mesh with it")
+        from repro_torch.fleet import validate_fleet_memory
+        from repro_torch.launch.mesh import check_shard_mesh, spawn_workers
+        if production_mesh:
+            mesh_cfg = MeshConfig(data=16, model=16, pods=2 if multi_pod else 1,
+                                  workers_per_pod=workers)
+        else:
+            mesh_cfg = MeshConfig(data=workers * shard, model=1, pods=1,
+                                  workers_per_pod=workers)
+        check_shard_mesh(mesh_cfg, shard_cfg)
+        validate_fleet_memory(mesh_cfg.num_workers, replica_bytes(cfg), "device",
+                              what=f"arch {arch!r}", n_shards=shard, device=device)
         job = dict(cfg=cfg, arch=arch, proto=proto, opt=opt, seed=seed, shard=shard_cfg,
                    obs=obs_cfg, params=params, global_batch=global_batch, seq=seq,
                    steps=steps, log_every=log_every, checkpoint_dir=checkpoint_dir)

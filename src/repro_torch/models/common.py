@@ -2,8 +2,9 @@
 
 Every ``init_*`` returns ``(params, axes)``: parallel dicts whose axes
 leaves name each array dim logically, as the reference's do. The
-reference's ``maybe_shard`` has no counterpart: the port serves on one
-card, with no mesh.
+reference's ``maybe_shard`` (a sharding hint to GSPMD) has no
+counterpart: tensor-parallel serving slices the parameters by the sharding
+rules instead (:mod:`repro_torch.serving.tensor_parallel`).
 """
 from __future__ import annotations
 

@@ -378,6 +378,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float3
     return cache, axes
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32,
+                   window: int = 0) -> Tuple[PyTree, PyTree]:
+    """(cache on the ``meta`` device, axes) without allocating anything: the
+    reference's ``abstract_cache`` (e.g. for the serving cache's specs)."""
+    return init_cache(cfg, batch, max_len, dtype=dtype, window=window, device="meta")
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: int = 0,
                 kv_start=None):
     """One-token decode. tokens: [B, 1] (audio: [B, K, 1]). kv_start

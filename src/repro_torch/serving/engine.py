@@ -2,12 +2,15 @@
 decode (port of ``repro.serving.engine``).
 
 Inference uses the consensus (worker-averaged) parameters: gossip is a
-training-time protocol. The port serves on ONE card with no mesh, a
-deliberate difference from the reference, whose programs shard params,
-batch and KV cache over a device mesh (ROADMAP.md §C). Attention in
-prefill and decode is kernel B9 (:mod:`repro_torch.kernels.flash_attention`)
-on the card. Decode writes the KV cache in place where the reference
-donates it.
+training-time protocol. With ``mesh_cfg.model = 1`` (the default) the
+program serves on one device. With ``model = M > 1`` it is one rank of a
+tensor-parallel group of M processes, the parameters and the KV cache
+split over ``model`` by the reference's :func:`serve_rules`
+(:mod:`repro_torch.serving.tensor_parallel`, the dense attention models);
+the reference's split of the batch over the data axes has no counterpart
+(ROADMAP.md §C). Attention in prefill and decode is kernel B9
+(:mod:`repro_torch.kernels.flash_attention`) on the card. Decode writes the
+KV cache in place where the reference donates it.
 """
 from __future__ import annotations
 
@@ -16,11 +19,24 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import MeshConfig, ModelConfig
 from repro_torch.common.pytree import tree_map
+from repro_torch.launch import sharding as shr
 from repro_torch.models import transformer as tr
 
 PyTree = Any
+
+
+def serve_rules(cfg: ModelConfig, mesh_cfg: MeshConfig) -> dict:
+    """The reference's serving rule table: the batch over the data axes,
+    the KV cache by kv heads over ``model`` where they divide it, else by
+    sequence (``seq_kv``)."""
+    rules = dict(shr.DEFAULT_RULES)
+    rules.update({"batch": ("pod", "worker", "fsdp"), "kv_heads": ("model",),
+                  "seq_kv": ("model",)})
+    if cfg.mla is None and cfg.num_kv_heads % mesh_cfg.model == 0:
+        rules["seq_kv"] = ()    # prefer head sharding; keep 'model' free for it
+    return rules
 
 
 class ShapeDtype(NamedTuple):
@@ -79,16 +95,32 @@ class ServeProgram:
 
 def make_serve_program(cfg: ModelConfig, *, batch: int, max_len: int, window: int = 0,
                        param_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-                       with_prefill: bool = False, device="cuda") -> ServeProgram:
+                       with_prefill: bool = False, device="cuda",
+                       mesh_cfg: Optional[MeshConfig] = None, group=None) -> ServeProgram:
     """The serving program of ``cfg`` on one device (``cuda`` unless the
     caller asks for the CPU). ``window > 0`` decodes over a ring buffer of
     that many rows. The audio and vision models take their conditioning
-    (:meth:`ServeProgram.cond_shapes`) in every prefill and decode call."""
+    (:meth:`ServeProgram.cond_shapes`) in every prefill and decode call.
+
+    With ``mesh_cfg.model = M > 1`` the program is the calling rank's of a
+    tensor-parallel group (``group``, a
+    :class:`~repro_torch.launch.mesh.ModelGroup` of M ranks): the same
+    surface, every rank making the same calls and getting the whole
+    logits; the archs it does not split yet raise ValueError."""
     tr.make_plan(cfg)
+    M = 1 if mesh_cfg is None else mesh_cfg.model
+    if M > 1:
+        from repro_torch.serving import tensor_parallel
+        tensor_parallel.check_arch(cfg, M)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_serve_program: no CUDA device (pass device='cpu' "
                            "to run the plain versions on the CPU)")
+    if M > 1:
+        return tensor_parallel.tp_program(
+            cfg, mesh_cfg, group, batch=batch, max_len=max_len, window=window,
+            param_dtype=param_dtype, cache_dtype=cache_dtype, with_prefill=with_prefill,
+            device=device)
 
     @torch.no_grad()
     def decode(params, cache, tokens, cond=None):

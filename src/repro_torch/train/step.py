@@ -21,7 +21,15 @@ methods, selected per step by the facade from the host schedule:
 With a sharded plane (``shard=``, a
 :class:`~repro_torch.common.config.ShardConfig`) the rank's row is padded
 to the layout's totals and exchanged as S shard rows
-(:mod:`repro_torch.core.gossip_dist`); the mesh's ``fsdp`` must equal S.
+(:mod:`repro_torch.core.gossip_dist`); the mesh's product over the shard
+axes must equal S. Without one, the mesh's ``fsdp`` and ``model`` sizes
+change nothing: the reference replicates the plane over them, and the
+rank computes it once.
+
+``grad_accum = A`` splits the rank's batch into A contiguous microbatches
+and takes the mean of their losses and gradients, accumulated in f32
+(the reference's ``lax.scan``), so only one microbatch's activations are
+live at a time.
 
 Every collective is gloo through the rank's
 :class:`~repro_torch.launch.mesh.WorkerGroup`. The loss metric is the fleet
@@ -64,7 +72,9 @@ class DistTrainer:
 
     def __init__(self, group, mesh_cfg: MeshConfig, train_cfg: TrainConfig,
                  loss_fn: Optional[Callable] = None, shard=None,
-                 model_cfg: Optional[ModelConfig] = None):
+                 model_cfg: Optional[ModelConfig] = None, grad_accum: int = 1):
+        if isinstance(grad_accum, bool) or int(grad_accum) != grad_accum or grad_accum < 1:
+            raise ValueError(f"grad_accum must be a positive integer, got {grad_accum!r}")
         if mesh_cfg.num_workers != group.world:
             raise ValueError(f"mesh has {mesh_cfg.num_workers} workers, the group "
                              f"{group.world} ranks")
@@ -75,6 +85,7 @@ class DistTrainer:
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.loss_fn = loss_fn or losses.lm_loss_fn(model_cfg)
+        self.grad_accum = int(grad_accum)
         self.W = mesh_cfg.num_workers
         self.opt = train_cfg.optimizer
         # TrainConfig.codec overrides the protocol's codec for this run
@@ -128,18 +139,40 @@ class DistTrainer:
     # ------------------------------------------------------- gradient engine
     def _grads_and_loss(self, state: FlatState, x, y):
         """The rank's (loss [1], flat gradients [1, total]): the loss reads
-        the single-replica views of its row, as the sim engine's."""
+        the single-replica views of its row, as the sim engine's. With
+        ``grad_accum = A`` the batch's rows ``[a B/A, (a+1) B/A)`` are
+        microbatch a: the losses and gradients are summed in f32 from
+        zeros, out of place, and divided by A (the mean of the
+        microbatches' means, as the reference's), the gradient cast back
+        to each bucket's dtype."""
         row_spec = state.spec.with_lead(())
 
         def one_loss(bufs, xi, yi):
             return self.loss_fn(row_spec.views(bufs), xi, yi)
 
         dev = self.group.device
-        x = tree_map(lambda t: torch.as_tensor(t, device=dev)[None], x)
-        y = torch.as_tensor(y, device=dev)[None]
+        x = tree_map(lambda t: torch.as_tensor(t, device=dev), x)
+        y = torch.as_tensor(y, device=dev)
+        A = self.grad_accum
+        if y.shape[0] % A:
+            raise ValueError(f"grad_accum={A} does not divide the rank's batch of "
+                             f"{y.shape[0]} rows")
+        step = vmap(grad_and_value(one_loss))
         with full_f32():   # forward and backward: no TF32 in between
-            grads, loss = vmap(grad_and_value(one_loss))(state.theta, x, y)
-        return loss, {k: g.contiguous() for k, g in grads.items()}
+            if A == 1:
+                grads, loss = step(state.theta, tree_map(lambda t: t[None], x), y[None])
+                return loss, {k: g.contiguous() for k, g in grads.items()}
+            rows = y.shape[0] // A
+            loss = torch.zeros((1,), dtype=torch.float32, device=dev)
+            acc = {k: torch.zeros(b.shape, dtype=torch.float32, device=dev)
+                   for k, b in state.theta.items()}
+            for a in range(A):
+                mb = slice(a * rows, (a + 1) * rows)
+                g, l_a = step(state.theta, tree_map(lambda t: t[mb][None], x), y[mb][None])
+                loss = loss + l_a.float()
+                acc = {k: acc[k] + g[k] for k in acc}
+                del g, l_a      # this microbatch's activations go before the next
+        return loss / A, {k: (acc[k] / A).to(state.theta[k].dtype) for k in acc}
 
     def _nag(self, theta: Buffers, velocity: Buffers, grads: Buffers, step):
         """The unfused NAG of the reference's DistTrainer (no gradient

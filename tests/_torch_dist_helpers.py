@@ -104,3 +104,98 @@ def publish_rows(group, steps, every):
                          (snap.seq, snap.train_step, snap.bufs["float32"].numpy()))
     return {"rank": group.rank, "seqs": seqs, "rows": rows, "snaps": snaps,
             "bus_seq": tr.snapshot_bus.seq, "rejected": rejected}
+
+
+def lm_runs(group, job):
+    """Runs of the reduced TinyLlama on the dist engine, each from the
+    reference's ``init_lm`` parameters (``job["params"]``, numpy) on the
+    batches ``job["data"][run["data"]]`` (``tokens`` and ``labels``,
+    ``[steps, W, pw, seq]``; rank r trains on row r). A run is ``{"tag",
+    "mesh": MeshConfig kwargs, "protocol": ProtocolConfig kwargs, "steps",
+    "grad_accum"}``. Returns {tag: the per-step loss, fired, comm_round
+    and comm_bytes, the kernel launches and (rank 0) the whole [W, total]
+    theta and velocity, float32}."""
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import MeshConfig, OptimizerConfig, ProtocolConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    import torch
+    cfg = get_reduced("tinyllama_1_1b")
+    params = tr.params_from_jax(job["params"], group.device)
+    r, out = group.rank, {}
+    for run in job["runs"]:
+        trainer = GossipTrainer(
+            engine="dist", protocol=ProtocolConfig(**run["protocol"]),
+            optimizer=OptimizerConfig(**job["opt"]), model_cfg=cfg, group=group,
+            mesh_cfg=MeshConfig(**run["mesh"]), device=group.device,
+            grad_accum=run.get("grad_accum", 1))
+        state = trainer.init_state(0, params=params)
+        data = job["data"][run["data"]]
+        ops.zero_launch_counts()
+        rec = {k: [] for k in ("loss", "fired", "comm_round", "comm_bytes")}
+        for i in range(run["steps"]):
+            state, m = trainer.step(state, (torch.from_numpy(data["tokens"][i, r]),
+                                            torch.from_numpy(data["labels"][i, r])))
+            for k in rec:
+                rec[k].append(float(m[k]))
+        rec["launches"] = ops.launch_counts()
+        full = trainer.dist.gather_state(state)
+        if r == 0:
+            rec["theta"] = full.theta["float32"].numpy()
+            rec["velocity"] = full.opt.mu["float32"].numpy()
+        out[run["tag"]] = rec
+    return out
+
+
+def tp_cases(group, job):
+    """Tensor-parallel serving of each of ``job["cases"]`` (``arch``, the
+    reference's ``init_lm`` params as numpy, ``prompt [B, S]``, the greedy
+    tokens fed to 8 decode steps ``decode [steps, B]``, then to the
+    ``decode_slots`` steps ``slots [steps, B]`` with ``kv_start [B]``,
+    ``max_len``), in f32 on the CPU, over this group of 4 ranks and over
+    its two halves (ranks 0-1 and 2-3, each a group of 2). Returns
+    {(case, M): every step's logits, the collectives of the prefill and of
+    each decode step, and the count the program expects a decode step to
+    make}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import ModelGroup
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import make_serve_program
+    halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    mesh2 = dataclasses.replace(group.mesh_cfg, model=2)
+    groups = {4: group, 2: ModelGroup(group.rank % 2, mesh2, group.device,
+                                      pg=halves[group.rank // 2])}
+    out = {}
+    for name, case in job["cases"].items():
+        cfg = get_reduced(case["arch"])
+        params = tr.params_from_jax(case["params"], "cpu", torch.float32)
+        B = case["prompt"].shape[0]
+        for M in case["models"]:
+            g = groups[M]
+            prog = make_serve_program(cfg, batch=B, max_len=case["max_len"],
+                                      param_dtype=torch.float32, cache_dtype=torch.float32,
+                                      with_prefill=True, device="cpu", mesh_cfg=g.mesh_cfg,
+                                      group=g)
+            p = prog.place_params(params)
+            g.reset_counts()
+            logits, cache = prog.prefill_fn(p, torch.from_numpy(case["prompt"]))
+            rec = {"prefill": g.counts(), "steps": [], "logits": [logits.numpy()],
+                   "expected": prog.collectives_per_decode_step()}
+            kv_start = torch.from_numpy(case["kv_start"])
+            for t, tok in enumerate(list(case["decode"]) + list(case.get("slots", []))):
+                g.reset_counts()
+                tok = torch.from_numpy(np.ascontiguousarray(tok))[:, None]
+                if t < len(case["decode"]):
+                    logits, cache = prog.decode_fn(p, cache, tok)
+                else:
+                    logits, cache = prog.decode_slots_fn(p, cache, tok, None, kv_start)
+                rec["steps"].append(g.counts())
+                rec["logits"].append(logits.numpy())
+            rec["logits"] = np.stack(rec["logits"])
+            out[(name, M)] = rec
+    return out

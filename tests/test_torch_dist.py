@@ -657,22 +657,25 @@ def test_a_hanging_group_is_killed_at_its_timeout(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_sharded_or_tensor_parallel_mesh_refuses():
-    """Tensor parallelism (model > 1) is refused for any group (slice 7b).
-    The fsdp factor is the sharded plane's: a group takes it, and the mesh
-    must give fsdp = n_shards, 1 without a ShardConfig, as the reference's
+    """A group takes any fsdp and model (the reference replicates the plane
+    over them); model < 1 is refused. With a ShardConfig the mesh's product
+    over the shard axes must equal n_shards, as the reference's
     DistTrainer requires."""
+    with pytest.raises(ValueError, match="model=0"):
+        tmesh.check_mesh(TMesh(data=4, model=0, pods=1, workers_per_pod=4))
     tp = TMesh(data=4, model=2, pods=1, workers_per_pod=4)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        tmesh.check_mesh(tp)
-    with pytest.raises(NotImplementedError):
-        tmesh.WorkerGroup(0, tp, "cpu")
+    tmesh.check_mesh(tp)
+    assert tmesh.WorkerGroup(0, tp, "cpu").world == 4
+    tmesh.check_shard_mesh(tp, TShard(n_shards=2))
     fsdp2 = TMesh(data=8, model=1, pods=1, workers_per_pod=4)
     assert tmesh.WorkerGroup(0, fsdp2, "cpu").world == 4
     tmesh.check_shard_mesh(fsdp2, TShard(n_shards=2))
+    tmesh.check_shard_mesh(fsdp2)
     tmesh.check_shard_mesh(TMesh(data=4, model=1, pods=1, workers_per_pod=4))
-    for shard, n in ((None, 1), (TShard(n_shards=4), 4)):
-        with pytest.raises(ValueError, match=f"n_shards={n}.*mesh"):
-            tmesh.check_shard_mesh(fsdp2, shard)
+    with pytest.raises(ValueError, match="n_shards=4.*mesh"):
+        tmesh.check_shard_mesh(fsdp2, TShard(n_shards=4))
+    with pytest.raises(ValueError, match="n_shards=2.*mesh"):
+        tmesh.check_shard_mesh(fsdp2, TShard(n_shards=2, axes=("model",)))
     with pytest.raises(ValueError, match="not in mesh axes"):
         tmesh.check_shard_mesh(fsdp2, TShard(n_shards=2, axes=("tensor",)))
 

@@ -140,8 +140,20 @@ def test_the_same_cases_are_refused_in_both(case):
 
 @pytest.mark.parametrize("flag", ["production_mesh", "multi_pod"])
 def test_tensor_parallel_meshes_are_refused_naming_the_roadmap(flag):
-    with pytest.raises(ValueError, match="7b.5"):
-        tcli.run(ARCH, **_run_kw(engine="dist", device="cpu", **{flag: True}))
+    """--production-mesh runs the reference's MeshConfig(data=16, model=16,
+    pods=2 if --multi-pod else 1, workers_per_pod=--workers) on the dist
+    engine, one process per worker (2, or 2 pods x 2); --multi-pod alone,
+    which the reference ignores, is refused naming --production-mesh, and
+    so is a --shard that is not fsdp x model."""
+    kw = _run_kw(engine="dist", device="cpu", production_mesh=True, multi_pod=flag == "multi_pod")
+    if flag == "multi_pod":
+        with pytest.raises(ValueError, match="--production-mesh"):
+            tcli.run(ARCH, **dict(kw, production_mesh=False))
+    with pytest.raises(ValueError, match="n_shards=2.*mesh"):
+        tcli.run(ARCH, **dict(kw, shard=2))
+    ranks, history = tcli.run(ARCH, **kw)
+    assert len(ranks) == (4 if flag == "multi_pod" else 2)
+    assert len(history) == 2 and all(np.isfinite(r["loss"]) for r in history)
 
 
 def _records(out: str):
