@@ -328,7 +328,7 @@ prints no result line):
              the ranks' local shapes of TinyLlama at M = 2 and 4 against
              its plain version and timed beside SDPA, then tensor-parallel
              serving of TinyLlama-1.1B whole in bf16 (8 x 512 prompts, 64
-             greedy steps) at M = 1 (this process), 2 and 4 ranks on the
+             greedy steps; 16 at M = 4) at M = 1 (this process), 2 and 4 ranks on the
              card: prefill and decode-step ms, the collectives' host ms a
              step, each rank's peak, the logit gap to M = 1 and the share of
              greedy tokens equal; B9 exactly M x layers x (1 + steps)
@@ -337,6 +337,28 @@ prints no result line):
              largest of M = 1, every greedy token equal); (d) reduced
              Gemma2 in f32 at M = 4 (kv heads kept whole, softcaps, local
              windows) against M = 1 within the same gate.
+18. tp-kinds — tensor-parallel serving of the other kinds: B9 at each
+             rank's heads at M = 2, at the shapes of the bf16 runs below
+             (MLA 8 heads of 576 over 512-wide values, Zamba2 16 of 80,
+             vision 16 over 4 kv heads, self-attention and over 1601 image
+             tokens; prefill and decode) against its plain version in f32
+             and bf16 and timed beside SDPA; then, over 2
+             ranks (one spawned group), DeepSeek-V2-Lite-16B whole in bf16
+             (8 x 512 prompts, 16 greedy steps), Zamba2-2.7B, xLSTM-125M and
+             Llama-3.2-Vision-11B whole in bf16 (8 x 256, 8 steps), each
+             rank drawing only its slice of the weights; xLSTM-125M also
+             over 4 ranks. f32 gates at full width and cut depth (DeepSeek
+             2 layers, Zamba2 7 with a shared site, xLSTM 6 with an sLSTM,
+             MusicGen 2, vision 4 with a cross block; 8 x 128, 8 steps)
+             against the one-device program: every step within 1e-5 of the
+             largest logit or no farther from the f64 program than 2x M =
+             1's f32 distance, every greedy token equal, DeepSeek's routing
+             ids equal on every rank and to M = 1's; each gate again in f64
+             (the group reducing in f64, attention in f64) within 1e-10 of
+             the one-device f64 program's largest logit. Every run: B9
+             exactly M x attentions x (1 + steps), the collectives of the
+             prefill and of every step equal to the program's count, each
+             rank's peak and the card's most used memory.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -4503,8 +4525,8 @@ def moe_train(torch, ops, fu, ref, fa, dev, bw, peak):
         seen = []
         real = moe._build_buffer
 
-        def spy(xt, ids, weights, E, k, C):
-            out = real(xt, ids, weights, E, k, C)
+        def spy(xt, ids, weights, E, k, C, *rest):
+            out = real(xt, ids, weights, E, k, C, *rest)
             seen.append((xt.shape[0], C, int((~out[4]).sum())))
             return out
 
@@ -5063,6 +5085,7 @@ GA_LR, GA_P = 1e-2, 0.25          # p 0.25: fewer 4.4 GB exchanges through gloo
 MP_STEPS = 24                        # the reference's protocols test: W 4, pw 2, seq 32
 TP_MODELS = (2, 4)
 TP_BATCH, TP_PROMPT, TP_TOKENS, TP_MAX_LEN = 8, 512, 64, 1024
+TP_TOKENS_M4 = 16                    # M = 4's bf16 run: its steps are the script's slowest
 TP_GATE = dict(layers=4, prompt=128, tokens=16, max_len=256)   # the f32 gate, TinyLlama widths
 TP_GATE_REL = 1e-5                   # largest |logit diff| / largest |logit|, every step
 TP_B9 = tuple(case for M in TP_MODELS for case in (
@@ -5191,7 +5214,8 @@ def _tp_runs(torch, M):
     from repro_torch.configs import get_config, get_reduced
     cfg = get_config(LM_ARCH)
     runs = [dict(tag="bf16", cfg=cfg, dtype=torch.bfloat16, batch=TP_BATCH,
-                 prompt_len=TP_PROMPT, tokens=TP_TOKENS, max_len=TP_MAX_LEN, seed=0),
+                 prompt_len=TP_PROMPT, tokens=TP_TOKENS if M < 4 else TP_TOKENS_M4,
+                 max_len=TP_MAX_LEN, seed=0),
             dict(tag="gate", cfg=dataclasses.replace(cfg, num_layers=TP_GATE["layers"]),
                  dtype=torch.float32, batch=TP_BATCH, prompt_len=TP_GATE["prompt"],
                  tokens=TP_GATE["tokens"], max_len=TP_GATE["max_len"], seed=0, logits=True)]
@@ -5251,7 +5275,8 @@ def tp_serving(torch, ops, fa, dev, bw, peak_bf16):
                     raise AssertionError(f"[tp] M={M} {tag}: collectives {bad[0]}, want {want}")
             base = res[1][0][tag]
             gap = _logit_gap(rec0["prefill_logits"], base["prefill_logits"])
-            same = float((rec0["stream"] == base["stream"]).double().mean())
+            n = rec0["stream"].shape[-1]          # M = 4's bf16 run takes fewer steps
+            same = float((rec0["stream"] == base["stream"][..., :n]).double().mean())
             line = (f"[tp] {run['cfg'].name} {tag} ({str(run['dtype']).split('.')[-1]}, "
                     f"{L} layers, {run['batch']} x {run['prompt_len']} prompts, {steps} steps) "
                     f"M={M}: prefill {rec0['prefill_ms']:.3f} ms, decode step median "
@@ -5293,6 +5318,328 @@ def run_tp_phase(torch, ops, fa, dev, bw, peak_bf16, smi):
     log(f"[tp] launches in phase 17: {dict((k, v) for k, v in launches.items() if v)}; "
         f"summary ({smi}): {json.dumps(dict(accum=ga, model2=mp, tp=tp), default=str)}")
     return launches, errs, times, dict(accum=ga, model2=mp, tp=tp)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: tensor-parallel serving of the MoE, MLA, SSM / hybrid and
+# cross-attention models (DeepSeek-V2-Lite-16B whole in bf16 over 2 ranks)
+# ---------------------------------------------------------------------------
+
+TPK_BF16 = dict(deepseek_v2_lite_16b=dict(prompt=512, tokens=16),   # whole, 27 layers
+                zamba2_2_7b=dict(prompt=256, tokens=8),
+                xlstm_125m=dict(prompt=256, tokens=8),
+                llama_3_2_vision_11b=dict(prompt=256, tokens=8))
+# B9 on each rank at M = 2 in TPK_BF16's runs: (tag, B, Sq, H, Skv, Hkv, hd,
+# dv, causal, a decode query's position). A prefill attends over its
+# prompt, a decode over the SERVE_MAX_LEN-row cache from the first step's
+# position (the prompt's length), the cross-attention over 1601 image
+# tokens; MLA's keys are [c_kv ; k_rope] (576) over 512-wide values, 8 of
+# 16 heads; Zamba2's shared blocks 16 of 32 heads of 80; vision 16 of 32
+# heads over 4 of 8 kv heads, hd 128 (xLSTM has no attention)
+_P = {arch: kw["prompt"] for arch, kw in TPK_BF16.items()}
+TPK_B9 = tuple(case for tag, arch, H, Hkv, hd, dv in (
+    ("MLA", "deepseek_v2_lite_16b", 8, 1, 576, 512), ("Zamba2", "zamba2_2_7b", 16, 16, 80, 80),
+    ("vision self", "llama_3_2_vision_11b", 16, 4, 128, 128))
+    for case in ((f"{tag} prefill", SERVE_BATCH, _P[arch], H, _P[arch], Hkv, hd, dv, True, 0),
+                 (f"{tag} decode", SERVE_BATCH, 1, H, SERVE_MAX_LEN, Hkv, hd, dv, True,
+                  _P[arch]))) + tuple(
+    (f"vision cross {what}", SERVE_BATCH, sq, 16, 1601, 4, 128, 128, False, 0)
+    for what, sq in (("prefill", _P["llama_3_2_vision_11b"]), ("decode", 1)))
+# the f32 gates: full widths, depth cut (Zamba2's 7 layers hold one shared
+# site; xLSTM's 6 its first sLSTM layer; vision's 4 its first cross block)
+TPK_GATE_LAYERS = dict(deepseek_v2_lite_16b=2, zamba2_2_7b=7, xlstm_125m=6,
+                       musicgen_large=2, llama_3_2_vision_11b=4)
+TPK_GATE = dict(batch=8, prompt=128, tokens=8, max_len=256)
+# The split itself is held in f64 (each gate's run in f64 at M ranks, the
+# group reducing in f64, attention through f64_attention) against the
+# one-device f64 program, within TPK_F64_GATE of the largest logit: f64
+# rounding moves them ~1e-15 apart (reduced models on the CPU), so a fault
+# of the split shows far below the f32 noise. In f32, where rounding alone
+# moves M = 1's logits from the f64 program's by more than TP_GATE_REL
+# (Zamba2, xLSTM, vision at these depths), M ranks may sit at most this
+# factor farther from it: two independent f32 roundings of one computation
+# differ by up to ~2x either one's distance from f64
+TP_F64_FACTOR = 2.0
+TPK_F64_GATE = 1e-10
+
+
+def b9_local_case(torch, dev, dt, case, seed):
+    """(q, k, v, kwargs, visible keys) of a TPK_B9 case in ``dt``; MLA's
+    values are the keys' 512-wide prefix, as the model passes them."""
+    tag, B, Sq, H, Skv, Hkv, hd, dv, causal, pos = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).to(dt)
+    v = k[..., :dv] if dv < hd else torch.randn(B, Skv, Hkv, dv, generator=g,
+                                                 device=dev).to(dt)
+    kw, visible = dict(causal=causal), Skv
+    if Sq == 1 and causal:
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kw.update(q_offset=p, kv_len=p + 1)
+        visible = pos + 1
+    return q, k, v, kw, visible
+
+
+def b9_local_bound(case, visible, bw, peak):
+    """(bound ms, by) in bf16: q, the visible key rows (and value rows unless
+    they are the keys' prefix) and out moved once, against 2 (hd + dv) flops
+    per (query row, visible key) at the bf16 tensor-core peak."""
+    _, B, Sq, H, Skv, Hkv, hd, dv, causal, _ = case
+    nbytes = 2 * (B * Sq * H * hd + B * visible * Hkv * (hd + (0 if dv < hd else dv))
+                  + B * Sq * H * dv)
+    pairs = visible * Sq if (Sq == 1 or not causal) else Sq * (Sq + 1) // 2
+    flops = 2 * (hd + dv) * H * B * pairs
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
+    """B9 at each rank's shapes of TPK_B9 against its plain version (f32
+    and bf16, phase 6's tolerances; split form in decode, mma for a bf16
+    prefill at hd 128, else simt), then timed in bf16 beside its plain
+    version and SDPA. Returns (max abs err by dtype, timings)."""
+    import torch.nn.functional as F
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        worst[name] = 0.0
+        for i, case in enumerate(TPK_B9):
+            q, k, v, kw, _ = b9_local_case(torch, dev, dt, case, 90 + i)
+            form = ("split" if q.shape[1] == 1 else
+                    "mma" if dt == torch.bfloat16 and case[6] in (64, 128, 256) else "simt")
+            n, f0 = fa.LAUNCHES, fa.FORM_LAUNCHES[form]
+            got = ops.attention(q, k, v, **kw)
+            want = plain_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if fa.LAUNCHES != n + 1 or fa.FORM_LAUNCHES[form] != f0 + 1:
+                raise RuntimeError(f"[tp-kinds] B9 {case[0]} {name}: launches "
+                                   f"{fa.LAUNCHES - n}, forms {dict(fa.FORM_LAUNCHES)} "
+                                   f"(want {form})")
+            worst[name] = max(worst[name], b9_err(case[0], got, want))
+            del q, k, v, got, want
+        log(f"[tp-kinds] B9 vs plain version at each rank's shapes at M = 2 in the bf16 runs "
+            f"(MLA 8 heads of 576 / 512, Zamba2 16 of 80, vision 16 over 4 kv heads of 128, "
+            f"self and over 1601 image tokens; prefill at {sorted(set(_P.values()))}-token "
+            f"prompts, decode at the first step's position of the {SERVE_MAX_LEN}-row cache), "
+            f"{name}: {len(TPK_B9)} cases, max abs err {worst[name]:.3e} (tolerance "
+            f"{B9_TOL[name]}" + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16
+                                 else "") + ")")
+    times = {}
+    for i, case in enumerate(TPK_B9):
+        q, k, v, kw, visible = b9_local_case(torch, dev, torch.bfloat16, case, 110 + i)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (a[:, :visible].transpose(1, 2) for a in (k, v))
+        sdpa_causal = case[8] and case[2] > 1
+        ms, form = timed_form(torch, fa, lambda: ops.attention(q, k, v, **kw))
+        r = dict(ms=ms, form=form, shape=list(q.shape), keys=list(k.shape),
+                 values=list(v.shape), causal=case[8],
+                 plain_ms=time_launches(torch, lambda: plain_attention(q, k, v, **kw),
+                                        reps=20, warmup=3),
+                 library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True), reps=20, warmup=3))
+        r["bound_ms"], r["bound_by"] = b9_local_bound(case, visible, bw, peak_bf16)
+        times[case[0]] = r
+        log(f"[tp-kinds] B9 {case[0]} bf16 q {r['shape']} over {r['keys']} values "
+            f"{r['values']} ({form} form): kernel {ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms ({ms / r['library_ms']:.2f}x SDPA), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bound_ms'] / ms:.1%} of it reached), "
+            "CUDA events")
+        del q, k, v, qt, kt, vt
+    return worst, times
+
+
+def _tpk_runs(torch, M):
+    """The runs of phase 18 at M ranks (M = 1: the one-device program, the
+    f32 gates only): at M = 2 TPK_BF16's models whole in bf16 and every f32
+    gate; at M = 4 xLSTM-125M whole and its gate."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    runs = []
+    if M > 1:
+        for arch, kw in TPK_BF16.items():
+            if M == 2 or arch == "xlstm_125m":
+                runs.append(dict(tag=f"{arch} bf16", cfg=get_config(arch), dtype=torch.bfloat16,
+                                 batch=SERVE_BATCH, prompt_len=kw["prompt"],
+                                 tokens=kw["tokens"], max_len=SERVE_MAX_LEN, seed=0,
+                                 cross_gate=CROSS_GATE))
+    for arch, L in TPK_GATE_LAYERS.items():
+        if M != 4 or arch == "xlstm_125m":
+            cfg = dataclasses.replace(get_config(arch), num_layers=L)
+            runs.append(dict(tag=f"{arch} gate", cfg=cfg, dtype=torch.float32,
+                             batch=TPK_GATE["batch"], prompt_len=TPK_GATE["prompt"],
+                             tokens=TPK_GATE["tokens"], max_len=TPK_GATE["max_len"], seed=0,
+                             cross_gate=CROSS_GATE, logits=True, routes=cfg.moe is not None))
+    return runs
+
+
+def f64_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0, kv_len=None,
+                  kv_start=None):
+    """The model's own online-softmax attention (f64 stays f64) behind the
+    op's signature, for the f64 runs: B9 takes f32 and bf16, and its plain
+    version computes in f32, whose rounding would move with the rank's
+    head count (the card's matmuls pick their algorithm by shape)."""
+    from repro_torch.models.attention import online_softmax_attention
+    return online_softmax_attention(q, k, v, causal=causal, window=window,
+                                    logit_softcap=softcap, q_offset=q_offset, kv_len=kv_len,
+                                    kv_start=kv_start, chunk=min(1024, k.shape[1]))
+
+
+def _tpk_f64(torch, runs):
+    """The f32 gate runs of ``runs`` in f64, tagged ``<arch> f64``."""
+    return [dict(r, tag=r["tag"].replace(" gate", " f64"), dtype=torch.float64)
+            for r in runs if r.get("logits")]
+
+
+def tpk_rank(group, job):
+    """A rank of phase 18 (module level, so ``spawn`` can import it):
+    ``job["runs"]`` through ``serve_decode.tp_rank``, then ``job["f64"]``
+    with attention through :func:`f64_attention`."""
+    from unittest import mock
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_decode as sd
+    out = sd.tp_rank(group, dict(runs=job["runs"]))
+    with mock.patch.object(ops, "attention", f64_attention):
+        out.update(sd.tp_rank(group, dict(runs=job["f64"])))
+    return out
+
+
+def tp_kinds_check(torch, M, ranks, base, truth, gib):
+    """Holds every run of one group: B9 exactly M x attentions x (1 +
+    steps) (none in f64), every decode step's and the prefill's collectives
+    equal to the program's count, the MoE routing ids equal on every rank
+    and to M = 1's, every greedy token equal to M = 1's, each f64 run's
+    logits at every step within TPK_F64_GATE of the largest of the
+    one-device f64 program's (``truth``: the same weights and inputs), and each f32
+    gate's within TP_GATE_REL of M = 1's or no farther from the f64
+    program's than TP_F64_FACTOR times M = 1's own f32 distance from it.
+    Every run is logged before a failed gate raises. Returns ({run tag:
+    summary}, B9 launches)."""
+    out, b9_total, failed = {}, 0, []
+    runs = _tpk_runs(torch, M)
+    for run in runs + _tpk_f64(torch, runs):
+        tag, cfg = run["tag"], run["cfg"]
+        f64 = run["dtype"] == torch.float64
+        recs = [r[tag] for r in ranks]
+        rec0, steps = recs[0], run["tokens"]
+        b9 = sum(r["launches"][B9] for r in recs)
+        want_b9 = 0 if f64 else M * attn_passes(cfg) * (1 + steps)
+        if b9 != want_b9:
+            raise AssertionError(f"[tp-kinds] M={M} {tag}: B9 launches {b9}, want {want_b9}")
+        b9_total += b9
+        want = rec0["expected_per_step"]
+        for r in recs:
+            bad = [c for c in r["step_collectives"] if {k: c[k] for k in want} != want]
+            pre = {k: r["prefill_collectives"][k] for k in want}
+            if bad or pre != want:
+                raise AssertionError(f"[tp-kinds] M={M} {tag}: collectives "
+                                     f"{bad[0] if bad else pre}, want {want} a step and a "
+                                     "prefill")
+        if run.get("routes"):
+            for r in recs[1:]:
+                if len(r["routes"]) != len(rec0["routes"]) or not all(
+                        (a == b).all() for a, b in zip(r["routes"], rec0["routes"])):
+                    raise AssertionError(f"[tp-kinds] M={M} {tag}: routing ids differ by rank")
+        kinds = "; ".join(f"{k} {c['all_reduce']} + {c['all_gather']}"
+                          for k, c in rec0["expected_by_kind"].items()
+                          if c["all_reduce"] or c["all_gather"])
+        line = (f"[tp-kinds] {cfg.name} {tag.split()[-1]} ({str(run['dtype']).split('.')[-1]}, "
+                f"{cfg.num_layers} layers, {run['batch']} x {run['prompt_len']} prompts, {steps} "
+                f"steps) M={M}: prefill {rec0['prefill_ms']:.3f} ms, decode step median "
+                f"{statistics.median(rec0['step_ms']):.3f} ms; collectives a step and a prefill "
+                f"{want} (by kind, all-reduces + all-gathers: {kinds}), host "
+                f"{statistics.median(c['host_s'] for c in rec0['step_collectives']) * 1e3:.3f} ms "
+                f"a step, {rec0['prefill_collectives']['host_s'] * 1e3:.1f} ms in the prefill; "
+                f"B9 {b9} = {M} x {0 if f64 else attn_passes(cfg)} x (1 + {steps}); placed "
+                + ", ".join(f"{r['placed_bytes'] / gib:.3f}" for r in recs) + " GiB, peak "
+                + ", ".join(f"{(r['peak_bytes'] or 0) / gib:.3f}" for r in recs)
+                + f" GiB a rank, card used up to "
+                f"{max(r['card_bytes'] or 0 for r in recs) / gib:.3f} GiB (every process)")
+        summ = dict(prefill_ms=rec0["prefill_ms"], step_ms=statistics.median(rec0["step_ms"]),
+                    collective_ms=statistics.median(c["host_s"] for c in
+                                                    rec0["step_collectives"]) * 1e3,
+                    collectives=want, by_kind=rec0["expected_by_kind"],
+                    placed_gib=[r["placed_bytes"] / gib for r in recs],
+                    peak_gib=[(r["peak_bytes"] or 0) / gib for r in recs],
+                    card_gib=max(r["card_bytes"] or 0 for r in recs) / gib, b9=b9)
+        if run.get("routes"):
+            line += f"; routing ids equal on all {M} ranks ({len(rec0['routes'])} MoE calls)"
+        if run.get("logits"):
+            one = truth[tag] if f64 else base[tag]
+            gap = max(_logit_gap(a, b) for a, b in zip(rec0["logits"], one["logits"]))
+            same = bool(torch.equal(rec0["stream"], one["stream"]))
+            routes = not run.get("routes") or (len(rec0["routes"]) == len(one["routes"]) and all(
+                (a == b).all() for a, b in zip(rec0["routes"], one["routes"])))
+            if f64:
+                close = gap <= TPK_F64_GATE
+                line += (f"; split gate (f64): every step's gap to M=1's f64 "
+                         f"<= {gap:.3e} of the largest logit (limit {TPK_F64_GATE})")
+            else:
+                ref = truth[tag.replace(" gate", " f64")]
+                f32_err = max(_logit_gap(a, b.float()) for a, b in zip(one["logits"],
+                                                                         ref["logits"]))
+                tp_err = max(_logit_gap(a, b.float()) for a, b in zip(rec0["logits"],
+                                                                        ref["logits"]))
+                close = gap <= TP_GATE_REL or tp_err <= TP_F64_FACTOR * f32_err
+                line += (f"; f32 gate: every step's gap to M=1 <= {gap:.3e} of the largest logit "
+                         f"(limit {TP_GATE_REL}), against the f64 program M={M} {tp_err:.3e} and "
+                         f"M=1 {f32_err:.3e} (limit {TP_F64_FACTOR} x M=1's)")
+                summ.update(f32_err=f32_err, f64_gap=tp_err)
+            line += f", greedy tokens equal {same}"
+            if run.get("routes"):
+                line += f", routing ids equal to M=1 {routes}"
+            if not (close and same and routes):
+                failed.append(f"{tag}: logits gap {gap}, greedy tokens equal {same}, routing "
+                              f"ids equal to M=1 {routes}")
+            summ.update(gate_gap=gap, greedy_equal=same)
+        log(line)
+        out[f"M={M} {tag}"] = summ
+    if failed:
+        raise AssertionError(f"[tp-kinds] M={M}: " + "; ".join(failed))
+    return out, b9_total
+
+
+def run_tp_kinds_phase(torch, ops, fa, dev, bw, peak_bf16, smi):
+    """Phase 18. Returns ({kernel: launches}, {kernel: max abs err}, B9's
+    timings at the local shapes, summary)."""
+    import gc
+    from unittest import mock
+    from repro_torch.common.config import MeshConfig
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.launch.mesh import spawn_model_group
+    worst, times = tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    launches = dict.fromkeys(KERNELS, 0)
+    secs, summary = {}, {}
+    t0 = time.perf_counter()
+    base = sd.tp_rank(sd.OneRank(dev), dict(runs=_tpk_runs(torch, 1)))
+    secs[1] = time.perf_counter() - t0
+    for tag, rec in base.items():
+        launches[B9] += rec["launches"][B9]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the gates' one-device f64 program
+    with mock.patch.object(ops, "attention", f64_attention):
+        truth = sd.tp_rank(sd.OneRank(dev), dict(runs=_tpk_f64(torch, _tpk_runs(torch, 1))))
+    secs["1 f64"] = time.perf_counter() - t0 - secs[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for M in (2, 4):
+        t0 = time.perf_counter()
+        runs = _tpk_runs(torch, M)
+        ranks = spawn_model_group(tpk_rank, MeshConfig(data=1, model=M, pods=1,
+                                                       workers_per_pod=1),
+                                  dev, args=(dict(runs=runs, f64=_tpk_f64(torch, runs)),),
+                                  join_timeout_s=900)
+        secs[M] = time.perf_counter() - t0
+        got, b9 = tp_kinds_check(torch, M, ranks, base, truth, gib)
+        summary.update(got)
+        launches[B9] += b9
+    log(f"[tp-kinds] seconds by M: { {M: round(v, 1) for M, v in secs.items()} }; "
+        f"summary ({smi}): {json.dumps(dict(runs=summary, b9=times), default=str)}")
+    return launches, {B9: max(worst.values())}, dict(
+        max_abs_err_f32=worst["float32"], max_abs_err_bf16=worst["bfloat16"], **times), summary
 
 
 def main():
@@ -5507,6 +5854,16 @@ def main():
     for kname, e in tp_err.items():
         err[kname] = max(err[kname], e)
     phase_s["17 accum+tp"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    tk_launches, tk_err, times[B9]["tensor_parallel_kinds"], _ = run_tp_kinds_phase(
+        torch, ops, fa, dev, bw, peak_bf16, smi)
+    for kname, n in tk_launches.items():
+        launches[kname] += n
+    for kname, e in tk_err.items():
+        err[kname] = max(err[kname], e)
+    log(f"[tp-kinds] launches in phase 18: {dict((k, v) for k, v in tk_launches.items() if v)}")
+    phase_s["18 tp-kinds"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

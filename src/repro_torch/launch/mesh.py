@@ -242,11 +242,12 @@ class ModelGroup(_Staged):
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``t``, in ``t``'s dtype on this rank's
-        device. The partials are summed in f32 and rounded once: this gloo
-        build reduces bf16 too, but rounds every partial sum to bf16, so the
-        result would move with M and the ranks' order."""
+        device. The partials are summed in f32 (f64 for an f64 ``t``) and
+        rounded once: this gloo build reduces bf16 too, but rounds every
+        partial sum to bf16, so the result would move with M and the ranks'
+        order."""
         t0 = time.perf_counter()
-        h = self._to_host("reduce", t, torch.float32)
+        h = self._to_host("reduce", t, torch.promote_types(t.dtype, torch.float32))
         dist.all_reduce(h, op=dist.ReduceOp.SUM, group=self.pg)
         out = h.to(device=self.device, dtype=t.dtype, copy=True)
         self.all_reduces += 1

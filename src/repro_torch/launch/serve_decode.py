@@ -36,20 +36,28 @@ Llama-3.2-Vision-11B at full width on one 80 GB card). Prints what the
 reference's example prints, plus the prefill time, the median decode step
 and the kernel's launches per phase.
 
-``--model M`` (M > 1; the dense attention models) serves tensor-parallel
-over M processes on the one card (``launch.mesh.spawn_model_group``,
-``serving.tensor_parallel``): every rank builds ``init_lm(seed)`` in the
-serving dtype, keeps its slice and frees the rest, then prefills and
-decodes the same greedy stream, with no snapshot bus and no swap. Rank 0
-prints the summary above, each rank's peak memory, the collectives a
-decode step makes and their host time.
+``--model M`` (M > 1, every arch) serves tensor-parallel over M
+processes on the one card (``launch.mesh.spawn_model_group``,
+``serving.tensor_parallel``): every rank draws ``init_lm(seed)`` in the
+serving dtype keeping only its slice of each leaf as it is drawn (no rank
+holds a whole tree), then prefills and decodes the same greedy stream
+(with the same ``cond`` and ``--cross-gate``), with no snapshot bus and no
+swap. Rank 0 prints the summary above, each rank's peak memory, the
+collectives a decode step makes (by block kind) and their host time.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch deepseek_v2_lite_16b \
+        --full --batch 8 --prompt-len 512 --max-len 1024 --tokens 16 --model 2
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch zamba2_2_7b --reduced \
+        --model 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
 from typing import Callable, Optional
+from unittest import mock
 
 import torch
 
@@ -305,26 +313,61 @@ def serve_decode(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int, 
             "cache_pos": int(cache["pos"]), "plan": plan}
 
 
+@contextlib.contextmanager
+def recorded_routes(on: bool):
+    """With ``on``, every MoE layer called inside appends its routing ids
+    (``[T, k]``, copied to the CPU, so it synchronises) to the yielded list
+    in call order, through a spy on ``moe._route``; else the list stays
+    empty."""
+    routes = []
+    if not on:
+        yield routes
+        return
+    route = moe._route
+
+    def spy(*args, **kwargs):
+        out = route(*args, **kwargs)
+        routes.append(out[2].cpu())
+        return out
+
+    with mock.patch.object(moe, "_route", spy):
+        yield routes
+
+
 def tp_rank(group, job: dict) -> dict:
     """One rank of tensor-parallel runs (module level, so ``spawn`` can
     import it). Each of ``job["runs"]`` (``tag``, ``cfg``, ``dtype``,
-    ``batch``, ``prompt_len``, ``tokens``, ``max_len``, ``seed``,
-    ``logits``): ``init_lm(seed)`` in the serving dtype on the rank's
-    device, its slice placed and the full tree freed, a random prompt from
-    ``seed + 1``, prefill and ``tokens`` greedy decode steps, each phase
-    ended by a synchronise. Returns {tag: the timings, B9's launches (counts
-    set to 0 after the weights are placed), the collectives of the prefill
-    and of each decode step with their host seconds, the rank's peak memory
-    (stats reset before the run), the placed bytes, the greedy stream, the
-    prefill's logits and, on rank 0 with ``logits``, every step's logits
-    (float32, on the CPU)}. With :class:`OneRank` for ``group`` it is the
-    one-device program, the same calls on the same inputs."""
+    ``batch``, ``prompt_len``, ``tokens``, ``max_len``, ``seed``; optional
+    ``logits``, ``cross_gate``, ``routes``): the rank's slice of
+    ``init_lm(seed)`` drawn in the serving dtype on its device
+    (``init_params``: no whole tree; its cross gates set to ``cross_gate``
+    when given), a random prompt and (audio, vision) ``cond`` from ``seed +
+    1``, prefill and ``tokens`` greedy decode steps, each phase ended by a
+    synchronise. Returns {tag: the timings, B9's launches (counts set to 0
+    after the weights are placed), the collectives of the prefill and of
+    each decode step with their host seconds and the counts the program
+    expects of each (in all and by block kind), the rank's peak memory
+    (stats reset before the weights are drawn) and the card's most used
+    memory seen at the ends of the phases (every process's), the placed
+    bytes, the greedy stream, the prefill's logits, on rank 0 with
+    ``logits`` every step's logits (float32, float64 in an f64 run, on the
+    CPU) and with ``routes`` every MoE layer's routing ids}. With
+    :class:`OneRank` for ``group`` it is the one-device program, the same
+    calls on the same inputs."""
     dev = group.device
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    kept = lambda t: t.to(torch.promote_types(t.dtype, torch.float32)).cpu()  # noqa: E731
     out = {}
     for run in job["runs"]:
         cfg, dt = run["cfg"], run["dtype"]
+        card = []
+
+        def card_used():
+            if cuda:
+                free, total = torch.cuda.mem_get_info(dev)
+                card.append(total - free)
+
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -332,43 +375,57 @@ def tp_rank(group, job: dict) -> dict:
                                   param_dtype=dt, cache_dtype=dt, with_prefill=True,
                                   device=dev, mesh_cfg=group.mesh_cfg, group=group)
         with torch.no_grad():
-            full = tr.init_lm(torch.Generator(device=dev).manual_seed(run["seed"]), cfg, dt)[0]
-            params = prog.place_params(full)
-            del full
+            params = prog.init_params(torch.Generator(device=dev).manual_seed(run["seed"]))
+            if run.get("cross_gate"):
+                open_cross_gates(params, run["cross_gate"])
         if cuda:
             torch.cuda.empty_cache()
+        sync()
+        card_used()
         gen = torch.Generator(device=dev).manual_seed(run["seed"] + 1)
         prompt = torch.randint(0, cfg.vocab_size, prog.token_shapes(run["prompt_len"]).shape,
                                generator=gen, device=dev, dtype=torch.int32)
+        cond = None
+        if prog.cond_shapes() is not None:
+            cond = torch.randn(prog.cond_shapes().shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(dt)
         group.barrier()
         ops.zero_launch_counts()
         group.reset_counts()
         sync()
-        t0 = time.perf_counter()
-        logits, cache = prog.prefill_fn(params, prompt)
-        sync()
-        per_step_want = (prog.collectives_per_decode_step() if group.world > 1
-                         else {"all_reduce": 0, "all_gather": 0})
-        rec = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
-               "prefill_collectives": group.counts(), "prefill_logits": logits.float().cpu(),
-               "expected_per_step": per_step_want, "placed_bytes": _bytes(params)}
-        keep = [rec["prefill_logits"]] if run.get("logits") and group.rank == 0 else None
-        outs, step_ms, per_step = [], [], []
-        for _ in range(run["tokens"]):
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            group.reset_counts()
-            sync()
+        with recorded_routes(run.get("routes")) as routes:
             t0 = time.perf_counter()
-            logits, cache = prog.decode_fn(params, cache, nxt[..., None])
+            logits, cache = prog.prefill_fn(params, prompt, cond)
             sync()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            per_step.append(group.counts())
-            outs.append(nxt.cpu())
-            if keep is not None:
-                keep.append(logits.float().cpu())
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            card_used()
+            tp = group.world > 1
+            rec = {"prefill_ms": prefill_ms, "prefill_collectives": group.counts(),
+                   "prefill_logits": kept(logits),
+                   "expected_per_step": (prog.collectives_per_decode_step() if tp
+                                         else {"all_reduce": 0, "all_gather": 0}),
+                   "expected_by_kind": prog.collectives_by_kind() if tp else None,
+                   "placed_bytes": _bytes(params)}
+            keep = [rec["prefill_logits"]] if run.get("logits") and group.rank == 0 else None
+            outs, step_ms, per_step = [], [], []
+            for _ in range(run["tokens"]):
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                group.reset_counts()
+                sync()
+                t0 = time.perf_counter()
+                logits, cache = prog.decode_fn(params, cache, nxt[..., None], cond)
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(group.counts())
+                outs.append(nxt.cpu())
+                if keep is not None:
+                    keep.append(kept(logits))
+        card_used()
         rec.update(step_ms=step_ms, step_collectives=per_step, launches=ops.launch_counts(),
                    peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else None,
-                   stream=torch.stack(outs, dim=-1), logits=keep)
+                   card_bytes=max(card) if card else None,
+                   stream=torch.stack(outs, dim=-1), logits=keep,
+                   routes=[r.numpy() for r in routes] if run.get("routes") else None)
         out[run["tag"]] = rec
         del params, cache, logits
     return out
@@ -397,13 +454,13 @@ class OneRank:
 
 def serve_tp(cfg: ModelConfig, model: int, *, batch: int, prompt_len: int, tokens: int,
              max_len: int, dtype=torch.bfloat16, device="cuda", seed: int = 0,
-             log: Callable[[str], None] = print) -> list:
+             cross_gate: float = 0.0, log: Callable[[str], None] = print) -> list:
     """Spawn ``model`` ranks of :func:`tp_rank` on ``device`` for one run and
     print rank 0's summary; returns every rank's result of it."""
     from repro_torch.launch.mesh import spawn_model_group
     mesh_cfg = MeshConfig(data=1, model=model, pods=1, workers_per_pod=1)
     run = dict(tag="serve", cfg=cfg, batch=batch, prompt_len=prompt_len, tokens=tokens,
-               max_len=max_len, dtype=dtype, seed=seed)
+               max_len=max_len, dtype=dtype, seed=seed, cross_gate=cross_gate)
     ranks = [r["serve"] for r in spawn_model_group(tp_rank, mesh_cfg, device,
                                                    args=(dict(runs=[run]),),
                                                    join_timeout_s=1800.0)]
@@ -414,21 +471,27 @@ def serve_tp(cfg: ModelConfig, model: int, *, batch: int, prompt_len: int, token
 
 def tp_summary(ranks: list, model: int) -> str:
     """Rank 0's line of a tensor-parallel run: prefill and median decode step
-    ms, B9's launches, the collectives a decode step makes and their host
-    time, and each rank's placed parameters and peak."""
+    ms, B9's launches, the collectives a decode step makes (by block kind)
+    and their host time, and each rank's placed parameters and peak."""
     r0 = ranks[0]
     coll, pre = r0["step_collectives"], r0["prefill_collectives"]
+    kinds = "; ".join(f"{k} {c['all_reduce']} + {c['all_gather']}"
+                      for k, c in r0["expected_by_kind"].items())
     return (f"model={model} ranks: prefill {r0['prefill_ms']:.3f} ms, median decode step "
             f"{statistics.median(r0['step_ms']):.3f} ms, B9 launches per rank "
             f"{r0['launches']['flash_attention']}; collectives per decode step "
             f"{ {k: coll[0][k] for k in ('all_reduce', 'all_gather')} } (expected "
-            f"{r0['expected_per_step']}), host time median "
+            f"{r0['expected_per_step']}; all-reduces + all-gathers by kind: {kinds}), "
+            f"host time median "
             f"{statistics.median(c['host_s'] for c in coll) * 1e3:.3f} ms a step; prefill "
-            f"{pre['all_reduce']} all-reduces + {pre['all_gather']} all-gather, "
+            f"{pre['all_reduce']} all-reduces + {pre['all_gather']} all-gathers, "
             f"{pre['host_s'] * 1e3:.3f} ms; per rank: placed params "
             + ", ".join(f"{r['placed_bytes'] / GiB:.3f}" for r in ranks) + " GiB, peak "
             + ", ".join("not measured" if r["peak_bytes"] is None else
-                        f"{r['peak_bytes'] / GiB:.3f}" for r in ranks) + " GiB")
+                        f"{r['peak_bytes'] / GiB:.3f}" for r in ranks) + " GiB"
+            + ("" if r0["card_bytes"] is None else
+               f"; card used (every process) up to "
+               f"{max(r['card_bytes'] for r in ranks) / GiB:.3f} GiB"))
 
 
 def main(argv=None) -> int:
@@ -448,7 +511,7 @@ def main(argv=None) -> int:
                          "0, their init, leaves the cross path silent)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--model", type=int, default=1,
-                    help="serve tensor-parallel over this many ranks (dense attention models)")
+                    help="serve tensor-parallel over this many ranks (one process each)")
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     # params and cache: f32 for the reduced config (as the reference's serve
@@ -458,7 +521,8 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     if args.model > 1:
         serve_tp(cfg, args.model, batch=args.batch, prompt_len=args.prompt_len,
-                 tokens=args.tokens, max_len=args.max_len, dtype=dt, device=args.device)
+                 tokens=args.tokens, max_len=args.max_len, dtype=dt, device=args.device,
+                 cross_gate=args.cross_gate)
         return 0
     serve_decode(cfg, batch=args.batch, prompt_len=args.prompt_len, tokens=args.tokens,
                  max_len=args.max_len, param_dtype=dt, cache_dtype=dt, device=args.device,

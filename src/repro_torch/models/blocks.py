@@ -6,6 +6,14 @@ init / forward / prefill / decode / cache interface. Kinds:
   mamba        Mamba2 SSD block
   mlstm/slstm  xLSTM blocks
   cross_blk    standalone gated cross-attention block (Llama-3.2-V insertions)
+
+Prefill, decode and the caches take ``tp``: None on one device, else the
+rank's :class:`~repro_torch.serving.tensor_parallel.Part` of a
+tensor-parallel program. The blocks then run on the rank's slice of the
+parameters: attention over the rank's heads (``tp.attn_cfg``), each
+partial sum (self- and cross-attention, the FFN, the MoE layer, the
+recurrent mixers' output projections) summed over the ranks where its group
+is split, and the norms whole.
 """
 from __future__ import annotations
 
@@ -85,41 +93,54 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig, *, use_moe: bo
 # forward (training, full sequence, no cache)
 # ---------------------------------------------------------------------------
 
-def _ffn_apply(p_ffn, x, cfg: ModelConfig, use_moe: bool):
+def _sum(tp, y, group: str):
+    """``y``, summed over the ranks under ``tp`` where ``group`` ("heads",
+    "ffn") is split over them."""
+    return y if tp is None else tp.sum(y, group)
+
+
+def _attn_cfg(cfg: ModelConfig, tp) -> ModelConfig:
+    """The config attention reads: the rank's heads and kv heads under ``tp``."""
+    return cfg if tp is None else tp.attn_cfg
+
+
+def _ffn_apply(p_ffn, x, cfg: ModelConfig, use_moe: bool, tp=None):
     """(y, aux): the MoE FFN and its load-balance loss, or the dense FFN and
     an f32 zero."""
     if use_moe:
-        return moe_mod.moe_forward(p_ffn, x, cfg)
-    return (ffn_forward(p_ffn, x, cfg.activation),
+        return moe_mod.moe_forward(p_ffn, x, cfg, tp=tp)
+    return (_sum(tp, ffn_forward(p_ffn, x, cfg.activation), "ffn"),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _ffn_half(p, x, cfg: ModelConfig, use_moe: bool):
+def _ffn_half(p, x, cfg: ModelConfig, use_moe: bool, tp=None):
     """The block's second residual half: (x + post_ln2(ffn(ln2(x))), aux)."""
-    y, aux = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, use_moe)
+    y, aux = _ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, use_moe, tp)
     if cfg.post_norms:
         y = rmsnorm(p["post_ln2"], y, cfg.norm_eps)
     return x + y, aux
 
 
-def _attn_residual(kind: str, p, x, y, cfg: ModelConfig, cond):
+def _attn_residual(kind: str, p, x, y, cfg: ModelConfig, cond, tp=None):
     """x + post_ln1(y), then (``attn_cross``) + cross_attn(ln_x(x), cond)."""
+    y = _sum(tp, y, "heads")
     if cfg.post_norms:
         y = rmsnorm(p["post_ln1"], y, cfg.norm_eps)
     x = x + y
     if kind == "attn_cross":
-        x = x + attn.cross_attn_forward(p["xattn"], rmsnorm(p["ln_x"], x, cfg.norm_eps), cond,
-                                        cfg)
+        x = x + _sum(tp, attn.cross_attn_forward(p["xattn"], rmsnorm(p["ln_x"], x, cfg.norm_eps),
+                                                 cond, cfg), "heads")
     return x
 
 
-def _cross_block(p, x, cfg: ModelConfig, cond):
+def _cross_block(p, x, cfg: ModelConfig, cond, tp=None):
     """The standalone gated block: x + cross_attn(ln1(x), cond), then
     + tanh(ffn_gate) * ffn(ln2(x))."""
-    x = x + attn.cross_attn_forward(p["xattn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cond, cfg)
+    x = x + _sum(tp, attn.cross_attn_forward(p["xattn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                             cond, cfg), "heads")
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     g = torch.tanh(upcast(p["ffn_gate"]))[0].to(x.dtype)
-    return x + g * ffn_forward(p["ffn"], h, cfg.activation)
+    return x + g * _sum(tp, ffn_forward(p["ffn"], h, cfg.activation), "ffn")
 
 
 def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
@@ -147,18 +168,20 @@ def block_forward(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
 # ---------------------------------------------------------------------------
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
-                     *, dtype=torch.float32, window: int = 0, device=None):
+                     *, dtype=torch.float32, window: int = 0, device=None, tp=None):
     """Returns (cache, axes). window > 0 -> bounded ring buffer (sw decode).
     MLA caches the latent ``c_kv [B, size, r]`` and ``k_rope [B, size,
     rope_dim]``; GQA ``k``, ``v [B, size, Hkv, hd]``; the recurrent kinds
     their state and conv buffer (sLSTM: c, n, h, m), f32 whatever
     ``dtype``, as the reference's; ``cross_blk`` none (its keys come from
-    ``cond`` at every step)."""
+    ``cond`` at every step). Under ``tp`` the rank's heads (the sLSTM's
+    whole state)."""
     _require_kind(kind)
     if kind in RECURRENT:
-        return _CACHE[kind](cfg, batch, torch.float32, device)
+        return _CACHE[kind](cfg, batch, torch.float32, device, **_mixer_tp(kind, tp))
     if kind == "cross_blk":
         return {}, {}
+    cfg = _attn_cfg(cfg, tp)
     size = min(window, max_len) if window else max_len
     if cfg.mla is not None:
         m = cfg.mla
@@ -217,23 +240,31 @@ def _attn_decode(p_attn, h, cache, pos, cfg: ModelConfig, window: int, window_ma
     return y, {"k": ck, "v": cv}
 
 
+def _mixer_tp(kind: str, tp) -> dict:
+    """The recurrent mixer's ``tp`` keyword where it is split over the
+    ranks (Mamba2, mLSTM); else none: a mixer M does not split, and the
+    sLSTM, run whole on every rank."""
+    return {"tp": tp} if tp is not None and tp.lay.mixer and kind != "slstm" else {}
+
+
 def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool = False,
-                 window: int = 0, window_mask=0, cond=None, kv_start=None):
+                 window: int = 0, window_mask=0, cond=None, kv_start=None, tp=None):
     """x: [B, 1, d]. Returns (x, cache) with the cache written in place.
     kv_start (optional [B]): per-slot first valid cache row, threaded into
     the attention mask (continuous batching); the recurrent caches isolate
     a slot by their zero reset instead."""
     _require_kind(kind)
     if kind in RECURRENT:
-        y, cache = _DECODE[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cache, cfg)
+        y, cache = _DECODE[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cache, cfg,
+                                 **_mixer_tp(kind, tp))
         return x + y, cache
     if kind == "cross_blk":
-        return _cross_block(p, x, cfg, cond), cache
+        return _cross_block(p, x, cfg, cond, tp), cache
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, new_cache = _attn_decode(p["attn"], h, cache, pos, cfg, window, window_mask,
-                                kv_start=kv_start)
-    x = _attn_residual(kind, p, x, y, cfg, cond)
-    return _ffn_half(p, x, cfg, use_moe)[0], new_cache
+    y, new_cache = _attn_decode(p["attn"], h, cache, pos, _attn_cfg(cfg, tp), window,
+                                window_mask, kv_start=kv_start)
+    x = _attn_residual(kind, p, x, y, cfg, cond, tp)
+    return _ffn_half(p, x, cfg, use_moe, tp)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -241,23 +272,25 @@ def block_decode(kind: str, p, x, cache, pos, cfg: ModelConfig, *, use_moe: bool
 # ---------------------------------------------------------------------------
 
 def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
-                  window=0, cond=None, cache_dtype=torch.float32, max_len: int = 0):
+                  window=0, cond=None, cache_dtype=torch.float32, max_len: int = 0, tp=None):
     """Returns (x, cache) covering positions [0, S), zero-padded to max_len
     rows; the cache entries (K/V, or MLA's c_kv / k_rope) are cast to
     ``cache_dtype`` as the reference's are. The recurrent kinds run their
     forward and return the terminal state (f32, no position axis)."""
     _require_kind(kind)
     if kind in RECURRENT:
-        y, cache = _PREFILL[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
+        y, cache = _PREFILL[kind](p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), cfg,
+                                  **_mixer_tp(kind, tp))
         return x + y, cache
     if kind == "cross_blk":
-        return _cross_block(p, x, cfg, cond), {}
+        return _cross_block(p, x, cfg, cond, tp), {}
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    acfg = _attn_cfg(cfg, tp)
     if cfg.mla is not None:
-        y, (c_kv, k_rope) = attn.mla_forward(p["attn"], h, cfg)
+        y, (c_kv, k_rope) = attn.mla_forward(p["attn"], h, acfg)
         entries = (("c_kv", c_kv), ("k_rope", k_rope))
     else:
-        y, (k, v) = attn.gqa_forward(p["attn"], h, cfg, window=window)
+        y, (k, v) = attn.gqa_forward(p["attn"], h, acfg, window=window)
         entries = (("k", k), ("v", v))
     B, S = x.shape[:2]
     rows = max(max_len, S)
@@ -266,5 +299,5 @@ def block_prefill(kind: str, p, x, cfg: ModelConfig, *, use_moe: bool = False,
         buf = torch.zeros((B, rows) + tuple(t.shape[2:]), dtype=cache_dtype, device=x.device)
         buf[:, :S] = t
         cache[name] = buf
-    x = _attn_residual(kind, p, x, y, cfg, cond)
-    return _ffn_half(p, x, cfg, use_moe)[0], cache
+    x = _attn_residual(kind, p, x, y, cfg, cond, tp)
+    return _ffn_half(p, x, cfg, use_moe, tp)[0], cache

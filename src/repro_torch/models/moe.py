@@ -30,10 +30,17 @@ The combine's ``.at[s_tok].add`` is ``index_add``: on the card it sums a
 token's k rows in no fixed order, a float difference only (ROADMAP.md §C).
 The expert products stay ``torch.matmul``, as the reference leaves them to
 XLA outside any Pallas kernel.
+
+Served tensor-parallel (``tp``, a rank's
+:class:`~repro_torch.serving.tensor_parallel.Part`), every rank routes every
+token with the whole router, as above, and fills only its own experts' rows
+of the buffer (capacity C from the global T); its experts' products, its
+slice of the shared experts and the combine give a partial ``[T, d]``
+summed by one all-reduce a layer.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -83,10 +90,13 @@ def _counts(ids, E: int):
         0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
 
 
-def _build_buffer(xt, ids, weights, E: int, k: int, C: int):
+def _build_buffer(xt, ids, weights, E: int, k: int, C: int, lo: int = 0,
+                  n: Optional[int] = None):
     """Route one token shard into its [E, C, d] buffer. Returns
     (buffer, dest, s_tok, s_w, keep); the combine happens after the expert
-    compute."""
+    compute. With ``n`` < E only experts [lo, lo + n) get rows: the buffer
+    is [n, C, d], ``keep`` marks the slots that landed in it and every other
+    slot goes to the overflow row."""
     T, d = xt.shape
     dev = xt.device
     flat_ids = ids.reshape(-1)                                        # [T*k]
@@ -100,6 +110,10 @@ def _build_buffer(xt, ids, weights, E: int, k: int, C: int):
     rank = torch.arange(T * k, device=dev) - starts[s_ids]
     keep = rank < C                                                   # capacity drop
     dest = torch.where(keep, s_ids * C + rank, torch.full_like(rank, E * C))   # overflow row
+    if n is not None and n != E:
+        keep = keep & (s_ids >= lo) & (s_ids < lo + n)
+        dest = torch.where(keep, dest - lo * C, torch.full_like(dest, n * C))
+        E = n
     buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=dev).index_copy(0, dest, xt[s_tok])
     return buf[:-1].reshape(E, C, d), dest, s_tok, s_w, keep
 
@@ -137,11 +151,14 @@ def capacity(cfg: ModelConfig, T: int, capacity_factor: float = 0.0) -> int:
     return max(int(T * m.top_k / (m.num_experts * ds) * cf), 1)
 
 
-def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float = 0.0):
+def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float = 0.0, tp=None):
     """x: [B, S, d] -> (y, aux_loss).
 
     With ``moe.dispatch_shards = n > 1`` tokens are routed independently in
     n shards, each with capacity C / n (the reference's local dispatch).
+    ``tp``: the rank's part of a tensor-parallel program; ``p`` then holds
+    its experts (``w_up [E / M, d, f]``, or every expert's ffn slice where
+    M does not divide E) and its slice of the shared experts.
     """
     m = cfg.moe
     B, S, d = x.shape
@@ -154,17 +171,24 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float = 0.0):
     xt = x.reshape(T, d)
     with torch.profiler.record_function("moe route"):
         probs, weights, ids = _route(xt @ p["router"].to(x.dtype), k)   # [T,E],[T,k],[T,k]
+    El = p["w_up"].shape[0]                                          # the rank's experts
+    lo = 0 if El == E else tp.rank * El
     Tl = T // ds
     xs, ids_s, w_s = xt.reshape(ds, Tl, d), ids.reshape(ds, Tl, k), weights.reshape(ds, Tl, k)
     with torch.profiler.record_function("moe sort + scatter"):
-        shards = [_build_buffer(xs[i], ids_s[i], w_s[i], E, k, C) for i in range(ds)]
+        shards = [_build_buffer(xs[i], ids_s[i], w_s[i], E, k, C, lo, El) for i in range(ds)]
     h = torch.stack([s[0] for s in shards])                          # [ds, E, C, d]
     out = _expert_ffn(h, p, cfg)
     with torch.profiler.record_function("moe gather + combine"):
         y = torch.cat([_combine_one(out[i], *shards[i][1:], Tl) for i in range(ds)])
     y = y.to(x.dtype)
 
-    if m.num_shared_experts:
+    if tp is not None:
+        parts = [(y, tp.lay.experts or tp.lay.expert_ffn)]
+        if m.num_shared_experts:
+            parts.append((ffn_forward(p["shared"], xt, cfg.activation), tp.lay.shared_ffn))
+        y = tp.combine(parts)
+    elif m.num_shared_experts:
         y = y + ffn_forward(p["shared"], xt, cfg.activation)
 
     # ---- load-balance aux (Switch eq. 4) ---------------------------------

@@ -23,6 +23,16 @@ as MLA's decode writes its latent rows; the reference returns new arrays.
 The recurrent caches are f32 whatever the serving dtype, as the
 reference's are. There is no kernel on this path: the reference has no
 Pallas kernel for it either.
+
+Served tensor-parallel, the Mamba2 and mLSTM prefill, decode and caches
+take ``tp``, the rank's :class:`~repro_torch.serving.tensor_parallel.Part`
+(None: the whole block), and ``p`` holds the rank's slice
+(``tensor_parallel.slice_leaf``): by heads, with the whole of what every
+head reads (Mamba2's B and C with one group, the mLSTM's conv input). Their
+norm runs over the whole inner row, its sum of squares summed over the
+ranks (:meth:`Part.rmsnorm`), and the output projection's partial product
+is summed by one all-reduce. The sLSTM runs whole on every rank: its
+weights are small, and its gates mix every head.
 """
 from __future__ import annotations
 
@@ -132,10 +142,23 @@ def causal_conv_step(w, buf, x1):
 # Mamba2 block
 # ---------------------------------------------------------------------------
 
-def _mamba2_dims(cfg: ModelConfig):
+def _mamba2_dims(cfg: ModelConfig, tp=None):
+    """(ssm config, inner width, heads): the model's, or with ``tp`` the
+    rank's heads (one group, so B and C are every head's)."""
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
-    return s, d_inner, d_inner // s.head_dim
+    nheads = s.expand * cfg.d_model // s.head_dim // (1 if tp is None else tp.model)
+    return s, nheads * s.head_dim, nheads
+
+
+def _norm(w, x, eps: float, tp):
+    """The block's RMS norm over its whole inner row: with ``tp`` the
+    rank's channels, the sum of squares summed over the ranks."""
+    return rmsnorm(w, x, eps) if tp is None else tp.rmsnorm(w, x, eps)
+
+
+def _summed(y, tp):
+    """An output projection's product, summed over the ranks under ``tp``."""
+    return y if tp is None else tp.all_reduce(y)
 
 
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
@@ -181,10 +204,10 @@ def _mamba2_qkvg(p, xbc, dt_pre, s: SSMConfig, d_inner, nheads):
     return q, k, v_dt.to(v.dtype), log_g, v, dt
 
 
-def _mamba2_mix(p, x, cfg: ModelConfig, chunk: int):
+def _mamba2_mix(p, x, cfg: ModelConfig, chunk: int, tp=None):
     """The Mamba2 mixer over a sequence: (out [B, S, d], final state, the
     conv's input xbc)."""
-    s, d_inner, nheads = _mamba2_dims(cfg)
+    s, d_inner, nheads = _mamba2_dims(cfg, tp)
     z, xbc, dt_pre = _mamba2_split(p, x, s, d_inner, nheads)
     xbc_c = causal_conv(p["conv_w"].to(x.dtype), xbc)
     q, k, v_dt, log_g, v, dt = _mamba2_qkvg(p, xbc_c, dt_pre, s, d_inner, nheads)
@@ -192,8 +215,8 @@ def _mamba2_mix(p, x, cfg: ModelConfig, chunk: int):
     y = y + upcast(p["d_skip"])[None, None, :, None] * upcast(v)
     B, S = x.shape[:2]
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype), state, xbc
+    y = _norm(p["norm"], y * F.silu(z), cfg.norm_eps, tp)
+    return _summed(y @ p["out_proj"].to(x.dtype), tp), state, xbc
 
 
 def mamba2_forward(p, x, cfg: ModelConfig):
@@ -201,16 +224,16 @@ def mamba2_forward(p, x, cfg: ModelConfig):
     return _mamba2_mix(p, x, cfg, cfg.ssm.chunk_size)[0]
 
 
-def mamba2_prefill(p, x, cfg: ModelConfig):
+def mamba2_prefill(p, x, cfg: ModelConfig, tp=None):
     """The forward over a prompt and the terminal cache: the GLA state and
     the conv's last cw - 1 inputs (f32)."""
     s = cfg.ssm
-    y, state, xbc = _mamba2_mix(p, x, cfg, min(s.chunk_size, x.shape[1]))
+    y, state, xbc = _mamba2_mix(p, x, cfg, min(s.chunk_size, x.shape[1]), tp)
     return y, {"state": state, "conv": upcast(xbc[:, -(s.conv_dim - 1):, :])}
 
 
-def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
-    s, d_inner, nheads = _mamba2_dims(cfg)
+def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None, tp=None):
+    s, d_inner, nheads = _mamba2_dims(cfg, tp)
     conv_ch = d_inner + 2 * s.ngroups * s.state_dim
     cache = {"state": torch.zeros((batch, nheads, s.state_dim, s.head_dim), dtype=dtype,
                                   device=device),
@@ -226,18 +249,18 @@ def _write(cache, new):
     return cache
 
 
-def mamba2_decode(p, x, cache, cfg: ModelConfig):
+def mamba2_decode(p, x, cache, cfg: ModelConfig, tp=None):
     """x: [B, 1, d]. Returns (out [B, 1, d], cache) with the state and the
     conv buffer written in place."""
-    s, d_inner, nheads = _mamba2_dims(cfg)
+    s, d_inner, nheads = _mamba2_dims(cfg, tp)
     z, xbc, dt_pre = _mamba2_split(p, x[:, 0], s, d_inner, nheads)
     xbc, conv_new = causal_conv_step(p["conv_w"].to(x.dtype), cache["conv"], xbc)
     q, k, v_dt, log_g, v, dt = _mamba2_qkvg(p, xbc, dt_pre, s, d_inner, nheads)
     y, state_new = gla_step(q, k, v_dt, log_g, cache["state"])
     y = y + upcast(p["d_skip"])[None, :, None] * upcast(v)
     y = y.reshape(x.shape[0], d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = (y @ p["out_proj"].to(x.dtype))[:, None]
+    y = _norm(p["norm"], y * F.silu(z), cfg.norm_eps, tp)
+    out = _summed(y @ p["out_proj"].to(x.dtype), tp)[:, None]
     return out, _write(cache, {"state": state_new, "conv": conv_new})
 
 
@@ -245,10 +268,13 @@ def mamba2_decode(p, x, cache, cfg: ModelConfig):
 # mLSTM block (xLSTM): matrix memory through the GLA core
 # ---------------------------------------------------------------------------
 
-def _xlstm_dims(cfg: ModelConfig):
+def _xlstm_dims(cfg: ModelConfig, tp=None):
+    """(xlstm config, inner width, heads, head width): with ``tp`` the
+    rank's heads (the inner width and head width stay the model's)."""
     xl: XLSTMConfig = cfg.xlstm
     d_in = int(cfg.d_model * xl.proj_factor)
-    return xl, d_in, cfg.num_heads, d_in // cfg.num_heads
+    H = cfg.num_heads
+    return xl, d_in, H if tp is None else H // tp.model, d_in // H
 
 
 def init_mlstm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
@@ -295,8 +321,8 @@ def _mlstm_out(y_aug):
     return y / torch.clamp(torch.abs(den), min=1.0)
 
 
-def _mlstm_mix(p, x, cfg: ModelConfig):
-    xl, d_in, H, dh = _xlstm_dims(cfg)
+def _mlstm_mix(p, x, cfg: ModelConfig, tp=None):
+    xl, d_in, H, dh = _xlstm_dims(cfg, tp)
     up = x @ p["up"].to(x.dtype)
     xi, z = up[..., :d_in], up[..., d_in:]
     xc = causal_conv(p["conv_w"].to(x.dtype), xi)
@@ -304,38 +330,38 @@ def _mlstm_mix(p, x, cfg: ModelConfig):
     y_aug, state = gla_chunked(q, k, v_aug, log_f, chunk=min(256, x.shape[1]))
     y = _mlstm_out(upcast(y_aug))
     B, S = x.shape[:2]
-    y = y.reshape(B, S, d_in).to(x.dtype)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ p["down"].to(x.dtype), state, xi
+    y = y.reshape(B, S, H * dh).to(x.dtype)
+    y = _norm(p["norm"], y, cfg.norm_eps, tp) * F.silu(z)
+    return _summed(y @ p["down"].to(x.dtype), tp), state, xi
 
 
 def mlstm_forward(p, x, cfg: ModelConfig):
     return _mlstm_mix(p, x, cfg)[0]
 
 
-def mlstm_prefill(p, x, cfg: ModelConfig):
-    y, state, xi = _mlstm_mix(p, x, cfg)
+def mlstm_prefill(p, x, cfg: ModelConfig, tp=None):
+    y, state, xi = _mlstm_mix(p, x, cfg, tp)
     return y, {"state": state, "conv": upcast(xi[:, -(cfg.xlstm.conv_dim - 1):, :])}
 
 
-def mlstm_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
-    xl, d_in, H, dh = _xlstm_dims(cfg)
+def mlstm_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None, tp=None):
+    xl, d_in, H, dh = _xlstm_dims(cfg, tp)
     cache = {"state": torch.zeros((batch, H, dh, dh + 1), dtype=dtype, device=device),
              "conv": torch.zeros((batch, xl.conv_dim - 1, d_in), dtype=dtype, device=device)}
     axes = {"state": ("batch", "heads", None, None), "conv": ("batch", None, "inner")}
     return cache, axes
 
 
-def mlstm_decode(p, x, cache, cfg: ModelConfig):
-    xl, d_in, H, dh = _xlstm_dims(cfg)
+def mlstm_decode(p, x, cache, cfg: ModelConfig, tp=None):
+    xl, d_in, H, dh = _xlstm_dims(cfg, tp)
     up = x[:, 0] @ p["up"].to(x.dtype)
     xi, z = up[..., :d_in], up[..., d_in:]
     xc, conv_new = causal_conv_step(p["conv_w"].to(x.dtype), cache["conv"], xi)
     q, k, v_aug, log_f = _mlstm_qkvg(p, xc, H, dh)
     y_aug, state_new = gla_step(q, k, v_aug, log_f, cache["state"])
-    y = _mlstm_out(upcast(y_aug)).reshape(x.shape[0], d_in).to(x.dtype)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
-    out = (y @ p["down"].to(x.dtype))[:, None]
+    y = _mlstm_out(upcast(y_aug)).reshape(x.shape[0], H * dh).to(x.dtype)
+    y = _norm(p["norm"], y, cfg.norm_eps, tp) * F.silu(z)
+    out = _summed(y @ p["down"].to(x.dtype), tp)[:, None]
     return out, _write(cache, {"state": state_new, "conv": conv_new})
 
 

@@ -26,6 +26,11 @@ and decode writes the caches in place. Training (:func:`lm_loss`) keeps
 every layer's activations: the reference's ``cfg.remat``
 (``jax.checkpoint``) has no counterpart under the engines' ``torch.func``
 transforms, which refuse saved-tensor hooks (ROADMAP.md §C).
+
+``prefill``, ``decode_step`` and ``init_cache`` take ``tp``: None on one
+device, else the rank's part of a tensor-parallel program
+(:class:`~repro_torch.serving.tensor_parallel.Part`), which embeds, runs
+every block on the rank's slice and gathers the logits.
 """
 from __future__ import annotations
 
@@ -152,7 +157,8 @@ def _layers(seg_params, count: int) -> List[PyTree]:
 # init
 # ---------------------------------------------------------------------------
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tuple[PyTree, PyTree]:
+def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+            keep=None) -> Tuple[PyTree, PyTree]:
     """(params, axes) on ``gen``'s device, in the reference's tree:
     ``embed [K, V, d]`` (K the audio codebooks, else 1),
     ``segments/<seg>/...`` stacked ``[count, ...]``, the vision model's
@@ -161,39 +167,62 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Tupl
     [K, d, V]`` (unless tied). Each
     segment's ``[count, ...]`` leaves are allocated once and filled layer by
     layer in the draw order (a layer's leaves drawn in f32 and cast to
-    ``dtype``), so the peak is the model plus one layer."""
+    ``dtype``), so the peak is the model plus one layer.
+
+    ``keep(path, leaf)`` (optional) keeps a part of each leaf as it is
+    drawn (``path`` the leaf's keys from the root; a stacked leaf comes one
+    layer at a time, without its ``[count]`` axis): the tree then holds only
+    the kept parts, the same values as keeping them from the whole tree, and
+    the peak is the kept parts plus one layer (a tensor-parallel rank's
+    slice, :meth:`~repro_torch.serving.tensor_parallel.TPServeProgram.init_params`)."""
     plan = make_plan(cfg)
     params: dict = {}
     axes: dict = {}
+
+    def kept(path, t):
+        return t if keep is None else keep(path, t).clone()
+
     K = cfg.audio.num_codebooks if cfg.audio is not None else 1
     params["embed"], axes["embed"] = dense_init(
         gen, (K, cfg.vocab_size, cfg.d_model), (None, "vocab", "embed"), dtype,
         fan_in=cfg.d_model, scale=0.5)
+    params["embed"] = kept(("embed",), params["embed"])
     segs_p, segs_a = {}, {}
     for seg in plan.segments:
-        segs_p[seg.name], segs_a[seg.name] = _init_stacked(gen, seg.kind, seg.count, cfg,
-                                                           seg.use_moe, dtype)
+        segs_p[seg.name], segs_a[seg.name] = _init_stacked(
+            gen, seg.kind, seg.count, cfg, seg.use_moe, dtype, keep, ("segments", seg.name))
     params["segments"], axes["segments"] = segs_p, segs_a
     if plan.num_cross:
         params["cross"], axes["cross"] = _init_stacked(gen, "cross_blk", plan.num_cross, cfg,
-                                                       False, dtype)
+                                                       False, dtype, keep, ("cross",))
     if plan.num_shared_blocks:
         params["shared"], axes["shared"] = _init_stacked(gen, "attn", plan.num_shared_blocks,
-                                                         cfg, False, dtype)
+                                                         cfg, False, dtype, keep, ("shared",))
     params["final_norm"], axes["final_norm"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
+    params["final_norm"] = kept(("final_norm",), params["final_norm"])
     if not cfg.tie_embeddings:
         params["lm_head"], axes["lm_head"] = dense_init(
             gen, (K, cfg.d_model, cfg.vocab_size), (None, "embed", "vocab"), dtype,
             fan_in=cfg.d_model)
+        params["lm_head"] = kept(("lm_head",), params["lm_head"])
     return params, axes
 
 
-def _init_stacked(gen, kind: str, count: int, cfg: ModelConfig, use_moe: bool, dtype):
+def _keep_tree(keep, prefix: tuple, tree):
+    if isinstance(tree, dict):
+        return {k: _keep_tree(keep, prefix + (k,), v) for k, v in tree.items()}
+    return keep(prefix, tree)
+
+
+def _init_stacked(gen, kind: str, count: int, cfg: ModelConfig, use_moe: bool, dtype,
+                  keep=None, prefix: tuple = ()):
     """``count`` blocks of ``kind`` drawn one after another, stacked on a
-    leading axis allocated once."""
+    leading axis allocated once (of each leaf's kept part, under ``keep``)."""
     stacked = axes = None
     for i in range(count):
         p, a = blocks.init_block(gen, kind, cfg, use_moe=use_moe, dtype=dtype)
+        if keep is not None:
+            p = _keep_tree(keep, prefix, p)
         if stacked is None:
             stacked = tree_map(lambda t: torch.empty((count,) + tuple(t.shape), dtype=t.dtype,
                                                      device=t.device), p)
@@ -350,31 +379,32 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, cond=None, aux_coef: float
 # ---------------------------------------------------------------------------
 
 def _stacked_cache(kind: str, count: int, cfg: ModelConfig, batch: int, max_len: int,
-                   dtype, window: int, device):
+                   dtype, window: int, device, tp=None):
     c, a = blocks.init_block_cache(kind, cfg, batch, max_len, dtype=dtype, window=window,
-                                   device=device)
+                                   device=device, tp=tp)
     stacked = {k: torch.empty((count,) + tuple(t.shape), dtype=t.dtype, device=device)
                .copy_(t) for k, t in c.items()}
     return stacked, _lead_axes(a)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32,
-               window: int = 0, device=None) -> Tuple[PyTree, PyTree]:
+               window: int = 0, device=None, tp=None) -> Tuple[PyTree, PyTree]:
     """({"segments": {seg: {"k", "v": [count, B, size, Hkv, hd]}}, "pos":
     int32 0-d}, axes) (MLA: ``"c_kv" [count, B, size, r]`` and ``"k_rope"
     [count, B, size, rope_dim]``; the recurrent kinds their f32 state and
     conv buffer, sLSTM's ``m`` at -1e30; the hybrid's ``"shared_sites"``
     the shared blocks' K/V, ``[num_shared_sites, B, size, Hkv, hd]``);
-    size = max_len, or ``window`` for the ring buffer."""
+    size = max_len, or ``window`` for the ring buffer. Under ``tp`` the
+    rank's heads (``blocks.init_block_cache``)."""
     plan = make_plan(cfg)
     cache = {"segments": {}, "pos": torch.zeros((), dtype=torch.int32, device=device)}
     axes = {"segments": {}, "pos": ()}
     for seg in plan.segments:
         cache["segments"][seg.name], axes["segments"][seg.name] = _stacked_cache(
-            seg.kind, seg.count, cfg, batch, max_len, dtype, window, device)
+            seg.kind, seg.count, cfg, batch, max_len, dtype, window, device, tp)
     if plan.num_shared_sites:
         cache["shared_sites"], axes["shared_sites"] = _stacked_cache(
-            "attn", plan.num_shared_sites, cfg, batch, max_len, dtype, window, device)
+            "attn", plan.num_shared_sites, cfg, batch, max_len, dtype, window, device, tp)
     return cache, axes
 
 
@@ -386,7 +416,7 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.fl
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: int = 0,
-                kv_start=None):
+                kv_start=None, tp=None):
     """One-token decode. tokens: [B, 1] (audio: [B, K, 1]). kv_start
     (optional [B]): per-row first valid cache position, the
     continuous-batching slot boundary. The cache's K/V rows at ``pos`` and
@@ -395,7 +425,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: i
     ``cond``. Returns (logits [B, V] (audio: [B, K, V]), cache)."""
     plan = make_plan(cfg)
     pos = cache["pos"]
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens) if tp is None else tp.embed(params, tokens)
     new_cache = {"segments": {}, "pos": pos + 1}
     shared, cross = _stacked_layers(params, "shared", plan), _stacked_layers(params, "cross", plan)
     if plan.num_shared_sites:
@@ -412,25 +442,33 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cond=None, *, window: i
                 # per-layer `w` masks gemma2's local layers in full-cache mode
                 x, _ = blocks.block_decode(seg.kind, p, x, c, pos, cfg,
                                            use_moe=seg.use_moe, window=window, window_mask=w,
-                                           cond=cond, kv_start=kv_start)
+                                           cond=cond, kv_start=kv_start, tp=tp)
             new_cache["segments"][arg] = sc
         elif ev == "cross":
-            x, _ = blocks.block_decode("cross_blk", cross[arg], x, {}, pos, cfg, cond=cond)
+            x, _ = blocks.block_decode("cross_blk", cross[arg], x, {}, pos, cfg, cond=cond,
+                                       tp=tp)
         else:
             x, _ = blocks.block_decode("attn", shared[arg % plan.num_shared_blocks], x,
-                                       sites[arg], pos, cfg, window=window, kv_start=kv_start)
+                                       sites[arg], pos, cfg, window=window, kv_start=kv_start,
+                                       tp=tp)
+    return _final_logits(params, cfg, x, tp), new_cache
+
+
+def _final_logits(params, cfg: ModelConfig, x, tp):
+    """The final norm, then the last position's logits (gathered over the
+    vocab under ``tp``)."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _last_logits(params, cfg, x), new_cache
+    return _last_logits(params, cfg, x) if tp is None else tp.logits(params, x)
 
 
 def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float32,
-            max_len: int = 0):
+            max_len: int = 0, tp=None):
     """Full-sequence prefill: returns (last-token logits [B, V] (audio:
     [B, K, V]), cache). Attention caches are zero-padded to ``max_len`` rows
     so decode can continue in place; the recurrent ones hold the terminal
     state."""
     plan = make_plan(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens) if tp is None else tp.embed(params, tokens)
     S = x.shape[1]
     cache = {"segments": {}, "pos": torch.full((), S, dtype=torch.int32, device=x.device)}
     shared, cross = _stacked_layers(params, "shared", plan), _stacked_layers(params, "cross", plan)
@@ -443,19 +481,18 @@ def prefill(params, cfg: ModelConfig, tokens, cond=None, cache_dtype=torch.float
                             _layer_windows(seg, 0)):
                 x, c = blocks.block_prefill(seg.kind, p, x, cfg, use_moe=seg.use_moe,
                                             window=w, cond=cond, cache_dtype=cache_dtype,
-                                            max_len=max_len)
+                                            max_len=max_len, tp=tp)
                 layers.append(c)
             cache["segments"][arg] = _stack(layers)
         elif ev == "cross":
-            x, _ = blocks.block_prefill("cross_blk", cross[arg], x, cfg, cond=cond)
+            x, _ = blocks.block_prefill("cross_blk", cross[arg], x, cfg, cond=cond, tp=tp)
         else:
             x, c = blocks.block_prefill("attn", shared[arg % plan.num_shared_blocks], x, cfg,
-                                        cache_dtype=cache_dtype, max_len=max_len)
+                                        cache_dtype=cache_dtype, max_len=max_len, tp=tp)
             sites.append(c)
     if sites:
         cache["shared_sites"] = _stack(sites)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _last_logits(params, cfg, x), cache
+    return _final_logits(params, cfg, x, tp), cache
 
 
 def _stack(caches: List[dict]) -> dict:

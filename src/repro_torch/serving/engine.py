@@ -6,8 +6,8 @@ training-time protocol. With ``mesh_cfg.model = 1`` (the default) the
 program serves on one device. With ``model = M > 1`` it is one rank of a
 tensor-parallel group of M processes, the parameters and the KV cache
 split over ``model`` by the reference's :func:`serve_rules`
-(:mod:`repro_torch.serving.tensor_parallel`, the dense attention models);
-the reference's split of the batch over the data axes has no counterpart
+(:mod:`repro_torch.serving.tensor_parallel`, every arch); the reference's
+split of the batch over the data axes has no counterpart
 (ROADMAP.md §C). Attention in prefill and decode is kernel B9
 (:mod:`repro_torch.kernels.flash_attention`) on the card. Decode writes the
 KV cache in place where the reference donates it.
@@ -65,6 +65,11 @@ class ServeProgram:
         serving dtype (a leaf already there is returned as is, not copied)."""
         return tree_map(lambda x: x.to(device=self.device, dtype=self.param_dtype), params)
 
+    def init_params(self, gen: torch.Generator) -> PyTree:
+        """``init_lm(gen)`` drawn in the serving dtype on ``gen``'s device,
+        on the serving device."""
+        return self.place_params(tr.init_lm(gen, self.model_cfg, self.param_dtype)[0])
+
     def init_cache(self) -> PyTree:
         """Fresh zero KV cache (pos = 0), the continuous-batching harness's
         starting state."""
@@ -106,17 +111,15 @@ def make_serve_program(cfg: ModelConfig, *, batch: int, max_len: int, window: in
     tensor-parallel group (``group``, a
     :class:`~repro_torch.launch.mesh.ModelGroup` of M ranks): the same
     surface, every rank making the same calls and getting the whole
-    logits; the archs it does not split yet raise ValueError."""
+    logits."""
     tr.make_plan(cfg)
     M = 1 if mesh_cfg is None else mesh_cfg.model
-    if M > 1:
-        from repro_torch.serving import tensor_parallel
-        tensor_parallel.check_arch(cfg, M)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_serve_program: no CUDA device (pass device='cpu' "
                            "to run the plain versions on the CPU)")
     if M > 1:
+        from repro_torch.serving import tensor_parallel
         return tensor_parallel.tp_program(
             cfg, mesh_cfg, group, batch=batch, max_len=max_len, window=window,
             param_dtype=param_dtype, cache_dtype=cache_dtype, with_prefill=with_prefill,

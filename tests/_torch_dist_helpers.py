@@ -148,22 +148,35 @@ def lm_runs(group, job):
     return out
 
 
+def replaced(cfg, fields):
+    """``cfg`` with ``fields`` changed; a dict value changes the fields of
+    that sub-config (e.g. {"moe": {"num_experts": 6}})."""
+    import dataclasses
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict) else v
+        for k, v in fields.items()})
+
+
 def tp_cases(group, job):
     """Tensor-parallel serving of each of ``job["cases"]`` (``arch``, the
-    reference's ``init_lm`` params as numpy, ``prompt [B, S]``, the greedy
-    tokens fed to 8 decode steps ``decode [steps, B]``, then to the
-    ``decode_slots`` steps ``slots [steps, B]`` with ``kv_start [B]``,
-    ``max_len``), in f32 on the CPU, over this group of 4 ranks and over
-    its two halves (ranks 0-1 and 2-3, each a group of 2). Returns
-    {(case, M): every step's logits, the collectives of the prefill and of
-    each decode step, and the count the program expects a decode step to
-    make}."""
+    reference's ``init_lm`` params as numpy, ``prompt [B, S]`` (audio
+    ``[B, K, S]``), the greedy tokens fed to the decode steps ``decode
+    [steps, B]`` (audio ``[steps, B, K]``), then to the ``decode_slots``
+    steps ``slots`` with ``kv_start [B]``, ``max_len``, ``models``; optional
+    ``cond [B, T, e]``, ``replace`` (config fields changed from the reduced
+    config, :func:`replaced`) and ``routes`` (record every MoE layer's
+    routing ids)), in f32 on the CPU, over this group of 4 ranks and over
+    its two halves (ranks 0-1 and 2-3, each a group of 2). Returns {(case,
+    M): every step's logits, the collectives of the prefill and of each
+    decode step, the count the program expects of each, and the routing
+    ids}."""
     import dataclasses
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import ModelGroup
+    from repro_torch.launch.serve_decode import recorded_routes
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import make_serve_program
     halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
@@ -172,9 +185,11 @@ def tp_cases(group, job):
                                       pg=halves[group.rank // 2])}
     out = {}
     for name, case in job["cases"].items():
-        cfg = get_reduced(case["arch"])
+        cfg = replaced(get_reduced(case["arch"]), case.get("replace", {}))
         params = tr.params_from_jax(case["params"], "cpu", torch.float32)
         B = case["prompt"].shape[0]
+        cond = case.get("cond")
+        cond = None if cond is None else torch.from_numpy(cond)
         for M in case["models"]:
             g = groups[M]
             prog = make_serve_program(cfg, batch=B, max_len=case["max_len"],
@@ -182,20 +197,22 @@ def tp_cases(group, job):
                                       with_prefill=True, device="cpu", mesh_cfg=g.mesh_cfg,
                                       group=g)
             p = prog.place_params(params)
-            g.reset_counts()
-            logits, cache = prog.prefill_fn(p, torch.from_numpy(case["prompt"]))
-            rec = {"prefill": g.counts(), "steps": [], "logits": [logits.numpy()],
-                   "expected": prog.collectives_per_decode_step()}
-            kv_start = torch.from_numpy(case["kv_start"])
-            for t, tok in enumerate(list(case["decode"]) + list(case.get("slots", []))):
+            with recorded_routes(case.get("routes")) as routes:
                 g.reset_counts()
-                tok = torch.from_numpy(np.ascontiguousarray(tok))[:, None]
-                if t < len(case["decode"]):
-                    logits, cache = prog.decode_fn(p, cache, tok)
-                else:
-                    logits, cache = prog.decode_slots_fn(p, cache, tok, None, kv_start)
-                rec["steps"].append(g.counts())
-                rec["logits"].append(logits.numpy())
+                logits, cache = prog.prefill_fn(p, torch.from_numpy(case["prompt"]), cond)
+                rec = {"prefill": g.counts(), "steps": [], "logits": [logits.numpy()],
+                       "expected": prog.collectives_per_decode_step()}
+                kv_start = torch.from_numpy(case["kv_start"])
+                for t, tok in enumerate(list(case["decode"]) + list(case.get("slots", []))):
+                    g.reset_counts()
+                    tok = torch.from_numpy(np.ascontiguousarray(tok))[..., None]
+                    if t < len(case["decode"]):
+                        logits, cache = prog.decode_fn(p, cache, tok, cond)
+                    else:
+                        logits, cache = prog.decode_slots_fn(p, cache, tok, cond, kv_start)
+                    rec["steps"].append(g.counts())
+                    rec["logits"].append(logits.numpy())
             rec["logits"] = np.stack(rec["logits"])
+            rec["routes"] = [r.numpy() for r in routes]
             out[(name, M)] = rec
     return out

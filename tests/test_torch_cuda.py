@@ -11,8 +11,10 @@ against the CPU's with TF32 allowed in the process, checkpoint resumes
 on the card, B9 at Zamba2's head dim 80, the MoE dispatch under ``vmap``,
 the SSM blocks' prefill and decode against the CPU's, B9 at the
 cross-attention models' non-causal shapes, the SSM / hybrid LM gradient
-under ``vmap`` against the CPU's, and the cross-attention models' prefill
-and decode against the CPU's.
+under ``vmap`` against the CPU's, the cross-attention models' prefill
+and decode against the CPU's, B9 at the tensor-parallel ranks' shapes of
+the MLA, hybrid and vision models, and those models served over 2 ranks
+on the card against one device.
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1718,3 +1720,84 @@ def test_cross_attention_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch
     want = run("cpu")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# each rank's heads in tensor-parallel serving at M = 2: (B, Sq, H, Skv,
+# Hkv, hd, dv, causal); MLA's values are the keys' 512-wide prefix
+TP_LOCAL_SHAPES = {"MLA prefill": (8, 512, 8, 512, 1, 576, 512, True),
+                   "MLA decode": (8, 1, 8, 1024, 1, 576, 512, True),
+                   "Zamba2 prefill": (8, 512, 16, 512, 16, 80, 80, True),
+                   "Zamba2 decode": (8, 1, 16, 1024, 16, 80, 80, True),
+                   "vision cross prefill": (8, 512, 16, 1601, 4, 128, 128, False),
+                   "vision cross decode": (8, 1, 16, 1601, 4, 128, 128, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TP_LOCAL_SHAPES))
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_b9_at_the_tensor_parallel_ranks_shapes_matches_plain_version(cuda, case, dt):
+    """B9 at a rank's heads of DeepSeek-V2-Lite (8 of MLA's 16, keys of 576,
+    values of 512), Zamba2 (16 of 32 at head dim 80) and Llama-3.2-V's cross
+    attention (16 of 32 over 4 of 8 kv heads and 1601 keys) at M = 2:
+    simt prefill (mma for a bf16 prefill at head dim 128), split decode at
+    position 512; bf16 also within 2^-6 of the largest |plain|."""
+    B, Sq, H, Skv, Hkv, hd, dv, causal = TP_LOCAL_SHAPES[case]
+    g = torch.Generator(device=cuda).manual_seed(67)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda).to(dt)
+    v = k[..., :dv] if dv < hd else torch.randn(B, Skv, Hkv, dv, generator=g,
+                                                 device=cuda).to(dt)
+    kw = dict(causal=causal)
+    if Sq == 1 and causal:
+        p = torch.tensor(512, dtype=torch.int32, device=cuda)
+        kw.update(q_offset=p, kv_len=p + 1)
+    form = ("split" if Sq == 1 else
+            "mma" if dt == torch.bfloat16 and hd in (64, 128, 256) else "simt")
+    got = _check_b9(q, k, v, form=form, **kw)
+    assert got.shape == (B, Sq, H, dv)
+    if dt == torch.bfloat16:
+        want = tref.attention(q, k, v, causal=causal, q_offset=kw.get("q_offset", 0),
+                              kv_len=kw.get("kv_len"))
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(want.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_kinds_on_the_card_equal_one_device(cuda):
+    """Reduced DeepSeek (MLA + MoE), Zamba2 (Mamba2 + shared blocks),
+    xLSTM (mLSTM + sLSTM) and Llama-3.2-V (a cross block, gates 0.5, a random
+    cond) served in f32 over 2 ranks on this card against the one-device
+    program: every step's logits within 1e-5 of the largest, greedy tokens
+    equal, B9 once a rank, attention and step, every step's collectives
+    exact."""
+    from repro_torch.common.config import MeshConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.launch.mesh import spawn_model_group
+    from repro_torch.models import transformer as tr
+    build.build("flash_attention")      # the ranks only load it
+    runs = [dict(tag=a, cfg=get_reduced(a), dtype=torch.float32, batch=4, prompt_len=12,
+                 tokens=6, max_len=32, seed=0, logits=True, cross_gate=0.5,
+                 routes=get_reduced(a).moe is not None)
+            for a in ("deepseek_v2_lite_16b", "zamba2_2_7b", "xlstm_125m",
+                      "llama_3_2_vision_11b")]
+    one = sd.tp_rank(sd.OneRank(cuda), dict(runs=runs))
+    ranks = spawn_model_group(sd.tp_rank, MeshConfig(data=1, model=2, pods=1,
+                                                     workers_per_pod=1),
+                              "cuda", args=(dict(runs=runs),), join_timeout_s=600)
+    for run in runs:
+        tag, cfg = run["tag"], run["cfg"]
+        plan = tr.make_plan(cfg)
+        attn = (sum(s.count for s in plan.segments if s.kind == "attn")
+                + plan.num_shared_sites + plan.num_cross)
+        got, want = ranks[0][tag], one[tag]
+        for a, b in zip(got["logits"], want["logits"]):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), tag
+        assert torch.equal(got["stream"], want["stream"]), tag
+        for r in ranks:
+            assert r[tag]["launches"]["flash_attention"] == attn * (1 + run["tokens"]), tag
+            exp = r[tag]["expected_per_step"]
+            assert all({k: c[k] for k in exp} == exp for c in r[tag]["step_collectives"])
+            if run["routes"]:
+                assert all((x == y).all() for x, y in zip(r[tag]["routes"], got["routes"]))

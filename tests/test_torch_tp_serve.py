@@ -20,9 +20,10 @@ Checked, at M = 2 and 4:
 - the collectives: every decode step makes exactly 2 all-reduces a layer
   (attention and FFN, where split), 1 for the embedding and 1 all-gather
   for the logits, and every rank gets the same logits;
-- the refusals: the MoE, MLA, SSM / hybrid and cross-attention archs with
-  ``model > 1`` raise ValueError naming ROADMAP.md 7b.5d, and so does a
-  program without a group of M ranks.
+- the refusal of a program without a group of M ranks.
+
+The other kinds (MoE, MLA, SSM / hybrid, cross-attention) are in
+``test_torch_tp_serve_kinds.py``.
 
 Attention is the plain version of kernel B9 (the tensors lie on the
 CPU)."""
@@ -59,8 +60,6 @@ ARCHS = ("tinyllama_1_1b", "gemma2_9b", "granite_20b")
 B, S, MAX_LEN, STEPS = 4, 8, 32, 8
 KV_START = np.array([0, 3, 9, 14], np.int32)
 TOL = dict(rtol=1e-4, atol=1e-5)
-REFUSED = ("deepseek_v2_lite_16b", "grok_1_314b", "xlstm_125m", "zamba2_2_7b",
-           "musicgen_large", "llama_3_2_vision_11b")
 
 # the reference's test_serve_program_decode_on_fake_mesh, its logits kept
 FAKE_MESH = """
@@ -191,14 +190,6 @@ def test_collectives_per_decode_step_are_exact(runs, case, M):
     assert rec["expected"] == want
     assert rec["steps"] and all({k: s[k] for k in want} == want for s in rec["steps"])
     assert {k: rec["prefill"][k] for k in want} == want
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_unsplit_archs_are_refused_naming_the_roadmap(arch):
-    mesh = MeshConfig(data=1, model=2, pods=1, workers_per_pod=1)
-    with pytest.raises(ValueError, match="7b.5d"):
-        make_serve_program(get_reduced(arch), batch=2, max_len=16, device="cpu",
-                           mesh_cfg=mesh)
 
 
 def test_a_program_needs_a_group_of_model_ranks():
