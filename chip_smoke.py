@@ -359,6 +359,20 @@ prints no result line):
              exactly M x attentions x (1 + steps), the collectives of the
              prefill and of every step equal to the program's count, each
              rank's peak and the card's most used memory.
+19. plan    — the planning tools against the card: chip_spec's figures
+             beside the card's properties, the HBM copy rate (a 2 GiB
+             device-to-device copy_) and the bf16 matmul rate at 8192^3
+             (medians of 20), each at most 1.05 of its spec figure; then
+             programs counted on the meta device (analysis.opcount) and run
+             on the card at the same shapes: the MLP sim step at W = 8 (B1),
+             TinyLlama-1.1B bf16 prefill 8 x 512 (B9 mma) and a decode step
+             from position 512 (B9 split), DeepSeek-V2-Lite-16B bf16
+             prefill at 2 layers (B9 simt), each one's roofline share (the
+             counted bound over the measured median) at most 1.05 and, for
+             the LM programs, max_memory_allocated within 0.75-1.33 of the
+             plan's argument + temp bytes (launch.specs); then the dry-run
+             sweep's serving cells on the one-pod mesh (launch.dryrun, on
+             meta), fits, bottleneck and count seconds per cell.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -383,8 +397,6 @@ STEPS = 50
 FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
 N_FULL = 2913408                    # f32 elements of the full-width MLP plane
 TOL = {"float32": 1e-6, "bfloat16": 2e-2}
-FLOPS_PER_ELEMENT = 9               # B1: 4 multiplies + 5 adds/subtracts
-NAG_FLOPS_PER_ELEMENT = 6           # B2: 3 multiplies + 3 adds/subtracts
 B1, B2, B3 = "fused_flat_elastic_nag_update", "fused_flat_nag_update", "fused_elastic_nag_update"
 BLOCK, TOPK = 512, 26               # the codecs' defaults: codec_block, round(0.05 * 512)
 # exact wire bytes per event on the full-width plane (the reference's
@@ -392,7 +404,6 @@ BLOCK, TOPK = 512, 26               # the codecs' defaults: codec_block, round(0
 WIRE = {None: 11653160, "q8": 2936556, "topk": 1183728}
 CODEC_KERNELS = {"q8": ("q8_encode", "q8_decode"), "topk": ("topk_encode", "topk_decode")}
 B8 = "robust_flat_apply"
-B8_FLOPS_PER_ELEMENT = 4            # |d| <= thr, d * keep, scale * (...), t + (...)
 # the fault runs: (tag, method, FaultConfig kwargs, codec), after the
 # reference's benchmarks/faults.py headline (p 0.5, alpha 0.5, uniform peers)
 FAULT_STEPS, FAULT_P = 50, 0.5
@@ -406,10 +417,6 @@ FAULT_RUNS = (
      "q8"),
 )
 
-# (memory bytes/s, f32 non-tensor FLOP/s, bf16 dense tensor-core FLOP/s) by
-# card name, from NVIDIA's data sheets
-CARDS = [("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
-         ("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100", 3.35e12, 67e12, 989e12)]
 
 
 def log(msg):
@@ -417,10 +424,18 @@ def log(msg):
 
 
 def card_rates(name):
-    for key, bw, flops, bf16_flops in CARDS:
-        if key in name:
-            return bw, flops, bf16_flops
-    raise RuntimeError(f"no memory/compute rates known for {name!r}")
+    """(memory bytes/s, f32 FLOP/s, bf16 dense FLOP/s) of the card named
+    ``name``: ``repro_torch.common.hardware.chip_spec``'s figures."""
+    from repro_torch.common.hardware import chip_spec
+    spec = chip_spec(name)
+    return spec.hbm_bandwidth, spec.peak_f32_flops, spec.peak_bf16_flops
+
+
+def bound(cost, rate, bw):
+    """(least ms, "bytes" or "operations") of a kernel's ``(flops, bytes)``
+    cost (``repro_torch.analysis.roofline``) at these rates."""
+    from repro_torch.analysis import roofline
+    return roofline.bound_ms(*cost, rate, bw)
 
 
 def nvidia_smi_line():
@@ -443,10 +458,10 @@ def b1_inputs(torch, W, n, tdt, vdt, seed, dev):
     return t.to(tdt), p.to(tdt), v.to(vdt), gr.to(tdt), coef
 
 
-def b1_bytes(W, n, t_size, v_size):
-    """Least bytes B1 must move: read theta/peer/g (T) and v, write theta
-    and v, read the [W, 3] f32 scalars."""
-    return W * n * (4 * t_size + 2 * v_size) + W * 12
+def b1_cost(W, n, t_size=4, v_size=4):
+    """B1's (flops, least bytes): ``repro_torch.analysis.roofline.b1_cost``."""
+    from repro_torch.analysis import roofline
+    return roofline.b1_cost(W, n, t_size, v_size)
 
 
 def check_b1(torch, fu, ref, dev):
@@ -504,15 +519,14 @@ def time_b1(torch, fu, ref, dev, W, bw, peak):
     eta = torch.full((), 1e-3, device=dev)
     ms = time_launches(torch, lambda: fu.fused_flat_elastic_nag_update(t, p, v, g, ones, eta, 0.99))
     plain_ms = time_launches(torch, lambda: ref.fused_flat_elastic_nag_update(t, p, v, g, ones, eta, 0.99))
-    nbytes = b1_bytes(W, N_FULL, 4, 4)
-    bytes_ms = nbytes / bw * 1e3
-    ops_ms = FLOPS_PER_ELEMENT * W * N_FULL / peak * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    cost = b1_cost(W, N_FULL)
+    nbytes = cost[1]
+    bound_ms, by = bound(cost, peak, bw)
     log(f"[kernels] B1 [{W}, {N_FULL}] f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
     del t, p, v, g
-    return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else "operations"
+    return ms, plain_ms, bound_ms, by
 
 
 def check_b1_rows(torch, fu, ref, dev):
@@ -575,12 +589,11 @@ def time_b1_rows(torch, fu, ref, dev, bw, peak):
             t, p, v, g, ones, eta, 0.99, rows=r))
         dev_ms = device_ms(torch, lambda: fu.fused_flat_elastic_nag_update(
             t, p, v, g, ones, eta, 0.99, rows=r), match="fused_flat_elastic_nag_kernel")
-        bytes_ms = b1_bytes(k, N_FULL, 4, 4) / bw * 1e3
-        bound_ms = max(bytes_ms, FLOPS_PER_ELEMENT * k * N_FULL / peak * 1e3)
+        bound_ms = bound(b1_cost(k, N_FULL), peak, bw)[0]
         out[k] = (ms, dev_ms, plain_ms, bound_ms)
         log(f"[kernels] B1 row list, {k} of 8 rows of [8, {N_FULL}] f32: kernel {ms:.4f} ms "
             f"(device alone {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-            f"ms ({tb_s(b1_bytes(k, N_FULL, 4, 4), dev_ms)} TB/s achieved on the device)")
+            f"ms ({tb_s(b1_cost(k, N_FULL)[1], dev_ms)} TB/s achieved on the device)")
     del t, p, v, g
     return out
 
@@ -652,27 +665,27 @@ def time_b2_b3(torch, fu, ref, dev, W, bw, peak):
     [W, 2913408] f32 beside their bounds. B2 moves five streams (read
     theta/v/g, write theta/v) and the [W, 2] scalars; B3 six (read
     theta/peer/v/g, write theta'/v')."""
+    from repro_torch.analysis import roofline
     t, p, v, g, _ = b1_inputs(torch, W, N_FULL, torch.float32, torch.float32, 60 + W, dev)
     eta = torch.full((), 1e-3, device=dev)
     out = {}
     calls = {
         B2: (lambda: fu.fused_flat_nag_update(t, v, g, eta, 0.99),
              lambda: ref.fused_flat_nag_update(t, v, g, eta, 0.99),
-             W * N_FULL * 20 + W * 8, NAG_FLOPS_PER_ELEMENT),
+             roofline.b2_cost(W, N_FULL)),
         B3: (lambda: fu.fused_elastic_nag_update(t, p, v, g, 0.5, eta=1e-3, mu=0.99),
              lambda: ref.fused_elastic_nag_update(t, p, v, g, 0.5, eta=1e-3, mu=0.99),
-             W * N_FULL * 24, FLOPS_PER_ELEMENT),
+             roofline.b3_cost(W * N_FULL)),
     }
-    for kname, (kern, plain, nbytes, flops) in calls.items():
+    for kname, (kern, plain, cost) in calls.items():
         ms = time_launches(torch, kern)
         plain_ms = time_launches(torch, plain)
-        bytes_ms = nbytes / bw * 1e3
-        ops_ms = flops * W * N_FULL / peak * 1e3
-        out[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          bound_ms=max(bytes_ms, ops_ms),
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        nbytes = cost[1]
+        bound_ms, by = bound(cost, peak, bw)
+        out[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                          bound_by=by)
         log(f"[kernels] {KERNELS[kname][0]} [{W}, {N_FULL}] f32: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB "
             f"at {bw / 1e12:.2f} TB/s; {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved)")
     out[B2]["library_ms"] = time_fused_sgd(torch, t, v, g, W)
     del t, p, v, g
@@ -854,9 +867,9 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
     by the scales (int8 * f32 promotes to f32; checked byte-equal to B5's
     output first), beside B6 torch.topk over the block magnitudes (selection
     only: no residual, no tie rule). B4 and B7 have no single PyTorch call."""
+    from repro_torch.analysis import roofline
     W, n, block, k = 8, N_FULL, BLOCK, TOPK
     nb = -(-n // block)
-    npad = W * nb * block
     g = torch.Generator(device=dev).manual_seed(12)
     x = torch.randn(W, n, generator=g, device=dev)
     r = 0.1 * torch.randn(W, n, generator=g, device=dev)
@@ -868,16 +881,13 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
     if not bits_equal(torch, torch.mul(v3, sc3).view(W, nb * block)[:, :n],
                       ck.q8_decode(v, sc, n, block=block)):
         raise AssertionError("torch.mul(values, scales) differs from B5's output")
-    # least bytes: each input read once, each output written once
-    nbytes = {"q8_encode": W * n * 4 + W * 8 + npad + W * nb * 4,
-              "q8_decode": npad + W * nb * 4 + W * n * 4,
-              "topk_encode": 2 * W * n * 4 + W * n * 4 + W * nb * k * 8,
-              "topk_decode": W * nb * k * 8 + W * n * 4}
-    # operations the function needs (counted at the f32 rate): q8 encode
-    # ~20 per element (hash, abs/max, divide, add, floor, clamp, convert),
-    # decode 2, top-k encode 4 (add, abs, one comparison, select), decode 2
-    ops = {"q8_encode": 20 * npad, "q8_decode": 2 * W * n,
-           "topk_encode": 4 * npad, "topk_decode": 2 * W * n}
+    # (operations at the f32 rate, least bytes: each input read once, each
+    # output written once)
+    costs = {"q8_encode": roofline.q8_encode_cost(W, n, block),
+             "q8_decode": roofline.q8_decode_cost(W, n, block),
+             "topk_encode": roofline.topk_encode_cost(W, n, block, k),
+             "topk_decode": roofline.topk_decode_cost(W, n, block, k)}
+    nbytes = {name: c[1] for name, c in costs.items()}
     calls = {
         "q8_encode": (lambda: ck.q8_encode(x, seeds, block=block),
                       lambda: ref.q8_encode(x, seeds, block=block), None, None),
@@ -897,17 +907,15 @@ def time_codec(torch, ck, ref, codec_seeds, dev, bw, peak):
         plain_ms = time_launches(torch, plain)
         lib_ms = time_launches(torch, lib) if lib is not None else None
         lib_dev_ms = device_ms(torch, lib) if lib is not None else None
-        bytes_ms = nbytes[kname] / bw * 1e3
-        ops_ms = ops[kname] / peak * 1e3
-        bound = max(bytes_ms, ops_ms)
+        bound_ms, by = bound(costs[kname], peak, bw)
         out[kname] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library=lib_name,
-                          library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bound,
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        share = "not measured" if dev_ms is None else f"{bound / dev_ms:.0%}"
+                          library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                          bound_by=by)
+        share = "not measured" if dev_ms is None else f"{bound_ms / dev_ms:.0%}"
         ratio = ("not measured" if dev_ms is None or lib_dev_ms is None
                  else f"{dev_ms / lib_dev_ms:.2f}x")
         log(f"[kernels] {kname} [{W}, {n}] block {block} k {k}: kernel {ms:.4f} ms (device "
-            f"alone {fmt_ms(dev_ms)} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"alone {fmt_ms(dev_ms)} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({nbytes[kname] / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
             f"{tb_s(nbytes[kname], dev_ms)} TB/s achieved on the device, "
             f"{share} of the bound)"
@@ -985,18 +993,18 @@ def time_b8(torch, rb, ref, dev, bw, peak):
     """B8 and its plain version at [8, 2913408] f32 (the trimmed case:
     [W] thr, unit scale) beside the bound: read theta and delta, write
     theta', read the [W, 2] scalars."""
+    from repro_torch.analysis import roofline
     _, t, d, sc, thr = b8_cases(torch, dev)[1]
     W, n = t.shape
     ms = time_launches(torch, lambda: rb.robust_flat_apply(t, d, sc, thr))
     plain_ms = time_launches(torch, lambda: ref.robust_flat_apply(t, d, sc, thr))
-    nbytes = W * n * 12 + W * 8
-    bytes_ms = nbytes / bw * 1e3
-    ops_ms = B8_FLOPS_PER_ELEMENT * W * n / peak * 1e3
+    cost = roofline.b8_cost(W, n)
+    nbytes = cost[1]
+    bound_ms, by = bound(cost, peak, bw)
     log(f"[kernels] B8 [{W}, {n}] f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s; "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved); no single PyTorch call computes it")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by)
 
 
 def check_b8_strided(torch, rb, ref, dev):
@@ -1063,8 +1071,10 @@ def time_b8_strided(torch, rb, dev, bw, peak):
                 out[:, lo:hi].copy_(rb.robust_flat_apply(x[:, lo:hi].contiguous(), d, scale, thr))
         ms, copy_ms = time_launches(torch, strided), time_launches(torch, copied)
         dev_ms, copy_dev_ms = device_ms(torch, strided), device_ms(torch, copied)
-        nbytes = 8 * N_FULL * 12 + P * 8 * 8
-        bound_ms = max(nbytes / bw * 1e3, B8_FLOPS_PER_ELEMENT * 8 * N_FULL / peak * 1e3)
+        from repro_torch.analysis import roofline
+        cost = roofline.b8_cost(8, N_FULL, chunks=P)
+        nbytes = cost[1]
+        bound_ms = bound(cost, peak, bw)[0]
         res[P] = (ms, dev_ms, copy_ms, copy_dev_ms, bound_ms)
         log(f"[kernels] B8 over [8, {N_FULL}] f32 in {P} column chunks: strided in place "
             f"{ms:.4f} ms (device alone {fmt_ms(dev_ms)}), contiguous copy + B8 + copy back "
@@ -1761,14 +1771,14 @@ def check_b9(torch, ops, fa, dev):
 
 
 def b9_bound(B, Sq, H, Hkv, hd, visible, size, bw, peak, causal=True):
-    """(bound ms, by): q, the visible K/V rows and out moved once against 4 hd
-    flops per (query row, visible key) at the bf16 tensor-core peak (a
-    causal prefill's query i sees i + 1 keys; a non-causal one all)."""
-    nbytes = (2 * B * Sq * H * hd + 2 * B * visible * Hkv * hd) * size
-    pairs = visible * Sq if (Sq == 1 or not causal) else Sq * (Sq + 1) // 2
-    flops = 4 * hd * H * B * pairs
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    """(bound ms, by) of B9 with values as wide as the keys
+    (``repro_torch.analysis.roofline.b9_cost``): q, the visible K/V rows and
+    out moved once against 4 hd flops per (query row, visible key) at the
+    bf16 tensor-core peak (a causal prefill's query i sees i + 1 keys; a
+    non-causal one all)."""
+    from repro_torch.analysis import roofline
+    return bound(roofline.b9_cost(B, Sq, H, Hkv, hd, visible, size=size, causal=causal),
+                 peak, bw)
 
 
 def device_ms(torch, fn, match="", n=20, sessions=3):
@@ -3453,15 +3463,13 @@ def lm_b1(torch, fu, ref, ops, trainer, state, cfg, seq, dev, bw, peak, tag="lm"
     ms = time_launches(torch, lambda: fu.fused_flat_elastic_nag_update(
         theta, peer, v, g, ones, eta_t, 0.9), reps=20, warmup=3)
     del peer, g
-    nbytes = b1_bytes(W, N, 4, 4)
-    bytes_ms = nbytes / bw * 1e3
-    ops_ms = FLOPS_PER_ELEMENT * W * N / peak * 1e3
-    bound = max(bytes_ms, ops_ms)
+    nbytes = b1_cost(W, N)[1]
+    bound_ms = bound(b1_cost(W, N), peak, bw)[0]
     log(f"[{tag}] B1 on one step's own inputs at [{W}, {N}] f32 (2^31 < {W * N} elements): "
         f"byte-equal to the plain version ({chunks} column chunks); kernel {ms:.4f} ms "
-        f"(CUDA events, median of 20), bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB at "
-        f"{bw / 1e12:.2f} TB/s), {bound / ms:.1%} of the bound")
-    return err, dict(ms=ms, bound_ms=bound, shape=[W, N])
+        f"(CUDA events, median of 20), bound {bound_ms:.4f} ms ({nbytes / 1e9:.2f} GB at "
+        f"{bw / 1e12:.2f} TB/s), {bound_ms / ms:.1%} of the bound")
+    return err, dict(ms=ms, bound_ms=bound_ms, shape=[W, N])
 
 
 def lm_grad_vs_f64(torch, cfg, seq, dev):
@@ -4015,17 +4023,15 @@ def check_b9_mla(torch, ops, fa, dev):
     return worst
 
 
-def b9_mla_bound(B, Sq, visible_pairs, visible_keys, v_own, bw, peak):
-    """(bound ms, by): q, the visible key rows (and value rows when the
-    values are a tensor of their own; as the keys' prefix they are read
-    with them) and out moved once, against 2 (hd + dv) flops per (query row,
-    visible key) at the bf16 tensor-core peak."""
-    H, hd, dv = MLA_H, MLA_HD, MLA_DV
-    nbytes = 2 * (B * Sq * H * hd + B * visible_keys * (hd + (dv if v_own else 0))
-                  + B * Sq * H * dv)
-    flops = 2 * (hd + dv) * H * B * visible_pairs
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+def b9_mla_bound(B, Sq, visible, v_own, bw, peak):
+    """(bound ms, by) of B9 at MLA's shapes (``roofline.b9_cost``): q, the
+    visible key rows (and value rows when the values are a tensor of their
+    own; as the keys' prefix they are read with them) and out moved once,
+    against 2 (hd + dv) flops per (query row, visible key) at the bf16
+    tensor-core peak."""
+    from repro_torch.analysis import roofline
+    return bound(roofline.b9_cost(B, Sq, MLA_H, 1, MLA_HD, visible, dv=MLA_DV, v_own=v_own),
+                 peak, bw)
 
 
 def time_b9_mla(torch, ops, fa, dev, bw, peak):
@@ -4048,7 +4054,7 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
                                       reps=20, warmup=3),
                library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, warmup=3))
-    pre["bound_ms"], pre["bound_by"] = b9_mla_bound(B, S, S * (S + 1) // 2, S, False, bw, peak)
+    pre["bound_ms"], pre["bound_by"] = b9_mla_bound(B, S, S, False, bw, peak)
     out["prefill"] = pre
     pos = SERVE_PROMPT
     kk = torch.randn(B, SERVE_MAX_LEN, 1, MLA_HD, generator=g, device=dev).to(dt)
@@ -4069,7 +4075,7 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
                  qd, kk, kk[..., :MLA_DV], causal=True, q_offset=p_t, kv_len=n_t)),
              library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                  qdt, kl, vl, enable_gqa=True)))
-    d["bound_ms"], d["bound_by"] = b9_mla_bound(B, 1, pos + 1, pos + 1, False, bw, peak)
+    d["bound_ms"], d["bound_by"] = b9_mla_bound(B, 1, pos + 1, False, bw, peak)
     out["decode"] = d
     for tag, r in out.items():
         log(f"[mla] B9 {tag} bf16 at MLA's shapes ({r['form']} form): kernel {r['ms']:.4f} ms, "
@@ -5381,16 +5387,13 @@ def b9_local_case(torch, dev, dt, case, seed):
 
 
 def b9_local_bound(case, visible, bw, peak):
-    """(bound ms, by) in bf16: q, the visible key rows (and value rows unless
-    they are the keys' prefix) and out moved once, against 2 (hd + dv) flops
-    per (query row, visible key) at the bf16 tensor-core peak."""
+    """(bound ms, by) in bf16 (``roofline.b9_cost``): q, the visible key rows
+    (and value rows unless they are the keys' prefix) and out moved once,
+    against 2 (hd + dv) flops per (query row, visible key) at the bf16
+    tensor-core peak."""
+    from repro_torch.analysis import roofline
     _, B, Sq, H, Skv, Hkv, hd, dv, causal, _ = case
-    nbytes = 2 * (B * Sq * H * hd + B * visible * Hkv * (hd + (0 if dv < hd else dv))
-                  + B * Sq * H * dv)
-    pairs = visible * Sq if (Sq == 1 or not causal) else Sq * (Sq + 1) // 2
-    flops = 2 * (hd + dv) * H * B * pairs
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    return bound(roofline.b9_cost(B, Sq, H, Hkv, hd, visible, dv=dv, causal=causal), peak, bw)
 
 
 def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
@@ -5642,6 +5645,276 @@ def run_tp_kinds_phase(torch, ops, fa, dev, bw, peak_bf16, smi):
         max_abs_err_f32=worst["float32"], max_abs_err_bf16=worst["bfloat16"], **times), summary
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the planning tools (common.hardware, analysis, launch.specs,
+# launch.dryrun) against the card
+# ---------------------------------------------------------------------------
+
+PLAN_COPY_BYTES = 2 * 2 ** 30        # the HBM copy's source (>= 2 GiB)
+PLAN_MATMUL = 8192                   # the bf16 matmul's M = N = K
+PLAN_RATE_LIMIT = 1.05               # a measured rate above spec x this fails
+PLAN_SHARE_LIMIT = 1.05              # a counted roofline share above this fails
+PLAN_PEAK_LIMITS = (0.75, 1.33)      # max_memory_allocated over the plan's bytes
+PLAN_STEPS = 16                      # timed runs of each counted program
+# the sweep's cells run in this phase (the serving programs on one mesh:
+# each counts in about a second on the CPU); the training cells and
+# xLSTM-125M's prefill (its sLSTM loops over 32,768 steps) are left to the
+# CPU sweep (PERF.md §6)
+PLAN_SWEEP_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+PLAN_SWEEP_SKIP = {("xlstm_125m", "prefill_32k")}
+
+
+def spec_vs_card(torch, dev, spec, smi):
+    """The spec's figures beside the card's properties; the HBM copy rate
+    (a device-to-device copy_ of PLAN_COPY_BYTES, read and written) and
+    the bf16 dense matmul rate at 8192^3, each the median of 20 by CUDA
+    events. Raises if either exceeds its spec figure by PLAN_RATE_LIMIT."""
+    props = torch.cuda.get_device_properties(0)
+    log(f"[plan] {smi}: chip_spec {spec.name!r}: bf16 dense {spec.peak_bf16_flops / 1e12:.0f} "
+        f"TFLOP/s, f32 {spec.peak_f32_flops / 1e12:.0f} TFLOP/s, HBM "
+        f"{spec.hbm_bandwidth / 1e12:.2f} TB/s and {spec.hbm_capacity / 2 ** 30:.1f} GiB, NVLink "
+        f"{spec.nvlink_bandwidth / 1e9:.0f} GB/s a direction over {spec.nvlink_links} links, "
+        f"inter-node {spec.internode_bandwidth / 1e9:.0f} GB/s, shared memory "
+        f"{spec.smem_bytes_per_sm // 1024} KiB an SM; the card: {props.name}, total memory "
+        f"{props.total_memory / 2 ** 30:.2f} GiB, {props.multi_processor_count} SMs")
+    src = torch.empty(PLAN_COPY_BYTES, dtype=torch.uint8, device=dev).fill_(1)
+    dst = torch.empty_like(src)
+    copy_ms = time_launches(torch, lambda: dst.copy_(src), reps=20, warmup=3)
+    del src, dst
+    g = torch.Generator(device=dev).manual_seed(190)
+    a, b = (torch.randn(PLAN_MATMUL, PLAN_MATMUL, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    mm_ms = time_launches(torch, lambda: torch.matmul(a, b), reps=20, warmup=3)
+    del a, b
+    torch.cuda.empty_cache()
+    bw = 2 * PLAN_COPY_BYTES / (copy_ms * 1e-3)
+    rate = 2 * PLAN_MATMUL ** 3 / (mm_ms * 1e-3)
+    out = dict(copy_ms=copy_ms, hbm_bytes_s=bw, hbm_share=bw / spec.hbm_bandwidth,
+               matmul_ms=mm_ms, bf16_flops_s=rate, bf16_share=rate / spec.peak_bf16_flops,
+               total_memory=props.total_memory, sms=props.multi_processor_count)
+    log(f"[plan] {smi}: HBM copy of {PLAN_COPY_BYTES / 2 ** 30:.0f} GiB {copy_ms:.4f} ms "
+        f"(median of 20) = {bw / 1e12:.3f} TB/s read + written, {out['hbm_share']:.3f} of "
+        f"the spec's {spec.hbm_bandwidth / 1e12:.2f}; bf16 matmul {PLAN_MATMUL}^3 "
+        f"{mm_ms:.4f} ms = {rate / 1e12:.1f} TFLOP/s, {out['bf16_share']:.3f} of the spec's "
+        f"{spec.peak_bf16_flops / 1e12:.0f} (limit {PLAN_RATE_LIMIT} each)")
+    if out["hbm_share"] > PLAN_RATE_LIMIT or out["bf16_share"] > PLAN_RATE_LIMIT:
+        raise AssertionError(f"the card beats chip_spec({props.name!r}): HBM "
+                             f"{out['hbm_share']:.3f}, bf16 {out['bf16_share']:.3f} of the spec")
+    return out
+
+
+def roofline_terms(costs, spec, dtype):
+    """(compute, memory, collective) seconds of a counted program."""
+    return (costs.flops / spec.peak_flops(dtype), costs.bytes_accessed / spec.hbm_bandwidth,
+            costs.collective_bytes / spec.nvlink_bandwidth)
+
+
+def plan_report(tag, costs, spec, dtype, ms, smi, plan_bytes=None, peak=None):
+    """Log a counted program's terms beside its measured median ms; raise if
+    the bound over the time exceeds PLAN_SHARE_LIMIT, or the peak over the
+    plan leaves PLAN_PEAK_LIMITS. Returns the reading."""
+    terms = roofline_terms(costs, spec, dtype)
+    names = ("compute", "memory", "collective")
+    lower = max(terms)
+    share = lower / (ms * 1e-3)
+    rec = dict(flops=costs.flops, bytes=costs.bytes_accessed,
+               collective_bytes=costs.collective_bytes,
+               t_compute_s=terms[0], t_memory_s=terms[1], t_collective_s=terms[2],
+               bottleneck=names[terms.index(lower)], bound_ms=lower * 1e3, ms=ms, share=share,
+               kernels={k: n for k, n in costs.ops.items() if k in KERNELS})
+    line = (f"[plan] {smi}: {tag}: counted {costs.flops:.4e} FLOPs, {costs.bytes_accessed:.4e} "
+            f"bytes, kernels {rec['kernels']}; bound {lower * 1e3:.4f} ms "
+            f"({rec['bottleneck']}; compute {terms[0] * 1e3:.4f}, memory {terms[1] * 1e3:.4f} "
+            f"ms) against {ms:.4f} ms measured (median of {PLAN_STEPS}): roofline share "
+            f"{share:.4f} (limit {PLAN_SHARE_LIMIT})")
+    if plan_bytes is not None:
+        rec.update(plan_bytes=plan_bytes, peak_bytes=peak, peak_over_plan=peak / plan_bytes)
+        line += (f"; max_memory_allocated {peak / 2 ** 30:.3f} GiB against the plan's "
+                 f"argument + temp {plan_bytes / 2 ** 30:.3f} GiB: {peak / plan_bytes:.3f} "
+                 f"(limits {PLAN_PEAK_LIMITS})")
+    log(line)
+    if share > PLAN_SHARE_LIMIT:
+        raise AssertionError(f"{tag}: the counted bound is {share:.3f} of the measured time")
+    if plan_bytes is not None and not PLAN_PEAK_LIMITS[0] <= peak / plan_bytes <= \
+            PLAN_PEAK_LIMITS[1]:
+        raise AssertionError(f"{tag}: peak over plan {peak / plan_bytes:.3f} outside "
+                             f"{PLAN_PEAK_LIMITS}")
+    return rec
+
+
+def timed_median_ms(torch, fn, n=PLAN_STEPS, warmup=2):
+    """Median ms of n synchronised calls (CUDA events around each)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def plan_mlp_step(torch, ops, dev, spec, smi):
+    """The main path's sim step at W = 8, batch 16, counted on meta and run
+    on the card. Returns ({kernel: launches}, the reading)."""
+    from repro_torch.analysis import opcount
+    W, batch = 8, 16
+    trainer = make_trainer(torch, W, dev)
+    state = trainer.init_state(0)
+    g = torch.Generator(device=dev).manual_seed(191)
+    x = torch.randn(W, batch, 784, generator=g, device=dev)
+    y = torch.randint(0, 10, (W, batch), generator=g, device=dev, dtype=torch.int32)
+    meta = torch.device("meta")
+    draws = (torch.empty(W, dtype=torch.bool, device=meta),
+             torch.empty(W, dtype=torch.int64, device=meta))
+    _, costs = opcount.count(trainer.sim._step, opcount.to_meta(state), opcount.to_meta(x),
+                             opcount.to_meta(y), draws=draws)
+    ops.zero_launch_counts()
+    holder = [state]
+
+    def step():
+        holder[0], _ = trainer.sim._step(holder[0], x, y)
+
+    ms = timed_median_ms(torch, step)
+    launches = ops.launch_counts()
+    if launches[B1] != PLAN_STEPS + 2 or costs.ops.get(B1) != 1:
+        raise AssertionError(f"[plan] MLP step: B1 launched {launches[B1]} times in "
+                             f"{PLAN_STEPS + 2} steps, counted {costs.ops.get(B1)} a step")
+    rec = plan_report(f"MLP sim step W={W} batch {batch}/worker f32", costs, spec,
+                      torch.float32, ms, smi)
+    return launches, rec
+
+
+def plan_lm(torch, ops, fa, dev, spec, smi, arch, layers=None):
+    """Prefill (8 x 512) and, for TinyLlama, a decode step from position 512
+    of an [8, 1024] cache, bf16: counted on meta (specs.serve_program, its
+    memory plan) and run on the card on init_lm weights. Returns ({kernel:
+    launches}, readings)."""
+    import gc
+    from repro_torch.analysis import opcount
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.serving.engine import make_serve_program
+    import dataclasses
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    B, S, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+    kinds = ("prefill", "decode") if arch == SERVE_ARCH else ("prefill",)
+    counted = {}
+    for kind in kinds:
+        prog = specs.serve_program(cfg, kind, batch=B, seq=S, max_len=max_len)
+        _, costs = opcount.count(prog.fn, *prog.args)
+        counted[kind] = (prog, costs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = make_serve_program(cfg, batch=B, max_len=max_len, with_prefill=True, device=dev)
+    base = torch.cuda.memory_allocated()
+    params = sp.init_params(torch.Generator(device=dev).manual_seed(192))
+    g = torch.Generator(device=dev).manual_seed(193)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev,
+                           dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed_median_ms(torch, lambda: sp.prefill_fn(params, tokens), warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    name = cfg.name + (f" ({layers} layers)" if layers else "")
+    prog, costs = counted["prefill"]
+    out = {"prefill": plan_report(
+        f"{name} bf16 prefill {B} x {S}", costs, spec, torch.bfloat16, ms, smi,
+        prog.argument_bytes + prog.temp_bytes, peak)}
+    launches = ops.launch_counts()
+    forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
+    want = (PLAN_STEPS + 1) * cfg.num_layers
+    if launches[B9] != want or costs.ops.get(B9) != cfg.num_layers:
+        raise AssertionError(f"[plan] {name} prefill: B9 launched {launches[B9]} (want "
+                             f"{want}), counted {costs.ops.get(B9)} a prefill")
+    if "decode" in counted:
+        logits, cache = sp.prefill_fn(params, tokens)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        del logits
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = fa.LAUNCHES
+        holder = [cache]
+
+        def step():
+            lg, holder[0] = sp.decode_fn(params, holder[0], tok)
+
+        ms = timed_median_ms(torch, step)
+        peak = torch.cuda.max_memory_allocated() - base
+        prog, costs = counted["decode"]
+        out["decode"] = plan_report(
+            f"{name} bf16 decode step at positions {S}-{S + PLAN_STEPS + 1} of {max_len}",
+            costs, spec, torch.bfloat16, ms, smi, prog.argument_bytes + prog.temp_bytes, peak)
+        if fa.LAUNCHES - n0 != (PLAN_STEPS + 2) * cfg.num_layers:
+            raise AssertionError(f"[plan] {name} decode: B9 launched {fa.LAUNCHES - n0}")
+        launches = ops.launch_counts()
+        forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
+        del holder, cache
+    log(f"[plan] {name}: launches {dict((k, v) for k, v in launches.items() if v)}, "
+        f"B9 by form {forms}")
+    del params, tokens, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def plan_sweep(smi):
+    """The dry-run's serving cells on the one-pod mesh, in this process (no
+    card: the meta device). Returns the records' headline numbers."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun
+    out_root = os.path.join(HERE, "build", "chip_smoke_dryrun")
+    t0 = time.perf_counter()
+    rows, skipped = [], []
+    for arch in ARCH_IDS:
+        for shape in PLAN_SWEEP_SHAPES:
+            if (arch, shape) in PLAN_SWEEP_SKIP:
+                skipped.append(f"{arch} x {shape}")
+                continue
+            for rec in dryrun.run_cell(arch, shape, multi_pod=False, force=True,
+                                       out_root=out_root):
+                if rec["status"] != "ok":
+                    raise AssertionError(f"[plan] dry run {arch} x {shape}: {rec['error']}")
+                rows.append(rec)
+    secs = time.perf_counter() - t0
+    for r in rows:
+        mem = r["memory_analysis"]
+        log(f"[plan] dry run {r['arch']} x {r['shape']} ({r['program']}): fits {r['fits']} "
+            f"(argument {mem['argument_size_in_bytes'] / 2 ** 30:.3f} + temp "
+            f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f} GiB), bottleneck {r['bottleneck']} "
+            f"(compute {r['t_compute_s'] * 1e3:.4f}, memory {r['t_memory_s'] * 1e3:.4f}, "
+            f"collective {r['t_collective_s'] * 1e3:.4f} ms), count {r['count_seconds']:.2f} s")
+    log(f"[plan] {smi}: dry run of {len(rows)} serving cells on pod16x16 in {secs:.1f} s; "
+        f"left to the CPU sweep: every train_4k cell, {', '.join(skipped)}")
+    return dict(cells=len(rows), seconds=secs, skipped=skipped)
+
+
+def run_plan_phase(torch, ops, fa, dev, smi, kind):
+    """Phase 19. Returns ({kernel: launches}, summary)."""
+    from repro_torch.common.hardware import chip_spec
+    spec = chip_spec(kind)
+    launches = dict.fromkeys(KERNELS, 0)
+    summary = {"spec": spec_vs_card(torch, dev, spec, smi)}
+    got, summary["mlp"] = plan_mlp_step(torch, ops, dev, spec, smi)
+    for k, n in got.items():
+        launches[k] += n
+    for arch, layers in ((SERVE_ARCH, None), (MLA_ARCH, MLA_GATE_LAYERS)):
+        got, summary[arch] = plan_lm(torch, ops, fa, dev, spec, smi, arch, layers)
+        for k, n in got.items():
+            launches[k] += n
+    summary["sweep"] = plan_sweep(smi)
+    log(f"[plan] launches in phase 19: {dict((k, v) for k, v in launches.items() if v)}; "
+        f"summary ({smi}): {json.dumps(summary, default=str)}")
+    return launches, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5864,6 +6137,12 @@ def main():
         err[kname] = max(err[kname], e)
     log(f"[tp-kinds] launches in phase 18: {dict((k, v) for k, v in tk_launches.items() if v)}")
     phase_s["18 tp-kinds"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    pl_launches, _ = run_plan_phase(torch, ops, fa, dev, smi, kind)
+    for kname, n in pl_launches.items():
+        launches[kname] += n
+    phase_s["19 plan"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

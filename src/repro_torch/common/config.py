@@ -3,8 +3,9 @@
 Copies of ``MeshConfig``, ``ProtocolConfig``, ``OptimizerConfig``,
 ``HeteroConfig``, ``FaultConfig``, ``FleetConfig``, ``ShardConfig``,
 ``ObsConfig``, the fields of ``TrainConfig`` that the dist engine reads,
-and ``ModelConfig`` with the dataclasses it references (the transformer
-architectures of :mod:`repro_torch.configs`), from the reference
+``ModelConfig`` with the dataclasses it references (the transformer
+architectures of :mod:`repro_torch.configs`) and the four input shapes
+(``InputShape``, ``INPUT_SHAPES``), from the reference
 (``repro.common.config``) with the same fields and defaults, so one set of
 knobs configures both packages.
 """
@@ -12,6 +13,26 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (fixed by the assignment; the planning tools sweep them)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -264,26 +264,30 @@ def activation_bytes(cfg: ModelConfig, tokens: int, seq: int, dtype_bytes: int =
 BACKWARD_SHARE = 0.75
 
 
-def step_bytes(cfg: ModelConfig, workers: int, tokens: int, seq: int) -> int:
+def step_bytes(cfg: ModelConfig, workers: int, tokens: int, seq: int,
+               dtype=torch.float32) -> int:
     """The estimate of a device-plane training step's peak: four ``[W, N]``
-    f32 planes (theta, velocity, the gradients' leaf stack and their
-    plane), the activations (:func:`activation_bytes`) and the backward's
-    working set (``BACKWARD_SHARE`` of them)."""
-    act = activation_bytes(cfg, tokens, seq)
-    return 4 * workers * replica_bytes(cfg) + int((1 + BACKWARD_SHARE) * act)
+    planes in ``dtype`` (theta, velocity, the gradients' leaf stack and
+    their plane), the activations (:func:`activation_bytes`, in ``dtype``)
+    and the backward's working set (``BACKWARD_SHARE`` of them)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    act = activation_bytes(cfg, tokens, seq, dtype_bytes=size)
+    return 4 * workers * replica_bytes(cfg, dtype) + int((1 + BACKWARD_SHARE) * act)
 
 
-def step_memory(cfg: ModelConfig, workers: int, tokens: int, seq: int, device) -> int:
+def step_memory(cfg: ModelConfig, workers: int, tokens: int, seq: int, device,
+                dtype=torch.float32, avail: Optional[int] = None) -> int:
     """What a device-plane training step holds at its peak
     (:func:`step_bytes`), checked before anything is allocated. Raises
-    ValueError when that exceeds the free memory (the card's; the host's on
-    the CPU); returns it in bytes."""
+    ValueError when that exceeds the free memory (``avail`` bytes when
+    given, else the card's; the host's on the CPU); returns it in bytes."""
     from repro_torch.fleet import memory
-    need = step_bytes(cfg, workers, tokens, seq)
-    avail = memory.available_bytes("device", device)
+    need = step_bytes(cfg, workers, tokens, seq, dtype)
+    if avail is None:
+        avail = memory.available_bytes("device", device)
     if avail is not None and need > avail:
         gib = 2.0 ** 30
-        planes = 4 * workers * replica_bytes(cfg)
+        planes = 4 * workers * replica_bytes(cfg, dtype)
         raise ValueError(
             f"a training step of {cfg.name} at W={workers} over {tokens} tokens of {seq} needs "
             f"~{need / gib:.1f} GiB (4 planes {planes / gib:.1f} + activations and the "

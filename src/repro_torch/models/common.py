@@ -78,7 +78,9 @@ def rmsnorm(w, x, eps: float = 1e-5, plus_one: bool = False):
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    # a fill, not torch.tensor: the latter cannot run on the meta device
+    # under a gradient transform (the planning tools count there)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

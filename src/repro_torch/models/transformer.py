@@ -240,11 +240,16 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
+def meta_generator() -> torch.Generator:
+    """A generator whose draws land on the ``meta`` device (shapes only)."""
+    return _MetaGenerator()
+
+
 def abstract_lm(cfg: ModelConfig, dtype=torch.float32):
     """(params on the ``meta`` device, axes) without allocating anything:
     the reference's ``abstract_lm`` (shapes and dtypes, e.g. for
     ``validate_fleet_memory`` before a run allocates)."""
-    return init_lm(_MetaGenerator(), cfg, dtype)
+    return init_lm(meta_generator(), cfg, dtype)
 
 
 def _lead_axes(a):

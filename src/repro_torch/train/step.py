@@ -136,6 +136,50 @@ class DistTrainer:
                                       {}),
                          center=center, comm=comm.CommState(residual), step=zero.clone())
 
+    # ------------------------------------------- shapes (the planning tools)
+    def state_shapes(self, params: Optional[PyTree] = None) -> FlatState:
+        """The fleet's state as the reference's ``DistTrainer.state_shapes``
+        gives it, on the ``meta`` device (no allocation): theta and the
+        velocity ``[W, total]`` per bucket of ``params`` (a single replica;
+        default ``abstract_lm(model_cfg)``), the EASGD center ``[total]``
+        and a stateful codec's f32 residual where the protocol uses them,
+        the counters 0-d int32. A rank holds row ``group.rank`` of each
+        plane."""
+        if params is None:
+            from repro_torch.models import transformer as tr
+            params = tr.abstract_lm(self.model_cfg)[0]
+        row = tree_map(lambda x: torch.empty((1,) + tuple(x.shape), dtype=x.dtype,
+                                             device="meta"), params)
+        spec = flat_plane.FlatSpec.build(row, leading=1)
+        meta = torch.device("meta")
+
+        def planes(dtype=None):
+            return {k: torch.empty((self.W, n), dtype=dtype or getattr(torch, k), device=meta)
+                    for k, n in spec.totals.items()}
+
+        scalar = torch.empty((), dtype=torch.int32, device=meta)
+        center = ({k: torch.empty((n,), dtype=getattr(torch, k), device=meta)
+                   for k, n in spec.totals.items()} if self._impl.uses_center else None)
+        return FlatState(spec=spec.with_lead((self.W,)), theta=planes(),
+                         opt=OptState(scalar, planes(), {}), center=center,
+                         comm=comm.CommState(planes(torch.float32) if self._codec_stateful
+                                             else None),
+                         step=scalar)
+
+    def set_shape(self, global_batch: int, seq_len: int) -> None:
+        self._gb, self._seq = global_batch, seq_len
+
+    def batch_shapes(self, global_batch: Optional[int] = None, seq_len: int = 4096):
+        """The fleet's batch ``{name: [W, per-worker batch, ...]}`` on the
+        ``meta`` device, as the reference's ``batch_shapes``; the global
+        batch defaults to :meth:`set_shape`'s."""
+        gb = global_batch or getattr(self, "_gb", None)
+        if gb is None:
+            raise ValueError("batch_shapes needs global_batch or set_shape first")
+        shapes = losses.batch_shapes(self.model_cfg, gb // self.W, seq_len)
+        return {k: torch.empty((self.W,) + s, dtype=dt, device="meta")
+                for k, (s, dt) in shapes.items()}
+
     # ------------------------------------------------------- gradient engine
     def _grads_and_loss(self, state: FlatState, x, y):
         """The rank's (loss [1], flat gradients [1, total]): the loss reads
@@ -186,9 +230,11 @@ class DistTrainer:
         return p_new, v_new
 
     def _finish(self, state: FlatState, loss, **kw):
-        """Advance the counters and reduce the loss to the fleet mean."""
+        """Advance the counters and reduce the loss to the fleet mean (None
+        on the ``meta`` device, where no value is read)."""
         t0 = time.perf_counter()
-        loss_mean = float(self.group.all_reduce_sum(loss.detach().float().reshape(1))[0]) / self.W
+        total = self.group.all_reduce_sum(loss.detach().float().reshape(1))
+        loss_mean = None if total.device.type == "meta" else float(total[0]) / self.W
         self.last_loss_reduce_s = time.perf_counter() - t0
         opt = OptState(state.opt.step + 1, state.opt.mu, {})
         return state.replace(opt=opt, step=state.step + 1, **kw), {"loss": loss_mean}

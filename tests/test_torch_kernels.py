@@ -96,14 +96,20 @@ def test_dispatch_in_place_equals_pure_plain_version():
 
 def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch):
     """Anything not on the CPU goes to the kernel wrapper, which launches or
-    raises; it never falls back to the plain version."""
+    raises, or, on the ``meta`` device, is counted (one op under the
+    kernel's name, :mod:`repro_torch.analysis.opcount`) and launches
+    nothing; it never falls back to the plain version."""
+    from repro_torch.analysis import opcount
     def boom(*a, **k):
         raise AssertionError("plain version called for a non-CPU tensor")
     monkeypatch.setattr(tref, "fused_flat_elastic_nag_update", boom)
     x = torch.empty((2, 256), device="meta")
     launches = tfu.LAUNCHES
+    with opcount.OpCounter() as c:
+        assert ops.fused_flat_elastic_nag_update(x, x, x, x, 1.0, ETA, MU) == (x, x)
+    assert c.costs.ops == {"fused_flat_elastic_nag_update": 1}
     with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.fused_flat_elastic_nag_update(x, x, x, x, 1.0, ETA, MU)
+        tfu.fused_flat_elastic_nag_update(x, x, x, x, 1.0, ETA, MU)
     assert tfu.LAUNCHES == launches
 
 
@@ -198,8 +204,14 @@ def test_b2_b3_wrappers_refuse_cpu_tensors_and_count_nothing(monkeypatch):
     monkeypatch.setattr(tref, "fused_flat_nag_update", boom)
     monkeypatch.setattr(tref, "fused_elastic_nag_update", boom)
     m = torch.empty((2, 256), device="meta")
-    with pytest.raises(ValueError, match="CUDA tensor"):
+    # a meta tensor is counted, not run: B2 records one op, B3 has no meta
+    # branch and raises
+    from repro_torch.analysis import opcount
+    with opcount.OpCounter() as c:
         ops.fused_flat_nag_update(m, m, m, ETA, MU)
+    assert c.costs.ops == {"fused_flat_nag_update": 1}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfu.fused_flat_nag_update(m, m, m, ETA, MU)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.fused_elastic_nag_update(m, m, m, m, 0.5, eta=ETA, mu=MU)
     assert (tfu.NAG_LAUNCHES, tfu.ARRAY_LAUNCHES) == counts
