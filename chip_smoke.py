@@ -237,12 +237,14 @@ prints no result line):
              from seed 0): B9 at MLA's shapes (576-wide keys, 512-wide
              latent values, as the keys' prefix view and as a tensor of
              their own; decode at 0, 511, 1023 and with a kv_start, prefill
-             8 x 512 and 77 rows, and the other new instantiations) against
-             its plain version in f32 and bf16, its time beside the bound,
-             the plain version and SDPA; serve_decode at 8 slots, prompt
-             512, max_len 1024, 64 greedy steps, bf16 weights and no
+             8 x 512, 77 rows and a q_offset suffix, each in its form: bf16
+             over the prefix view in the mma form's MLA kernel, else simt)
+             against its plain version in f32 and bf16, NaN below kv_start
+             invisible, its time beside the bound, the plain version and
+             SDPA (the prefill also device alone); serve_decode at 8 slots,
+             prompt 512, max_len 1024, 64 greedy steps, bf16 weights and no
              mid-stream swap by its memory plan (B9 27 times in the prefill,
-             simt, and 27 a step, split), with the prefill and step times,
+             mma, and 27 a step, split), with the prefill and step times,
              tokens/s and peak memory; a ContinuousBatcher drain of 16
              requests (every one completed, the invariants); and at 2 layers
              (1 dense + 1 MoE, full widths: depth is cut, widths are not)
@@ -264,16 +266,18 @@ prints no result line):
              depth with phase 11's arguments for 48 boundaries (B1 once a
              step, B9 2 a boundary in the split form, the bus, staleness,
              swap pauses, the batcher's invariants, the last snapshot's
-             decode and a [4, 256] prefill (simt, hd 576) through B9 within
-             1e-3 of the plain version, greedy tokens equal); then the
+             decode and a [4, 256] f32 prefill (simt, hd 576) through B9
+             within 1e-3 of the plain version, greedy tokens equal); then the
              reduced DeepSeek and Grok-1 through the CLI on dist (2 gloo
              processes on the card), async lognormal and q8 on sim.
 14. ssm    — serving xLSTM-125M (12 layers, 10 mLSTM + 2 sLSTM) and
              Zamba2-2.7B (54 Mamba2 layers, 8 shared attention sites of 32
              heads of 80) at their published widths and full depth in bf16,
              random weights from seed 0: B9 at head dim 80 against its plain
-             version in f32 and bf16 (decode, split; prefill, simt), its
-             time beside the bound, the plain version and SDPA; per model
+             version in f32 and bf16 (decode, split; prefill, mma in bf16 and
+             simt in f32; NaN and inf below kv_start invisible), its time
+             beside the bound, the plain version and SDPA (the prefill also
+             device alone); per model
              serve_decode at 8 slots, prompt 512, max_len 1024, 64 greedy
              steps and a hot swap (B9 once per shared site in the prefill
              and in every step: 8 for Zamba2, none for xLSTM), a 16-request
@@ -367,7 +371,7 @@ prints no result line):
              on the card at the same shapes: the MLP sim step at W = 8 (B1),
              TinyLlama-1.1B bf16 prefill 8 x 512 (B9 mma) and a decode step
              from position 512 (B9 split), DeepSeek-V2-Lite-16B bf16
-             prefill at 2 layers (B9 simt), each one's roofline share (the
+             prefill at 2 layers (B9 mma), each one's roofline share (the
              counted bound over the measured median) at most 1.05 and, for
              the LM programs, max_memory_allocated within 0.75-1.33 of the
              plan's argument + temp bytes (launch.specs); then the dry-run
@@ -1824,6 +1828,38 @@ def timed_form(torch, fa, fn):
     if len(ran) != 1:
         raise RuntimeError(f"B9 timing ran forms {ran}")
     return ms, ran[0]
+
+
+def device_alone(torch, fa, r, fn, match, n=20, sessions=3):
+    """B9's device time alone per call of fn under torch.profiler, into
+    ``r``: per session, the kernel events whose name holds ``match`` beside
+    the launches B9's counter made in it (``device_seen``, one pair a
+    session). ``device_ms`` is the mean of the first session whose two are
+    equal (CUPTI at times drops records), else None: not seen."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    r["device_seen"], r["device_ms"] = [], None
+    for _ in range(sessions):
+        n0 = fa.LAUNCHES
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        r["device_seen"].append([len(us), fa.LAUNCHES - n0])
+        if len(us) == fa.LAUNCHES - n0:
+            r["device_ms"] = sum(us) / len(us) / 1e3
+            return
+
+
+def seen_text(r):
+    """device_alone's reading as text: the time, or 'not seen', beside the
+    events and launches it rests on."""
+    ms = "not seen" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+    return (f"device alone (profiler) {ms}: kernel events for launches by session "
+            + ", ".join(f"{e} / {n}" for e, n in r["device_seen"]))
 
 
 def time_b9(torch, ops, fa, dev, bw, peak):
@@ -3956,14 +3992,16 @@ MLA_SWAP_TOKENS = 16
 
 
 def b9_mla_cases(torch, dev, dt):
-    """(tag, q, k, v, kwargs) at MLA's shapes: decode q [8, 1, 16, 576] over
-    the keys [8, 1024, 1, 576] at positions 0, 511 and 1023 and with a
-    kv_start, the values the view k[..., :512] (the model's; the split form
-    reads them from its key tiles) and once a tensor of their own; prefill
-    q [8, 512, 16, 576], causal (the simt form, instantiation <16 columns, 2
-    warps> with the values in the keys, <16, 1> with their own), and 77 rows
-    off the 32-key tile; keys and values of 576 (<18, 2> and <18, 1>), and a
-    576 / 256 pair whose tiles take one warp (<16, 1> for 8 columns)."""
+    """(tag, q, k, v, kwargs, form) at MLA's shapes, with the form each must
+    take: decode q [8, 1, 16, 576] over the keys [8, 1024, 1, 576] at
+    positions 0, 511 and 1023 and with a kv_start, the values the view
+    k[..., :512] (the model's; the split form reads them from its key
+    tiles) and once a tensor of their own (split); prefill q
+    [8, 512, 16, 576] causal over the keys' prefix, 77 rows (off the
+    32-key tile and the 4-position row block) and a 60-query suffix at
+    q_offset 200 (in bf16 the mma form's MLA kernel, in f32 simt); with
+    values of their own, keys and values of 576, and a 576 / 256 pair
+    (simt in both)."""
     g = torch.Generator(device=dev).manual_seed(51)
 
     def rnd(*shape):
@@ -3972,54 +4010,93 @@ def b9_mla_cases(torch, dev, dt):
     def i32(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
+    tc = "mma" if dt == torch.bfloat16 else "simt"
     B, H, hd, dv = SERVE_BATCH, MLA_H, MLA_HD, MLA_DV
     kk, qd = rnd(B, SERVE_MAX_LEN, 1, hd), rnd(B, 1, H, hd)
     cases = [(f"decode pos {p}", qd, kk, kk[..., :dv],
-              dict(causal=True, q_offset=i32(p), kv_len=i32(p + 1))) for p in (0, 511, 1023)]
+              dict(causal=True, q_offset=i32(p), kv_len=i32(p + 1)), "split")
+             for p in (0, 511, 1023)]
     start = i32([0, 100, 512, 700, 3, 699, 250, 1])
     cases.append(("decode kv_start", qd, kk, kk[..., :dv],
-                  dict(causal=True, q_offset=i32(700), kv_len=i32(701), kv_start=start)))
+                  dict(causal=True, q_offset=i32(700), kv_len=i32(701), kv_start=start), "split"))
     cases.append(("decode own values", qd, kk, rnd(B, SERVE_MAX_LEN, 1, dv),
-                  dict(causal=True, q_offset=i32(600), kv_len=i32(601))))
+                  dict(causal=True, q_offset=i32(600), kv_len=i32(601)), "split"))
     kp, qp = rnd(B, SERVE_PROMPT, 1, hd), rnd(B, SERVE_PROMPT, H, hd)
-    cases.append(("prefill 8 x 512", qp, kp, kp[..., :dv], dict(causal=True)))
-    cases.append(("prefill own values", qp, kp, rnd(B, SERVE_PROMPT, 1, dv), dict(causal=True)))
+    cases.append(("prefill 8 x 512", qp, kp, kp[..., :dv], dict(causal=True), tc))
     cases.append(("prefill 77 rows", qp[:2, :77], kp[:2, :77], kp[:2, :77, :, :dv],
-                  dict(causal=True)))
+                  dict(causal=True), tc))
+    cases.append(("prefill 60 at q_offset 200", qp[:, :60], kp[:, :260], kp[:, :260, :, :dv],
+                  dict(causal=True, q_offset=i32(200)), tc))
+    cases.append(("prefill own values", qp, kp, rnd(B, SERVE_PROMPT, 1, dv), dict(causal=True),
+                  "simt"))
     k576 = rnd(2, 100, 1, hd)
-    cases.append(("hd = dv = 576", rnd(2, 100, 4, hd), k576, k576, dict(causal=True)))
+    cases.append(("hd = dv = 576", rnd(2, 100, 4, hd), k576, k576, dict(causal=True), "simt"))
     cases.append(("hd = dv = 576 own values", rnd(2, 100, 4, hd), k576, rnd(2, 100, 1, hd),
-                  dict(causal=True)))
+                  dict(causal=True), "simt"))
     cases.append(("hd 576 dv 256 own values", rnd(2, 100, 4, hd), k576, rnd(2, 100, 1, 256),
-                  dict(causal=True)))
+                  dict(causal=True), "simt"))
     return cases
+
+
+def b9_garbage_prefill(torch, ops, dev, dt, H, Hkv, hd, dv, tag, seed):
+    """An 80-query suffix at q_offset 200 over 300 keys (280 live) whose
+    first kv_start[b] = (150, 3) rows hold NaN (the keys) and inf (values
+    of their own; MLA's are the keys' prefix) must give the bits of zeroed
+    rows. Returns the form it ran."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(2, 80, H, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(2, 300, Hkv, hd, generator=g, device=dev).to(dt)
+    v = None if dv < hd else torch.randn(k.shape, generator=g, device=dev).to(dt)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=dev))
+    kw = dict(causal=True, q_offset=i32(200), kv_len=i32(280), kv_start=i32([150, 3]))
+    below = torch.arange(300, device=dev)[None, :, None, None] < kw["kv_start"].reshape(2, 1, 1, 1)
+    kz, kg = k.masked_fill(below, 0), k.masked_fill(below, float("nan"))
+    vz, vg = ((kz[..., :dv], kg[..., :dv]) if v is None else
+              (v.masked_fill(below, 0), v.masked_fill(below, float("inf"))))
+    before = dict(fa.FORM_LAUNCHES)
+    zeroed = ops.attention(q, kz, vz, **kw)
+    garbage = ops.attention(q, kg, vg, **kw)
+    torch.cuda.synchronize()
+    ran = [f for f in before if fa.FORM_LAUNCHES[f] != before[f]]
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    if len(ran) != 1 or not torch.equal(zeroed.view(bits), garbage.view(bits)):
+        raise RuntimeError(f"B9 {tag} {dt}: garbage below kv_start changed the output "
+                           f"(forms {ran})")
+    return ran[0]
 
 
 def check_b9_mla(torch, ops, fa, dev):
     """B9 at MLA's shapes against its plain version, f32 and bf16, to the
-    tolerances of phase 6; both the split and the simt form must run in
-    each dtype. Returns the max abs err by dtype."""
+    tolerances of phase 6, each case through the form b9_mla_cases names
+    (split and mma in bf16, split and simt in f32), and NaN below kv_start
+    invisible in the prefill's form. Returns the max abs err by dtype."""
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         before = dict(fa.FORM_LAUNCHES)
         worst[name] = 0.0
         cases = b9_mla_cases(torch, dev, dt)
-        for tag, q, k, v, kw in cases:
-            n = fa.LAUNCHES
+        for tag, q, k, v, kw, form in cases:
+            n, f0 = fa.LAUNCHES, fa.FORM_LAUNCHES[form]
             got = ops.attention(q, k, v, **kw)
             want = plain_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            if fa.LAUNCHES != n + 1 or got.shape != want.shape:
-                raise RuntimeError(f"B9 MLA {tag}: no launch, or shape {tuple(got.shape)}")
+            if fa.LAUNCHES != n + 1 or fa.FORM_LAUNCHES[form] != f0 + 1 \
+                    or got.shape != want.shape:
+                raise RuntimeError(f"B9 MLA {tag} {name}: forms {dict(fa.FORM_LAUNCHES)} (want "
+                                   f"{form}), or shape {tuple(got.shape)}")
             worst[name] = max(worst[name], b9_err(f"MLA {tag}", got, want))
+        garbage = b9_garbage_prefill(torch, ops, dev, dt, MLA_H, 1, MLA_HD, MLA_DV, "MLA", 55)
         ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
-        if not (ran["split"] and ran["simt"]):
-            raise RuntimeError(f"B9 MLA checks, {name}: forms {ran}")
+        tc = "mma" if dt == torch.bfloat16 else "simt"
+        if garbage != tc or not (ran["split"] and ran[tc]) or (tc == "simt" and ran["mma"]):
+            raise RuntimeError(f"B9 MLA checks, {name}: forms {ran}, garbage case {garbage}")
         log(f"[mla] B9 vs plain version at MLA's shapes, {name}: {len(cases)} cases, max abs "
             f"err {worst[name]:.3e} (tolerance {B9_TOL[name]}"
             + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
-            + f"); forms {ran}")
+            + f"); garbage below kv_start = zeroed, bit for bit ({garbage} prefill suffix); "
+            f"forms {ran}")
     return worst
 
 
@@ -4038,8 +4115,9 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
     """B9, its plain version and SDPA (``Ev != E``, GQA) at the serve path's
     MLA shapes in bf16, by CUDA events: the prefill [8, 512, 16, 576] over
     [8, 512, 1, 576] keys and their 512-wide prefix as values, causal (the
-    simt form), and the decode [8, 1, 16, 576] over the [8, 1024, 1, 576]
-    keys at position 512 (the split form; SDPA gets the live rows)."""
+    mma form's MLA kernel; also its device time alone, device_alone), and
+    the decode [8, 1, 16, 576] over the [8, 1024, 1, 576] keys at position
+    512 (the split form; SDPA gets the live rows)."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(52)
     dt, B, S = torch.bfloat16, SERVE_BATCH, SERVE_PROMPT
@@ -4055,6 +4133,8 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
                library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, warmup=3))
     pre["bound_ms"], pre["bound_by"] = b9_mla_bound(B, S, S, False, bw, peak)
+    device_alone(torch, fa, pre, lambda: ops.attention(q, k, v, causal=True),
+                 "flash_attention_mla_kernel")
     out["prefill"] = pre
     pos = SERVE_PROMPT
     kk = torch.randn(B, SERVE_MAX_LEN, 1, MLA_HD, generator=g, device=dev).to(dt)
@@ -4081,7 +4161,8 @@ def time_b9_mla(torch, ops, fa, dev, bw, peak):
         log(f"[mla] B9 {tag} bf16 at MLA's shapes ({r['form']} form): kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events")
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events"
+            + (f"; {seen_text(r)}" if "device_seen" in r else ""))
     return out
 
 
@@ -4097,15 +4178,15 @@ def attn_passes(cfg):
             + plan.num_cross)
 
 
-def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None, prefill_form="simt",
-                   cross_gate=0.0):
+def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None, cross_gate=0.0):
     """The serve_decode entry point at full width and depth in bf16: 512-token
     prompts, 64 greedy steps (the audio and vision models with their cross
     gates at ``cross_gate`` and a random cond). For DeepSeek its memory plan
     publishes bf16 weights and turns the mid-stream swap off (a second
     replica does not fit beside the first). B9 must launch once per
-    attention (27 for DeepSeek) in the prefill (``prefill_form``) and as
-    many times a step (split), and nowhere else."""
+    attention (27 for DeepSeek) in the prefill (the mma form: MLA's kernel
+    for DeepSeek, head dim 80 for Zamba2) and as many times a step (split),
+    and nowhere else."""
     from repro_torch.launch.serve_decode import serve_decode
     L = attn_passes(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4120,9 +4201,7 @@ def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None, prefill_form=
     counts = {k: counts[k] for k in KERNELS}
     want = dict.fromkeys(KERNELS, 0)
     want[B9] = L * (1 + SERVE_TOKENS)
-    want_forms = {"mma": 0, "simt": 0}
-    want_forms[prefill_form] = L
-    want_forms["split"] = L * SERVE_TOKENS
+    want_forms = {"mma": L, "simt": 0, "split": L * SERVE_TOKENS}
     if (r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts != want
             or forms != want_forms):
         raise RuntimeError(f"[{tag}] launches: prefill {r['prefill_launches']}, per step "
@@ -4586,8 +4665,9 @@ def moe_grad_vs_f64(torch, dev):
 
 
 def moe_prefill_parity(torch, ops, fa, ts, dev):
-    """The last served snapshot's prefill of a [4, 256] prompt through B9
-    (MLA's simt form, once per layer) and through its plain version: logits
+    """The last served snapshot's prefill of a [4, 256] prompt in f32 through
+    B9 (the simt form at MLA's shapes, once per layer) and through its plain
+    version: logits
     within PARITY_TOL of the largest, greedy tokens equal."""
     from unittest import mock
     from repro_torch.serving.engine import make_serve_program
@@ -4665,8 +4745,9 @@ ZAMBA_H, ZAMBA_HD = 32, 80
 def b9_hd80_cases(torch, dev, dt):
     """(tag, q, k, v, kwargs) at Zamba2's shared attention (32 heads of 80
     over 32 kv heads): decode over the [8, 1024] cache at positions 0, 511,
-    1023 and with a kv_start (split form), prefill 8 x 512 and 77 rows
-    (simt form: 80 is not an mma head dim)."""
+    1023 and with a kv_start (split form), prefill 8 x 512, 77 rows (off
+    the 64-key tile and the 128-row block) and a 60-query suffix at
+    q_offset 200 (the mma form in bf16, simt in f32)."""
     g = torch.Generator(device=dev).manual_seed(53)
 
     def rnd(*shape):
@@ -4685,13 +4766,17 @@ def b9_hd80_cases(torch, dev, dt):
     kp, vp, qp = (rnd(B, SERVE_PROMPT, H, hd) for _ in range(3))
     cases.append(("prefill 8 x 512", qp, kp, vp, dict(causal=True)))
     cases.append(("prefill 77 rows", qp[:2, :77], kp[:2, :77], vp[:2, :77], dict(causal=True)))
+    cases.append(("prefill 60 at q_offset 200", qp[:, :60], kp[:, :260], vp[:, :260],
+                  dict(causal=True, q_offset=i32(200))))
     return cases
 
 
 def check_b9_hd80(torch, ops, fa, dev):
     """B9 at head dim 80 against its plain version, f32 and bf16, to phase
-    6's tolerances; the split and the simt form must both run in each dtype
-    and the mma form never. Returns the max abs err by dtype."""
+    6's tolerances: decode in the split form, prefill in the mma form in
+    bf16 and the simt form in f32, and nothing else; NaN and inf below
+    kv_start invisible in the prefill's form. Returns the max abs err by
+    dtype."""
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
@@ -4706,21 +4791,30 @@ def check_b9_hd80(torch, ops, fa, dev):
             if fa.LAUNCHES != n + 1 or got.shape != want.shape:
                 raise RuntimeError(f"B9 hd 80 {tag}: no launch, or shape {tuple(got.shape)}")
             worst[name] = max(worst[name], b9_err(f"hd 80 {tag}", got, want))
+        tc = "mma" if dt == torch.bfloat16 else "simt"
+        garbage = b9_garbage_prefill(torch, ops, dev, dt, ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD,
+                                     "hd 80", 56)
         ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
-        if not (ran["split"] and ran["simt"]) or ran["mma"]:
-            raise RuntimeError(f"B9 hd 80 checks, {name}: forms {ran}")
+        n_dec = sum(1 for c in cases if c[1].shape[1] == 1)
+        want_ran = {"split": n_dec, "mma": 0, "simt": 0}
+        want_ran[tc] = len(cases) - n_dec + 2
+        if ran != want_ran or garbage != tc:
+            raise RuntimeError(f"B9 hd 80 checks, {name}: forms {ran} (want {want_ran}), "
+                               f"garbage case {garbage}")
         log(f"[ssm] B9 vs plain version at Zamba2's head dim 80, {name}: {len(cases)} cases, max "
             f"abs err {worst[name]:.3e} (tolerance {B9_TOL[name]}"
             + (", and 2^-6 max |plain| per case" if dt == torch.bfloat16 else "")
-            + f"); forms {ran}")
+            + f"); garbage below kv_start = zeroed, bit for bit ({garbage} prefill suffix); "
+            f"forms {ran}")
     return worst
 
 
 def time_b9_hd80(torch, ops, fa, dev, bw, peak):
     """B9, its plain version and SDPA at Zamba2's shared attention in bf16,
-    by CUDA events: the prefill [8, 512, 32, 80] causal (simt form) and the
-    decode [8, 1, 32, 80] over the [8, 1024, 32, 80] cache at position 512
-    (split form; SDPA gets the live rows)."""
+    by CUDA events: the prefill [8, 512, 32, 80] causal (the mma form; also
+    its device time alone, device_alone) and the decode [8, 1, 32, 80] over
+    the [8, 1024, 32, 80] cache at position 512 (split form; SDPA gets the
+    live rows)."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(54)
     dt, B, S, H, hd = torch.bfloat16, SERVE_BATCH, SERVE_PROMPT, ZAMBA_H, ZAMBA_HD
@@ -4734,6 +4828,8 @@ def time_b9_hd80(torch, ops, fa, dev, bw, peak):
                library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True), reps=20, warmup=3))
     pre["bound_ms"], pre["bound_by"] = b9_bound(B, S, H, H, hd, S, 2, bw, peak)
+    device_alone(torch, fa, pre, lambda: ops.attention(q, k, v, causal=True),
+                 "flash_attention_mma_kernel")
     out["prefill"] = pre
     pos = SERVE_PROMPT
     ck, cv = (torch.randn(B, SERVE_MAX_LEN, H, hd, generator=g, device=dev).to(dt)
@@ -4756,7 +4852,8 @@ def time_b9_hd80(torch, ops, fa, dev, bw, peak):
         log(f"[ssm] B9 {tag} bf16 at head dim 80 ({r['form']} form): kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events")
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it reached), CUDA events"
+            + (f"; {seen_text(r)}" if "device_seen" in r else ""))
     return out
 
 
@@ -5028,7 +5125,7 @@ def run_cross_phase(torch, ops, fu, ref, fa, dev, bw, peak, peak_bf16, smi):
         torch.cuda.empty_cache()
         cfg = get_config(arch)
         n_flow, flow = mla_serve_flow(torch, ops, fa, cfg, dev, tag="cross",
-                                      desc=CROSS_DESC[arch], prefill_form="mma",
+                                      desc=CROSS_DESC[arch],
                                       cross_gate=CROSS_GATE)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5398,9 +5495,11 @@ def b9_local_bound(case, visible, bw, peak):
 
 def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
     """B9 at each rank's shapes of TPK_B9 against its plain version (f32
-    and bf16, phase 6's tolerances; split form in decode, mma for a bf16
-    prefill at hd 128, else simt), then timed in bf16 beside its plain
-    version and SDPA. Returns (max abs err by dtype, timings)."""
+    and bf16, phase 6's tolerances; split form in decode, mma for every
+    bf16 prefill (MLA's by its own kernel, over the keys' prefix), simt for
+    the f32 ones), then timed in bf16 beside its plain version and SDPA, and
+    the prefills new to the mma form (MLA, Zamba2) also device alone.
+    Returns (max abs err by dtype, timings)."""
     import torch.nn.functional as F
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -5409,7 +5508,7 @@ def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
         for i, case in enumerate(TPK_B9):
             q, k, v, kw, _ = b9_local_case(torch, dev, dt, case, 90 + i)
             form = ("split" if q.shape[1] == 1 else
-                    "mma" if dt == torch.bfloat16 and case[6] in (64, 128, 256) else "simt")
+                    "mma" if dt == torch.bfloat16 else "simt")
             n, f0 = fa.LAUNCHES, fa.FORM_LAUNCHES[form]
             got = ops.attention(q, k, v, **kw)
             want = plain_attention(q, k, v, **kw)
@@ -5441,12 +5540,16 @@ def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
                  library_ms=time_launches(torch, lambda: F.scaled_dot_product_attention(
                      qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True), reps=20, warmup=3))
         r["bound_ms"], r["bound_by"] = b9_local_bound(case, visible, bw, peak_bf16)
+        if case[0] in ("MLA prefill", "Zamba2 prefill"):
+            device_alone(torch, fa, r, lambda: ops.attention(q, k, v, **kw),
+                         "flash_attention_mla_kernel" if case[6] == MLA_HD
+                         else "flash_attention_mma_kernel")
         times[case[0]] = r
         log(f"[tp-kinds] B9 {case[0]} bf16 q {r['shape']} over {r['keys']} values "
             f"{r['values']} ({form} form): kernel {ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"SDPA {r['library_ms']:.4f} ms ({ms / r['library_ms']:.2f}x SDPA), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['bound_ms'] / ms:.1%} of it reached), "
-            "CUDA events")
+            "CUDA events" + (f"; {seen_text(r)}" if "device_seen" in r else ""))
         del q, k, v, qt, kt, vt
     return worst, times
 
@@ -5831,9 +5934,13 @@ def plan_lm(torch, ops, fa, dev, spec, smi, arch, layers=None):
     launches = ops.launch_counts()
     forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
     want = (PLAN_STEPS + 1) * cfg.num_layers
-    if launches[B9] != want or costs.ops.get(B9) != cfg.num_layers:
-        raise AssertionError(f"[plan] {name} prefill: B9 launched {launches[B9]} (want "
-                             f"{want}), counted {costs.ops.get(B9)} a prefill")
+    # a bf16 prefill takes the tensor cores: TinyLlama's head dim 64 and
+    # DeepSeek's MLA (576-wide keys over their 512-wide prefix) alike
+    if (launches[B9] != want or costs.ops.get(B9) != cfg.num_layers
+            or forms != {"mma": want, "split": 0, "simt": 0}):
+        raise AssertionError(f"[plan] {name} prefill: B9 launched {launches[B9]} by form "
+                             f"{forms} (want {want}, all mma), counted {costs.ops.get(B9)} "
+                             f"a prefill")
     if "decode" in counted:
         logits, cache = sp.prefill_fn(params, tokens)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

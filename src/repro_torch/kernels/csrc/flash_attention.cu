@@ -25,16 +25,18 @@
 // multiples of 8): MLA attends with 576-wide keys (the 512-wide latent c_kv
 // and the 64-wide roped key) over the latent alone. Where v is the prefix of
 // k (the same pointer and strides: MLA's values as the view kk[..., :dv]),
-// the SIMT and SPLIT forms read the values from the K tile they already hold.
+// the SIMT and SPLIT forms and MMA's MLA kernel read the values from the K
+// tile they already hold.
 //
 // Three forms compute this function. The wrapper picks one from host-known
 // shapes alone (kernels/flash_attention.py::_form; never from kv_len, which
 // is a device scalar) and passes it in:
 //
 //   rows = (H / Hkv) * Sq, the query rows that share one kv head
-//   rows <= 16                          -> SPLIT (decode; f32 and bf16, any hd)
-//   bf16, hd in {64, 128, 256}, dv = hd -> MMA   (prefill on the tensor cores)
-//   otherwise                           -> SIMT  (f32 prefill, other hd, MLA)
+//   rows <= 16                              -> SPLIT (decode; f32 and bf16, any hd)
+//   bf16, hd in {64, 80, 128, 256}, dv = hd -> MMA   (prefill on the tensor cores)
+//   bf16, hd 576, dv 512, v in k            -> MMA   (MLA's prefill: its own kernel)
+//   otherwise                               -> SIMT  (f32 prefill, other shapes)
 //
 // Every form visits only the keys in [lo, hi): lo the largest of
 // kv_start[b] and the window's lower edge for the block's first query, hi
@@ -50,8 +52,8 @@
 // row a block reads serves all G heads.
 //
 // MMA (bf16; FA2's structure on mma.sync). A block of 4 warps takes one
-// (batch row, kv head) and 128 of its query rows at hd 64 (each warp two
-// 16-row atoms, so every K and V fragment it reads feeds 32 rows), 64 at
+// (batch row, kv head) and 128 of its query rows at hd 64 and 80 (each warp
+// two 16-row atoms, so every K and V fragment it reads feeds 32 rows), 64 at
 // hd 128 and 256 (one atom a warp, for registers). Q is copied once into
 // shared memory; K/V tiles of 64 keys (32 at hd 256) go through a double
 // buffer with 16-byte cp.async, so tile t + 1 loads while tile t is
@@ -65,7 +67,34 @@
 // so ldmatrix's eight rows fall on distinct banks. O is normalised in f32,
 // cast once and staged through shared memory into 16-byte stores. Blocks
 // are issued longest-first across the whole grid (the last query rows see
-// the most keys under causal masking), which balances the SMs' work.
+// the most keys under causal masking), which balances the SMs' work. At hd
+// 80 (Zamba2's shared attention) the loops run over 5 k-steps of 16 and 10
+// chunks of 8; rows of 88 elements still put ldmatrix's rows on distinct
+// banks. At hd 64 and 80 a thread takes 255 registers (O and S of two
+// atoms), so 2 blocks (8 warps) share an SM; one atom a warp, 32-key
+// tiles or a cap of 3 blocks an SM all ran slower on an H100.
+//
+// MMA at MLA's shapes (bf16, hd 576, dv 512, v the keys' prefix; kernel
+// flash_attention_mla_kernel). One warp's 16-row atom over 576 key dims and
+// 512 value columns does not fit its registers (O alone would be 256 f32 a
+// thread), so warps work in pairs. A block of 8 warps takes 64 query rows
+// of one (batch row, kv head): at G = 16 that is 4 query positions of all
+// 16 heads, so its rows share nearly one causal range. Q is copied once
+// into shared memory (64 x 576); K goes through a double buffer of 32-key
+// tiles with 16-byte cp.async, and the values are read from the K tile's
+// first 512 columns, so no V tile exists. Warps w and w + 4 own the same 16
+// rows: each computes the partial S over one half of the 576 dims (18
+// mma.sync k-steps), the pair adds the two partials through shared memory
+// (IEEE addition commutes, so both hold the same S bit for bit), both run
+// the same online softmax, and each accumulates O over its own 256 of the
+// 512 value columns (128 f32 a thread). About 162 KB of shared memory, one
+// block an SM. The bound is bytes (q, out and each key row once; the kernel
+// reads the keys once per 64 query rows, from L2 after the first). What
+// holds it above the bound is shared memory, through which ldmatrix moves
+// about 0.6 bytes a flop, and one block of 8 warps an SM (241 registers a
+// thread), too few warps to hide the mma chains' latency; the SIMT form it
+// replaces at this shape ran f32 FMAs on the CUDA cores, 8 query rows a
+// block.
 //
 // SPLIT (flash-decoding; f32 CUDA-core math). Launch 1 has a block per
 // (split, kv head, batch row); split c takes the keys [32 c, 32 c + 32)
@@ -77,7 +106,8 @@
 // merges the splits whose l > 0 into
 // out = sum acc e^(m - M) / sum l e^(m - M), over a compacted list of them.
 //
-// SIMT (the first form, f32 on the CUDA cores). One block takes one (batch
+// SIMT (the first form, f32 on the CUDA cores: f32 prefill, and bf16
+// prefill at shapes no path runs on the tensor cores). One block takes one (batch
 // row, kv head) and RW = 8 query rows. The block's NW warps split the kv
 // range: warp w takes the tiles of BK = 32 keys starting at lo + 32 (w + NW
 // t), stages them into its own shared-memory tile (16-byte loads, converted
@@ -521,9 +551,126 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// a named barrier over n threads (a multiple of 32); id 0 is __syncthreads'
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// One key tile's scores into probabilities, for a warp's RA 16-row atoms
+// over NB 8-key blocks (lane = 4 g + t4 holds rows g and g + 8 of each atom,
+// keys t0 + 8 n + 2 t4 + {0, 1}): scale (and softcap) into log2 units, mask
+// the keys a row does not see unless every row of the warp sees the whole
+// tile (-inf, whose ex2 is exactly 0), and take the online-softmax step. S
+// becomes the unnormalised P, m and l move on, and corr is the factor by
+// which each row's O accumulator is to be scaled.
+template <int RA, int NB>
+__device__ __forceinline__ void softmax_step(const Args& a, float (&s)[RA][NB][4],
+                                             float (&m)[RA][2], float (&l)[RA][2],
+                                             float (&corr)[RA][2], const int (&rlo)[RA][2],
+                                             const int (&rhi)[RA][2], int t0, int t4) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  bool full = true;
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) full = full && rlo[ra][hh] <= t0 && rhi[ra][hh] >= t0 + 8 * NB;
+  full = __all_sync(FULL, full);
+  if (a.softcap > 0.f) {        // a uniform branch around the loop, never per score
+    const float cap_in = a.scale / a.softcap;
+    const float cap_l2 = a.softcap * LOG2E;           // softcap tanh(.) -> log2 units
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[ra][n][i] = cap_l2 * tanhf(s[ra][n][i] * cap_in);
+  } else {
+    const float sl2 = a.scale * LOG2E;                // s -> log2 units
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[ra][n][i] *= sl2;
+  }
+  if (!full) {
+#pragma unroll
+    for (int ra = 0; ra < RA; ++ra)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = t0 + n * 8 + 2 * t4 + (i & 1);
+          const int hh = i >> 1;
+          if (!(key >= rlo[ra][hh] && key < rhi[ra][hh])) s[ra][n][i] = -INFINITY;
+        }
+  }
+  // the online softmax per row (a quad of lanes holds a row)
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[ra][n][i]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = mx[hh];
+      v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+      const float mn = fmaxf(m[ra][hh], v);
+      corr[ra][hh] = exp2_approx(m[ra][hh] - mn);
+      m[ra][hh] = mn;
+      l[ra][hh] *= corr[ra][hh];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2_approx(s[ra][n][i] - m[ra][i >> 1]);
+        s[ra][n][i] = p;
+        l[ra][i >> 1] += p;
+      }
+    }
+  }
+}
+
+// the visible key range [lo, hi) of each of a thread's rows (row r of the
+// block for r = r0w + 16 ra + g + 8 hh; empty past nrows)
+template <int RA>
+__device__ __forceinline__ void thread_rows(const Args& a, const Span& sp, int r0, int r0w,
+                                            int nrows, int G, int g, int (&rlo)[RA][2],
+                                            int (&rhi)[RA][2]) {
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0w + ra * 16 + g + 8 * hh;
+      if (r < nrows) {
+        row_bounds(a, sp, sp.q_offset + (r0 + r) / G, rlo[ra][hh], rhi[ra][hh]);
+      } else {
+        rlo[ra][hh] = 1;
+        rhi[ra][hh] = 0;
+      }
+    }
+  }
+}
+
+// 1 / l of a thread's two rows of an atom, l summed over the row's quad
+__device__ __forceinline__ void inv_sums(const float (&l)[2], float (&inv)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float v = l[hh];
+    v += __shfl_xor_sync(FULL, v, 1);
+    v += __shfl_xor_sync(FULL, v, 2);
+    inv[hh] = 1.f / fmaxf(v, 1e-30f);
+  }
+}
+
 template <int HD>
 struct MmaTile {
-  static constexpr int RA = HD == 64 ? 2 : 1;       // 16-row atoms per warp
+  static constexpr int RA = HD <= 80 ? 2 : 1;       // 16-row atoms per warp
   static constexpr int ROWS = 4 * 16 * RA;          // query rows per block
   static constexpr int BKN = HD > 128 ? 32 : 64;    // keys per K/V tile
   static constexpr int LD = HD + 8;                 // smem row stride (elements)
@@ -545,7 +692,6 @@ flash_attention_mma_kernel(Args a) {
   constexpr int NB = BKN / 8;      // 8-key blocks of S per tile
   constexpr int DB = HD / 8;       // 8-dim blocks of O
   constexpr int CH = HD / 8;       // 16-byte chunks per row
-  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ uint4 smem_u4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_u4);   // [ROWS][LD]
   bf16* Ks = Qs + ROWS * LD;                     // [2][BKN][LD]
@@ -586,21 +732,8 @@ flash_attention_mma_kernel(Args a) {
   if (ntiles > 0) load_kv(lo, 0);
   cp_async_commit();
 
-  // this thread's rows: their visible key ranges (empty past nrows)
   int rlo[RA][2], rhi[RA][2];
-#pragma unroll
-  for (int ra = 0; ra < RA; ++ra) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wr0 + ra * 16 + g + 8 * hh;
-      if (r < nrows) {
-        row_bounds(a, sp, sp.q_offset + (r0 + r) / G, rlo[ra][hh], rhi[ra][hh]);
-      } else {
-        rlo[ra][hh] = 1;
-        rhi[ra][hh] = 0;
-      }
-    }
-  }
+  thread_rows<RA>(a, sp, r0, wr0, nrows, G, g, rlo, rhi);
   float o[RA][DB][4];
   float m[RA][2], l[RA][2];
 #pragma unroll
@@ -610,9 +743,6 @@ flash_attention_mma_kernel(Args a) {
     m[ra][0] = m[ra][1] = NEG;
     l[ra][0] = l[ra][1] = 0.f;
   }
-  const float sl2 = a.scale * LOG2E;                  // s -> log2 units
-  const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
-  const float cap_l2 = a.softcap * LOG2E;             // softcap tanh(.) -> log2 units
 
   for (int t = 0; t < ntiles; ++t) {
     const int t0 = lo + t * BKN;
@@ -647,80 +777,16 @@ flash_attention_mma_kernel(Args a) {
       }
     }
 
-    // scale (and softcap) into log2 units; masks only on a tile that some
-    // row of the warp does not wholly see
-    bool full = true;
-#pragma unroll
-    for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) full = full && rlo[ra][hh] <= t0 && rhi[ra][hh] >= t0 + BKN;
-    full = __all_sync(FULL, full);
-    if (a.softcap > 0.f) {        // a uniform branch around the loop, never per score
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-        for (int n = 0; n < NB; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[ra][n][i] = cap_l2 * tanhf(s[ra][n][i] * cap_in);
-    } else {
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-        for (int n = 0; n < NB; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[ra][n][i] *= sl2;
-    }
-    if (!full) {
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-        for (int n = 0; n < NB; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int key = t0 + n * 8 + 2 * t4 + (i & 1);
-            const int hh = i >> 1;
-            if (!(key >= rlo[ra][hh] && key < rhi[ra][hh])) s[ra][n][i] = -INFINITY;
-          }
-    }
-    float mx[RA][2];
+    float corr[RA][2];
+    softmax_step<RA, NB>(a, s, m, l, corr, rlo, rhi, t0, t4);
 #pragma unroll
     for (int ra = 0; ra < RA; ++ra) {
-      mx[ra][0] = mx[ra][1] = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mx[ra][i >> 1] = fmaxf(mx[ra][i >> 1], s[ra][n][i]);
-      }
-    }
-    // the online softmax per row (a quad of lanes holds a row)
-#pragma unroll
-    for (int ra = 0; ra < RA; ++ra) {
-      float corr[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float v = mx[ra][hh];
-        v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
-        v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
-        const float mn = fmaxf(m[ra][hh], v);
-        corr[hh] = exp2_approx(m[ra][hh] - mn);
-        m[ra][hh] = mn;
-        l[ra][hh] *= corr[hh];
-      }
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = exp2_approx(s[ra][n][i] - m[ra][i >> 1]);
-          s[ra][n][i] = p;
-          l[ra][i >> 1] += p;
-        }
-      }
 #pragma unroll
       for (int i = 0; i < DB; ++i) {
-        o[ra][i][0] *= corr[0];
-        o[ra][i][1] *= corr[0];
-        o[ra][i][2] *= corr[1];
-        o[ra][i][3] *= corr[1];
+        o[ra][i][0] *= corr[ra][0];
+        o[ra][i][1] *= corr[ra][0];
+        o[ra][i][2] *= corr[ra][1];
+        o[ra][i][3] *= corr[ra][1];
       }
     }
 
@@ -757,13 +823,7 @@ flash_attention_mma_kernel(Args a) {
 #pragma unroll
   for (int ra = 0; ra < RA; ++ra) {
     float inv[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float v = l[ra][hh];
-      v += __shfl_xor_sync(FULL, v, 1);
-      v += __shfl_xor_sync(FULL, v, 2);
-      inv[hh] = 1.f / fmaxf(v, 1e-30f);
-    }
+    inv_sums(l[ra], inv);
 #pragma unroll
     for (int i = 0; i < DB; ++i) {
       *reinterpret_cast<uint32_t*>(Ow + (ra * 16 + g) * LD + i * 8 + 2 * t4) =
@@ -786,22 +846,193 @@ flash_attention_mma_kernel(Args a) {
   }
 }
 
-template <int HD>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  const size_t smem = MmaTile<HD>::smem;
+// A tensor-core kernel over a 1-d grid: ceil(rows / ROWS) row tiles times
+// every (kv head, batch row), with smem bytes of dynamic shared memory
+cudaError_t launch_rows(void (*kernel)(Args), size_t smem, int threads, int ROWS, const Args& a,
+                        cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_attention_mma_kernel<HD>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int rows = a.H / a.Hkv * a.Sq;
-  constexpr int ROWS = MmaTile<HD>::ROWS;
   const int64_t blocks = (int64_t)((rows + ROWS - 1) / ROWS) * a.Hkv * a.B;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
-  flash_attention_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(a);
+  kernel<<<dim3((unsigned)blocks), threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  return launch_rows(flash_attention_mma_kernel<HD>, MmaTile<HD>::smem, MMA_THREADS,
+                     MmaTile<HD>::ROWS, a, stream);
+}
+
+// ---------------------------------------------------------------------------
+// MMA at MLA's shapes: bf16, hd 576 over values that are the keys' 512-wide
+// prefix, warps in pairs over the dims (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int MLA_HD = 576, MLA_DV = 512;
+constexpr int MLA_ROWS = 64;                 // query rows per block: 4 row atoms
+constexpr int MLA_BKN = 32;                  // keys per K tile
+constexpr int MLA_LD = MLA_HD + 8;           // smem row stride (elements)
+constexpr int MLA_THREADS = 256;             // 8 warps: pair p is warps p and p + 4
+constexpr int MLA_KH = MLA_HD / 2;           // the key dims a warp scores over
+constexpr int MLA_VH = MLA_DV / 2;           // the value columns a warp accumulates
+constexpr size_t MLA_SMEM = sizeof(bf16) * (size_t)(MLA_ROWS + 2 * MLA_BKN) * MLA_LD +
+                            sizeof(float) * (size_t)(MLA_THREADS / 32) * 16 * MLA_BKN;
+static_assert(MLA_SMEM <= MAX_SMEM, "MLA's tiles must fit one block's shared memory");
+
+__global__ void __launch_bounds__(MLA_THREADS, 1)
+flash_attention_mla_kernel(Args a) {
+  constexpr int NB = MLA_BKN / 8;      // 8-key blocks of S per tile
+  constexpr int DB = MLA_VH / 8;       // 8-column blocks of the warp's O
+  constexpr int CH = MLA_HD / 8;       // 16-byte chunks per row
+  constexpr int LD = MLA_LD;
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);                     // [64][LD]
+  bf16* Ks = Qs + MLA_ROWS * LD;                                   // [2][32][LD]
+  float4* Xs = reinterpret_cast<float4*>(Ks + 2 * MLA_BKN * LD);   // [8 warps][NB][32 lanes]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pair = warp & 3, half = warp >> 2;
+  // longest first over the whole grid, as the MMA kernel
+  const int G = a.H / a.Hkv;
+  const int pairs = a.Hkv * a.B;
+  const int hk = (int)(blockIdx.x % pairs) % a.Hkv, b = (int)(blockIdx.x % pairs) / a.Hkv;
+  const int r0 = (int)(gridDim.x / pairs - 1 - blockIdx.x / pairs) * MLA_ROWS;
+  const int nrows = min(MLA_ROWS, G * a.Sq - r0);
+  const Span sp = span_of(a, b, r0, nrows, G);
+  const int lo = sp.lo, hi = sp.hi;
+  const int wr0 = pair * 16;                       // the pair's first row
+  const int kc0 = half * MLA_KH;                   // the warp's first key dim
+  const int vc0 = half * MLA_VH;                   // the warp's first value column
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < MLA_ROWS * CH; e += MLA_THREADS) {
+    const int r = e / CH, c = e - (e / CH) * CH;
+    const int rr = r0 + min(r, nrows - 1);
+    const int sq = rr / G, h = hk * G + rr % G;
+    cp_async16(Qs + r * LD + c * 8, q + b * a.qb + sq * a.qs + h * a.qh + c * 8, r < nrows);
+  }
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.kb + hk * a.kh;
+  const int ntiles = hi > lo ? (hi - lo + MLA_BKN - 1) / MLA_BKN : 0;
+  auto load_k = [&](int t0, int buf) {
+    for (int e = tid; e < MLA_BKN * CH; e += MLA_THREADS) {
+      const int j = e / CH, c = e - (e / CH) * CH;
+      const bool ok = t0 + j < hi;
+      const int64_t row = ok ? t0 + j : t0;
+      cp_async16(Ks + (buf * MLA_BKN + j) * LD + c * 8, kp + row * a.ks + c * 8, ok);
+    }
+  };
+  if (ntiles > 0) load_k(lo, 0);
+  cp_async_commit();
+
+  int rlo[1][2], rhi[1][2];
+  thread_rows<1>(a, sp, r0, wr0, nrows, G, g, rlo, rhi);
+  float o[DB][4];
+#pragma unroll
+  for (int i = 0; i < DB; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[1][2] = {{NEG, NEG}}, l[1][2] = {{0.f, 0.f}};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int t0 = lo + t * MLA_BKN;
+    if (t + 1 < ntiles) load_k(t0 + MLA_BKN, (t + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + (t & 1) * MLA_BKN * LD;
+
+    // this warp's half of the dims: the partial S of the pair's 16 rows
+    float s[1][NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MLA_KH / 16; ++kk) {
+      const int col = kc0 + kk * 16;
+      uint32_t qa[4];
+      ldmatrix_x4(qa, Qs + (wr0 + (lane & 15)) * LD + col + (lane >> 4) * 8);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Kt + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD + col +
+                            ((lane >> 3) & 1) * 8);
+        mma16816(s[0][2 * n2], qa, kb[0], kb[1]);
+        mma16816(s[0][2 * n2 + 1], qa, kb[2], kb[3]);
+      }
+    }
+    // the pair's two partials, added in both warps (a + b == b + a exactly)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      Xs[(warp * NB + n) * 32 + lane] = make_float4(s[0][n][0], s[0][n][1], s[0][n][2], s[0][n][3]);
+    bar_sync(1 + pair, 64);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const float4 x = Xs[((warp ^ 4) * NB + n) * 32 + lane];
+      s[0][n][0] += x.x;
+      s[0][n][1] += x.y;
+      s[0][n][2] += x.z;
+      s[0][n][3] += x.w;
+    }
+
+    float corr[1][2];
+    softmax_step<1, NB>(a, s, m, l, corr, rlo, rhi, t0, t4);
+#pragma unroll
+    for (int i = 0; i < DB; ++i) {
+      o[i][0] *= corr[0][0];
+      o[i][1] *= corr[0][0];
+      o[i][2] *= corr[0][1];
+      o[i][3] *= corr[0][1];
+    }
+
+    // O += P V over the warp's value columns, V read from the K tile
+#pragma unroll
+    for (int kc = 0; kc < MLA_BKN / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[0][2 * kc][0], s[0][2 * kc][1]);
+      pa[1] = pack_bf16(s[0][2 * kc][2], s[0][2 * kc][3]);
+      pa[2] = pack_bf16(s[0][2 * kc + 1][0], s[0][2 * kc + 1][1]);
+      pa[3] = pack_bf16(s[0][2 * kc + 1][2], s[0][2 * kc + 1][3]);
+#pragma unroll
+      for (int d2 = 0; d2 < DB / 2; ++d2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Kt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + vc0 +
+                                  d2 * 16 + (lane >> 4) * 8);
+        mma16816(o[2 * d2], pa, vb[0], vb[1]);
+        mma16816(o[2 * d2 + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer and Xs before they are refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // Q rows land before a warp reuses them (no tile: no barrier yet)
+
+  // normalise, stage the warp's columns in the pair's Q rows, store 16 bytes a lane
+  bf16* Ow = Qs + wr0 * LD + vc0;
+  float inv[2];
+  inv_sums(l[0], inv);
+#pragma unroll
+  for (int i = 0; i < DB; ++i) {
+    *reinterpret_cast<uint32_t*>(Ow + g * LD + i * 8 + 2 * t4) =
+        pack_bf16(o[i][0] * inv[0], o[i][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(Ow + (g + 8) * LD + i * 8 + 2 * t4) =
+        pack_bf16(o[i][2] * inv[1], o[i][3] * inv[1]);
+  }
+  __syncwarp();
+  bf16* out = static_cast<bf16*>(a.o);
+  constexpr int OCH = MLA_VH / 8;                  // 16-byte chunks of the warp's columns
+  for (int e = lane; e < 16 * OCH; e += 32) {
+    const int r = e / OCH, c = e - (e / OCH) * OCH;
+    const int rw = wr0 + r;
+    if (rw < nrows) {
+      const int rr = r0 + rw;
+      const int sq = rr / G, h = hk * G + rr % G;
+      *reinterpret_cast<uint4*>(out + b * a.ob + sq * a.os + h * a.oh + vc0 + c * 8) =
+          *reinterpret_cast<const uint4*>(Ow + r * LD + c * 8);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1058,7 +1289,8 @@ cudaError_t launch_split(const Args& a, cudaStream_t stream) {
 // What every call with one signature of q, k and v passes (built once per
 // signature by the wrapper, kernels/flash_attention.py::_plan).
 struct Plan {
-  int32_t form;     // 0 SIMT, 1 MMA (bf16, hd = dv in 64 / 128 / 256), 2 SPLIT ((H / Hkv) * Sq <= 16)
+  int32_t form;     // 0 SIMT, 1 MMA (bf16: hd = dv in 64 / 80 / 128 / 256, or hd 576 over
+                    // dv 512 in k), 2 SPLIT ((H / Hkv) * Sq <= 16)
   int32_t dtype;    // 0 float32, 1 bfloat16 (q, k, v and out share it)
   int64_t B, Sq, Skv, H, Hkv, hd, dv;   // k is [B, Skv, Hkv, hd], v [B, Skv, Hkv, dv]
   int64_t nsplit;   // SPLIT: max(1, ceil(Skv / 32)); else 0
@@ -1087,7 +1319,9 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
   if (form == SPLIT && (rows > SPLIT_ROWS || part == nullptr ||
                         nsplit != (Skv > SPLIT_KEYS ? (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS : 1)))
     return (int)cudaErrorInvalidValue;
-  if (form == MMA && (dtype != 1 || dv != hd || (hd != 64 && hd != 128 && hd != 256)))
+  const bool mla = hd == MLA_HD && dv == MLA_DV;
+  if (form == MMA && (dtype != 1 || !(mla || (dv == hd && (hd == 64 || hd == 80 || hd == 128 ||
+                                                              hd == 256)))))
     return (int)cudaErrorInvalidValue;
   if (form != SIMT && form != MMA && form != SPLIT) return (int)cudaErrorInvalidValue;
   const int64_t* strides = p->strides;
@@ -1098,6 +1332,7 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
   a.vb = strides[6]; a.vs = strides[7]; a.vh = strides[8];
   a.ob = strides[9]; a.os = strides[10]; a.oh = strides[11];
   a.v_in_k = v == k && a.vb == a.kb && a.vs == a.ks && a.vh == a.kh;
+  if (form == MMA && mla && !a.v_in_k) return (int)cudaErrorInvalidValue;
   a.B = (int)B; a.Sq = (int)Sq; a.Skv = (int)Skv; a.H = (int)H; a.Hkv = (int)Hkv;
   a.hd = (int)hd;
   a.dv = (int)dv;
@@ -1112,7 +1347,10 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
   a.nsplit = (int)nsplit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (form == MMA) {
+    if (mla)
+      return (int)launch_rows(flash_attention_mla_kernel, MLA_SMEM, MLA_THREADS, MLA_ROWS, a, st);
     if (hd == 64) return (int)launch_mma<64>(a, st);
+    if (hd == 80) return (int)launch_mma<80>(a, st);
     if (hd == 128) return (int)launch_mma<128>(a, st);
     return (int)launch_mma<256>(a, st);
   }

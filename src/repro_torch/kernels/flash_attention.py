@@ -6,10 +6,13 @@ softcap, GQA, a ``kv_len`` and the per-row ``kv_start`` bound of continuous
 batching, and values narrower than the keys (MLA's 576-wide keys over its
 512-wide latent values). The CUDA C++ source is ``csrc/flash_attention.cu``,
 in three forms that :func:`_form` picks from host-known shapes: ``"mma"``
-(bf16 prefill on the tensor cores, FA2's structure on ``mma.sync``),
-``"split"`` (decode as split-KV in two launches, a split per 32 cache rows,
-then a merge) and ``"simt"`` (f32 on the CUDA cores: f32 prefill, other head
-dims, MLA's prefill).
+(bf16 prefill on the tensor cores, FA2's structure on ``mma.sync``: head
+dims 64, 80, 128 and 256 with values as wide, and MLA's 576-wide keys over
+their 512-wide prefix as values in a kernel of its own), ``"split"``
+(decode as split-KV in two launches, a split per 32 cache rows, then a
+merge) and ``"simt"`` (f32 on the CUDA cores: every f32 prefill, and bf16
+prefill at the shapes no path runs, MLA's with values of their own
+among them).
 
 This wrapper takes CUDA tensors only and raises on anything else; callers
 reach it through :mod:`repro_torch.kernels.ops`, which sends CPU tensors to
@@ -31,24 +34,35 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORM_CODE = {"simt": 0, "mma": 1, "split": 2}
 SPLIT_ROWS = 16                  # most query rows per kv head in the split form
 SPLIT_KEYS = 32                  # cache rows per split
-MMA_HEAD_DIMS = (64, 128, 256)
+MMA_HEAD_DIMS = (64, 80, 128, 256)
+MLA_DIMS = (576, 512)            # (hd, dv) of the mma form's MLA kernel, v in k
 MAX_HEAD_DIM = 576               # MLA: kv_lora_rank 512 + qk_rope_head_dim 64
 _FN = None
 
 
 def _form(dtype, B: int, Sq: int, H: int, Hkv: int, hd: int, Skv: int,
-          dv: Optional[int] = None) -> str:
+          dv: Optional[int] = None, v_in_k: bool = False) -> str:
     """The kernel form for these shapes, from what the host knows (never
     from ``kv_len``, a device scalar): ``"split"`` when at most 16 query
     rows share a kv head (decode), else ``"mma"`` for bf16 at a head dim of
-    64, 128 or 256 with values as wide (``dv`` None or ``hd``), else
-    ``"simt"``. ``B`` and ``Skv`` do not change the choice; ``Skv`` sets the
-    split form's number of splits."""
+    64, 80, 128 or 256 with values as wide (``dv`` None or ``hd``) and for
+    bf16 at MLA's keys of 576 over values of 512 that are their prefix
+    (``v_in_k``, :func:`_v_in_k`), else ``"simt"``. ``B`` and ``Skv`` do
+    not change the choice; ``Skv`` sets the split form's number of
+    splits."""
     if H // Hkv * Sq <= SPLIT_ROWS:
         return "split"
-    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS and dv in (None, hd):
+    if dtype == torch.bfloat16 and (hd in MMA_HEAD_DIMS and dv in (None, hd)
+                                    or (hd, dv) == MLA_DIMS and v_in_k):
         return "mma"
     return "simt"
+
+
+def _v_in_k(k, v) -> bool:
+    """Whether ``v`` is a prefix view of ``k``'s last dim (the same storage
+    pointer and batch, sequence and head strides), as the kernel tests it;
+    MLA passes its values so, as ``kk[..., :512]``."""
+    return v.data_ptr() == k.data_ptr() and v.stride()[:3] == k.stride()[:3]
 
 
 class _Plan(ctypes.Structure):
@@ -88,8 +102,9 @@ def _scalar(x, name, dev):
     return int(x), None
 
 
-# (shapes, strides, dtypes, devices of q, k, v) -> _plan(q, k, v), a pure
-# function of that key, so calls with a signature seen before skip the checks
+# (shapes, strides, dtypes, devices of q, k, v, whether v starts where k
+# does) -> _plan(q, k, v), a pure function of that key, so calls with a
+# signature seen before skip the checks
 _PLANS = {}
 _MAX_PLANS = 256
 
@@ -124,7 +139,7 @@ def _plan(q, k, v):
         if t.stride(3) != 1 or any((t.stride(i) * size) % 16 for i in range(3)):
             raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned "
                              f"rows, got strides {t.stride()}")
-    form = _form(q.dtype, B, Sq, H, Hkv, hd, Skv, dv)
+    form = _form(q.dtype, B, Sq, H, Hkv, hd, Skv, dv, _v_in_k(k, v))
     nsplit = max(1, -(-Skv // SPLIT_KEYS)) if form == "split" else 0
     out_strides = (Sq * H * dv, H * dv, dv)   # of the new contiguous output
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v) for i in range(3)),
@@ -150,7 +165,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     global LAUNCHES
     try:
         key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
-               q.dtype, k.dtype, v.dtype, q.device, k.device, v.device)
+               q.dtype, k.dtype, v.dtype, q.device, k.device, v.device,
+               v.data_ptr() == k.data_ptr())
         plan = _PLANS.get(key)
     except (AttributeError, TypeError):
         key, plan = None, None

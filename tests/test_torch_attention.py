@@ -186,7 +186,8 @@ def test_chunked_attention_with_narrower_values_matches_reference(case):
 
 
 # kernel B9's form by shape (kernels/flash_attention.py::_form): host-known
-# ints and a dtype only, so routing never reads a device scalar
+# ints, a dtype and whether v is a prefix view of k, so routing never reads
+# a device scalar; (B, Sq, H, Hkv, hd, Skv[, dv[, v_in_k]])
 @pytest.mark.parametrize("name,dtype,shape,form", [
     ("serve prefill", torch.bfloat16, (8, 512, 32, 4, 64, 512), "mma"),
     ("serve decode", torch.bfloat16, (8, 1, 32, 4, 64, 1024), "split"),
@@ -201,8 +202,19 @@ def test_chunked_attention_with_narrower_values_matches_reference(case):
     ("G 48 decode", torch.bfloat16, (2, 1, 48, 1, 128, 1024), "mma"),
     ("16 rows", torch.bfloat16, (1, 2, 8, 1, 64, 256), "split"),
     ("17 rows", torch.bfloat16, (1, 17, 1, 1, 64, 256), "mma"),
-    ("MLA prefill", torch.bfloat16, (8, 512, 16, 1, 576, 512, 512), "simt"),
-    ("MLA f32 prefill", torch.float32, (8, 512, 16, 1, 576, 512, 512), "simt"),
+    ("MLA prefill", torch.bfloat16, (8, 512, 16, 1, 576, 512, 512, True), "mma"),
+    ("MLA f32 prefill", torch.float32, (8, 512, 16, 1, 576, 512, 512, True), "simt"),
+    ("MLA prefill, own values", torch.bfloat16, (8, 512, 16, 1, 576, 512, 512, False), "simt"),
+    ("MLA tensor-parallel prefill, G 8", torch.bfloat16, (8, 512, 8, 1, 576, 512, 512, True),
+     "mma"),
+    ("MLA 77 rows", torch.bfloat16, (2, 77, 16, 1, 576, 77, 512, True), "mma"),
+    ("hd 576 dv 256 in k", torch.bfloat16, (2, 100, 4, 1, 576, 100, 256, True), "simt"),
+    ("hd = dv = 576", torch.bfloat16, (2, 100, 4, 1, 576, 100, 576, True), "simt"),
+    ("Zamba2 hd 80 prefill", torch.bfloat16, (8, 512, 32, 32, 80, 512), "mma"),
+    ("Zamba2 hd 80 f32 prefill", torch.float32, (8, 512, 32, 32, 80, 512), "simt"),
+    ("Zamba2 hd 80 tensor-parallel prefill", torch.bfloat16, (8, 256, 16, 16, 80, 256), "mma"),
+    ("Zamba2 hd 80 decode", torch.bfloat16, (8, 1, 32, 32, 80, 1024), "split"),
+    ("hd 80 values narrower", torch.bfloat16, (2, 100, 8, 2, 80, 100, 64), "simt"),
     ("MLA decode", torch.bfloat16, (8, 1, 16, 1, 576, 1024, 512), "split"),
     ("values narrower at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 64), "simt"),
     ("values as wide at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 128), "mma"),
@@ -210,6 +222,25 @@ def test_chunked_attention_with_narrower_values_matches_reference(case):
 def test_b9_form_follows_the_host_known_shapes(name, dtype, shape, form):
     from repro_torch.kernels import flash_attention as tfa
     assert tfa._form(dtype, *shape) == form, name
+
+
+@pytest.mark.parametrize("case,want", [
+    ("prefix view", True),
+    ("the whole of k", True),
+    ("a view past k's first column", False),
+    ("a copy of the prefix", False),
+    ("a view of another tensor", False),
+])
+def test_b9_tells_a_prefix_view_of_k_on_the_host(case, want):
+    """MLA's values reach B9 as ``kk[..., :512]``, which the mma form reads
+    from its key tiles; anything else routes as values of their own."""
+    from repro_torch.kernels import flash_attention as tfa
+    kk = torch.zeros(2, 5, 1, 576)
+    v = {"prefix view": lambda: kk[..., :512], "the whole of k": lambda: kk,
+         "a view past k's first column": lambda: kk[..., 64:],
+         "a copy of the prefix": lambda: kk[..., :512].clone(),
+         "a view of another tensor": lambda: torch.zeros(2, 5, 1, 576)[..., :512]}[case]()
+    assert tfa._v_in_k(kk, v) is want
 
 
 def test_zeroing_the_launch_counts_zeroes_the_b9_forms():

@@ -811,7 +811,9 @@ def test_b9_at_mla_shapes_matches_plain_version(cuda, case, dt, v_kind):
     head of 576-wide keys and 512-wide values, the values either the view
     kk[..., :512] (the kernel reads them from its key tiles) or a tensor of
     their own; decode over an [8, 1024] cache (the split form), prefill 8 x
-    512 and 77 rows (the simt form)."""
+    512 and 77 rows (bf16 over the prefix view: the mma form's MLA kernel;
+    f32, or values of their own: the simt form); bf16 also within 2^-6 of
+    the largest |plain|."""
     g = torch.Generator(device=cuda).manual_seed(41)
     i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=cuda))
     Skv = 1024 if case.startswith("decode") else (77 if case == "prefill 77" else 512)
@@ -828,9 +830,66 @@ def test_b9_at_mla_shapes_matches_plain_version(cuda, case, dt, v_kind):
         form = "split"
     else:
         q = torch.randn(B, Skv, 16, 576, generator=g, device=cuda).to(dt)
-        kw, form = dict(causal=True), "simt"
+        kw = dict(causal=True)
+        form = "mma" if dt == torch.bfloat16 and v_kind == "prefix view of k" else "simt"
     got = _check_b9(q, kk, v, form=form, **kw)
     assert got.shape == (B, q.shape[1], 16, 512)
+    if dt == torch.bfloat16:
+        _bf16_bound(got, tref.attention(q, kk, v, causal=True, q_offset=kw.get("q_offset", 0),
+                                        kv_len=kw.get("kv_len"), kv_start=kw.get("kv_start")))
+
+
+# B9's tensor-core forms new at these shapes: (H, Hkv, hd, dv); MLA's values
+# are the keys' 512-wide prefix (G = 16 whole, 8 on a tensor-parallel rank),
+# head dim 80 is Zamba2's (G = 1) and a GQA twin (G = 4)
+TC_SHAPES = {"MLA G 16": (16, 1, 576, 512), "MLA G 8": (8, 1, 576, 512),
+             "hd 80 G 1": (32, 32, 80, 80), "hd 80 G 4": (16, 4, 80, 80)}
+# (Sq, Skv, causal): 128 query positions (a whole number of every shape's
+# row blocks) over 100 keys, which end inside a 32- and a 64-key tile; 77
+# positions, a multiple of no row block; a 60-query suffix at q_offset 200;
+# an 80-query suffix at 200 over 280 live rows whose first kv_start[b] hold
+# NaN and inf
+TC_CASES = {"partial key tile": (128, 100, False), "rows off the block": (77, 77, True),
+            "q_offset": (60, 260, True), "garbage below kv_start": (80, 300, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_b9_tensor_core_forms_at_mla_and_hd80_match_plain_version(cuda, shape, case):
+    """The mma form at MLA's 576 / 512 and at head dim 80 against the plain
+    version (3e-2, and 2^-6 of the largest |plain|); garbage below kv_start
+    gives the bits of zeroed rows."""
+    H, Hkv, hd, dv = TC_SHAPES[shape]
+    Sq, Skv, causal = TC_CASES[case]
+    B = 2
+    g = torch.Generator(device=cuda).manual_seed(71)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    own = None if dv < hd else torch.randn(B, Skv, Hkv, dv, generator=g,
+                                           device=cuda).to(torch.bfloat16)
+    values = (lambda kk, vv: kk[..., :dv]) if own is None else (lambda kk, vv: vv)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=cuda))
+    kw = dict(causal=causal)
+    if Skv > Sq and causal:
+        kw["q_offset"] = i32(200)
+    if case == "garbage below kv_start":
+        kw.update(kv_len=i32(280), kv_start=i32([150, 3]))
+        below = (torch.arange(Skv, device=cuda)[None, :, None, None]
+                 < kw["kv_start"].reshape(B, 1, 1, 1))
+        k = k.masked_fill(below, 0)
+        own = None if own is None else own.masked_fill(below, 0)
+    v = values(k, own)
+    assert tfa._form(q.dtype, B, Sq, H, Hkv, hd, Skv, dv, tfa._v_in_k(k, v)) == "mma"
+    got = _check_b9(q, k, v, form="mma", **kw)
+    _bf16_bound(got, tref.attention(q, k, v, causal=causal, q_offset=kw.get("q_offset", 0),
+                                    kv_len=kw.get("kv_len"), kv_start=kw.get("kv_start")))
+    if case == "garbage below kv_start":
+        kg = k.masked_fill(below, float("nan"))
+        vg = values(kg, None if own is None else own.masked_fill(below, float("inf")))
+        bad = ops.attention(q, kg, vg, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), bad.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -1506,9 +1565,9 @@ def test_full_width_decode_on_a_served_snapshot_through_b9_equals_plain(cuda):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_b9_at_zamba2_head_dim_80_matches_plain_version(cuda, case, dt):
     """Zamba2-2.7B's shared attention: 32 heads of 2560 / 32 = 80 over 32 kv
-    heads, outside the mma form's head dims, so bf16 prefill takes the simt
-    form and decode the split form; decode over an [8, 1024] cache,
-    prefill 8 x 512 and 77 rows."""
+    heads: bf16 prefill takes the mma form (f32 prefill the simt form) and
+    decode the split form; decode over an [8, 1024] cache, prefill 8 x 512
+    and 77 rows; bf16 also within 2^-6 of the largest |plain|."""
     g = torch.Generator(device=cuda).manual_seed(43)
     i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=cuda))
     Skv = 1024 if case.startswith("decode") else (77 if case == "prefill 77" else 512)
@@ -1523,9 +1582,12 @@ def test_b9_at_zamba2_head_dim_80_matches_plain_version(cuda, case, dt):
         form = "split"
     else:
         q = torch.randn(B, Skv, 32, 80, generator=g, device=cuda).to(dt)
-        kw, form = dict(causal=True), "simt"
+        kw, form = dict(causal=True), "mma" if dt == torch.bfloat16 else "simt"
     assert tfa._form(dt, B, q.shape[1], 32, 32, 80, Skv) == form
-    _check_b9(q, k, v, form=form, **kw)
+    got = _check_b9(q, k, v, form=form, **kw)
+    if dt == torch.bfloat16:
+        _bf16_bound(got, tref.attention(q, k, v, causal=True, q_offset=kw.get("q_offset", 0),
+                                        kv_len=kw.get("kv_len"), kv_start=kw.get("kv_start")))
 
 
 @pytest.mark.cuda
@@ -1739,8 +1801,9 @@ def test_b9_at_the_tensor_parallel_ranks_shapes_matches_plain_version(cuda, case
     """B9 at a rank's heads of DeepSeek-V2-Lite (8 of MLA's 16, keys of 576,
     values of 512), Zamba2 (16 of 32 at head dim 80) and Llama-3.2-V's cross
     attention (16 of 32 over 4 of 8 kv heads and 1601 keys) at M = 2:
-    simt prefill (mma for a bf16 prefill at head dim 128), split decode at
-    position 512; bf16 also within 2^-6 of the largest |plain|."""
+    mma prefill in bf16 (MLA's over its keys' prefix by the MLA kernel),
+    simt in f32, split decode at position 512; bf16 also within 2^-6 of the
+    largest |plain|."""
     B, Sq, H, Skv, Hkv, hd, dv, causal = TP_LOCAL_SHAPES[case]
     g = torch.Generator(device=cuda).manual_seed(67)
     q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
@@ -1751,8 +1814,7 @@ def test_b9_at_the_tensor_parallel_ranks_shapes_matches_plain_version(cuda, case
     if Sq == 1 and causal:
         p = torch.tensor(512, dtype=torch.int32, device=cuda)
         kw.update(q_offset=p, kv_len=p + 1)
-    form = ("split" if Sq == 1 else
-            "mma" if dt == torch.bfloat16 and hd in (64, 128, 256) else "simt")
+    form = "split" if Sq == 1 else "mma" if dt == torch.bfloat16 else "simt"
     got = _check_b9(q, k, v, form=form, **kw)
     assert got.shape == (B, Sq, H, dv)
     if dt == torch.bfloat16:
