@@ -108,13 +108,18 @@ prints no result line):
              (also with window 100), kv_start per row (also leaving whole
              32-row splits empty), a strided layer view of a stacked cache;
              NaN and inf below kv_start must give the bits of zeroed rows,
-             in a decode and a prefill suffix; each of B9's three forms
-             (mma, split, simt) must have run. B9, its plain version and
-             SDPA timed at the prefill ([8, 512, 32, 64] causal, the mma
-             form) and decode ([8, 1, 32, 64] over the cache at pos 512,
-             the split form) shapes in bf16, with CUDA events back to
+             in a decode and a prefill suffix; each of B9's four forms
+             (wgmma, mma, split, simt) must have run. B9, its plain version
+             and SDPA timed at the prefill ([8, 512, 32, 64] causal, the
+             wgmma form) and decode ([8, 1, 32, 64] over the cache at pos
+             512, the split form) shapes in bf16, with CUDA events back to
              back and, for B9 and SDPA, their device time alone under
-             torch.profiler. Then TinyLlama-1.1B at full width (22 layers,
+             torch.profiler; then the wgmma form at every model's bf16
+             prefill shape (WGMMA_TIMED: TinyLlama, MusicGen, Llama-3.2-V
+             self and cross, Zamba2, Gemma2-9B, Granite-20B's prefill and
+             decode), each held to its plain version first, its device time
+             beside roofline.b9_cost's bound and SDPA's (the backend named).
+             Then TinyLlama-1.1B at full width (22 layers,
              d 2048, 32 / 4 heads, random weights from seed 0, bf16 params
              and cache, 8 slots,
              max_len 1024): the serve_decode entry point (512-token
@@ -274,8 +279,8 @@ prints no result line):
              Zamba2-2.7B (54 Mamba2 layers, 8 shared attention sites of 32
              heads of 80) at their published widths and full depth in bf16,
              random weights from seed 0: B9 at head dim 80 against its plain
-             version in f32 and bf16 (decode, split; prefill, mma in bf16 and
-             simt in f32; NaN and inf below kv_start invisible), its time
+             version in f32 and bf16 (decode, split; prefill, wgmma in bf16
+             and simt in f32; NaN and inf below kv_start invisible), its time
              beside the bound, the plain version and SDPA (the prefill also
              device alone); per model
              serve_decode at 8 slots, prompt 512, max_len 1024, 64 greedy
@@ -313,7 +318,7 @@ prints no result line):
              plain version in f32 and bf16, timed beside the bound, the
              plain version and SDPA; serve_decode (8 slots, prompt 512,
              64 greedy steps, per codebook for MusicGen; B9 48 times a step
-             for vision, 96 for MusicGen, mma in the prefill, split in
+             for vision, 96 for MusicGen, wgmma in the prefill, split in
              decode); the f32 gate through B9 and the plain version (vision
              at 4 layers with its first cross block, MusicGen at 2); then
              MusicGen trained at its widths cut to 15 of 48 layers
@@ -369,7 +374,7 @@ prints no result line):
              (medians of 20), each at most 1.05 of its spec figure; then
              programs counted on the meta device (analysis.opcount) and run
              on the card at the same shapes: the MLP sim step at W = 8 (B1),
-             TinyLlama-1.1B bf16 prefill 8 x 512 (B9 mma) and a decode step
+             TinyLlama-1.1B bf16 prefill 8 x 512 (B9 wgmma) and a decode step
              from position 512 (B9 split), DeepSeek-V2-Lite-16B bf16
              prefill at 2 layers (B9 mma), each one's roofline share (the
              counted bound over the measured median) at most 1.05 and, for
@@ -1657,8 +1662,9 @@ def plain_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,
 
 def b9_cases(torch, dev, dt):
     """(tag, q, k, v, kwargs) at the shapes of the checks: causal prefill
-    over G and hd and at query counts off the 64-row tile (77, 200, 513),
-    MQA at G = 48 and hd 128, a q_offset suffix, decode over a
+    over G and hd and at query counts off the 128-row item (77, 200, 513),
+    MQA at G = 48 and hd 128, MLA's 576-wide keys over their 512-wide
+    prefix (the mma form in bf16), a q_offset suffix, decode over a
     [8, 1024, 4, 64] cache with kv_len on and around the 32-row splits,
     windows, softcap (with a window at hd 256), kv_start per row (one
     leaving whole splits empty) and a strided layer view of a stacked cache."""
@@ -1680,6 +1686,9 @@ def b9_cases(torch, dev, dt):
                       rnd(2, S, 4, 64), dict(causal=True)))
     cases.append(("MQA G=48 hd=128", rnd(2, 160, 48, 128), rnd(2, 160, 1, 128),
                   rnd(2, 160, 1, 128), dict(causal=True)))
+    kk = rnd(1, 64, 1, 576)
+    cases.append(("MLA 576 over its 512-wide prefix", rnd(1, 64, 16, 576), kk, kk[..., :512],
+                  dict(causal=True)))
     q, k, v = rnd(1, 256, 32, 64), rnd(1, 256, 4, 64), rnd(1, 256, 4, 64)
     cases.append(("q_offset 200", q[:, 200:], k, v, dict(causal=True, q_offset=i32(200))))
     ck, cv = rnd(SERVE_BATCH, SERVE_MAX_LEN, 4, 64), rnd(SERVE_BATCH, SERVE_MAX_LEN, 4, 64)
@@ -1710,7 +1719,7 @@ def b9_cases(torch, dev, dt):
 
 def b9_garbage_cases(torch, dev, dt, qd, ck, cv, start):
     """(tag, q, kwargs) whose keys below kv_start get NaN / inf: the decode
-    at pos 700 (split form) and a 100-query suffix at q_offset 600 (the mma
+    at pos 700 (split form) and a 100-query suffix at q_offset 600 (the wgmma
     form in bf16, simt in f32), both over the [8, 1024, 4, 64] cache."""
     g = torch.Generator(device=dev).manual_seed(33)
     qp = torch.randn(SERVE_BATCH, 100, 32, 64, generator=g, device=dev).to(dt)
@@ -1864,7 +1873,7 @@ def seen_text(r):
 
 def time_b9(torch, ops, fa, dev, bw, peak):
     """B9, its plain version and SDPA at the serve path's two shapes, bf16:
-    prefill q [8, 512, 32, 64] causal (the mma form), and decode
+    prefill q [8, 512, 32, 64] causal (the wgmma form), and decode
     q [8, 1, 32, 64] over the [8, 1024, 4, 64] cache at pos 512 (the split
     form; SDPA gets K/V cut to the live rows). The kernel is first held
     against the plain version on those inputs. Returns (times by shape, max
@@ -1920,6 +1929,105 @@ def time_b9(torch, ops, fa, dev, bw, peak):
             f"({r['ms'] / r['library_ms']:.2f}x SDPA), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); device time alone (profiler): kernel "
             f"{fmt_ms(r['device_ms'])} ms, SDPA {fmt_ms(r['library_device_ms'])} ms")
+    return out, err
+
+
+# the wgmma form's timed shapes, bf16: (tag, B, Sq, H, Skv, Hkv, hd, causal,
+# kwargs, decode position or None): every served model's prefill that takes
+# it (Llama-3.2-V's cross prefill also at a tensor-parallel rank's M = 2
+# heads), Gemma2-9B's with its softcap and window, and Granite-20B's MQA (G =
+# 48), whose decode (48 rows a kv head) takes the wgmma form too
+WGMMA_TIMED = (
+    ("TinyLlama prefill", 8, 512, 32, 512, 4, 64, True, {}, None),
+    ("MusicGen self prefill (MHA)", 8, 512, 32, 512, 32, 64, True, {}, None),
+    ("Llama-3.2-V self prefill", 8, 512, 32, 512, 8, 128, True, {}, None),
+    ("Llama-3.2-V cross prefill", 8, 512, 32, 1601, 8, 128, False, {}, None),
+    ("Llama-3.2-V cross prefill at M = 2", 8, 256, 16, 1601, 4, 128, False, {}, None),
+    ("Zamba2 shared attention prefill", 8, 512, 32, 512, 32, 80, True, {}, None),
+    ("Gemma2-9B prefill", 8, 512, 16, 512, 8, 256, True, dict(window=4096, softcap=50.0), None),
+    ("Granite-20B prefill", 8, 512, 48, 512, 1, 128, True, {}, None),
+    ("Granite-20B decode", 8, 1, 48, 1024, 1, 128, True, {}, 512),
+)
+
+
+def sdpa_backend(torch, fn, sessions=3):
+    """(the SDPA backend, the name of its longest kernel) of one call of fn,
+    read off torch.profiler's records; (None, None) where no session of
+    ``sessions`` kept one (CUPTI at times drops them)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            names = " ".join(e.name for e in ev).lower()
+            main = max(ev, key=lambda e: e.time_range.end - e.time_range.start).name
+            return ("cuDNN" if "cudnn" in names else "flash" if "flash" in names else
+                    "memory-efficient" if ("fmha" in names or "efficient" in names) else
+                    "math"), main
+    return None, None
+
+
+def time_b9_wgmma(torch, ops, fa, dev, bw, peak):
+    """The wgmma form at every shape of WGMMA_TIMED: held to its plain
+    version first (phase 6's tolerances), then its time by CUDA events and
+    device alone (device_alone), its bound (roofline.b9_cost: the bytes
+    over the memory rate, the operations over the bf16 dense peak ``peak``),
+    and SDPA's on the same inputs (BHSD copies, ``enable_gqa``; no softcap
+    (Gemma2's 4096-key window spans the whole 512-key prompt); the decode
+    over the live rows), with the backend that ran; SDPA's device time is
+    its longest kernel's. The factor is device over device where both were
+    seen, else events over events. Returns a list of records and the max
+    abs err."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(35)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=dev))
+    out, err = [], 0.0
+    for tag, B, Sq, H, Skv, Hkv, hd, causal, extra, pos in WGMMA_TIMED:
+        q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=causal, **extra)
+        live = Skv
+        if pos is not None:
+            kw.update(q_offset=i32(pos), kv_len=i32(pos + 1))
+            live = pos + 1
+        err = max(err, b9_err(tag, ops.attention(q, k, v, **kw), plain_attention(q, k, v, **kw)))
+        fn = (lambda: ops.attention(q, k, v, **kw))
+        ms, form = timed_form(torch, fa, fn)
+        if form != "wgmma":
+            raise RuntimeError(f"B9 {tag}: timed through the {form} form, not wgmma")
+        r = dict(tag=tag, q=[B, Sq, H, hd], kv=[B, Skv, Hkv, hd], causal=causal, ms=ms,
+                 form=form, **{k_: v_ for k_, v_ in extra.items()})
+        device_alone(torch, fa, r, fn, "wgmma")
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x[:, :live].transpose(1, 2).contiguous() for x in (k, v))
+        sfn = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal and pos is None, enable_gqa=True))
+        r["library_ms"] = time_launches(torch, sfn)
+        r["library_backend"], main = sdpa_backend(torch, sfn)
+        r["library_device_ms"] = device_ms(torch, sfn, main) if main else None
+        r["bound_ms"], r["bound_by"] = b9_bound(B, Sq, H, Hkv, hd, live, 2, bw, peak,
+                                                causal=causal)
+        dev_ms, lib_dev = r["device_ms"], r["library_device_ms"]
+        r["factor"] = (dev_ms / lib_dev if dev_ms is not None and lib_dev is not None
+                       else ms / r["library_ms"])
+        basis = "device" if dev_ms is not None and lib_dev is not None else "events"
+        log(f"[serve] B9 wgmma {tag}: q {r['q']} over {r['kv']}"
+            + (f" at pos {pos}" if pos is not None else "")
+            + (" causal" if causal else " non-causal")
+            + (f", softcap {extra['softcap']:g}, window {extra['window']}" if extra else "")
+            + f": kernel {ms:.4f} ms, {seen_text(r)}; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); SDPA ({r['library_backend']} backend"
+            + (", no softcap" if extra.get("softcap") else "")
+            + f") {r['library_ms']:.4f} ms, device {fmt_ms(lib_dev)} ms; "
+            f"{r['factor']:.2f}x SDPA ({basis})")
+        out.append(r)
+        del q, k, v, qt, kt, vt
+    log(f"[serve] B9 wgmma form vs plain version at the timed shapes, bfloat16: max abs err "
+        f"{err:.3e}")
     return out, err
 
 
@@ -2055,7 +2163,8 @@ def run_serve_phase(torch, ops, fa, dev, bw, peak):
     from repro_torch.configs import get_config
     err, check_forms = check_b9(torch, ops, fa, dev)
     times, err_full = time_b9(torch, ops, fa, dev, bw, peak)
-    err["bfloat16"] = max(err["bfloat16"], err_full)
+    wgmma_times, err_wg = time_b9_wgmma(torch, ops, fa, dev, bw, peak)
+    err["bfloat16"] = max(err["bfloat16"], err_full, err_wg)
     torch.cuda.empty_cache()
     cfg = get_config(SERVE_ARCH)
     n_flow, flow_forms, flow = serve_flow(torch, ops, fa, cfg, dev)
@@ -2074,7 +2183,7 @@ def run_serve_phase(torch, ops, fa, dev, bw, peak):
                  decode_bound_ms=dec["bound_ms"],
                  decode_bound_by=dec["bound_by"], library="scaled_dot_product_attention",
                  launches_by_form={f: flow_forms[f] + bat_forms[f] for f in flow_forms},
-                 check_launches_by_form=check_forms,
+                 check_launches_by_form=check_forms, wgmma_shapes=wgmma_times,
                  serve=dict(flow, **{k: bat[k] for k in ("tokens_per_s", "boundary_ms",
                                                          "ttft_p50_boundaries",
                                                          "latency_p99_boundaries")},
@@ -3781,7 +3890,7 @@ def run_lm_phase(torch, ops, fu, ck, ref, fa, codec_seeds, dev, bw, peak):
 # launch.serve.run's arguments: the reference CLI's defaults at full width,
 # W = 2 (W = 4's planes alone need 4 x 4 x 4.10 GiB, and
 # validate_fleet_memory refuses it)
-TS_W, TS_EVERY, TS_BOUNDARIES = 2, 5, 60
+TS_W, TS_EVERY, TS_BOUNDARIES = 2, 5, 40
 TS_KW = dict(reduced=False, engine="sim", workers=TS_W, method="elastic_gossip", p=0.25,
              alpha=0.5, lr=0.01, seq=32, per_worker_batch=2, slots=4, max_len=256, rate=0.3,
              num_requests=24, publish_every=TS_EVERY, train_per_boundary=1,
@@ -4184,9 +4293,9 @@ def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None, cross_gate=0.
     gates at ``cross_gate`` and a random cond). For DeepSeek its memory plan
     publishes bf16 weights and turns the mid-stream swap off (a second
     replica does not fit beside the first). B9 must launch once per
-    attention (27 for DeepSeek) in the prefill (the mma form: MLA's kernel
-    for DeepSeek, head dim 80 for Zamba2) and as many times a step (split),
-    and nowhere else."""
+    attention (27 for DeepSeek) in the prefill (the mma form, MLA's kernel,
+    for DeepSeek; the wgmma form for every other model) and as many times a
+    step (split), and nowhere else."""
     from repro_torch.launch.serve_decode import serve_decode
     L = attn_passes(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4201,7 +4310,8 @@ def mla_serve_flow(torch, ops, fa, cfg, dev, tag="mla", desc=None, cross_gate=0.
     counts = {k: counts[k] for k in KERNELS}
     want = dict.fromkeys(KERNELS, 0)
     want[B9] = L * (1 + SERVE_TOKENS)
-    want_forms = {"mma": L, "simt": 0, "split": L * SERVE_TOKENS}
+    want_forms = {**dict.fromkeys(forms0, 0), "mma" if cfg.mla else "wgmma": L,
+                  "split": L * SERVE_TOKENS}
     if (r["prefill_launches"] != L or set(r["step_launches"]) != {L} or counts != want
             or forms != want_forms):
         raise RuntimeError(f"[{tag}] launches: prefill {r['prefill_launches']}, per step "
@@ -4397,7 +4507,7 @@ MOE_SEQ = 256
 MOE_CAPACITY = 120                   # 4 x 256 tokens a worker x top-6 / 64 experts x 1.25
 F64_TOKENS = 64                      # the f64 gradient checks' one sequence (CPU time)
 PEAK_PLAN = (0.9, 1.2)               # max_memory_allocated / the step's memory plan
-MOE_TS_BOUNDARIES = 48
+MOE_TS_BOUNDARIES = 32
 MOE_TS_KW = dict(TS_KW, layers=MOE_LAYERS)
 MOE_REDUCED_W = 2                    # the reduced dist runs' processes
 
@@ -4747,7 +4857,7 @@ def b9_hd80_cases(torch, dev, dt):
     over 32 kv heads): decode over the [8, 1024] cache at positions 0, 511,
     1023 and with a kv_start (split form), prefill 8 x 512, 77 rows (off
     the 64-key tile and the 128-row block) and a 60-query suffix at
-    q_offset 200 (the mma form in bf16, simt in f32)."""
+    q_offset 200 (the wgmma form in bf16, simt in f32)."""
     g = torch.Generator(device=dev).manual_seed(53)
 
     def rnd(*shape):
@@ -4773,7 +4883,7 @@ def b9_hd80_cases(torch, dev, dt):
 
 def check_b9_hd80(torch, ops, fa, dev):
     """B9 at head dim 80 against its plain version, f32 and bf16, to phase
-    6's tolerances: decode in the split form, prefill in the mma form in
+    6's tolerances: decode in the split form, prefill in the wgmma form in
     bf16 and the simt form in f32, and nothing else; NaN and inf below
     kv_start invisible in the prefill's form. Returns the max abs err by
     dtype."""
@@ -4791,12 +4901,12 @@ def check_b9_hd80(torch, ops, fa, dev):
             if fa.LAUNCHES != n + 1 or got.shape != want.shape:
                 raise RuntimeError(f"B9 hd 80 {tag}: no launch, or shape {tuple(got.shape)}")
             worst[name] = max(worst[name], b9_err(f"hd 80 {tag}", got, want))
-        tc = "mma" if dt == torch.bfloat16 else "simt"
+        tc = "wgmma" if dt == torch.bfloat16 else "simt"
         garbage = b9_garbage_prefill(torch, ops, dev, dt, ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD,
                                      "hd 80", 56)
         ran = {f: fa.FORM_LAUNCHES[f] - before[f] for f in before}
         n_dec = sum(1 for c in cases if c[1].shape[1] == 1)
-        want_ran = {"split": n_dec, "mma": 0, "simt": 0}
+        want_ran = {**dict.fromkeys(before, 0), "split": n_dec}
         want_ran[tc] = len(cases) - n_dec + 2
         if ran != want_ran or garbage != tc:
             raise RuntimeError(f"B9 hd 80 checks, {name}: forms {ran} (want {want_ran}), "
@@ -4811,7 +4921,7 @@ def check_b9_hd80(torch, ops, fa, dev):
 
 def time_b9_hd80(torch, ops, fa, dev, bw, peak):
     """B9, its plain version and SDPA at Zamba2's shared attention in bf16,
-    by CUDA events: the prefill [8, 512, 32, 80] causal (the mma form; also
+    by CUDA events: the prefill [8, 512, 32, 80] causal (the wgmma form; also
     its device time alone, device_alone) and the decode [8, 1, 32, 80] over
     the [8, 1024, 32, 80] cache at position 512 (split form; SDPA gets the
     live rows)."""
@@ -4829,7 +4939,7 @@ def time_b9_hd80(torch, ops, fa, dev, bw, peak):
                    qt, kt, vt, is_causal=True), reps=20, warmup=3))
     pre["bound_ms"], pre["bound_by"] = b9_bound(B, S, H, H, hd, S, 2, bw, peak)
     device_alone(torch, fa, pre, lambda: ops.attention(q, k, v, causal=True),
-                 "flash_attention_mma_kernel")
+                 "flash_attention_wgmma_kernel")
     out["prefill"] = pre
     pos = SERVE_PROMPT
     ck, cv = (torch.randn(B, SERVE_MAX_LEN, H, hd, generator=g, device=dev).to(dt)
@@ -4996,7 +5106,7 @@ CROSS_WHAT = ("non-causal over 1601 image tokens, a partial last key tile, and o
 
 def check_b9_cross(torch, ops, fa, dev, cases=CROSS_B9, tag="cross", what=CROSS_WHAT):
     """B9 at every shape of ``cases`` (CROSS_B9's form) against its plain
-    version, f32 and bf16, to phase 6's tolerances: prefill in the mma form
+    version, f32 and bf16, to phase 6's tolerances: prefill in the wgmma form
     (bf16) or simt (f32), decode in the split form, each launch counted.
     Returns the max abs err by dtype."""
     worst = {}
@@ -5007,7 +5117,7 @@ def check_b9_cross(torch, ops, fa, dev, cases=CROSS_B9, tag="cross", what=CROSS_
         for i, case in enumerate(cases):
             q, k, v, kw, _ = b9_cross_case(torch, dev, dt, case, 70 + i)
             want_form = ("split" if q.shape[1] == 1 else
-                         "mma" if dt == torch.bfloat16 else "simt")
+                         "wgmma" if dt == torch.bfloat16 else "simt")
             n, f0 = fa.LAUNCHES, fa.FORM_LAUNCHES[want_form]
             got = ops.attention(q, k, v, **kw)
             want = plain_attention(q, k, v, **kw)
@@ -5187,8 +5297,8 @@ GA_W, GA_SEQ, GA_PWS, GA_STEPS = 2, 256, (8, 4, 2), 3   # the largest fitting pw
 GA_LR, GA_P = 1e-2, 0.25          # p 0.25: fewer 4.4 GB exchanges through gloo
 MP_STEPS = 24                        # the reference's protocols test: W 4, pw 2, seq 32
 TP_MODELS = (2, 4)
-TP_BATCH, TP_PROMPT, TP_TOKENS, TP_MAX_LEN = 8, 512, 64, 1024
-TP_TOKENS_M4 = 16                    # M = 4's bf16 run: its steps are the script's slowest
+TP_BATCH, TP_PROMPT, TP_TOKENS, TP_MAX_LEN = 8, 512, 32, 1024
+TP_TOKENS_M4 = 8                     # M = 4's bf16 run: its steps are the script's slowest
 TP_GATE = dict(layers=4, prompt=128, tokens=16, max_len=256)   # the f32 gate, TinyLlama widths
 TP_GATE_REL = 1e-5                   # largest |logit diff| / largest |logit|, every step
 TP_B9 = tuple(case for M in TP_MODELS for case in (
@@ -5428,10 +5538,14 @@ def run_tp_phase(torch, ops, fa, dev, bw, peak_bf16, smi):
 # cross-attention models (DeepSeek-V2-Lite-16B whole in bf16 over 2 ranks)
 # ---------------------------------------------------------------------------
 
-TPK_BF16 = dict(deepseek_v2_lite_16b=dict(prompt=512, tokens=16),   # whole, 27 layers
-                zamba2_2_7b=dict(prompt=256, tokens=8),
+# the bf16 runs at M = 2 (xLSTM also at 4): published widths, depth cut for
+# the script's time (DeepSeek 9 of 27 layers: the dense one and 8 MoE;
+# Zamba2 18 of 54: 3 segments and their shared sites; vision 10 of 40 with
+# its cross blocks among them; xLSTM whole)
+TPK_BF16 = dict(deepseek_v2_lite_16b=dict(prompt=512, tokens=8, layers=9),
+                zamba2_2_7b=dict(prompt=256, tokens=8, layers=18),
                 xlstm_125m=dict(prompt=256, tokens=8),
-                llama_3_2_vision_11b=dict(prompt=256, tokens=8))
+                llama_3_2_vision_11b=dict(prompt=256, tokens=8, layers=10))
 # B9 on each rank at M = 2 in TPK_BF16's runs: (tag, B, Sq, H, Skv, Hkv, hd,
 # dv, causal, a decode query's position). A prefill attends over its
 # prompt, a decode over the SERVE_MAX_LEN-row cache from the first step's
@@ -5495,10 +5609,10 @@ def b9_local_bound(case, visible, bw, peak):
 
 def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
     """B9 at each rank's shapes of TPK_B9 against its plain version (f32
-    and bf16, phase 6's tolerances; split form in decode, mma for every
-    bf16 prefill (MLA's by its own kernel, over the keys' prefix), simt for
-    the f32 ones), then timed in bf16 beside its plain version and SDPA, and
-    the prefills new to the mma form (MLA, Zamba2) also device alone.
+    and bf16, phase 6's tolerances; split form in decode, wgmma for every
+    bf16 prefill but MLA's (mma: its own kernel, over the keys' prefix),
+    simt for the f32 ones), then timed in bf16 beside its plain version and
+    SDPA, and the MLA and Zamba2 prefills also device alone.
     Returns (max abs err by dtype, timings)."""
     import torch.nn.functional as F
     worst = {}
@@ -5507,8 +5621,8 @@ def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
         worst[name] = 0.0
         for i, case in enumerate(TPK_B9):
             q, k, v, kw, _ = b9_local_case(torch, dev, dt, case, 90 + i)
-            form = ("split" if q.shape[1] == 1 else
-                    "mma" if dt == torch.bfloat16 else "simt")
+            form = ("split" if q.shape[1] == 1 else "simt" if dt == torch.float32 else
+                    "mma" if v.shape[-1] < q.shape[-1] else "wgmma")
             n, f0 = fa.LAUNCHES, fa.FORM_LAUNCHES[form]
             got = ops.attention(q, k, v, **kw)
             want = plain_attention(q, k, v, **kw)
@@ -5543,7 +5657,7 @@ def tp_kinds_b9(torch, ops, fa, dev, bw, peak_bf16):
         if case[0] in ("MLA prefill", "Zamba2 prefill"):
             device_alone(torch, fa, r, lambda: ops.attention(q, k, v, **kw),
                          "flash_attention_mla_kernel" if case[6] == MLA_HD
-                         else "flash_attention_mma_kernel")
+                         else "flash_attention_wgmma_kernel")
         times[case[0]] = r
         log(f"[tp-kinds] B9 {case[0]} bf16 q {r['shape']} over {r['keys']} values "
             f"{r['values']} ({form} form): kernel {ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -5564,7 +5678,9 @@ def _tpk_runs(torch, M):
     if M > 1:
         for arch, kw in TPK_BF16.items():
             if M == 2 or arch == "xlstm_125m":
-                runs.append(dict(tag=f"{arch} bf16", cfg=get_config(arch), dtype=torch.bfloat16,
+                cfg = get_config(arch)
+                cfg = dataclasses.replace(cfg, num_layers=kw.get("layers", cfg.num_layers))
+                runs.append(dict(tag=f"{arch} bf16", cfg=cfg, dtype=torch.bfloat16,
                                  batch=SERVE_BATCH, prompt_len=kw["prompt"],
                                  tokens=kw["tokens"], max_len=SERVE_MAX_LEN, seed=0,
                                  cross_gate=CROSS_GATE))
@@ -5758,7 +5874,7 @@ PLAN_MATMUL = 8192                   # the bf16 matmul's M = N = K
 PLAN_RATE_LIMIT = 1.05               # a measured rate above spec x this fails
 PLAN_SHARE_LIMIT = 1.05              # a counted roofline share above this fails
 PLAN_PEAK_LIMITS = (0.75, 1.33)      # max_memory_allocated over the plan's bytes
-PLAN_STEPS = 16                      # timed runs of each counted program
+PLAN_STEPS = 8                       # timed runs of each counted program
 # the sweep's cells run in this phase (the serving programs on one mesh:
 # each counts in about a second on the CPU); the training cells and
 # xLSTM-125M's prefill (its sLSTM loops over 32,768 steps) are left to the
@@ -5934,12 +6050,14 @@ def plan_lm(torch, ops, fa, dev, spec, smi, arch, layers=None):
     launches = ops.launch_counts()
     forms = {f: fa.FORM_LAUNCHES[f] - forms0[f] for f in forms0}
     want = (PLAN_STEPS + 1) * cfg.num_layers
-    # a bf16 prefill takes the tensor cores: TinyLlama's head dim 64 and
-    # DeepSeek's MLA (576-wide keys over their 512-wide prefix) alike
+    # a bf16 prefill takes the tensor cores: TinyLlama's head dim 64 the
+    # wgmma form, DeepSeek's MLA (576-wide keys over their 512-wide prefix)
+    # the mma form
+    tc = "mma" if cfg.mla else "wgmma"
     if (launches[B9] != want or costs.ops.get(B9) != cfg.num_layers
-            or forms != {"mma": want, "split": 0, "simt": 0}):
+            or forms != {**dict.fromkeys(forms0, 0), tc: want}):
         raise AssertionError(f"[plan] {name} prefill: B9 launched {launches[B9]} by form "
-                             f"{forms} (want {want}, all mma), counted {costs.ops.get(B9)} "
+                             f"{forms} (want {want}, all {tc}), counted {costs.ops.get(B9)} "
                              f"a prefill")
     if "decode" in counted:
         logits, cache = sp.prefill_fn(params, tokens)

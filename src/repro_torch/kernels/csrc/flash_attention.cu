@@ -25,54 +25,72 @@
 // multiples of 8): MLA attends with 576-wide keys (the 512-wide latent c_kv
 // and the 64-wide roped key) over the latent alone. Where v is the prefix of
 // k (the same pointer and strides: MLA's values as the view kk[..., :dv]),
-// the SIMT and SPLIT forms and MMA's MLA kernel read the values from the K
-// tile they already hold.
+// the SIMT and SPLIT forms and MMA (MLA's kernel) read the values from the
+// K tile they already hold.
 //
-// Three forms compute this function. The wrapper picks one from host-known
+// Four forms compute this function. The wrapper picks one from host-known
 // shapes alone (kernels/flash_attention.py::_form; never from kv_len, which
 // is a device scalar) and passes it in:
 //
 //   rows = (H / Hkv) * Sq, the query rows that share one kv head
 //   rows <= 16                              -> SPLIT (decode; f32 and bf16, any hd)
-//   bf16, hd in {64, 80, 128, 256}, dv = hd -> MMA   (prefill on the tensor cores)
-//   bf16, hd 576, dv 512, v in k            -> MMA   (MLA's prefill: its own kernel)
+//   bf16, hd in {64, 80, 128, 256}, dv = hd -> WGMMA (prefill on Hopper's warpgroup MMA)
+//   bf16, hd 576, dv 512, v in k            -> MMA   (MLA's prefill: mma.sync, its own kernel)
 //   otherwise                               -> SIMT  (f32 prefill, other shapes)
 //
 // Every form visits only the keys in [lo, hi): lo the largest of
 // kv_start[b] and the window's lower edge for the block's first query, hi
 // the smallest of kv_len, Skv and (causal) its last query + 1. Keys outside
-// are never read (staged as zeros where a tile overhangs), and a key masked
-// for one row has its probability selected to 0, so whatever garbage lies
-// below kv_start or past kv_len contributes exactly nothing. This is exact
-// for any row with at least one visible key, since the first visible key's
-// correction exp(-1e30 - m) is exactly 0 in the reference too. A row with no
-// visible key at all is out of contract (no path produces one): it gives 0
-// here and the mean of v in the reference. Query rows are packed s-major,
-// row r being query s = r / G of head g = r % G (G = H / Hkv), so every K/V
-// row a block reads serves all G heads.
+// are never read (staged as zeros where a tile overhangs; WGMMA's TMA loads
+// a whole last tile and zeroes its V rows from kv_len on in shared memory), and
+// a key masked for one row has its probability selected to 0, so whatever
+// garbage lies below kv_start or past kv_len contributes exactly nothing.
+// This is exact for any row with at least one visible key, since the first
+// visible key's correction exp(-1e30 - m) is exactly 0 in the reference
+// too. A row with no visible key at all is out of contract (no path
+// produces one): it gives 0 here and the mean of v in the reference. Query
+// rows are packed s-major, row r being query s = r / G of head g = r % G (G
+// = H / Hkv), so every K/V row a block reads serves all G heads.
 //
-// MMA (bf16; FA2's structure on mma.sync). A block of 4 warps takes one
-// (batch row, kv head) and 128 of its query rows at hd 64 and 80 (each warp
-// two 16-row atoms, so every K and V fragment it reads feeds 32 rows), 64 at
-// hd 128 and 256 (one atom a warp, for registers). Q is copied once into
-// shared memory; K/V tiles of 64 keys (32 at hd 256) go through a double
-// buffer with 16-byte cp.async, so tile t + 1 loads while tile t is
-// computed. S = Q K^T is mma.sync.m16n8k16 bf16 -> f32 with Q and K read by
-// ldmatrix. Scores are scaled (and softcapped) into log2 units, so each
-// probability is one ex2; on a tile that some row of the warp does not
-// wholly see, masked scores are selected to -inf (ex2 gives exactly 0), and
-// wholly visible tiles skip the masks. The running max, sum and correction
-// stay in f32 registers; P is rounded to bf16 and O += P V is mma.sync with
-// V read by ldmatrix.trans. Rows are padded by 16 bytes in shared memory,
-// so ldmatrix's eight rows fall on distinct banks. O is normalised in f32,
-// cast once and staged through shared memory into 16-byte stores. Blocks
-// are issued longest-first across the whole grid (the last query rows see
-// the most keys under causal masking), which balances the SMs' work. At hd
-// 80 (Zamba2's shared attention) the loops run over 5 k-steps of 16 and 10
-// chunks of 8; rows of 88 elements still put ldmatrix's rows on distinct
-// banks. At hd 64 and 80 a thread takes 255 registers (O and S of two
-// atoms), so 2 blocks (8 warps) share an SM; one atom a warp, 32-key
-// tiles or a cap of 3 blocks an SM all ran slower on an H100.
+// WGMMA (bf16, hd = dv in 64 / 80 / 128 / 256; FA3's structure on wgmma and
+// TMA). A persistent kernel: one block of two warpgroups (256 threads) on
+// each SM, two at hd 64 and 80, walks the work items, 128 query rows of
+// one (batch row, kv head) each. The items run pair-major: the row tiles of
+// one (batch row, kv head) read the same keys, so they run side by side and
+// their K/V tiles come from L2 (one after another by kv pair, 64 pairs'
+// keys at once overflowed it at 1601 keys); within a pair the last row tile
+// first, as it sees the most keys under causal masking. Each warpgroup owns
+// 64 rows (wgmma's M) and copies them once with cp.async, into a second Q
+// buffer during the item before where shared memory allows. K and V tiles
+// (128 keys at hd 128, 64 at hd 64, 80 and 256) arrive by TMA, each into a
+// ring of 2 stages whose "full" mbarrier the copy's bytes complete. Each
+// tensor map is 4-d over [B, Skv, Hkv, hd] with the caller's strides,
+// encoded by the host for every call (cuTensorMapEncodeTiled, found through
+// cudaGetDriverEntryPoint) and passed as a __grid_constant__; rows past Skv
+// arrive as zeros. No warp is set aside to load: the warp that releases a
+// stage last (a count in shared memory) loads the ring's next tile into it,
+// from a cursor that every warp moves on alike, into the next work item
+// too. (A producer warp, or warpgroup, makes 9 or 12 warps a block, and
+// ptxas then caps every thread at 168 registers, setmaxnreg or not: O, S
+// and P of a 128-key tile at hd 128 spilled. Eight warps take up to 255.)
+// The head dim lies in 64-wide chunks of 128-byte rows under the 128-byte
+// swizzle (TMA's and wgmma's shared layout) and, at hd 80, a 16-wide tail
+// of 32-byte rows under the 32-byte swizzle. S = Q K^T is wgmma
+// m64nBKNk16 with both operands read from shared memory through
+// descriptors (4 k-steps a chunk, one for the tail); O += P V takes P from
+// registers (S's f32 accumulator rounded to bf16 in place: a thread holds
+// rows g and g + 8 of its warp's 16, as the m16n8k16 MMA's C, so P's C fragments
+// are A fragments and the row max and sum are quad shuffles) and V as an
+// MN-major operand (at hd 80 a second wgmma of N = 16 over the tail). Tile
+// t's S is issued beside tile t - 1's P V, so a warpgroup's softmax runs
+// under its own product, and the two warpgroups take turns at the tensor
+// cores (named barriers), so one's softmax runs under the other's products.
+// The softmax is MMA's in fewer instructions: scores in log2 units, one
+// FFMA and one ex2 each, masks selected to -inf only on tiles that some row
+// of the warp does not wholly see, O rescaled only when some row's max
+// moved; the running max, sum and O stay in f32 registers, O is normalised
+// in f32, cast once and staged through the item's Q rows into 16-byte
+// stores.
 //
 // MMA at MLA's shapes (bf16, hd 576, dv 512, v the keys' prefix; kernel
 // flash_attention_mla_kernel). One warp's 16-row atom over 576 key dims and
@@ -124,20 +142,22 @@
 // Bound on this card: the larger of the bytes (q, the visible K/V rows and
 // out, each moved once) and the operations (2 * (hd + dv) flops per row and
 // visible key) at the bf16 tensor-core peak; at the serve path's shapes the
-// bytes, for prefill and decode alike. MMA keeps the K/V traffic at one read
-// per 64 or 128 query rows and the math on the tensor cores; SPLIT spreads
-// the decode keys over 32 times as many blocks as one per (batch row, kv
-// head) would.
+// bytes, for prefill and decode alike. WGMMA keeps the K/V traffic at one
+// read per 128 query rows and the math on the tensor cores at their full
+// rate, with the loads off the computing warps; SPLIT spreads the decode
+// keys over 32 times as many blocks as one per (batch row, kv head) would.
 //
 // Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -split-compile=0 -shared
 //     -Xcompiler -fPIC
 // and called through ctypes (plain C entry point below).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -148,10 +168,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int SPLIT_KEYS = 32;   // keys per split (SPLIT): a key per lane
 constexpr int SPLIT_ROWS = 16;   // most query rows per kv head (SPLIT)
 constexpr int SPLIT_THREADS = 128;
-constexpr int MMA_THREADS = 128;
 constexpr int MAX_HD = 576;              // MLA's 512 + 64
 constexpr size_t MAX_SMEM = 232448;      // the dynamic shared memory a block may opt in to
-enum Form { SIMT = 0, MMA = 1, SPLIT = 2 };
+enum Form { SIMT = 0, MMA = 1, SPLIT = 2, WGMMA = 3 };
 
 struct Args {
   const void* q;
@@ -513,7 +532,8 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// MMA: bf16 prefill on the tensor cores
+// The tensor-core forms' shared pieces: the softmax step and the rows'
+// ranges (WGMMA and MMA), and mma.sync's (MMA at MLA's shapes)
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
@@ -636,6 +656,77 @@ __device__ __forceinline__ void softmax_step(const Args& a, float (&s)[RA][NB][4
   }
 }
 
+// softmax_step for one 64-row warpgroup tile (the WGMMA form): the same
+// function in fewer instructions. The max is taken over the raw scores
+// (scaling by a positive factor, and the softcap's tanh, keep the order),
+// each probability is one FFMA and one ex2 (p = 2^(s * scale * log2 e - m)),
+// and the max and the sum run as four independent chains a row. Returns
+// whether some row of the warp has a new max (O then needs rescaling).
+template <int NB>
+__device__ __forceinline__ bool softmax_wg(const Args& a, float (&s)[1][NB][4], float (&m)[1][2],
+                                           float (&l)[1][2], float (&corr)[1][2],
+                                           const int (&rlo)[1][2], const int (&rhi)[1][2], int t0,
+                                           int t4) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  bool full = rlo[0][0] <= t0 && rhi[0][0] >= t0 + 8 * NB && rlo[0][1] <= t0 &&
+              rhi[0][1] >= t0 + 8 * NB;
+  full = __all_sync(FULL, full);
+  const bool capped = a.softcap > 0.f;
+  if (capped) {                 // a uniform branch around the loop, never per score
+    const float cap_in = a.scale / a.softcap, cap_l2 = a.softcap * LOG2E;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[0][n][i] = cap_l2 * tanhf(s[0][n][i] * cap_in);
+  }
+  if (!full) {
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = t0 + n * 8 + 2 * t4 + (i & 1);
+        const int hh = i >> 1;
+        if (!(key >= rlo[0][hh] && key < rhi[0][hh])) s[0][n][i] = -INFINITY;
+      }
+  }
+  // scores to log2 units: capped ones are there already
+  const float sl2 = capped ? 1.f : a.scale * LOG2E;
+  float mx[2][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx[hh][j] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1][(n & 1) * 2 + (i & 1)] =
+        fmaxf(mx[i >> 1][(n & 1) * 2 + (i & 1)], s[0][n][i]);
+  float nm[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float v = fmaxf(fmaxf(mx[hh][0], mx[hh][1]), fmaxf(mx[hh][2], mx[hh][3]));
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+    const float mn = fmaxf(m[0][hh], v * sl2);
+    corr[0][hh] = exp2_approx(m[0][hh] - mn);
+    m[0][hh] = mn;
+    nm[hh] = -mn;
+  }
+  float sum[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = exp2_approx(fmaf(s[0][n][i], sl2, nm[i >> 1]));
+      s[0][n][i] = p;
+      sum[i >> 1][(n & 1) * 2 + (i & 1)] += p;
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    l[0][hh] = l[0][hh] * corr[0][hh] + ((sum[hh][0] + sum[hh][1]) + (sum[hh][2] + sum[hh][3]));
+  return __any_sync(FULL, corr[0][0] != 1.f || corr[0][1] != 1.f);
+}
+
 // the visible key range [lo, hi) of each of a thread's rows (row r of the
 // block for r = r0w + 16 ra + g + 8 hh; empty past nrows)
 template <int RA>
@@ -668,184 +759,6 @@ __device__ __forceinline__ void inv_sums(const float (&l)[2], float (&inv)[2]) {
   }
 }
 
-template <int HD>
-struct MmaTile {
-  static constexpr int RA = HD <= 80 ? 2 : 1;       // 16-row atoms per warp
-  static constexpr int ROWS = 4 * 16 * RA;          // query rows per block
-  static constexpr int BKN = HD > 128 ? 32 : 64;    // keys per K/V tile
-  static constexpr int LD = HD + 8;                 // smem row stride (elements)
-  static constexpr size_t smem = sizeof(bf16) * (size_t)(ROWS + 4 * BKN) * LD;
-};
-
-// Fragment layouts of mma.m16n8k16 (lane = 4 g + t): A row g / g + 8, cols
-// 2t, 2t + 1 (+ 8); B col g, rows 2t, 2t + 1 (+ 8); C/D row g / g + 8, cols
-// 2t, 2t + 1. So for each of its RA row atoms a thread holds rows g and
-// g + 8, and in S the keys 8 n + 2 t + {0, 1} of each 8-key block n. Each K
-// and V fragment read from shared memory feeds the warp's RA atoms. Scores
-// are kept in log2 units (scaled by log2 e), so each probability is one
-// ex2; masked scores are -inf, whose ex2 is exactly 0.
-template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_attention_mma_kernel(Args a) {
-  using Tile = MmaTile<HD>;
-  constexpr int RA = Tile::RA, ROWS = Tile::ROWS, BKN = Tile::BKN, LD = Tile::LD;
-  constexpr int NB = BKN / 8;      // 8-key blocks of S per tile
-  constexpr int DB = HD / 8;       // 8-dim blocks of O
-  constexpr int CH = HD / 8;       // 16-byte chunks per row
-  extern __shared__ uint4 smem_u4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);   // [ROWS][LD]
-  bf16* Ks = Qs + ROWS * LD;                     // [2][BKN][LD]
-  bf16* Vs = Ks + 2 * BKN * LD;                  // [2][BKN][LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  // a 1-d grid, longest first over the whole grid: every (kv head, batch
-  // row) of the last row tile, then of the one before, ...
-  const int G = a.H / a.Hkv;
-  const int pairs = a.Hkv * a.B;
-  const int hk = (int)(blockIdx.x % pairs) % a.Hkv, b = (int)(blockIdx.x % pairs) / a.Hkv;
-  const int r0 = (int)(gridDim.x / pairs - 1 - blockIdx.x / pairs) * ROWS;
-  const int nrows = min(ROWS, G * a.Sq - r0);
-  const Span sp = span_of(a, b, r0, nrows, G);
-  const int lo = sp.lo, hi = sp.hi;
-  const int wr0 = warp * 16 * RA;                      // the warp's first row
-
-  const bf16* q = static_cast<const bf16*>(a.q);
-  for (int e = tid; e < ROWS * CH; e += MMA_THREADS) {
-    const int r = e / CH, c = e - (e / CH) * CH;
-    const int rr = r0 + min(r, nrows - 1);
-    const int sq = rr / G, h = hk * G + rr % G;
-    cp_async16(Qs + r * LD + c * 8, q + b * a.qb + sq * a.qs + h * a.qh + c * 8, r < nrows);
-  }
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.kb + hk * a.kh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vb + hk * a.vh;
-  const int ntiles = hi > lo ? (hi - lo + BKN - 1) / BKN : 0;
-  auto load_kv = [&](int t0, int buf) {
-    for (int e = tid; e < BKN * CH; e += MMA_THREADS) {
-      const int j = e / CH, c = e - (e / CH) * CH;
-      const bool ok = t0 + j < hi;
-      const int64_t row = ok ? t0 + j : t0;
-      cp_async16(Ks + (buf * BKN + j) * LD + c * 8, kp + row * a.ks + c * 8, ok);
-      cp_async16(Vs + (buf * BKN + j) * LD + c * 8, vp + row * a.vs + c * 8, ok);
-    }
-  };
-  if (ntiles > 0) load_kv(lo, 0);
-  cp_async_commit();
-
-  int rlo[RA][2], rhi[RA][2];
-  thread_rows<RA>(a, sp, r0, wr0, nrows, G, g, rlo, rhi);
-  float o[RA][DB][4];
-  float m[RA][2], l[RA][2];
-#pragma unroll
-  for (int ra = 0; ra < RA; ++ra) {
-#pragma unroll
-    for (int i = 0; i < DB; ++i) o[ra][i][0] = o[ra][i][1] = o[ra][i][2] = o[ra][i][3] = 0.f;
-    m[ra][0] = m[ra][1] = NEG;
-    l[ra][0] = l[ra][1] = 0.f;
-  }
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int t0 = lo + t * BKN;
-    if (t + 1 < ntiles) load_kv(t0 + BKN, (t + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kt = Ks + (t & 1) * BKN * LD;
-    const bf16* Vt = Vs + (t & 1) * BKN * LD;
-
-    float s[RA][NB][4];
-#pragma unroll
-    for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-      for (int n = 0; n < NB; ++n) s[ra][n][0] = s[ra][n][1] = s[ra][n][2] = s[ra][n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[RA][4];
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra)
-        ldmatrix_x4(qa[ra], Qs + (wr0 + ra * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int n2 = 0; n2 < NB / 2; ++n2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, Kt + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int ra = 0; ra < RA; ++ra) {
-          mma16816(s[ra][2 * n2], qa[ra], kb[0], kb[1]);
-          mma16816(s[ra][2 * n2 + 1], qa[ra], kb[2], kb[3]);
-        }
-      }
-    }
-
-    float corr[RA][2];
-    softmax_step<RA, NB>(a, s, m, l, corr, rlo, rhi, t0, t4);
-#pragma unroll
-    for (int ra = 0; ra < RA; ++ra) {
-#pragma unroll
-      for (int i = 0; i < DB; ++i) {
-        o[ra][i][0] *= corr[ra][0];
-        o[ra][i][1] *= corr[ra][0];
-        o[ra][i][2] *= corr[ra][1];
-        o[ra][i][3] *= corr[ra][1];
-      }
-    }
-
-    // O += P V: P's C fragments of two 8-key blocks are an A fragment
-#pragma unroll
-    for (int kc = 0; kc < BKN / 16; ++kc) {
-      uint32_t pa[RA][4];
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra) {
-        pa[ra][0] = pack_bf16(s[ra][2 * kc][0], s[ra][2 * kc][1]);
-        pa[ra][1] = pack_bf16(s[ra][2 * kc][2], s[ra][2 * kc][3]);
-        pa[ra][2] = pack_bf16(s[ra][2 * kc + 1][0], s[ra][2 * kc + 1][1]);
-        pa[ra][3] = pack_bf16(s[ra][2 * kc + 1][2], s[ra][2 * kc + 1][3]);
-      }
-#pragma unroll
-      for (int d2 = 0; d2 < HD / 16; ++d2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vt + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  d2 * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int ra = 0; ra < RA; ++ra) {
-          mma16816(o[ra][2 * d2], pa[ra], vb[0], vb[1]);
-          mma16816(o[ra][2 * d2 + 1], pa[ra], vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();   // every warp is done with this buffer before it is refilled
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // Q rows land before a warp reuses them (no tile: no barrier yet)
-
-  // normalise, stage the warp's rows in its own Q rows, store 16 bytes a lane
-  bf16* Ow = Qs + wr0 * LD;
-#pragma unroll
-  for (int ra = 0; ra < RA; ++ra) {
-    float inv[2];
-    inv_sums(l[ra], inv);
-#pragma unroll
-    for (int i = 0; i < DB; ++i) {
-      *reinterpret_cast<uint32_t*>(Ow + (ra * 16 + g) * LD + i * 8 + 2 * t4) =
-          pack_bf16(o[ra][i][0] * inv[0], o[ra][i][1] * inv[0]);
-      *reinterpret_cast<uint32_t*>(Ow + (ra * 16 + g + 8) * LD + i * 8 + 2 * t4) =
-          pack_bf16(o[ra][i][2] * inv[1], o[ra][i][3] * inv[1]);
-    }
-  }
-  __syncwarp();
-  bf16* out = static_cast<bf16*>(a.o);
-  for (int e = lane; e < 16 * RA * CH; e += 32) {
-    const int r = e / CH, c = e - (e / CH) * CH;
-    const int rw = wr0 + r;
-    if (rw < nrows) {
-      const int rr = r0 + rw;
-      const int sq = rr / G, h = hk * G + rr % G;
-      *reinterpret_cast<uint4*>(out + b * a.ob + sq * a.os + h * a.oh + c * 8) =
-          *reinterpret_cast<const uint4*>(Ow + r * LD + c * 8);
-    }
-  }
-}
-
 // A tensor-core kernel over a 1-d grid: ceil(rows / ROWS) row tiles times
 // every (kv head, batch row), with smem bytes of dynamic shared memory
 cudaError_t launch_rows(void (*kernel)(Args), size_t smem, int threads, int ROWS, const Args& a,
@@ -862,10 +775,651 @@ cudaError_t launch_rows(void (*kernel)(Args), size_t smem, int threads, int ROWS
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// WGMMA: bf16 prefill on Hopper's warpgroup MMA, K/V by TMA (see the note at
+// the top)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 256;     // two warpgroups (8 warps: up to 255 registers a thread)
+constexpr int WG_ROWS = 128;        // query rows of a work item: wgmma's 64 a warpgroup
+constexpr uint64_t SW128 = 1, SW32 = 3;   // wgmma descriptors' swizzled layouts
+
+// Shared memory of the WGMMA kernel, in bytes from a 1024-aligned base: the
+// Q buffers (two where they fit: the next work item's Q loads during this
+// one), then the K ring, then the V ring, then the barriers. The head dim is
+// cut into 64-wide chunks of 128-byte rows (the 128-byte swizzle) and, at hd
+// 80, a 16-wide tail of 32-byte rows (the 32-byte swizzle); a Q buffer or a
+// K or V tile is its chunks one after another, each [rows][128 B], then its
+// tail [rows][32 B].
 template <int HD>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  return launch_rows(flash_attention_mma_kernel<HD>, MmaTile<HD>::smem, MMA_THREADS,
-                     MmaTile<HD>::ROWS, a, stream);
+struct WgTile {
+  static constexpr int NCH = HD / 64;                // 64-wide chunks
+  static constexpr int TAIL = HD % 64;               // 16 at hd 80, else 0
+  static constexpr int BLOCKS = HD <= 80 ? 2 : 1;    // blocks an SM (128 registers a thread at 2)
+  static constexpr int BKN = HD == 128 ? 128 : 64;   // keys per K / V tile
+  static constexpr int STAGES = 2;                   // K and V tiles in flight, each
+  static constexpr int NB = BKN / 8;                 // 8-key blocks of S
+  static constexpr int CH = HD / 8;                  // 16-byte units per row
+  static constexpr int QC = WG_ROWS * 128;           // one Q chunk
+  static constexpr int QB = NCH * QC + WG_ROWS * TAIL * 2;   // one Q buffer
+  static constexpr int KC = BKN * 128;               // one K or V chunk
+  static constexpr int TILE = NCH * KC + BKN * TAIL * 2;     // one K or V tile (a TMA transaction)
+  static constexpr int RING = 2 * STAGES * TILE;
+  static constexpr int QBUF = (2 * QB + RING + 1024 + 64) * BLOCKS <= (int)MAX_SMEM ? 2 : 1;
+  static constexpr int Q = 0, K = QBUF * QB, V = K + STAGES * TILE, BAR = V + STAGES * TILE;
+  static constexpr int CNT = BAR + 2 * STAGES * 8;   // the rings' release counts
+  static constexpr size_t smem = CNT + 2 * STAGES * 4 + 1024;   // + the base's alignment
+  static_assert(HD == 64 * NCH + TAIL && (TAIL == 0 || TAIL == 16), "hd 64, 80, 128 or 256");
+  static_assert(QB % 1024 == 0 && TILE % 1024 == 0, "chunks stay 1024-aligned");
+  // an SM holds 228 KB, of which each block's own 1 KB is reserved
+  static_assert((smem + 1024) * BLOCKS <= MAX_SMEM + 1024, "the WGMMA tiles must fit an SM");
+};
+
+// the byte offset of 16-byte unit c of row r of Q buffer qb, swizzled as TMA
+// and wgmma lay it out: in a 64-wide chunk unit c ^ (r % 8) of the 128-byte
+// row, in the 16-wide tail unit c ^ (r / 4 % 2) of the 32-byte row
+template <int HD>
+__device__ __forceinline__ uint32_t q_unit(int qb, int r, int c) {
+  using T = WgTile<HD>;
+  const uint32_t q = T::Q + qb * T::QB;
+  if (c < 8 * T::NCH) return q + (c >> 3) * T::QC + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  return q + T::NCH * T::QC + r * 32 + (((c & 1) ^ ((r >> 2) & 1)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a box of the 4-d map at coordinates (c0 innermost) into shared memory,
+// completing bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// shared-memory writes of this thread before the async proxy's reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, layout
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of these registers across
+// the asm statements around an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (f32, m64nNk16) = or += A * B^T, A [64 x 16] and B [N x 16] both
+// K-major in shared memory (descriptors); d = when !acc
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (f32, m64nNk16) += A * B, A [64 x 16] bf16 fragments in registers (as
+// the m16n8k16 MMA's A: a thread's rows g and g + 8 of its warp's 16), B
+// [16 x N] MN-major in shared memory (descriptor)
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// A persistent kernel: a block of 256 threads on each SM walks the work
+// items, 128 query rows of one (batch row, kv head) each (s-major).
+// Warpgroups 0 and 1 each own 64 rows (wgmma's M), load them by cp.async
+// into the swizzled layout and, per tile of BKN keys, issue S = Q K^T (SS:
+// both from shared memory), take the online softmax on S in registers (a
+// thread holds rows g and g + 8 of its warp's 16, as the m16n8k16 MMA's
+// C: quad shuffles), and issue O += P V (RS: P from registers, V an MN-major
+// operand). Tile t's S is issued beside tile t - 1's P V, so the softmax of
+// one overlaps the other's product. K and V tiles come by TMA into two
+// rings of STAGES, each stage with a "full" mbarrier that the copy's bytes
+// complete; the warp that releases a stage last (a count in shared memory)
+// loads the ring's next tile into it, running on into the next work item.
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, WgTile<HD>::BLOCKS)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tkt,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tvt, const Args a) {
+  using T = WgTile<HD>;
+  constexpr int NCH = T::NCH, TAIL = T::TAIL, BKN = T::BKN, NB = T::NB, CH = T::CH;
+  constexpr int S = T::STAGES;
+  extern __shared__ uint4 wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = reinterpret_cast<uint8_t*>(wg_smem) + (base - raw);
+  // "full" barriers of the K and V rings (S each), then their release counts
+  const uint32_t full_k = base + T::BAR, full_v = full_k + 8 * S;
+  int* const cnt_k = reinterpret_cast<int*>(sm + T::CNT);
+  int* const cnt_v = cnt_k + S;
+
+  // work item w: pair-major, so the row tiles of one (batch row, kv head),
+  // which read the same keys, run side by side on neighbouring SMs and
+  // their K/V tiles come from L2; within a pair the last row tile first
+  // (under causal masking it sees the most keys)
+  const int G = a.H / a.Hkv, rows = G * a.Sq;
+  const int nrt = (rows + WG_ROWS - 1) / WG_ROWS;
+  const int nwork = nrt * a.Hkv * a.B;
+  auto item = [&](int w, int& b, int& hk, int& r0, int& nrows) {
+    const int pair = w / nrt;
+    hk = pair % a.Hkv;
+    b = pair / a.Hkv;
+    r0 = (nrt - 1 - (w - pair * nrt)) * WG_ROWS;
+    nrows = min(WG_ROWS, rows - r0);
+  };
+  // The next tile a ring loads: keys from t0 (below hi) of work item w, or
+  // none once w >= nwork. Every warp keeps one for each ring and moves it on
+  // at each tile it releases, so all hold the same; the warp that releases
+  // a stage last loads the cursor's tile into it.
+  struct Cursor {
+    int w, b, hk, t0, hi;
+  };
+  auto settle = [&](Cursor& c) {   // on to the next work item with a key, if need be
+    while (c.t0 >= c.hi && (c.w += gridDim.x) < nwork) {
+      int r0, nrows;
+      item(c.w, c.b, c.hk, r0, nrows);
+      const Span sp = span_of(a, c.b, r0, nrows, G);
+      c.t0 = sp.lo;
+      c.hi = sp.hi;
+    }
+  };
+  auto step = [&](Cursor& c) {
+    c.t0 += BKN;
+    settle(c);
+  };
+  auto load = [&](const Cursor& c, int s, const CUtensorMap* map, const CUtensorMap* tail,
+                  uint32_t ring, uint32_t full) {
+    const uint32_t d = base + ring + s * T::TILE;
+    mbar_expect_tx(full + 8 * s, T::TILE);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+      tma_load(d + ch * T::KC, map, full + 8 * s, 64 * ch, c.t0, c.hk, c.b);
+    if (TAIL) tma_load(d + NCH * T::KC, tail, full + 8 * s, 64 * NCH, c.t0, c.hk, c.b);
+  };
+  Cursor ck = {(int)blockIdx.x - (int)gridDim.x, 0, 0, 0, 0};
+  settle(ck);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      cnt_k[s] = cnt_v[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tk)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tv)) : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {            // the rings' first tiles
+    for (int s = 0; s < S && ck.w < nwork; ++s, step(ck)) {
+      load(ck, s, &tk, &tkt, T::K, full_k);
+      load(ck, s, &tv, &tvt, T::V, full_v);
+    }
+  } else {
+    for (int s = 0; s < S && ck.w < nwork; ++s) step(ck);
+  }
+  Cursor cv = ck;
+
+  const int cw = threadIdx.x >> 7, ct = threadIdx.x & 127;   // warpgroup, its thread
+  const int lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const int wr0 = 64 * cw + 16 * (ct >> 5);                   // the warp's first row
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  auto load_q = [&](int w, int qb) {   // this warpgroup's 64 rows of item w
+    int b, hk, r0, nrows;
+    item(w, b, hk, r0, nrows);
+    for (int e = ct; e < 64 * CH; e += 128) {
+      const int rb = 64 * cw + e / CH, c = e - (e / CH) * CH;
+      const int rr = r0 + min(rb, nrows - 1);
+      const int sq = rr / G, h = hk * G + rr % G;
+      cp_async16(sm + q_unit<HD>(qb, rb, c), q + b * a.qb + sq * a.qs + h * a.qh + c * 8,
+                 rb < nrows);
+    }
+    cp_async_commit();
+  };
+
+  float o[NCH * 32], ot[TAIL ? 8 : 1];   // O: the chunks' 8-column blocks, the tail's two
+  float s[1][NB][4];
+  float(&sf)[BKN / 2] = *reinterpret_cast<float(*)[BKN / 2]>(&s[0][0][0]);
+  uint32_t pa[BKN / 16][4];              // P as the A fragments of P V's k-steps
+  float m[1][2], l[1][2], corr[1][2];
+  int qb = 0;                            // this item's Q buffer
+  auto issue_s = [&](int st) {
+    const uint32_t qd = base + T::Q + qb * T::QB;   // this warpgroup's rows from 64 cw on
+    const uint32_t qa = qd + cw * 64 * 128, qt = qd + NCH * T::QC + cw * 64 * 32;
+    const uint32_t kd = base + T::K + st * T::TILE;
+#pragma unroll
+    for (int kk = 0; kk < 4 * NCH; ++kk) {
+      const uint32_t c = kk >> 2, sub = (kk & 3) * 32;
+      wgmma_ss(sf, gmma_desc(qa + c * T::QC + sub, 16, 1024, SW128),
+               gmma_desc(kd + c * T::KC + sub, 16, 1024, SW128), kk > 0);
+    }
+    if constexpr (TAIL != 0)
+      wgmma_ss(sf, gmma_desc(qt, 16, 256, SW32),
+               gmma_desc(kd + NCH * T::KC, 16, 256, SW32), 1);
+  };
+  auto issue_pv = [&](int st) {
+    const uint32_t vd = base + T::V + st * T::TILE;
+#pragma unroll
+    for (int kc = 0; kc < BKN / 16; ++kc) {
+      wgmma_rs(o, pa[kc], gmma_desc(vd + kc * 2048, T::KC, 1024, SW128));
+      if constexpr (TAIL != 0)
+        wgmma_rs(ot, pa[kc], gmma_desc(vd + NCH * T::KC + kc * 512, 256, 256, SW32));
+    }
+  };
+  // P's C fragments of two 8-key blocks are an A fragment of 16 keys
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kc = 0; kc < BKN / 16; ++kc) {
+      pa[kc][0] = pack_bf16(s[0][2 * kc][0], s[0][2 * kc][1]);
+      pa[kc][1] = pack_bf16(s[0][2 * kc][2], s[0][2 * kc][3]);
+      pa[kc][2] = pack_bf16(s[0][2 * kc + 1][0], s[0][2 * kc + 1][1]);
+      pa[kc][3] = pack_bf16(s[0][2 * kc + 1][2], s[0][2 * kc + 1][3]);
+    }
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int i = 0; i < NCH * 8; ++i) {
+      o[4 * i] *= corr[0][0];
+      o[4 * i + 1] *= corr[0][0];
+      o[4 * i + 2] *= corr[0][1];
+      o[4 * i + 3] *= corr[0][1];
+    }
+#pragma unroll
+    for (int i = 0; i < TAIL / 8; ++i) {
+      ot[4 * i] *= corr[0][0];
+      ot[4 * i + 1] *= corr[0][0];
+      ot[4 * i + 2] *= corr[0][1];
+      ot[4 * i + 3] *= corr[0][1];
+    }
+  };
+  // this warp is done with stage s of a ring: the 8th warp to say so
+  // loads the ring's next tile into it (no warp ever waits for a stage to
+  // empty, so no warp of its own is needed to load)
+  auto release = [&](Cursor& c, int st, int* cnt, const CUtensorMap* map, const CUtensorMap* tail,
+                     uint32_t ring, uint32_t full) {
+    __syncwarp();
+    if (lane == 0) {
+      int seen;   // this warp's reads of the stage before the count, the count before the load
+      asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                   : "=r"(seen)
+                   : "r"(smem_u32(cnt + st))
+                   : "memory");
+      if (seen == 7) {
+        cnt[st] = 0;
+        if (c.w < nwork) load(c, st, map, tail, ring, full);
+      }
+    }
+    step(c);
+  };
+  auto release_k = [&](int s) { release(ck, s, cnt_k, &tk, &tkt, T::K, full_k); };
+  auto release_v = [&](int s) { release(cv, s, cnt_v, &tv, &tvt, T::V, full_v); };
+  // the two warpgroups take turns issuing their products (named barriers
+  // 4 and 5), so one's softmax runs under the other's products; in each
+  // work item warpgroup 1 lets warpgroup 0 go first and skips the arrival
+  // after its last turn, so every turn is matched
+  auto turn = [&]() { bar_sync(4 + cw, 256); };
+  auto pass = [&](bool last) {
+    if (!(last && cw == 1)) asm volatile("bar.arrive %0, 256;\n" ::"r"(5 - cw) : "memory");
+  };
+
+  int it = 0;   // tiles consumed so far, over every work item
+  if (blockIdx.x < nwork) load_q(blockIdx.x, 0);
+  for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+    int b, hk, r0, nrows;
+    item(w, b, hk, r0, nrows);
+    const Span sp = span_of(a, b, r0, nrows, G);
+    const int lo = sp.lo, hi = sp.hi;
+    const int ntiles = hi > lo ? (hi - lo + BKN - 1) / BKN : 0;
+    cp_async_wait<0>();                  // this item's Q rows
+    fence_proxy_async();
+    bar_sync(1 + cw, 128);
+    if (T::QBUF == 2 && w + (int)gridDim.x < nwork) load_q(w + gridDim.x, qb ^ 1);
+
+    int rlo[1][2], rhi[1][2];
+    thread_rows<1>(a, sp, r0, wr0, nrows, G, g, rlo, rhi);
+#pragma unroll
+    for (int i = 0; i < NCH * 32; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (TAIL ? 8 : 1); ++i) ot[i] = 0.f;
+    m[0][0] = m[0][1] = NEG;
+    l[0][0] = l[0][1] = 0.f;
+
+    if (ntiles > 0) {
+      if (cw == 1) asm volatile("bar.arrive 4, 256;\n" ::: "memory");
+      const int s0 = it % S;
+      mbar_wait(full_k + 8 * s0, (it / S) & 1);
+      turn();
+      wg_fence();
+      issue_s(s0);
+      wg_commit();
+      pass(false);
+      wg_wait<0>();
+      reg_fence(sf);
+      release_k(s0);
+      softmax_wg<NB>(a, s, m, l, corr, rlo, rhi, lo, t4);
+      pack_p();
+      for (int t = 1; t < ntiles; ++t) {
+        const int st = (it + t) % S, pv = (it + t - 1) % S;
+        mbar_wait(full_k + 8 * st, ((it + t) / S) & 1);
+        mbar_wait(full_v + 8 * pv, ((it + t - 1) / S) & 1);
+        turn();
+        wg_fence();
+        issue_s(st);
+        wg_commit();
+        issue_pv(pv);
+        wg_commit();
+        pass(false);
+        wg_wait<1>();                    // S of tile t
+        reg_fence(sf);
+        release_k(st);
+        const bool moved = softmax_wg<NB>(a, s, m, l, corr, rlo, rhi, lo + t * BKN, t4);
+        wg_wait<0>();                    // P V of tile t - 1
+        reg_fence(o);
+        reg_fence(ot);
+        release_v(pv);
+        if (moved) rescale();
+        pack_p();
+      }
+      const int lt = it + ntiles - 1, st = lt % S;
+      mbar_wait(full_v + 8 * st, (lt / S) & 1);
+      // the last tile's V rows from kv_len on may hold anything (NaN), and a
+      // probability of 0 times NaN is NaN: zero them (TMA has zero-filled
+      // those past Skv; the rows in [hi, kv_len) are keys, if masked ones)
+      const int t0 = lo + (ntiles - 1) * BKN, z0 = max(hi, sp.kv_len) - t0,
+                z1 = min(BKN, a.Skv - t0);
+      if (z1 > z0) {
+        const uint32_t vd = T::V + st * T::TILE;
+        for (int e = ct + 128 * cw; e < (z1 - z0) * CH; e += 256) {
+          const int j = z0 + e / CH, c = e - (e / CH) * CH;
+          const uint32_t off = c < 8 * NCH ? vd + (c >> 3) * T::KC + j * 128 + (c & 7) * 16
+                                           : vd + NCH * T::KC + j * 32 + (c & 1) * 16;
+          *reinterpret_cast<uint4*>(sm + off) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();
+        bar_sync(3, 256);                // both consumers' rows
+      }
+      turn();
+      wg_fence();
+      issue_pv(st);
+      wg_commit();
+      pass(true);
+      wg_wait<0>();
+      reg_fence(o);
+      reg_fence(ot);
+      release_v(st);
+      it += ntiles;
+    }
+
+    // normalise, stage the warp's rows in its own rows of this item's Q
+    // buffer once every warp of the warpgroup is done reading it, store
+    // 16 bytes a lane
+    bar_sync(1 + cw, 128);
+    float inv[2];
+    inv_sums(l[0], inv);
+#pragma unroll
+    for (int i = 0; i < NCH * 8 + TAIL / 8; ++i) {
+      const float* x = i < NCH * 8 ? o + 4 * i : ot + 4 * (i - NCH * 8);
+      *reinterpret_cast<uint32_t*>(sm + q_unit<HD>(qb, wr0 + g, i) + 4 * t4) =
+          pack_bf16(x[0] * inv[0], x[1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(sm + q_unit<HD>(qb, wr0 + g + 8, i) + 4 * t4) =
+          pack_bf16(x[2] * inv[1], x[3] * inv[1]);
+    }
+    __syncwarp();
+    bf16* out = static_cast<bf16*>(a.o);
+    for (int e = lane; e < 16 * CH; e += 32) {
+      const int r = e / CH, c = e - (e / CH) * CH;
+      const int rw = wr0 + r;
+      if (rw < nrows) {
+        const int rr = r0 + rw;
+        const int sq = rr / G, h = hk * G + rr % G;
+        *reinterpret_cast<uint4*>(out + b * a.ob + sq * a.os + h * a.oh + c * 8) =
+            *reinterpret_cast<const uint4*>(sm + q_unit<HD>(qb, rw, c));
+      }
+    }
+    if (T::QBUF == 2) {
+      qb ^= 1;
+    } else if (w + (int)gridDim.x < nwork) {
+      bar_sync(1 + cw, 128);             // every warp has stored its rows
+      load_q(w + gridDim.x, 0);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (no -lcuda)
+typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TmapEncode tmap_encode() {
+  static TmapEncode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                                  &got);
+#endif
+    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TmapEncode>(p);
+  }
+  return fn;
+}
+
+// A 4-d tensor map over k or v as [B, Skv, Hkv, hd] with the caller's
+// strides (elements; innermost first: hd, Skv, Hkv, B), whose box is cols
+// head dims of rows keys of one (kv head, batch row). Rows past Skv read as
+// zeros. A dimension of size 1 never steps, so its stride only has to be
+// legal.
+bool tmap(CUtensorMap* m, const void* p, const Args& a, int64_t ss, int64_t hs, int64_t bs,
+          int cols, int rows, CUtensorMapSwizzle swizzle) {
+  const TmapEncode enc = tmap_encode();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.Skv, (cuuint64_t)a.Hkv, (cuuint64_t)a.B};
+  cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1 && strides[i] == 0) strides[i] = 16;
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using T = WgTile<HD>;
+  CUtensorMap tk, tkt, tv, tvt;
+  memset(&tk, 0, sizeof(tk));
+  tv = tkt = tvt = tk;
+  if (a.Skv > 0) {   // else no block has a key to load
+    if (!tmap(&tk, a.k, a, a.ks, a.kh, a.kb, 64, T::BKN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tmap(&tv, a.v, a, a.vs, a.vh, a.vb, 64, T::BKN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        (T::TAIL && (!tmap(&tkt, a.k, a, a.ks, a.kh, a.kb, T::TAIL, T::BKN,
+                           CU_TENSOR_MAP_SWIZZLE_32B) ||
+                     !tmap(&tvt, a.v, a, a.vs, a.vh, a.vb, T::TAIL, T::BKN,
+                           CU_TENSOR_MAP_SWIZZLE_32B))))
+      return cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)T::smem);
+  if (e != cudaSuccess) return e;
+  const int rows = a.H / a.Hkv * a.Sq;
+  const int64_t work = (int64_t)((rows + WG_ROWS - 1) / WG_ROWS) * a.Hkv * a.B;
+  if (work > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e2 = cudaGetDevice(&dev);
+  if (e2 == cudaSuccess) e2 = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e2 != cudaSuccess) return e2;
+  const int64_t slots = (int64_t)sms * T::BLOCKS;   // persistent: every block stays resident
+  const int64_t blocks = work < slots ? work : slots;
+  flash_attention_wgmma_kernel<HD><<<dim3((unsigned)blocks), WG_THREADS, T::smem, stream>>>(
+      tk, tkt, tv, tvt, a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -898,7 +1452,8 @@ flash_attention_mla_kernel(Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int pair = warp & 3, half = warp >> 2;
-  // longest first over the whole grid, as the MMA kernel
+  // a 1-d grid, longest first over the whole grid: every (kv head, batch
+  // row) of the last row tile, then of the one before, ...
   const int G = a.H / a.Hkv;
   const int pairs = a.Hkv * a.B;
   const int hk = (int)(blockIdx.x % pairs) % a.Hkv, b = (int)(blockIdx.x % pairs) / a.Hkv;
@@ -1289,8 +1844,8 @@ cudaError_t launch_split(const Args& a, cudaStream_t stream) {
 // What every call with one signature of q, k and v passes (built once per
 // signature by the wrapper, kernels/flash_attention.py::_plan).
 struct Plan {
-  int32_t form;     // 0 SIMT, 1 MMA (bf16: hd = dv in 64 / 80 / 128 / 256, or hd 576 over
-                    // dv 512 in k), 2 SPLIT ((H / Hkv) * Sq <= 16)
+  int32_t form;     // 0 SIMT, 1 MMA (bf16: hd 576 over dv 512 in k), 2 SPLIT ((H / Hkv) * Sq
+                    // <= 16), 3 WGMMA (bf16: hd = dv in 64 / 80 / 128 / 256)
   int32_t dtype;    // 0 float32, 1 bfloat16 (q, k, v and out share it)
   int64_t B, Sq, Skv, H, Hkv, hd, dv;   // k is [B, Skv, Hkv, hd], v [B, Skv, Hkv, dv]
   int64_t nsplit;   // SPLIT: max(1, ceil(Skv / 32)); else 0
@@ -1320,10 +1875,11 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
                         nsplit != (Skv > SPLIT_KEYS ? (Skv + SPLIT_KEYS - 1) / SPLIT_KEYS : 1)))
     return (int)cudaErrorInvalidValue;
   const bool mla = hd == MLA_HD && dv == MLA_DV;
-  if (form == MMA && (dtype != 1 || !(mla || (dv == hd && (hd == 64 || hd == 80 || hd == 128 ||
-                                                              hd == 256)))))
+  const bool wide = dv == hd && (hd == 64 || hd == 80 || hd == 128 || hd == 256);
+  if ((form == MMA && (dtype != 1 || !mla)) || (form == WGMMA && (dtype != 1 || !wide)))
     return (int)cudaErrorInvalidValue;
-  if (form != SIMT && form != MMA && form != SPLIT) return (int)cudaErrorInvalidValue;
+  if (form != SIMT && form != MMA && form != SPLIT && form != WGMMA)
+    return (int)cudaErrorInvalidValue;
   const int64_t* strides = p->strides;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
@@ -1332,7 +1888,7 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
   a.vb = strides[6]; a.vs = strides[7]; a.vh = strides[8];
   a.ob = strides[9]; a.os = strides[10]; a.oh = strides[11];
   a.v_in_k = v == k && a.vb == a.kb && a.vs == a.ks && a.vh == a.kh;
-  if (form == MMA && mla && !a.v_in_k) return (int)cudaErrorInvalidValue;
+  if (form == MMA && !a.v_in_k) return (int)cudaErrorInvalidValue;
   a.B = (int)B; a.Sq = (int)Sq; a.Skv = (int)Skv; a.H = (int)H; a.Hkv = (int)Hkv;
   a.hd = (int)hd;
   a.dv = (int)dv;
@@ -1346,13 +1902,13 @@ extern "C" int repro_flash_attention(const Plan* p, const void* q, const void* k
   a.part = static_cast<float*>(part);
   a.nsplit = (int)nsplit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (form == MMA) {
-    if (mla)
-      return (int)launch_rows(flash_attention_mla_kernel, MLA_SMEM, MLA_THREADS, MLA_ROWS, a, st);
-    if (hd == 64) return (int)launch_mma<64>(a, st);
-    if (hd == 80) return (int)launch_mma<80>(a, st);
-    if (hd == 128) return (int)launch_mma<128>(a, st);
-    return (int)launch_mma<256>(a, st);
+  if (form == MMA)
+    return (int)launch_rows(flash_attention_mla_kernel, MLA_SMEM, MLA_THREADS, MLA_ROWS, a, st);
+  if (form == WGMMA) {
+    if (hd == 64) return (int)launch_wgmma<64>(a, st);
+    if (hd == 80) return (int)launch_wgmma<80>(a, st);
+    if (hd == 128) return (int)launch_wgmma<128>(a, st);
+    return (int)launch_wgmma<256>(a, st);
   }
   if (form == SPLIT)
     return (int)(dtype == 0 ? launch_split<float>(a, st) : launch_split<__nv_bfloat16>(a, st));

@@ -5,14 +5,15 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_kernel``
 softcap, GQA, a ``kv_len`` and the per-row ``kv_start`` bound of continuous
 batching, and values narrower than the keys (MLA's 576-wide keys over its
 512-wide latent values). The CUDA C++ source is ``csrc/flash_attention.cu``,
-in three forms that :func:`_form` picks from host-known shapes: ``"mma"``
-(bf16 prefill on the tensor cores, FA2's structure on ``mma.sync``: head
-dims 64, 80, 128 and 256 with values as wide, and MLA's 576-wide keys over
-their 512-wide prefix as values in a kernel of its own), ``"split"``
-(decode as split-KV in two launches, a split per 32 cache rows, then a
-merge) and ``"simt"`` (f32 on the CUDA cores: every f32 prefill, and bf16
-prefill at the shapes no path runs, MLA's with values of their own
-among them).
+in four forms that :func:`_form` picks from host-known shapes: ``"wgmma"``
+(bf16 prefill at head dims 64, 80, 128 and 256 with values as wide, on
+Hopper's warpgroup MMA: K and V by TMA from a producer warpgroup, two
+consumer warpgroups of 64 query rows), ``"mma"`` (bf16 prefill at MLA's
+576-wide keys over their 512-wide prefix as values, ``mma.sync`` in a
+kernel of its own), ``"split"`` (decode as split-KV in two launches, a
+split per 32 cache rows, then a merge) and ``"simt"`` (f32 on the CUDA
+cores: every f32 prefill, and bf16 prefill at the shapes no path runs,
+MLA's with values of their own among them).
 
 This wrapper takes CUDA tensors only and raises on anything else; callers
 reach it through :mod:`repro_torch.kernels.ops`, which sends CPU tensors to
@@ -28,14 +29,14 @@ from typing import Optional
 import torch
 
 LAUNCHES = 0
-FORM_LAUNCHES = {"mma": 0, "split": 0, "simt": 0}
+FORM_LAUNCHES = {"wgmma": 0, "mma": 0, "split": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_FORM_CODE = {"simt": 0, "mma": 1, "split": 2}
+_FORM_CODE = {"simt": 0, "mma": 1, "split": 2, "wgmma": 3}
 SPLIT_ROWS = 16                  # most query rows per kv head in the split form
 SPLIT_KEYS = 32                  # cache rows per split
-MMA_HEAD_DIMS = (64, 80, 128, 256)
-MLA_DIMS = (576, 512)            # (hd, dv) of the mma form's MLA kernel, v in k
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)   # hd = dv of the wgmma form
+MLA_DIMS = (576, 512)            # (hd, dv) of the mma form (MLA's kernel), v in k
 MAX_HEAD_DIM = 576               # MLA: kv_lora_rank 512 + qk_rope_head_dim 64
 _FN = None
 
@@ -44,17 +45,19 @@ def _form(dtype, B: int, Sq: int, H: int, Hkv: int, hd: int, Skv: int,
           dv: Optional[int] = None, v_in_k: bool = False) -> str:
     """The kernel form for these shapes, from what the host knows (never
     from ``kv_len``, a device scalar): ``"split"`` when at most 16 query
-    rows share a kv head (decode), else ``"mma"`` for bf16 at a head dim of
-    64, 80, 128 or 256 with values as wide (``dv`` None or ``hd``) and for
-    bf16 at MLA's keys of 576 over values of 512 that are their prefix
-    (``v_in_k``, :func:`_v_in_k`), else ``"simt"``. ``B`` and ``Skv`` do
-    not change the choice; ``Skv`` sets the split form's number of
-    splits."""
+    rows share a kv head (decode), else ``"wgmma"`` for bf16 at a head dim
+    of 64, 80, 128 or 256 with values as wide (``dv`` None or ``hd``),
+    ``"mma"`` for bf16 at MLA's keys of 576 over values of 512 that are
+    their prefix (``v_in_k``, :func:`_v_in_k`), else ``"simt"``. ``B`` and
+    ``Skv`` do not change the choice; ``Skv`` sets the split form's number
+    of splits."""
     if H // Hkv * Sq <= SPLIT_ROWS:
         return "split"
-    if dtype == torch.bfloat16 and (hd in MMA_HEAD_DIMS and dv in (None, hd)
-                                    or (hd, dv) == MLA_DIMS and v_in_k):
-        return "mma"
+    if dtype == torch.bfloat16:
+        if hd in WGMMA_HEAD_DIMS and dv in (None, hd):
+            return "wgmma"
+        if (hd, dv) == MLA_DIMS and v_in_k:
+            return "mma"
     return "simt"
 
 

@@ -189,19 +189,19 @@ def test_chunked_attention_with_narrower_values_matches_reference(case):
 # ints, a dtype and whether v is a prefix view of k, so routing never reads
 # a device scalar; (B, Sq, H, Hkv, hd, Skv[, dv[, v_in_k]])
 @pytest.mark.parametrize("name,dtype,shape,form", [
-    ("serve prefill", torch.bfloat16, (8, 512, 32, 4, 64, 512), "mma"),
+    ("serve prefill", torch.bfloat16, (8, 512, 32, 4, 64, 512), "wgmma"),
     ("serve decode", torch.bfloat16, (8, 1, 32, 4, 64, 1024), "split"),
     ("f32 decode", torch.float32, (8, 1, 32, 4, 64, 1024), "split"),
     ("f32 prefill", torch.float32, (8, 512, 32, 4, 64, 512), "simt"),
     ("hd 8 prefill", torch.bfloat16, (2, 77, 16, 2, 8, 77), "simt"),
     ("hd 8 decode", torch.bfloat16, (2, 1, 16, 2, 8, 77), "split"),
     ("hd 32 prefill", torch.bfloat16, (1, 64, 4, 2, 32, 64), "simt"),
-    ("hd 256 prefill", torch.bfloat16, (1, 128, 4, 2, 256, 128), "mma"),
-    ("G 48 prefill", torch.bfloat16, (2, 100, 48, 1, 128, 100), "mma"),
+    ("hd 256 prefill", torch.bfloat16, (1, 128, 4, 2, 256, 128), "wgmma"),
+    ("G 48 prefill", torch.bfloat16, (2, 100, 48, 1, 128, 100), "wgmma"),
     ("G 48 f32 prefill", torch.float32, (2, 100, 48, 1, 128, 100), "simt"),
-    ("G 48 decode", torch.bfloat16, (2, 1, 48, 1, 128, 1024), "mma"),
+    ("G 48 decode", torch.bfloat16, (2, 1, 48, 1, 128, 1024), "wgmma"),
     ("16 rows", torch.bfloat16, (1, 2, 8, 1, 64, 256), "split"),
-    ("17 rows", torch.bfloat16, (1, 17, 1, 1, 64, 256), "mma"),
+    ("17 rows", torch.bfloat16, (1, 17, 1, 1, 64, 256), "wgmma"),
     ("MLA prefill", torch.bfloat16, (8, 512, 16, 1, 576, 512, 512, True), "mma"),
     ("MLA f32 prefill", torch.float32, (8, 512, 16, 1, 576, 512, 512, True), "simt"),
     ("MLA prefill, own values", torch.bfloat16, (8, 512, 16, 1, 576, 512, 512, False), "simt"),
@@ -210,14 +210,24 @@ def test_chunked_attention_with_narrower_values_matches_reference(case):
     ("MLA 77 rows", torch.bfloat16, (2, 77, 16, 1, 576, 77, 512, True), "mma"),
     ("hd 576 dv 256 in k", torch.bfloat16, (2, 100, 4, 1, 576, 100, 256, True), "simt"),
     ("hd = dv = 576", torch.bfloat16, (2, 100, 4, 1, 576, 100, 576, True), "simt"),
-    ("Zamba2 hd 80 prefill", torch.bfloat16, (8, 512, 32, 32, 80, 512), "mma"),
+    ("Zamba2 hd 80 prefill", torch.bfloat16, (8, 512, 32, 32, 80, 512), "wgmma"),
     ("Zamba2 hd 80 f32 prefill", torch.float32, (8, 512, 32, 32, 80, 512), "simt"),
-    ("Zamba2 hd 80 tensor-parallel prefill", torch.bfloat16, (8, 256, 16, 16, 80, 256), "mma"),
+    ("Zamba2 hd 80 tensor-parallel prefill", torch.bfloat16, (8, 256, 16, 16, 80, 256),
+     "wgmma"),
     ("Zamba2 hd 80 decode", torch.bfloat16, (8, 1, 32, 32, 80, 1024), "split"),
     ("hd 80 values narrower", torch.bfloat16, (2, 100, 8, 2, 80, 100, 64), "simt"),
     ("MLA decode", torch.bfloat16, (8, 1, 16, 1, 576, 1024, 512), "split"),
     ("values narrower at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 64), "simt"),
-    ("values as wide at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 128), "mma"),
+    ("values as wide at hd 128", torch.bfloat16, (2, 100, 8, 2, 128, 100, 128), "wgmma"),
+    ("hd 64 129 rows", torch.bfloat16, (1, 129, 1, 1, 64, 129), "wgmma"),
+    ("hd 64 300 rows", torch.bfloat16, (1, 300, 1, 1, 64, 300), "wgmma"),
+    ("hd 80 129 rows", torch.bfloat16, (1, 129, 1, 1, 80, 129), "wgmma"),
+    ("hd 80 300 rows", torch.bfloat16, (1, 300, 1, 1, 80, 300), "wgmma"),
+    ("hd 128 129 rows", torch.bfloat16, (1, 129, 1, 1, 128, 129), "wgmma"),
+    ("hd 128 300 rows", torch.bfloat16, (1, 300, 1, 1, 128, 300), "wgmma"),
+    ("hd 256 129 rows", torch.bfloat16, (1, 129, 1, 1, 256, 129), "wgmma"),
+    ("hd 256 300 rows", torch.bfloat16, (1, 300, 1, 1, 256, 300), "wgmma"),
+    ("hd 256 f32 300 rows", torch.float32, (1, 300, 1, 1, 256, 300), "simt"),
 ])
 def test_b9_form_follows_the_host_known_shapes(name, dtype, shape, form):
     from repro_torch.kernels import flash_attention as tfa
@@ -246,6 +256,7 @@ def test_b9_tells_a_prefix_view_of_k_on_the_host(case, want):
 def test_zeroing_the_launch_counts_zeroes_the_b9_forms():
     from repro_torch.kernels import flash_attention as tfa
     tfa.FORM_LAUNCHES["mma"] += 3
+    tfa.FORM_LAUNCHES["wgmma"] += 2
     ops.zero_launch_counts()
-    assert tfa.FORM_LAUNCHES == {"mma": 0, "split": 0, "simt": 0}
+    assert tfa.FORM_LAUNCHES == {"wgmma": 0, "mma": 0, "split": 0, "simt": 0}
     assert ops.launch_counts()["flash_attention"] == 0

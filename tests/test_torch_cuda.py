@@ -716,10 +716,10 @@ def _bf16_bound(got, want):
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_b9_prefill_off_the_tile_grid(cuda, Sq, G, dt):
-    """Query counts that are not a multiple of the 64-row tile, through the
-    mma form (bf16) and the simt form (f32)."""
+    """Query counts that are not a multiple of the 128-row tile, through the
+    wgmma form (bf16) and the simt form (f32)."""
     q, k, v = _qkv(2, Sq, Sq, 4 * G, 4, 64, dt, cuda, seed=Sq + G)
-    got = _check_b9(q, k, v, form="mma" if dt == torch.bfloat16 else "simt", causal=True)
+    got = _check_b9(q, k, v, form="wgmma" if dt == torch.bfloat16 else "simt", causal=True)
     if dt == torch.bfloat16:
         _bf16_bound(got, tref.attention(q, k, v, causal=True))
 
@@ -729,15 +729,84 @@ def test_b9_prefill_off_the_tile_grid(cuda, Sq, G, dt):
 def test_b9_mqa_at_granite_shape(cuda, dt):
     """G = 48 query heads on one kv head at hd 128 (granite-20b's attention)."""
     q, k, v = _qkv(2, 100, 100, 48, 1, 128, dt, cuda, seed=48)
-    _check_b9(q, k, v, form="mma" if dt == torch.bfloat16 else "simt", causal=True)
+    _check_b9(q, k, v, form="wgmma" if dt == torch.bfloat16 else "simt", causal=True)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [7, 100])
 def test_b9_mma_hd256_with_window_and_softcap(cuda, window):
+    """Gemma2's hd 256 with a window and softcap, in bf16: the wgmma form
+    since it took hd 256 over from the mma form (the name is the test's
+    first)."""
     q, k, v = _qkv(1, 200, 200, 4, 2, 256, torch.bfloat16, cuda, seed=window)
-    got = _check_b9(q, k, v, form="mma", causal=True, window=window, softcap=50.0)
+    got = _check_b9(q, k, v, form="wgmma", causal=True, window=window, softcap=50.0)
     _bf16_bound(got, tref.attention(q, k, v, causal=True, window=window, logit_softcap=50.0))
+
+
+# the wgmma form's cases: (B, Sq, H, Skv, Hkv, kwargs); "device scalars" is
+# a 90-query suffix at q_offset 210 over 290 live rows of a 320-row cache,
+# both scalars on the card; the layouts and garbage cases are built in the test
+WGMMA_CASES = {
+    "causal G 1 Sq 17": (2, 17, 2, 17, 2, dict(causal=True)),
+    "causal G 4 Sq 127": (2, 127, 8, 127, 2, dict(causal=True)),
+    "causal G 8 Sq 129": (2, 129, 16, 129, 2, dict(causal=True)),
+    "causal G 48 Sq 300": (1, 300, 48, 300, 1, dict(causal=True)),
+    "cross Sq 300 over 1601": (2, 300, 8, 1601, 2, dict(causal=False)),
+    "window 100 softcap 50": (1, 300, 8, 300, 2, dict(causal=True, window=100, softcap=50.0)),
+    "device scalars": (2, 90, 8, 320, 2, None),
+    "strided cache slice": (2, 60, 16, 330, 4, None),
+    "bhsd views": (2, 129, 8, 129, 2, None),
+    "garbage outside [kv_start, kv_len)": (4, 100, 32, 320, 4, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_b9_wgmma_form_matches_plain_version(cuda, hd, case):
+    """The wgmma form (bf16, values as wide as the keys) against the plain
+    version at every head dim it takes: G 1 / 4 / 8 / 48, query counts off
+    the 128-row item, a cross prefill over 1601 keys (a partial last tile),
+    window and softcap, q_offset and kv_len as device scalars, a strided
+    slice of a stacked cache, BHSD views, and NaN / inf below kv_start and
+    past kv_len giving the bits of zeroed rows; 3e-2, and 2^-6 of the
+    largest |plain|."""
+    B, Sq, H, Skv, Hkv, kw = WGMMA_CASES[case]
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(hd + 7)
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32, device=cuda))
+    if case == "strided cache slice":
+        cache = torch.randn(3, B, 400, Hkv, hd, generator=g, device=cuda).to(bf)
+        q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(bf)
+        k, v, kw = cache[1, :, :Skv], cache[2, :, :Skv], dict(causal=True, q_offset=i32(270))
+        assert not k.is_contiguous()
+    elif case == "bhsd views":
+        q, k, v = (torch.randn(B, n, S, hd, generator=g, device=cuda).to(bf).transpose(1, 2)
+                   for n, S in ((H, Sq), (Hkv, Skv), (Hkv, Skv)))
+        kw = dict(causal=True)
+    else:
+        q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(bf)
+        k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda).to(bf) for _ in range(2))
+    if case == "device scalars":
+        kw = dict(causal=True, q_offset=i32(210), kv_len=i32(290))
+        q = q[:, :80]
+    if case.startswith("garbage"):
+        start = i32([150, 3, 0, 199])
+        rows = torch.arange(Skv, device=cuda)[None, :, None, None]
+        bad = (rows < start.reshape(B, 1, 1, 1)) | (rows >= 290)
+        kw = dict(causal=True, q_offset=i32(200), kv_len=i32(290), kv_start=start)
+        k, v = k.masked_fill(bad, 0), v.masked_fill(bad, 0)
+    assert tfa._form(bf, B, q.shape[1], H, Hkv, hd, Skv, hd) == "wgmma"
+    got = _check_b9(q, k, v, form="wgmma", **kw)
+    _bf16_bound(got, tref.attention(q, k, v, causal=kw["causal"], window=kw.get("window", 0),
+                                    logit_softcap=kw.get("softcap", 0.0),
+                                    q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"),
+                                    kv_start=kw.get("kv_start")))
+    if case.startswith("garbage"):
+        bad_out = ops.attention(q, k.masked_fill(bad, float("nan")),
+                                v.masked_fill(bad, float("inf")), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), bad_out.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -762,19 +831,28 @@ def test_b9_split_kv_start_leaves_whole_splits_empty(cuda, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["mma", "simt", "split"])
+@pytest.mark.parametrize("form", ["wgmma", "mma", "simt", "split"])
 def test_b9_garbage_below_kv_start_is_invisible_in_every_form(cuda, form):
     """NaN and inf below kv_start give the bits of zeroed rows, in each form:
-    a prefill-shaped suffix (q_offset 200, 100 queries) in bf16 (mma) and f32
-    (simt), and a decode in bf16 (split)."""
+    a prefill-shaped suffix (q_offset 200, 100 queries) in bf16 (wgmma; mma
+    at MLA's 576-wide keys over their 512-wide prefix) and f32 (simt), and a
+    decode in bf16 (split)."""
     dt = torch.float32 if form == "simt" else torch.bfloat16
     Sq = 1 if form == "split" else 100
     B, L, off = 4, 320, 200
-    q, k, v = _qkv(B, Sq, L, 32, 4, 64, dt, cuda, seed=23)
+    if form == "mma":
+        g = torch.Generator(device=cuda).manual_seed(23)
+        q = torch.randn(B, Sq, 16, 576, generator=g, device=cuda).to(dt)
+        k = torch.randn(B, L, 1, 576, generator=g, device=cuda).to(dt)
+        values = (lambda kk, vv: kk[..., :512])
+    else:
+        q, k, v = _qkv(B, Sq, L, 32, 4, 64, dt, cuda, seed=23)
+        values = (lambda kk, vv: vv)
     start = torch.tensor([150, 3, 0, 199], dtype=torch.int32, device=cuda)
     below = torch.arange(L, device=cuda)[None, :, None, None] < start.reshape(B, 1, 1, 1)
-    kz, vz = k.masked_fill(below, 0), v.masked_fill(below, 0)
-    kg, vg = k.masked_fill(below, float("nan")), v.masked_fill(below, float("inf"))
+    kz, kg = k.masked_fill(below, 0), k.masked_fill(below, float("nan"))
+    vz = values(kz, None if form == "mma" else v.masked_fill(below, 0))
+    vg = values(kg, None if form == "mma" else v.masked_fill(below, float("inf")))
     qo = torch.tensor(off, dtype=torch.int32, device=cuda)
     kw = dict(causal=True, q_offset=qo, kv_len=qo + Sq, kv_start=start)
     a = _check_b9(q, kz, vz, form=form, **kw)
@@ -857,9 +935,9 @@ TC_CASES = {"partial key tile": (128, 100, False), "rows off the block": (77, 77
 @pytest.mark.parametrize("case", sorted(TC_CASES))
 @pytest.mark.parametrize("shape", sorted(TC_SHAPES))
 def test_b9_tensor_core_forms_at_mla_and_hd80_match_plain_version(cuda, shape, case):
-    """The mma form at MLA's 576 / 512 and at head dim 80 against the plain
-    version (3e-2, and 2^-6 of the largest |plain|); garbage below kv_start
-    gives the bits of zeroed rows."""
+    """The tensor-core forms at MLA's 576 / 512 (mma) and at head dim 80
+    (wgmma) against the plain version (3e-2, and 2^-6 of the largest
+    |plain|); garbage below kv_start gives the bits of zeroed rows."""
     H, Hkv, hd, dv = TC_SHAPES[shape]
     Sq, Skv, causal = TC_CASES[case]
     B = 2
@@ -880,8 +958,9 @@ def test_b9_tensor_core_forms_at_mla_and_hd80_match_plain_version(cuda, shape, c
         k = k.masked_fill(below, 0)
         own = None if own is None else own.masked_fill(below, 0)
     v = values(k, own)
-    assert tfa._form(q.dtype, B, Sq, H, Hkv, hd, Skv, dv, tfa._v_in_k(k, v)) == "mma"
-    got = _check_b9(q, k, v, form="mma", **kw)
+    form = "mma" if dv < hd else "wgmma"
+    assert tfa._form(q.dtype, B, Sq, H, Hkv, hd, Skv, dv, tfa._v_in_k(k, v)) == form
+    got = _check_b9(q, k, v, form=form, **kw)
     _bf16_bound(got, tref.attention(q, k, v, causal=causal, q_offset=kw.get("q_offset", 0),
                                     kv_len=kw.get("kv_len"), kv_start=kw.get("kv_start")))
     if case == "garbage below kv_start":
@@ -1565,7 +1644,7 @@ def test_full_width_decode_on_a_served_snapshot_through_b9_equals_plain(cuda):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_b9_at_zamba2_head_dim_80_matches_plain_version(cuda, case, dt):
     """Zamba2-2.7B's shared attention: 32 heads of 2560 / 32 = 80 over 32 kv
-    heads: bf16 prefill takes the mma form (f32 prefill the simt form) and
+    heads: bf16 prefill takes the wgmma form (f32 prefill the simt form) and
     decode the split form; decode over an [8, 1024] cache, prefill 8 x 512
     and 77 rows; bf16 also within 2^-6 of the largest |plain|."""
     g = torch.Generator(device=cuda).manual_seed(43)
@@ -1582,7 +1661,7 @@ def test_b9_at_zamba2_head_dim_80_matches_plain_version(cuda, case, dt):
         form = "split"
     else:
         q = torch.randn(B, Skv, 32, 80, generator=g, device=cuda).to(dt)
-        kw, form = dict(causal=True), "mma" if dt == torch.bfloat16 else "simt"
+        kw, form = dict(causal=True), "wgmma" if dt == torch.bfloat16 else "simt"
     assert tfa._form(dt, B, q.shape[1], 32, 32, 80, Skv) == form
     got = _check_b9(q, k, v, form=form, **kw)
     if dt == torch.bfloat16:
@@ -1684,7 +1763,7 @@ CROSS_SHAPES = {"vision prefill": (8, 512, 32, 1601, 8, 128),
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_b9_at_the_cross_attention_shapes_matches_plain_version(cuda, case, dt):
     """B9 non-causal at the cross-attention shapes, queries attending to
-    every key: a prefill of 512 queries (bf16: the mma form; f32: simt)
+    every key: a prefill of 512 queries (bf16: the wgmma form; f32: simt)
     and a decode of one (the split form), over Llama-3.2-V's 1601 image
     tokens (a partial last key tile, and 51 splits of 32 rows in decode)
     and MusicGen's 64 conditioning tokens."""
@@ -1693,7 +1772,7 @@ def test_b9_at_the_cross_attention_shapes_matches_plain_version(cuda, case, dt):
     q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
     k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda).to(dt) for _ in range(2))
     form = tfa._form(dt, B, Sq, H, Hkv, hd, Skv)
-    assert form == ("split" if Sq == 1 else "mma" if dt == torch.bfloat16 else "simt")
+    assert form == ("split" if Sq == 1 else "wgmma" if dt == torch.bfloat16 else "simt")
     _check_b9(q, k, v, form=form, causal=False)
 
 
@@ -1801,7 +1880,7 @@ def test_b9_at_the_tensor_parallel_ranks_shapes_matches_plain_version(cuda, case
     """B9 at a rank's heads of DeepSeek-V2-Lite (8 of MLA's 16, keys of 576,
     values of 512), Zamba2 (16 of 32 at head dim 80) and Llama-3.2-V's cross
     attention (16 of 32 over 4 of 8 kv heads and 1601 keys) at M = 2:
-    mma prefill in bf16 (MLA's over its keys' prefix by the MLA kernel),
+    wgmma prefill in bf16 (mma for MLA's over its keys' prefix: the MLA kernel),
     simt in f32, split decode at position 512; bf16 also within 2^-6 of the
     largest |plain|."""
     B, Sq, H, Skv, Hkv, hd, dv, causal = TP_LOCAL_SHAPES[case]
@@ -1814,7 +1893,8 @@ def test_b9_at_the_tensor_parallel_ranks_shapes_matches_plain_version(cuda, case
     if Sq == 1 and causal:
         p = torch.tensor(512, dtype=torch.int32, device=cuda)
         kw.update(q_offset=p, kv_len=p + 1)
-    form = "split" if Sq == 1 else "mma" if dt == torch.bfloat16 else "simt"
+    form = ("split" if Sq == 1 else "simt" if dt == torch.float32 else
+            "mma" if dv < hd else "wgmma")
     got = _check_b9(q, k, v, form=form, **kw)
     assert got.shape == (B, Sq, H, dv)
     if dt == torch.bfloat16:
