@@ -204,7 +204,8 @@ prints no result line):
              before anything is allocated; the longest sequence of
              {256, 128, 64} whose planes and estimated activations fit is
              taken; 10 sim steps at full width (22 layers, d 2048, f32,
-             random weights from seed 0), W=2, global batch 8, p 0.5, NAG
+             random weights from seed 0, each layer rematerialised: the
+             config's default remat=True), W=2, global batch 8, p 0.5, NAG
              lr 1e-2: the loss finite and falling, B1 launched 10 times and
              B9 never (training attention is the differentiable online
              softmax), comm_units equal to the gates and comm_bytes its f32
@@ -295,10 +296,10 @@ prints no result line):
              at its widths cut to 18 of 54 layers (3 Mamba2 segments of 6,
              2 shared sites) at W=2, global batch 8; the sequence phase
              10's way (the longest of 256, 128, 64 whose step plan fits:
-             256 for xLSTM, 128 for Zamba2), 10 sim steps each: B1 10 times
-             and B9 never, the loss finite and falling, comm_units = gates,
+             256 for both with remat), 10 sim steps each: B1 10 times and
+             B9 never, the loss finite and falling, comm_units = gates,
              max_memory_allocated within 0.9-1.2 of the step's memory plan
-             (planes, activations and the backward's share), the step
+             (launch.train.step_bytes, by cfg.remat), the step
              times and tokens/s, B1 on one more step's own inputs byte for
              byte over the whole [W, N] plane and timed; the card's f32
              gradient against the CPU's f64 one at the widths (xLSTM at 2
@@ -327,7 +328,9 @@ prints no result line):
              layers + 1 cross block: step_memory refuses it) and the
              reduced vision model trained on sim.
 17. accum+tp — (a) TinyLlama-1.1B whole in f32 on the dist engine at
-             W = 2 ranks: the largest per-worker batch whose step plan
+             W = 2 ranks, with remat=False (a rematerialised step keeps too
+             little for A = 2 to lower the peak): the largest per-worker
+             batch whose step plan
              fits (seq 256), 3 steps at grad_accum 1 and then 2 in the
              same ranks, step 1's loss and theta at A = 2 within rtol 1e-4
              / atol 1e-5 of A = 1 and each rank's peak at A = 2 below A =
@@ -382,6 +385,22 @@ prints no result line):
              plan's argument + temp bytes (launch.specs); then the dry-run
              sweep's serving cells on the one-pod mesh (launch.dryrun, on
              meta), fits, bottleneck and count seconds per cell.
+20. remat   — rematerialisation in LM training (``cfg.remat``,
+             ``common/remat.py``; every training phase above runs with it,
+             the config's default, but 17 (a)): (a) TinyLlama-1.1B at full
+             width in f32, phase 10's shape (W = 2, global batch 8, seq
+             256, p 0.5, NAG lr 1e-2, seed 0), 3 sim steps with remat=True
+             and 3 with remat=False (``dataclasses.replace`` and
+             ``lm_loss_fn``) on the same draws: per-step losses equal (bit
+             for bit, or within 1e-6 relative with the gap printed), both
+             max_memory_allocated (the remat one lower) and both median
+             step times, B1 6 times and B9 never; (b) at train_4k's 4,096
+             tokens (else the longest of 2,048 / 1,024 whose remat plan
+             fits): step_memory refuses remat=False with nothing
+             allocated, remat=True is admitted and runs 3 sim steps, the
+             loss finite, B1 3 times, B9 never, comm_units equal to the
+             gates, max_memory_allocated within 0.9-1.2 of the plan, the
+             step time and tokens/s.
              Every phase's seconds are printed.
 
 The line before the last is a JSON object listing the kernels with their
@@ -4514,8 +4533,8 @@ MOE_REDUCED_W = 2                    # the reduced dist runs' processes
 
 def train_seq(torch, cfg, W, gb, dev, tag):
     """Phase 10's sequence: the longest of LM_SEQS whose step plan
-    (``launch.train.step_bytes``: planes, activations, the backward) fits
-    in 0.9 of the card's free memory."""
+    (``launch.train.step_bytes``, by ``cfg.remat``) fits in 0.9 of the
+    card's free memory."""
     from repro_torch.launch.train import step_bytes
     free = torch.cuda.mem_get_info(dev)[0]
     fits = {s: step_bytes(cfg, W, gb * s, s) for s in LM_SEQS}
@@ -4608,8 +4627,8 @@ def lm_train_run(torch, ops, fu, ref, fa, dev, bw, peak, arch, layers, W, gb, ta
         + "; step ms (synchronised, first with warm-up) " + " ".join(f"{x:.1f}" for x in step_ms)
         + f"; median after the first {med:.3f} ms ({tokens / med * 1e3:.0f} tokens/s); "
         f"launches {got}; comm_units {units} = gates {gates}")
-    log(f"[{tag}] memory: step plan (4 planes {4 * W * rb / gib:.2f} GiB + activations "
-        f"estimate {act / gib:.2f} GiB and the backward's share) {plan / gib:.2f} GiB of "
+    log(f"[{tag}] memory: step plan ([{W}, N] planes of {W * rb / gib:.2f} GiB, activations "
+        f"estimate {act / gib:.2f} GiB, remat={cfg.remat}) {plan / gib:.2f} GiB of "
         f"{free / gib:.2f} GiB free; max_memory_allocated {peak_mem / gib:.2f} GiB ({ratio:.3f} of "
         f"the plan, limits {PEAK_PLAN})")
     extra = None if inspect is None else inspect(trainer, state, cfg, seq)
@@ -5191,7 +5210,7 @@ def vision_train_plan(torch, dev):
     log(f"[cross] {cfg.name} at its widths cut to {VISION_TRAIN_LAYERS} layers + 1 cross block: "
         f"{rb // 4} f32 parameters ({rb / gib:.2f} GiB a replica); at W={LM_W} the 4 planes "
         f"need {4 * LM_W * rb / gib:.2f} GiB and the activations of {tokens} tokens "
-        f"{act / gib:.2f} GiB (estimate, before the backward's share) of {free / gib:.2f} GiB "
+        f"{act / gib:.2f} GiB (estimate, remat={cfg.remat}) of {free / gib:.2f} GiB "
         f"free: {verdict}")
     return dict(params=rb // 4, planes_bytes=4 * LM_W * rb, activations_estimate=act,
                 free=free, verdict=verdict)
@@ -5326,12 +5345,16 @@ def grad_accum_full(torch, dev):
     the largest per-worker batch whose step plan fits at A = 1, then A = 2
     at that batch, GA_STEPS steps each in one group. Step 1's loss and theta
     at A = 2 within rtol 1e-4 / atol 1e-5 of A = 1, each rank's peak at A = 2
-    below its peak at A = 1, B1 / B2 once a step. Returns (launches, summary)."""
+    below its peak at A = 1, B1 / B2 once a step. With remat=False: A = 2
+    trades the activations for an f32 accumulator plane, and a
+    rematerialised step keeps too little for that trade to lower the peak.
+    Returns (launches, summary)."""
+    import dataclasses
     from repro_torch.common.config import MeshConfig
     from repro_torch.configs import get_config
     from repro_torch.launch import dist_run
     from repro_torch.launch.train import activation_bytes, step_bytes
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat=False)
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info(dev)[0]
     plans = {pw: step_bytes(cfg, GA_W, GA_W * pw * GA_SEQ, GA_SEQ) for pw in GA_PWS}
@@ -5340,7 +5363,8 @@ def grad_accum_full(torch, dev):
         raise AssertionError(f"[accum] no per-worker batch of {GA_PWS} fits: {plans}")
     act = {A: activation_bytes(cfg, GA_W * pw * GA_SEQ // A, GA_SEQ) for A in (1, 2)}
     gib = 2 ** 30
-    log(f"[accum] {cfg.name} f32 dist W={GA_W}, seq {GA_SEQ}: step plan by per-worker batch "
+    log(f"[accum] {cfg.name} f32 (remat=False) dist W={GA_W}, seq {GA_SEQ}: step plan by "
+        "per-worker batch "
         + ", ".join(f"{p}: {plans[p] / gib:.2f} GiB" for p in GA_PWS) + f" of "
         f"{free / gib:.2f} GiB free; taken {pw}; activations (estimate, both ranks) A=1 "
         f"{act[1] / gib:.2f} GiB, A=2 {act[2] / gib:.2f} GiB")
@@ -6140,6 +6164,166 @@ def run_plan_phase(torch, ops, fa, dev, smi, kind):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 20: rematerialisation in LM training (cfg.remat, common/remat.py)
+# ---------------------------------------------------------------------------
+
+RM_STEPS = 3
+RM_SEQS = (4096, 2048, 1024)         # train_4k's sequence, else the longest that fits
+RM_LOSS_REL = 1e-6                   # the losses' gap where they are not bit-equal
+
+
+def remat_run(torch, ops, fa, cfg, seq, dev, draws=None):
+    """RM_STEPS sim steps of ``cfg`` (TinyLlama-1.1B at full width, f32)
+    through GossipTrainer over ``lm_loss_fn(cfg)`` at W = LM_W, global batch
+    LM_BATCH, ``seq``, NAG lr LM_LR, p LM_P, seed 0, on ``draws`` (each
+    step's gate and peers) when given. Every count is set to 0 just before
+    the steps and read just after. Returns the losses, step ms
+    (synchronised), max_memory_allocated, the launches, whether any B9 form
+    ran, the draws, the gates fired and comm_units."""
+    from repro_torch.api import GossipTrainer
+    from repro_torch.common.config import OptimizerConfig, ProtocolConfig
+    from repro_torch.launch.train import engine_batch, lm_batches
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.losses import lm_loss_fn
+    trainer = GossipTrainer(
+        engine="sim", protocol=ProtocolConfig(method="elastic_gossip", moving_rate=0.5,
+                                              comm_probability=LM_P),
+        optimizer=OptimizerConfig(name="nag", learning_rate=LM_LR, momentum=0.9),
+        loss_fn=lm_loss_fn(cfg), num_workers=LM_W,
+        init_fn=lambda gen: tr.init_lm(gen, cfg)[0], seed=0, device=dev)
+    state = trainer.init_state(0)
+    batches = lm_batches(cfg, LM_W, LM_BATCH // LM_W, seq, 0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.zero_launch_counts()
+    forms0 = dict(fa.FORM_LAUNCHES)
+    out = dict(losses=[], step_ms=[], draws=[])
+    for i in range(RM_STEPS):
+        b = engine_batch(next(batches))
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, b, draws=None if draws is None else draws[i])
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(m["loss"]))
+        out["draws"].append(trainer.sim.last_draws)
+    out["launches"] = {k: n for k, n in ops.launch_counts().items() if k in KERNELS}
+    out["b9_forms"] = dict(fa.FORM_LAUNCHES) != forms0
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["gates"] = int(sum(int(g.sum()) for g, _ in out["draws"]))
+    out["units"] = int(state.proto.comm_units)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_check(tag, run):
+    """B1 once a step, B9 never (no form), finite losses and comm_units equal
+    to the gates fired."""
+    want = dict.fromkeys(KERNELS, 0)
+    want[B1] = RM_STEPS
+    if run["launches"] != want or run["b9_forms"]:
+        raise AssertionError(f"[remat] {tag}: launches {run['launches']} (a B9 form ran: "
+                             f"{run['b9_forms']}), expected {want}")
+    if not all(x == x and abs(x) != float("inf") for x in run["losses"]):
+        raise AssertionError(f"[remat] {tag}: losses {run['losses']}")
+    if run["units"] != run["gates"]:
+        raise AssertionError(f"[remat] {tag}: comm_units {run['units']} != gates "
+                             f"{run['gates']}")
+
+
+def run_remat_phase(torch, ops, fa, dev, smi):
+    """Phase 20. (a) TinyLlama-1.1B at LM_SEQS[0] with remat=True, then
+    remat=False on the same draws: per-step losses equal (bit for bit, or
+    within RM_LOSS_REL with the gap printed), the remat peak lower, both
+    step times; (b) at the longest of RM_SEQS whose remat plan fits 0.9 of
+    the free memory: step_memory refuses remat=False with nothing
+    allocated, remat=True runs within PEAK_PLAN of its plan. Returns
+    ({kernel: launches}, summary)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+    gib = 2 ** 30
+    on = get_config(LM_ARCH)
+    if not on.remat:
+        raise AssertionError("the config's default is remat=False")
+    off = dataclasses.replace(on, remat=False)
+    launches = dict.fromkeys(KERNELS, 0)
+    seq = LM_SEQS[0]
+    a = {"on": remat_run(torch, ops, fa, on, seq, dev)}
+    a["off"] = remat_run(torch, ops, fa, off, seq, dev, draws=a["on"]["draws"])
+    for tag, run in a.items():
+        remat_check(f"(a) remat {tag}", run)
+        for k, n in run["launches"].items():
+            launches[k] += n
+    l_on, l_off = a["on"]["losses"], a["off"]["losses"]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(l_on, l_off))
+    if l_on != l_off and gap > RM_LOSS_REL:
+        raise AssertionError(f"[remat] (a) losses remat {l_on} vs not {l_off}: gap {gap}")
+    if not a["on"]["peak"] < a["off"]["peak"]:
+        raise AssertionError(f"[remat] (a) peak with remat {a['on']['peak']} not below "
+                             f"{a['off']['peak']}")
+    med = {t: statistics.median(r["step_ms"][1:]) for t, r in a.items()}
+    log(f"[remat] (a) {on.name} full width f32, sim W={LM_W}, global batch {LM_BATCH}, seq "
+        f"{seq}, NAG lr {LM_LR}, p {LM_P}, seed 0, the same draws: losses remat "
+        f"{[f'{x:.7f}' for x in l_on]}, not {[f'{x:.7f}' for x in l_off]} ("
+        + ("bit-equal" if l_on == l_off else f"largest relative gap {gap:.3e}")
+        + f"); max_memory_allocated remat {a['on']['peak'] / gib:.3f} GiB, not "
+        f"{a['off']['peak'] / gib:.3f} GiB ({a['on']['peak'] / a['off']['peak']:.3f}); step ms "
+        f"(synchronised) remat {[round(x, 1) for x in a['on']['step_ms']]}, not "
+        f"{[round(x, 1) for x in a['off']['step_ms']]}: median after the first "
+        f"{med['on']:.1f} / {med['off']:.1f} ms ({med['on'] / med['off']:.3f}x); launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} = B1 once a step, B9 none; "
+        f"comm_units = gates {a['on']['gates']} / {a['off']['gates']} ({smi})")
+    # (b) train_4k's sequence
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    plans = {s: cli.step_bytes(on, LM_W, LM_BATCH * s, s) for s in RM_SEQS}
+    seq = next((s for s in RM_SEQS if plans[s] <= 0.9 * free), None)
+    if seq is None:
+        raise AssertionError(f"[remat] (b) no sequence of {RM_SEQS} fits: {plans}, free {free}")
+    tokens = LM_BATCH * seq
+    alloc0 = torch.cuda.memory_allocated(dev)
+    try:
+        cli.step_memory(off, LM_W, tokens, seq, dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or torch.cuda.memory_allocated(dev) != alloc0:
+        raise AssertionError(f"[remat] (b) step_memory admitted remat=False at seq {seq}, or "
+                             "allocated while it planned")
+    plan = cli.step_memory(on, LM_W, tokens, seq, dev)
+    act = cli.activation_bytes(on, tokens, seq)
+    b = remat_run(torch, ops, fa, on, seq, dev)
+    remat_check(f"(b) seq {seq}", b)
+    for k, n in b["launches"].items():
+        launches[k] += n
+    ratio = b["peak"] / plan
+    if not PEAK_PLAN[0] <= ratio <= PEAK_PLAN[1]:
+        raise AssertionError(f"[remat] (b) max_memory_allocated {b['peak']} is {ratio:.3f} of "
+                             f"the plan {plan}, outside {PEAK_PLAN}")
+    med_b = statistics.median(b["step_ms"][1:])
+    log(f"[remat] (b) {on.name} at seq {seq} (plans by sequence "
+        + ", ".join(f"{s}: {plans[s] / gib:.2f} GiB" for s in RM_SEQS)
+        + f" of {free / gib:.2f} GiB free; taken {seq}"
+        + ("" if seq == RM_SEQS[0] else f", {RM_SEQS[0]} does not fit") + "), sim "
+        f"W={LM_W}, global batch {LM_BATCH}: remat=False refused before anything was "
+        f"allocated ({refused.split(';')[0]}); remat=True admitted: plan {plan / gib:.2f} GiB "
+        f"(activations estimate {act / gib:.2f} GiB), max_memory_allocated "
+        f"{b['peak'] / gib:.3f} GiB ({ratio:.3f} of the plan, limits {PEAK_PLAN}); losses "
+        f"{[round(x, 5) for x in b['losses']]}; step ms (synchronised) "
+        f"{[round(x, 1) for x in b['step_ms']]}, median after the first {med_b:.1f} ms "
+        f"({tokens / med_b * 1e3:.0f} tokens/s); launches {b['launches'][B1]} B1, B9 none; "
+        f"comm_units {b['units']} = gates {b['gates']} ({smi})")
+    return launches, dict(
+        seq256=dict(losses_remat=l_on, losses_plain=l_off, loss_gap=gap,
+                    peak_remat=a["on"]["peak"], peak_plain=a["off"]["peak"],
+                    step_ms_remat=a["on"]["step_ms"], step_ms_plain=a["off"]["step_ms"]),
+        long=dict(seq=seq, plan=plan, peak=b["peak"], ratio=ratio, losses=b["losses"],
+                  step_ms=b["step_ms"], tokens_per_s=tokens / med_b * 1e3,
+                  refused=refused))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6368,6 +6552,14 @@ def main():
     for kname, n in pl_launches.items():
         launches[kname] += n
     phase_s["19 plan"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    rm_launches, rm_summary = run_remat_phase(torch, ops, fa, dev, smi)
+    for kname, n in rm_launches.items():
+        launches[kname] += n
+    log(f"[remat] launches in phase 20: {dict((k, v) for k, v in rm_launches.items() if v)}; "
+        f"summary ({smi}): {json.dumps(rm_summary)}")
+    phase_s["20 remat"] = time.perf_counter() - t_phase
     log("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f"; total {sum(phase_s.values()):.1f}")
 

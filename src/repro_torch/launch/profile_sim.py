@@ -21,8 +21,9 @@ differentiable online softmax and their backward nodes, matched by
 autograd sequence number), an MoE layer's expert ``bmm``s and its dispatch
 (route, sort + scatter, gather + combine; matched the same way), the
 recurrent models' chunked GLA core and sLSTM loop (``--arch xlstm_125m``,
-``--arch zamba2_2_7b --layers 18``), the flat views' backward and the
-rest; the audio and vision models train on their zero ``cond`` stub. For the LM only, as many
+``--arch zamba2_2_7b --layers 18``), the flat views' backward, the
+layers' recompute in the backward (``cfg.remat``, the ``remat recompute``
+range of ``common/remat.py``) and the rest; the audio and vision models train on their zero ``cond`` stub. For the LM only, as many
 unprofiled steps are first timed by CUDA events, and the kernel list
 leaves out the device-side copy of the attention's ``record_function``
 range (a user annotation, not a kernel); the MLP and CNN profiles are
@@ -256,7 +257,9 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
 
 # record_function ranges of the LM step -> the part their kernels (and
 # their backward nodes' kernels) are counted under
-RANGES = {"online_softmax_attention": "attention (fwd + bwd)",
+RECOMPUTE = "remat recompute"
+RANGES = {RECOMPUTE: "remat recompute (the layers' forward again)",
+          "online_softmax_attention": "attention (fwd + bwd)",
           "moe expert matmuls": "MoE expert bmms (fwd + bwd)",
           "moe route": "MoE dispatch: route (fwd + bwd)",
           "moe sort + scatter": "MoE dispatch: sort + scatter (fwd + bwd)",
@@ -272,7 +275,12 @@ def _lm_split(events) -> dict:
     views' backward (the ``_Views`` backward node); the remaining matmuls
     and the remaining elementwise / reduction kernels. A kernel goes by
     the op that launched it (the op's ``kernels``); those launched outside
-    any op (the hand-written kernels, through ctypes) go by name."""
+    any op (the hand-written kernels, through ctypes) go by name. The
+    layers' recompute (``cfg.remat``, ``common/remat.py``) is its own part
+    whatever range it holds (the attention's forward in it too); the
+    backward of what it recomputed goes to the part of its own range, and
+    the key chunks' recompute inside the attention's backward to the
+    attention."""
     CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
     def ancestors(e):
@@ -291,7 +299,7 @@ def _lm_split(events) -> dict:
         return "elementwise / reductions / copies"
 
     def innermost_range(chain):
-        return next((a.name for a in chain if a.name in RANGES), None)
+        return next((a.name for a in chain if a.name in RANGES and a.name != RECOMPUTE), None)
 
     ops = [e for e in events if e.device_type == CPU]
     seq_range = {}
@@ -313,7 +321,7 @@ def _lm_split(events) -> dict:
             continue
         chain = list(ancestors(e))
         names = [a.name for a in chain]
-        r = innermost_range(chain)
+        r = RECOMPUTE if RECOMPUTE in names else innermost_range(chain)
         if r is None:
             r = next((seq_range[a.sequence_nr] for a in chain
                       if "evaluate_function" in a.name and a.sequence_nr in seq_range), None)

@@ -50,8 +50,10 @@ the reference replicates the resident plane over its ``fsdp`` and
 must then equal fsdp x model, as in the reference), and
 ``validate_fleet_memory`` refuses a fleet that does not fit the card;
 ``--multi-pod`` without ``--production-mesh``, which the reference
-ignores, is refused. The model trains without rematerialisation
-(ROADMAP.md §C), and the CLI prints its estimate of the activations.
+ignores, is refused. The model rematerialises as ``cfg.remat`` says (the
+reference's default, True: each layer recomputed in the backward; no flag
+sets it, as in the reference), and the CLI prints which estimate of the
+activations it used.
 """
 from __future__ import annotations
 
@@ -179,16 +181,16 @@ def _ffn_width(cfg: ModelConfig) -> int:
     return (5 if cfg.activation in ("swiglu", "geglu") else 3) * cfg.d_ff
 
 
-def _cross_width(cfg: ModelConfig, kv_dim: int, seq: int, chunk: int) -> float:
+def _cross_width(cfg: ModelConfig, kv_dim: int, seq: int, keys) -> float:
     """Per token, what autograd keeps of a cross-attention: three score
-    rows over the conditioning's T keys (padded to the chunk) for each
-    query head, the queries and outputs [H, hd] and four model-width rows;
-    per sequence the keys and values [T, Hkv, hd] and the conditioning
+    rows over ``keys(T)`` of the conditioning's T keys for each query
+    head, the queries and outputs [H, hd] and four model-width rows; per
+    sequence the keys and values [T, Hkv, hd] and the conditioning
     [T, kv_dim], spread over its ``seq`` tokens."""
     T = cfg.audio.num_cond_tokens if cfg.audio is not None else cfg.vlm.num_image_tokens
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     per_seq = T * (2 * Hkv * hd + kv_dim)
-    return 3 * H * _padded(T, chunk) + 2 * H * hd + 4 * cfg.d_model + per_seq / seq
+    return 3 * H * keys(T) + 2 * H * hd + 4 * cfg.d_model + per_seq / seq
 
 
 def _recurrent_width(kind: str, cfg: ModelConfig, seq: int) -> float:
@@ -222,57 +224,136 @@ def _recurrent_width(kind: str, cfg: ModelConfig, seq: int) -> float:
     return 18 * d_in + 4 * H * Q + 3 * H * dh * (dh + 1) / Q
 
 
-def activation_bytes(cfg: ModelConfig, tokens: int, seq: int, dtype_bytes: int = 4,
-                     chunk: int = 1024) -> int:
-    """The port's estimate of the activations autograd keeps for one
-    training step over ``tokens`` tokens of sequences of ``seq`` (every
-    worker's), with no rematerialisation, summed over the plan's layers
-    (``tr.make_plan``). An attention layer (and a hybrid's shared site):
-    per token about ten model-width vectors (norms, projections,
-    residuals, RoPE halves), the attention (:func:`_attention_width`), and
-    the FFN (:func:`_ffn_width`; :func:`_moe_width` for an MoE one); an
-    ``attn_cross`` layer adds its cross-attention (:func:`_cross_width`),
-    and a vision model's cross block is a cross-attention and a dense FFN.
-    A recurrent layer: :func:`_recurrent_width`. Per token three
-    vocabulary-width rows of the loss's f32 logits a head (K heads for
-    audio). Fitted at the published widths to 1.1-1.3 times what autograd
-    keeps there; at the reduced configs it stays above it."""
+def _block_widths(cfg: ModelConfig, seq: int, keys) -> list:
+    """[(kind, count, per-token width)] of the plan's blocks (``tr.make_plan``),
+    each width in elements of what autograd keeps of one such block with
+    no rematerialisation; ``keys(n)`` is the count of score columns the
+    attention keeps over ``n`` keys. An attention layer (and a hybrid's
+    shared site): per token about ten model-width vectors (norms,
+    projections, residuals, RoPE halves), the attention
+    (:func:`_attention_width`), and the FFN (:func:`_ffn_width`;
+    :func:`_moe_width` for an MoE one); an ``attn_cross`` layer adds its
+    cross-attention (:func:`_cross_width`), and a vision model's cross block
+    is a cross-attention and a dense FFN. A recurrent layer:
+    :func:`_recurrent_width`."""
     plan = tr.make_plan(cfg)
-    shared = 10 * cfg.d_model + _attention_width(cfg, _padded(seq, chunk))
-    per_token = 0.0
+    shared = 10 * cfg.d_model + _attention_width(cfg, keys(seq))
+    out = []
     for seg in plan.segments:
         if seg.kind in ("attn", "attn_cross"):
             width = shared + (_moe_width(cfg) if seg.use_moe else _ffn_width(cfg))
             if seg.kind == "attn_cross":
-                width += _cross_width(cfg, cfg.d_model, seq, chunk)
+                width += _cross_width(cfg, cfg.d_model, seq, keys)
         else:
             width = _recurrent_width(seg.kind, cfg, seq)
-        per_token += seg.count * width
-    per_token += plan.num_shared_sites * (shared + _ffn_width(cfg))
+        out.append((seg.kind, seg.count, width))
+    if plan.num_shared_sites:
+        out.append(("attn", plan.num_shared_sites, shared + _ffn_width(cfg)))
     if plan.num_cross:
-        per_token += plan.num_cross * (_cross_width(cfg, cfg.vlm.image_embed_dim, seq, chunk)
-                                       + _ffn_width(cfg) + 6 * cfg.d_model)
+        out.append(("cross_blk", plan.num_cross,
+                    _cross_width(cfg, cfg.vlm.image_embed_dim, seq, keys)
+                    + _ffn_width(cfg) + 6 * cfg.d_model))
+    return out
+
+
+def _carry_bytes(kind: str, cfg: ModelConfig, seq: int, chunk: int) -> float:
+    """Per token, the f32 carries (m, l, acc) the online softmax keeps per
+    key chunk for a block's recompute: (2 + dv) a query head and chunk, over
+    the sequence's keys (self-attention) and the conditioning's
+    (cross-attention)."""
+    def carries(n, dv):
+        return -(-n // min(chunk, n)) * cfg.num_heads * (2 + dv) * 4
+
+    dv = cfg.mla.kv_lora_rank if cfg.mla is not None else cfg.resolved_head_dim
+    out = 0.0
+    if kind in ("attn", "attn_cross"):
+        out += carries(seq, dv)
+    if kind in ("attn_cross", "cross_blk"):
+        T = cfg.audio.num_cond_tokens if cfg.audio is not None else cfg.vlm.num_image_tokens
+        out += carries(T, cfg.resolved_head_dim)
+    return out
+
+
+def activation_bytes(cfg: ModelConfig, tokens: int, seq: int, dtype_bytes: int = 4,
+                     chunk: int = 1024) -> int:
+    """The port's estimate of the activations autograd keeps for one
+    training step over ``tokens`` tokens of sequences of ``seq`` (every
+    worker's), as ``cfg.remat`` says.
+
+    Without rematerialisation, every block's width (:func:`_block_widths`,
+    the attention's scores over all its keys) summed over the plan. Fitted
+    at the published widths to 1.1-1.3 times what autograd kept there before
+    the key chunks were checkpointed; at the reduced configs it stays above
+    it.
+
+    With ``cfg.remat`` (the default): every block's input, d a token; the
+    conditioning once (the audio and vision models); the costliest single
+    block's internals, its attention at one key chunk's scores, and its
+    chunk carries (:func:`_carry_bytes`), which its recompute holds in the
+    backward.
+
+    Either way, per token three vocabulary-width rows of the loss's f32
+    logits a head (K heads for audio): the chunked cross-entropy is not
+    rematerialised, in the reference either."""
     heads = cfg.audio.num_codebooks if cfg.audio is not None else 1
-    return int(tokens * (per_token * dtype_bytes + 3 * heads * cfg.vocab_size * 4))
+    loss = 3 * heads * cfg.vocab_size * 4
+    if not cfg.remat:
+        widths = _block_widths(cfg, seq, lambda n: _padded(n, chunk))
+        per_token = sum(count * width for _, count, width in widths) * dtype_bytes
+        return int(tokens * (per_token + loss))
+    widths = _block_widths(cfg, seq, lambda n: min(chunk, n))
+    inputs = sum(count for _, count, _ in widths) * cfg.d_model * dtype_bytes
+    costliest = max(width * dtype_bytes + _carry_bytes(kind, cfg, seq, chunk)
+                    for kind, _, width in widths)
+    cond = 0.0
+    if cfg.audio is not None:
+        cond = cfg.audio.num_cond_tokens * cfg.d_model * dtype_bytes / seq
+    elif cfg.vlm is not None:
+        cond = cfg.vlm.num_image_tokens * cfg.vlm.image_embed_dim * dtype_bytes / seq
+    return int(tokens * (inputs + cond + costliest + loss))
 
 
 # the backward's working set beside what autograd keeps (the gradients
 # flowing back through the layers, a layer's parameter gradients before
 # they are stacked), as a share of activation_bytes: fitted to the peaks
 # of TinyLlama-1.1B, DeepSeek-V2-Lite-16B at 2 layers, xLSTM-125M and
-# Zamba2-2.7B at 6 layers on an H100 (PERF.md §6)
+# Zamba2-2.7B at 6 layers on an H100 with no rematerialisation (PERF.md §6)
 BACKWARD_SHARE = 0.75
+# with cfg.remat the peak is the larger of two moments, in [W, N] planes:
+# after the step, the CLI's consensus reading (theta and velocity beside
+# divergence_metrics' copy of the plane, its difference from the mean and
+# the mean), above the backward's end (theta, velocity, the gradients' leaf
+# stack and their plane); and a block's recompute in the backward (theta,
+# velocity and the gradients so far, beside activation_bytes). Fitted to
+# the peaks of TinyLlama-1.1B at 256-4,096 tokens, DeepSeek-V2-Lite-16B at
+# 2 layers, xLSTM-125M, Zamba2-2.7B at 18 and MusicGen-large at 15 on an
+# H100 (PERF.md §6)
+REMAT_END_PLANES, REMAT_RECOMPUTE_PLANES = 4.5, 3
+
+
+def _step_parts(cfg: ModelConfig, workers: int, tokens: int, seq: int, dtype):
+    """(planes, the rest) of :func:`step_bytes`, in bytes."""
+    size = torch.empty((), dtype=dtype).element_size()
+    act = activation_bytes(cfg, tokens, seq, dtype_bytes=size)
+    plane = workers * replica_bytes(cfg, dtype)
+    if not cfg.remat:
+        return 4 * plane, int((1 + BACKWARD_SHARE) * act)
+    if REMAT_END_PLANES * plane >= REMAT_RECOMPUTE_PLANES * plane + act:
+        return int(REMAT_END_PLANES * plane), 0
+    return REMAT_RECOMPUTE_PLANES * plane, act
 
 
 def step_bytes(cfg: ModelConfig, workers: int, tokens: int, seq: int,
                dtype=torch.float32) -> int:
-    """The estimate of a device-plane training step's peak: four ``[W, N]``
-    planes in ``dtype`` (theta, velocity, the gradients' leaf stack and
-    their plane), the activations (:func:`activation_bytes`, in ``dtype``)
-    and the backward's working set (``BACKWARD_SHARE`` of them)."""
-    size = torch.empty((), dtype=dtype).element_size()
-    act = activation_bytes(cfg, tokens, seq, dtype_bytes=size)
-    return 4 * workers * replica_bytes(cfg, dtype) + int((1 + BACKWARD_SHARE) * act)
+    """The estimate of a device-plane training step's peak, in ``[W, N]``
+    planes of ``dtype`` and the activations (:func:`activation_bytes`, in
+    ``dtype``). Without rematerialisation: four planes (theta, velocity,
+    the gradients' leaf stack and their plane), the activations and the
+    backward's working set (``BACKWARD_SHARE`` of them). With ``cfg.remat``:
+    the larger of ``REMAT_END_PLANES`` planes (the step's end and the CLI's
+    reading after it) and ``REMAT_RECOMPUTE_PLANES`` planes beside the
+    activations (a block's recompute)."""
+    return sum(_step_parts(cfg, workers, tokens, seq, dtype))
 
 
 def step_memory(cfg: ModelConfig, workers: int, tokens: int, seq: int, device,
@@ -282,16 +363,18 @@ def step_memory(cfg: ModelConfig, workers: int, tokens: int, seq: int, device,
     ValueError when that exceeds the free memory (``avail`` bytes when
     given, else the card's; the host's on the CPU); returns it in bytes."""
     from repro_torch.fleet import memory
-    need = step_bytes(cfg, workers, tokens, seq, dtype)
+    planes, rest = _step_parts(cfg, workers, tokens, seq, dtype)
+    need = planes + rest
     if avail is None:
         avail = memory.available_bytes("device", device)
     if avail is not None and need > avail:
         gib = 2.0 ** 30
-        planes = 4 * workers * replica_bytes(cfg, dtype)
+        n = planes / (workers * replica_bytes(cfg, dtype))
+        how = "rematerialised" if cfg.remat else "no rematerialisation"
         raise ValueError(
             f"a training step of {cfg.name} at W={workers} over {tokens} tokens of {seq} needs "
-            f"~{need / gib:.1f} GiB (4 planes {planes / gib:.1f} + activations and the "
-            f"backward {(need - planes) / gib:.1f}) but only {avail / gib:.1f} GiB is free; "
+            f"~{need / gib:.1f} GiB ({n:g} planes {planes / gib:.1f} + activations and the "
+            f"backward {rest / gib:.1f}, {how}) but only {avail / gib:.1f} GiB is free; "
             "reduce --workers, --global-batch or --seq")
     return need
 
@@ -418,7 +501,8 @@ def run(arch: str, *, reduced: bool, steps: int, method: str, p: float, tau: int
         obs_cfg = ObsConfig(trace_path=trace, metrics_path=metrics,
                             sample_every=sample_every)
     tokens = global_batch * seq
-    print(f"activations (estimate, no rematerialisation): "
+    how = "every layer rematerialised" if cfg.remat else "no rematerialisation"
+    print(f"activations (estimate, {how}): "
           f"{activation_bytes(cfg, tokens, seq) / 2**30:.2f} GiB for {tokens} tokens "
           f"of {cfg.name}", flush=True)
 

@@ -3,20 +3,25 @@ cross-attention to a conditioning sequence, and MLA (port of
 ``repro.models.attention``).
 
 The core is :func:`chunked_attention`, the reference's signature over the
-port's attention op: a call that needs a gradient runs
-:func:`online_softmax_attention` (the reference's differentiable chunk
-loop; kernel B9 is forward-only, in both packages), any other call kernel
-B9 on a CUDA tensor and its plain version on a CPU tensor. Decode writes
-the new K/V rows into the cache IN PLACE (the reference donates the cache
-and returns an updated copy).
+port's attention op: a call that needs a gradient, and every call within
+:func:`train_route` (which the training forward sets around each block,
+rematerialised or not), runs :func:`online_softmax_attention` (the
+reference's differentiable chunk loop, each key chunk checkpointed as
+there; kernel B9 is forward-only, in both packages); any other call runs
+kernel B9 on a CUDA tensor and its plain version on a CPU tensor. Decode
+writes the new K/V rows into the cache IN PLACE (the reference donates the
+cache and returns an updated copy).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.common.config import MLAConfig, ModelConfig
+from repro_torch.common.remat import checkpoint
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense_init, rmsnorm, split_tree, upcast,
                                        zeros_init)
@@ -37,9 +42,10 @@ def online_softmax_attention(q, k, v, *, causal: bool = True, window: int = 0,
     softcap. The training path of :func:`chunked_attention`.
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd | dv] with H % Hkv == 0.
-    Autograd keeps each chunk's scores for the backward: the reference's
-    ``jax.checkpoint`` per chunk has no counterpart under ``torch.func``
-    transforms (ROADMAP.md §C)."""
+    Each chunk goes through :func:`repro_torch.common.remat.checkpoint`,
+    as the reference's body goes through ``jax.checkpoint``: the backward
+    keeps the running (m, l, acc) of each chunk and recomputes the chunk's
+    scores, whatever ``cfg.remat`` says."""
     with torch.profiler.record_function("online_softmax_attention"):
         return _online_softmax(q, k, v, causal, window, logit_softcap, q_offset, kv_len,
                                kv_start, chunk)
@@ -65,38 +71,71 @@ def _online_softmax(q, k, v, causal, window, logit_softcap, q_offset, kv_len, kv
     l = torch.zeros((B, Hkv, G, Sq), dtype=acc_dt, device=dev)
     acc = torch.zeros((B, Hkv, G, Sq, dv), dtype=acc_dt, device=dev)
     for c in range(nchunks):
-        kb = upcast(k[:, c * chunk:(c + 1) * chunk])
-        vb = upcast(v[:, c * chunk:(c + 1) * chunk])
-        kv_pos = c * chunk + torch.arange(chunk, device=dev)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
-        if logit_softcap:
-            s = logit_softcap * torch.tanh(s / logit_softcap)
-        mask = kv_pos[None, :] < (Skv if kv_len is None else kv_len)
-        if causal:
-            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
-        if window > 0:
-            mask = mask & ((q_pos[:, None] - kv_pos[None, :]) < window)
-        if kv_start is None:
-            mask = mask[None, None, None]                      # [1, 1, 1, Sq, c]
-        else:
-            ks = torch.as_tensor(kv_start, device=dev).reshape(B, 1, 1)
-            mask = (mask[None] & (kv_pos[None, None, :] >= ks))[:, None, None]
-        s = s.masked_fill(~mask, NEG_INF)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
-        m = m_new
+        # the reference's jax.checkpoint(body): only the carries stay per
+        # chunk, the chunk's scores are recomputed in the backward
+        m, l, acc = checkpoint(
+            _chunk_step, (c, chunk, Skv, causal, window, logit_softcap, scale),
+            m, l, acc, qf, k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk],
+            q_pos, kv_len, kv_start, label="attention chunk recompute")
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.movedim(3, 1).reshape(B, Sq, H, dv).to(q.dtype)
+
+
+def _chunk_step(const, m, l, acc, qf, k, v, q_pos, kv_len, kv_start):
+    """One key chunk of the online softmax: (m, l, acc) and the chunk's
+    keys and values -> the new (m, l, acc). ``const`` holds the chunk's
+    index and the python settings; ``q_pos``, ``kv_len`` and ``kv_start``
+    are not differentiated."""
+    c, chunk, Skv, causal, window, logit_softcap, scale = const
+    B, dev = qf.shape[0], qf.device
+    kb, vb = upcast(k), upcast(v)
+    kv_pos = c * chunk + torch.arange(chunk, device=dev)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    mask = kv_pos[None, :] < (Skv if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        mask = mask & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    if kv_start is None:
+        mask = mask[None, None, None]                      # [1, 1, 1, Sq, c]
+    else:
+        ks = torch.as_tensor(kv_start, device=dev).reshape(B, 1, 1)
+        mask = (mask[None] & (kv_pos[None, None, :] >= ks))[:, None, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + torch.sum(p, dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+    return m_new, l, acc
+
+
+# the training route, decided by the training forward outside a
+# checkpointed layer and carried into it: the layer's forward runs with
+# grad mode off, and its recompute may run on autograd's device thread
+_TRAIN_ROUTE = contextvars.ContextVar("train_route", default=False)
+
+
+@contextlib.contextmanager
+def train_route(on: bool = True):
+    """Within it (when ``on``) :func:`chunked_attention` takes the
+    differentiable online softmax whatever its inputs are, never B9."""
+    token = _TRAIN_ROUTE.set(on)
+    try:
+        yield
+    finally:
+        _TRAIN_ROUTE.reset(token)
 
 
 def wants_grad(*ts) -> bool:
     """True when a gradient may flow through ``ts``: grad mode on and a
     tensor that requires grad, or a tensor wrapped by a ``torch.func``
     transform (the engines' ``vmap(grad_and_value(...))``), whose storage a
-    kernel cannot read."""
+    kernel cannot read; and always within :func:`train_route`."""
+    if _TRAIN_ROUTE.get():
+        return True
     if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in ts):
         return True
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
@@ -119,9 +158,10 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=0, logit_softcap: 
     chunk: the key block of the training path, min(chunk, Skv); B9 picks
     its own tiles.
 
-    A call that needs a gradient (:func:`wants_grad`) runs
-    :func:`online_softmax_attention` on either device (B9 is forward-only,
-    as the reference's Pallas kernel is); every other call runs
+    A call that needs a gradient (:func:`wants_grad`, true within
+    :func:`train_route`) runs :func:`online_softmax_attention` on either
+    device (B9 is forward-only, as the reference's Pallas kernel is); every
+    other call runs
     :func:`repro_torch.kernels.ops.attention`: B9 on a CUDA tensor, its
     plain version on a CPU tensor.
     """

@@ -22,10 +22,12 @@ segment (the cross blocks on ``[num_cross]``, the shared blocks on
 and a snapshot flattens to the same buffers.
 The reference's ``lax.scan`` over layers is a python loop over the layers'
 views (one ``unbind`` per stacked leaf, whose backward is one ``stack``),
-and decode writes the caches in place. Training (:func:`lm_loss`) keeps
-every layer's activations: the reference's ``cfg.remat``
-(``jax.checkpoint``) has no counterpart under the engines' ``torch.func``
-transforms, which refuse saved-tensor hooks (ROADMAP.md §C).
+and decode writes the caches in place. Training (:func:`lm_loss`)
+rematerialises as the reference does: with ``cfg.remat`` (the default)
+each block of the training forward is checkpointed
+(:mod:`repro_torch.common.remat`, which runs under the engines'
+``torch.func`` transforms), and each key chunk of the training attention
+always is.
 
 ``prefill``, ``decode_step`` and ``init_cache`` take ``tp``: None on one
 device, else the rank's part of a tensor-parallel program
@@ -42,6 +44,8 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.common.remat import checkpoint
+from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (dense_init, init_rmsnorm, rmsnorm, softcap, upcast,
                                        upcast_dtype)
@@ -314,9 +318,25 @@ def _last_logits(params, cfg: ModelConfig, x):
 def forward(params, cfg: ModelConfig, tokens, cond=None):
     """Training forward. tokens: [B, S] (audio: [B, K, S]); cond: the
     stubbed modality embeddings [B, T, e] of the audio and vision models.
-    Returns (hidden [B, S, d], aux)."""
+    Returns (hidden [B, S, d], aux).
+
+    When a gradient is wanted and ``cfg.remat`` is set, every segment layer
+    and every standalone cross / shared block goes through
+    :func:`~repro_torch.common.remat.checkpoint` (the reference's
+    ``jax.checkpoint`` of its scan body and of ``one_block``): the backward
+    keeps each block's input and recomputes the block. Whether a gradient
+    is wanted is decided here, once, and carried into each block as the
+    attention's training route (B9 never runs in training)."""
     plan = make_plan(cfg)
     x = embed_tokens(params, cfg, tokens)
+    route = attn.wants_grad(x)
+    remat = cfg.remat and route
+
+    def block(kind, p, x, cond=None, use_moe=False, window=0):
+        if remat:
+            return checkpoint(_block, route, kind, p, x, cfg, use_moe, window, cond)
+        return _block(route, kind, p, x, cfg, use_moe, window, cond)
+
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     shared, cross = _stacked_layers(params, "shared", plan), _stacked_layers(params, "cross", plan)
     for ev, arg in plan.events:
@@ -324,15 +344,22 @@ def forward(params, cfg: ModelConfig, tokens, cond=None):
             seg = _segment(plan, arg)
             layers = _layers(params["segments"][arg], seg.count)
             for p, w in zip(layers, _layer_windows(seg, 0)):
-                x, aux = blocks.block_forward(seg.kind, p, x, cfg,
-                                              use_moe=seg.use_moe, window=w, cond=cond)
+                x, aux = block(seg.kind, p, x, cond, seg.use_moe, w)
                 aux_total = aux_total + aux
         elif ev == "cross":
-            x, _ = blocks.block_forward("cross_blk", cross[arg], x, cfg, cond=cond)
+            x, _ = block("cross_blk", cross[arg], x, cond)
         else:
-            x, aux = blocks.block_forward("attn", shared[arg % plan.num_shared_blocks], x, cfg)
+            x, aux = block("attn", shared[arg % plan.num_shared_blocks], x)
             aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
+
+
+def _block(route: bool, kind: str, p, x, cfg: ModelConfig, use_moe: bool, window: int, cond):
+    """One block of the training forward, (y, aux), on the attention's
+    training route when ``route``."""
+    with attn.train_route(route):
+        return blocks.block_forward(kind, p, x, cfg, use_moe=use_moe, window=window,
+                                    cond=cond)
 
 
 def _stacked_layers(params, key: str, plan: Plan) -> List[PyTree]:

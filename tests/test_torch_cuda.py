@@ -13,8 +13,9 @@ the SSM blocks' prefill and decode against the CPU's, B9 at the
 cross-attention models' non-causal shapes, the SSM / hybrid LM gradient
 under ``vmap`` against the CPU's, the cross-attention models' prefill
 and decode against the CPU's, B9 at the tensor-parallel ranks' shapes of
-the MLA, hybrid and vision models, and those models served over 2 ranks
-on the card against one device.
+the MLA, hybrid and vision models, those models served over 2 ranks
+on the card against one device, and a rematerialised LM step against one
+that is not.
 They skip without a card; on one, run
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1943,3 +1944,55 @@ def test_tensor_parallel_kinds_on_the_card_equal_one_device(cuda):
             assert all({k: c[k] for k in exp} == exp for c in r[tag]["step_collectives"])
             if run["routes"]:
                 assert all((x == y).all() for x, y in zip(r[tag]["routes"], got["routes"]))
+
+
+@pytest.mark.cuda
+def test_remat_step_on_the_card_equals_no_remat_and_keeps_3x_less(cuda):
+    """TinyLlama reduced at 12 layers (ffn 512), the sim engine's gradient
+    path (vmap of grad_and_value over the views) at W = 2 x 2 x 256 tokens
+    on the card, with cfg.remat on and off: the losses equal, the growth of
+    max_memory_allocated over the step at least 3x smaller with remat, no
+    B9 launch; the remat gradient against the CPU's within rtol 1e-4 /
+    atol 1e-5."""
+    import dataclasses
+
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.common.flat import FlatSpec
+    from repro_torch.common.precision import full_f32
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tr
+    base = dataclasses.replace(get_reduced("tinyllama_1_1b"), num_layers=12, d_ff=512)
+    params = tr.init_lm(torch.Generator().manual_seed(0), base)[0]
+    stack = tree_map(lambda t: torch.stack([t, t * 1.01]), params)
+    spec = FlatSpec.build(stack, leading=1)
+    row = spec.with_lead(())
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, base.vocab_size, (2, 2, 256)).astype(np.int32))
+
+    def grads(cfg, dev):
+        bufs = {k: b.to(dev) for k, b in spec.flatten(stack).items()}
+        x = toks.to(dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev) if dev != "cpu" else 0
+        with full_f32():
+            g, l = vmap(grad_and_value(lambda b, t: tr.lm_loss(row.views(b), cfg, t, t)[0]))(
+                bufs, x)
+        grow = torch.cuda.max_memory_allocated(dev) - before if dev != "cpu" else 0
+        return g, l, grow
+
+    n = ops.launch_counts()["flash_attention"]
+    out = {r: grads(dataclasses.replace(base, remat=r), cuda) for r in (True, False)}
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n
+    (g1, l1, grow1), (g0, l0, grow0) = out[True], out[False]
+    print(f"remat on the card: losses {l1.tolist()} / {l0.tolist()}, step growth "
+          f"{grow1 / 2 ** 20:.1f} / {grow0 / 2 ** 20:.1f} MiB")
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    assert 3 * grow1 <= grow0
+    g_cpu, l_cpu, _ = grads(dataclasses.replace(base, remat=True), "cpu")
+    torch.testing.assert_close(l1.cpu(), l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g1["float32"].cpu(), g_cpu["float32"], rtol=1e-4, atol=1e-5)

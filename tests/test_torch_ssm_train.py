@@ -186,7 +186,10 @@ def test_zamba2_worker1_gap_is_the_first_mamba2_forward_s_rounding(monkeypatch):
     plain = _outside(grad_w1(), g64)
     monkeypatch.setitem(blocks._FORWARD, "mamba", first_in_f64)
     fixed = _outside(grad_w1(), g64)
-    assert len(calls) == 2
+    # the two mixers' forwards, and with cfg.remat their recomputes in the
+    # backward (layer 0's last: its plain f32 forward, whose backward is the
+    # one the patched forward has)
+    assert len(calls) == (4 if cfg.remat else 2)
     assert fixed <= 3 * ref_share < plain, (fixed, ref_share, plain)
 
 
