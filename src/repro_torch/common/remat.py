@@ -23,14 +23,16 @@ checkpoint, which no engine of the port does.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence, Tuple
+import contextlib
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.common.pytree import tree_flatten, tree_unflatten
+from repro_torch.obs import spans
 
 
-def checkpoint(fn: Callable, *args, label: str = "remat recompute"):
+def checkpoint(fn: Callable, *args, label: Optional[str] = "remat recompute"):
     """``fn(*args)``, recomputed in the backward instead of kept.
 
     ``args`` may be pytrees (a layer's parameter views, ``cond``); their
@@ -38,7 +40,8 @@ def checkpoint(fn: Callable, *args, label: str = "remat recompute"):
     window, the config) rides as a constant. Floating-point leaves that
     need a gradient are differentiated; the others (integer positions,
     data) are only saved. ``fn`` returns a pytree of tensors. ``label``
-    names the ``record_function`` range around the recompute."""
+    names the span (:mod:`repro_torch.obs.spans`) around the recompute;
+    None opens none."""
     leaves, treedef = tree_flatten(args)
     is_t = tuple(isinstance(t, torch.Tensor) for t in leaves)
     call = _Call(fn, treedef, is_t, tuple(None if t else x for t, x in zip(is_t, leaves)),
@@ -91,7 +94,7 @@ class _Checkpoint(torch.autograd.Function):
             it = iter(ps)
             return call([next(it) if d else t for t, d in zip(saved, diff)])
 
-        with torch.profiler.record_function(call.label):
+        with spans.span(call.label) if call.label is not None else contextlib.nullcontext():
             outs, vjp_fn = torch.func.vjp(recompute, *(t for t, d in zip(saved, diff) if d))
         cts = tuple(c.detach() if c is not None else torch.zeros_like(o)
                     for c, o in zip(cts, outs))

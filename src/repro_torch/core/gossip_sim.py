@@ -72,6 +72,7 @@ from repro_torch.common.precision import full_f32
 from repro_torch.common.pytree import tree_map, tree_take_leading
 from repro_torch.core import protocols
 from repro_torch.kernels import ops
+from repro_torch.obs import spans
 from repro_torch.optim.optimizers import (OptState, _clip, make_optimizer,
                                           param_update, velocity_update)
 from repro_torch.optim.schedule import lr_at
@@ -188,6 +189,8 @@ class SimTrainer:
         self.last_draws = None
         # telemetry plane: attached by the facade; None does no host work
         self.obs = None
+        # steps run, the host's index of the spans of a step
+        self._host_step = 0
 
     def _wire_bytes(self, spec: flat_plane.FlatSpec) -> float:
         """Exact per-replica wire bytes: raw, the unpadded slot sizes (the
@@ -413,15 +416,25 @@ class SimTrainer:
     # -- one synchronous step across all workers ---------------------------
     def _grads(self, state: FlatState, x, y):
         """Per-worker (loss, flat gradients): the loss reads the single-
-        replica views of its buffer row."""
+        replica views of its buffer row. The loss runs in the ``forward``
+        span; the ``backward`` span runs from its end to the flat
+        gradients."""
         row_spec = state.spec.with_lead(())
+        backward = []
 
         def one_loss(bufs, xi, yi):
-            return self.loss_fn(row_spec.views(bufs), xi, yi)
+            with spans.span("forward"):
+                loss = self.loss_fn(row_spec.views(bufs), xi, yi)
+            backward.append(spans.span("backward").open())
+            return loss
 
-        with full_f32():   # forward and backward: no TF32 in between
-            grads, losses = vmap(grad_and_value(one_loss))(state.theta, x, y)
-        return losses, {k: g.contiguous() for k, g in grads.items()}
+        try:
+            with full_f32():   # forward and backward: no TF32 in between
+                grads, losses = vmap(grad_and_value(one_loss))(state.theta, x, y)
+            return losses, {k: g.contiguous() for k, g in grads.items()}
+        finally:
+            for s in backward:
+                s.close()
 
     def step(self, state: FlatState, x, y, draws: Optional[Tuple[Any, Any]] = None):
         """One synchronous step over the stacked workers; returns (state',
@@ -454,131 +467,157 @@ class SimTrainer:
         the window's rows only), ``loss_mean`` is over the window and
         ``loss_max`` is -inf outside it. ``defer_comm`` (message mode) skips
         the in-step mixing: exchanges ride the async engine's wire queue.
-        With neither, this is the synchronous step."""
+        With neither, this is the synchronous step.
+
+        Spans (:mod:`repro_torch.obs.spans`): ``step`` around it all,
+        ``forward`` and ``backward`` (:meth:`_grads`), then ``update``,
+        which holds ``gossip mix`` (:meth:`_mix`) and, on the fused path,
+        ``fused update`` (B1). They record under a profiler, or always while
+        an attached observer traces."""
+        dev = state.step.device
+        step, self._host_step = self._host_step, self._host_step + 1
+        with spans.span("step", step=step, device=dev,
+                        force=self.obs is not None and self.obs.tracing):
+            W = self.num_workers
+            x = tree_map(lambda t: torch.as_tensor(t, device=dev), x)
+            y = torch.as_tensor(y, device=dev)
+            mask = rows = None
+            if worker_mask is not None:
+                m = worker_mask.cpu() if isinstance(worker_mask, torch.Tensor) else worker_mask
+                m = np.asarray(m, bool).reshape(W)
+                mask = torch.as_tensor(m, device=dev)
+                rows = torch.as_tensor(np.flatnonzero(m).astype(np.int32), device=dev)
+
+            # gradient-related component (Alg. 5 line 2), per worker
+            losses, grads = self._grads(state, x, y)
+            # the mixing matmul in f32 too, whatever the process allows
+            with torch.no_grad(), full_f32():
+                with spans.span("update"):
+                    with spans.span("gossip mix"):
+                        grads, active, theta_comm, proto_new, comm_new = self._mix(
+                            state, grads, draws, mask, defer_comm)
+                    opt_new = self._update(state, theta_comm, grads, mask, rows)
+                return self._step_epilogue(state, opt_new, proto_new, comm_new, losses,
+                                           active, mask)
+
+    def _mix(self, state: FlatState, grads, draws, mask, defer_comm: bool):
+        """The protocol's gradient transform, the gate and peer draws, flow
+        control and the communication-related component (Alg. 5 lines 4-8;
+        the codec and fault paths at the wire). Returns (grads, active,
+        theta_comm, proto', comm')."""
         cfg = self.protocol
         W = self.num_workers
         dev = state.step.device
-        x = tree_map(lambda t: torch.as_tensor(t, device=dev), x)
-        y = torch.as_tensor(y, device=dev)
-        mask = rows = None
-        if worker_mask is not None:
-            m = worker_mask.cpu() if isinstance(worker_mask, torch.Tensor) else worker_mask
-            m = np.asarray(m, bool).reshape(W)
-            mask = torch.as_tensor(m, device=dev)
-            rows = torch.as_tensor(np.flatnonzero(m).astype(np.int32), device=dev)
+        grads = protocols.gradient_transform(cfg, grads)
+        if draws is None:
+            active = protocols.comm_gate(cfg, state.key, state.step, W)
+            peers = (self._impl.sample_peers(state.key, W)
+                     if self._impl.pairwise else None)
+        else:
+            active = torch.as_tensor(draws[0], device=dev).bool()
+            peers = torch.as_tensor(draws[1], device=dev)
+        self.last_draws = (active, peers)
+        if mask is not None:
+            # only in-window workers INITIATE; out-of-window workers
+            # still respond passively with their last published row
+            active = active & mask
 
-        # gradient-related component (Alg. 5 line 2), per worker
-        losses, grads = self._grads(state, x, y)
-        # the mixing matmul in f32 too, whatever the process allows
-        with torch.no_grad(), full_f32():
-            grads = protocols.gradient_transform(cfg, grads)
-            if draws is None:
-                active = protocols.comm_gate(cfg, state.key, state.step, W)
-                peers = (self._impl.sample_peers(state.key, W)
-                         if self._impl.pairwise else None)
-            else:
-                active = torch.as_tensor(draws[0], device=dev).bool()
-                peers = torch.as_tensor(draws[1], device=dev)
-            self.last_draws = (active, peers)
-            if mask is not None:
-                # only in-window workers INITIATE; out-of-window workers
-                # still respond passively with their last published row
-                active = active & mask
+        # token-account flow control: a worker whose gate fired but
+        # whose account cannot cover the spend skips the initiation
+        proto0 = state.proto
+        if self.flow is not None:
+            allowed = self.flow.allow(state.step, proto0.tokens)
+            skipped = torch.sum((active & ~allowed).to(torch.int32)).to(torch.int32)
+            active = active & allowed
+            stepped = mask if mask is not None else torch.ones(W, dtype=torch.bool,
+                                                               device=dev)
+            proto0 = proto0._replace(
+                tokens=self.flow.update(proto0.tokens, stepped, active),
+                flow_skipped=proto0.flow_skipped + skipped)
+        if defer_comm:
+            # message mode: the step keeps its draws and the local
+            # update, and mixes nothing
+            return grads, active, state.theta, proto0, state.comm
 
-            # token-account flow control: a worker whose gate fired but
-            # whose account cannot cover the spend skips the initiation
-            proto0 = state.proto
-            if self.flow is not None:
-                allowed = self.flow.allow(state.step, proto0.tokens)
-                skipped = torch.sum((active & ~allowed).to(torch.int32)).to(torch.int32)
-                active = active & allowed
-                stepped = mask if mask is not None else torch.ones(W, dtype=torch.bool,
-                                                                   device=dev)
-                proto0 = proto0._replace(
-                    tokens=self.flow.update(proto0.tokens, stepped, active),
-                    flow_skipped=proto0.flow_skipped + skipped)
-            if defer_comm:
-                # message mode: the step keeps its draws and the local
-                # update, and mixes nothing
-                return self._step_epilogue(state, state.theta, proto0, state.comm,
-                                           grads, losses, active, mask, rows)
+        # partition plane: the hash-scheduled chunk of each initiator
+        part_ids = col_gate = None
+        if self.partition > 1:
+            from repro_torch.fleet.partition import partition_ids
+            part_ids = partition_ids(self.fleet.seed, state.step, W, self.partition)
+            if self.codec is not None:
+                col_gate = self._col_gate(state, part_ids)
 
-            # partition plane: the hash-scheduled chunk of each initiator
-            part_ids = col_gate = None
-            if self.partition > 1:
-                from repro_torch.fleet.partition import partition_ids
-                part_ids = partition_ids(self.fleet.seed, state.step, W, self.partition)
-                if self.codec is not None:
-                    col_gate = self._col_gate(state, part_ids)
+        # communication-related component (lines 4-8), one mixing matmul
+        # per dtype bucket on the resident buffers; peers read the
+        # codec's reconstruction when a codec rides the wire, and the
+        # fault plane garbles, corrupts or drops wires at this boundary
+        transmit, comm_new, wire_faults = None, state.comm, None
+        if self.fault_model is not None:
+            transmit, comm_new, wire_faults = self._wire_faults(state, active, col_gate)
+        elif self.codec is not None:
+            transmit, comm_new = self._codec_transmit(state, active, col_gate=col_gate)
+        if part_ids is not None:
+            from repro_torch.fleet.partition import partitioned_comm_update
+            theta_comm, proto_new = partitioned_comm_update(
+                self._impl, active, state.theta, proto0, peers=peers, step=state.step,
+                transmit=transmit, wire_faults=wire_faults, part_ids=part_ids,
+                plan=self._fleet_plan(state.spec))
+        else:
+            theta_comm, proto_new = protocols.comm_update(
+                cfg, state.key, active, state.theta, proto0, step=state.step,
+                transmit=transmit, wire_bytes=self._wire_bytes(state.spec),
+                peers=peers, wire_faults=wire_faults)
+        return grads, active, theta_comm, proto_new, comm_new
 
-            # communication-related component (lines 4-8), one mixing matmul
-            # per dtype bucket on the resident buffers; peers read the
-            # codec's reconstruction when a codec rides the wire, and the
-            # fault plane garbles, corrupts or drops wires at this boundary
-            transmit, comm_new, wire_faults = None, state.comm, None
-            if self.fault_model is not None:
-                transmit, comm_new, wire_faults = self._wire_faults(state, active, col_gate)
-            elif self.codec is not None:
-                transmit, comm_new = self._codec_transmit(state, active, col_gate=col_gate)
-            if part_ids is not None:
-                from repro_torch.fleet.partition import partitioned_comm_update
-                theta_comm, proto_new = partitioned_comm_update(
-                    self._impl, active, state.theta, proto0, peers=peers, step=state.step,
-                    transmit=transmit, wire_faults=wire_faults, part_ids=part_ids,
-                    plan=self._fleet_plan(state.spec))
-            else:
-                theta_comm, proto_new = protocols.comm_update(
-                    cfg, state.key, active, state.theta, proto0, step=state.step,
-                    transmit=transmit, wire_bytes=self._wire_bytes(state.spec),
-                    peers=peers, wire_faults=wire_faults)
-            return self._step_epilogue(state, theta_comm, proto_new, comm_new,
-                                       grads, losses, active, mask, rows)
-
-    def _step_epilogue(self, state, theta_comm, proto_new, comm_new, grads,
-                       losses, active, mask=None, rows=None):
-        """Optimizer update + metrics; writes state.theta / state.opt.mu (on
-        a window, only the rows in ``mask`` / ``rows``)."""
+    def _update(self, state, theta_comm, grads, mask=None, rows=None) -> OptState:
+        """The optimizer update; writes state.theta / state.opt.mu (on a
+        window, only the rows in ``mask`` / ``rows``). Returns the new
+        OptState."""
         ocfg = self.optimizer_cfg
         if self.fused_update:
             # lines 3, 7 and 9 in ONE in-place pass per dtype bucket. peer :=
             # theta_comm with coef := 1 makes the elastic term exactly the
             # comm displacement theta_comm - theta, for ANY pairwise mixing.
-            grads_c = _clip(ocfg, grads)
-            eta = lr_at(ocfg, state.opt.step)
-            ops.fused_bufs_elastic_nag(
-                state.theta, theta_comm, state.opt.mu, grads_c,
-                torch.ones(self.num_workers, dtype=torch.float32,
-                           device=state.step.device),
-                eta, ocfg.momentum, rows=rows)
-            opt_new = OptState(state.opt.step + 1, state.opt.mu, {})
+            with spans.span("fused update"):
+                grads_c = _clip(ocfg, grads)
+                eta = lr_at(ocfg, state.opt.step)
+                ops.fused_bufs_elastic_nag(
+                    state.theta, theta_comm, state.opt.mu, grads_c,
+                    torch.ones(self.num_workers, dtype=torch.float32,
+                               device=state.step.device),
+                    eta, ocfg.momentum, rows=rows)
+            return OptState(state.opt.step + 1, state.opt.mu, {})
+        # per-bucket reference path (the fused path's parity target)
+        comm_delta = {k: theta_comm[k] - state.theta[k] for k in state.theta}
+        if ocfg.name == "nag":
+            v_new, opt_new = velocity_update(ocfg, state.opt, grads)
+            # the -eta*g term takes the clipped grads too, as
+            # make_optimizer("nag") and the fused path do
+            theta_grad = param_update(ocfg, state.opt.step, state.theta,
+                                      _clip(ocfg, grads), v_new)
         else:
-            # per-bucket reference path (the fused path's parity target)
-            comm_delta = {k: theta_comm[k] - state.theta[k] for k in state.theta}
-            if ocfg.name == "nag":
-                v_new, opt_new = velocity_update(ocfg, state.opt, grads)
-                # the -eta*g term takes the clipped grads too, as
-                # make_optimizer("nag") and the fused path do
-                theta_grad = param_update(ocfg, state.opt.step, state.theta,
-                                          _clip(ocfg, grads), v_new)
-            else:
-                theta_grad, opt_new = self.optimizer.update(grads, state.opt, state.theta)
-            keep = None if mask is None else mask.reshape(-1, 1)
-            for k in state.theta:
-                new = theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype)
-                if keep is not None:
-                    new = torch.where(keep, new, state.theta[k])
-                _store(state.theta, k, new)
-            # the moments stay resident: velocity / first moment in opt.mu,
-            # adamw's second moment in opt.nu
-            for field in ("mu", "nu"):
-                new = getattr(opt_new, field)
-                if new:
-                    old = getattr(state.opt, field)
-                    for k in old:
-                        _store(old, k, new[k] if keep is None
-                               else torch.where(keep, new[k], old[k]))
-                    opt_new = opt_new._replace(**{field: old})
+            theta_grad, opt_new = self.optimizer.update(grads, state.opt, state.theta)
+        keep = None if mask is None else mask.reshape(-1, 1)
+        for k in state.theta:
+            new = theta_grad[k] + comm_delta[k].to(theta_grad[k].dtype)
+            if keep is not None:
+                new = torch.where(keep, new, state.theta[k])
+            _store(state.theta, k, new)
+        # the moments stay resident: velocity / first moment in opt.mu,
+        # adamw's second moment in opt.nu
+        for field in ("mu", "nu"):
+            new = getattr(opt_new, field)
+            if new:
+                old = getattr(state.opt, field)
+                for k in old:
+                    _store(old, k, new[k] if keep is None
+                           else torch.where(keep, new[k], old[k]))
+                opt_new = opt_new._replace(**{field: old})
+        return opt_new
 
+    def _step_epilogue(self, state, opt_new, proto_new, comm_new, losses, active,
+                       mask=None):
+        """The step's metrics and the new state."""
         if mask is None:
             loss_mean, loss_max = torch.mean(losses), torch.max(losses)
         else:

@@ -21,13 +21,16 @@ differentiable online softmax and their backward nodes, matched by
 autograd sequence number), an MoE layer's expert ``bmm``s and its dispatch
 (route, sort + scatter, gather + combine; matched the same way), the
 recurrent models' chunked GLA core and sLSTM loop (``--arch xlstm_125m``,
-``--arch zamba2_2_7b --layers 18``), the flat views' backward, the
-layers' recompute in the backward (``cfg.remat``, the ``remat recompute``
-range of ``common/remat.py``) and the rest; the audio and vision models train on their zero ``cond`` stub. For the LM only, as many
-unprofiled steps are first timed by CUDA events, and the kernel list
-leaves out the device-side copy of the attention's ``record_function``
-range (a user annotation, not a kernel); the MLP and CNN profiles are
-taken as before.
+``--arch zamba2_2_7b --layers 18``), the LM head and its cross-entropy
+(the ``lm head + loss`` span), the flat views' backward, the layers'
+recompute in the backward (``cfg.remat``, the ``remat recompute`` span of
+``common/remat.py``) and the rest; the audio and vision models train on
+their zero ``cond`` stub. For the LM only, as many unprofiled steps are
+first timed by CUDA events. The kernel list leaves out the device-side
+copies of the spans' ranges (user annotations, not kernels). Every model
+also prints the device time a step of each span of the profiled steps
+(:mod:`repro_torch.obs.spans`: ``step``, ``forward``, ``backward``,
+``update``, ``gossip mix``, ``fused update``, the model's own).
 
     python -m repro_torch.launch.profile_sim [--model mlp|cnn|lm]
                                              [--arch tinyllama_1_1b] [--seq 256]
@@ -70,6 +73,8 @@ import time
 from collections import defaultdict
 
 import torch
+
+from repro_torch.obs import spans
 
 FULL = dict(in_dim=784, hidden=1024, depth=3, num_classes=10)
 
@@ -203,6 +208,7 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     step_s = []
+    span0 = spans.TABLE.next_id()
     with torch.profiler.profile(activities=acts) as prof:
         for xb, yb in batches[warm + timed:]:
             t0 = time.perf_counter()
@@ -210,9 +216,14 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
             sync()
             step_s.append(time.perf_counter() - t0)
     written = trainer.export_obs()
+    span_ms = defaultdict(float)        # the spans' device time, forward and backward parts
+    for r in spans.TABLE.read(since=span0):
+        if r.device_ms is not None:
+            span_ms[r.name] += r.device_ms
     events = prof.events()
+    # the spans' ranges show on the device as user annotations: not kernels
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not (model == "lm" and e.is_user_annotation)]
+               and not e.is_user_annotation]
     by_name = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         d = e.time_range.end - e.time_range.start
@@ -245,6 +256,7 @@ def profile(W: int = 8, batch: int = 16, steps: int = 10, device="cuda",
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_busy_share": (busy / span) if span else None,
         "phase_ms_per_step": {k: v / steps / 1e3 for k, v in sorted(phases.items())},
+        "span_ms_per_step": {k: v / steps for k, v in sorted(span_ms.items())},
         "top_kernels": [{"name": n[:120], "ms_per_step": us / steps / 1e3,
                          "calls_per_step": c / steps} for n, (us, c) in top],
         "arch": lm_cfg.name if lm_cfg is not None else None,
@@ -265,7 +277,8 @@ RANGES = {RECOMPUTE: "remat recompute (the layers' forward again)",
           "moe sort + scatter": "MoE dispatch: sort + scatter (fwd + bwd)",
           "moe gather + combine": "MoE dispatch: gather + combine (fwd + bwd)",
           "gla_chunked": "chunked GLA: Mamba2 / mLSTM core (fwd + bwd)",
-          "slstm loop": "sLSTM loop (fwd + bwd)"}
+          "slstm loop": "sLSTM loop (fwd + bwd)",
+          "lm head + loss": "LM head + chunked cross-entropy (fwd + bwd)"}
 
 
 def _lm_split(events) -> dict:
@@ -417,6 +430,8 @@ def main(argv=None) -> int:
           f"{r['device_busy_share']}")
     for k, v in r["phase_ms_per_step"].items():
         print(f"  {k:34s} {v:.4f} ms/step")
+    for k, v in r["span_ms_per_step"].items():
+        print(f"  span {k:29s} {v:.4f} device ms/step")
     for k in r["top_kernels"]:
         print(f"  {k['ms_per_step']:.4f} ms/step x{k['calls_per_step']:.1f}  {k['name']}")
     for kind, path in r["obs_written"].items():

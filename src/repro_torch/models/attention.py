@@ -25,6 +25,7 @@ from repro_torch.common.remat import checkpoint
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense_init, rmsnorm, split_tree, upcast,
                                        zeros_init)
+from repro_torch.obs import spans
 
 PyTree = Any
 
@@ -46,7 +47,7 @@ def online_softmax_attention(q, k, v, *, causal: bool = True, window: int = 0,
     as the reference's body goes through ``jax.checkpoint``: the backward
     keeps the running (m, l, acc) of each chunk and recomputes the chunk's
     scores, whatever ``cfg.remat`` says."""
-    with torch.profiler.record_function("online_softmax_attention"):
+    with spans.span("online_softmax_attention"):
         return _online_softmax(q, k, v, causal, window, logit_softcap, q_offset, kv_len,
                                kv_start, chunk)
 
@@ -76,7 +77,7 @@ def _online_softmax(q, k, v, causal, window, logit_softcap, q_offset, kv_len, kv
         m, l, acc = checkpoint(
             _chunk_step, (c, chunk, Skv, causal, window, logit_softcap, scale),
             m, l, acc, qf, k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk],
-            q_pos, kv_len, kv_start, label="attention chunk recompute")
+            q_pos, kv_len, kv_start, label=None)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.movedim(3, 1).reshape(B, Sq, H, dv).to(q.dtype)
 

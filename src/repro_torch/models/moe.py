@@ -47,6 +47,7 @@ import torch
 from repro_torch.common.config import ModelConfig, MoEConfig
 from repro_torch.models.common import activation_fn, dense_init, split_tree
 from repro_torch.models.mlp import ffn_forward, init_ffn
+from repro_torch.obs import spans
 
 PyTree = Any
 
@@ -125,7 +126,7 @@ def _expert_ffn(h, p, cfg: ModelConfig):
     ds, E, C, d = h.shape
     act = activation_fn(cfg.activation)
     he = h.transpose(0, 1).reshape(E, ds * C, d)                      # [E, ds*C, d]
-    with torch.profiler.record_function("moe expert matmuls"):
+    with spans.span("moe expert matmuls"):
         up = torch.bmm(he, p["w_up"].to(h.dtype))
         if "w_gate" in p:
             hidden = act(torch.bmm(he, p["w_gate"].to(h.dtype))) * up
@@ -169,17 +170,17 @@ def moe_forward(p, x, cfg: ModelConfig, capacity_factor: float = 0.0, tp=None):
     C = capacity(cfg, T, capacity_factor)
 
     xt = x.reshape(T, d)
-    with torch.profiler.record_function("moe route"):
+    with spans.span("moe route"):
         probs, weights, ids = _route(xt @ p["router"].to(x.dtype), k)   # [T,E],[T,k],[T,k]
     El = p["w_up"].shape[0]                                          # the rank's experts
     lo = 0 if El == E else tp.rank * El
     Tl = T // ds
     xs, ids_s, w_s = xt.reshape(ds, Tl, d), ids.reshape(ds, Tl, k), weights.reshape(ds, Tl, k)
-    with torch.profiler.record_function("moe sort + scatter"):
+    with spans.span("moe sort + scatter"):
         shards = [_build_buffer(xs[i], ids_s[i], w_s[i], E, k, C, lo, El) for i in range(ds)]
     h = torch.stack([s[0] for s in shards])                          # [ds, E, C, d]
     out = _expert_ffn(h, p, cfg)
-    with torch.profiler.record_function("moe gather + combine"):
+    with spans.span("moe gather + combine"):
         y = torch.cat([_combine_one(out[i], *shards[i][1:], Tl) for i in range(ds)])
     y = y.to(x.dtype)
 

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig, SSMConfig, XLSTMConfig
 from repro_torch.models.common import (dense_init, ones_init, rmsnorm, split_tree, upcast,
                                        upcast_dtype, zeros_init)
+from repro_torch.obs import spans
 
 PyTree = Any
 
@@ -57,7 +58,7 @@ def gla_chunked(q, k, v, log_g, *, chunk: int = 256, initial_state=None):
 
     Returns (y [B, S, H, dv] in q's dtype, final_state [B, H, dk, dv] in
     f32). Its ops run inside the ``gla_chunked`` profiler range."""
-    with torch.profiler.record_function("gla_chunked"):
+    with spans.span("gla_chunked"):
         return _gla_chunked(q, k, v, log_g, chunk, initial_state)
 
 
@@ -422,7 +423,7 @@ def _slstm_mix(p, x, cfg: ModelConfig):
     xg = xi @ p["w_gates"].to(x.dtype)                               # [B, S, 4 d_in]
     state = slstm_init_cache(cfg, B, upcast_dtype(x.dtype), x.device)[0]
     hs = []
-    with torch.profiler.record_function("slstm loop"):
+    with spans.span("slstm loop"):
         for t in range(S):                                           # the reference's scan
             state = _slstm_cell(p, xg[:, t], state, H, dh)
             hs.append(state["h"])

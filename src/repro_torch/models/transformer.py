@@ -49,6 +49,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (dense_init, init_rmsnorm, rmsnorm, softcap, upcast,
                                        upcast_dtype)
+from repro_torch.obs import spans
 
 PyTree = Any
 
@@ -400,9 +401,21 @@ def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels, chunk: int = 256):
 
 def lm_loss(params, cfg: ModelConfig, tokens, labels, cond=None, aux_coef: float = 0.01):
     """(loss, {"ce", "aux"}): the training forward's chunked cross-entropy
-    plus ``aux_coef`` times its auxiliary loss (0 for the dense kinds)."""
+    plus ``aux_coef`` times its auxiliary loss (0 for the dense kinds).
+
+    The head and the loss run in the ``lm head + loss`` span, its backward
+    through the span's grad marks. While it records, the span counts the
+    ``tokens`` it scores (B * S * K, every ``vmap`` row) and the head's
+    ``flops``: 6 * tokens * d * V, the forward's logits and the backward's
+    gradients of the hidden state and of the head."""
     hidden, aux = forward(params, cfg, tokens, cond)
-    ce = chunked_ce_loss(params, cfg, hidden, labels)
+    with spans.span("lm head + loss") as rec:
+        if rec is not None:
+            d = hidden.shape[-1]
+            n = spans.physical_numel(hidden) // d * (labels.shape[1] if labels.dim() == 3 else 1)
+            rec.counts.update(tokens=n, flops=6 * n * d * cfg.vocab_size)
+        (hidden,) = spans.mark_inputs(rec, hidden)
+        ce = spans.mark_output(rec, chunked_ce_loss(params, cfg, hidden, labels))
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
 

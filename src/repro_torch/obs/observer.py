@@ -21,6 +21,13 @@ host from values the engines already hold:
 Timestamps: virtual seconds on the async engine's worker tracks, host wall
 seconds since recorder start elsewhere.
 
+While it traces, the engines' spans record (:mod:`repro_torch.obs.spans`):
+the sim engine opens its ``step`` span with ``force``. :meth:`export`
+writes those recorded since the observer was built into the Perfetto
+document as a process track of its own, "device spans": each span a slice
+at its host times, its device time (CUDA events; none on a CPU device),
+step, parent and counts in ``args``.
+
 The harvest runs one step behind. A hook copies the device values it needs
 to the host with ``non_blocking`` copies (into pinned memory on a GPU),
 records a CUDA event, and reads the PREVIOUS step's copies, which are done
@@ -38,6 +45,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs import spans
 from repro_torch.obs.metrics import MetricsSink
 from repro_torch.obs.trace import TraceRecorder
 
@@ -97,6 +105,8 @@ class Observer:
         self.sink: Optional[MetricsSink] = (
             MetricsSink(cfg.metrics_path or None) if cfg.metrics_enabled() else None)
         self._t0 = time.perf_counter()
+        self._t0_ns = time.time_ns()        # the same instant on the spans' clock
+        self._span0 = spans.TABLE.next_id()
         self._prev: Dict[str, float] = {}
         # the one-step-behind harvest
         self._pending_trace = None
@@ -120,10 +130,13 @@ class Observer:
 
     # ---------------------------------------------------------- engine hooks
     def on_sim_step(self, trainer, t_start: float, step0, tokens0) -> None:
-        """Synchronous engine: one whole-fleet compute span (wall time) and
-        the step's exchange / fault / flow / chunk events, from the draws the
-        step consumed (``last_draws``), the pre-step counter ``step0`` and
-        the pre-step balances ``tokens0``; harvested one step later."""
+        """Synchronous engine: one whole-fleet compute span and the step's
+        exchange / fault / flow / chunk events, from the draws the step
+        consumed (``last_draws``), the pre-step counter ``step0`` and the
+        pre-step balances ``tokens0``; harvested one step later. The
+        compute span is host time around the step's dispatch: on a CUDA
+        device, the time the host took to enqueue the step, not the step's
+        device time (the ``device spans`` track has that)."""
         if self.trace is None:
             return
         t = self.now()
@@ -301,6 +314,24 @@ class Observer:
         self._flush_row()
 
     # ---------------------------------------------------------------- export
+    def span_track(self) -> list:
+        """The spans recorded since the observer was built, as the Perfetto
+        process track "device spans" (resolves their CUDA events: call
+        after the device has finished the steps)."""
+        recs = spans.TABLE.read(since=self._span0)
+        pid = 2         # the recorder's tracks are process 1
+        tev = [{"ph": "M", "name": "process_name", "pid": pid,
+                "args": {"name": "device spans"}},
+               {"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+                "args": {"name": "spans"}}]
+        for r in recs:
+            tev.append({"ph": "X", "name": r.name, "cat": "span", "pid": pid, "tid": 0,
+                        "ts": (r.start_ns - self._t0_ns) / 1e3,
+                        "dur": (r.end_ns - r.start_ns) / 1e3,
+                        "args": dict(r.counts, id=r.id, parent=r.parent, step=r.step,
+                                     grad=r.grad, device_ms=r.device_ms)})
+        return tev
+
     def export(self, trace_path: Optional[str] = None,
                metrics_path: Optional[str] = None) -> Dict[str, str]:
         """Write the trace (Perfetto JSON) and flush and close the metrics
@@ -310,7 +341,10 @@ class Observer:
         out = {}
         tp = trace_path or self.cfg.trace_path
         if self.trace is not None and tp:
-            self.trace.save(tp, num_workers=self.num_workers)
+            doc = self.trace.perfetto(num_workers=self.num_workers)
+            doc["traceEvents"] += self.span_track()
+            with open(tp, "w") as f:
+                json.dump(doc, f)
             out["trace"] = tp
         mp = metrics_path or self.cfg.metrics_path
         if self.sink is not None:

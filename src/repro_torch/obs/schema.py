@@ -161,7 +161,8 @@ def validate_trace(trace: Dict[str, Any]) -> List[str]:
     events under ``reproEvents`` validate against :data:`EVENT_TYPES`, and
     the ``traceEvents`` timeline is structurally loadable by Perfetto /
     chrome://tracing (known phases, numeric timestamps, thread-name metadata
-    for every referenced track)."""
+    for every referenced track, a track being a process and thread pair:
+    the observer's "device spans" process has tracks of its own)."""
     errs = []
     if not isinstance(trace.get("traceEvents"), list):
         return ["traceEvents missing or not a list"]
@@ -177,7 +178,7 @@ def validate_trace(trace: Dict[str, Any]) -> List[str]:
             continue
         if ph == "M":
             if e.get("name") == "thread_name":
-                named_tids.add(e.get("tid"))
+                named_tids.add((e.get("pid"), e.get("tid")))
             continue
         if not isinstance(e.get("ts"), (int, float)):
             errs.append(f"traceEvents[{i}]: non-numeric ts")
@@ -185,7 +186,8 @@ def validate_trace(trace: Dict[str, Any]) -> List[str]:
             errs.append(f"traceEvents[{i}]: complete event without dur")
         if "name" not in e:
             errs.append(f"traceEvents[{i}]: missing name")
-        used_tids.add(e.get("tid"))
-    for tid in sorted(used_tids - named_tids, key=str):
-        errs.append(f"track tid={tid!r} has no thread_name metadata")
+        used_tids.add((e.get("pid"), e.get("tid")))
+    for pid, tid in sorted(used_tids - named_tids, key=str):
+        errs.append(f"track tid={tid!r} has no thread_name metadata"
+                    + (f" in process {pid!r}" if pid not in (None, 1) else ""))
     return errs

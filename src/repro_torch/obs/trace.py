@@ -19,7 +19,6 @@ Export is a single JSON document that is BOTH things at once:
 """
 from __future__ import annotations
 
-import json
 from typing import Any, Dict, List, Optional
 
 
@@ -125,7 +124,3 @@ class TraceRecorder:
                 "displayTimeUnit": "ms",
                 "reproEvents": self.events,
                 "otherData": {"dropped_events": self.dropped}}
-
-    def save(self, path: str, num_workers: Optional[int] = None) -> None:
-        with open(path, "w") as f:
-            json.dump(self.perfetto(num_workers), f)
